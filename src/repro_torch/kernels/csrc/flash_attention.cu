@@ -1,0 +1,217 @@
+// Chunked-prefill flash attention at per-row offsets for Hopper.
+//
+// Replaces: src/repro/kernels/flash_attention.py::flash_attention_prefill_pallas
+// (:155).
+//
+// Function: q (B, Hq, C, D), k and v (B, Hkv, S, D), q_offsets (B,) int32 →
+// o (B, Hq, C, D).  Query (b, t) at absolute position q_offsets[b] + t sees
+// key j iff j <= q_offsets[b] + t (causal), j < kv_len, and with a window
+// j > q_offsets[b] + t - window.  GQA: query head h reads kv head
+// h / (Hq / Hkv).  A row with no visible key returns 0.  Every tensor is
+// read and written through its strides (the last axis must be contiguous),
+// so the serving cache is read in its (B, S, Hkv, D) layout and the output
+// lands token-major for the out projection with no transpose.  fp32 or bf16
+// (q, k, v and o share one type); scores, softmax and P·V are fp32.
+//
+// What bounds it on the H100: bytes.  A chunk of C ≤ 32 queries against a
+// cache of S ≤ 512 slots does 4·C·S·D FLOPs per head against reading S·D
+// keys and values per kv head, far below the tensor-core ridge; the bytes
+// that must move are the live prefix of each row's K/V plus q and o.
+//
+// Design: one block per (row b, query head, tile of BQ queries).  An online
+// softmax in fp32 (running max, sum and accumulator, as the TPU kernel keeps
+// them in VMEM scratch) walks KV tiles of BKV keys only up to the tile's
+// causal limit q_offsets[b] + t_max and from its window start, so dead
+// tiles are never loaded (the TPU kernel's `live` predicate).  K/V tiles
+// are staged in shared memory (K rows padded against bank conflicts), each
+// warp owns whole query rows for the max/sum reductions, and each thread
+// owns a fixed slice of the (BQ, D) accumulator in registers.  Tensor-core
+// MMA and GQA head packing are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+
+namespace {
+
+constexpr int BQ = 16;        // query rows per block
+constexpr int BKV = 32;       // keys per tile (one per lane in the softmax)
+constexpr int NT = 128;       // threads per block (4 warps)
+constexpr int DMAX = 128;     // largest head dim
+constexpr int EPT = BQ * DMAX / NT;   // accumulator entries per thread
+constexpr float M_INIT = -1e30f;      // running-max start (TPU kernel's NEG_INF)
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+struct Strides {
+  long long qb, qh, qt, kb, kh, ks, vb, vh, vs, ob, oh, ot;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const int* __restrict__ offs,
+               T* __restrict__ o, int Hq, int Hkv, int C, int D, Strides st,
+               int causal, int window, int kv_len, float scale) {
+  const int b = blockIdx.x / Hq, h = blockIdx.x - b * Hq;
+  const int kvh = h / (Hq / Hkv);
+  const int t0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int off = offs[b];
+  const int rows = min(BQ, C - t0);
+
+  extern __shared__ float sm[];
+  float* qs = sm;                     // (BQ, D)      scaled queries
+  float* ks = qs + BQ * D;            // (BKV, D + 1) key tile
+  float* vs = ks + BKV * (D + 1);     // (BKV, D)     value tile
+  float* ps = vs + BKV * D;           // (BQ, BKV)    scores → probabilities
+  float* mrow = ps + BQ * BKV;        // (BQ,)        running max
+  float* lrow = mrow + BQ;            // (BQ,)        running sum
+  float* arow = lrow + BQ;            // (BQ,)        this tile's rescale
+
+  const T* qp = q + b * st.qb + h * st.qh;
+  for (int idx = tid; idx < BQ * D; idx += NT) {
+    const int t = idx / D, d = idx - t * D;
+    qs[idx] = t < rows ? to_f(qp[(t0 + t) * st.qt + d]) * scale : 0.f;
+  }
+  if (tid < BQ) {
+    mrow[tid] = M_INIT;
+    lrow[tid] = 0.f;
+  }
+  float acc[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) acc[e] = 0.f;
+
+  // keys any query of this tile can see
+  const int q_lo = off + t0, q_hi = off + t0 + rows - 1;
+  int k_end = kv_len;
+  if (causal) k_end = min(k_end, q_hi + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q_lo - window + 1);
+  const T* kp = k + b * st.kb + kvh * st.kh;
+  const T* vp = v + b * st.vb + kvh * st.vh;
+
+  for (int j0 = (k_begin / BKV) * BKV; j0 < k_end; j0 += BKV) {
+    __syncthreads();  // queries ready; the previous tile fully consumed
+    for (int idx = tid; idx < BKV * D; idx += NT) {
+      const int j = idx / D, d = idx - j * D;
+      const bool in = j0 + j < k_end;
+      ks[j * (D + 1) + d] = in ? to_f(kp[(j0 + j) * st.ks + d]) : 0.f;
+      vs[j * D + d] = in ? to_f(vp[(j0 + j) * st.vs + d]) : 0.f;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < BQ * BKV; idx += NT) {
+      const int t = idx / BKV, j = idx - t * BKV;
+      const int qpos = off + t0 + t, kpos = j0 + j;
+      bool live = t < rows && kpos < kv_len;
+      if (causal) live = live && kpos <= qpos;
+      if (window > 0) live = live && kpos > qpos - window;
+      float s = -INFINITY;
+      if (live) {
+        float a = 0.f;
+        for (int d = 0; d < D; ++d)
+          a = fmaf(qs[t * D + d], ks[j * (D + 1) + d], a);
+        s = a;
+      }
+      ps[idx] = s;
+    }
+    __syncthreads();
+    // online softmax: warp w owns rows w, w + 4, ...; lane = key in tile
+    for (int t = warp; t < BQ; t += NT / 32) {
+      const float s = ps[t * BKV + lane];
+      float mx = s;
+#pragma unroll
+      for (int sh = 16; sh > 0; sh >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+      const float m_prev = mrow[t];
+      const float m_new = fmaxf(m_prev, mx);
+      const float pe = expf(s - m_new);   // masked: exp(-inf) = 0
+      float sum = pe;
+#pragma unroll
+      for (int sh = 16; sh > 0; sh >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, sh);
+      ps[t * BKV + lane] = pe;
+      __syncwarp();
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        lrow[t] = lrow[t] * alpha + sum;
+        mrow[t] = m_new;
+        arow[t] = alpha;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      const int idx = tid + e * NT;
+      if (idx < BQ * D) {
+        const int t = idx / D, d = idx - t * D;
+        float a = acc[e] * arow[t];
+        for (int j = 0; j < BKV; ++j) a = fmaf(ps[t * BKV + j], vs[j * D + d], a);
+        acc[e] = a;
+      }
+    }
+  }
+  __syncthreads();  // lrow final
+  T* op = o + b * st.ob + h * st.oh;
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int idx = tid + e * NT;
+    if (idx < BQ * D) {
+      const int t = idx / D, d = idx - t * D;
+      if (t < rows) {
+        const float l = lrow[t];
+        put(op + (t0 + t) * st.ot + d, l > 0.f ? acc[e] / l : 0.f);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* offs,
+           void* o, int B, int Hq, int Hkv, int C, int D,
+           const long long* strides, int causal, int window, int kv_len,
+           void* stream) {
+  if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > DMAX ||
+      D % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  Strides st{strides[0], strides[1], strides[2],  strides[3],
+             strides[4], strides[5], strides[6],  strides[7],
+             strides[8], strides[9], strides[10], strides[11]};
+  const size_t smem = sizeof(float) * ((size_t)BQ * D + (size_t)BKV * (D + 1) +
+                                       (size_t)BKV * D + BQ * BKV + 3 * BQ);
+  const dim3 grid(B * Hq, (C + BQ - 1) / BQ);
+  prefill_kernel<T><<<grid, NT, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)offs, (T*)o, Hq, Hkv,
+      C, D, st, causal, window, kv_len, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int flash_prefill_f32(const void* q, const void* k, const void* v,
+                      const void* offs, void* o, int B, int Hq, int Hkv, int C,
+                      int D, const long long* strides, int causal, int window,
+                      int kv_len, void* stream) {
+  return launch<float>(q, k, v, offs, o, B, Hq, Hkv, C, D, strides, causal,
+                       window, kv_len, stream);
+}
+
+int flash_prefill_bf16(const void* q, const void* k, const void* v,
+                       const void* offs, void* o, int B, int Hq, int Hkv,
+                       int C, int D, const long long* strides, int causal,
+                       int window, int kv_len, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, offs, o, B, Hq, Hkv, C, D, strides,
+                               causal, window, kv_len, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,108 @@
+"""Dispatch wrappers of the kernels on the serving path (counterpart of
+``repro/kernels/ops.py``).
+
+A tensor on the CPU goes to the kernel's plain PyTorch version
+(``kernels/ref.py``); a CUDA tensor launches the hand-written kernel or
+raises — there is no fallback.  The BLAST wrappers flatten the leading axes
+into T and zero-pad T and r to the kernel's tiles, as the reference wrapper
+does (zero rows and zero ranks are exact).  ``launches`` counts kernel
+launches (plain-version calls are not counted), so a run can show that its
+model path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import blast_matmul as _bm
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
+
+launches: dict[str, int] = {"blast_matmul": 0, "blast_matmul_grouped": 0,
+                            "flash_attention_prefill": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def _pad_last(a: torch.Tensor, target: int) -> torch.Tensor:
+    """Zero-pad the trailing rank axis (exact: zero ranks add nothing)."""
+    if a.shape[-1] == target:
+        return a.contiguous()
+    return F.pad(a, (0, target - a.shape[-1])).contiguous()
+
+
+def _flatten_pad_x(x: torch.Tensor, block_t: int):
+    lead = x.shape[:-1]
+    T = math.prod(lead)
+    xf = x.reshape(T, x.shape[-1])
+    T_pad = _round_up(max(T, 1), block_t)
+    if T_pad != T:
+        xf = F.pad(xf, (0, 0, 0, T_pad - T))
+    return xf.contiguous(), lead, T
+
+
+def blast_matmul(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+                 V: torch.Tensor) -> torch.Tensor:
+    """x (..., n) → (..., m); U (b,p,r), S (b,b,r), V (b,q,r)."""
+    if _on_cpu(x):
+        return ref.blast_matmul_ref(x, U, S, V)
+    b, p, r = U.shape
+    block_t, block_r = _bm.tiles()
+    xf, lead, T = _flatten_pad_x(x, block_t)
+    r_pad = _round_up(r, block_r)
+    U, S, V = (_pad_last(a, r_pad)[None] for a in (U, S, V))
+    y = _bm.launch(xf, U, S, V)
+    launches["blast_matmul"] += 1
+    return y[0, :T].reshape(*lead, b * p)
+
+
+def blast_matmul_grouped(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+                         V: torch.Tensor) -> torch.Tensor:
+    """G congruent factor sets over one shared input in one launch:
+    x (..., n); U (G,b,p,r), S (G,b,b,r), V (G,b,q,r) → (G, ..., m)."""
+    if _on_cpu(x):
+        return ref.blast_matmul_grouped_ref(x, U, S, V)
+    G, b, p, r = U.shape
+    block_t, block_r = _bm.tiles()
+    xf, lead, T = _flatten_pad_x(x, block_t)
+    r_pad = _round_up(r, block_r)
+    U, S, V = (_pad_last(a, r_pad) for a in (U, S, V))
+    y = _bm.launch(xf, U, S, V)
+    launches["blast_matmul_grouped"] += 1
+    return y[:, :T].reshape(G, *lead, b * p)
+
+
+def flash_attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            q_offsets: torch.Tensor, *, causal: bool = True,
+                            window: int | None = None,
+                            kv_len: int | None = None) -> torch.Tensor:
+    """Chunked-prefill attention at per-row offsets: q (B, Hq, C, D),
+    k, v (B, Hkv, S, D) (any strides with a contiguous last axis),
+    q_offsets (B,) → (B, Hq, C, D).  The cache's slot index is the absolute
+    position; keys at ``j >= kv_len`` are masked (default: all S)."""
+    if _on_cpu(q):
+        return ref.attention_prefill_ref(q, k, v, q_offsets, causal=causal,
+                                         window=window, kv_len=kv_len)
+    S_len = k.shape[2]
+    o = _fa.launch(q, k, v, q_offsets, causal=causal, window=window,
+                   kv_len=S_len if kv_len is None else kv_len)
+    launches["flash_attention_prefill"] += 1
+    return o

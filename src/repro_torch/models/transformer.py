@@ -1,0 +1,149 @@
+"""Decoder LM of the serving slice (counterpart of
+``repro/models/transformer.py``): GQA attention + SwiGLU FFN blocks, tied
+embeddings, and the chunked cached step ``prefill_chunk`` the engine drives.
+
+The reference scans over layer params stacked on a leading axis; here the
+params hold a list of per-layer dicts and the step is a Python loop.
+Families, mixers and options outside the slice raise ``NotImplementedError``.
+Full-sequence ``LM.apply`` arrives with the next slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models import ops
+
+Params = dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    kind: str
+    mixer: L.AttnSpec
+    ffn: L.FFNSpec
+    norm: str
+
+
+def make_block(cfg: ArchConfig, kind: str) -> BlockSpec:
+    if kind != "attn":
+        raise NotImplementedError(f"mixer {kind!r} is not ported yet "
+                                  "(ROADMAP A13)")
+    if not cfg.d_ff:
+        raise NotImplementedError("blocks without an FFN are not ported yet")
+    return BlockSpec(kind=kind, mixer=L.make_attention(cfg),
+                     ffn=L.make_ffn(cfg.d_model, cfg.d_ff, cfg.ffn_kind,
+                                    cfg.ffn_structure),
+                     norm=cfg.norm)
+
+
+def block_init(spec: BlockSpec, generator: torch.Generator, dtype, device,
+               d_model: int) -> Params:
+    return {"norm1": L.norm_init(d_model, spec.norm, dtype, device),
+            "mixer": L.attn_init(spec.mixer, generator, dtype, device),
+            "norm2": L.norm_init(d_model, spec.norm, dtype, device),
+            "ffn": L.ffn_init(spec.ffn, generator, dtype, device)}
+
+
+def block_prefill(spec: BlockSpec, params: Params, cache: Params,
+                  x: torch.Tensor, rg: L.Ragged) -> torch.Tensor:
+    """One residual block over a ragged chunk; writes ``cache`` in place."""
+    h = L.norm_apply(params["norm1"], x, spec.norm)
+    m, _ = L.attn_prefill(spec.mixer, params["mixer"], cache, h, None, None,
+                          rg=rg)
+    x = x + m
+    h = L.norm_apply(params["norm2"], x, spec.norm)
+    return x + L.ffn_apply(spec.ffn, params["ffn"], h)
+
+
+def block_prestack(spec: BlockSpec, params: Params) -> Params:
+    return {**params, "ffn": L.ffn_prestack(spec.ffn, params["ffn"])}
+
+
+class LM:
+    """Decoder-only LM for the ``("attn",)`` pattern with a SwiGLU FFN."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        unsupported = [
+            (cfg.family not in ("dense",), f"family {cfg.family!r}"),
+            (not cfg.tie_embeddings, "an untied vocab head"),
+            (cfg.pos_embed != "rope", f"pos_embed {cfg.pos_embed!r}"),
+            (cfg.window != 0, "sliding-window attention"),
+            (cfg.embed_scale, "embedding scaling"),
+        ]
+        for bad, what in unsupported:
+            if bad:
+                raise NotImplementedError(f"{what} is not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = _DTYPES[cfg.param_dtype]
+        self.compute_dtype = _DTYPES[cfg.compute_dtype]
+        self.specs = [make_block(cfg, k) for k in cfg.layer_kinds()]
+
+    # -- init -------------------------------------------------------------------
+
+    def init(self, seed: int | torch.Generator = 0) -> Params:
+        """Seeded random weights.  Draws on a CPU generator, so a seed gives
+        the same weights on every device."""
+        gen = (seed if isinstance(seed, torch.Generator)
+               else torch.Generator().manual_seed(int(seed)))
+        cfg, dev, dt = self.cfg, self.device, self.dtype
+        embed = 0.02 * torch.randn((cfg.vocab, cfg.d_model), generator=gen)
+        return {
+            "embed": embed.to(device=dev, dtype=dt),
+            "final_norm": L.norm_init(cfg.d_model, cfg.norm, dt, dev),
+            "layers": [block_init(spec, gen, dt, dev, cfg.d_model)
+                       for spec in self.specs],
+        }
+
+    def prestack_params(self, params: Params) -> Params:
+        """Pre-stack every grouped projection bundle (SwiGLU gate+up) once at
+        load, so the per-step grouped launch skips its pad+stack."""
+        return {**params, "layers": [block_prestack(s, p) for s, p in
+                                     zip(self.specs, params["layers"])]}
+
+    # -- cached decode ----------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int) -> list[Params]:
+        return [L.attn_cache_init(s.mixer, batch, max_len, self.compute_dtype,
+                                  self.device) for s in self.specs]
+
+    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        x = L.norm_apply(params["final_norm"], x, self.cfg.norm)
+        logits = L.tied_logits(params["embed"], x)
+        return ops.softcap(logits, self.cfg.logit_softcap)
+
+    @torch.no_grad()
+    def prefill_chunk(self, params: Params, cache: list[Params], tokens,
+                      steps, n_tokens=None) -> tuple[torch.Tensor, list]:
+        """Multi-token cached step — the serving entry point.
+
+        tokens: (B, C) int; steps: (B,) absolute position of each row's first
+        token; n_tokens: (B,) live tokens per row (default C).  Row b
+        consumes tokens[b, :n_tokens[b]] and writes its cache at
+        steps[b]..steps[b]+n_tokens[b]-1 (in place); trailing columns are
+        padding.  Returns (logits (B, 1, V) of each row's last live column,
+        cache).  C=1 with n_tokens=1 is a decode step."""
+        tokens = torch.as_tensor(tokens).to(self.device)
+        B, C = tokens.shape
+        rg = L.ragged(steps, n_tokens, B, C, self.device)
+        x = L.embed_lookup(params["embed"], tokens, self.compute_dtype)
+        for spec, p, c in zip(self.specs, params["layers"], cache):
+            x = block_prefill(spec, p, c, x, rg)
+        x = x[torch.arange(B, device=x.device), rg.last][:, None]  # (B, 1, d)
+        return self._head(params, x), cache
+
+    def decode_step(self, params: Params, cache: list[Params], tokens,
+                    step) -> tuple[torch.Tensor, list]:
+        """One decode step: tokens (B, 1); step scalar or (B,)."""
+        B = torch.as_tensor(tokens).shape[0]
+        return self.prefill_chunk(params, cache, tokens, step,
+                                  torch.ones((B,), dtype=torch.int64))

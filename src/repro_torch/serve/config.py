@@ -1,0 +1,30 @@
+"""Engine configuration (the part of ``repro/serve/config.py`` the plain
+slot-static path reads)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    slots: int = 4              # concurrent batch rows
+    chunk_size: int = 32        # max prompt tokens one slot ingests per step
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryConfig:
+    max_len: int = 512          # per-request cache capacity (tokens)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
+    memory: MemoryConfig = dataclasses.field(default_factory=MemoryConfig)
+    prestack: bool = True

@@ -1,0 +1,254 @@
+"""Continuous-batching inference engine with chunked prefill — the plain
+slot-static greedy path of ``repro/serve/engine.py``.
+
+A fixed pool of B slots advances through one ``prefill_chunk`` per
+iteration.  Each iteration the scheduler packs a mixed batch under a token
+budget: slots still ingesting their prompt contribute up to ``chunk_size``
+prompt tokens, slots in generation exactly one token.  The chunk width C is
+bucketed to a power of two.  A finished slot is reset and recycled for the
+next queued request at once.
+
+Not ported yet: the paged cache, speculation, resilience, async streaming
+and temperature sampling (``temperature > 0`` raises).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import threading
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.serve.config import EngineConfig, SamplingParams
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: list[int]
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    priority: int = 0          # lower = more urgent
+    # filled by the engine:
+    output: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    stop_reason: str | None = None  # length | capacity
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Request | None = None
+    pos: int = 0            # next absolute position to write
+    to_feed: deque = dataclasses.field(default_factory=deque)  # prompt left
+
+
+def _bucket(n: int) -> int:
+    """Round a chunk width up to a power of two."""
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+class Engine:
+    def __init__(self, model, params, config: EngineConfig | None = None, *,
+                 device=None, step_fn=None):
+        """``model``: a ``repro_torch.models.LM`` on ``device`` (default
+        cuda; raises without a GPU unless ``device="cpu"``).  ``step_fn``
+        replaces ``model.prefill_chunk`` (same signature) — e.g. to observe
+        every step's logits."""
+        dev = resolve_device(device)
+        if model.device != dev:
+            raise ValueError(f"engine device {dev} != model device "
+                             f"{model.device}")
+        self.device = dev
+        self.config = config = config or EngineConfig()
+        sch, mem = config.scheduler, config.memory
+        self.model = model
+        self.B = sch.slots
+        self.max_len = mem.max_len
+        self.chunk = max(1, int(sch.chunk_size))
+        self.token_budget = self.B * self.chunk   # tokens per mixed batch
+        self.cache = model.init_cache(self.B, mem.max_len)
+        self.slots = [_Slot() for _ in range(self.B)]
+        self._rr = 0
+        self.queue: list = []   # heap of (prio_key, seq, Request)
+        self._seq = 0
+        self._step = step_fn if step_fn is not None else model.prefill_chunk
+        self.finished: list[Request] = []
+        self.stats = {"steps": 0, "prefill_tokens": 0, "decode_tokens": 0,
+                      "prefill_time": 0.0, "decode_time": 0.0,
+                      "decode_step_s": []}
+        self._lock = threading.Lock()
+        self._auto_uid = 1 << 40
+        self.params = (model.prestack_params(params) if config.prestack
+                       else params)
+
+    # -- public -----------------------------------------------------------------
+
+    def submit(self, req: Request):
+        if not req.prompt:
+            raise ValueError(f"request {req.uid}: empty prompt (generation "
+                             "needs at least one conditioning token)")
+        if req.temperature > 0:
+            raise NotImplementedError("temperature sampling is not ported yet"
+                                      " (greedy only)")
+        with self._lock:
+            self._seq += 1
+            heapq.heappush(self.queue, (req.priority, self._seq, req))
+
+    def run(self, max_iters: int = 100_000) -> list[Request]:
+        """Drive until queue + slots drain.  Returns completed requests."""
+        n0 = len(self.finished)
+        for _ in range(max_iters):
+            with self._lock:
+                if not self._tick_locked():
+                    break
+        return self.finished[n0:]
+
+    def generate_batch(self, prompts, sampling: SamplingParams | None = None,
+                       priority: int = 0) -> list[Request]:
+        """Submit every prompt, drive to drain, return the requests in input
+        order."""
+        sampling = sampling or SamplingParams()
+        reqs = []
+        for prompt in prompts:
+            with self._lock:
+                uid = self._auto_uid
+                self._auto_uid += 1
+            req = Request(uid=uid, prompt=list(prompt),
+                          max_new_tokens=sampling.max_new_tokens,
+                          temperature=sampling.temperature, priority=priority)
+            reqs.append(req)
+            self.submit(req)
+        self.run()
+        return reqs
+
+    def throughput(self) -> dict:
+        s = self.stats
+        return {"steps": s["steps"],
+                "prefill_tok_s": (s["prefill_tokens"] / s["prefill_time"]
+                                  if s["prefill_time"] else 0.0),
+                "decode_tok_s": (s["decode_tokens"] / s["decode_time"]
+                                 if s["decode_time"] else 0.0)}
+
+    # -- internals --------------------------------------------------------------
+
+    def _tick_locked(self) -> bool:
+        """One scheduler iteration.  Returns False when fully drained."""
+        self._admit()
+        if not any(s.req for s in self.slots):
+            return bool(self.queue)
+        self._advance()
+        return True
+
+    def _reset_slot(self, b: int):
+        """Restore row b of every layer cache to its initial state: pos = -1
+        and K = V = 0.  The attention kernel masks by slot index and relies
+        on a fresh row (reference: ``_reset_slot`` restores the template)."""
+        for c in self.cache:
+            c["pos"][b].fill_(-1)
+            c["k"][b].zero_()
+            c["v"][b].zero_()
+
+    def _release_slot(self, b: int):
+        slot = self.slots[b]
+        self._reset_slot(b)
+        slot.req = None
+        slot.to_feed = deque()
+        slot.pos = 0
+
+    def _finish_slot(self, b: int, reason: str):
+        req = self.slots[b].req
+        self._release_slot(b)
+        req.done = True
+        req.stop_reason = reason
+        self.finished.append(req)
+
+    def _admit(self):
+        for b, slot in enumerate(self.slots):
+            if slot.req is not None or not self.queue:
+                continue
+            _, _, req = heapq.heappop(self.queue)
+            self._reset_slot(b)
+            slot.req = req
+            slot.pos = 0
+            slot.to_feed = deque(req.prompt + req.output)
+
+    def _schedule(self) -> np.ndarray:
+        """Token-budget pass: decodes first (1 token each), then prefills
+        split the remaining budget into ≤chunk_size chunks, visiting slots
+        round-robin so a tight budget rotates starvation."""
+        n = np.zeros((self.B,), np.int32)
+        budget = self.token_budget
+        order = [(b + self._rr) % self.B for b in range(self.B)]
+        self._rr = (self._rr + 1) % self.B
+        for b in order:
+            slot = self.slots[b]
+            if slot.req is not None and not slot.to_feed and budget > 0:
+                n[b] = 1
+                budget -= 1
+        for b in order:
+            slot = self.slots[b]
+            if slot.req is None or not slot.to_feed:
+                continue
+            room = self.max_len - 1 - slot.pos  # leave headroom to sample
+            take = min(len(slot.to_feed), self.chunk, budget, max(room, 0))
+            n[b] = take
+            budget -= take
+        return n
+
+    def _advance(self):
+        n = self._schedule()
+        if not n.any():  # every active slot is out of cache headroom
+            for b, slot in enumerate(self.slots):
+                if slot.req is not None:
+                    self._finish_slot(b, "capacity")
+            return
+        C = _bucket(int(n.max()))
+        tokens = np.zeros((self.B, C), np.int64)
+        steps = np.zeros((self.B,), np.int64)
+        sampling = [False] * self.B
+        prompt_toks = decode_toks = 0
+        for b, slot in enumerate(self.slots):
+            if slot.req is None or n[b] == 0:
+                continue
+            steps[b] = slot.pos
+            if slot.to_feed:
+                prompt_toks += int(n[b])
+                for i in range(n[b]):
+                    tokens[b, i] = slot.to_feed.popleft()
+                sampling[b] = len(slot.to_feed) == 0  # chunk holds prompt end
+            else:
+                decode_toks += 1
+                tokens[b, 0] = slot.req.output[-1]
+                sampling[b] = True
+        t0 = time.perf_counter()
+        logits, self.cache = self._step(
+            self.params, self.cache, torch.from_numpy(tokens), steps, n)
+        # logits (B, 1, V): the head ran on each row's last live column only
+        greedy = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()  # syncs
+        dt = time.perf_counter() - t0
+        self.stats["steps"] += 1
+        self.stats["prefill_tokens"] += prompt_toks
+        self.stats["decode_tokens"] += decode_toks
+        if prompt_toks == 0 and decode_toks > 0:
+            self.stats["decode_step_s"].append(dt)
+        total = prompt_toks + decode_toks
+        self.stats["prefill_time"] += dt * prompt_toks / total
+        self.stats["decode_time"] += dt * decode_toks / total
+        for b, slot in enumerate(self.slots):
+            if slot.req is None or n[b] == 0:
+                continue
+            slot.pos += int(n[b])
+            if not sampling[b]:
+                continue
+            req = slot.req
+            req.output.append(int(greedy[b]))
+            if (len(req.output) >= req.max_new_tokens
+                    or slot.pos >= self.max_len - 1):
+                self._finish_slot(
+                    b, "length" if len(req.output) >= req.max_new_tokens
+                    else "capacity")

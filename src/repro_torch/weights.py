@@ -1,0 +1,115 @@
+"""Carry reference (JAX) parameters into the port.
+
+``from_jax_params(model, tree)`` takes the tree of ``repro.models.LM.init``
+as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
+port's params: the leading layer axis of ``params["cycles"]`` is unstacked
+into a list of per-layer dicts, every leaf is cast to the model's dtype and
+moved to its device, and a key the port does not know (an untied head, a
+prestacked ``_bundle_in``, another mixer's leaves, …) raises.
+
+``load_store(directory)`` reads a ``repro/checkpoint/store.py::save``
+directory (``manifest.json`` plus one ``.npy`` per '/'-joined leaf; bf16
+stored as a ``u2`` view) into that same numpy tree, with numpy alone.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+_BLAST = ("U", "S", "V")
+_LAYER_KEYS = {
+    "norm1": {"scale": None},
+    "mixer": {"qkv": _BLAST, "out": _BLAST},
+    "norm2": {"scale": None},
+    "ffn": {"gate": _BLAST, "up": _BLAST, "wo": _BLAST},
+}
+
+
+def _check_keys(tree: dict, allowed, where: str) -> None:
+    if not isinstance(tree, dict):
+        raise ValueError(f"{where}: expected a dict, got {type(tree).__name__}")
+    want = set(allowed)
+    extra = set(tree) - want
+    missing = want - set(tree)
+    if extra or missing:
+        raise ValueError(f"{where}: unknown keys {sorted(extra)}, missing "
+                         f"{sorted(missing)}")
+
+
+def from_jax_params(model, tree: dict) -> dict:
+    """Reference ``LM.init`` tree (numpy leaves) → the port's params."""
+    _check_keys(tree, ("embed", "final_norm", "cycles"), "params")
+    _check_keys(tree["final_norm"], ("scale",), "params/final_norm")
+    _check_keys(tree["cycles"], ("blk_0",), "params/cycles")
+    dev, dt = model.device, model.dtype
+
+    def conv(a) -> torch.Tensor:
+        arr = np.asarray(a)
+        if not (np.issubdtype(arr.dtype, np.floating)
+                or arr.dtype.name == "bfloat16"):   # ml_dtypes' bf16
+            raise ValueError(f"expected a float leaf, got {arr.dtype}")
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+            device=dev, dtype=dt)
+
+    blk = tree["cycles"]["blk_0"]
+    _check_keys(blk, _LAYER_KEYS, "params/cycles/blk_0")
+    layers = [{} for _ in range(model.cfg.n_layers)]
+    for group, members in _LAYER_KEYS.items():
+        sub = blk[group]
+        _check_keys(sub, members, f"params/cycles/blk_0/{group}")
+        for name, leaves in members.items():
+            if leaves is None:
+                stacked = conv(sub[name])
+                for i, lp in enumerate(layers):
+                    lp.setdefault(group, {})[name] = stacked[i]
+                continue
+            _check_keys(sub[name], leaves, f"params/cycles/blk_0/{group}/{name}")
+            for leaf in leaves:
+                stacked = conv(sub[name][leaf])
+                if stacked.shape[0] != len(layers):
+                    raise ValueError(f"{group}/{name}/{leaf} stacks "
+                                     f"{stacked.shape[0]} layers, model has "
+                                     f"{len(layers)}")
+                for i, lp in enumerate(layers):
+                    lp.setdefault(group, {}).setdefault(name, {})[leaf] = (
+                        stacked[i].contiguous())
+    return {"embed": conv(tree["embed"]),
+            "final_norm": {"scale": conv(tree["final_norm"]["scale"])},
+            "layers": layers}
+
+
+def _bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bf16 bit patterns (uint16) → float32, exactly."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def load_store(directory: str) -> dict:
+    """Read a ``checkpoint/store.py::save`` step directory (or the newest
+    ``step_*`` inside ``directory``) into a nested dict of numpy arrays.
+    bf16 leaves come back as float32 holding the same values."""
+    if not os.path.exists(os.path.join(directory, "manifest.json")):
+        steps = sorted(d for d in os.listdir(directory)
+                       if d.startswith("step_") and not d.endswith(".tmp"))
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+        directory = os.path.join(directory, steps[-1])
+    with open(os.path.join(directory, "manifest.json")) as f:
+        manifest = json.load(f)
+    tree: dict = {}
+    for path, meta in manifest["leaves"].items():
+        arr = np.load(os.path.join(directory, meta["file"]))
+        if str(arr.dtype) != meta["dtype"]:
+            if meta["dtype"] != "bfloat16":
+                raise ValueError(f"{path}: stored dtype {meta['dtype']} "
+                                 "cannot be read without ml_dtypes")
+            arr = _bf16_to_f32(arr)
+        node = tree
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr
+    return tree
