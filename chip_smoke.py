@@ -10,15 +10,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the script stops here with exit code 1 and prints no result.
 2. build — nvcc builds every kernel under ``src/repro_torch/kernels/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the full-width smollm-135m shapes, fp32 and bf16, max error vs tolerance.
+   the full-width smollm-135m shapes, T = 8 and 256, fp32 and bf16, max
+   error vs tolerance: the float BLAST kernels, the int8-weight kernels and
+   the W8A8 kernels (the W8A8 kernel and its plain version get the same
+   activation codes), and prefill attention.
 4. reference — the full-width model (fp32, depth cut to 2 layers) on the
    card through the kernels against the same model on the CPU through the
-   plain versions, over ragged multi-chunk steps.
+   plain versions, over ragged multi-chunk steps, in each serving mode:
+   float, int8 weights, and W8A8.
 5. serve — full-width smollm-135m (30 layers, vocab 49152, bf16, seeded
-   random weights) served by the engine: 16 prompts of 16-200 tokens, 32
-   new tokens each; the kernels' launch counters must equal steps × (90,
-   30, 30).  Then six steady decode steps (8 slots) under torch.profiler:
-   device busy and idle share per step, kernel time by name.
+   random weights) served by the engine in each mode (weights quantized at
+   load): 16 prompts of 16-200 tokens, 32 new tokens each; each mode's own
+   kernels' launch counters must equal steps × (90, 30, 30) and the others
+   stay 0.  Then, for float and W8A8, six steady decode steps (8 slots)
+   under torch.profiler: device busy and idle share per step, kernel time
+   by name.
 6. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each run: kernel, plain version and one PyTorch library
    call (a yardstick only; the port never calls it), at decode and prefill
@@ -43,10 +49,17 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,         # no tensor cores
-              "bfloat16": 989e12}       # dense tensor cores
+              "bfloat16": 989e12,       # dense tensor cores
+              "int8": 1979e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SEED = 0
 DEVICE = "cuda"
+# serving modes: (quant.weights, quant.activations) and the launch keys of
+# their (BLAST, grouped BLAST) kernels
+MODES = {"none": (("none", "none"), ("blast_matmul", "blast_matmul_grouped")),
+         "int8": (("int8", "none"), ("blast_matmul_q", "blast_matmul_grouped_q")),
+         "w8a8": (("int8", "int8"),
+                  ("blast_matmul_w8a8", "blast_matmul_grouped_w8a8"))}
 
 
 def emit(obj) -> None:
@@ -107,6 +120,50 @@ def make_blast_inputs(n, m, b, r, G, T, dtype, gen, device):
     return x, U, S, V
 
 
+def quantize_factors(U, S, V):
+    """Per-block int8 codes (G, b, ·, r) and scales su/sv (G, b), ss
+    (G, b, b) of stacked float factors, as the model quantizes them."""
+    import torch
+    from repro_torch import quant
+    G, b = U.shape[:2]
+    codes, scales = [], []
+    for a, axes, shape in ((U, (1, 2), (b,)), (S, (2,), (b, b)),
+                           (V, (1, 2), (b,))):
+        qa = [quant.quantize(a[g].float(), block_axes=axes) for g in range(G)]
+        codes.append(torch.stack([x.q for x in qa]))
+        scales.append(torch.stack([x.scale.reshape(shape) for x in qa]))
+    return codes, scales
+
+
+def quant_calls(mode, x, codes, scales):
+    """(kernel name, kernel call, plain call) of one int8 (mode "int8") or
+    W8A8 (mode "w8a8") BLAST launch; G = 1 goes through ``blast_matmul_q``
+    with QArray factors, as the model calls it."""
+    from repro_torch import quant
+    from repro_torch.kernels import ops, ref
+    act = "int8" if mode == "w8a8" else "none"
+    (U8, S8, V8), (su, ss, sv) = codes, scales
+    G, b = U8.shape[:2]
+    kname = MODES[mode][1][G > 1]
+    if G == 1:
+        fac = [quant.QArray(c[0], s_.reshape(shape), last_dim=c.shape[-1])
+               for c, s_, shape in ((U8, su, (b, 1, 1)), (S8, ss, (b, b, 1)),
+                                    (V8, sv, (b, 1, 1)))]
+        kern = lambda: ops.blast_matmul_q(x, *fac, act=act)[None]  # noqa: E731
+    else:
+        kern = lambda: ops.blast_matmul_grouped_q(  # noqa: E731
+            x, U8, S8, V8, su, ss, sv, act=act)
+    if act == "int8":
+        def plain():
+            xq, sx = quant.quantize_act(x)        # the wrapper's prologue
+            return ref.blast_matmul_grouped_a8_ref(
+                xq, sx, U8, S8, V8, su, ss, sv).to(x.dtype)
+    else:
+        plain = lambda: ref.blast_matmul_grouped_q_ref(  # noqa: E731
+            x, U8, S8, V8, su, ss, sv)
+    return kname, kern, plain
+
+
 def make_attn_inputs(B, Hq, Hkv, C, S, D, dtype, gen, device):
     """q (B, Hq, C, D) as the model's transposed view, the cache in its
     (B, S, Hkv, D) layout viewed as (B, Hkv, S, D), random row offsets."""
@@ -120,11 +177,22 @@ def make_attn_inputs(B, Hq, Hkv, C, S, D, dtype, gen, device):
             offs)
 
 
-def blast_cost(n, m, b, r, G, T, elt):
+def blast_cost(n, m, b, r, G, T, elt, mode="none"):
+    """(bytes, {dtype: operations}) of one BLAST call taking x of ``elt``
+    bytes and writing y of that type: every input read once, the output
+    written once.  Quantized factors are 1-byte codes plus fp32 scales
+    (2b + b² per set); W8A8's stage 1 runs at the int8 rate."""
     p, q = m // b, n // b
-    bytes_ = (T * n + G * (b * p * r + b * b * r + b * q * r) + G * T * m) * elt
-    flops = 2 * G * T * ((m + n) * r + b * b * r)
-    return bytes_, flops
+    factors = G * (b * p * r + b * b * r + b * q * r)
+    if mode == "none":
+        bytes_ = (T * n + factors + G * T * m) * elt
+    else:
+        bytes_ = (T * n + G * T * m) * elt + factors + G * (2 * b + b * b) * 4
+    stage1 = 2 * G * T * n * r
+    rest = 2 * G * T * (m * r + b * b * r)
+    if mode == "w8a8":
+        return bytes_, {"int8": stage1, "bfloat16": rest}
+    return bytes_, {"bfloat16": stage1 + rest}
 
 
 def attn_cost(q, k, offs, elt):
@@ -138,9 +206,10 @@ def attn_cost(q, k, offs, elt):
     return bytes_, flops
 
 
-def bound(bytes_, flops, dtype):
+def bound(bytes_, ops_by_dtype):
     """(bytes time, operations time) in ms on the H100."""
-    return bytes_ / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (bytes_ / HBM_BYTES_PER_S * 1e3,
+            sum(f / PEAK_FLOPS[d] for d, f in ops_by_dtype.items()) * 1e3)
 
 
 def time_ms(fn, flush, reps=25, warmup=5) -> float:
@@ -202,27 +271,34 @@ def phase_kernels(cfg):
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator().manual_seed(SEED)
-    errs = {"blast_matmul": 0.0, "blast_matmul_grouped": 0.0,
-            "flash_attention_prefill": 0.0}
+    errs = {k: 0.0 for k in SOURCES}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         for name, n, m, b, r, G in blast_shapes(cfg):
             for T in (8, 256):
                 x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dtype, gen,
                                                DEVICE)
+                codes, scales = quantize_factors(U, S, V)
                 if G == 1:
-                    got = ops.blast_matmul(x, U[0], S[0], V[0])
-                    want = ref.blast_matmul_ref(x, U[0], S[0], V[0])
-                    kname = "blast_matmul"
+                    calls = [("blast_matmul",
+                              lambda: ops.blast_matmul(x, U[0], S[0], V[0]),
+                              lambda: ref.blast_matmul_ref(x, U[0], S[0],
+                                                           V[0]))]
                 else:
-                    got = ops.blast_matmul_grouped(x, U, S, V)
-                    want = ref.blast_matmul_grouped_ref(x, U, S, V)
-                    kname = "blast_matmul_grouped"
-                torch.cuda.synchronize()
-                e = check_close(f"{kname}[{name} {n}->{m} b={b} r={r} G={G} "
-                                f"T={T}]", got, want, dname)
-                if dname == "bfloat16":
-                    errs[kname] = max(errs[kname], e)
+                    calls = [("blast_matmul_grouped",
+                              lambda: ops.blast_matmul_grouped(x, U, S, V),
+                              lambda: ref.blast_matmul_grouped_ref(x, U, S,
+                                                                   V))]
+                calls += [quant_calls(mode, x, codes, scales)
+                          for mode in ("int8", "w8a8")]
+                for kname, kern, plain in calls:
+                    got, want = kern(), plain()
+                    torch.cuda.synchronize()
+                    e = check_close(f"{kname}[{name} {n}->{m} b={b} r={r} "
+                                    f"G={G} T={T}]", got.reshape(want.shape),
+                                    want, dname)
+                    if dname == "bfloat16":
+                        errs[kname] = max(errs[kname], e)
         hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         for C in (1, 32):
             q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dtype,
@@ -238,52 +314,99 @@ def phase_kernels(cfg):
     return errs
 
 
-def phase_reference(cfg):
-    """Full-width fp32 model, 2 layers: card (kernels) vs CPU (plain)."""
+def qarrays(tree):
+    """The QArray leaves of a params tree, in order."""
+    from repro_torch import quant
+    if quant.is_qarray(tree):
+        return [tree]
+    items = (tree.values() if isinstance(tree, dict)
+             else tree if isinstance(tree, list) else ())
+    return [qa for v in items for qa in qarrays(v)]
+
+
+def phase_reference(cfg, mode):
+    """Full-width fp32 model, 2 layers: card (kernels) vs CPU (plain), in
+    one serving mode; the int8 codes and scales must be equal on both.
+    Logits: every live row within 1e-3 abs + 1e-3·max|logit|.  W8A8
+    allows up to a quarter of the rows to reach 20 times that limit
+    (about 2e-2·max|logit|) instead: the two devices feed each per-token activation quantizer the
+    same values only up to summation order, and a value that close to a
+    rounding boundary moves its code by one step; at reduced width one such
+    flip moved its row by 0.65% of the logit scale
+    (tests/test_torch_quant.py).  A wrong scale or layout moves every row
+    by O(1)."""
     import torch
+    from repro_torch import quant
+    from repro_torch.core import structures
     from repro_torch.models import build_model
+    (weights, act), _ = MODES[mode]
+    qcfg = quant.QuantConfig(weights=weights, activations=act)
     small = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
                                 compute_dtype="float32")
     gpu = build_model(small, device=DEVICE)
     cpu = build_model(small, device="cpu")
-    params_cpu = cpu.init(SEED)
-    params_gpu = gpu.init(SEED)
+    params_cpu = cpu.quantize_params(cpu.init(SEED), qcfg)
+    params_gpu = gpu.quantize_params(gpu.init(SEED), qcfg)
+    pairs = list(zip(qarrays(params_gpu), qarrays(params_cpu)))
+    if any(not (torch.equal(a.q.cpu(), b_.q)
+                and torch.equal(a.scale.cpu(), b_.scale)) for a, b_ in pairs):
+        raise RuntimeError("reference: int8 codes or scales differ between "
+                           "the card and the CPU")
     cache_g, cache_c = gpu.init_cache(3, 64), cpu.init_cache(3, 64)
     rng = torch.Generator().manual_seed(SEED + 1)
     steps = torch.tensor([0, 0, 0])
-    worst = 0.0
+    row_err, row_limit = [], []
     for n_tok in ([16, 5, 0], [7, 16, 3], [1, 1, 16]):
         n_tok = torch.tensor(n_tok)
         toks = torch.randint(0, small.vocab, (3, 16), generator=rng)
-        lg, cache_g = gpu.prefill_chunk(params_gpu, cache_g, toks, steps, n_tok)
-        lc, cache_c = cpu.prefill_chunk(params_cpu, cache_c, toks, steps, n_tok)
+        with structures.activations(act):
+            lg, cache_g = gpu.prefill_chunk(params_gpu, cache_g, toks, steps,
+                                            n_tok)
+            lc, cache_c = cpu.prefill_chunk(params_cpu, cache_c, toks, steps,
+                                            n_tok)
         live = n_tok > 0
         got, want = lg.float().cpu()[live], lc[live]
         if not torch.isfinite(got).all():
             raise RuntimeError("reference: non-finite logits on the card")
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        if err > 1e-3 + 1e-3 * float(want.abs().max()):
-            raise RuntimeError(f"reference: card logits differ from the CPU "
-                               f"plain path by {err}")
+        scale = float(want.abs().max())
+        row_err += (got - want).abs().amax(dim=(1, 2)).tolist()
+        row_limit += [1e-3 + 1e-3 * scale] * int(live.sum())
         steps = steps + n_tok
-    emit({"phase": "reference", "layers": 2, "d_model": small.d_model,
-          "vocab": small.vocab, "dtype": "float32", "chunks": 3,
-          "max_abs_logit_err": worst, "atol": 1e-3, "rtol": 1e-3})
+    err, lim = torch.tensor(row_err), torch.tensor(row_limit)
+    flipped = int((err > lim).sum())
+    ok = (flipped == 0 if mode != "w8a8" else
+          4 * flipped <= len(row_err) and bool((err <= 20 * lim).all()))
+    emit({"phase": "reference", "mode": mode, "layers": 2,
+          "d_model": small.d_model, "vocab": small.vocab, "dtype": "float32",
+          "chunks": 3, "qarrays_equal": len(pairs),
+          "max_abs_logit_err": float(err.max()),
+          "rows": len(row_err), "rows_past_limit": flipped,
+          "limit": "1e-3 + 1e-3*max|logit| per row"
+                   + (" (W8A8: a quarter of the rows may reach 20x)"
+                      if mode == "w8a8" else "")})
+    if not ok:
+        raise RuntimeError(f"reference[{mode}]: card logits differ from the "
+                           f"CPU plain path: row errors {row_err}, limits "
+                           f"{row_limit}")
 
 
-def phase_serve(cfg):
+def serve_config(mode, **kw):
+    from repro_torch import quant
+    from repro_torch.serve import EngineConfig, MemoryConfig, SchedulerConfig
+    (weights, act), _ = MODES[mode]
+    return EngineConfig(scheduler=SchedulerConfig(slots=8, chunk_size=32),
+                        memory=MemoryConfig(max_len=512),
+                        quant=quant.QuantConfig(weights=weights,
+                                                activations=act), **kw)
+
+
+def phase_serve(cfg, model, params, mode):
+    """One full-width serving run in ``mode``; returns its launch counts."""
     import numpy as np
     import torch
+    from repro_torch import quant
     from repro_torch.kernels import ops
-    from repro_torch.models import build_model
-    from repro_torch.serve import (Engine, EngineConfig, MemoryConfig,
-                                   SamplingParams, SchedulerConfig)
-    model = build_model(cfg, device=DEVICE)
-    t0 = time.perf_counter()
-    params = model.init(SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    from repro_torch.serve import Engine, SamplingParams
     finite = []
 
     def step(*args):
@@ -291,9 +414,11 @@ def phase_serve(cfg):
         finite.append(torch.isfinite(logits).all())
         return logits, cache
 
-    engine = Engine(model, params, EngineConfig(
-        scheduler=SchedulerConfig(slots=8, chunk_size=32),
-        memory=MemoryConfig(max_len=512)), device=DEVICE, step_fn=step)
+    t0 = time.perf_counter()
+    engine = Engine(model, params, serve_config(mode), device=DEVICE,
+                    step_fn=step)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab, size=int(L))]
                for L in rng.integers(16, 201, size=16)]
@@ -307,43 +432,45 @@ def phase_serve(cfg):
     launches = dict(ops.launches)
     steps = engine.stats["steps"]
     L = cfg.n_layers
-    want = {"blast_matmul": 3 * L * steps, "blast_matmul_grouped": L * steps,
-            "flash_attention_prefill": L * steps}
+    blast, grouped = MODES[mode][1]
+    want = {k: 0 for k in launches}
+    want.update({blast: 3 * L * steps, grouped: L * steps,
+                 "flash_attention_prefill": L * steps})
     if launches != want:
-        raise RuntimeError(f"launch counts {launches} != {want} "
+        raise RuntimeError(f"{mode}: launch counts {launches} != {want} "
                            f"({steps} steps × (90, 30, 30))")
     bad = [r.uid for r in reqs
            if not r.done or len(r.output) != max_new or r.stop_reason != "length"]
     if bad:
-        raise RuntimeError(f"requests did not finish with {max_new} tokens: "
-                           f"{bad}")
+        raise RuntimeError(f"{mode}: requests did not finish with {max_new} "
+                           f"tokens: {bad}")
     if not bool(torch.stack(finite).all()):
-        raise RuntimeError("non-finite logits in the serving run")
+        raise RuntimeError(f"{mode}: non-finite logits in the serving run")
     tp = engine.throughput()
-    emit({"phase": "serve", "arch": cfg.name, "layers": L, "vocab": cfg.vocab,
-          "dtype": cfg.param_dtype, "slots": 8, "chunk": 32, "max_len": 512,
-          "requests": len(reqs), "prompt_tokens": sum(map(len, prompts)),
+    emit({"phase": "serve", "mode": mode, "arch": cfg.name, "layers": L,
+          "vocab": cfg.vocab, "dtype": cfg.param_dtype, "slots": 8,
+          "chunk": 32, "max_len": 512, "requests": len(reqs),
+          "prompt_tokens": sum(map(len, prompts)),
           "new_tokens": sum(len(r.output) for r in reqs), "steps": steps,
           "decode_only_steps": len(engine.stats["decode_step_s"]),
-          "wall_s": wall, "init_s": init_s,
+          "wall_s": wall, "load_s": load_s,
+          "param_bytes": quant.tree_nbytes(engine.params),
           "prefill_tok_s": tp["prefill_tok_s"],
           "decode_tok_s": tp["decode_tok_s"],
           "decode_step_ms_median": 1e3 * statistics.median(
               engine.stats["decode_step_s"]),
-          "launches": launches, "per_step": [90, 30, 30]})
-    return launches, model, params
+          "launches": {k: v for k, v in launches.items() if v},
+          "per_step": [90, 30, 30]})
+    return launches
 
 
-def phase_profile(model, params):
+def phase_profile(model, params, mode):
     """Device busy share of steady decode: 8 slots in decode, 6 engine
     steps under ``torch.profiler``; kernel time by name from the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve import (Engine, EngineConfig, MemoryConfig,
-                                   Request, SchedulerConfig)
-    engine = Engine(model, params, EngineConfig(
-        scheduler=SchedulerConfig(slots=8, chunk_size=32),
-        memory=MemoryConfig(max_len=512)), device=DEVICE)
+    from repro_torch.serve import Engine, Request
+    engine = Engine(model, params, serve_config(mode), device=DEVICE)
     for i in range(8):
         engine.submit(Request(uid=i, prompt=list(range(1, 17)),
                               max_new_tokens=64))
@@ -364,8 +491,8 @@ def phase_profile(model, params):
             k[1] += e.time_range.elapsed_us() / 1e3
     busy = sum(v[1] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
-    emit({"phase": "profile", "decode_steps": n_steps, "slots": 8,
-          "wall_ms_per_step": wall_ms / n_steps,
+    emit({"phase": "profile", "mode": mode, "decode_steps": n_steps,
+          "slots": 8, "wall_ms_per_step": wall_ms / n_steps,
           "device_busy_ms_per_step": busy / n_steps if kernels else None,
           "device_idle_share": 1 - busy / wall_ms if kernels else None,
           "device_ops_per_step": (sum(v[0] for v in kernels.values())
@@ -374,16 +501,39 @@ def phase_profile(model, params):
                    "ms_per_step": t / n_steps} for n, (c, t) in top]})
 
 
+def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
+               flush, **extra):
+    bytes_, flops = cost
+    t_bytes, t_ops = bound(bytes_, flops)
+    row = {"kernel": kname, "linear": linear, "T": T, "shape": shape,
+           "ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
+           "library_ms": time_ms(lib, flush), "library": library,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes_ms": t_bytes, "ops_ms": t_ops, "bytes": bytes_,
+           "flops": flops, **{k: time_ms(f, flush) for k, f in extra.items()}}
+    emit({"phase": "timing", **row})
+    return row
+
+
 def phase_timing(cfg):
+    """bf16 timings.  ``ms`` times the wrapper the model calls (for W8A8 it
+    includes the per-token quantize prologue; ``launch_only_ms`` times the
+    kernel alone on ready codes).  Library: ``torch.matmul`` on the dense
+    (dequantized) matrix — dense work, not the same operations."""
     import torch
     import torch.nn.functional as F
+    from repro_torch import quant
     from repro_torch.core import blast as blast_lib
+    from repro_torch.kernels import blast_matmul as bm
     from repro_torch.kernels import ops, ref
     gen = torch.Generator().manual_seed(SEED + 2)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     dt, dname, elt = torch.bfloat16, "bfloat16", 2
+    lib_name = "torch.matmul(x, to_dense(A).T) (dense work)"
     rows = []
     for name, n, m, b, r, G in blast_shapes(cfg):
+        shape = f"{n}->{m} b={b} r={r} G={G}"
         for T in (8, 256):
             x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dt, gen, DEVICE)
             dense = torch.cat([blast_lib.to_dense(
@@ -397,20 +547,30 @@ def phase_timing(cfg):
                 kname = "blast_matmul_grouped"
                 kern = lambda: ops.blast_matmul_grouped(x, U, S, V)  # noqa: E731
                 plain = lambda: ref.blast_matmul_grouped_ref(x, U, S, V)  # noqa: E731
-            lib = lambda: torch.matmul(x, dense.T)  # noqa: E731
-            bytes_, flops = blast_cost(n, m, b, r, G, T, elt)
-            t_bytes, t_ops = bound(bytes_, flops, dname)
-            rows.append({"kernel": kname, "linear": name, "T": T,
-                         "shape": f"{n}->{m} b={b} r={r} G={G}",
-                         "ms": time_ms(kern, flush),
-                         "plain_ms": time_ms(plain, flush),
-                         "library_ms": time_ms(lib, flush),
-                         "library": "torch.matmul(x, to_dense(A).T) (dense work)",
-                         "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                         "bytes_ms": t_bytes, "ops_ms": t_ops,
-                         "bytes": bytes_, "flops": flops})
-            emit({"phase": "timing", **rows[-1]})
+            rows.append(timing_row(
+                kname, name, T, shape, kern, plain,
+                lambda: torch.matmul(x, dense.T), lib_name,
+                blast_cost(n, m, b, r, G, T, elt), flush))
+            codes, scales = quantize_factors(U, S, V)
+            (U8, S8, V8), (su, ss, sv) = codes, scales
+            deq = [a.float() * s_.reshape(*s_.shape, *(1,) * (a.ndim - s_.ndim))
+                   for a, s_ in ((U8, su), (S8, ss), (V8, sv))]
+            dense_q = torch.cat([blast_lib.to_dense(blast_lib.BlastParams(
+                deq[0][g], deq[1][g], deq[2][g])) for g in range(G)],
+                dim=0).to(dt)
+            xq, sx = quant.quantize_act(x)
+            r_pad = -(-r // bm.tiles()[1]) * bm.tiles()[1]
+            padded = [ops._pad_last(a, r_pad) for a in codes]
+            for mode in ("int8", "w8a8"):
+                qname, kern, plain = quant_calls(mode, x, codes, scales)
+                extra = {}
+                if mode == "w8a8":
+                    extra["launch_only_ms"] = lambda: bm.launch_w8a8(  # noqa: E731
+                        xq, sx, *padded, su, ss, sv, out_dtype=dt)
+                rows.append(timing_row(
+                    qname, name, T, shape, kern, plain,
+                    lambda: torch.matmul(x, dense_q.T), lib_name,
+                    blast_cost(n, m, b, r, G, T, elt, mode), flush, **extra))
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     for C in (1, 32):
         q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen, DEVICE)
@@ -425,45 +585,50 @@ def phase_timing(cfg):
         want = ref.attention_prefill_ref(q, k, v, offs)
         check_close(f"sdpa yardstick C={C}", lib(), want, dname)
         bytes_, flops = attn_cost(q, k, offs, elt)
-        t_bytes, t_ops = bound(bytes_, flops, dname)
-        rows.append({"kernel": "flash_attention_prefill", "linear": "attn",
-                     "T": 8 * C, "shape": f"B=8 Hq={hq} Hkv={hkv} C={C} "
-                     f"S=512 D={hd}",
-                     "ms": time_ms(kern, flush),
-                     "plain_ms": time_ms(plain, flush),
-                     "library_ms": time_ms(lib, flush),
-                     "library": "scaled_dot_product_attention (masked, GQA)",
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "bytes_ms": t_bytes, "ops_ms": t_ops,
-                     "bytes": bytes_, "flops": flops})
-        emit({"phase": "timing", **rows[-1]})
+        rows.append(timing_row(
+            "flash_attention_prefill", "attn", 8 * C,
+            f"B=8 Hq={hq} Hkv={hkv} C={C} S=512 D={hd}", kern, plain, lib,
+            "scaled_dot_product_attention (masked, GQA)",
+            (bytes_, {dname: flops}), flush))
     return rows
 
 
-SOURCES = {
-    "blast_matmul": ("src/repro_torch/kernels/csrc/blast_matmul.cu",
-                     "src/repro/kernels/blast_matmul.py:285"),
-    "blast_matmul_grouped": ("src/repro_torch/kernels/csrc/blast_matmul.cu",
-                             "src/repro/kernels/blast_matmul.py:324"),
+_BLAST_CU = "src/repro_torch/kernels/csrc/blast_matmul.cu"
+SOURCES = {   # kernel → (source, TPU kernel it replaces, serving mode)
+    "blast_matmul": (_BLAST_CU, "src/repro/kernels/blast_matmul.py:285",
+                     "none"),
+    "blast_matmul_grouped": (_BLAST_CU,
+                             "src/repro/kernels/blast_matmul.py:324", "none"),
+    "blast_matmul_q": (_BLAST_CU, "src/repro/kernels/blast_matmul.py:369",
+                       "int8"),
+    "blast_matmul_grouped_q": (_BLAST_CU,
+                               "src/repro/kernels/blast_matmul.py:475",
+                               "int8"),
+    "blast_matmul_w8a8": (_BLAST_CU, "src/repro/kernels/blast_matmul.py:633",
+                          "w8a8"),
+    "blast_matmul_grouped_w8a8": (_BLAST_CU,
+                                  "src/repro/kernels/blast_matmul.py:726",
+                                  "w8a8"),
     "flash_attention_prefill": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:155"),
+        "src/repro/kernels/flash_attention.py:155", "none"),
 }
 
 
 def summary(rows, errs, launches):
     """One entry per kernel.  Its numbers are one layer's calls of that
     kernel in one decode step (T = 8 slots, C = 1), summed; ``cases`` holds
-    every timed shape."""
+    every timed shape.  ``launches`` is the count from the serving run of
+    the kernel's own mode."""
     out = []
-    for kname, (src, replaces) in SOURCES.items():
+    for kname, (src, replaces, mode) in SOURCES.items():
         mine = [r for r in rows if r["kernel"] == kname]
         dec = [r for r in mine if r["T"] == 8]
         tot = {k: sum(r[k] for r in dec)
                for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
         out.append({"name": kname, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": launches[kname],
+                    "replaces": replaces, "mode": mode,
+                    "launches": launches[mode][kname],
                     "max_abs_err": errs[kname], "ms": tot["ms"],
                     "plain_ms": tot["plain_ms"],
                     "bound_ms": max(tot["bytes_ms"], tot["ops_ms"]),
@@ -483,11 +648,16 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import configs
     cfg = configs.get("smollm-135m")
+    from repro_torch.models import build_model
     phase_build()
     errs = phase_kernels(cfg)
-    phase_reference(cfg)
-    launches, model, params = phase_serve(cfg)
-    phase_profile(model, params)
+    for mode in MODES:
+        phase_reference(cfg, mode)
+    model = build_model(cfg, device=DEVICE)
+    params = model.init(SEED)
+    launches = {mode: phase_serve(cfg, model, params, mode) for mode in MODES}
+    for mode in ("none", "w8a8"):
+        phase_profile(model, params, mode)
     del model, params
     rows = phase_timing(cfg)
     emit({"kernels": summary(rows, errs, launches)})

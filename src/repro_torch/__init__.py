@@ -1,8 +1,8 @@
 """PyTorch + CUDA port of the BLAST serving stack (the JAX package ``repro``
 stays the reference it is held against).
 
-Module names mirror ``repro``: ``configs``, ``core``, ``kernels``, ``models``,
-``serve``, ``launch``, plus ``weights`` (the bridge that carries JAX
+Module names mirror ``repro``: ``configs``, ``core``, ``kernels``, ``quant``,
+``models``, ``serve``, ``launch``, plus ``weights`` (the bridge that carries JAX
 parameters and ``checkpoint/store.py`` directories across).
 
 The package imports ``torch``, numpy and the standard library only.  Every

@@ -4,13 +4,15 @@
 Only the fields the ported serving slice reads, plus every field that changes
 numbers (``reduced()`` gives the same shapes and dtypes as the reference).
 Families and knobs the slice does not run yet (MoE, MLA, SSD, RG-LRU,
-encoders, quantization) are not carried; ``LM`` raises on them.
+encoders) are not carried; ``LM`` raises on them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
+
+from repro_torch.quant.qarray import QuantConfig
 
 STRUCTURES = ("dense", "blast", "low_rank", "monarch", "block_diag",
               "pixelfly")
@@ -62,6 +64,9 @@ class ArchConfig:
     structure_ffn: StructureConfig | None = None
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    # serving-time storage: ``quant.weights`` drives the engine's
+    # quantize-at-load and ``LM.quantize_params``
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
 
     @property
     def head_dim_(self) -> int:

@@ -6,12 +6,18 @@ one kernel launch.
 A spec carries ``init(generator, dtype, device, scale)`` → params (a dict of
 tensors) and ``apply(params, x)``: ``x (..., d_in) → (..., d_out)``.  BLAST
 applies go through ``kernels/ops.blast_matmul`` (the CUDA kernel on the
-card, its plain version on the CPU).  Integer (int8/int4) storage is not
-ported yet (ROADMAP A9) and raises.
+card, its plain version on the CPU).
+
+Quantized storage: ``spec.quantize(params, bits)`` turns the factors into
+per-block int8 ``QArray``s and ``spec.apply_q`` runs them — BLAST through
+``kernels/ops.blast_matmul_q`` (the int8 or, with the activation mode set to
+"int8", the W8A8 kernel), dense as a plain matmul on the codes.  int4 and
+mixed storage raise (``check_storage``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Sequence
@@ -21,6 +27,7 @@ import torch
 from repro_torch.configs.base import StructureConfig
 from repro_torch.core import blast as blast_lib
 from repro_torch.kernels import ops as kops
+from repro_torch.quant import qarray as qt
 
 Params = dict[str, torch.Tensor]
 
@@ -33,16 +40,44 @@ class LinearSpec:
     shapes: dict[str, tuple[int, ...]]
     init: Callable[..., Params]
     apply: Callable[[Params, torch.Tensor], torch.Tensor]
+    quantize: Callable[..., Params]            # params → int8 QArray params
+    apply_q: Callable[[Params, torch.Tensor], torch.Tensor]
     meta: dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
-def check_float(params: Params) -> None:
-    """Integer factor storage belongs to a later slice."""
+def check_storage(params: Params) -> str:
+    """The storage of one linear's params (the reference's ``_storage``):
+    'float' or 'int8'.  The bias, always float, does not count.  int4
+    belongs to the next slice and raises, as do a mix of storages and an
+    integer tensor without scales."""
+    kinds = set()
     for k, v in params.items():
-        if not v.is_floating_point():
-            raise NotImplementedError(
-                f"{k} is stored as {v.dtype}: int8/int4 storage is not ported "
-                "yet (ROADMAP A9)")
+        if k == "bias":
+            continue
+        if qt.is_qarray(v):
+            if v.bits == 4:
+                raise NotImplementedError(qt.INT4_TODO)
+            kinds.add("int8")
+        elif v.is_floating_point():
+            kinds.add("float")
+        else:
+            raise TypeError(f"{k} is a bare {v.dtype} tensor: integer "
+                            "weights are QArrays (codes with their scales)")
+    if len(kinds) > 1:
+        raise NotImplementedError(
+            f"mixed storage {sorted(k for k in params if k != 'bias')}: a "
+            "linear's factors are all float or all int8")
+    return kinds.pop() if kinds else "float"
+
+
+def _block_quantizer(block_axes: dict[str, tuple[int, ...]]):
+    """A ``quantize(params, bits)`` that maps each named param to a
+    per-block QArray (params not listed — e.g. bias — pass through)."""
+    def quantize(params: Params, bits: int = 8) -> Params:
+        return {k: (v if block_axes.get(k) is None else
+                    qt.quantize(v, bits=bits, block_axes=block_axes[k]))
+                for k, v in params.items()}
+    return quantize
 
 
 def _pick_blocks(d_in: int, d_out: int, b: int) -> int:
@@ -62,8 +97,14 @@ def _dense_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
     def apply(params, x):
         return x @ params["w"]
 
+    def apply_q(params, x):
+        w = params["w"]
+        y = x @ qt.int_values(w).to(x.dtype)     # codes are exact in bf16
+        return (y * w.scale[0]).to(x.dtype)      # per-output-channel dequant
+
     return LinearSpec(kind="dense", d_in=d_in, d_out=d_out,
-                      shapes={"w": (d_in, d_out)}, init=init, apply=apply)
+                      shapes={"w": (d_in, d_out)}, init=init, apply=apply,
+                      quantize=_block_quantizer({"w": (0,)}), apply_q=apply_q)
 
 
 def _blast_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
@@ -81,10 +122,17 @@ def _blast_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
     def apply(params, x):
         return kops.blast_matmul(x, params["U"], params["S"], params["V"])
 
+    def apply_q(params, x):
+        return kops.blast_matmul_q(x, params["U"], params["S"], params["V"],
+                                   act=activations_mode())
+
     return LinearSpec(
         kind="blast", d_in=d_in, d_out=d_out,
         shapes={"U": (b, p, r), "S": (b, b, r), "V": (b, q, r)},
-        init=init, apply=apply, meta={"b": b, "r": r})
+        init=init, apply=apply, meta={"b": b, "r": r},
+        # one scale per U_i / V_j factor block, one per s_ij coupling vector
+        quantize=_block_quantizer({"U": (1, 2), "S": (2,), "V": (1, 2)}),
+        apply_q=apply_q)
 
 
 _MAKERS = {"dense": _dense_spec, "blast": _blast_spec}
@@ -103,10 +151,36 @@ def make_linear(d_in: int, d_out: int, structure: StructureConfig | None = None,
 
 
 # ---------------------------------------------------------------------------
-# Dispatch counter and grouped dispatch.
+# Activation mode, dispatch counter and grouped dispatch.
 # ---------------------------------------------------------------------------
 
 _DISPATCHES = [0]      # structured-matmul dispatch counter
+_ACT_MODE = ["none"]   # activation storage of quantized applies
+
+
+def set_activations(mode: str) -> None:
+    """Select the activation storage of quantized BLAST applies ("none":
+    float activations, the int8-weight kernels; "int8": per-token codes, the
+    W8A8 kernels).  Process-wide as in the reference; the engine scopes it
+    to its own steps with ``activations``."""
+    if mode not in ("none", "int8"):
+        raise ValueError(f"activation mode must be 'none'|'int8', got {mode}")
+    _ACT_MODE[0] = mode
+
+
+def activations_mode() -> str:
+    return _ACT_MODE[0]
+
+
+@contextlib.contextmanager
+def activations(mode: str):
+    """Select the activation storage for the duration of the block."""
+    prev = _ACT_MODE[0]
+    set_activations(mode)
+    try:
+        yield
+    finally:
+        _ACT_MODE[0] = prev
 
 
 def record_dispatch(n: int = 1) -> None:
@@ -126,20 +200,20 @@ def reset_dispatch_count() -> None:
 def group_plan(specs: Sequence[LinearSpec],
                params_list: Sequence[Params]) -> dict | None:
     """Can these same-input linears run as one grouped launch?  Eligible: ≥2
-    float BLAST members with the same d_in and block count b; d_out and rank
-    may differ (zero-padded to the group max, which is exact).  Other
-    bundles return None → the caller loops per projection (the grouped dense
-    and block-diagonal paths of the reference are not on this slice)."""
+    BLAST members with the same d_in, block count b and storage (all float
+    or all int8); d_out and rank may differ (zero-padded to the group max,
+    which is exact).  Other bundles return None → the caller loops per
+    projection (the grouped dense and block-diagonal paths of the reference
+    are not on this slice)."""
     if len(specs) < 2:
         return None
-    for p in params_list:
-        check_float({k: v for k, v in p.items() if k != "bias"})
+    storages = {check_storage(p) for p in params_list}
     if any(s.kind != "blast" or s.d_in != specs[0].d_in for s in specs):
         return None
     b = specs[0].meta["b"]
-    if any(s.meta["b"] != b for s in specs):
+    if len(storages) != 1 or any(s.meta["b"] != b for s in specs):
         return None
-    return {"kind": "blast", "storage": "float", "d_in": specs[0].d_in,
+    return {"kind": "blast", "storage": storages.pop(), "d_in": specs[0].d_in,
             "d_outs": [s.d_out for s in specs], "b": b,
             "p": max(s.d_out // b for s in specs),
             # rank from the factor arrays, not the spec
@@ -170,15 +244,24 @@ def _split_group(y: torch.Tensor, plan: dict, lead: tuple[int, ...],
 
 
 def _stack_group(params_list: Sequence[Params], plan: dict) -> Params:
-    """Pad each member's factors to (b, width, r̂) and stack over G."""
+    """Pad each member's factors (int8: codes) to (b, width, r̂) and stack
+    over G; int8 bundles also stack their scales su/sv (G, b), ss (G, b, b)."""
     b, p_hat, r_hat = plan["b"], plan["p"], plan["r"]
     q = plan["d_in"] // b
 
     def stack(name: str, width: int):
-        return torch.stack([_pad_to(_pad_to(pp[name], 2, r_hat), 1, width)
-                            for pp in params_list]).contiguous()
+        return torch.stack([
+            _pad_to(_pad_to(qt.int_values(pp[name]) if qt.is_qarray(pp[name])
+                            else pp[name], 2, r_hat), 1, width)
+            for pp in params_list]).contiguous()
 
-    return {"U": stack("U", p_hat), "S": stack("S", b), "V": stack("V", q)}
+    out = {"U": stack("U", p_hat), "S": stack("S", b), "V": stack("V", q)}
+    if plan["storage"] == "int8":
+        for key, name, shape in (("su", "U", (b,)), ("ss", "S", (b, b)),
+                                 ("sv", "V", (b,))):
+            out[key] = torch.stack([pp[name].scale.reshape(shape)
+                                    for pp in params_list]).contiguous()
+    return out
 
 
 @dataclasses.dataclass
@@ -202,7 +285,9 @@ def group_apply(specs: Sequence[LinearSpec], params_list: Sequence[Params],
                 x: torch.Tensor, *, plan: dict | None = None,
                 stacked: Params | None = None) -> list[torch.Tensor]:
     """Apply G congruent same-input BLAST linears as ONE grouped kernel
-    launch (``kernels/ops.blast_matmul_grouped``).  Counts one dispatch."""
+    launch (``kernels/ops.blast_matmul_grouped``, or for int8 bundles
+    ``blast_matmul_grouped_q`` in the current activation mode).  Counts one
+    dispatch."""
     if plan is None:
         plan = group_plan(specs, params_list)
     if plan is None:
@@ -210,5 +295,10 @@ def group_apply(specs: Sequence[LinearSpec], params_list: Sequence[Params],
     record_dispatch(1)
     st = stacked if stacked is not None else _stack_group(params_list, plan)
     lead = x.shape[:-1]
-    y = kops.blast_matmul_grouped(x, st["U"], st["S"], st["V"])
+    if plan["storage"] == "int8":
+        y = kops.blast_matmul_grouped_q(x, st["U"], st["S"], st["V"], st["su"],
+                                        st["ss"], st["sv"],
+                                        act=activations_mode())
+    else:
+        y = kops.blast_matmul_grouped(x, st["U"], st["S"], st["V"])
     return _split_group(y, plan, lead, x.dtype)

@@ -23,12 +23,74 @@ def blast_matmul_ref(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
     return y.reshape(*lead, b * p).to(x.dtype)
 
 
+def blast_matmul_q_ref(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+                       V: torch.Tensor, su: torch.Tensor, ss: torch.Tensor,
+                       sv: torch.Tensor) -> torch.Tensor:
+    """int8-factor version: dequantize the codes U/S/V with the per-block
+    scales (su (b,), ss (b,b), sv (b,)) and run Alg. 1."""
+    Uf = U.float() * su.float()[:, None, None]
+    Sf = S.float() * ss.float()[:, :, None]
+    Vf = V.float() * sv.float()[:, None, None]
+    return blast_matmul_ref(x, Uf, Sf, Vf)
+
+
 def blast_matmul_grouped_ref(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
                              V: torch.Tensor) -> torch.Tensor:
     """Grouped oracle == the per-projection loop: x (..., n) shared;
     U (G,b,p,r), S (G,b,b,r), V (G,b,q,r) → y (G, ..., m)."""
     return torch.stack([blast_matmul_ref(x, U[g], S[g], V[g])
                         for g in range(U.shape[0])])
+
+
+def blast_matmul_grouped_q_ref(x: torch.Tensor, U: torch.Tensor,
+                               S: torch.Tensor, V: torch.Tensor,
+                               su: torch.Tensor, ss: torch.Tensor,
+                               sv: torch.Tensor) -> torch.Tensor:
+    """Grouped int8-factor version: codes (G,b,·,r); su/sv (G,b), ss (G,b,b)
+    → y (G, ..., m)."""
+    return torch.stack([
+        blast_matmul_q_ref(x, U[g], S[g], V[g], su[g], ss[g], sv[g])
+        for g in range(U.shape[0])])
+
+
+def blast_matmul_a8_ref(xq: torch.Tensor, sx: torch.Tensor, U: torch.Tensor,
+                        S: torch.Tensor, V: torch.Tensor, su: torch.Tensor,
+                        ss: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
+    """W8A8 version in the kernel's fusion order: stage 1 contracts int8
+    activation codes xq (..., n) against int8 V codes, then dequantizes once
+    by ``sx · sv_j`` (sx (..., 1) fp32); stages 2–3 run on the fp32 ``z``
+    as in the int8-weight path.  Returns fp32 (..., m).
+
+    Stage 1 runs in fp32 on the integer codes (a CUDA device has no integer
+    ``einsum``).  That is exact: every product is an integer of magnitude
+    ≤ 127², so every partial sum over q terms is an integer below
+    q·127² < 2^24 for q ≤ 1040, which fp32 holds exactly in any order
+    (smollm-135m's largest q is 96)."""
+    b, q, r = V.shape
+    p = U.shape[1]
+    if q * 127 * 127 >= 1 << 24:
+        raise ValueError(f"q = {q}: the fp32 stage-1 sum is no longer exact")
+    lead = xq.shape[:-1]
+    xb = xq.reshape(*lead, b, q).float()
+    z = torch.einsum("...jq,jqr->...jr", xb, V.float())
+    z = z * sx.float()[..., None] * sv.float()[:, None]
+    Sf = S.float() * ss.float()[:, :, None]
+    w = torch.einsum("...jr,ijr->...ir", z, Sf)
+    y = torch.einsum("...ir,ipr->...ip", w, U.float())
+    y = y * su.float()[:, None]
+    return y.reshape(*lead, b * p)
+
+
+def blast_matmul_grouped_a8_ref(xq: torch.Tensor, sx: torch.Tensor,
+                                U: torch.Tensor, S: torch.Tensor,
+                                V: torch.Tensor, su: torch.Tensor,
+                                ss: torch.Tensor,
+                                sv: torch.Tensor) -> torch.Tensor:
+    """Grouped W8A8 version: G sets of int8 codes sharing one set of
+    activation codes → y (G, ..., m) fp32."""
+    return torch.stack([
+        blast_matmul_a8_ref(xq, sx, U[g], S[g], V[g], su[g], ss[g], sv[g])
+        for g in range(U.shape[0])])
 
 
 def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,17 +6,21 @@ chunked-prefill engine, on the card by default.
 
 ``--reduced`` runs the small test variant; ``--device cpu`` runs the plain
 PyTorch path on the host.  Weights are random, drawn from ``--seed``.
+``--quant-weights int8`` quantizes them at load (int8 BLAST kernels);
+adding ``--quant-activations int8`` runs the W8A8 kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 
 from repro_torch import configs
 from repro_torch.models import build_model
+from repro_torch.quant import QuantConfig, tree_nbytes
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig, Request,
                                SchedulerConfig)
 
@@ -33,6 +37,14 @@ def parse_args(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--quant-weights", default="none",
+                    choices=["none", "int8", "int4"],
+                    help="quantize-at-load weight storage (int4: not ported "
+                         "yet, raises)")
+    ap.add_argument("--quant-activations", default="none",
+                    choices=["none", "int8"],
+                    help="per-token int8 activations: with int8 weights the "
+                         "BLAST layers run the W8A8 kernels")
     return ap.parse_args(argv)
 
 
@@ -41,6 +53,8 @@ def main(argv=None) -> list[Request]:
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, quant=QuantConfig(
+        weights=args.quant_weights, activations=args.quant_activations))
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
     engine = Engine(model, params, EngineConfig(
@@ -64,7 +78,9 @@ def main(argv=None) -> list[Request]:
     total = sum(len(r.output) for r in reqs)
     print(f"[serve] {len(reqs)} requests, {total} tokens in {dt:.3f}s on "
           f"{args.device}, {args.slots} slots, chunk={args.chunk}, "
-          f"{tp['steps']} steps")
+          f"{tp['steps']} steps, weights {args.quant_weights}, activations "
+          f"{args.quant_activations}, {tree_nbytes(engine.params)} "
+          "parameter bytes")
     print(f"[serve] prefill {engine.stats['prefill_tokens']} toks @ "
           f"{tp['prefill_tok_s']:.1f} tok/s · decode "
           f"{engine.stats['decode_tokens']} toks @ {tp['decode_tok_s']:.1f} "

@@ -21,6 +21,7 @@ from repro_torch.core import structures
 from repro_torch.core.structures import LinearSpec, make_linear
 from repro_torch.kernels import ops as kops
 from repro_torch.models import ops
+from repro_torch.quant import qarray as qt
 
 Params = dict[str, Any]
 
@@ -40,10 +41,14 @@ def linear_init(spec: LinearSpec, generator: torch.Generator, dtype, device, *,
 
 def linear_apply(spec: LinearSpec, params: Params,
                  x: torch.Tensor) -> torch.Tensor:
+    """Storage-aware apply: int8 QArray params route to the structure's
+    ``apply_q``, float params to ``apply``; int4 and mixed storage raise."""
     structures.record_dispatch(1)
     core = {k: v for k, v in params.items() if k != "bias"}
-    structures.check_float(core)
-    y = spec.apply(core, x)
+    if structures.check_storage(core) == "int8":
+        y = spec.apply_q(core, x)
+    else:
+        y = spec.apply(core, x)
     if "bias" in params:
         y = y + params["bias"]
     return y
@@ -73,16 +78,34 @@ def linear_group_prestack(specs: Sequence[LinearSpec],
     return structures.prestack(specs, params_list)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
-                 dtype) -> torch.Tensor:
-    structures.check_float({"embed": table})
-    return table[tokens].to(dtype)
+def linear_quantize(spec: LinearSpec, params: Params, bits: int = 8) -> Params:
+    """Quantize a linear's structure params to per-block QArrays (a bias
+    stays float: it is O(d_out) and added after the product)."""
+    qp = spec.quantize({k: v for k, v in params.items() if k != "bias"}, bits)
+    if "bias" in params:
+        qp["bias"] = params["bias"]
+    return qp
 
 
-def tied_logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``x @ embedᵀ`` — a plain large product, left to torch.matmul as the
-    reference leaves it to XLA."""
-    return x @ table.T
+def embed_lookup(table, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Token-embedding gather over a float or per-row int8 table: a
+    quantized table gathers the code rows and dequantizes only those."""
+    if not qt.is_qarray(table):
+        structures.check_storage({"embed": table})
+        return table[tokens].to(dtype)
+    rows = qt.int_values(table)[tokens]
+    return (rows.float() * table.scale[tokens]).to(dtype)
+
+
+def tied_logits(table, x: torch.Tensor) -> torch.Tensor:
+    """``x @ embedᵀ`` over a float or per-row int8 table — a plain large
+    product, left to torch.matmul as the reference leaves it to XLA.  The
+    per-row scales are constant along d_model, so they multiply the
+    product (one multiply per logit)."""
+    if not qt.is_qarray(table):
+        return x @ table.T
+    iv = qt.int_values(table)                        # (vocab, d)
+    return ((x @ iv.T.to(x.dtype)) * table.scale[:, 0]).to(x.dtype)
 
 
 def norm_init(d: int, kind: str, dtype, device) -> Params:
@@ -174,6 +197,11 @@ def attn_init(spec: AttnSpec, generator: torch.Generator, dtype,
                            scale=1.0 / math.sqrt(2 * spec.cfg.n_layers
                                                  * spec.out.d_in)),
     }
+
+
+def attn_quantize(spec: AttnSpec, params: Params, bits: int = 8) -> Params:
+    return {"qkv": linear_quantize(spec.qkv, params["qkv"], bits),
+            "out": linear_quantize(spec.out, params["out"], bits)}
 
 
 def _split_qkv(spec: AttnSpec, qkv: torch.Tensor):
@@ -285,6 +313,11 @@ def ffn_init(spec: FFNSpec, generator: torch.Generator, dtype, device,
             "up": linear_init(spec.up, generator, dtype, device),
             "wo": linear_init(spec.wo, generator, dtype, device,
                               scale=wo_scale)}
+
+
+def ffn_quantize(spec: FFNSpec, params: Params, bits: int = 8) -> Params:
+    return {name: linear_quantize(getattr(spec, name), params[name], bits)
+            for name in ("gate", "up", "wo")}
 
 
 def ffn_prestack(spec: FFNSpec, params: Params) -> Params:

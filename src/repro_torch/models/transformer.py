@@ -5,7 +5,7 @@ embeddings, and the chunked cached step ``prefill_chunk`` the engine drives.
 The reference scans over layer params stacked on a leading axis; here the
 params hold a list of per-layer dicts and the step is a Python loop.
 Families, mixers and options outside the slice raise ``NotImplementedError``.
-Full-sequence ``LM.apply`` arrives with the next slice.
+Full-sequence ``LM.apply`` arrives with a later slice (ROADMAP B4).
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ops
+from repro_torch.quant import qarray as qt
+from repro_torch.quant.qarray import QuantConfig
 
 Params = dict[str, Any]
 
@@ -64,6 +66,14 @@ def block_prefill(spec: BlockSpec, params: Params, cache: Params,
     return x + L.ffn_apply(spec.ffn, params["ffn"], h)
 
 
+def block_quantize(spec: BlockSpec, params: Params, bits: int = 8) -> Params:
+    """Quantize a block's structured linears to per-block QArrays (norms
+    pass through)."""
+    return {**params,
+            "mixer": L.attn_quantize(spec.mixer, params["mixer"], bits),
+            "ffn": L.ffn_quantize(spec.ffn, params["ffn"], bits)}
+
+
 def block_prestack(spec: BlockSpec, params: Params) -> Params:
     return {**params, "ffn": L.ffn_prestack(spec.ffn, params["ffn"])}
 
@@ -79,6 +89,8 @@ class LM:
             (cfg.window != 0, "sliding-window attention"),
             (cfg.embed_scale, "embedding scaling"),
         ]
+        if cfg.quant.cache != "none":
+            raise NotImplementedError(qt.CACHE_TODO)
         for bad, what in unsupported:
             if bad:
                 raise NotImplementedError(f"{what} is not ported yet")
@@ -103,6 +115,20 @@ class LM:
             "layers": [block_init(spec, gen, dt, dev, cfg.d_model)
                        for spec in self.specs],
         }
+
+    def quantize_params(self, params: Params, quant: QuantConfig) -> Params:
+        """Quantize-at-load: every structured linear becomes per-block int8
+        QArrays and the tied embedding per-row int8 (its gather and the tied
+        head both fuse the row scale); norms stay float.  Run it before
+        ``prestack_params``, as the reference orders them."""
+        bits = quant.weight_bits
+        if bits is None:
+            return params
+        return {**params,          # int4 raises in qt.quantize
+                "embed": qt.quantize(params["embed"], bits=bits,
+                                     block_axes=(1,)),
+                "layers": [block_quantize(s, p, bits) for s, p in
+                           zip(self.specs, params["layers"])]}
 
     def prestack_params(self, params: Params) -> Params:
         """Pre-stack every grouped projection bundle (SwiGLU gate+up) once at

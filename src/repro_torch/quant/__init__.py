@@ -1,0 +1,18 @@
+"""Quantized storage of the port (counterpart of ``repro/quant``): per-block
+symmetric int8 ``QArray`` weights, per-token int8 activation codes, and the
+``QuantConfig`` knob threaded through configs → engine → launcher."""
+
+from repro_torch.quant.qarray import (  # noqa: F401
+    CACHE_TODO,
+    INT4_TODO,
+    QArray,
+    QuantConfig,
+    dequantize,
+    dequantize_act,
+    int_values,
+    is_qarray,
+    quantize,
+    quantize_act,
+    tree_is_quantized,
+    tree_nbytes,
+)

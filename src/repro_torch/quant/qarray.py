@@ -1,0 +1,185 @@
+"""Per-block symmetric int8 quantization (counterpart of
+``repro/quant/qarray.py``): the ``QArray = {q, scale}`` container and the
+codecs the quantized serving path builds on.
+
+``quantize(x, bits, block_axes)`` shares ONE symmetric scale per block: the
+max-abs is reduced over ``block_axes`` (keepdims), so ``scale`` broadcasts
+against ``q`` and dequantization is ``q * scale``.  An all-zero block gets
+``scale = 1`` so its codes are 0 and dequantize to exactly 0.  The codes
+equal the reference's bit for bit: fp32 ``amax / qmax``, ``x / scale`` in
+fp32, round half to even (``torch.round`` as ``jnp.round``), clamp to ±127.
+``qmax`` divides as a tensor on ``amax``'s device: PyTorch's CUDA division
+by a Python scalar multiplies by its reciprocal instead, which is 1 ulp off
+for some blocks and would give the card other scales than the CPU.
+
+int4 storage (nibble packing, plane-order unpacking) belongs to the next
+slice of the port and raises here (ROADMAP B7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+_QMAX = {8: 127}
+INT4_TODO = ("int4 weights are not ported yet (ROADMAP B7/B8/B10/B12: the "
+             "int4 slice, with pack_int4 / unpack_int4_planes / plane_order)")
+CACHE_TODO = ("int8 caches are not ported yet (ROADMAP A9: quant.cache="
+              "'int8' with its int8-KV attention kernel)")
+
+
+@dataclasses.dataclass(frozen=True)
+class QArray:
+    """Quantized tensor: int8 codes + fp32 per-block scales.
+
+    q:        int8 codes
+    scale:    float scales, broadcastable against ``q``
+    bits:     8 (4 is the reference's packed int4, not ported yet)
+    last_dim: logical size of the last axis
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    bits: int = 8
+    last_dim: int | None = None
+
+    @property
+    def nbytes(self) -> int:
+        return (self.q.numel() * self.q.element_size()
+                + self.scale.numel() * self.scale.element_size())
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        d = self.q.shape[-1] if self.last_dim is None else self.last_dim
+        return (*self.q.shape[:-1], d)
+
+
+def is_qarray(x) -> bool:
+    return isinstance(x, QArray)
+
+
+def _leaves(tree):
+    """Tensors and QArrays of a tree of dicts, lists and tuples.  Other
+    objects (a prestacked ``GroupBundle``: a copy of its members) are not
+    walked."""
+    if isinstance(tree, (torch.Tensor, QArray)):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def tree_is_quantized(tree) -> bool:
+    """True if any leaf of ``tree`` is a QArray."""
+    return any(is_qarray(leaf) for leaf in _leaves(tree))
+
+
+def tree_nbytes(tree) -> int:
+    """Total bytes of all leaves (a QArray counts q + scale)."""
+    return sum(leaf.nbytes if is_qarray(leaf)
+               else leaf.numel() * leaf.element_size()
+               for leaf in _leaves(tree))
+
+
+def _check_bits(bits: int) -> int:
+    if bits == 4:
+        raise NotImplementedError(INT4_TODO)
+    if bits not in _QMAX:
+        raise ValueError(f"bits must be 8 (or 4, not ported yet), got {bits}")
+    return _QMAX[bits]
+
+
+def quantize(x: torch.Tensor, *, bits: int = 8,
+             block_axes: tuple[int, ...] | None = None,
+             scale_dtype=torch.float32) -> QArray:
+    """Per-block symmetric quantization.  One scale per block, where a block
+    is the slice spanned by ``block_axes`` (None = one scale per tensor)."""
+    qmax = _check_bits(bits)
+    xf = x.float()
+    dims = tuple(range(x.ndim)) if block_axes is None else tuple(block_axes)
+    amax = xf.abs().amax(dim=dims, keepdim=True)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, qmax),
+                        torch.ones_like(amax))
+    v = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
+    return QArray(q=v, scale=scale.to(scale_dtype), bits=bits,
+                  last_dim=x.shape[-1])
+
+
+def int_values(qa: QArray) -> torch.Tensor:
+    """The int8 codes."""
+    _check_bits(qa.bits)
+    return qa.q
+
+
+def dequantize(qa: QArray, dtype=None) -> torch.Tensor:
+    y = int_values(qa).float() * qa.scale.float()
+    return y if dtype is None else y.to(dtype)
+
+
+def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token activation codes (the A8 half of W8A8): x (..., D) → int8
+    codes (..., D) and fp32 per-row scales (..., 1).  A zero row gets scale
+    1 and zero codes."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_act(q: torch.Tensor, scale: torch.Tensor,
+                   dtype=None) -> torch.Tensor:
+    y = q.float() * scale.float()
+    return y if dtype is None else y.to(dtype)
+
+
+_WEIGHT_MODES = ("none", "int8", "int4")
+_CACHE_MODES = ("none", "int8")
+_ACT_MODES = ("none", "int8")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """What gets quantized at serving time.
+
+    weights:     structured-linear and embedding storage
+                 ("none"|"int8"|"int4"; int4 raises where it is used)
+    cache:       KV caches ("none"|"int8"; int8 raises where it is used)
+    activations: per-token int8 layer inputs feeding the integer (W8A8)
+                 kernels ("none"|"int8"); requires quantized weights
+    """
+
+    weights: str = "none"
+    cache: str = "none"
+    activations: str = "none"
+
+    def __post_init__(self):
+        if self.weights not in _WEIGHT_MODES:
+            raise ValueError(f"quant.weights must be one of {_WEIGHT_MODES}")
+        if self.cache not in _CACHE_MODES:
+            raise ValueError(f"quant.cache must be one of {_CACHE_MODES}")
+        if self.activations not in _ACT_MODES:
+            raise ValueError(
+                f"quant.activations must be one of {_ACT_MODES}")
+        if self.activations != "none" and self.weights == "none":
+            raise ValueError(
+                "quant.activations requires quantized weights "
+                "(set quant.weights to int8 or int4)")
+
+    @property
+    def weight_bits(self) -> int | None:
+        return {"none": None, "int8": 8, "int4": 4}[self.weights]
+
+    @property
+    def act_bits(self) -> int | None:
+        return {"none": None, "int8": 8}[self.activations]
+
+    @property
+    def enabled(self) -> bool:
+        return (self.weights != "none" or self.cache != "none"
+                or self.activations != "none")

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.quant.qarray import QuantConfig
+
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
@@ -27,4 +29,7 @@ class MemoryConfig:
 class EngineConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     memory: MemoryConfig = dataclasses.field(default_factory=MemoryConfig)
+    # overrides the model's ``cfg.quant`` when given: weights are quantized
+    # at load, and ``activations="int8"`` runs every step in W8A8 mode
+    quant: QuantConfig | None = None
     prestack: bool = True

@@ -8,8 +8,14 @@ prompt tokens, slots in generation exactly one token.  The chunk width C is
 bucketed to a power of two.  A finished slot is reset and recycled for the
 next queued request at once.
 
-Not ported yet: the paged cache, speculation, resilience, async streaming
-and temperature sampling (``temperature > 0`` raises).
+Quantized serving: ``EngineConfig.quant`` (or the model's ``cfg.quant``)
+quantizes float weights at load, before the pre-stack, and selects the
+activation mode.  The reference sets that mode process-wide at engine build;
+here each engine scopes it to its own steps, so engines of different modes
+can live in one process.
+
+Not ported yet: the paged cache, speculation, resilience, async streaming,
+temperature sampling (``temperature > 0`` raises) and int8 caches.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import structures
+from repro_torch.quant import qarray as qt
 from repro_torch.serve.config import EngineConfig, SamplingParams
 
 
@@ -66,6 +74,12 @@ class Engine:
         self.device = dev
         self.config = config = config or EngineConfig()
         sch, mem = config.scheduler, config.memory
+        qcfg = config.quant if config.quant is not None else model.cfg.quant
+        if qcfg.cache != "none":
+            raise NotImplementedError(qt.CACHE_TODO)
+        if qcfg.weight_bits is not None and not qt.tree_is_quantized(params):
+            params = model.quantize_params(params, qcfg)
+        self.act_mode = qcfg.activations
         self.model = model
         self.B = sch.slots
         self.max_len = mem.max_len
@@ -226,8 +240,9 @@ class Engine:
                 tokens[b, 0] = slot.req.output[-1]
                 sampling[b] = True
         t0 = time.perf_counter()
-        logits, self.cache = self._step(
-            self.params, self.cache, torch.from_numpy(tokens), steps, n)
+        with structures.activations(self.act_mode):
+            logits, self.cache = self._step(
+                self.params, self.cache, torch.from_numpy(tokens), steps, n)
         # logits (B, 1, V): the head ran on each row's last live column only
         greedy = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()  # syncs
         dt = time.perf_counter() - t0

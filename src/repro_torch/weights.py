@@ -3,9 +3,12 @@
 ``from_jax_params(model, tree)`` takes the tree of ``repro.models.LM.init``
 as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
 port's params: the leading layer axis of ``params["cycles"]`` is unstacked
-into a list of per-layer dicts, every leaf is cast to the model's dtype and
-moved to its device, and a key the port does not know (an untied head, a
-prestacked ``_bundle_in``, another mixer's leaves, …) raises.
+into a list of per-layer dicts, every float leaf is cast to the model's
+dtype and moved to its device, and a key the port does not know (an untied
+head, a prestacked ``_bundle_in``, another mixer's leaves, …) raises.  A
+quantized leaf — the reference's ``QArray`` (any object with ``q`` and
+``scale``) or the ``{"q", "scale"}`` pair a checkpoint stores for it —
+becomes the port's ``QArray``: int8 codes stay int8, scales stay fp32.
 
 ``load_store(directory)`` reads a ``repro/checkpoint/store.py::save``
 directory (``manifest.json`` plus one ``.npy`` per '/'-joined leaf; bf16
@@ -14,11 +17,14 @@ stored as a ``u2`` view) into that same numpy tree, with numpy alone.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
 import numpy as np
 import torch
+
+from repro_torch.quant import qarray as qt
 
 _BLAST = ("U", "S", "V")
 _LAYER_KEYS = {
@@ -41,7 +47,8 @@ def _check_keys(tree: dict, allowed, where: str) -> None:
 
 
 def from_jax_params(model, tree: dict) -> dict:
-    """Reference ``LM.init`` tree (numpy leaves) → the port's params."""
+    """Reference ``LM.init`` tree (numpy leaves, float or quantized) → the
+    port's params."""
     _check_keys(tree, ("embed", "final_norm", "cycles"), "params")
     _check_keys(tree["final_norm"], ("scale",), "params/final_norm")
     _check_keys(tree["cycles"], ("blk_0",), "params/cycles")
@@ -54,6 +61,30 @@ def from_jax_params(model, tree: dict) -> dict:
             raise ValueError(f"expected a float leaf, got {arr.dtype}")
         return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
             device=dev, dtype=dt)
+
+    def conv_leaf(a):
+        """A float leaf → tensor; a quantized leaf → QArray."""
+        if isinstance(a, dict) and set(a) == {"q", "scale"}:
+            q, scale, bits = a["q"], a["scale"], None
+        elif hasattr(a, "q") and hasattr(a, "scale"):
+            q, scale, bits = a.q, a.scale, getattr(a, "bits", None)
+        else:
+            return conv(a)
+        q = np.array(q)         # a writable copy
+        if bits == 4 or q.dtype == np.uint8:
+            raise NotImplementedError(qt.INT4_TODO)
+        if q.dtype != np.int8 or bits not in (None, 8):
+            raise ValueError(f"expected int8 codes, got {q.dtype} (bits {bits})")
+        return qt.QArray(q=torch.from_numpy(q).to(dev),
+                         scale=torch.from_numpy(
+                             np.array(scale, dtype=np.float32)).to(dev),
+                         bits=8, last_dim=q.shape[-1])
+
+    def layer(leaf, i):
+        if qt.is_qarray(leaf):
+            return dataclasses.replace(leaf, q=leaf.q[i].contiguous(),
+                                       scale=leaf.scale[i].contiguous())
+        return leaf[i].contiguous()
 
     blk = tree["cycles"]["blk_0"]
     _check_keys(blk, _LAYER_KEYS, "params/cycles/blk_0")
@@ -69,15 +100,15 @@ def from_jax_params(model, tree: dict) -> dict:
                 continue
             _check_keys(sub[name], leaves, f"params/cycles/blk_0/{group}/{name}")
             for leaf in leaves:
-                stacked = conv(sub[name][leaf])
+                stacked = conv_leaf(sub[name][leaf])
                 if stacked.shape[0] != len(layers):
                     raise ValueError(f"{group}/{name}/{leaf} stacks "
                                      f"{stacked.shape[0]} layers, model has "
                                      f"{len(layers)}")
                 for i, lp in enumerate(layers):
                     lp.setdefault(group, {}).setdefault(name, {})[leaf] = (
-                        stacked[i].contiguous())
-    return {"embed": conv(tree["embed"]),
+                        layer(stacked, i))
+    return {"embed": conv_leaf(tree["embed"]),
             "final_norm": {"scale": conv(tree["final_norm"]["scale"])},
             "layers": layers}
 

@@ -131,6 +131,9 @@ def test_cpu_path_counts_no_launches():
     k = torch.zeros((1, 1, 4, 8))
     ops.flash_attention_prefill(q, k, k, torch.zeros(1, dtype=torch.int32))
     assert ops.launches == {"blast_matmul": 0, "blast_matmul_grouped": 0,
+                            "blast_matmul_q": 0, "blast_matmul_grouped_q": 0,
+                            "blast_matmul_w8a8": 0,
+                            "blast_matmul_grouped_w8a8": 0,
                             "flash_attention_prefill": 0}
 
 

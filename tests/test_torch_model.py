@@ -20,7 +20,7 @@ from repro.checkpoint import store
 from repro.models import layers as JL
 from repro.models import ops as jops
 
-from repro_torch import configs, weights
+from repro_torch import configs, quant, weights
 from repro_torch.core import structures
 from repro_torch.kernels import ref
 from repro_torch.models import build_model
@@ -233,11 +233,19 @@ def test_load_store_gives_the_same_logits(pair, tmp_path):
 
 
 def test_int_storage_raises():
+    """int4 storage belongs to the next slice: it raises, naming its ROADMAP
+    item.  So do a mix of storages and a bare integer tensor."""
     cfg = dataclasses.replace(configs.get("smollm-135m").reduced(), n_layers=1)
     model = build_model(cfg, device="cpu")
-    params = model.init(0)
-    qkv = params["layers"][0]["mixer"]["qkv"]
-    qkv["U"] = qkv["U"].to(torch.int8)
-    with pytest.raises(NotImplementedError, match="A9"):
-        model.prefill_chunk(params, model.init_cache(1, 4),
-                            torch.zeros((1, 1), dtype=torch.int64), [0], [1])
+    toks = torch.zeros((1, 1), dtype=torch.int64)
+    for leaf, error, match in (
+            (quant.QArray(torch.zeros((4, 32, 10), dtype=torch.uint8),
+                          torch.ones((4, 1, 1)), bits=4, last_dim=19),
+             NotImplementedError, "B7"),
+            (quant.quantize(torch.ones((4, 32, 19)), block_axes=(1, 2)),
+             NotImplementedError, "mixed storage"),
+            (torch.zeros((4, 32, 19), dtype=torch.int8), TypeError, "QArray")):
+        params = model.init(0)
+        params["layers"][0]["mixer"]["qkv"]["U"] = leaf
+        with pytest.raises(error, match=match):
+            model.prefill_chunk(params, model.init_cache(1, 4), toks, [0], [1])
