@@ -11,20 +11,23 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 2. build — nvcc builds every kernel under ``src/repro_torch/kernels/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the full-width smollm-135m shapes, T = 8 and 256, fp32 and bf16, max
-   error vs tolerance: the float BLAST kernels, the int8-weight kernels and
-   the W8A8 kernels (the W8A8 kernel and its plain version get the same
-   activation codes), and prefill attention.
+   error vs tolerance: the float BLAST kernels, the int8- and int4-weight
+   kernels, the W8A8 and W4A8 kernels (each kernel and its plain version
+   get the same activation codes), and prefill attention.
 4. reference — the full-width model (fp32, depth cut to 2 layers) on the
    card through the kernels against the same model on the CPU through the
    plain versions, over ragged multi-chunk steps, in each serving mode:
-   float, int8 weights, and W8A8.
+   float, int8 weights, W8A8, int4 weights and W4A8; every quantized
+   weight's codes (int4: packed bytes) and scales equal on both.  With
+   int8 activations the gated run shares the card's activation codes with
+   the CPU, after checking that the two differ only by boundary flips.
 5. serve — full-width smollm-135m (30 layers, vocab 49152, bf16, seeded
    random weights) served by the engine in each mode (weights quantized at
    load): 16 prompts of 16-200 tokens, 32 new tokens each; each mode's own
    kernels' launch counters must equal steps × (90, 30, 30) and the others
-   stay 0.  Then, for float and W8A8, six steady decode steps (8 slots)
-   under torch.profiler: device busy and idle share per step, kernel time
-   by name.
+   stay 0.  Then, in each mode, six steady decode steps (8 slots) under
+   torch.profiler: device busy and idle share per step, kernel time by
+   name.
 6. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each run: kernel, plain version and one PyTorch library
    call (a yardstick only; the port never calls it), at decode and prefill
@@ -59,7 +62,18 @@ DEVICE = "cuda"
 MODES = {"none": (("none", "none"), ("blast_matmul", "blast_matmul_grouped")),
          "int8": (("int8", "none"), ("blast_matmul_q", "blast_matmul_grouped_q")),
          "w8a8": (("int8", "int8"),
-                  ("blast_matmul_w8a8", "blast_matmul_grouped_w8a8"))}
+                  ("blast_matmul_w8a8", "blast_matmul_grouped_w8a8")),
+         "int4": (("int4", "none"),
+                  ("blast_matmul_q4", "blast_matmul_grouped_q4")),
+         "w4a8": (("int4", "int8"),
+                  ("blast_matmul_w4a8", "blast_matmul_grouped_w4a8"))}
+QUANT_MODES = ("int8", "w8a8", "int4", "w4a8")
+
+
+def mode_bits_act(mode) -> tuple[int | None, str]:
+    """(weight bits, activation mode) of a serving mode."""
+    weights, act = MODES[mode][0]
+    return {"none": None, "int8": 8, "int4": 4}[weights], act
 
 
 def emit(obj) -> None:
@@ -120,47 +134,55 @@ def make_blast_inputs(n, m, b, r, G, T, dtype, gen, device):
     return x, U, S, V
 
 
-def quantize_factors(U, S, V):
-    """Per-block int8 codes (G, b, ·, r) and scales su/sv (G, b), ss
-    (G, b, b) of stacked float factors, as the model quantizes them."""
+def quantize_factors(U, S, V, bits=8):
+    """Per-block codes (G, b, ·, r) — int4: nibble-packed (G, b, ·, ⌈r/2⌉)
+    — and scales su/sv (G, b), ss (G, b, b) of stacked float factors, as
+    the model quantizes them."""
     import torch
     from repro_torch import quant
     G, b = U.shape[:2]
     codes, scales = [], []
     for a, axes, shape in ((U, (1, 2), (b,)), (S, (2,), (b, b)),
                            (V, (1, 2), (b,))):
-        qa = [quant.quantize(a[g].float(), block_axes=axes) for g in range(G)]
+        qa = [quant.quantize(a[g].float(), bits=bits, block_axes=axes)
+              for g in range(G)]
         codes.append(torch.stack([x.q for x in qa]))
         scales.append(torch.stack([x.scale.reshape(shape) for x in qa]))
     return codes, scales
 
 
-def quant_calls(mode, x, codes, scales):
-    """(kernel name, kernel call, plain call) of one int8 (mode "int8") or
-    W8A8 (mode "w8a8") BLAST launch; G = 1 goes through ``blast_matmul_q``
-    with QArray factors, as the model calls it."""
+def quant_calls(mode, x, codes, scales, r):
+    """(kernel name, kernel call, plain call) of one BLAST launch in a
+    quantized mode (int8 / W8A8 on int8 codes, int4 / W4A8 on packed codes
+    of logical rank r); G = 1 goes through ``blast_matmul_q`` with QArray
+    factors, as the model calls it."""
     from repro_torch import quant
     from repro_torch.kernels import ops, ref
-    act = "int8" if mode == "w8a8" else "none"
-    (U8, S8, V8), (su, ss, sv) = codes, scales
-    G, b = U8.shape[:2]
+    bits, act = mode_bits_act(mode)
+    (Uc, Sc, Vc), (su, ss, sv) = codes, scales
+    G, b = Uc.shape[:2]
     kname = MODES[mode][1][G > 1]
     if G == 1:
-        fac = [quant.QArray(c[0], s_.reshape(shape), last_dim=c.shape[-1])
-               for c, s_, shape in ((U8, su, (b, 1, 1)), (S8, ss, (b, b, 1)),
-                                    (V8, sv, (b, 1, 1)))]
+        fac = [quant.QArray(c[0], s_.reshape(shape), bits=bits, last_dim=r)
+               for c, s_, shape in ((Uc, su, (b, 1, 1)), (Sc, ss, (b, b, 1)),
+                                    (Vc, sv, (b, 1, 1)))]
         kern = lambda: ops.blast_matmul_q(x, *fac, act=act)[None]  # noqa: E731
     else:
-        kern = lambda: ops.blast_matmul_grouped_q(  # noqa: E731
-            x, U8, S8, V8, su, ss, sv, act=act)
+        grouped = (ops.blast_matmul_grouped_q4 if bits == 4
+                   else ops.blast_matmul_grouped_q)
+        kern = lambda: grouped(  # noqa: E731
+            x, Uc, Sc, Vc, su, ss, sv, act=act)
     if act == "int8":
+        plain_a8 = (ref.blast_matmul_grouped_a4_ref if bits == 4
+                    else ref.blast_matmul_grouped_a8_ref)
+
         def plain():
             xq, sx = quant.quantize_act(x)        # the wrapper's prologue
-            return ref.blast_matmul_grouped_a8_ref(
-                xq, sx, U8, S8, V8, su, ss, sv).to(x.dtype)
+            return plain_a8(xq, sx, Uc, Sc, Vc, su, ss, sv).to(x.dtype)
     else:
-        plain = lambda: ref.blast_matmul_grouped_q_ref(  # noqa: E731
-            x, U8, S8, V8, su, ss, sv)
+        plain_q = (ref.blast_matmul_grouped_q4_ref if bits == 4
+                   else ref.blast_matmul_grouped_q_ref)
+        plain = lambda: plain_q(x, Uc, Sc, Vc, su, ss, sv)  # noqa: E731
     return kname, kern, plain
 
 
@@ -180,17 +202,21 @@ def make_attn_inputs(B, Hq, Hkv, C, S, D, dtype, gen, device):
 def blast_cost(n, m, b, r, G, T, elt, mode="none"):
     """(bytes, {dtype: operations}) of one BLAST call taking x of ``elt``
     bytes and writing y of that type: every input read once, the output
-    written once.  Quantized factors are 1-byte codes plus fp32 scales
-    (2b + b² per set); W8A8's stage 1 runs at the int8 rate."""
+    written once.  Quantized factors are 1-byte int8 codes or ⌈r/2⌉ bytes
+    of packed int4 per factor row, plus fp32 scales (2b + b² per set);
+    the W8A8 and W4A8 stage 1 runs at the int8 rate."""
     p, q = m // b, n // b
-    factors = G * (b * p * r + b * b * r + b * q * r)
-    if mode == "none":
-        bytes_ = (T * n + factors + G * T * m) * elt
+    rows = G * b * (p + b + q)            # factor rows of r ranks each
+    bits, act = mode_bits_act(mode)
+    if bits is None:
+        bytes_ = (T * n + rows * r + G * T * m) * elt
     else:
-        bytes_ = (T * n + G * T * m) * elt + factors + G * (2 * b + b * b) * 4
+        row_bytes = (r + 1) // 2 if bits == 4 else r
+        bytes_ = ((T * n + G * T * m) * elt + rows * row_bytes
+                  + G * (2 * b + b * b) * 4)
     stage1 = 2 * G * T * n * r
     rest = 2 * G * T * (m * r + b * b * r)
-    if mode == "w8a8":
+    if act == "int8":
         return bytes_, {"int8": stage1, "bfloat16": rest}
     return bytes_, {"bfloat16": stage1 + rest}
 
@@ -256,6 +282,34 @@ def phase_device():
     return dev, smi
 
 
+def ptxas_usage(log: str) -> list[dict]:
+    """Registers and spill bytes of each kernel from ptxas' ``-v`` report."""
+    import re
+    import shutil
+    out, name, spill = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append({"kernel": name, "registers": int(m.group(1)),
+                        "spill_store_bytes": spill})
+            name = None
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            u["kernel"] for u in out), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        for u, n in zip(out, names):
+            u["kernel"] = n.replace("(anonymous namespace)::",
+                                    "").split("(")[0]
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import blast_matmul, build, flash_attention
     t0 = time.perf_counter()
@@ -264,7 +318,8 @@ def phase_build():
     flash_attention._lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.build_seconds,
-          "libraries": {k: str(v.relative_to(ROOT)) for k, v in paths.items()}})
+          "libraries": {k: str(v.relative_to(ROOT)) for k, v in paths.items()},
+          "ptxas": {k: ptxas_usage(log) for k, log in build.build_logs.items()}})
 
 
 def phase_kernels(cfg):
@@ -278,7 +333,8 @@ def phase_kernels(cfg):
             for T in (8, 256):
                 x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dtype, gen,
                                                DEVICE)
-                codes, scales = quantize_factors(U, S, V)
+                packed = {8: quantize_factors(U, S, V),
+                          4: quantize_factors(U, S, V, bits=4)}
                 if G == 1:
                     calls = [("blast_matmul",
                               lambda: ops.blast_matmul(x, U[0], S[0], V[0]),
@@ -289,8 +345,9 @@ def phase_kernels(cfg):
                               lambda: ops.blast_matmul_grouped(x, U, S, V),
                               lambda: ref.blast_matmul_grouped_ref(x, U, S,
                                                                    V))]
-                calls += [quant_calls(mode, x, codes, scales)
-                          for mode in ("int8", "w8a8")]
+                calls += [quant_calls(mode, x,
+                                      *packed[mode_bits_act(mode)[0]], r)
+                          for mode in QUANT_MODES]
                 for kname, kern, plain in calls:
                     got, want = kern(), plain()
                     torch.cuda.synchronize()
@@ -324,20 +381,109 @@ def qarrays(tree):
     return [qa for v in items for qa in qarrays(v)]
 
 
+class SharedActCodes:
+    """While active, ``quantize_act`` (the int8-activation prologue of the
+    BLAST wrappers) records each call's codes on the card, and the CPU run
+    that follows takes the card's codes and scales call by call — after
+    checking that its own differ from them only by boundary flips: every
+    scale within 1e-5 relative, every code within one step, and at each
+    differing code the two scaled inputs within 1e-3 of a step of each
+    other (so they straddle a rounding boundary).  A fp32 summation-order
+    difference of ~1e-7 upstream flips such a code and moves its row's
+    logits by about 1% of their scale; sharing the codes keeps one flip
+    from hiding, or being taken for, a fault elsewhere on the path."""
+
+    def __init__(self):
+        self.card: list = []
+        self.recording = True     # True: the card's run; False: the CPU's
+        self.calls = self.elements = self.flips = 0
+
+    def __enter__(self):
+        from repro_torch.quant import qarray as qt
+        self.real = real = qt.quantize_act
+
+        def shared(x):
+            xq, sx = real(x)
+            if self.recording:
+                self.card.append((x, xq, sx))
+                return xq, sx
+            xg, qg, sg = (t.cpu() for t in self.card.pop(0))
+            self.check(x, xq, sx, xg, qg, sg)
+            return qg, sg
+
+        qt.quantize_act = shared
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.quant import qarray as qt
+        qt.quantize_act = self.real
+        if exc[0] is None and self.card:
+            raise RuntimeError(f"{len(self.card)} card quantize_act calls had "
+                               "no CPU counterpart")
+
+    def check(self, x, xq, sx, xg, qg, sg):
+        step = (qg.int() - xq.int()).abs()
+        flips = step > 0
+        gap = ((xg.float() / sg) - (x.float() / sx)).abs()
+        rel = ((sg - sx).abs() / sx).max()
+        if (qg.shape != xq.shape or step.max() > 1 or rel > 1e-5
+                or (flips.any() and gap[flips].max() > 1e-3)):
+            raise RuntimeError(
+                f"activation codes differ beyond boundary flips: max code "
+                f"step {int(step.max())}, max scale rel diff {float(rel)}, "
+                f"max gap at flips "
+                f"{float(gap[flips].max()) if flips.any() else 0.0}")
+        self.calls += 1
+        self.elements += xq.numel()
+        self.flips += int(flips.sum())
+
+
+def _reference_rows(gpu, cpu, params_gpu, params_cpu, act, shared=None):
+    """Logit row errors and limits, card vs CPU, over three ragged chunks."""
+    import contextlib
+    import torch
+    from repro_torch.core import structures
+    cache_g, cache_c = gpu.init_cache(3, 64), cpu.init_cache(3, 64)
+    rng = torch.Generator().manual_seed(SEED + 1)
+    steps = torch.tensor([0, 0, 0])
+    row_err, row_limit = [], []
+    for n_tok in ([16, 5, 0], [7, 16, 3], [1, 1, 16]):
+        n_tok = torch.tensor(n_tok)
+        toks = torch.randint(0, gpu.cfg.vocab, (3, 16), generator=rng)
+        with structures.activations(act), (shared or contextlib.nullcontext()):
+            if shared:
+                shared.recording = True
+            lg, cache_g = gpu.prefill_chunk(params_gpu, cache_g, toks, steps,
+                                            n_tok)
+            if shared:
+                shared.recording = False
+            lc, cache_c = cpu.prefill_chunk(params_cpu, cache_c, toks, steps,
+                                            n_tok)
+        live = n_tok > 0
+        got, want = lg.float().cpu()[live], lc[live]
+        if not torch.isfinite(got).all():
+            raise RuntimeError("reference: non-finite logits on the card")
+        scale = float(want.abs().max())
+        row_err += (got - want).abs().amax(dim=(1, 2)).tolist()
+        row_limit += [1e-3 + 1e-3 * scale] * int(live.sum())
+        steps = steps + n_tok
+    return torch.tensor(row_err), torch.tensor(row_limit)
+
+
 def phase_reference(cfg, mode):
     """Full-width fp32 model, 2 layers: card (kernels) vs CPU (plain), in
-    one serving mode; the int8 codes and scales must be equal on both.
-    Logits: every live row within 1e-3 abs + 1e-3·max|logit|.  W8A8
-    allows up to a quarter of the rows to reach 20 times that limit
-    (about 2e-2·max|logit|) instead: the two devices feed each per-token activation quantizer the
-    same values only up to summation order, and a value that close to a
-    rounding boundary moves its code by one step; at reduced width one such
-    flip moved its row by 0.65% of the logit scale
-    (tests/test_torch_quant.py).  A wrong scale or layout moves every row
-    by O(1)."""
+    one serving mode; the codes (int4: packed bytes) and scales must be
+    equal on both.  Logits: every live row within 1e-3 abs +
+    1e-3·max|logit|.  With int8 activations the two devices feed each
+    per-token activation quantizer the same values only up to summation
+    order, and a value that close to a rounding boundary moves its code by
+    one step (about 1% of the logit scale); so the gated run shares the
+    card's activation codes with the CPU after checking that the two
+    differ only by such flips (``SharedActCodes``).  The free-running
+    comparison is reported beside it.  A wrong scale or layout moves every
+    row by O(1)."""
     import torch
     from repro_torch import quant
-    from repro_torch.core import structures
     from repro_torch.models import build_model
     (weights, act), _ = MODES[mode]
     qcfg = quant.QuantConfig(weights=weights, activations=act)
@@ -350,44 +496,32 @@ def phase_reference(cfg, mode):
     pairs = list(zip(qarrays(params_gpu), qarrays(params_cpu)))
     if any(not (torch.equal(a.q.cpu(), b_.q)
                 and torch.equal(a.scale.cpu(), b_.scale)) for a, b_ in pairs):
-        raise RuntimeError("reference: int8 codes or scales differ between "
-                           "the card and the CPU")
-    cache_g, cache_c = gpu.init_cache(3, 64), cpu.init_cache(3, 64)
-    rng = torch.Generator().manual_seed(SEED + 1)
-    steps = torch.tensor([0, 0, 0])
-    row_err, row_limit = [], []
-    for n_tok in ([16, 5, 0], [7, 16, 3], [1, 1, 16]):
-        n_tok = torch.tensor(n_tok)
-        toks = torch.randint(0, small.vocab, (3, 16), generator=rng)
-        with structures.activations(act):
-            lg, cache_g = gpu.prefill_chunk(params_gpu, cache_g, toks, steps,
-                                            n_tok)
-            lc, cache_c = cpu.prefill_chunk(params_cpu, cache_c, toks, steps,
-                                            n_tok)
-        live = n_tok > 0
-        got, want = lg.float().cpu()[live], lc[live]
-        if not torch.isfinite(got).all():
-            raise RuntimeError("reference: non-finite logits on the card")
-        scale = float(want.abs().max())
-        row_err += (got - want).abs().amax(dim=(1, 2)).tolist()
-        row_limit += [1e-3 + 1e-3 * scale] * int(live.sum())
-        steps = steps + n_tok
-    err, lim = torch.tensor(row_err), torch.tensor(row_limit)
-    flipped = int((err > lim).sum())
-    ok = (flipped == 0 if mode != "w8a8" else
-          4 * flipped <= len(row_err) and bool((err <= 20 * lim).all()))
+        raise RuntimeError(f"reference[{mode}]: codes or scales differ "
+                           "between the card and the CPU")
+    extra = {}
+    shared = None
+    if act == "int8":
+        free_err, free_lim = _reference_rows(gpu, cpu, params_gpu, params_cpu,
+                                             act)
+        shared = SharedActCodes()
+        extra = {"free_running_max_abs_logit_err": float(free_err.max()),
+                 "free_running_rows_past_limit":
+                     int((free_err > free_lim).sum())}
+    err, lim = _reference_rows(gpu, cpu, params_gpu, params_cpu, act, shared)
+    past = int((err > lim).sum())
+    if shared is not None:
+        extra.update(act_quantize_calls=shared.calls,
+                     act_codes=shared.elements, act_code_flips=shared.flips)
     emit({"phase": "reference", "mode": mode, "layers": 2,
           "d_model": small.d_model, "vocab": small.vocab, "dtype": "float32",
           "chunks": 3, "qarrays_equal": len(pairs),
           "max_abs_logit_err": float(err.max()),
-          "rows": len(row_err), "rows_past_limit": flipped,
-          "limit": "1e-3 + 1e-3*max|logit| per row"
-                   + (" (W8A8: a quarter of the rows may reach 20x)"
-                      if mode == "w8a8" else "")})
-    if not ok:
+          "rows": len(err), "rows_past_limit": past,
+          "limit": "1e-3 + 1e-3*max|logit| per row", **extra})
+    if past:
         raise RuntimeError(f"reference[{mode}]: card logits differ from the "
-                           f"CPU plain path: row errors {row_err}, limits "
-                           f"{row_limit}")
+                           f"CPU plain path: row errors {err.tolist()}, "
+                           f"limits {lim.tolist()}")
 
 
 def serve_config(mode, **kw):
@@ -517,10 +651,11 @@ def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
 
 
 def phase_timing(cfg):
-    """bf16 timings.  ``ms`` times the wrapper the model calls (for W8A8 it
-    includes the per-token quantize prologue; ``launch_only_ms`` times the
-    kernel alone on ready codes).  Library: ``torch.matmul`` on the dense
-    (dequantized) matrix — dense work, not the same operations."""
+    """bf16 timings.  ``ms`` times the wrapper the model calls (for W8A8 and
+    W4A8 it includes the per-token quantize prologue; ``launch_only_ms``
+    times the kernel alone on ready codes).  Library: ``torch.matmul`` on
+    the dense (dequantized) matrix — dense work, not the same
+    operations."""
     import torch
     import torch.nn.functional as F
     from repro_torch import quant
@@ -551,26 +686,34 @@ def phase_timing(cfg):
                 kname, name, T, shape, kern, plain,
                 lambda: torch.matmul(x, dense.T), lib_name,
                 blast_cost(n, m, b, r, G, T, elt), flush))
-            codes, scales = quantize_factors(U, S, V)
-            (U8, S8, V8), (su, ss, sv) = codes, scales
-            deq = [a.float() * s_.reshape(*s_.shape, *(1,) * (a.ndim - s_.ndim))
-                   for a, s_ in ((U8, su), (S8, ss), (V8, sv))]
-            dense_q = torch.cat([blast_lib.to_dense(blast_lib.BlastParams(
-                deq[0][g], deq[1][g], deq[2][g])) for g in range(G)],
-                dim=0).to(dt)
             xq, sx = quant.quantize_act(x)
             r_pad = -(-r // bm.tiles()[1]) * bm.tiles()[1]
-            padded = [ops._pad_last(a, r_pad) for a in codes]
-            for mode in ("int8", "w8a8"):
-                qname, kern, plain = quant_calls(mode, x, codes, scales)
-                extra = {}
-                if mode == "w8a8":
-                    extra["launch_only_ms"] = lambda: bm.launch_w8a8(  # noqa: E731
-                        xq, sx, *padded, su, ss, sv, out_dtype=dt)
-                rows.append(timing_row(
-                    qname, name, T, shape, kern, plain,
-                    lambda: torch.matmul(x, dense_q.T), lib_name,
-                    blast_cost(n, m, b, r, G, T, elt, mode), flush, **extra))
+            for bits in (8, 4):
+                codes, scales = quantize_factors(U, S, V, bits=bits)
+                su, ss, sv = scales
+                ints = [quant.unpack_int4(c, r) if bits == 4 else c
+                        for c in codes]
+                deq = [a.float() * s_.reshape(*s_.shape,
+                                              *(1,) * (a.ndim - s_.ndim))
+                       for a, s_ in zip(ints, scales)]
+                dense_q = torch.cat([blast_lib.to_dense(blast_lib.BlastParams(
+                    deq[0][g], deq[1][g], deq[2][g])) for g in range(G)],
+                    dim=0).to(dt)
+                padded = [ops._pad_last(a, r_pad // 2 if bits == 4 else r_pad)
+                          for a in codes]
+                launch_a8 = bm.launch_w4a8 if bits == 4 else bm.launch_w8a8
+                for mode in (("int8", "w8a8") if bits == 8
+                             else ("int4", "w4a8")):
+                    qname, kern, plain = quant_calls(mode, x, codes, scales, r)
+                    extra = {}
+                    if mode_bits_act(mode)[1] == "int8":
+                        extra["launch_only_ms"] = lambda: launch_a8(  # noqa: E731
+                            xq, sx, *padded, su, ss, sv, out_dtype=dt)
+                    rows.append(timing_row(
+                        qname, name, T, shape, kern, plain,
+                        lambda: torch.matmul(x, dense_q.T), lib_name,
+                        blast_cost(n, m, b, r, G, T, elt, mode), flush,
+                        **extra))
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     for C in (1, 32):
         q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen, DEVICE)
@@ -609,6 +752,16 @@ SOURCES = {   # kernel → (source, TPU kernel it replaces, serving mode)
     "blast_matmul_grouped_w8a8": (_BLAST_CU,
                                   "src/repro/kernels/blast_matmul.py:726",
                                   "w8a8"),
+    "blast_matmul_q4": (_BLAST_CU, "src/repro/kernels/blast_matmul.py:420",
+                        "int4"),
+    "blast_matmul_grouped_q4": (_BLAST_CU,
+                                "src/repro/kernels/blast_matmul.py:528",
+                                "int4"),
+    "blast_matmul_w4a8": (_BLAST_CU, "src/repro/kernels/blast_matmul.py:660",
+                          "w4a8"),
+    "blast_matmul_grouped_w4a8": (_BLAST_CU,
+                                  "src/repro/kernels/blast_matmul.py:748",
+                                  "w4a8"),
     "flash_attention_prefill": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:155", "none"),
@@ -656,7 +809,7 @@ def main() -> int:
     model = build_model(cfg, device=DEVICE)
     params = model.init(SEED)
     launches = {mode: phase_serve(cfg, model, params, mode) for mode in MODES}
-    for mode in ("none", "w8a8"):
+    for mode in MODES:
         phase_profile(model, params, mode)
     del model, params
     rows = phase_timing(cfg)

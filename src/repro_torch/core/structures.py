@@ -9,10 +9,11 @@ applies go through ``kernels/ops.blast_matmul`` (the CUDA kernel on the
 card, its plain version on the CPU).
 
 Quantized storage: ``spec.quantize(params, bits)`` turns the factors into
-per-block int8 ``QArray``s and ``spec.apply_q`` runs them — BLAST through
-``kernels/ops.blast_matmul_q`` (the int8 or, with the activation mode set to
-"int8", the W8A8 kernel), dense as a plain matmul on the codes.  int4 and
-mixed storage raise (``check_storage``).
+per-block int8 or nibble-packed int4 ``QArray``s and ``spec.apply_q`` runs
+them — BLAST through ``kernels/ops.blast_matmul_q`` (the int8 or int4
+kernel or, with the activation mode set to "int8", the W8A8 or W4A8
+kernel), dense as a plain matmul on the codes.  Mixed storage raises
+(``check_storage``).
 """
 
 from __future__ import annotations
@@ -40,24 +41,21 @@ class LinearSpec:
     shapes: dict[str, tuple[int, ...]]
     init: Callable[..., Params]
     apply: Callable[[Params, torch.Tensor], torch.Tensor]
-    quantize: Callable[..., Params]            # params → int8 QArray params
+    quantize: Callable[..., Params]            # params → QArray params
     apply_q: Callable[[Params, torch.Tensor], torch.Tensor]
     meta: dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def check_storage(params: Params) -> str:
     """The storage of one linear's params (the reference's ``_storage``):
-    'float' or 'int8'.  The bias, always float, does not count.  int4
-    belongs to the next slice and raises, as do a mix of storages and an
-    integer tensor without scales."""
+    'float', 'int8' or 'int4'.  The bias, always float, does not count.  A
+    mix of storages and an integer tensor without scales raise."""
     kinds = set()
     for k, v in params.items():
         if k == "bias":
             continue
         if qt.is_qarray(v):
-            if v.bits == 4:
-                raise NotImplementedError(qt.INT4_TODO)
-            kinds.add("int8")
+            kinds.add(f"int{v.bits}")
         elif v.is_floating_point():
             kinds.add("float")
         else:
@@ -66,7 +64,7 @@ def check_storage(params: Params) -> str:
     if len(kinds) > 1:
         raise NotImplementedError(
             f"mixed storage {sorted(k for k in params if k != 'bias')}: a "
-            "linear's factors are all float or all int8")
+            "linear's factors are all float, all int8 or all int4")
     return kinds.pop() if kinds else "float"
 
 
@@ -160,8 +158,8 @@ _ACT_MODE = ["none"]   # activation storage of quantized applies
 
 def set_activations(mode: str) -> None:
     """Select the activation storage of quantized BLAST applies ("none":
-    float activations, the int8-weight kernels; "int8": per-token codes, the
-    W8A8 kernels).  Process-wide as in the reference; the engine scopes it
+    float activations, the int8- or int4-weight kernels; "int8": per-token
+    codes, the W8A8 or W4A8 kernels).  Process-wide as in the reference; the engine scopes it
     to its own steps with ``activations``."""
     if mode not in ("none", "int8"):
         raise ValueError(f"activation mode must be 'none'|'int8', got {mode}")
@@ -200,11 +198,11 @@ def reset_dispatch_count() -> None:
 def group_plan(specs: Sequence[LinearSpec],
                params_list: Sequence[Params]) -> dict | None:
     """Can these same-input linears run as one grouped launch?  Eligible: ≥2
-    BLAST members with the same d_in, block count b and storage (all float
-    or all int8); d_out and rank may differ (zero-padded to the group max,
-    which is exact).  Other bundles return None → the caller loops per
-    projection (the grouped dense and block-diagonal paths of the reference
-    are not on this slice)."""
+    BLAST members with the same d_in, block count b and storage (all float,
+    all int8 or all int4); d_out and rank may differ (zero-padded to the
+    group max, which is exact).  Other bundles return None → the caller
+    loops per projection (the grouped dense and block-diagonal paths of the
+    reference are not on this slice)."""
     if len(specs) < 2:
         return None
     storages = {check_storage(p) for p in params_list}
@@ -216,7 +214,8 @@ def group_plan(specs: Sequence[LinearSpec],
     return {"kind": "blast", "storage": storages.pop(), "d_in": specs[0].d_in,
             "d_outs": [s.d_out for s in specs], "b": b,
             "p": max(s.d_out // b for s in specs),
-            # rank from the factor arrays, not the spec
+            # rank from the factor arrays, not the spec (a QArray's shape
+            # is logical: ranks, not packed bytes)
             "r": max(int(p["U"].shape[-1]) for p in params_list)}
 
 
@@ -245,18 +244,27 @@ def _split_group(y: torch.Tensor, plan: dict, lead: tuple[int, ...],
 
 def _stack_group(params_list: Sequence[Params], plan: dict) -> Params:
     """Pad each member's factors (int8: codes) to (b, width, r̂) and stack
-    over G; int8 bundles also stack their scales su/sv (G, b), ss (G, b, b)."""
+    over G; quantized bundles also stack their scales su/sv (G, b), ss
+    (G, b, b).  int4 members stack *packed*: the byte axis pads to
+    ⌈r̂/2⌉ with zero bytes (two zero codes each), so the grouped int4
+    kernel reads them as they are stored."""
     b, p_hat, r_hat = plan["b"], plan["p"], plan["r"]
     q = plan["d_in"] // b
+    packed = plan["storage"] == "int4"
+    r_tgt = (r_hat + 1) // 2 if packed else r_hat
+
+    def codes(a):
+        if not qt.is_qarray(a):
+            return a
+        return a.q if packed else qt.int_values(a)
 
     def stack(name: str, width: int):
-        return torch.stack([
-            _pad_to(_pad_to(qt.int_values(pp[name]) if qt.is_qarray(pp[name])
-                            else pp[name], 2, r_hat), 1, width)
-            for pp in params_list]).contiguous()
+        return torch.stack([_pad_to(_pad_to(codes(pp[name]), 2, r_tgt), 1,
+                                    width)
+                            for pp in params_list]).contiguous()
 
     out = {"U": stack("U", p_hat), "S": stack("S", b), "V": stack("V", q)}
-    if plan["storage"] == "int8":
+    if plan["storage"] in ("int8", "int4"):
         for key, name, shape in (("su", "U", (b,)), ("ss", "S", (b, b)),
                                  ("sv", "V", (b,))):
             out[key] = torch.stack([pp[name].scale.reshape(shape)
@@ -285,9 +293,10 @@ def group_apply(specs: Sequence[LinearSpec], params_list: Sequence[Params],
                 x: torch.Tensor, *, plan: dict | None = None,
                 stacked: Params | None = None) -> list[torch.Tensor]:
     """Apply G congruent same-input BLAST linears as ONE grouped kernel
-    launch (``kernels/ops.blast_matmul_grouped``, or for int8 bundles
-    ``blast_matmul_grouped_q`` in the current activation mode).  Counts one
-    dispatch."""
+    launch (``kernels/ops.blast_matmul_grouped``; for int8 bundles
+    ``blast_matmul_grouped_q`` and for int4 bundles
+    ``blast_matmul_grouped_q4``, both in the current activation mode).
+    Counts one dispatch."""
     if plan is None:
         plan = group_plan(specs, params_list)
     if plan is None:
@@ -295,10 +304,11 @@ def group_apply(specs: Sequence[LinearSpec], params_list: Sequence[Params],
     record_dispatch(1)
     st = stacked if stacked is not None else _stack_group(params_list, plan)
     lead = x.shape[:-1]
-    if plan["storage"] == "int8":
-        y = kops.blast_matmul_grouped_q(x, st["U"], st["S"], st["V"], st["su"],
-                                        st["ss"], st["sv"],
-                                        act=activations_mode())
+    if plan["storage"] in ("int8", "int4"):
+        grouped = (kops.blast_matmul_grouped_q4 if plan["storage"] == "int4"
+                   else kops.blast_matmul_grouped_q)
+        y = grouped(x, st["U"], st["S"], st["V"], st["su"], st["ss"],
+                    st["sv"], act=activations_mode())
     else:
         y = kops.blast_matmul_grouped(x, st["U"], st["S"], st["V"])
     return _split_group(y, plan, lead, x.dtype)

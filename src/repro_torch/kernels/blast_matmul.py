@@ -9,7 +9,10 @@ return y (G, T, m):
 - ``launch_q``: int8 factor codes with fp32 scales su (G, b), ss (G, b, b),
   sv (G, b), x fp32 or bf16; y has x's type;
 - ``launch_w8a8``: int8 activation codes xq (T, n) with fp32 scales sx
-  (T, 1) against int8 factor codes; y has ``out_dtype``.
+  (T, 1) against int8 factor codes; y has ``out_dtype``;
+- ``launch_q4`` / ``launch_w4a8``: as ``launch_q`` / ``launch_w8a8`` with
+  nibble-packed int4 factor codes, uint8 (G, b, ·, r/2): the kernel reads
+  them packed and takes the logical rank r = 2 × bytes.
 
 Callers go through ``kernels/ops.py``, which flattens, pads, quantizes the
 activations and counts launches.
@@ -22,7 +25,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import (blast_matmul_grouped_a8_ref,
+from repro_torch.kernels.ref import (blast_matmul_grouped_a4_ref,
+                                     blast_matmul_grouped_a8_ref,
+                                     blast_matmul_grouped_q4_ref,
                                      blast_matmul_grouped_q_ref,
                                      blast_matmul_grouped_ref,
                                      blast_matmul_ref)
@@ -31,6 +36,8 @@ plain = blast_matmul_ref
 plain_grouped = blast_matmul_grouped_ref
 plain_grouped_q = blast_matmul_grouped_q_ref
 plain_grouped_a8 = blast_matmul_grouped_a8_ref
+plain_grouped_q4 = blast_matmul_grouped_q4_ref
+plain_grouped_a4 = blast_matmul_grouped_a4_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -40,10 +47,15 @@ _ARGTYPES = {
     "blast_matmul_q_bf16": [_P] * 8 + [_I] * 6 + [_P],
     "blast_matmul_w8a8_f32": [_P] * 9 + [_I] * 6 + [_P],
     "blast_matmul_w8a8_bf16": [_P] * 9 + [_I] * 6 + [_P],
+    "blast_matmul_q4_f32": [_P] * 8 + [_I] * 6 + [_P],
+    "blast_matmul_q4_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "blast_matmul_w4a8_f32": [_P] * 9 + [_I] * 6 + [_P],
+    "blast_matmul_w4a8_bf16": [_P] * 9 + [_I] * 6 + [_P],
     "blast_matmul_tile_t": [],
     "blast_matmul_tile_r": [],
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_CODES = {8: torch.int8, 4: torch.uint8}    # factor storage by bits
 _LIB: list = []
 
 
@@ -65,9 +77,10 @@ def tiles() -> tuple[int, int]:
 
 
 def _check(x, U, S, V, factor_dtype, scales=()) -> tuple[int, ...]:
-    """Validate the kernel's layout; returns (T, G, b, p, q, r)."""
+    """Validate the kernel's layout; returns (T, G, b, p, q, r) with r the
+    logical rank (twice the row bytes for packed uint8 factors)."""
     T, n = x.shape
-    G, b, p, r = U.shape
+    G, b, p, rb = U.shape
     q = V.shape[2]
     if x.device.type != "cuda":
         raise ValueError("blast_matmul kernel needs CUDA tensors")
@@ -83,7 +96,7 @@ def _check(x, U, S, V, factor_dtype, scales=()) -> tuple[int, ...]:
                             f"{a.dtype} on {a.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if S.shape != (G, b, b, r) or V.shape != (G, b, q, r) or n != b * q:
+    if S.shape != (G, b, b, rb) or V.shape != (G, b, q, rb) or n != b * q:
         raise ValueError(f"inconsistent shapes x {tuple(x.shape)}, U "
                          f"{tuple(U.shape)}, S {tuple(S.shape)}, V "
                          f"{tuple(V.shape)}")
@@ -92,6 +105,7 @@ def _check(x, U, S, V, factor_dtype, scales=()) -> tuple[int, ...]:
         if tuple(a.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, want "
                              f"{want[name]}")
+    r = 2 * rb if factor_dtype == torch.uint8 else rb
     if r % tiles()[1]:
         raise ValueError(f"rank {r} is not a multiple of the rank tile "
                          f"{tiles()[1]} (ops.py pads it)")
@@ -116,32 +130,57 @@ def launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
                 (T, G, b, p, q, r), y)
 
 
+def _launch_q(bits: int, x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+              V: torch.Tensor, su: torch.Tensor, ss: torch.Tensor,
+              sv: torch.Tensor) -> torch.Tensor:
+    name = "blast_matmul_q" if bits == 8 else "blast_matmul_q4"
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"{name} kernel takes fp32 or bf16 x, got {x.dtype}")
+    T, G, b, p, q, r = _check(x, U, S, V, _CODES[bits],
+                              (("su", su), ("ss", ss), ("sv", sv)))
+    y = torch.empty((G, T, b * p), dtype=x.dtype, device=x.device)
+    return _run(f"{name}_{_SUFFIX[x.dtype]}", (x, U, S, V, su, ss, sv),
+                (T, G, b, p, q, r), y)
+
+
 def launch_q(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
              V: torch.Tensor, su: torch.Tensor, ss: torch.Tensor,
              sv: torch.Tensor) -> torch.Tensor:
-    if x.dtype not in _SUFFIX:
-        raise TypeError(f"blast_matmul_q kernel takes fp32 or bf16 x, got "
-                        f"{x.dtype}")
-    T, G, b, p, q, r = _check(x, U, S, V, torch.int8,
-                              (("su", su), ("ss", ss), ("sv", sv)))
-    y = torch.empty((G, T, b * p), dtype=x.dtype, device=x.device)
-    return _run(f"blast_matmul_q_{_SUFFIX[x.dtype]}", (x, U, S, V, su, ss, sv),
-                (T, G, b, p, q, r), y)
+    return _launch_q(8, x, U, S, V, su, ss, sv)
+
+
+def launch_q4(x: torch.Tensor, Up: torch.Tensor, Sp: torch.Tensor,
+              Vp: torch.Tensor, su: torch.Tensor, ss: torch.Tensor,
+              sv: torch.Tensor) -> torch.Tensor:
+    return _launch_q(4, x, Up, Sp, Vp, su, ss, sv)
+
+
+def _launch_a8(bits: int, xq: torch.Tensor, sx: torch.Tensor,
+               U: torch.Tensor, S: torch.Tensor, V: torch.Tensor,
+               su: torch.Tensor, ss: torch.Tensor, sv: torch.Tensor,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    name = f"blast_matmul_w{bits}a8"
+    if xq.dtype != torch.int8:
+        raise TypeError(f"{name} kernel takes int8 codes, got {xq.dtype}")
+    if out_dtype not in _SUFFIX:
+        raise TypeError(f"{name} kernel writes fp32 or bf16, got {out_dtype}")
+    T, G, b, p, q, r = _check(xq, U, S, V, _CODES[bits],
+                              (("sx", sx), ("su", su), ("ss", ss),
+                               ("sv", sv)))
+    y = torch.empty((G, T, b * p), dtype=out_dtype, device=xq.device)
+    return _run(f"{name}_{_SUFFIX[out_dtype]}",
+                (xq, sx, U, S, V, su, ss, sv), (T, G, b, p, q, r), y)
 
 
 def launch_w8a8(xq: torch.Tensor, sx: torch.Tensor, U: torch.Tensor,
                 S: torch.Tensor, V: torch.Tensor, su: torch.Tensor,
                 ss: torch.Tensor, sv: torch.Tensor,
                 out_dtype: torch.dtype) -> torch.Tensor:
-    if xq.dtype != torch.int8:
-        raise TypeError(f"blast_matmul_w8a8 kernel takes int8 codes, got "
-                        f"{xq.dtype}")
-    if out_dtype not in _SUFFIX:
-        raise TypeError(f"blast_matmul_w8a8 kernel writes fp32 or bf16, got "
-                        f"{out_dtype}")
-    T, G, b, p, q, r = _check(xq, U, S, V, torch.int8,
-                              (("sx", sx), ("su", su), ("ss", ss),
-                               ("sv", sv)))
-    y = torch.empty((G, T, b * p), dtype=out_dtype, device=xq.device)
-    return _run(f"blast_matmul_w8a8_{_SUFFIX[out_dtype]}",
-                (xq, sx, U, S, V, su, ss, sv), (T, G, b, p, q, r), y)
+    return _launch_a8(8, xq, sx, U, S, V, su, ss, sv, out_dtype)
+
+
+def launch_w4a8(xq: torch.Tensor, sx: torch.Tensor, Up: torch.Tensor,
+                Sp: torch.Tensor, Vp: torch.Tensor, su: torch.Tensor,
+                ss: torch.Tensor, sv: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    return _launch_a8(4, xq, sx, Up, Sp, Vp, su, ss, sv, out_dtype)

@@ -6,7 +6,9 @@ a build takes seconds).  All sources are compiled together, one ``nvcc``
 process each, the first time any kernel is needed.  Outputs go to
 ``build/kernels/`` at the repository root; the file name carries a hash of
 the source and flags, so an edited source is rebuilt and a stale library is
-never loaded.  A failed build or load raises with nvcc's output.
+never loaded.  A failed build or load raises with nvcc's output.  ptxas
+reports each kernel's registers and spills (``-Xptxas=-v``); the log of
+every build is kept in ``build_logs``.
 """
 
 from __future__ import annotations
@@ -23,11 +25,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 build_seconds: dict[str, float] = {}
+build_logs: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -68,6 +71,7 @@ def build_all() -> dict[str, Path]:
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         build_seconds[name] = time.perf_counter() - t0
+        build_logs[name] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {todo[name].name} "
                           f"(exit {proc.returncode}):\n{log}")

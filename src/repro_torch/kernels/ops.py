@@ -5,10 +5,13 @@ A tensor on the CPU goes to the kernel's plain PyTorch version
 (``kernels/ref.py``); a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback.  The BLAST wrappers flatten the leading axes
 into T and zero-pad T and r to the kernel's tiles, as the reference wrapper
-does (zero rows and zero ranks are exact).  The int8 wrappers take
-per-block scales; with ``act="int8"`` they quantize x per token first (a
-plain-PyTorch prologue, as the reference runs it in XLA outside its Pallas
-kernel) and zero-pad codes and scales alike.  ``launches`` counts kernel
+does (zero rows and zero ranks are exact).  The int8 and int4 wrappers
+take per-block scales; int4 factors stay nibble-packed (uint8, two codes
+per byte along r) into the kernel, and their byte axis is zero-padded to
+half the padded rank (a zero byte is two zero codes).  With ``act="int8"``
+they quantize x per token first (a plain-PyTorch prologue, as the reference
+runs it in XLA outside its Pallas kernel) and zero-pad codes and scales
+alike.  ``launches`` counts kernel
 launches (plain-version calls are not counted), so a run can show that its
 model path went through the kernels.
 """
@@ -29,6 +32,8 @@ launches: dict[str, int] = {
     "blast_matmul": 0, "blast_matmul_grouped": 0,
     "blast_matmul_q": 0, "blast_matmul_grouped_q": 0,
     "blast_matmul_w8a8": 0, "blast_matmul_grouped_w8a8": 0,
+    "blast_matmul_q4": 0, "blast_matmul_grouped_q4": 0,
+    "blast_matmul_w4a8": 0, "blast_matmul_grouped_w4a8": 0,
     "flash_attention_prefill": 0}
 
 
@@ -97,26 +102,33 @@ def blast_matmul_grouped(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
     return y[:, :T].reshape(G, *lead, b * p)
 
 
-def _grouped_q(x: torch.Tensor, U8: torch.Tensor, S8: torch.Tensor,
-               V8: torch.Tensor, su: torch.Tensor, ss: torch.Tensor,
-               sv: torch.Tensor, act: str, names: tuple[str, str]
-               ) -> torch.Tensor:
-    """int8 codes (G,b,·,r), scales su/sv (G,b), ss (G,b,b) over a shared x
+def _grouped_q(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+               V: torch.Tensor, su: torch.Tensor, ss: torch.Tensor,
+               sv: torch.Tensor, act: str, names: tuple[str, str],
+               bits: int = 8) -> torch.Tensor:
+    """Factor codes (G,b,·,r) — int8, or for ``bits=4`` nibble-packed uint8
+    (G,b,·,r/2) — with scales su/sv (G,b), ss (G,b,b) over a shared x
     (..., n) → (G, ..., m) in x's dtype; ``names`` are the launch keys of
-    the int8 and the W8A8 kernel."""
+    the float-x and the int8-x (W8A8 / W4A8) kernel."""
     if act not in ("none", "int8"):
         raise ValueError(f"act must be 'none'|'int8', got {act!r}")
-    G, b, p, r = U8.shape
+    packed = bits == 4
+    G, b, p, rb = U.shape
     if _on_cpu(x):
         if act == "int8":
             lead = x.shape[:-1]
             xq, sx = qt.quantize_act(x.reshape(-1, x.shape[-1]))
-            y = ref.blast_matmul_grouped_a8_ref(xq, sx, U8, S8, V8, su, ss, sv)
+            plain = (ref.blast_matmul_grouped_a4_ref if packed
+                     else ref.blast_matmul_grouped_a8_ref)
+            y = plain(xq, sx, U, S, V, su, ss, sv)
             return y.reshape(G, *lead, b * p).to(x.dtype)
-        return ref.blast_matmul_grouped_q_ref(x, U8, S8, V8, su, ss, sv)
+        plain = (ref.blast_matmul_grouped_q4_ref if packed
+                 else ref.blast_matmul_grouped_q_ref)
+        return plain(x, U, S, V, su, ss, sv)
     block_t, block_r = _bm.tiles()
-    r_pad = _round_up(r, block_r)
-    U8, S8, V8 = (_pad_last(a, r_pad) for a in (U8, S8, V8))
+    r_pad = _round_up(2 * rb if packed else rb, block_r)     # logical ranks
+    U, S, V = (_pad_last(a, r_pad // 2 if packed else r_pad)
+               for a in (U, S, V))
     if act == "int8":
         lead = x.shape[:-1]
         T = math.prod(lead)
@@ -125,26 +137,34 @@ def _grouped_q(x: torch.Tensor, U8: torch.Tensor, S8: torch.Tensor,
         if T_pad != T:        # zero codes with zero scales: exact zero rows
             xq = F.pad(xq, (0, 0, 0, T_pad - T))
             sx = F.pad(sx, (0, 0, 0, T_pad - T))
-        y = _bm.launch_w8a8(xq.contiguous(), sx.contiguous(), U8, S8, V8, su,
-                            ss, sv, out_dtype=x.dtype)
+        launch = _bm.launch_w4a8 if packed else _bm.launch_w8a8
+        y = launch(xq.contiguous(), sx.contiguous(), U, S, V, su, ss, sv,
+                   out_dtype=x.dtype)
         launches[names[1]] += 1
     else:
         xf, lead, T = _flatten_pad_x(x, block_t)
-        y = _bm.launch_q(xf, U8, S8, V8, su, ss, sv)
+        launch = _bm.launch_q4 if packed else _bm.launch_q
+        y = launch(xf, U, S, V, su, ss, sv)
         launches[names[0]] += 1
     return y[:, :T].reshape(G, *lead, b * p)
 
 
 def blast_matmul_q(x: torch.Tensor, Uq: qt.QArray, Sq: qt.QArray,
                    Vq: qt.QArray, *, act: str = "none") -> torch.Tensor:
-    """BLAST over per-block int8 ``QArray`` factors (U/V: one scale per
-    block, S: one per coupling vector): x (..., n) → (..., m).  The int8
-    kernel; with ``act="int8"`` the W8A8 kernel."""
+    """BLAST over per-block ``QArray`` factors (U/V: one scale per block,
+    S: one per coupling vector): x (..., n) → (..., m).  int8 factors run
+    the int8 kernel (``act="int8"``: W8A8); all-int4 factors stay
+    nibble-packed and run the int4 kernel (``act="int8"``: W4A8)."""
     b = Uq.q.shape[0]
-    U8, S8, V8 = (qt.int_values(a) for a in (Uq, Sq, Vq))
-    y = _grouped_q(x, U8[None], S8[None], V8[None], Uq.scale.reshape(1, b),
-                   Sq.scale.reshape(1, b, b), Vq.scale.reshape(1, b), act,
-                   ("blast_matmul_q", "blast_matmul_w8a8"))
+    scales = (Uq.scale.reshape(1, b), Sq.scale.reshape(1, b, b),
+              Vq.scale.reshape(1, b))
+    if {Uq.bits, Sq.bits, Vq.bits} == {4}:
+        y = _grouped_q(x, Uq.q[None], Sq.q[None], Vq.q[None], *scales, act,
+                       ("blast_matmul_q4", "blast_matmul_w4a8"), bits=4)
+    else:
+        U8, S8, V8 = (qt.int_values(a) for a in (Uq, Sq, Vq))
+        y = _grouped_q(x, U8[None], S8[None], V8[None], *scales, act,
+                       ("blast_matmul_q", "blast_matmul_w8a8"))
     return y[0]
 
 
@@ -159,6 +179,22 @@ def blast_matmul_grouped_q(x: torch.Tensor, U8: torch.Tensor,
     quantized once for the whole bundle (grouped W8A8)."""
     return _grouped_q(x, U8, S8, V8, su, ss, sv, act,
                       ("blast_matmul_grouped_q", "blast_matmul_grouped_w8a8"))
+
+
+def blast_matmul_grouped_q4(x: torch.Tensor, Up: torch.Tensor,
+                            Sp: torch.Tensor, Vp: torch.Tensor,
+                            su: torch.Tensor, ss: torch.Tensor,
+                            sv: torch.Tensor, *,
+                            act: str = "none") -> torch.Tensor:
+    """G congruent nibble-packed int4 factor sets over one shared input in
+    one launch: x (..., n); uint8 Up (G,b,p,r/2), Sp (G,b,b,r/2),
+    Vp (G,b,q,r/2) (packed along r, the ``quant/qarray.py`` layout, and
+    kept packed into the kernel); scales su/sv (G,b), ss (G,b,b) →
+    (G, ..., m).  With ``act="int8"`` x is quantized once for the whole
+    bundle (grouped W4A8)."""
+    return _grouped_q(x, Up, Sp, Vp, su, ss, sv, act,
+                      ("blast_matmul_grouped_q4", "blast_matmul_grouped_w4a8"),
+                      bits=4)
 
 
 def flash_attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from repro_torch.quant.qarray import unpack_int4_planes
+
 
 def blast_matmul_ref(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
                      V: torch.Tensor) -> torch.Tensor:
@@ -91,6 +93,27 @@ def blast_matmul_grouped_a8_ref(xq: torch.Tensor, sx: torch.Tensor,
     return torch.stack([
         blast_matmul_a8_ref(xq, sx, U[g], S[g], V[g], su[g], ss[g], sv[g])
         for g in range(U.shape[0])])
+
+
+def blast_matmul_grouped_q4_ref(x: torch.Tensor, Up: torch.Tensor,
+                                Sp: torch.Tensor, Vp: torch.Tensor,
+                                su: torch.Tensor, ss: torch.Tensor,
+                                sv: torch.Tensor) -> torch.Tensor:
+    """Grouped int4-factor version: nibble-packed codes (G,b,·,r/2) uint8
+    unpacked in plane order, then the int8-code version."""
+    U, S, V = (unpack_int4_planes(a) for a in (Up, Sp, Vp))
+    return blast_matmul_grouped_q_ref(x, U, S, V, su, ss, sv)
+
+
+def blast_matmul_grouped_a4_ref(xq: torch.Tensor, sx: torch.Tensor,
+                                Up: torch.Tensor, Sp: torch.Tensor,
+                                Vp: torch.Tensor, su: torch.Tensor,
+                                ss: torch.Tensor,
+                                sv: torch.Tensor) -> torch.Tensor:
+    """Grouped W4A8 version: nibble-packed factor codes unpacked in plane
+    order, then the W8A8 version (fp32 out)."""
+    U, S, V = (unpack_int4_planes(a) for a in (Up, Sp, Vp))
+    return blast_matmul_grouped_a8_ref(xq, sx, U, S, V, su, ss, sv)
 
 
 def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

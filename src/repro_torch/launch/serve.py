@@ -6,8 +6,9 @@ chunked-prefill engine, on the card by default.
 
 ``--reduced`` runs the small test variant; ``--device cpu`` runs the plain
 PyTorch path on the host.  Weights are random, drawn from ``--seed``.
-``--quant-weights int8`` quantizes them at load (int8 BLAST kernels);
-adding ``--quant-activations int8`` runs the W8A8 kernels.
+``--quant-weights int8`` (or ``int4``) quantizes them at load (the int8 or
+int4 BLAST kernels); adding ``--quant-activations int8`` runs the W8A8 (or
+W4A8) kernels.
 """
 
 from __future__ import annotations
@@ -39,12 +40,12 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--quant-weights", default="none",
                     choices=["none", "int8", "int4"],
-                    help="quantize-at-load weight storage (int4: not ported "
-                         "yet, raises)")
+                    help="quantize-at-load weight storage (int4: "
+                         "nibble-packed, two codes per byte)")
     ap.add_argument("--quant-activations", default="none",
                     choices=["none", "int8"],
-                    help="per-token int8 activations: with int8 weights the "
-                         "BLAST layers run the W8A8 kernels")
+                    help="per-token int8 activations: the BLAST layers run "
+                         "the W8A8 (int8 weights) or W4A8 (int4) kernels")
     return ap.parse_args(argv)
 
 

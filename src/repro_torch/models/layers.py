@@ -41,11 +41,12 @@ def linear_init(spec: LinearSpec, generator: torch.Generator, dtype, device, *,
 
 def linear_apply(spec: LinearSpec, params: Params,
                  x: torch.Tensor) -> torch.Tensor:
-    """Storage-aware apply: int8 QArray params route to the structure's
-    ``apply_q``, float params to ``apply``; int4 and mixed storage raise."""
+    """Storage-aware apply: int8 and int4 QArray params route to the
+    structure's ``apply_q``, float params to ``apply``; mixed storage
+    raises."""
     structures.record_dispatch(1)
     core = {k: v for k, v in params.items() if k != "bias"}
-    if structures.check_storage(core) == "int8":
+    if structures.check_storage(core) != "float":
         y = spec.apply_q(core, x)
     else:
         y = spec.apply(core, x)
@@ -88,20 +89,25 @@ def linear_quantize(spec: LinearSpec, params: Params, bits: int = 8) -> Params:
 
 
 def embed_lookup(table, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    """Token-embedding gather over a float or per-row int8 table: a
-    quantized table gathers the code rows and dequantizes only those."""
+    """Token-embedding gather over a float or per-row int8/int4 table: a
+    quantized table gathers the stored rows first (int4 rows still
+    nibble-packed) and unpacks and dequantizes only those, never the
+    whole table."""
     if not qt.is_qarray(table):
         structures.check_storage({"embed": table})
         return table[tokens].to(dtype)
-    rows = qt.int_values(table)[tokens]
+    rows = table.q[tokens]
+    if table.bits == 4:
+        rows = qt.unpack_int4(rows, table.last_dim)
     return (rows.float() * table.scale[tokens]).to(dtype)
 
 
 def tied_logits(table, x: torch.Tensor) -> torch.Tensor:
-    """``x @ embedᵀ`` over a float or per-row int8 table — a plain large
-    product, left to torch.matmul as the reference leaves it to XLA.  The
-    per-row scales are constant along d_model, so they multiply the
-    product (one multiply per logit)."""
+    """``x @ embedᵀ`` over a float or per-row int8/int4 table — a plain
+    large product, left to torch.matmul as the reference leaves it to XLA.
+    An int4 table is unpacked for the product and no unpacked copy is
+    kept.  The per-row scales are constant along d_model, so they multiply
+    the product (one multiply per logit)."""
     if not qt.is_qarray(table):
         return x @ table.T
     iv = qt.int_values(table)                        # (vocab, d)

@@ -118,13 +118,13 @@ class LM:
 
     def quantize_params(self, params: Params, quant: QuantConfig) -> Params:
         """Quantize-at-load: every structured linear becomes per-block int8
-        QArrays and the tied embedding per-row int8 (its gather and the tied
-        head both fuse the row scale); norms stay float.  Run it before
-        ``prestack_params``, as the reference orders them."""
+        or int4 QArrays and the tied embedding per-row int8 or int4 (its
+        gather and the tied head both fuse the row scale); norms stay float.
+        Run it before ``prestack_params``, as the reference orders them."""
         bits = quant.weight_bits
         if bits is None:
             return params
-        return {**params,          # int4 raises in qt.quantize
+        return {**params,
                 "embed": qt.quantize(params["embed"], bits=bits,
                                      block_axes=(1,)),
                 "layers": [block_quantize(s, p, bits) for s, p in

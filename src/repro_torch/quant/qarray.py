@@ -1,4 +1,4 @@
-"""Per-block symmetric int8 quantization (counterpart of
+"""Per-block symmetric int8 and int4 quantization (counterpart of
 ``repro/quant/qarray.py``): the ``QArray = {q, scale}`` container and the
 codecs the quantized serving path builds on.
 
@@ -7,13 +7,16 @@ max-abs is reduced over ``block_axes`` (keepdims), so ``scale`` broadcasts
 against ``q`` and dequantization is ``q * scale``.  An all-zero block gets
 ``scale = 1`` so its codes are 0 and dequantize to exactly 0.  The codes
 equal the reference's bit for bit: fp32 ``amax / qmax``, ``x / scale`` in
-fp32, round half to even (``torch.round`` as ``jnp.round``), clamp to ±127.
+fp32, round half to even (``torch.round`` as ``jnp.round``), clamp to
+±qmax (127 for int8, 7 for int4).
 ``qmax`` divides as a tensor on ``amax``'s device: PyTorch's CUDA division
 by a Python scalar multiplies by its reciprocal instead, which is 1 ulp off
 for some blocks and would give the card other scales than the CPU.
 
-int4 storage (nibble packing, plane-order unpacking) belongs to the next
-slice of the port and raises here (ROADMAP B7).
+int4 codes are stored two per byte along the last axis (``pack_int4``: byte
+k holds logical positions 2k in its low and 2k+1 in its high nibble, the
+last axis zero-padded to even length); ``last_dim`` keeps the logical size
+and ``int_values`` unpacks.  The packed bytes equal the reference's.
 """
 
 from __future__ import annotations
@@ -22,21 +25,20 @@ import dataclasses
 
 import torch
 
-_QMAX = {8: 127}
-INT4_TODO = ("int4 weights are not ported yet (ROADMAP B7/B8/B10/B12: the "
-             "int4 slice, with pack_int4 / unpack_int4_planes / plane_order)")
+_QMAX = {8: 127, 4: 7}
 CACHE_TODO = ("int8 caches are not ported yet (ROADMAP A9: quant.cache="
               "'int8' with its int8-KV attention kernel)")
 
 
 @dataclasses.dataclass(frozen=True)
 class QArray:
-    """Quantized tensor: int8 codes + fp32 per-block scales.
+    """Quantized tensor: integer codes + fp32 per-block scales.
 
-    q:        int8 codes
-    scale:    float scales, broadcastable against ``q``
-    bits:     8 (4 is the reference's packed int4, not ported yet)
-    last_dim: logical size of the last axis
+    q:        int8 codes (or uint8 nibble pairs when ``bits == 4``)
+    scale:    float scales, broadcastable against the logical values
+    bits:     8 or 4
+    last_dim: logical size of the last axis (differs from ``q.shape[-1]``
+              only for packed int4)
     """
 
     q: torch.Tensor
@@ -86,11 +88,53 @@ def tree_nbytes(tree) -> int:
 
 
 def _check_bits(bits: int) -> int:
-    if bits == 4:
-        raise NotImplementedError(INT4_TODO)
     if bits not in _QMAX:
-        raise ValueError(f"bits must be 8 (or 4, not ported yet), got {bits}")
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
     return _QMAX[bits]
+
+
+# -- int4 nibble packing (two codes per byte along the last axis) ------------
+
+
+def pack_int4(v: torch.Tensor) -> torch.Tensor:
+    """v: int8 values in [-7, 7], (..., D) → uint8 (..., ceil(D/2)).  The
+    nibble is masked in int16, so a negative code keeps its two's-complement
+    low four bits."""
+    if v.shape[-1] % 2:
+        v = torch.nn.functional.pad(v, (0, 1))
+    u = (v.to(torch.int16) & 0xF).to(torch.uint8)
+    return u[..., 0::2] | (u[..., 1::2] << 4)
+
+
+def _sign_extend(nib: torch.Tensor) -> torch.Tensor:
+    v = nib.to(torch.int8)
+    return torch.where(v >= 8, v - 16, v)
+
+
+def unpack_int4(p: torch.Tensor, last_dim: int) -> torch.Tensor:
+    """uint8 nibble pairs (..., P) → int8 values (..., last_dim)."""
+    v = torch.stack([p & 0xF, p >> 4], dim=-1).reshape(*p.shape[:-1],
+                                                       2 * p.shape[-1])
+    return _sign_extend(v)[..., :last_dim]
+
+
+def unpack_int4_planes(p: torch.Tensor) -> torch.Tensor:
+    """uint8 nibble pairs (..., P) → int8 (..., 2P) in *plane order*
+    ``[low nibbles | high nibbles]``: logical positions ``[0, 2, 4, …, 1, 3,
+    5, …]``.  The BLAST contraction reduces over this (rank) axis, so any
+    order applied alike to U, S and V gives the same sum."""
+    return _sign_extend(torch.cat([p & 0xF, p >> 4], dim=-1))
+
+
+def plane_order(r: int) -> torch.Tensor:
+    """Index mapping plane order → logical order for ``ceil(r/2)`` packed
+    bytes: ``unpack_int4_planes(p)[..., plane_order(r)] == unpack_int4(p, r)``
+    (the odd-r pad nibble dropped)."""
+    half = (r + 1) // 2
+    idx = torch.empty((r,), dtype=torch.int64)
+    idx[0::2] = torch.arange(0, half)           # even ranks: low plane
+    idx[1::2] = torch.arange(half, half + r // 2)   # odd ranks: high plane
+    return idx
 
 
 def quantize(x: torch.Tensor, *, bits: int = 8,
@@ -105,13 +149,18 @@ def quantize(x: torch.Tensor, *, bits: int = 8,
     scale = torch.where(amax > 0, amax / torch.full_like(amax, qmax),
                         torch.ones_like(amax))
     v = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
+    if bits == 4:
+        v = pack_int4(v)
     return QArray(q=v, scale=scale.to(scale_dtype), bits=bits,
                   last_dim=x.shape[-1])
 
 
 def int_values(qa: QArray) -> torch.Tensor:
-    """The int8 codes."""
+    """The logical int8 codes (unpacks int4)."""
     _check_bits(qa.bits)
+    if qa.bits == 4:
+        return unpack_int4(qa.q, 2 * qa.q.shape[-1] if qa.last_dim is None
+                           else qa.last_dim)
     return qa.q
 
 
@@ -148,7 +197,7 @@ class QuantConfig:
     """What gets quantized at serving time.
 
     weights:     structured-linear and embedding storage
-                 ("none"|"int8"|"int4"; int4 raises where it is used)
+                 ("none"|"int8"|"int4")
     cache:       KV caches ("none"|"int8"; int8 raises where it is used)
     activations: per-token int8 layer inputs feeding the integer (W8A8)
                  kernels ("none"|"int8"); requires quantized weights

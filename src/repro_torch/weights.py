@@ -8,7 +8,11 @@ dtype and moved to its device, and a key the port does not know (an untied
 head, a prestacked ``_bundle_in``, another mixer's leaves, …) raises.  A
 quantized leaf — the reference's ``QArray`` (any object with ``q`` and
 ``scale``) or the ``{"q", "scale"}`` pair a checkpoint stores for it —
-becomes the port's ``QArray``: int8 codes stay int8, scales stay fp32.
+becomes the port's ``QArray``: int8 codes stay int8, nibble-packed int4
+bytes (uint8) stay packed, scales stay fp32.  A checkpoint stores neither
+``bits`` nor the logical last dim of a packed leaf, so a uint8 leaf is
+int4 and its logical last dim is the model's own: the linear's rank, or
+``d_model`` for the embedding.
 
 ``load_store(directory)`` reads a ``repro/checkpoint/store.py::save``
 directory (``manifest.json`` plus one ``.npy`` per '/'-joined leaf; bf16
@@ -62,23 +66,30 @@ def from_jax_params(model, tree: dict) -> dict:
         return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
             device=dev, dtype=dt)
 
-    def conv_leaf(a):
-        """A float leaf → tensor; a quantized leaf → QArray."""
+    def conv_leaf(a, last_dim: int):
+        """A float leaf → tensor; a quantized leaf → QArray.  ``last_dim``:
+        the leaf's logical last dim in the model."""
         if isinstance(a, dict) and set(a) == {"q", "scale"}:
-            q, scale, bits = a["q"], a["scale"], None
+            q, scale, bits, ld = a["q"], a["scale"], None, None
         elif hasattr(a, "q") and hasattr(a, "scale"):
-            q, scale, bits = a.q, a.scale, getattr(a, "bits", None)
+            q, scale = a.q, a.scale
+            bits, ld = getattr(a, "bits", None), getattr(a, "last_dim", None)
         else:
             return conv(a)
         q = np.array(q)         # a writable copy
-        if bits == 4 or q.dtype == np.uint8:
-            raise NotImplementedError(qt.INT4_TODO)
-        if q.dtype != np.int8 or bits not in (None, 8):
-            raise ValueError(f"expected int8 codes, got {q.dtype} (bits {bits})")
+        want = {np.dtype(np.int8): 8, np.dtype(np.uint8): 4}.get(q.dtype)
+        if want is None or bits not in (None, want):
+            raise ValueError(f"expected int8 codes or uint8 nibble pairs, got "
+                             f"{q.dtype} (bits {bits})")
+        if ld not in (None, last_dim) or q.shape[-1] != (
+                last_dim if want == 8 else (last_dim + 1) // 2):
+            raise ValueError(f"quantized leaf of last dim {ld} with "
+                             f"{q.shape[-1]} stored columns; the model has "
+                             f"{last_dim}")
         return qt.QArray(q=torch.from_numpy(q).to(dev),
                          scale=torch.from_numpy(
                              np.array(scale, dtype=np.float32)).to(dev),
-                         bits=8, last_dim=q.shape[-1])
+                         bits=want, last_dim=last_dim)
 
     def layer(leaf, i):
         if qt.is_qarray(leaf):
@@ -88,6 +99,8 @@ def from_jax_params(model, tree: dict) -> dict:
 
     blk = tree["cycles"]["blk_0"]
     _check_keys(blk, _LAYER_KEYS, "params/cycles/blk_0")
+    spec = model.specs[0]       # every layer of the slice is one kind
+    linears = {"mixer": spec.mixer, "ffn": spec.ffn}
     layers = [{} for _ in range(model.cfg.n_layers)]
     for group, members in _LAYER_KEYS.items():
         sub = blk[group]
@@ -99,8 +112,9 @@ def from_jax_params(model, tree: dict) -> dict:
                     lp.setdefault(group, {})[name] = stacked[i]
                 continue
             _check_keys(sub[name], leaves, f"params/cycles/blk_0/{group}/{name}")
+            lin = getattr(linears[group], name)
             for leaf in leaves:
-                stacked = conv_leaf(sub[name][leaf])
+                stacked = conv_leaf(sub[name][leaf], lin.shapes[leaf][-1])
                 if stacked.shape[0] != len(layers):
                     raise ValueError(f"{group}/{name}/{leaf} stacks "
                                      f"{stacked.shape[0]} layers, model has "
@@ -108,7 +122,7 @@ def from_jax_params(model, tree: dict) -> dict:
                 for i, lp in enumerate(layers):
                     lp.setdefault(group, {}).setdefault(name, {})[leaf] = (
                         layer(stacked, i))
-    return {"embed": conv_leaf(tree["embed"]),
+    return {"embed": conv_leaf(tree["embed"], model.cfg.d_model),
             "final_norm": {"scale": conv(tree["final_norm"]["scale"])},
             "layers": layers}
 

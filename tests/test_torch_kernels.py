@@ -134,6 +134,9 @@ def test_cpu_path_counts_no_launches():
                             "blast_matmul_q": 0, "blast_matmul_grouped_q": 0,
                             "blast_matmul_w8a8": 0,
                             "blast_matmul_grouped_w8a8": 0,
+                            "blast_matmul_q4": 0, "blast_matmul_grouped_q4": 0,
+                            "blast_matmul_w4a8": 0,
+                            "blast_matmul_grouped_w4a8": 0,
                             "flash_attention_prefill": 0}
 
 

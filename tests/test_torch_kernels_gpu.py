@@ -7,10 +7,10 @@ port's dependencies:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 (``--noconftest``: the suite's conftest imports the JAX package.)
-Tolerances: fp32 ``atol = rtol = 1e-4``; bf16 ``2e-2``.  The int8 and
-W8A8 kernels are held to the same: their plain versions take the same codes
-and scales (and, for W8A8, the same activation codes), so only the order of
-the float sums differs.
+Tolerances: fp32 ``atol = rtol = 1e-4``; bf16 ``2e-2``.  The int8, int4,
+W8A8 and W4A8 kernels are held to the same: their plain versions take the
+same codes and scales (and, with int8 activations, the same activation
+codes), so only the order of the float sums differs.
 """
 
 import numpy as np
@@ -63,6 +63,7 @@ class TestOnCard:
         assert sum(ops.launches.values()) == 1
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
+    @pytest.mark.parametrize("bits", [8, 4])
     @pytest.mark.parametrize("act", ["none", "int8"])
     @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                            (torch.bfloat16, 2e-2)])
@@ -70,60 +71,100 @@ class TestOnCard:
                                              (37, 1, 16, 60, 36, 144),
                                              (37, 2, 4, 8, 8, 21),
                                              (8, 2, 16, 96, 36, 176)])
-    def test_blast_q_kernels(self, cuda, act, dtype, tol, T, G, b, p, q, r):
-        """int8 weights (act "none") and W8A8 (act "int8"): the kernel and
-        its plain version get the same codes, scales and activation codes."""
+    def test_blast_q_kernels(self, cuda, bits, act, dtype, tol, T, G, b, p,
+                             q, r):
+        """int8 / int4 weights (act "none") and W8A8 / W4A8 (act "int8"):
+        the kernel and its plain version get the same codes (int4:
+        nibble-packed, odd ranks included), scales and activation codes."""
         rng = np.random.default_rng(T + G + r)
         x = _t(rng.standard_normal((T, b * q)).astype(np.float32)).to(cuda, dtype)
-        codes, scales = [], []
-        for a, axes, shape in zip(_factors(rng, b, p, q, r, lead=(G,)),
-                                  ((1, 2), (2,), (1, 2)),
-                                  ((b,), (b, b), (b,))):
-            qa = [quant.quantize(_t(a[g]).to(cuda) / 4, block_axes=axes)
-                  for g in range(G)]
-            codes.append(torch.stack([x_.q for x_ in qa]))
-            scales.append(torch.stack([x_.scale.reshape(shape) for x_ in qa]))
+        qas = [[quant.quantize(_t(a[g]).to(cuda) / 4, bits=bits,
+                               block_axes=axes) for g in range(G)]
+               for a, axes in zip(_factors(rng, b, p, q, r, lead=(G,)),
+                                  ((1, 2), (2,), (1, 2)))]
+        codes = [torch.stack([x_.q for x_ in qa]) for qa in qas]
+        scales = [torch.stack([x_.scale.reshape(shape) for x_ in qa])
+                  for qa, shape in zip(qas, ((b,), (b, b), (b,)))]
+        assert codes[0].shape[-1] == (r if bits == 8 else (r + 1) // 2)
+        suffix = {(8, "none"): "q", (8, "int8"): "w8a8", (4, "none"): "q4",
+                  (4, "int8"): "w4a8"}[bits, act]
         ops.reset_launches()
         if G == 1:
-            fac = [quant.QArray(c[0], s.reshape(shape)) for c, s, shape in
-                   zip(codes, scales, ((b, 1, 1), (b, b, 1), (b, 1, 1)))]
-            got = ops.blast_matmul_q(x, *fac, act=act)[None]
-            key = "blast_matmul_w8a8" if act == "int8" else "blast_matmul_q"
+            got = ops.blast_matmul_q(x, *(qa[0] for qa in qas), act=act)[None]
+            key = f"blast_matmul_{suffix}"
         else:
-            got = ops.blast_matmul_grouped_q(x, *codes, *scales, act=act)
-            key = ("blast_matmul_grouped_w8a8" if act == "int8"
-                   else "blast_matmul_grouped_q")
+            grouped = (ops.blast_matmul_grouped_q4 if bits == 4
+                       else ops.blast_matmul_grouped_q)
+            got = grouped(x, *codes, *scales, act=act)
+            key = f"blast_matmul_grouped_{suffix}"
         if act == "int8":
             xq, sx = quant.quantize_act(x)
-            want = ref.blast_matmul_grouped_a8_ref(xq, sx, *codes,
-                                                   *scales).to(dtype)
+            plain = (ref.blast_matmul_grouped_a4_ref if bits == 4
+                     else ref.blast_matmul_grouped_a8_ref)
+            want = plain(xq, sx, *codes, *scales).to(dtype)
         else:
-            want = ref.blast_matmul_grouped_q_ref(x, *codes, *scales)
+            plain = (ref.blast_matmul_grouped_q4_ref if bits == 4
+                     else ref.blast_matmul_grouped_q_ref)
+            want = plain(x, *codes, *scales)
         torch.cuda.synchronize()
         assert ops.launches[key] == 1 and sum(ops.launches.values()) == 1
         assert got.dtype == dtype and got.shape == (G, T, b * p)
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
-    def test_quantizers_equal_cpu(self, cuda):
-        """Codes and scales on the card equal the CPU's bit for bit (the CPU
-        ones equal the JAX package's: tests/test_torch_quant.py)."""
+    def test_q4_fp32_error_is_summation_order(self, cuda):
+        """At unscaled factors the int4 kernel's fp32 outputs reach ~1e3,
+        where a summation order alone moves them past ``1e-4`` absolute
+        (so ``test_blast_q_kernels`` scales its factors by 1/4, as the
+        int8 test does).  Against a float64 evaluation of the same codes
+        and scales, the kernel's error stays within twice the plain
+        version's and within 1e-6 of the output scale."""
+        T, b, p, q, r = 37, 16, 60, 36, 144
+        rng = np.random.default_rng(T + 1 + r)
+        x = _t(rng.standard_normal((T, b * q)).astype(np.float32)).to(cuda)
+        qas = [quant.quantize(_t(a[0]).to(cuda), bits=4, block_axes=axes)
+               for a, axes in zip(_factors(rng, b, p, q, r, lead=(1,)),
+                                  ((1, 2), (2,), (1, 2)))]
+        got = ops.blast_matmul_q(x, *qas)
+        want = ref.blast_matmul_grouped_q4_ref(
+            x, *(qa.q[None] for qa in qas),
+            *(qa.scale.reshape(s)[None]
+              for qa, s in zip(qas, ((b,), (b, b), (b,)))))[0]
+        U, S, V = (quant.dequantize(qa).double() for qa in qas)
+        z = torch.einsum("tjq,jqr->tjr", x.double().reshape(T, b, q), V)
+        exact = torch.einsum("tir,ipr->tip",
+                             torch.einsum("tjr,ijr->tir", z, S),
+                             U).reshape(T, b * p)
+        scale = float(exact.abs().max())
+        kernel_err = float((got.double() - exact).abs().max())
+        plain_err = float((want.double() - exact).abs().max())
+        assert scale > 100
+        assert kernel_err <= max(2 * plain_err, 1e-6 * scale), (
+            kernel_err, plain_err, scale)
+
+    @pytest.mark.parametrize("bits", [8, 4])
+    def test_quantizers_equal_cpu(self, cuda, bits):
+        """Codes (int4: packed bytes) and scales on the card equal the
+        CPU's bit for bit (the CPU ones equal the JAX package's:
+        tests/test_torch_quant.py, tests/test_torch_int4.py)."""
         rng = np.random.default_rng(3)
         for shape, axes in (((16, 96, 176), (1, 2)), ((16, 16, 176), (2,)),
-                            ((4096, 576), (1,))):
+                            ((4096, 576), (1,)), ((16, 96, 175), (1, 2))):
             a = _t(rng.standard_normal(shape).astype(np.float32)
                    * rng.uniform(0.01, 3.0, shape[:1] + (1,) * (len(shape) - 1)
                                  ).astype(np.float32))
-            got, want = quant.quantize(a.to(cuda), block_axes=axes), \
-                quant.quantize(a, block_axes=axes)
+            got, want = quant.quantize(a.to(cuda), bits=bits, block_axes=axes), \
+                quant.quantize(a, bits=bits, block_axes=axes)
             assert torch.equal(got.q.cpu(), want.q)
             assert torch.equal(got.scale.cpu(), want.scale)
             xq, sx = quant.quantize_act(a.to(cuda))
             wq, ws = quant.quantize_act(a)
             assert torch.equal(xq.cpu(), wq) and torch.equal(sx.cpu(), ws)
 
-    def test_engine_scopes_its_activation_mode(self, cuda):
-        """An int8-only engine built after a W8A8 engine launches the int8
-        kernels; the W8A8 engine launches the W8A8 kernels."""
+    @pytest.mark.parametrize("weights", ["int8", "int4"])
+    def test_engine_scopes_its_activation_mode(self, cuda, weights):
+        """A weight-only engine built after an int8-activation engine (of
+        the same weight storage) launches the weight-only kernels; the
+        other one its own (W8A8 or W4A8) kernels."""
         from repro_torch import configs
         from repro_torch.models import build_model
         from repro_torch.serve import (Engine, EngineConfig, MemoryConfig,
@@ -132,21 +173,22 @@ class TestOnCard:
         params = model.init(0)
         cfg = dict(scheduler=SchedulerConfig(slots=2, chunk_size=4),
                    memory=MemoryConfig(max_len=32))
-        w8a8 = Engine(model, params, EngineConfig(**cfg, quant=quant.QuantConfig(
-            weights="int8", activations="int8")), device=cuda)
-        int8 = Engine(model, params, EngineConfig(
-            **cfg, quant=quant.QuantConfig(weights="int8")), device=cuda)
-        for eng, keys in ((int8, ("blast_matmul_q", "blast_matmul_grouped_q")),
-                          (w8a8, ("blast_matmul_w8a8",
-                                  "blast_matmul_grouped_w8a8"))):
+        a8 = Engine(model, params, EngineConfig(**cfg, quant=quant.QuantConfig(
+            weights=weights, activations="int8")), device=cuda)
+        w_only = Engine(model, params, EngineConfig(
+            **cfg, quant=quant.QuantConfig(weights=weights)), device=cuda)
+        q, wa = ("q", "w8a8") if weights == "int8" else ("q4", "w4a8")
+        for eng, suffix in ((w_only, q), (a8, wa)):
             ops.reset_launches()
+            steps = -eng.stats["steps"]
             eng.generate_batch([[1, 2, 3]], SamplingParams(max_new_tokens=2))
             torch.cuda.synchronize()
-            steps = eng.stats["steps"]
+            steps += eng.stats["steps"]
             L = model.cfg.n_layers
             assert steps > 0
             assert {k: v for k, v in ops.launches.items() if v} == {
-                keys[0]: 3 * L * steps, keys[1]: L * steps,
+                f"blast_matmul_{suffix}": 3 * L * steps,
+                f"blast_matmul_grouped_{suffix}": L * steps,
                 "flash_attention_prefill": L * steps}
 
     @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

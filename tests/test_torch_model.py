@@ -233,15 +233,15 @@ def test_load_store_gives_the_same_logits(pair, tmp_path):
 
 
 def test_int_storage_raises():
-    """int4 storage belongs to the next slice: it raises, naming its ROADMAP
-    item.  So do a mix of storages and a bare integer tensor."""
+    """A mix of storages raises (an int4 factor beside float ones, an int8
+    factor beside float ones), and so does a bare integer tensor."""
     cfg = dataclasses.replace(configs.get("smollm-135m").reduced(), n_layers=1)
     model = build_model(cfg, device="cpu")
     toks = torch.zeros((1, 1), dtype=torch.int64)
     for leaf, error, match in (
             (quant.QArray(torch.zeros((4, 32, 10), dtype=torch.uint8),
                           torch.ones((4, 1, 1)), bits=4, last_dim=19),
-             NotImplementedError, "B7"),
+             NotImplementedError, "mixed storage"),
             (quant.quantize(torch.ones((4, 32, 19)), block_axes=(1, 2)),
              NotImplementedError, "mixed storage"),
             (torch.zeros((4, 32, 19), dtype=torch.int8), TypeError, "QArray")):

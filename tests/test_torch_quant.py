@@ -17,9 +17,10 @@ Tolerances:
   the other rows keep agreeing to 1e-7.  A wrong scale or layout moves
   every row by O(1);
 - greedy tokens: identical where the quantized reference's top-1/top-2
-  margin is ≥ ``MARGIN`` (the margin guard of ``test_torch_engine.py``).
+  margin is ≥ 1e-4 (the margin guard of ``test_torch_engine.py``).
 
-Every W8A8 JAX step is traced inside ``repro.core.structures.activations``
+The model-level checks live in ``torch_parity.py`` and are shared with
+``test_torch_int4.py``.  Every W8A8 JAX step is traced inside ``repro.core.structures.activations``
 or restores ``set_activations("none")``: the reference's mode is
 process-wide and its engine never resets it.
 """
@@ -36,35 +37,22 @@ from repro import quant as jq
 from repro.checkpoint import store
 from repro.core import structures as jstructures
 from repro.kernels import ops as jops
-from repro.serve import Engine as JEngine
-from repro.serve import EngineConfig as JEngineConfig
-from repro.serve import MemoryConfig as JMemoryConfig
-from repro.serve import SamplingParams as JSamplingParams
-from repro.serve import SchedulerConfig as JSchedulerConfig
 
-from repro_torch import configs, quant, weights
+from repro_torch import quant, weights
 from repro_torch.core import structures
 from repro_torch.kernels import ops, ref
 from repro_torch.models import build_model
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig,
                                SamplingParams, SchedulerConfig)
-from torch_parity import reference_lm
+from torch_parity import (check_greedy_tokens, check_prefill_logits,
+                          quantized_params_equal, reference_pair)
 
 KTOL = dict(atol=1e-5, rtol=1e-5)
-TOL = dict(atol=1e-4, rtol=1e-4)
-W8A8_ROW_ATOL = 2e-2
 MODES = {"int8": ("int8", "none"), "w8a8": ("int8", "int8")}
-MARGIN = 1e-4
-MAX_NEW = 8
 
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
-
-
-def _qcfg(mode, pkg):
-    w, a = MODES[mode]
-    return pkg.QuantConfig(weights=w, activations=a)
 
 
 def _factors(rng, b, p, q, r, lead=()):
@@ -120,8 +108,13 @@ def test_quant_config_and_int4_raise():
             quant.QuantConfig(**bad)
     cfg = quant.QuantConfig(weights="int4", cache="int8", activations="int8")
     assert (cfg.weight_bits, cfg.act_bits, cfg.enabled) == (4, 8, True)
-    with pytest.raises(NotImplementedError, match="B7"):
-        quant.quantize(torch.ones(4), bits=4)
+    # int4 is ported: code 7 in both nibbles of each byte, logical dim kept
+    qa = quant.quantize(torch.ones(5), bits=4)
+    assert qa.q.dtype == torch.uint8 and qa.q.tolist() == [0x77, 0x77, 0x07]
+    assert (qa.bits, qa.shape) == (4, (5,))
+    assert quant.int_values(qa).tolist() == [7] * 5
+    with pytest.raises(ValueError, match="bits"):
+        quant.quantize(torch.ones(4), bits=2)
 
 
 # -- kernel wrappers --------------------------------------------------------
@@ -218,10 +211,7 @@ def test_a8_plain_version_is_exact_in_stage_one():
 def pair():
     """(jax model, jax float params, port model, port float params) sharing
     the reference's weights."""
-    jmodel, jparams = reference_lm()
-    model = build_model(configs.get("smollm-135m").reduced(), device="cpu")
-    return (jmodel, jparams, model,
-            weights.from_jax_params(model, jax.tree.map(np.asarray, jparams)))
+    return reference_pair()
 
 
 @pytest.fixture(scope="module")
@@ -232,72 +222,22 @@ def jquant(pair):
     return jmodel.quantize_params(jparams, jq.QuantConfig(weights="int8"))
 
 
-def _leaves_equal(got, want, path="params"):
-    if isinstance(want, jq.QArray):
-        np.testing.assert_array_equal(got.q.cpu().numpy(), np.asarray(want.q),
-                                      err_msg=path)
-        np.testing.assert_array_equal(got.scale.cpu().numpy(),
-                                      np.asarray(want.scale), err_msg=path)
-        return 1
-    return sum(_leaves_equal(got[k], want[k], f"{path}/{k}") for k in want)
-
-
 def test_quantize_params_codes_equal_jax(pair, jquant):
     _, _, model, params = pair
     qp = model.quantize_params(params, quant.QuantConfig(weights="int8"))
     assert quant.tree_is_quantized(qp) and not quant.tree_is_quantized(params)
-    blk = jquant["cycles"]["blk_0"]
-    n = _leaves_equal(qp["embed"], jquant["embed"], "embed")
-    for i, lp in enumerate(qp["layers"]):
-        layer = jax.tree.map(lambda a: a[i], blk)
-        n += _leaves_equal({g: lp[g] for g in ("mixer", "ffn")},
-                           {g: layer[g] for g in ("mixer", "ffn")})
+    n = quantized_params_equal(qp, jquant)
     assert n == 1 + 15 * model.cfg.n_layers
     assert qp["embed"].scale.shape == (model.cfg.vocab, 1)
     # int8 storage is about a quarter of fp32 (scales are a small extra)
     assert quant.tree_nbytes(qp) < 0.3 * quant.tree_nbytes(params)
 
 
-def _chunks():
-    rng = np.random.default_rng(3)
-    for n in ([8, 3, 0, 5], [2, 8, 4, 0], [1, 1, 8, 1]):
-        yield (rng.integers(0, 512, size=(4, 8)).astype(np.int32),
-               np.array(n, np.int32))
-
-
-def _run_prefills(run, params, cache):
-    steps = np.zeros(4, np.int32)
-    outs = []
-    for toks, n in _chunks():
-        logits, cache = run(params, cache, toks, steps, n)
-        outs.append((np.asarray(logits, np.float32), n > 0))
-        steps = steps + n
-    return outs
-
-
 @pytest.mark.parametrize("mode", ["int8", "w8a8"])
 def test_prefill_chunk_logits_match_jax(pair, jquant, mode):
     jmodel, _, model, params = pair
-    act = MODES[mode][1]
-    # a fresh function object: its trace is not shared with the other mode
-    jstep = jax.jit(lambda *a: jmodel.prefill_chunk(*a))
-    with jstructures.activations(act):
-        want = _run_prefills(jstep, jquant, jmodel.init_cache(4, 32))
     qp = model.quantize_params(params, quant.QuantConfig(weights="int8"))
-    with structures.activations(act):
-        got = _run_prefills(
-            lambda p, c, t, s, n: model.prefill_chunk(p, c, _t(t), s, n),
-            qp, model.init_cache(4, 32))
-    assert structures.activations_mode() == "none"
-    row_err = []
-    for (g, live), (w, _) in zip(got, want):
-        assert g.shape == w.shape == (4, 1, 512)
-        if mode == "int8":
-            np.testing.assert_allclose(g[live], w[live], **TOL)
-        row_err += list(np.abs(g[live] - w[live]).max(axis=(1, 2)))
-    row_err = np.array(row_err)
-    assert row_err.max() <= W8A8_ROW_ATOL, row_err
-    assert (row_err <= TOL["atol"]).mean() >= 0.75, row_err
+    check_prefill_logits(jmodel, jquant, model, qp, MODES[mode][1])
 
 
 def test_quantized_jax_trees_carry_across(pair, jquant, tmp_path):
@@ -319,58 +259,28 @@ def test_quantized_jax_trees_carry_across(pair, jquant, tmp_path):
         got, _ = model.prefill_chunk(carried, model.init_cache(2, 8), toks,
                                      steps, n)
         assert torch.equal(got, want)
-    packed = jax.tree.map(np.asarray, jq.quantize(jnp.ones((4, 4)), bits=4))
-    with pytest.raises(NotImplementedError, match="B7"):
-        weights.from_jax_params(model, {**jax.tree.map(np.asarray, jquant),
-                                        "embed": packed})
+    # a packed int4 leaf carries across packed (int4 is ported); one whose
+    # logical size is not the model's raises
+    d = model.cfg.d_model
+    for rows, cols in ((model.cfg.vocab, d), (4, 4)):
+        packed = jax.tree.map(np.asarray,
+                              jq.quantize(jnp.ones((rows, cols)), bits=4))
+        tree = {**jax.tree.map(np.asarray, jquant), "embed": packed}
+        if cols != d:
+            with pytest.raises(ValueError, match="last dim"):
+                weights.from_jax_params(model, tree)
+            continue
+        embed = weights.from_jax_params(model, tree)["embed"]
+        assert (embed.bits, embed.shape) == (4, (rows, d))
+        np.testing.assert_array_equal(embed.q.numpy(), packed.q)
 
 
 # -- the engine -------------------------------------------------------------
 
 
-def _prompts():
-    rng = np.random.default_rng(5)
-    return [[int(t) for t in rng.integers(0, 512, size=n)]
-            for n in (3, 17, 9, 30, 1, 12)]
-
-
 @pytest.mark.parametrize("mode", ["int8", "w8a8"])
 def test_greedy_tokens_match_jax_engine(pair, mode):
-    jmodel, jparams, model, params = pair
-    act = MODES[mode][1]
-    try:
-        jeng = JEngine(jmodel, jparams, JEngineConfig(
-            scheduler=JSchedulerConfig(slots=4, chunk_size=8),
-            memory=JMemoryConfig(max_len=64), quant=_qcfg(mode, jq)),
-            step_fn=jax.jit(lambda *a: jmodel.prefill_chunk(*a)))
-        want = [list(r.output) for r in jeng.generate_batch(
-            _prompts(), JSamplingParams(max_new_tokens=MAX_NEW))]
-        # margins of the quantized reference's own predictions
-        seqs = [p + o for p, o in zip(_prompts(), want)]
-        toks = np.zeros((len(seqs), max(map(len, seqs))), np.int32)
-        for i, s in enumerate(seqs):
-            toks[i, :len(s)] = s
-        logits = np.asarray(jax.jit(lambda p, t: jmodel.apply(p, t).logits)(
-            jeng.params, jnp.asarray(toks)))
-    finally:
-        jstructures.set_activations("none")
-    top2 = np.sort(logits, axis=-1)[..., -2:]
-    margin = top2[..., 1] - top2[..., 0]
-    safe = []
-    for i, p in enumerate(_prompts()):
-        low = np.nonzero(margin[i, len(p) - 1: len(p) - 1 + MAX_NEW]
-                         < MARGIN)[0]
-        safe.append(int(low[0]) if low.size else MAX_NEW)
-    assert sum(safe) >= len(safe) * MAX_NEW // 2, safe   # the check has teeth
-    eng = Engine(model, params, EngineConfig(
-        scheduler=SchedulerConfig(slots=4, chunk_size=8),
-        memory=MemoryConfig(max_len=64), quant=_qcfg(mode, quant)),
-        device="cpu")
-    assert eng.act_mode == act and quant.tree_is_quantized(eng.params)
-    reqs = eng.generate_batch(_prompts(), SamplingParams(max_new_tokens=MAX_NEW))
-    assert all(r.done and len(r.output) == MAX_NEW for r in reqs)
-    for r, w, n in zip(reqs, want, safe):
-        assert r.output[:n] == w[:n]
+    check_greedy_tokens(*pair, *MODES[mode])
 
 
 def test_activation_mode_is_scoped_per_engine(pair, monkeypatch):
@@ -406,6 +316,12 @@ def test_engine_refuses_int8_cache_and_int4_weights(pair):
     with pytest.raises(NotImplementedError, match="A9"):
         build_model(dataclasses.replace(
             model.cfg, quant=quant.QuantConfig(cache="int8")), device="cpu")
-    with pytest.raises(NotImplementedError, match="B7"):
-        Engine(model, params, EngineConfig(
-            quant=quant.QuantConfig(weights="int4")), device="cpu")
+    # int4 weights are ported: the engine quantizes them at load, packed
+    eng = Engine(model, params, EngineConfig(
+        scheduler=SchedulerConfig(slots=2, chunk_size=4),
+        memory=MemoryConfig(max_len=32),
+        quant=quant.QuantConfig(weights="int4")), device="cpu")
+    assert eng.params["embed"].bits == 4
+    assert eng.params["layers"][0]["mixer"]["qkv"]["U"].q.dtype == torch.uint8
+    reqs = eng.generate_batch([[1, 2, 3]], SamplingParams(max_new_tokens=2))
+    assert reqs[0].done and len(reqs[0].output) == 2

@@ -1,13 +1,35 @@
-"""Shared reference state of the port's parity tests: the JAX
+"""Shared reference state and checks of the port's parity tests: the JAX
 ``smollm-135m.reduced()`` model and its ``LM.init(PRNGKey(0))`` weights,
-built once per process."""
+built once per process, and the quantized-model checks that the int8 and
+int4 test files both run (tolerances are stated in those files)."""
 
 import functools
 
 import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
 
 from repro import configs as jconfigs
+from repro import quant as jq
+from repro.core import structures as jstructures
 from repro.models import build_model as jbuild_model
+from repro.serve import Engine as JEngine
+from repro.serve import EngineConfig as JEngineConfig
+from repro.serve import MemoryConfig as JMemoryConfig
+from repro.serve import SamplingParams as JSamplingParams
+from repro.serve import SchedulerConfig as JSchedulerConfig
+
+from repro_torch import configs, quant, weights
+from repro_torch.core import structures
+from repro_torch.models import build_model
+from repro_torch.serve import (Engine, EngineConfig, MemoryConfig,
+                               SamplingParams, SchedulerConfig)
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+A8_ROW_ATOL = 2e-2
+MARGIN = 1e-4
+MAX_NEW = 8
 
 
 @functools.lru_cache(maxsize=1)
@@ -22,3 +44,129 @@ def reference_lm():
     init = jax.jit(jmodel.init).lower(key).compile(
         compiler_options={"xla_backend_optimization_level": 0})
     return jmodel, init(key)
+
+
+def reference_pair():
+    """(jax model, jax float params, port model, port float params) sharing
+    the reference's weights."""
+    jmodel, jparams = reference_lm()
+    model = build_model(configs.get("smollm-135m").reduced(), device="cpu")
+    return (jmodel, jparams, model,
+            weights.from_jax_params(model, jax.tree.map(np.asarray, jparams)))
+
+
+def leaves_equal(got, want, path="params") -> int:
+    """Assert every QArray of ``want`` (JAX) has equal bits, logical shape,
+    codes (int4: packed bytes) and scales in ``got`` (port); returns how
+    many were compared."""
+    if isinstance(want, jq.QArray):
+        assert (got.bits, got.shape) == (want.bits, tuple(want.shape)), path
+        np.testing.assert_array_equal(got.q.cpu().numpy(), np.asarray(want.q),
+                                      err_msg=path)
+        np.testing.assert_array_equal(got.scale.cpu().numpy(),
+                                      np.asarray(want.scale), err_msg=path)
+        return 1
+    return sum(leaves_equal(got[k], want[k], f"{path}/{k}") for k in want)
+
+
+def quantized_params_equal(qp, jtree) -> int:
+    """``leaves_equal`` over the embedding and every layer's linears of a
+    port tree and the reference's scan-stacked tree."""
+    blk = jtree["cycles"]["blk_0"]
+    n = leaves_equal(qp["embed"], jtree["embed"], "embed")
+    for i, lp in enumerate(qp["layers"]):
+        layer = jax.tree.map(lambda a: a[i], blk)
+        n += leaves_equal({g: lp[g] for g in ("mixer", "ffn")},
+                          {g: layer[g] for g in ("mixer", "ffn")})
+    return n
+
+
+def _chunks():
+    rng = np.random.default_rng(3)
+    for n in ([8, 3, 0, 5], [2, 8, 4, 0], [1, 1, 8, 1]):
+        yield (rng.integers(0, 512, size=(4, 8)).astype(np.int32),
+               np.array(n, np.int32))
+
+
+def _run_prefills(run, params, cache):
+    steps = np.zeros(4, np.int32)
+    outs = []
+    for toks, n in _chunks():
+        logits, cache = run(params, cache, toks, steps, n)
+        outs.append((np.asarray(logits, np.float32), n > 0))
+        steps = steps + n
+    return outs
+
+
+def check_prefill_logits(jmodel, jtree, model, qp, act):
+    """Three ragged ``prefill_chunk`` steps of the quantized reference tree
+    and the port's quantized params.  Weight-only (``act="none"``): every
+    live logit within ``TOL``.  int8 activations: every live row within
+    ``A8_ROW_ATOL`` and at least 3/4 of them within ``TOL``."""
+    # a fresh function object: its trace is not shared with the other mode
+    jstep = jax.jit(lambda *a: jmodel.prefill_chunk(*a))
+    with jstructures.activations(act):
+        want = _run_prefills(jstep, jtree, jmodel.init_cache(4, 32))
+    with structures.activations(act):
+        got = _run_prefills(
+            lambda p, c, t, s, n: model.prefill_chunk(
+                p, c, torch.from_numpy(t), s, n),
+            qp, model.init_cache(4, 32))
+    assert structures.activations_mode() == "none"
+    row_err = []
+    for (g, live), (w, _) in zip(got, want):
+        assert g.shape == w.shape == (4, 1, 512)
+        if act == "none":
+            np.testing.assert_allclose(g[live], w[live], **TOL)
+        row_err += list(np.abs(g[live] - w[live]).max(axis=(1, 2)))
+    row_err = np.array(row_err)
+    assert row_err.max() <= A8_ROW_ATOL, row_err
+    assert (row_err <= TOL["atol"]).mean() >= 0.75, row_err
+
+
+def _prompts():
+    rng = np.random.default_rng(5)
+    return [[int(t) for t in rng.integers(0, 512, size=n)]
+            for n in (3, 17, 9, 30, 1, 12)]
+
+
+def check_greedy_tokens(jmodel, jparams, model, params, weights_mode, act):
+    """Greedy tokens of the port's engine equal the JAX engine's in one
+    quantized mode, up to the first step where the quantized reference's
+    top-1/top-2 margin is below ``MARGIN``.  Returns the port engine."""
+    try:
+        jeng = JEngine(jmodel, jparams, JEngineConfig(
+            scheduler=JSchedulerConfig(slots=4, chunk_size=8),
+            memory=JMemoryConfig(max_len=64),
+            quant=jq.QuantConfig(weights=weights_mode, activations=act)),
+            step_fn=jax.jit(lambda *a: jmodel.prefill_chunk(*a)))
+        want = [list(r.output) for r in jeng.generate_batch(
+            _prompts(), JSamplingParams(max_new_tokens=MAX_NEW))]
+        # margins of the quantized reference's own predictions
+        seqs = [p + o for p, o in zip(_prompts(), want)]
+        toks = np.zeros((len(seqs), max(map(len, seqs))), np.int32)
+        for i, s in enumerate(seqs):
+            toks[i, :len(s)] = s
+        logits = np.asarray(jax.jit(lambda p, t: jmodel.apply(p, t).logits)(
+            jeng.params, jnp.asarray(toks)))
+    finally:
+        jstructures.set_activations("none")
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    safe = []
+    for i, p in enumerate(_prompts()):
+        low = np.nonzero(margin[i, len(p) - 1: len(p) - 1 + MAX_NEW]
+                         < MARGIN)[0]
+        safe.append(int(low[0]) if low.size else MAX_NEW)
+    assert sum(safe) >= len(safe) * MAX_NEW // 2, safe   # the check has teeth
+    eng = Engine(model, params, EngineConfig(
+        scheduler=SchedulerConfig(slots=4, chunk_size=8),
+        memory=MemoryConfig(max_len=64),
+        quant=quant.QuantConfig(weights=weights_mode, activations=act)),
+        device="cpu")
+    assert eng.act_mode == act and quant.tree_is_quantized(eng.params)
+    reqs = eng.generate_batch(_prompts(), SamplingParams(max_new_tokens=MAX_NEW))
+    assert all(r.done and len(r.output) == MAX_NEW for r in reqs)
+    for r, w, n in zip(reqs, want, safe):
+        assert r.output[:n] == w[:n]
+    return eng
