@@ -13,25 +13,42 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the full-width smollm-135m shapes, T = 8 and 256, fp32 and bf16, max
    error vs tolerance: the float BLAST kernels, the int8- and int4-weight
    kernels, the W8A8 and W4A8 kernels (each kernel and its plain version
-   get the same activation codes), and prefill attention.
-4. reference — the full-width model (fp32, depth cut to 2 layers) on the
+   get the same activation codes), prefill attention, and full-sequence
+   attention (B4: causal at B=8 T=256 and B=1 T=2048, a ragged T=200, a
+   window, a q_offset, non-causal).
+4. grads — fp32 gradients of the three autograd Functions on the training
+   path (B1, B2, B4) against torch.autograd through the plain versions, at
+   2048 tokens: within 1e-4 × each gradient's largest entry.
+5. reference — the full-width model (fp32, depth cut to 2 layers) on the
    card through the kernels against the same model on the CPU through the
    plain versions, over ragged multi-chunk steps, in each serving mode:
    float, int8 weights, W8A8, int4 weights and W4A8; every quantized
    weight's codes (int4: packed bytes) and scales equal on both.  With
    int8 activations the gated run shares the card's activation codes with
    the CPU, after checking that the two differ only by boundary flips.
-5. serve — full-width smollm-135m (30 layers, vocab 49152, bf16, seeded
+6. train_reference — the same 2-layer fp32 model, one training batch:
+   loss, every gradient and the parameters after one AdamW step on the
+   card against the CPU; ``LM.apply(last_only=True)`` against
+   ``prefill_chunk`` (B4 against B3).
+7. serve — full-width smollm-135m (30 layers, vocab 49152, bf16, seeded
    random weights) served by the engine in each mode (weights quantized at
    load): 16 prompts of 16-200 tokens, 32 new tokens each; each mode's own
    kernels' launch counters must equal steps × (90, 30, 30) and the others
    stay 0.  Then, in each mode, six steady decode steps (8 slots) under
    torch.profiler: device busy and idle share per step, kernel time by
    name.
-6. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
+8. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
+   steps (bf16, remat, batch 8 × seq 256 of the Markov ``TokenStream``,
+   lr 3e-4 with warmup 5): per step loss, grad norm, skipped flag, time
+   and launches; the median step time, training tokens/s, peak device
+   memory, launches per step, and one more step under torch.profiler.
+   Every loss finite, no step skipped, the last 5 losses' mean below the
+   first, B4 launched 30 × 2 times a step, no serving-only kernel.
+9. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each run: kernel, plain version and one PyTorch library
-   call (a yardstick only; the port never calls it), at decode and prefill
-   shapes, beside each call's bound on the H100.
+   call (a yardstick only; the port never calls it), at decode, prefill
+   and training shapes (B4; B1 as the backward's dx), beside each call's
+   bound on the H100.
 
 The last lines are the per-kernel JSON summary, the ``nvidia-smi`` line,
 and ``{"ok": true, "device": {...}}``.
@@ -41,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -51,6 +69,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
+# the training run: the launcher's defaults (batch 8 × seq 256, lr 3e-4),
+# warmup 5, 20 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 8, 256, 20, 3e-4, 5
 PEAK_FLOPS = {"float32": 67e12,         # no tensor cores
               "bfloat16": 989e12,       # dense tensor cores
               "int8": 1979e12}
@@ -199,6 +220,24 @@ def make_attn_inputs(B, Hq, Hkv, C, S, D, dtype, gen, device):
             offs)
 
 
+# B4 cases of the kernels phase: (B, T, S, options)
+B4_CASES = [(8, 256, 256, {}), (1, 2048, 2048, {}), (8, 200, 200, {}),
+            (8, 256, 256, {"window": 64}), (8, 256, 320, {"q_offset": 64}),
+            (8, 256, 256, {"causal": False})]
+
+
+def make_full_attn_inputs(B, Hq, Hkv, T, S, D, dtype, gen, device):
+    """q, k, v (B, H, T, D) as strided views of one token-major buffer per
+    role, as the attention layer passes views of the qkv projection."""
+    import torch
+    q = torch.randn((B, T, Hq, D), generator=gen).to(device=device,
+                                                      dtype=dtype)
+    kv = torch.randn((B, S, 2 * Hkv, D), generator=gen).to(device=device,
+                                                            dtype=dtype)
+    return (q.transpose(1, 2), kv[:, :, :Hkv].transpose(1, 2),
+            kv[:, :, Hkv:].transpose(1, 2))
+
+
 def blast_cost(n, m, b, r, G, T, elt, mode="none"):
     """(bytes, {dtype: operations}) of one BLAST call taking x of ``elt``
     bytes and writing y of that type: every input read once, the output
@@ -230,6 +269,19 @@ def attn_cost(q, k, offs, elt):
     bytes_ = (2 * B * Hq * C * D + 2 * keys * Hkv * D) * elt + 4 * B
     flops = 4 * D * Hq * pairs
     return bytes_, flops
+
+
+def full_attn_cost(B, Hq, Hkv, T, S, D, elt, causal=True, window=None,
+                   q_offset=0):
+    """(bytes, flops) of B4: q, k, v read once and o written once; 4·D
+    flops (QKᵀ and PV) per visible (query, key) pair of each query head."""
+    pairs = 0
+    for t in range(T):
+        hi = min(S, q_offset + t + 1) if causal else S
+        lo = max(0, q_offset + t - window + 1) if window else 0
+        pairs += max(0, hi - lo)
+    bytes_ = (2 * B * Hq * T * D + 2 * B * Hkv * S * D) * elt
+    return bytes_, 4 * D * B * Hq * pairs
 
 
 def bound(bytes_, ops_by_dtype):
@@ -368,6 +420,16 @@ def phase_kernels(cfg):
             if dname == "bfloat16":
                 errs["flash_attention_prefill"] = max(
                     errs["flash_attention_prefill"], e)
+        for B, T, S, kw in B4_CASES:
+            q, k, v = make_full_attn_inputs(B, hq, hkv, T, S, hd, dtype, gen,
+                                            DEVICE)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            e = check_close(f"flash_attention[B={B} Hq={hq} Hkv={hkv} T={T} "
+                            f"S={S} D={hd} {kw}]", got, want, dname)
+            if dname == "bfloat16":
+                errs["flash_attention"] = max(errs["flash_attention"], e)
     return errs
 
 
@@ -635,6 +697,267 @@ def phase_profile(model, params, mode):
                    "ms_per_step": t / n_steps} for n, (c, t) in top]})
 
 
+# -- training -------------------------------------------------------------------
+
+
+def _rel_grad_err(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def phase_grads(cfg):
+    """fp32 gradients of the three autograd Functions on the card (kernel
+    forward, B1 for BLAST dx, explicit backward) against torch.autograd
+    through the plain versions on the same inputs, at smollm-135m's
+    training shapes (2048 tokens): each gradient within 1e-4 × its largest
+    entry."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(SEED + 3)
+    T = TRAIN_BATCH * TRAIN_SEQ
+    cases = []
+    for name, n, m, b, r, G in blast_shapes(cfg):
+        x, U, S, V = make_blast_inputs(n, m, b, r, G, T, torch.float32, gen,
+                                       DEVICE)
+        if G == 1:
+            cases.append((f"blast_matmul[{name}]", ops.blast_matmul,
+                          ref.blast_matmul_ref, [x, U[0], S[0], V[0]],
+                          ("dx", "dU", "dS", "dV")))
+        else:
+            cases.append((f"blast_matmul_grouped[{name}]",
+                          ops.blast_matmul_grouped,
+                          ref.blast_matmul_grouped_ref, [x, U, S, V],
+                          ("dx", "dU", "dS", "dV")))
+    q, k, v = make_full_attn_inputs(TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                                    TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim_,
+                                    torch.float32, gen, DEVICE)
+    cases.append(("flash_attention[B=8 T=256]", ops.flash_attention,
+                  ref.attention_ref, [q, k, v], ("dq", "dk", "dv")))
+    for name, fn, plain, inputs, names in cases:
+        a = [t.detach().clone().requires_grad_(True) for t in inputs]
+        b_ = [t.detach().clone().requires_grad_(True) for t in inputs]
+        y = fn(*a)
+        dy = torch.randn(y.shape, generator=gen).to(DEVICE)
+        got = torch.autograd.grad(y, a, dy)
+        want = torch.autograd.grad(plain(*b_), b_, dy)
+        torch.cuda.synchronize()
+        errs = {n_: _rel_grad_err(g, w) for n_, g, w in zip(names, got, want)}
+        ok = all(e <= 1e-4 for e in errs.values())
+        emit({"phase": "grads", "case": name, "dtype": "float32",
+              "max_err_over_max_grad": errs, "limit": 1e-4, "ok": ok})
+        if not ok:
+            raise RuntimeError(f"grads[{name}]: {errs} past 1e-4")
+
+
+ADAM_NOISE = 1e-3   # see phase_train_reference
+
+
+def phase_train_reference(cfg):
+    """Full width, 2 layers, fp32, one batch of 2 × 128 tokens: the card
+    (kernels) against the CPU (plain versions) from the same seeded
+    weights.  Loss within 1e-5 relative; every gradient within 1e-4 × its
+    leaf's largest entry.  One AdamW step on each device's own gradients:
+    every parameter within 1e-6, except entries whose CPU gradient is below
+    ``ADAM_NOISE`` × its leaf's largest, bounded by 2 × lr.  There AdamW's
+    first step, lr·g/(|g| + eps) on the clipped gradient, turns the
+    gradients' rounding into step differences above 1e-6 (the clipped |g|
+    is within a few tens of eps); the error at the narrower cut of 1e-6 ×
+    the leaf's largest is reported beside it.  And the optimizer alone:
+    the card's step against the CPU's AdamW on the card's gradients, every
+    parameter within 1e-6.  Then ``LM.apply(last_only=True)`` against
+    ``prefill_chunk`` on the card (B4 against B3), logits within 1e-4."""
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, constant_schedule
+    from repro_torch.train import make_loss_fn
+    from repro_torch.tree import leaves
+    small = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                                compute_dtype="float32")
+    lr = 1e-3
+    batch = TokenStream(vocab=cfg.vocab, seq_len=128, global_batch=2,
+                        seed=SEED).batch(0)
+    def adamw_step(params: list, grads) -> float:
+        """One AdamW step in place; returns the skipped flag."""
+        opt = adamw(constant_schedule(lr))
+        return float(opt.update(list(grads), opt.init(params), params)[2][
+            "skipped"])
+
+    out = []
+    for dev in (DEVICE, "cpu"):
+        model = build_model(small, device=dev)
+        params = model.init(SEED)
+        flat = leaves(params)
+        for t in flat:
+            t.requires_grad_(True)
+        loss, _ = make_loss_fn(model)(params, batch)
+        grads = torch.autograd.grad(loss, flat)
+        skipped = adamw_step(flat, grads)
+        out.append((model, float(loss.detach()), [g.cpu() for g in grads],
+                    [p.detach().cpu() for p in flat], skipped))
+    (model, loss_g, grads_g, after_g, skip_g), (_, loss_c, grads_c, after_c,
+                                                skip_c) = out
+    same_grads = [p.detach() for p in leaves(out[1][0].init(SEED))]
+    adamw_step(same_grads, grads_g)
+    optimizer_err = max(float((a - c).abs().max())
+                        for a, c in zip(after_g, same_grads))
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    grad_err = max(_rel_grad_err(g, c) for g, c in zip(grads_g, grads_c))
+    by_cut = {}
+    for cut in (1e-6, ADAM_NOISE):
+        param_err = noise_err = 0.0
+        n_noise = 0
+        for a, c, g in zip(after_g, after_c, grads_c):
+            nz = g.abs() < cut * g.abs().max()
+            err = (a - c).abs()
+            param_err = max(param_err, float(torch.where(nz, 0.0, err).max()))
+            noise_err = max(noise_err, float(torch.where(nz, err, 0.0).max()))
+            n_noise += int(nz.sum())
+        by_cut[cut] = {"max_param_err": param_err, "noise_entries": n_noise,
+                       "max_noise_entry_err": noise_err}
+    # B4 (apply, last_only) against B3 (prefill_chunk) on the card
+    params = model.init(SEED)
+    toks = batch["tokens"][:, :128]
+    with torch.no_grad():
+        last = model.apply(params, toks, last_only=True).logits
+    pre, _ = model.prefill_chunk(params, model.init_cache(2, 128), toks,
+                                 [0, 0], [128, 128])
+    lo_err = float((last - pre).abs().max())
+    held = by_cut[ADAM_NOISE]
+    ok = (loss_rel <= 1e-5 and grad_err <= 1e-4 and optimizer_err <= 1e-6
+          and held["max_param_err"] <= 1e-6
+          and held["max_noise_entry_err"] <= 2 * lr and lo_err <= 1e-4
+          and skip_g == skip_c == 0)
+    emit({"phase": "train_reference", "layers": 2, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "dtype": "float32", "tokens": [2, 128],
+          "loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": loss_rel,
+          "max_grad_err_over_leaf_max": grad_err,
+          "after_step_by_noise_cut": {str(k): v for k, v in by_cut.items()},
+          "params": sum(a.numel() for a in after_c),
+          "same_grads_optimizer_max_param_err": optimizer_err,
+          "last_only_vs_prefill_chunk_max_abs_err": lo_err,
+          "limits": {"loss_rel": 1e-5, "grad": 1e-4, "param": 1e-6,
+                     "same_grads_optimizer": 1e-6,
+                     "noise_cut": ADAM_NOISE, "noise": 2 * lr,
+                     "last_only": 1e-4}, "ok": ok})
+    if not ok:
+        raise RuntimeError("train_reference: the card's training step "
+                           "differs from the CPU's past its limits")
+
+
+def phase_train(cfg):
+    """Full-width smollm-135m trained by the port's ``Trainer`` (30 layers,
+    bf16, remat, seeded ``LM.init``, the ``TokenStream`` at the launcher's
+    batch 8 × seq 256, AdamW with a cosine schedule).  Returns the launch
+    counts of the run."""
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import Trainer
+    model = build_model(cfg, device=DEVICE)
+    opt = adamw(cosine_schedule(TRAIN_LR, TRAIN_STEPS, TRAIN_WARMUP))
+    data = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=SEED)
+    trainer = Trainer(model, opt, data, log_every=10 ** 9)
+    per_step = []
+    inner = trainer.step_fn
+
+    def step_fn(params, opt_state, batch):
+        before = dict(ops.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = inner(params, opt_state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        row = {"step": len(per_step), "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]),
+               "skipped": bool(m["skipped"]), "ms": ms,
+               "launches": {k: v - before[k] for k, v in ops.launches.items()
+                            if v != before[k]}}
+        per_step.append(row)
+        emit({"phase": "train_step", **row})
+        return params, opt_state, m
+
+    trainer.step_fn = step_fn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    result = trainer.run(TRAIN_STEPS, seed=SEED)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in per_step]
+    ms = statistics.median(r["ms"] for r in per_step[3:])
+    L = cfg.n_layers
+    want_b4 = L * (1 + int(cfg.remat)) * TRAIN_STEPS
+    trained = {"blast_matmul", "blast_matmul_grouped", "flash_attention",
+               "blast_matmul_dx"}
+    stray = {k: v for k, v in launches.items() if v and k not in trained}
+    prof = _profile_train_step(inner, result, data)
+    emit({"phase": "train", "arch": cfg.name, "layers": L,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.param_dtype,
+          "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "steps": TRAIN_STEPS, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+          "first_loss": losses[0], "last5_mean_loss":
+              statistics.fmean(losses[-5:]),
+          "median_step_ms_after_3": ms,
+          "train_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+          "max_memory_allocated_bytes": peak,
+          "launches_per_step": {k: v / TRAIN_STEPS
+                                for k, v in launches.items() if v},
+          "profile": prof})
+    bad = []
+    if not all(map(math.isfinite, losses)) or len(losses) != TRAIN_STEPS:
+        bad.append(f"losses {losses}")
+    if any(r["skipped"] for r in per_step):
+        bad.append("a step was skipped")
+    if not statistics.fmean(losses[-5:]) < losses[0]:
+        bad.append(f"the last 5 losses' mean is not below the first "
+                   f"({losses})")
+    if launches["flash_attention"] != want_b4:
+        bad.append(f"B4 launched {launches['flash_attention']} times, want "
+                   f"{want_b4}")
+    if stray:
+        bad.append(f"kernels off the training path launched: {stray}")
+    if any(launches[k] == 0 for k in trained):
+        bad.append(f"a training kernel never launched: {launches}")
+    if bad:
+        raise RuntimeError("train: " + "; ".join(bad))
+    return launches
+
+
+def _profile_train_step(step_fn, result, data):
+    """One more training step under torch.profiler: device time by kernel
+    name and the device idle share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    params, opt_state = result["params"], result["opt_state"]
+    batch = data.batch(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(v[1] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms if kernels else None,
+            "device_ops": sum(v[0] for v in kernels.values()),
+            "top": [{"name": n[:80], "calls": c, "ms": t}
+                    for n, (c, t) in top]}
+
+
 def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
                flush, **extra):
     bytes_, flops = cost
@@ -733,6 +1056,36 @@ def phase_timing(cfg):
             f"B=8 Hq={hq} Hkv={hkv} C={C} S=512 D={hd}", kern, plain, lib,
             "scaled_dot_product_attention (masked, GQA)",
             (bytes_, {dname: flops}), flush))
+    for B, T in ((8, 256), (1, 2048)):
+        q, k, v = make_full_attn_inputs(B, hq, hkv, T, T, hd, dt, gen, DEVICE)
+        kern = lambda: ops.flash_attention(q, k, v)  # noqa: E731
+        plain = lambda: ref.attention_ref(q, k, v)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True)
+        check_close(f"sdpa yardstick B={B} T={T}", lib(),
+                    ref.attention_ref(q, k, v), dname)
+        bytes_, flops = full_attn_cost(B, hq, hkv, T, T, hd, elt)
+        rows.append(timing_row(
+            "flash_attention", "attn", B * T,
+            f"B={B} Hq={hq} Hkv={hkv} T={T} D={hd} causal", kern, plain, lib,
+            "scaled_dot_product_attention (is_causal, GQA)",
+            (bytes_, {dname: flops}), flush))
+    # B1 launched for a backward pass's dx, on the transposed BLAST matrix
+    # (n and m swap), at the training step's 2048 tokens
+    T = TRAIN_BATCH * TRAIN_SEQ
+    for name, n, m, b, r, G in blast_shapes(cfg):
+        if name not in ("qkv", "down"):
+            continue
+        _, U, S, V = make_blast_inputs(n, m, b, r, 1, T, dt, gen, DEVICE)
+        dy = torch.randn((T, m), generator=gen).to(DEVICE, dt)
+        Ut, St, Vt = V[0], S[0].transpose(0, 1).contiguous(), U[0]
+        dense = blast_lib.to_dense(blast_lib.BlastParams(Ut, St, Vt))
+        rows.append(timing_row(
+            "blast_matmul_dx", f"{name} dx", T, f"{m}->{n} b={b} r={r}",
+            lambda: ops._blast_dx(dy, U[0], S[0], V[0]),
+            lambda: ref.blast_matmul_ref(dy, Ut, St, Vt),
+            lambda: torch.matmul(dy, dense.T), lib_name,
+            blast_cost(m, n, b, r, 1, T, elt), flush))
     return rows
 
 
@@ -765,34 +1118,52 @@ SOURCES = {   # kernel → (source, TPU kernel it replaces, serving mode)
     "flash_attention_prefill": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:155", "none"),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:98", "train"),
 }
 
 
 def summary(rows, errs, launches):
     """One entry per kernel.  Its numbers are one layer's calls of that
-    kernel in one decode step (T = 8 slots, C = 1), summed; ``cases`` holds
-    every timed shape.  ``launches`` is the count from the serving run of
-    the kernel's own mode."""
+    kernel in one decode step (T = 8 slots, C = 1), summed — for B4, which
+    only training runs, one call at the training step's shape (B = 8,
+    T = 256); ``cases`` holds every timed shape.  ``launches`` is the count
+    from the run of the kernel's own path (its serving mode, or training);
+    the kernels that training also runs carry ``train_launches``, and B1
+    its backward-dx launches (``train_dx_launches``, timed as the
+    ``blast_matmul_dx`` cases)."""
     out = []
     for kname, (src, replaces, mode) in SOURCES.items():
         mine = [r for r in rows if r["kernel"] == kname]
-        dec = [r for r in mine if r["T"] == 8]
-        tot = {k: sum(r[k] for r in dec)
+        if kname == "blast_matmul":
+            mine += [r for r in rows if r["kernel"] == "blast_matmul_dx"]
+        if mode == "train":
+            picked = [r for r in mine if r["shape"].startswith("B=8 ")]
+            per = "one call at the training shape (B=8, T=256)"
+        else:
+            picked = [r for r in mine if r["T"] == 8]
+            per = "one layer's calls in one decode step (T=8)"
+        tot = {k: sum(r[k] for r in picked)
                for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
-        out.append({"name": kname, "route": "cuda", "source": src,
-                    "replaces": replaces, "mode": mode,
-                    "launches": launches[mode][kname],
-                    "max_abs_err": errs[kname], "ms": tot["ms"],
-                    "plain_ms": tot["plain_ms"],
-                    "bound_ms": max(tot["bytes_ms"], tot["ops_ms"]),
-                    "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
-                                 else "operations"),
-                    "library_ms": tot["library_ms"],
-                    "per": "one layer's calls in one decode step (T=8)",
-                    "cases": [{k: r[k] for k in ("linear", "T", "shape", "ms",
-                                                 "plain_ms", "library_ms",
-                                                 "bound_ms", "bound_by")}
-                              for r in mine]})
+        entry = {"name": kname, "route": "cuda", "source": src,
+                 "replaces": replaces, "mode": mode,
+                 "launches": launches[mode][kname],
+                 "max_abs_err": errs[kname], "ms": tot["ms"],
+                 "plain_ms": tot["plain_ms"],
+                 "bound_ms": max(tot["bytes_ms"], tot["ops_ms"]),
+                 "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                              else "operations"),
+                 "library_ms": tot["library_ms"], "per": per}
+        if mode != "train" and launches["train"][kname]:
+            entry["train_launches"] = launches["train"][kname]
+        if kname == "blast_matmul":
+            entry["train_dx_launches"] = launches["train"]["blast_matmul_dx"]
+        entry["cases"] = [{k: r[k] for k in ("kernel", "linear", "T", "shape",
+                                             "ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")}
+                          for r in mine]
+        out.append(entry)
     return out
 
 
@@ -804,14 +1175,17 @@ def main() -> int:
     from repro_torch.models import build_model
     phase_build()
     errs = phase_kernels(cfg)
+    phase_grads(cfg)
     for mode in MODES:
         phase_reference(cfg, mode)
+    phase_train_reference(cfg)
     model = build_model(cfg, device=DEVICE)
     params = model.init(SEED)
     launches = {mode: phase_serve(cfg, model, params, mode) for mode in MODES}
     for mode in MODES:
         phase_profile(model, params, mode)
     del model, params
+    launches["train"] = phase_train(cfg)
     rows = phase_timing(cfg)
     emit({"kernels": summary(rows, errs, launches)})
     print(smi, flush=True)

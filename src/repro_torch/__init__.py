@@ -1,9 +1,11 @@
-"""PyTorch + CUDA port of the BLAST serving stack (the JAX package ``repro``
-stays the reference it is held against).
+"""PyTorch + CUDA port of the BLAST serving and training stack (the JAX
+package ``repro`` stays the reference it is held against).
 
 Module names mirror ``repro``: ``configs``, ``core``, ``kernels``, ``quant``,
-``models``, ``serve``, ``launch``, plus ``weights`` (the bridge that carries JAX
-parameters and ``checkpoint/store.py`` directories across).
+``models``, ``serve``, ``optim``, ``train``, ``data``, ``checkpoint``,
+``launch``, plus ``weights`` (the bridge that carries JAX parameters and
+``checkpoint/store.py`` directories across) and ``tree`` (nested-dict
+parameter trees).
 
 The package imports ``torch``, numpy and the standard library only.  Every
 entry point runs on ``cuda`` unless the caller passes ``device="cpu"``; with

@@ -1,8 +1,9 @@
 """Architecture configuration schema (copy of ``repro/configs/base.py`` and
 ``repro/core/structures.py::StructureConfig``, kept jax-free).
 
-Only the fields the ported serving slice reads, plus every field that changes
-numbers (``reduced()`` gives the same shapes and dtypes as the reference).
+Only the fields the ported serving and training slices read, plus every
+field that changes numbers (``reduced()`` gives the same shapes and dtypes
+as the reference).
 Families and knobs the slice does not run yet (MoE, MLA, SSD, RG-LRU,
 encoders) are not carried; ``LM`` raises on them.
 """
@@ -64,6 +65,13 @@ class ArchConfig:
     structure_ffn: StructureConfig | None = None
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    # training: recompute each layer's activations in the backward pass
+    # (``torch.utils.checkpoint``), and the chunked-attention tile sizes
+    # (query rows per chunk; ``kv_chunk`` is carried as the reference
+    # carries it — neither package's attention tiles by it)
+    remat: bool = True
+    q_chunk: int = 512
+    kv_chunk: int = 1024
     # serving-time storage: ``quant.weights`` drives the engine's
     # quantize-at-load and ``LM.quantize_params``
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
@@ -90,6 +98,9 @@ class ArchConfig:
             d_ff=min(self.d_ff, 128) if self.d_ff else 0,
             param_dtype="float32",
             compute_dtype="float32",
+            remat=False,
+            q_chunk=32,
+            kv_chunk=32,
         )
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))

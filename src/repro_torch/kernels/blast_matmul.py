@@ -15,7 +15,10 @@ return y (G, T, m):
   them packed and takes the logical rank r = 2 × bytes.
 
 Callers go through ``kernels/ops.py``, which flattens, pads, quantizes the
-activations and counts launches.
+activations and counts launches.  The kernel keeps no autograd graph: a
+launcher refuses inputs that require grad while grad mode is on
+(``build.refuse_grad``); training reaches the float kernel through
+``ops.BlastMatmulFn`` / ``ops.BlastMatmulGroupedFn``.
 """
 
 from __future__ import annotations
@@ -122,6 +125,7 @@ def _run(fn_name: str, ptrs, dims, y) -> torch.Tensor:
 
 def launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
            V: torch.Tensor) -> torch.Tensor:
+    build.refuse_grad("blast_matmul", x, U, S, V)
     if x.dtype not in _SUFFIX:
         raise TypeError(f"blast_matmul kernel takes fp32 or bf16, got {x.dtype}")
     T, G, b, p, q, r = _check(x, U, S, V, x.dtype)
@@ -134,6 +138,7 @@ def _launch_q(bits: int, x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
               V: torch.Tensor, su: torch.Tensor, ss: torch.Tensor,
               sv: torch.Tensor) -> torch.Tensor:
     name = "blast_matmul_q" if bits == 8 else "blast_matmul_q4"
+    build.refuse_grad(name, x)
     if x.dtype not in _SUFFIX:
         raise TypeError(f"{name} kernel takes fp32 or bf16 x, got {x.dtype}")
     T, G, b, p, q, r = _check(x, U, S, V, _CODES[bits],
@@ -160,6 +165,7 @@ def _launch_a8(bits: int, xq: torch.Tensor, sx: torch.Tensor,
                su: torch.Tensor, ss: torch.Tensor, sv: torch.Tensor,
                out_dtype: torch.dtype) -> torch.Tensor:
     name = f"blast_matmul_w{bits}a8"
+    build.refuse_grad(name, sx)
     if xq.dtype != torch.int8:
         raise TypeError(f"{name} kernel takes int8 codes, got {xq.dtype}")
     if out_dtype not in _SUFFIX:

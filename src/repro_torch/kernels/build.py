@@ -98,6 +98,21 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """A kernel's output has no autograd graph.  Raise, rather than return a
+    detached result, when grad mode is on and an input requires grad: the
+    caller bypassed the kernel's ``torch.autograd.Function`` in
+    ``kernels/ops.py`` (autograd runs ``Function.forward`` with grad mode
+    off, so the Functions' own launches pass)."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            getattr(t, "requires_grad", False) for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the kernel's output would "
+            "carry no gradient; call it through kernels/ops.py's autograd "
+            "Function (or under torch.no_grad())")
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launcher."""
     if rc != 0:

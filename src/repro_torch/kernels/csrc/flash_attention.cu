@@ -1,32 +1,42 @@
-// Chunked-prefill flash attention at per-row offsets for Hopper.
+// Flash attention for Hopper: the full-sequence kernel and the
+// chunked-prefill kernel at per-row offsets, one templated tile loop.
 //
-// Replaces: src/repro/kernels/flash_attention.py::flash_attention_prefill_pallas
-// (:155).
+// Replaces:
+//   src/repro/kernels/flash_attention.py::flash_attention_pallas (:98)
+//     — entry points flash_full_f32 / flash_full_bf16: a static q_offset;
+//   src/repro/kernels/flash_attention.py::flash_attention_prefill_pallas
+//     (:155) — entry points flash_prefill_f32 / flash_prefill_bf16: a per-row
+//     offset read from q_offsets[b].
 //
-// Function: q (B, Hq, C, D), k and v (B, Hkv, S, D), q_offsets (B,) int32 →
-// o (B, Hq, C, D).  Query (b, t) at absolute position q_offsets[b] + t sees
-// key j iff j <= q_offsets[b] + t (causal), j < kv_len, and with a window
-// j > q_offsets[b] + t - window.  GQA: query head h reads kv head
-// h / (Hq / Hkv).  A row with no visible key returns 0.  Every tensor is
-// read and written through its strides (the last axis must be contiguous),
-// so the serving cache is read in its (B, S, Hkv, D) layout and the output
-// lands token-major for the out projection with no transpose.  fp32 or bf16
-// (q, k, v and o share one type); scores, softmax and P·V are fp32.
+// Function: q (B, Hq, T, D), k and v (B, Hkv, S, D) → o (B, Hq, T, D).
+// Query (b, t) sits at absolute position off + t, where off is q_offset
+// (full) or q_offsets[b] (prefill); it sees key j iff j <= off + t
+// (causal), j < kv_len, and with a window j > off + t - window.  GQA: query
+// head h reads kv head h / (Hq / Hkv).  A row with no visible key returns 0.
+// Every tensor is read and written through its strides (the last axis must
+// be contiguous), so q, k and v are read as views of the qkv projection (or
+// of the serving cache) and the output lands token-major for the out
+// projection with no transpose.  fp32 or bf16 (q, k, v and o share one
+// type); scores, softmax and P·V are fp32, with scale 1/sqrt(D).
 //
-// What bounds it on the H100: bytes.  A chunk of C ≤ 32 queries against a
-// cache of S ≤ 512 slots does 4·C·S·D FLOPs per head against reading S·D
-// keys and values per kv head, far below the tensor-core ridge; the bytes
-// that must move are the live prefix of each row's K/V plus q and o.
+// What bounds it on the H100.  Prefill (C ≤ 32 queries against S ≤ 512
+// slots) is bytes-bound: 4·C·S·D FLOPs per head against reading the live
+// prefix of each row's K/V.  The full-sequence kernel is bytes-bound at
+// training shapes (B = 8, T = 256, D = 64: 6.3 MB against 0.6 GFLOP causal)
+// and operations-bound from T ≈ 1k (T = 2048: 4.8 GFLOP causal, 1.9 MB);
+// this first design runs on CUDA cores in fp32, far from either bound.
 //
-// Design: one block per (row b, query head, tile of BQ queries).  An online
-// softmax in fp32 (running max, sum and accumulator, as the TPU kernel keeps
-// them in VMEM scratch) walks KV tiles of BKV keys only up to the tile's
-// causal limit q_offsets[b] + t_max and from its window start, so dead
-// tiles are never loaded (the TPU kernel's `live` predicate).  K/V tiles
-// are staged in shared memory (K rows padded against bank conflicts), each
-// warp owns whole query rows for the max/sum reductions, and each thread
-// owns a fixed slice of the (BQ, D) accumulator in registers.  Tensor-core
-// MMA and GQA head packing are later work.
+// Design: one block per (row b, query head, tile of BQ queries) — BQ = 16
+// with 4 warps for prefill chunks, BQ = 64 with 8 warps for full sequences.
+// Tiles are issued last-first, so the longest causal rows start first.  An
+// online softmax in fp32 (running max, sum and accumulator, as the TPU
+// kernel keeps them in VMEM scratch) walks KV tiles of BKV keys only up to
+// the tile's causal limit and from its window start, so dead tiles are never
+// loaded (the TPU kernel's `live` predicate).  K/V tiles are staged in
+// shared memory (K rows padded against bank conflicts), each warp owns whole
+// query rows for the max/sum reductions, and each thread owns a fixed slice
+// of the (BQ, D) accumulator in registers.  Tensor-core MMA (wgmma), TMA
+// and GQA head packing are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,12 +45,12 @@
 
 namespace {
 
-constexpr int BQ = 16;        // query rows per block
 constexpr int BKV = 32;       // keys per tile (one per lane in the softmax)
-constexpr int NT = 128;       // threads per block (4 warps)
 constexpr int DMAX = 128;     // largest head dim
-constexpr int EPT = BQ * DMAX / NT;   // accumulator entries per thread
 constexpr float M_INIT = -1e30f;      // running-max start (TPU kernel's NEG_INF)
+// (query rows, threads) per block
+constexpr int PREFILL_BQ = 16, PREFILL_NT = 128;
+constexpr int FULL_BQ = 64, FULL_NT = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -55,17 +65,19 @@ struct Strides {
   long long qb, qh, qt, kb, kh, ks, vb, vh, vs, ob, oh, ot;
 };
 
-template <typename T>
+// PER_ROW: the query offset is offs[b] (prefill) or the static q_offset.
+template <typename T, int BQ, int NT, bool PER_ROW>
 __global__ void __launch_bounds__(NT)
-prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const int* __restrict__ offs,
-               T* __restrict__ o, int Hq, int Hkv, int C, int D, Strides st,
-               int causal, int window, int kv_len, float scale) {
+attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const int* __restrict__ offs,
+            int q_offset, T* __restrict__ o, int Hq, int Hkv, int C, int D,
+            Strides st, int causal, int window, int kv_len, float scale) {
+  constexpr int EPT = BQ * DMAX / NT;   // accumulator entries per thread
   const int b = blockIdx.x / Hq, h = blockIdx.x - b * Hq;
   const int kvh = h / (Hq / Hkv);
-  const int t0 = blockIdx.y * BQ;
+  const int t0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // last tile first
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int off = offs[b];
+  const int off = PER_ROW ? offs[b] : q_offset;
   const int rows = min(BQ, C - t0);
 
   extern __shared__ float sm[];
@@ -124,7 +136,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ps[idx] = s;
     }
     __syncthreads();
-    // online softmax: warp w owns rows w, w + 4, ...; lane = key in tile
+    // online softmax: warp w owns rows w, w + NT/32, ...; lane = key
     for (int t = warp; t < BQ; t += NT / 32) {
       const float s = ps[t * BKV + lane];
       float mx = s;
@@ -174,23 +186,32 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+Strides make_strides(const long long* s) {
+  return Strides{s[0], s[1], s[2], s[3], s[4], s[5],
+                 s[6], s[7], s[8], s[9], s[10], s[11]};
+}
+
+template <typename T, int BQ, int NT, bool PER_ROW>
 int launch(const void* q, const void* k, const void* v, const void* offs,
-           void* o, int B, int Hq, int Hkv, int C, int D,
+           int q_offset, void* o, int B, int Hq, int Hkv, int C, int D,
            const long long* strides, int causal, int window, int kv_len,
            void* stream) {
   if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > DMAX ||
       D % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  Strides st{strides[0], strides[1], strides[2],  strides[3],
-             strides[4], strides[5], strides[6],  strides[7],
-             strides[8], strides[9], strides[10], strides[11]};
   const size_t smem = sizeof(float) * ((size_t)BQ * D + (size_t)BKV * (D + 1) +
                                        (size_t)BKV * D + BQ * BKV + 3 * BQ);
+  auto kernel = attn_kernel<T, BQ, NT, PER_ROW>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const dim3 grid(B * Hq, (C + BQ - 1) / BQ);
-  prefill_kernel<T><<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)offs, (T*)o, Hq, Hkv,
-      C, D, st, causal, window, kv_len, 1.0f / sqrtf((float)D));
+  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const int*)offs, q_offset,
+      (T*)o, Hq, Hkv, C, D, make_strides(strides), causal, window, kv_len,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -202,16 +223,36 @@ int flash_prefill_f32(const void* q, const void* k, const void* v,
                       const void* offs, void* o, int B, int Hq, int Hkv, int C,
                       int D, const long long* strides, int causal, int window,
                       int kv_len, void* stream) {
-  return launch<float>(q, k, v, offs, o, B, Hq, Hkv, C, D, strides, causal,
-                       window, kv_len, stream);
+  return launch<float, PREFILL_BQ, PREFILL_NT, true>(
+      q, k, v, offs, 0, o, B, Hq, Hkv, C, D, strides, causal, window, kv_len,
+      stream);
 }
 
 int flash_prefill_bf16(const void* q, const void* k, const void* v,
                        const void* offs, void* o, int B, int Hq, int Hkv,
                        int C, int D, const long long* strides, int causal,
                        int window, int kv_len, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, offs, o, B, Hq, Hkv, C, D, strides,
-                               causal, window, kv_len, stream);
+  return launch<__nv_bfloat16, PREFILL_BQ, PREFILL_NT, true>(
+      q, k, v, offs, 0, o, B, Hq, Hkv, C, D, strides, causal, window, kv_len,
+      stream);
+}
+
+int flash_full_f32(const void* q, const void* k, const void* v, void* o,
+                   int B, int Hq, int Hkv, int T, int D,
+                   const long long* strides, int causal, int window,
+                   int q_offset, int kv_len, void* stream) {
+  return launch<float, FULL_BQ, FULL_NT, false>(
+      q, k, v, nullptr, q_offset, o, B, Hq, Hkv, T, D, strides, causal,
+      window, kv_len, stream);
+}
+
+int flash_full_bf16(const void* q, const void* k, const void* v, void* o,
+                    int B, int Hq, int Hkv, int T, int D,
+                    const long long* strides, int causal, int window,
+                    int q_offset, int kv_len, void* stream) {
+  return launch<__nv_bfloat16, FULL_BQ, FULL_NT, false>(
+      q, k, v, nullptr, q_offset, o, B, Hq, Hkv, T, D, strides, causal,
+      window, kv_len, stream);
 }
 
 }  // extern "C"

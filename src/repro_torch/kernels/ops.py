@@ -1,5 +1,4 @@
-"""Dispatch wrappers of the kernels on the serving path (counterpart of
-``repro/kernels/ops.py``).
+"""Dispatch wrappers of the kernels (counterpart of ``repro/kernels/ops.py``).
 
 A tensor on the CPU goes to the kernel's plain PyTorch version
 (``kernels/ref.py``); a CUDA tensor launches the hand-written kernel or
@@ -13,7 +12,24 @@ they quantize x per token first (a plain-PyTorch prologue, as the reference
 runs it in XLA outside its Pallas kernel) and zero-pad codes and scales
 alike.  ``launches`` counts kernel
 launches (plain-version calls are not counted), so a run can show that its
-model path went through the kernels.
+model path went through the kernels; ``blast_matmul_dx`` counts the B1
+launches that compute a backward pass's dx.
+
+Training.  The float kernels that the training path launches — B1
+``blast_matmul``, B2 ``blast_matmul_grouped`` and B4 ``flash_attention`` —
+are ``torch.autograd.Function``s on both devices: the forward dispatches
+(CPU → plain version, CUDA → kernel), the backward is the same explicit
+PyTorch code on both, so the CPU tests run the backward the card runs.  The
+JAX package has no backward kernel (XLA differentiates its mirrors), so:
+
+- BLAST: Aᵀ of a BLAST matrix is a BLAST matrix (U′ = V, S′ = Sᵀ over the
+  two block axes, V′ = U), so dx = B1(dy; V, Sᵀ, U) runs the kernel itself;
+  dU, dS and dV are einsums of the stage intermediates z = xV and
+  dw = dy·U, recomputed in fp32;
+- attention: P is recomputed from q and k chunk by chunk of queries (only
+  each chunk's reachable keys), then dV = Pᵀ dO, dS = P ⊙ (dP − rowsum(dO ⊙
+  O)), dQ = dS K / √D and dK = dSᵀ Q / √D, with dK and dV summed over the
+  query heads of each kv head (GQA).
 """
 
 from __future__ import annotations
@@ -34,7 +50,8 @@ launches: dict[str, int] = {
     "blast_matmul_w8a8": 0, "blast_matmul_grouped_w8a8": 0,
     "blast_matmul_q4": 0, "blast_matmul_grouped_q4": 0,
     "blast_matmul_w4a8": 0, "blast_matmul_grouped_w4a8": 0,
-    "flash_attention_prefill": 0}
+    "flash_attention_prefill": 0, "flash_attention": 0,
+    "blast_matmul_dx": 0}
 
 
 def reset_launches() -> None:
@@ -71,9 +88,10 @@ def _flatten_pad_x(x: torch.Tensor, block_t: int):
     return xf.contiguous(), lead, T
 
 
-def blast_matmul(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
-                 V: torch.Tensor) -> torch.Tensor:
-    """x (..., n) → (..., m); U (b,p,r), S (b,b,r), V (b,q,r)."""
+def _blast_launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+                  V: torch.Tensor, key: str) -> torch.Tensor:
+    """B1 on (..., n) → (..., m): the plain version on the CPU, the kernel
+    (counted under ``key``) on CUDA."""
     if _on_cpu(x):
         return ref.blast_matmul_ref(x, U, S, V)
     b, p, r = U.shape
@@ -82,14 +100,12 @@ def blast_matmul(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
     r_pad = _round_up(r, block_r)
     U, S, V = (_pad_last(a, r_pad)[None] for a in (U, S, V))
     y = _bm.launch(xf, U, S, V)
-    launches["blast_matmul"] += 1
+    launches[key] += 1
     return y[0, :T].reshape(*lead, b * p)
 
 
-def blast_matmul_grouped(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
-                         V: torch.Tensor) -> torch.Tensor:
-    """G congruent factor sets over one shared input in one launch:
-    x (..., n); U (G,b,p,r), S (G,b,b,r), V (G,b,q,r) → (G, ..., m)."""
+def _blast_grouped_launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+                          V: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x):
         return ref.blast_matmul_grouped_ref(x, U, S, V)
     G, b, p, r = U.shape
@@ -100,6 +116,97 @@ def blast_matmul_grouped(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
     y = _bm.launch(xf, U, S, V)
     launches["blast_matmul_grouped"] += 1
     return y[:, :T].reshape(G, *lead, b * p)
+
+
+def _blast_factor_grads(needs, dy, x, U, S, V):
+    """dU, dS, dV (None where not needed) of y = blast(x; U, S, V) for G
+    stacked factor sets: x (T, n); dy (G, T, m); U (G,b,p,r), S (G,b,b,r),
+    V (G,b,q,r).  Einsums of z = xV and dw = dy·U in the accumulation
+    type, cast to each factor's type."""
+    dU = dS = dV = None
+    if not any(needs):
+        return dU, dS, dV
+    G, b, p, r = U.shape
+    q = V.shape[2]
+    xb = ref.acc(x).reshape(-1, b, q)
+    dyb = ref.acc(dy).reshape(G, -1, b, p)
+    Uf, Sf, Vf = (ref.acc(a) for a in (U, S, V))
+    z = torch.einsum("tjq,gjqr->gtjr", xb, Vf)
+    dw = torch.einsum("gtip,gipr->gtir", dyb, Uf)
+    if needs[0]:
+        w = torch.einsum("gtjr,gijr->gtir", z, Sf)
+        dU = torch.einsum("gtip,gtir->gipr", dyb, w).to(U.dtype)
+    if needs[1]:
+        dS = torch.einsum("gtir,gtjr->gijr", dw, z).to(S.dtype)
+    if needs[2]:
+        dz = torch.einsum("gtir,gijr->gtjr", dw, Sf)
+        dV = torch.einsum("tjq,gtjr->gjqr", xb, dz).to(V.dtype)
+    return dU, dS, dV
+
+
+def _blast_dx(dy: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+              V: torch.Tensor) -> torch.Tensor:
+    """dx of y = blast(x; U, S, V): B1 over the transposed BLAST matrix
+    (U′ = V, S′ = Sᵀ, V′ = U)."""
+    return _blast_launch(dy, V, S.transpose(0, 1).contiguous(), U,
+                         "blast_matmul_dx")
+
+
+class BlastMatmulFn(torch.autograd.Function):
+    """B1 with its backward: x (..., n) → (..., m)."""
+
+    @staticmethod
+    def forward(ctx, x, U, S, V):
+        # launch before saving: a checkpointed layer's recompute stops at
+        # its last save, and must still have run its last kernel
+        y = _blast_launch(x, U, S, V, "blast_matmul")
+        ctx.save_for_backward(x, U, S, V)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, U, S, V = ctx.saved_tensors
+        dx = _blast_dx(dy, U, S, V) if ctx.needs_input_grad[0] else None
+        grads = _blast_factor_grads(
+            ctx.needs_input_grad[1:], dy.reshape(1, -1, dy.shape[-1]),
+            x.reshape(-1, x.shape[-1]), U[None], S[None], V[None])
+        return (dx, *(None if g is None else g[0] for g in grads))
+
+
+class BlastMatmulGroupedFn(torch.autograd.Function):
+    """B2 with its backward: x (..., n) → (G, ..., m).  dx is the sum over
+    g of one B1 launch per factor set."""
+
+    @staticmethod
+    def forward(ctx, x, U, S, V):
+        y = _blast_grouped_launch(x, U, S, V)
+        ctx.save_for_backward(x, U, S, V)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, U, S, V = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = sum(ref.acc(_blast_dx(dy[g], U[g], S[g], V[g]))
+                     for g in range(U.shape[0])).to(x.dtype)
+        grads = _blast_factor_grads(
+            ctx.needs_input_grad[1:], dy.reshape(U.shape[0], -1, dy.shape[-1]),
+            x.reshape(-1, x.shape[-1]), U, S, V)
+        return (dx, *grads)
+
+
+def blast_matmul(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+                 V: torch.Tensor) -> torch.Tensor:
+    """x (..., n) → (..., m); U (b,p,r), S (b,b,r), V (b,q,r)."""
+    return BlastMatmulFn.apply(x, U, S, V)
+
+
+def blast_matmul_grouped(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+                         V: torch.Tensor) -> torch.Tensor:
+    """G congruent factor sets over one shared input in one launch:
+    x (..., n); U (G,b,p,r), S (G,b,b,r), V (G,b,q,r) → (G, ..., m)."""
+    return BlastMatmulGroupedFn.apply(x, U, S, V)
 
 
 def _grouped_q(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
@@ -213,3 +320,85 @@ def flash_attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_len=S_len if kv_len is None else kv_len)
     launches["flash_attention_prefill"] += 1
     return o
+
+
+def _attention_launch(q, k, v, causal, window, q_offset, q_chunk):
+    if _on_cpu(q):
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, q_chunk=q_chunk)
+    o = _fa.launch_full(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset, kv_len=k.shape[2])
+    launches["flash_attention"] += 1
+    return o
+
+
+def attention_backward(do, q, k, v, o, *, causal, window, q_offset,
+                       q_chunk):
+    """dq, dk, dv of o = attention(q, k, v), chunked over queries: each
+    chunk recomputes its P against only its reachable keys."""
+    B, Hq, T, D = q.shape
+    Hkv, S_len = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    kf, vf = ref.acc(k), ref.acc(v)
+    dq = torch.zeros((B, Hkv, G, T, D), dtype=kf.dtype, device=q.device)
+    dk = torch.zeros((B, Hkv, S_len, D), dtype=kf.dtype, device=q.device)
+    dv = torch.zeros_like(dk)
+    for t0 in range(0, T, max(q_chunk, 1)):
+        t1 = min(T, t0 + q_chunk)
+        lo, hi = ref.attention_reach(t0, t1, causal=causal, window=window,
+                                     q_offset=q_offset, kv_len=S_len)
+        if hi == lo:
+            continue                    # no visible key: zero gradients
+
+        def rows(a):
+            return ref.acc(a[:, :, t0:t1]).reshape(B, Hkv, G, t1 - t0, D)
+
+        qc, doc, oc = rows(q), rows(do), rows(o)
+        kc, vc = kf[:, :, lo:hi], vf[:, :, lo:hi]
+        s = torch.einsum("bhgtd,bhsd->bhgts", qc, kc) * scale
+        mask = ref.attention_mask(t0, t1, lo, hi, causal=causal,
+                                  window=window, q_offset=q_offset,
+                                  device=q.device)
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        p = torch.nan_to_num(p, nan=0.0)
+        dv[:, :, lo:hi] += torch.einsum("bhgts,bhgtd->bhsd", p, doc)
+        dp = torch.einsum("bhgtd,bhsd->bhgts", doc, vc)
+        ds = p * (dp - (doc * oc).sum(-1, keepdim=True))
+        dq[:, :, :, t0:t1] = torch.einsum("bhgts,bhsd->bhgtd", ds, kc) * scale
+        dk[:, :, lo:hi] += torch.einsum("bhgts,bhgtd->bhsd", ds, qc) * scale
+    return (dq.reshape(B, Hq, T, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B4 with its backward: q (B, Hq, T, D), k, v (B, Hkv, S, D) →
+    (B, Hq, T, D)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk):
+        o = _attention_launch(q, k, v, causal, window, q_offset, q_chunk)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        q_chunk=q_chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = attention_backward(do, q, k, v, o, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0, q_chunk: int = 512) -> torch.Tensor:
+    """Full-sequence attention (B4): q (B, Hq, T, D); k, v (B, Hkv, S, D)
+    (any strides with a contiguous last axis) → (B, Hq, T, D).  Query i
+    sits at absolute position ``i + q_offset`` (static).  ``q_chunk`` (the
+    reference's rule, ``kernels/ref.q_chunk_size``) sizes the query chunks
+    of the CPU path and of the backward pass; the kernel takes the whole
+    sequence."""
+    chunk = ref.q_chunk_size(q.shape[2], q_chunk)
+    return FlashAttentionFn.apply(q, k, v, causal, window, int(q_offset),
+                                  chunk)

@@ -1,7 +1,9 @@
-"""Plain PyTorch versions of the kernels on the serving path (counterparts of
+"""Plain PyTorch versions of the kernels (counterparts of
 ``repro/kernels/ref.py``).  They are the CPU path of ``kernels/ops.py`` and
-the oracle each CUDA kernel is held against on the card: fp32 accumulation,
-the same masks, and the same "fully-masked row → 0" rule."""
+the oracle each CUDA kernel is held against on the card: fp32 accumulation
+(float64 inputs stay float64, so the explicit backward passes can be held
+against autograd exactly), the same masks, and the same "fully-masked row
+→ 0" rule."""
 
 from __future__ import annotations
 
@@ -12,16 +14,21 @@ import torch
 from repro_torch.quant.qarray import unpack_int4_planes
 
 
+def acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in its accumulation type: fp32, or float64 for float64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def blast_matmul_ref(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
                      V: torch.Tensor) -> torch.Tensor:
     """Alg. 1: x (..., n) → (..., m); U (b,p,r), S (b,b,r), V (b,q,r)."""
     b, q, r = V.shape
     p = U.shape[1]
     lead = x.shape[:-1]
-    xb = x.reshape(*lead, b, q).float()
-    z = torch.einsum("...jq,jqr->...jr", xb, V.float())
-    w = torch.einsum("...jr,ijr->...ir", z, S.float())
-    y = torch.einsum("...ir,ipr->...ip", w, U.float())
+    xb = acc(x.reshape(*lead, b, q))
+    z = torch.einsum("...jq,jqr->...jr", xb, acc(V))
+    w = torch.einsum("...jr,ijr->...ir", z, acc(S))
+    y = torch.einsum("...ir,ipr->...ip", w, acc(U))
     return y.reshape(*lead, b * p).to(x.dtype)
 
 
@@ -142,4 +149,69 @@ def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)   # fully-masked rows → 0
     out = torch.einsum("bhgts,bhsd->bhgtd", probs, v.float())
+    return out.reshape(B, Hq, T, D).to(q.dtype)
+
+
+def q_chunk_size(T: int, q_chunk: int = 512) -> int:
+    """Query rows per chunk of the chunked plain attention and of its
+    backward: the reference's ``chunked_attention`` rule (at most 8 chunks,
+    none longer than T)."""
+    return min(max(q_chunk, -(-T // 8)), max(T, 1))
+
+
+def attention_reach(t0: int, t1: int, *, causal: bool, window: int | None,
+                    q_offset: int, kv_len: int) -> tuple[int, int]:
+    """[lo, hi): the keys that queries t0..t1-1 (at absolute positions
+    q_offset + t) can see."""
+    hi = min(kv_len, q_offset + t1) if causal else kv_len
+    lo = max(0, q_offset + t0 - window + 1) if window is not None else 0
+    return lo, max(lo, hi)
+
+
+def attention_mask(t0: int, t1: int, lo: int, hi: int, *, causal: bool,
+                   window: int | None, q_offset: int,
+                   device) -> torch.Tensor:
+    """(t1 - t0, hi - lo) visibility of keys lo..hi-1 to queries t0..t1-1
+    (keys at or past kv_len are outside [lo, hi) already)."""
+    qi = q_offset + torch.arange(t0, t1, device=device)[:, None]
+    kj = torch.arange(lo, hi, device=device)[None, :]
+    mask = torch.ones((t1 - t0, hi - lo), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kj <= qi)
+    if window is not None:
+        mask = mask & (kj > qi - window)
+    return mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  q_offset: int = 0, kv_len: int | None = None,
+                  q_chunk: int | None = None) -> torch.Tensor:
+    """Full-sequence attention with GQA (the plain version of B4):
+    q (B, Hq, T, D); k, v (B, Hkv, S, D) (any strides) → (B, Hq, T, D).
+    Query i (at absolute position ``i + q_offset``) attends to key j iff
+    ``j < kv_len``, ``j <= i + q_offset`` (causal) and
+    ``j > i + q_offset - window``; a row with no visible key returns 0.
+    ``q_chunk`` processes that many query rows at a time against only
+    their reachable keys (the reference's ``chunked_attention``), so
+    memory stays bounded; the result is the same softmax."""
+    B, Hq, T, D = q.shape
+    Hkv, S_len = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kv_len = S_len if kv_len is None else kv_len
+    chunk = T if q_chunk is None else q_chunk
+    outs = []
+    for t0 in range(0, T, max(chunk, 1)):
+        t1 = min(T, t0 + chunk)
+        lo, hi = attention_reach(t0, t1, causal=causal, window=window,
+                                 q_offset=q_offset, kv_len=kv_len)
+        qc = acc(q[:, :, t0:t1]).reshape(B, Hkv, G, t1 - t0, D)
+        s = torch.einsum("bhgtd,bhsd->bhgts", qc,
+                         acc(k[:, :, lo:hi])) / math.sqrt(D)
+        mask = attention_mask(t0, t1, lo, hi, causal=causal, window=window,
+                              q_offset=q_offset, device=q.device)
+        s = s.masked_fill(~mask, float("-inf"))
+        p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+        outs.append(torch.einsum("bhgts,bhsd->bhgtd", p, acc(v[:, :, lo:hi])))
+    out = torch.cat(outs, dim=3) if len(outs) > 1 else outs[0]
     return out.reshape(B, Hq, T, D).to(q.dtype)

@@ -1,6 +1,7 @@
 """Model substrate of the port: ``layers`` (linears, norms, GQA attention,
-SwiGLU FFN), ``ops`` (RMSNorm, RoPE, cache attention), ``transformer``
-(the decoder LM)."""
+SwiGLU FFN), ``ops`` (RMSNorm, RoPE, full-sequence and cache attention,
+cross-entropy), ``transformer`` (the decoder LM: ``apply``,
+``prefill_chunk``)."""
 
 from repro_torch.models.transformer import LM  # noqa: F401
 

@@ -1,6 +1,7 @@
-"""Model layers of the serving slice (counterpart of ``repro/models/layers.py``):
-linears over any ported structure, norms, the tied embedding, GQA attention
-with a slot-static cache, and the SwiGLU FFN.
+"""Model layers of the ported slices (counterpart of
+``repro/models/layers.py``): linears over any ported structure, norms, the
+tied embedding, GQA attention (full-sequence, and chunked prefill over a
+slot-static cache), and the SwiGLU FFN.
 
 Parameters are plain dicts of tensors with the reference's key names.
 Caches are updated in place (the reference returns new immutable arrays);
@@ -218,6 +219,28 @@ def _split_qkv(spec: AttnSpec, qkv: torch.Tensor):
     k = qkv[..., hq * hd: (hq + hkv) * hd].reshape(*lead, hkv, hd)
     v = qkv[..., (hq + hkv) * hd:].reshape(*lead, hkv, hd)
     return q, k, v
+
+
+def attn_apply(spec: AttnSpec, params: Params, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence self-attention (training / prefill): x (B, T, d),
+    positions (T,) or (B, T) → (B, T, d).  q, k and v reach the kernel as
+    strided (B, H, T, D) views of the RoPE outputs and of the projection's
+    output (no transposed copy), and its token-major output reshapes for
+    free into the out projection."""
+    cfg = spec.cfg
+    hq, hkv, hd = spec.dims
+    B, T, _ = x.shape
+    qkv = linear_apply(spec.qkv, params["qkv"], x)    # (B, T, (hq+2hkv)·hd)
+    q, k, v = _split_qkv(spec, qkv)
+    if cfg.pos_embed == "rope":
+        q = ops.rope(q, positions, cfg.rope_theta)
+        k = ops.rope(k, positions, cfg.rope_theta)
+    o = ops.chunked_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+        window=spec.window, q_chunk=cfg.q_chunk)
+    o = o.transpose(1, 2).reshape(B, T, hq * hd)
+    return linear_apply(spec.out, params["out"], o)
 
 
 def attn_cache_init(spec: AttnSpec, batch: int, max_len: int, dtype,

@@ -1,13 +1,18 @@
 """Model-level numeric ops (counterpart of ``repro/models/ops.py``): RMSNorm,
-RoPE, softcap, and ``cache_attention`` — the reference's position-masked
-cache attention, kept as the semantics the prefill-attention kernel is held
-against in the tests."""
+RoPE, softcap, ``chunked_attention`` (full-sequence attention: the B4 kernel
+on the card, the chunked plain version on the CPU, both through
+``kernels/ops.flash_attention``'s autograd Function), ``cross_entropy``, and
+``cache_attention`` — the reference's position-masked cache attention, kept
+as the semantics the prefill-attention kernel is held against in the
+tests."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.kernels import ops as kops
 
 NEG_INF = -1e30
 
@@ -73,5 +78,31 @@ def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, Hq, T, o.shape[-1]).to(q.dtype)
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      q_offset: int = 0, q_chunk: int = 512) -> torch.Tensor:
+    """q (B, Hq, T, D); k, v (B, Hkv, S, D) → (B, Hq, T, D).
+
+    The model-level full-sequence attention.  On CUDA it runs the B4
+    kernel over the whole sequence; on the CPU the plain version processes
+    ``q_chunk``-row query chunks (the reference's rule: at most 8 chunks),
+    each against only its reachable keys, so no T×S score matrix is held.
+    The backward pass is chunked the same way."""
+    return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset, q_chunk=q_chunk)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap if cap else x
+
+
+def cross_entropy(logits: torch.Tensor,
+                  labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean token cross-entropy and accuracy; logits (..., V) taken in
+    fp32, labels (...) int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = torch.mean(lse - ll)
+    acc = torch.mean((logits.argmax(dim=-1) == labels).float())
+    return loss, acc

@@ -1,19 +1,22 @@
-"""Decoder LM of the serving slice (counterpart of
+"""Decoder LM of the ported slices (counterpart of
 ``repro/models/transformer.py``): GQA attention + SwiGLU FFN blocks, tied
-embeddings, and the chunked cached step ``prefill_chunk`` the engine drives.
+embeddings, the full-sequence forward ``apply`` (training, prefill) and the
+chunked cached step ``prefill_chunk`` the engine drives.
 
 The reference scans over layer params stacked on a leading axis; here the
-params hold a list of per-layer dicts and the step is a Python loop.
-Families, mixers and options outside the slice raise ``NotImplementedError``.
-Full-sequence ``LM.apply`` arrives with a later slice (ROADMAP B4).
+params hold a list of per-layer dicts and each pass is a Python loop
+(``cfg.remat`` checkpoints each layer, as the reference's ``jax.checkpoint``
+does its scanned cycle).  Families, mixers and options outside the slices
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -25,6 +28,12 @@ from repro_torch.quant.qarray import QuantConfig
 Params = dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class Output(NamedTuple):
+    logits: torch.Tensor
+    aux: torch.Tensor                   # MoE load-balance loss (0 here)
+    mtp_logits: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +62,17 @@ def block_init(spec: BlockSpec, generator: torch.Generator, dtype, device,
             "mixer": L.attn_init(spec.mixer, generator, dtype, device),
             "norm2": L.norm_init(d_model, spec.norm, dtype, device),
             "ffn": L.ffn_init(spec.ffn, generator, dtype, device)}
+
+
+def block_apply(spec: BlockSpec, params: Params, x: torch.Tensor,
+                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One residual block over a full sequence → (x, aux); aux is the MoE
+    load-balance loss, zero for this block kind."""
+    h = L.norm_apply(params["norm1"], x, spec.norm)
+    x = x + L.attn_apply(spec.mixer, params["mixer"], h, positions)
+    h = L.norm_apply(params["norm2"], x, spec.norm)
+    x = x + L.ffn_apply(spec.ffn, params["ffn"], h)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_prefill(spec: BlockSpec, params: Params, cache: Params,
@@ -135,6 +155,35 @@ class LM:
         load, so the per-step grouped launch skips its pad+stack."""
         return {**params, "layers": [block_prestack(s, p) for s, p in
                                      zip(self.specs, params["layers"])]}
+
+    # -- full-sequence forward --------------------------------------------------
+
+    def apply(self, params: Params, tokens=None, embeds=None, *,
+              last_only: bool = False) -> Output:
+        """Full-sequence forward (training / prefill).
+
+        tokens: (B, T) int — or embeds: (B, T, d).  ``last_only`` projects
+        logits for the final position only.  Differentiable: the BLAST and
+        attention kernels run through their autograd Functions, and with
+        ``cfg.remat`` each layer's activations are recomputed in the
+        backward pass."""
+        if embeds is None:
+            tokens = torch.as_tensor(tokens).to(self.device)
+            x = L.embed_lookup(params["embed"], tokens, self.dtype)
+        else:
+            x = torch.as_tensor(embeds).to(device=self.device,
+                                           dtype=self.dtype)
+        positions = torch.arange(x.shape[1], device=self.device)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for spec, p in zip(self.specs, params["layers"]):
+            if self.cfg.remat and torch.is_grad_enabled():
+                x, a = torch.utils.checkpoint.checkpoint(
+                    block_apply, spec, p, x, positions, use_reentrant=False)
+            else:
+                x, a = block_apply(spec, p, x, positions)
+            aux = aux + a
+        logits = self._head(params, x[:, -1:] if last_only else x)
+        return Output(logits=logits, aux=aux, mtp_logits=None)
 
     # -- cached decode ----------------------------------------------------------
 

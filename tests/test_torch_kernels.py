@@ -125,11 +125,15 @@ def test_cpu_path_counts_no_launches():
     rng = np.random.default_rng(0)
     U, S, V = _factors(rng, 4, 4, 4, 5)
     x = _t(rng.standard_normal((2, 16)).astype(np.float32))
-    ops.blast_matmul(x, _t(U), _t(S), _t(V))
-    ops.blast_matmul_grouped(x, _t(U)[None], _t(S)[None], _t(V)[None])
+    x.requires_grad_(True)
+    y = ops.blast_matmul(x, _t(U), _t(S), _t(V))
+    y = y + ops.blast_matmul_grouped(x, _t(U)[None], _t(S)[None],
+                                     _t(V)[None])[0]
+    y.sum().backward()          # the backward's dx runs B1's CPU path too
     q = torch.zeros((1, 2, 1, 8))
     k = torch.zeros((1, 1, 4, 8))
     ops.flash_attention_prefill(q, k, k, torch.zeros(1, dtype=torch.int32))
+    ops.flash_attention(q, k, k)
     assert ops.launches == {"blast_matmul": 0, "blast_matmul_grouped": 0,
                             "blast_matmul_q": 0, "blast_matmul_grouped_q": 0,
                             "blast_matmul_w8a8": 0,
@@ -137,7 +141,8 @@ def test_cpu_path_counts_no_launches():
                             "blast_matmul_q4": 0, "blast_matmul_grouped_q4": 0,
                             "blast_matmul_w4a8": 0,
                             "blast_matmul_grouped_w4a8": 0,
-                            "flash_attention_prefill": 0}
+                            "flash_attention_prefill": 0,
+                            "flash_attention": 0, "blast_matmul_dx": 0}
 
 
 def test_dense_linear_matches_jax():

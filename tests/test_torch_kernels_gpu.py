@@ -18,6 +18,8 @@ import pytest
 import torch
 
 from repro_torch import quant
+from repro_torch.kernels import blast_matmul as bm
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
 
@@ -208,3 +210,89 @@ class TestOnCard:
         want = ref.attention_prefill_ref(*args, window=window)
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+    # (B, Hq, Hkv, T, S, causal, window, q_offset): the chip_smoke shapes
+    # of B4 and a head dim of 128
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                           (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("B,Hq,Hkv,T,S,causal,window,q_offset,D", [
+        (8, 9, 3, 256, 256, True, None, 0, 64),
+        (1, 9, 3, 2048, 2048, True, None, 0, 64),
+        (2, 9, 3, 200, 200, True, None, 0, 64),
+        (2, 9, 3, 256, 256, True, 64, 0, 64),
+        (2, 9, 3, 256, 320, True, None, 64, 64),
+        (2, 9, 3, 256, 256, False, None, 0, 64),
+        (2, 4, 1, 100, 100, True, None, 0, 128)])
+    def test_flash_attention(self, cuda, dtype, tol, B, Hq, Hkv, T, S, causal,
+                             window, q_offset, D):
+        """B4 on strided views of one (B, T, heads, D) buffer, as the
+        attention layer passes them."""
+        g = torch.Generator().manual_seed(T + S + D)
+        q = torch.randn((B, T, Hq, D), generator=g).to(cuda, dtype)
+        kv = torch.randn((B, S, 2 * Hkv, D), generator=g).to(cuda, dtype)
+        args = (q.transpose(1, 2), kv[:, :, :Hkv].transpose(1, 2),
+                kv[:, :, Hkv:].transpose(1, 2))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        ops.reset_launches()
+        got = ops.flash_attention(*args, **kw)
+        want = ref.attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert ops.launches["flash_attention"] == 1
+        assert sum(ops.launches.values()) == 1
+        assert got.shape == (B, Hq, T, D) and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+    @pytest.mark.parametrize("which", ["blast", "grouped", "attention"])
+    def test_function_grads(self, cuda, which):
+        """The autograd Functions' gradients on the card (kernel forward,
+        B1 for BLAST dx) against torch.autograd through the plain versions,
+        fp32, within 1e-4 × each gradient's largest entry."""
+        from repro_torch.core import blast
+        g = torch.Generator().manual_seed(1)
+        if which == "attention":
+            inputs = [torch.randn(s, generator=g).to(cuda) for s in
+                      ((2, 9, 300, 64), (2, 3, 300, 64), (2, 3, 300, 64))]
+            fn, plain = ops.flash_attention, ref.attention_ref
+        else:
+            G = 2 if which == "grouped" else 1
+            sets = [blast.init(g, 576, 1536, 16, 176, device=cuda)
+                    for _ in range(G)]
+            fac = [torch.stack([s[i] for s in sets]) for i in range(3)]
+            x = torch.randn((300, 1536), generator=g).to(cuda)
+            if G == 1:
+                inputs = [x, *(a[0] for a in fac)]
+                fn, plain = ops.blast_matmul, ref.blast_matmul_ref
+            else:
+                inputs = [x, *fac]
+                fn, plain = (ops.blast_matmul_grouped,
+                             ref.blast_matmul_grouped_ref)
+        a = [t.clone().requires_grad_(True) for t in inputs]
+        b = [t.clone().requires_grad_(True) for t in inputs]
+        ops.reset_launches()
+        y = fn(*a)
+        dy = torch.randn(y.shape, generator=g).to(cuda)
+        got = torch.autograd.grad(y, a, dy)
+        want = torch.autograd.grad(plain(*b), b, dy)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in ops.launches.items() if v}
+        assert launched == {"blast": {"blast_matmul": 1, "blast_matmul_dx": 1},
+                            "grouped": {"blast_matmul_grouped": 1,
+                                        "blast_matmul_dx": 2},
+                            "attention": {"flash_attention": 1}}[which]
+        for g_, w in zip(got, want):
+            assert float((g_ - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+    def test_launchers_refuse_grad_on_card(self, cuda):
+        x = torch.randn((8, 64), device=cuda, requires_grad=True)
+        U, S, V = (torch.randn(s, device=cuda) for s in
+                   ((1, 4, 16, 16), (1, 4, 4, 16), (1, 4, 16, 16)))
+        with pytest.raises(RuntimeError, match="requires grad"):
+            bm.launch(x, U, S, V)
+        q = torch.randn((1, 2, 8, 64), device=cuda, requires_grad=True)
+        k = torch.randn((1, 1, 8, 64), device=cuda)
+        with pytest.raises(RuntimeError, match="requires grad"):
+            fa.launch_full(q, k, k, causal=True, window=None, q_offset=0,
+                           kv_len=8)
+        with torch.no_grad():
+            assert bm.launch(x, U, S, V).shape == (1, 8, 64)
