@@ -10,8 +10,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the script stops here with exit code 1 and prints no result.
 2. build — nvcc builds every kernel under ``src/repro_torch/kernels/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the full-width smollm-135m shapes, T = 8 and 256, fp32 and bf16, max
-   error vs tolerance: the float BLAST kernels, the int8- and int4-weight
+   the full-width smollm-135m shapes, T = 8 and 256 (the float BLAST
+   kernels also at the training step's 2048 tokens), fp32 and bf16, max
+   error vs tolerance; two launches of the float BLAST kernel at T = 8 (r
+   split across blocks) and 2048 (unsplit) equal bit for bit: the float
+   BLAST kernels, the int8- and int4-weight
    kernels, the W8A8 and W4A8 kernels (each kernel and its plain version
    get the same activation codes), prefill attention, and full-sequence
    attention (B4: causal at B=8 T=256 and B=1 T=2048, a ragged T=200, a
@@ -47,8 +50,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 9. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each run: kernel, plain version and one PyTorch library
    call (a yardstick only; the port never calls it), at decode, prefill
-   and training shapes (B4; B1 as the backward's dx), beside each call's
-   bound on the H100.
+   and training shapes (B4; B1 and B2 forward and B1 as the backward's dx
+   at 2048 tokens), beside each call's bound on the H100.  The profiles of
+   phases 7 and 8 also sum the float BLAST kernel's two ``__global__``s
+   (``blast_tile_kernel``, ``blast_split_sum``).
 
 The last lines are the per-kernel JSON summary, the ``nvidia-smi`` line,
 and ``{"ok": true, "device": {...}}``.
@@ -382,11 +387,9 @@ def phase_kernels(cfg):
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         for name, n, m, b, r, G in blast_shapes(cfg):
-            for T in (8, 256):
+            for T in (8, 256, TRAIN_BATCH * TRAIN_SEQ):
                 x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dtype, gen,
                                                DEVICE)
-                packed = {8: quantize_factors(U, S, V),
-                          4: quantize_factors(U, S, V, bits=4)}
                 if G == 1:
                     calls = [("blast_matmul",
                               lambda: ops.blast_matmul(x, U[0], S[0], V[0]),
@@ -397,9 +400,14 @@ def phase_kernels(cfg):
                               lambda: ops.blast_matmul_grouped(x, U, S, V),
                               lambda: ref.blast_matmul_grouped_ref(x, U, S,
                                                                    V))]
-                calls += [quant_calls(mode, x,
-                                      *packed[mode_bits_act(mode)[0]], r)
-                          for mode in QUANT_MODES]
+                if T != 256:          # T = 8 splits r, 2048 does not
+                    repeat_identical(calls[0], name, T, dname)
+                if T != TRAIN_BATCH * TRAIN_SEQ:   # 2048 tokens: float only
+                    packed = {8: quantize_factors(U, S, V),
+                              4: quantize_factors(U, S, V, bits=4)}
+                    calls += [quant_calls(mode, x,
+                                          *packed[mode_bits_act(mode)[0]], r)
+                              for mode in QUANT_MODES]
                 for kname, kern, plain in calls:
                     got, want = kern(), plain()
                     torch.cuda.synchronize()
@@ -431,6 +439,22 @@ def phase_kernels(cfg):
             if dname == "bfloat16":
                 errs["flash_attention"] = max(errs["flash_attention"], e)
     return errs
+
+
+def repeat_identical(call, linear, T, dname) -> None:
+    """Two launches of the float kernel on the same inputs must agree bit
+    for bit (split r summed in a fixed order, no atomics)."""
+    import torch
+    kname, kern, _ = call
+    first = kern()
+    second = kern()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(first, second))
+    emit({"phase": "kernels", "case": f"{kname}[{linear} T={T}] repeat",
+          "dtype": dname, "bitwise_identical": same, "ok": same})
+    if not same:
+        raise RuntimeError(f"{kname}[{linear} T={T} {dname}]: two launches "
+                           "differ")
 
 
 def qarrays(tree):
@@ -660,6 +684,22 @@ def phase_serve(cfg, model, params, mode):
     return launches
 
 
+def float_blast(kernels) -> dict:
+    """Calls and device ms of the float BLAST kernel's two ``__global__``s
+    in a profile's {name: [calls, ms]}: ``blast_tile_kernel``, and
+    ``blast_split_sum`` where r is split.  The split sum is launched as a
+    programmatic dependent of the tile kernel and waits for it on the card,
+    so its span overlaps the tile kernel's: ``ms`` counts the tile kernel
+    and the part of the sum's span past it is not separated."""
+    out = {}
+    for name in ("blast_tile_kernel", "blast_split_sum"):
+        mine = [v for k, v in kernels.items() if name in k]
+        out[name] = {"calls": sum(v[0] for v in mine),
+                     "ms": sum(v[1] for v in mine)}
+    out["ms"] = out["blast_tile_kernel"]["ms"]
+    return out
+
+
 def phase_profile(model, params, mode):
     """Device busy share of steady decode: 8 slots in decode, 6 engine
     steps under ``torch.profiler``; kernel time by name from the trace."""
@@ -693,6 +733,10 @@ def phase_profile(model, params, mode):
           "device_idle_share": 1 - busy / wall_ms if kernels else None,
           "device_ops_per_step": (sum(v[0] for v in kernels.values())
                                   / n_steps),
+          "float_blast_per_step": {
+              k: ({"calls": v["calls"] / n_steps, "ms": v["ms"] / n_steps}
+                  if isinstance(v, dict) else v / n_steps)
+              for k, v in float_blast(kernels).items()},
           "top": [{"name": n[:80], "calls_per_step": c / n_steps,
                    "ms_per_step": t / n_steps} for n, (c, t) in top]})
 
@@ -954,6 +998,7 @@ def _profile_train_step(step_fn, result, data):
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall_ms if kernels else None,
             "device_ops": sum(v[0] for v in kernels.values()),
+            "float_blast": float_blast(kernels),
             "top": [{"name": n[:80], "calls": c, "ms": t}
                     for n, (c, t) in top]}
 
@@ -990,25 +1035,31 @@ def phase_timing(cfg):
     dt, dname, elt = torch.bfloat16, "bfloat16", 2
     lib_name = "torch.matmul(x, to_dense(A).T) (dense work)"
     rows = []
+
+    def float_row(name, n, m, b, r, G, T):
+        """B1 (G = 1) or B2 at one shape; returns its inputs."""
+        x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dt, gen, DEVICE)
+        dense = torch.cat([blast_lib.to_dense(
+            blast_lib.BlastParams(U[g], S[g], V[g])) for g in range(G)],
+            dim=0)                                       # (G·m, n)
+        if G == 1:
+            kname = "blast_matmul"
+            kern = lambda: ops.blast_matmul(x, U[0], S[0], V[0])  # noqa: E731
+            plain = lambda: ref.blast_matmul_ref(x, U[0], S[0], V[0])  # noqa: E731
+        else:
+            kname = "blast_matmul_grouped"
+            kern = lambda: ops.blast_matmul_grouped(x, U, S, V)  # noqa: E731
+            plain = lambda: ref.blast_matmul_grouped_ref(x, U, S, V)  # noqa: E731
+        rows.append(timing_row(
+            kname, name, T, f"{n}->{m} b={b} r={r} G={G}", kern, plain,
+            lambda: torch.matmul(x, dense.T), lib_name,
+            blast_cost(n, m, b, r, G, T, elt), flush))
+        return x, U, S, V
+
     for name, n, m, b, r, G in blast_shapes(cfg):
         shape = f"{n}->{m} b={b} r={r} G={G}"
         for T in (8, 256):
-            x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dt, gen, DEVICE)
-            dense = torch.cat([blast_lib.to_dense(
-                blast_lib.BlastParams(U[g], S[g], V[g])) for g in range(G)],
-                dim=0)                                   # (G·m, n)
-            if G == 1:
-                kname = "blast_matmul"
-                kern = lambda: ops.blast_matmul(x, U[0], S[0], V[0])  # noqa: E731
-                plain = lambda: ref.blast_matmul_ref(x, U[0], S[0], V[0])  # noqa: E731
-            else:
-                kname = "blast_matmul_grouped"
-                kern = lambda: ops.blast_matmul_grouped(x, U, S, V)  # noqa: E731
-                plain = lambda: ref.blast_matmul_grouped_ref(x, U, S, V)  # noqa: E731
-            rows.append(timing_row(
-                kname, name, T, shape, kern, plain,
-                lambda: torch.matmul(x, dense.T), lib_name,
-                blast_cost(n, m, b, r, G, T, elt), flush))
+            x, U, S, V = float_row(name, n, m, b, r, G, T)
             xq, sx = quant.quantize_act(x)
             r_pad = -(-r // bm.tiles()[1]) * bm.tiles()[1]
             for bits in (8, 4):
@@ -1070,9 +1121,11 @@ def phase_timing(cfg):
             f"B={B} Hq={hq} Hkv={hkv} T={T} D={hd} causal", kern, plain, lib,
             "scaled_dot_product_attention (is_causal, GQA)",
             (bytes_, {dname: flops}), flush))
-    # B1 launched for a backward pass's dx, on the transposed BLAST matrix
-    # (n and m swap), at the training step's 2048 tokens
+    # the training step's 2048 tokens: B1 and B2 forward, and B1 launched
+    # for a backward pass's dx, on the transposed BLAST matrix (n and m swap)
     T = TRAIN_BATCH * TRAIN_SEQ
+    for name, n, m, b, r, G in blast_shapes(cfg):
+        float_row(name, n, m, b, r, G, T)
     for name, n, m, b, r, G in blast_shapes(cfg):
         if name not in ("qkv", "down"):
             continue

@@ -5,7 +5,13 @@ All take the kernel's own layout — x (T, n), U (G, b, p, r), S (G, b, b, r),
 V (G, b, q, r), all contiguous, r a multiple of the kernel's rank tile — and
 return y (G, T, m):
 
-- ``launch``: float factors of x's type (fp32 or bf16);
+- ``launch``: float factors of x's type (fp32 or bf16), through the float
+  kernel (``blast_tile_kernel``: one block per 16-token tile, factor set,
+  split of r and group of at most 16 output blocks).  T is not padded (the
+  kernel masks its edge); where ⌈T/16⌉·G blocks would leave most SMs idle,
+  ``split_plan`` splits r across blocks (and at decode groups the output
+  blocks), and a second pass adds the splits' fp32 partials in order
+  (deterministic);
 - ``launch_q``: int8 factor codes with fp32 scales su (G, b), ss (G, b, b),
   sv (G, b), x fp32 or bf16; y has x's type;
 - ``launch_w8a8``: int8 activation codes xq (T, n) with fp32 scales sx
@@ -24,6 +30,7 @@ launcher refuses inputs that require grad while grad mode is on
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,8 +51,8 @@ plain_grouped_a4 = blast_matmul_grouped_a4_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "blast_matmul_f32": [_P] * 5 + [_I] * 6 + [_P],
-    "blast_matmul_bf16": [_P] * 5 + [_I] * 6 + [_P],
+    "blast_matmul_f32": [_P] * 6 + [_I] * 8 + [_P],
+    "blast_matmul_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "blast_matmul_q_f32": [_P] * 8 + [_I] * 6 + [_P],
     "blast_matmul_q_bf16": [_P] * 8 + [_I] * 6 + [_P],
     "blast_matmul_w8a8_f32": [_P] * 9 + [_I] * 6 + [_P],
@@ -56,6 +63,9 @@ _ARGTYPES = {
     "blast_matmul_w4a8_bf16": [_P] * 9 + [_I] * 6 + [_P],
     "blast_matmul_tile_t": [],
     "blast_matmul_tile_r": [],
+    "blast_float_tile_t": [],
+    "blast_float_tile_r": [],
+    "blast_float_tile_b": [],
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _CODES = {8: torch.int8, 4: torch.uint8}    # factor storage by bits
@@ -74,22 +84,75 @@ def _lib():
 
 
 def tiles() -> tuple[int, int]:
-    """(token rows, ranks) per kernel tile."""
+    """(token rows, ranks) per tile of the quantized kernel."""
     lib = _lib()
     return lib.blast_matmul_tile_t(), lib.blast_matmul_tile_r()
 
 
-def _check(x, U, S, V, factor_dtype, scales=()) -> tuple[int, ...]:
-    """Validate the kernel's layout; returns (T, G, b, p, q, r) with r the
-    logical rank (twice the row bytes for packed uint8 factors)."""
-    T, n = x.shape
-    G, b, p, rb = U.shape
-    q = V.shape[2]
+def float_tiles() -> tuple[int, int, int]:
+    """(token rows per block, rank granule of padding and splits, output
+    blocks per block at most) of the float kernel."""
+    lib = _lib()
+    return (lib.blast_float_tile_t(), lib.blast_float_tile_r(),
+            lib.blast_float_tile_b())
+
+
+MAX_GROUPS = 4     # output-block groups a launch adds at small T, at most
+
+
+@functools.lru_cache(maxsize=1024)    # every launch asks; decode is host-bound
+def split_plan(T: int, G: int, r: int, b: int, sms: int, tile_t: int,
+               tile_r: int, tile_b: int) -> tuple[int, int, int]:
+    """(splits, ranks per split, output blocks per group) of a float-kernel
+    launch, whose grid is ⌈T/tile_t⌉ × splits · groups × G blocks (times the
+    column chunks the kernel adds where p > 96).  The r range (padded to
+    ``tile_r``) is cut into equal runs of whole ``tile_r`` granules, the
+    last one possibly shorter, none empty; the b output blocks into equal
+    groups of at most ``tile_b``.  Splits: none once the token blocks and
+    the groups that b needs fill half of the ``sms`` SMs; below that, as
+    many as keep every block in the first wave (one block fits an SM), at
+    most one per granule.  Groups: likewise, up to ``MAX_GROUPS`` times
+    more while the blocks still fill less than half the SMs (a group copies
+    only its own U and S rows: fewer bytes per block at decode)."""
+    granules = -(-r // tile_r)
+    need = -(-b // tile_b)                  # groups the kernel needs
+    blocks = -(-T // tile_t) * G * need
+    splits = 1 if 2 * blocks >= sms else sms // blocks
+    per = -(-granules // min(splits, granules))
+    splits = -(-granules // per)
+    used = blocks * splits
+    more = 1 if 2 * used >= sms else min(MAX_GROUPS, sms // used)
+    return splits, per * tile_r, -(-b // min(need * more, b))
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else 0
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _check_device(x: torch.Tensor) -> None:
+    """Before any library is loaded: x lies on the current CUDA device."""
     if x.device.type != "cuda":
         raise ValueError("blast_matmul kernel needs CUDA tensors")
     if x.device.index != torch.cuda.current_device():
         raise ValueError("blast_matmul kernel: tensor is not on the current "
                          "CUDA device")
+
+
+def _check(x, U, S, V, factor_dtype, scales=(),
+           tile_r=None) -> tuple[int, ...]:
+    """Validate the kernel's layout; returns (T, G, b, p, q, r) with r the
+    logical rank (twice the row bytes for packed uint8 factors), a multiple
+    of ``tile_r`` (default: the quantized kernel's rank tile)."""
+    T, n = x.shape
+    G, b, p, rb = U.shape
+    q = V.shape[2]
+    _check_device(x)
     named = [("x", x, x.dtype), ("U", U, factor_dtype), ("S", S, factor_dtype),
              ("V", V, factor_dtype)]
     named += [(k, a, torch.float32) for k, a in scales]
@@ -109,9 +172,10 @@ def _check(x, U, S, V, factor_dtype, scales=()) -> tuple[int, ...]:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, want "
                              f"{want[name]}")
     r = 2 * rb if factor_dtype == torch.uint8 else rb
-    if r % tiles()[1]:
+    tile_r = tile_r or tiles()[1]
+    if r % tile_r:
         raise ValueError(f"rank {r} is not a multiple of the rank tile "
-                         f"{tiles()[1]} (ops.py pads it)")
+                         f"{tile_r} (ops.py pads it)")
     return T, G, b, p, q, r
 
 
@@ -125,13 +189,32 @@ def _run(fn_name: str, ptrs, dims, y) -> torch.Tensor:
 
 def launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
            V: torch.Tensor) -> torch.Tensor:
+    """The float kernel, launched as ``split_plan`` lays it out."""
     build.refuse_grad("blast_matmul", x, U, S, V)
     if x.dtype not in _SUFFIX:
         raise TypeError(f"blast_matmul kernel takes fp32 or bf16, got {x.dtype}")
-    T, G, b, p, q, r = _check(x, U, S, V, x.dtype)
+    _check_device(x)
+    tile_t, tile_r, tile_b = float_tiles()
+    T, G, b, p, q, r = _check(x, U, S, V, x.dtype, tile_r=tile_r)
+    for name, a in (("U", U), ("S", S), ("V", V)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
     y = torch.empty((G, T, b * p), dtype=x.dtype, device=x.device)
-    return _run(f"blast_matmul_{_SUFFIX[x.dtype]}", (x, U, S, V),
-                (T, G, b, p, q, r), y)
+    if T == 0:
+        return y
+    n_split, rps, ipg = split_plan(T, G, r, b, _sm_count(x.device), tile_t,
+                                   tile_r, tile_b)
+    part = (torch.empty((n_split, G, T, b * p), dtype=torch.float32,
+                        device=x.device) if n_split > 1 else None)
+    fn_name = f"blast_matmul_{_SUFFIX[x.dtype]}"
+    rc = getattr(_lib(), fn_name)(
+        x.data_ptr(), U.data_ptr(), S.data_ptr(), V.data_ptr(), y.data_ptr(),
+        None if part is None else part.data_ptr(), T, G, b, p, q, r, rps, ipg,
+        torch.cuda.current_stream().cuda_stream)
+    # cudaErrorInvalidValue here: the x and V tiles of n = b·q columns do
+    # not fit shared memory (n ≤ 2048 at b = 16 does; see the source note)
+    build.check(rc, f"{fn_name} (T={T}, G={G}, b={b}, p={p}, q={q}, r={r})")
+    return y
 
 
 def _launch_q(bits: int, x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,

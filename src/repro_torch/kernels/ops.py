@@ -3,8 +3,9 @@
 A tensor on the CPU goes to the kernel's plain PyTorch version
 (``kernels/ref.py``); a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback.  The BLAST wrappers flatten the leading axes
-into T and zero-pad T and r to the kernel's tiles, as the reference wrapper
-does (zero rows and zero ranks are exact).  The int8 and int4 wrappers
+into T and zero-pad r to the kernel's rank tile, as the reference wrapper
+does (zero ranks are exact); the quantized ones also zero-pad T to their
+token tile (zero rows), the float kernel masks its T edge itself.  The int8 and int4 wrappers
 take per-block scales; int4 factors stay nibble-packed (uint8, two codes
 per byte along r) into the kernel, and their byte axis is zero-padded to
 half the padded rank (a zero byte is two zero codes).  With ``act="int8"``
@@ -88,34 +89,32 @@ def _flatten_pad_x(x: torch.Tensor, block_t: int):
     return xf.contiguous(), lead, T
 
 
+def _float_launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+                  V: torch.Tensor, key: str) -> torch.Tensor:
+    """The float kernel on x (..., n) and stacked factors (G, b, ·, r) →
+    (G, ..., m), counted under ``key``; x is flattened, not padded."""
+    lead = x.shape[:-1]
+    r_pad = _round_up(U.shape[-1], _bm.float_tiles()[1])
+    U, S, V = (_pad_last(a, r_pad) for a in (U, S, V))
+    y = _bm.launch(x.reshape(-1, x.shape[-1]).contiguous(), U, S, V)
+    launches[key] += 1
+    return y.reshape(U.shape[0], *lead, y.shape[-1])
+
+
 def _blast_launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
                   V: torch.Tensor, key: str) -> torch.Tensor:
     """B1 on (..., n) → (..., m): the plain version on the CPU, the kernel
     (counted under ``key``) on CUDA."""
     if _on_cpu(x):
         return ref.blast_matmul_ref(x, U, S, V)
-    b, p, r = U.shape
-    block_t, block_r = _bm.tiles()
-    xf, lead, T = _flatten_pad_x(x, block_t)
-    r_pad = _round_up(r, block_r)
-    U, S, V = (_pad_last(a, r_pad)[None] for a in (U, S, V))
-    y = _bm.launch(xf, U, S, V)
-    launches[key] += 1
-    return y[0, :T].reshape(*lead, b * p)
+    return _float_launch(x, U[None], S[None], V[None], key)[0]
 
 
 def _blast_grouped_launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
                           V: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x):
         return ref.blast_matmul_grouped_ref(x, U, S, V)
-    G, b, p, r = U.shape
-    block_t, block_r = _bm.tiles()
-    xf, lead, T = _flatten_pad_x(x, block_t)
-    r_pad = _round_up(r, block_r)
-    U, S, V = (_pad_last(a, r_pad) for a in (U, S, V))
-    y = _bm.launch(xf, U, S, V)
-    launches["blast_matmul_grouped"] += 1
-    return y[:, :T].reshape(G, *lead, b * p)
+    return _float_launch(x, U, S, V, "blast_matmul_grouped")
 
 
 def _blast_factor_grads(needs, dy, x, U, S, V):

@@ -48,8 +48,22 @@ class TestOnCard:
                                            (torch.bfloat16, 2e-2)])
     @pytest.mark.parametrize("T,G,b,p,q,r", [(1, 1, 4, 24, 16, 19),
                                              (37, 1, 16, 60, 36, 144),
-                                             (8, 2, 16, 96, 36, 176)])
+                                             (8, 2, 16, 96, 36, 176),
+                                             (300, 2, 16, 96, 36, 176),
+                                             (2048, 1, 16, 36, 96, 176),
+                                             (37, 1, 16, 36, 60, 19),
+                                             (37, 2, 4, 12, 5, 19),
+                                             (8, 1, 32, 12, 18, 48),
+                                             (600, 1, 32, 12, 18, 48),
+                                             (37, 2, 8, 192, 72, 144),
+                                             (300, 1, 8, 72, 192, 144),
+                                             (16, 1, 16, 192, 128, 32),
+                                             (37, 1, 4, 101, 5, 19)])
     def test_blast_kernels(self, cuda, dtype, tol, T, G, b, p, q, r):
+        """The float kernel's paths: r split (T ≤ 300) or whole, output
+        blocks grouped (at decode, and b = 32 at any T) or not, p in column
+        chunks (p > 96, or tiles too wide for one chunk at n = 2048),
+        ragged T, r, q and p."""
         rng = np.random.default_rng(T + G + r)
         U, S, V = (_t(a).to(cuda, dtype) / 4 for a in
                    _factors(rng, b, p, q, r, lead=(G,)))
@@ -64,6 +78,21 @@ class TestOnCard:
         torch.cuda.synchronize()
         assert sum(ops.launches.values()) == 1
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("T", [8, 2048])
+    def test_blast_float_repeats_bitwise(self, cuda, dtype, T):
+        """Two launches on the same inputs give the same bits: split r (T =
+        8) is summed in a fixed order, and nothing uses atomics."""
+        rng = np.random.default_rng(T)
+        U, S, V = (_t(a).to(cuda, dtype) / 4 for a in
+                   _factors(rng, 16, 96, 36, 176, lead=(2,)))
+        x = _t(rng.standard_normal((T, 16 * 36)).astype(np.float32)).to(
+            cuda, dtype)
+        first = ops.blast_matmul_grouped(x, U, S, V)
+        second = ops.blast_matmul_grouped(x, U, S, V)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
     @pytest.mark.parametrize("bits", [8, 4])
     @pytest.mark.parametrize("act", ["none", "int8"])
