@@ -10,15 +10,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the script stops here with exit code 1 and prints no result.
 2. build — nvcc builds every kernel under ``src/repro_torch/kernels/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the full-width smollm-135m shapes, T = 8 and 256 (the float BLAST
-   kernels also at the training step's 2048 tokens), fp32 and bf16, max
-   error vs tolerance; two launches of the float BLAST kernel at T = 8 (r
-   split across blocks) and 2048 (unsplit) equal bit for bit: the float
-   BLAST kernels, the int8- and int4-weight
-   kernels, the W8A8 and W4A8 kernels (each kernel and its plain version
-   get the same activation codes), prefill attention, and full-sequence
-   attention (B4: causal at B=8 T=256 and B=1 T=2048, a ragged T=200, a
-   window, a q_offset, non-causal).
+   the full-width smollm-135m shapes, T = 8 and 256 (the float and the
+   int8- and int4-weight BLAST kernels also at the training step's 2048
+   tokens), fp32 and bf16, max error vs tolerance; two launches of the
+   float and of the int8- and int4-weight BLAST kernels at T = 8 (r split
+   across blocks) and 2048 (unsplit) equal bit for bit: the float BLAST
+   kernels, the int8- and int4-weight kernels, the W8A8 and W4A8 kernels
+   (each kernel and its plain version get the same activation codes),
+   prefill attention, and full-sequence attention (B4: causal at B=8
+   T=256 and B=1 T=2048, a ragged T=200, a window, a q_offset,
+   non-causal).  Past smollm-135m: the float and weight-only BLAST kernels
+   (B1, B2, B5–B8) at n = 8192 (granite-3-2b's down, b = 16) and n = 3072
+   (gpt2-blast's down, b = 6), where the input axis is staged in panels,
+   and B3 and B4 at head dim 256 (recurrentgemma-2b's heads).
 4. grads — fp32 gradients of the three autograd Functions on the training
    path (B1, B2, B4) against torch.autograd through the plain versions, at
    2048 tokens: within 1e-4 × each gradient's largest entry.
@@ -39,7 +43,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    kernels' launch counters must equal steps × (90, 30, 30) and the others
    stay 0.  Then, in each mode, six steady decode steps (8 slots) under
    torch.profiler: device busy and idle share per step, kernel time by
-   name.
+   name; the float, int8 and int4 modes run the tile kernel and never
+   ``blast_kernel``.
 8. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
    steps (bf16, remat, batch 8 × seq 256 of the Markov ``TokenStream``,
    lr 3e-4 with warmup 5): per step loss, grad norm, skipped flag, time
@@ -51,9 +56,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    flushed before each run: kernel, plain version and one PyTorch library
    call (a yardstick only; the port never calls it), at decode, prefill
    and training shapes (B4; B1 and B2 forward and B1 as the backward's dx
-   at 2048 tokens), beside each call's bound on the H100.  The profiles of
-   phases 7 and 8 also sum the float BLAST kernel's two ``__global__``s
-   (``blast_tile_kernel``, ``blast_split_sum``).
+   at 2048 tokens), and B1, B5 and B7 at n = 8192 (panels), beside each
+   call's bound on the H100.  The profiles of phases 7 and 8 also sum the
+   tile kernel's two ``__global__``s (``blast_tile_kernel``,
+   ``blast_split_sum``).
 
 The last lines are the per-kernel JSON summary, the ``nvidia-smi`` line,
 and ``{"ok": true, "device": {...}}``.
@@ -94,6 +100,11 @@ MODES = {"none": (("none", "none"), ("blast_matmul", "blast_matmul_grouped")),
          "w4a8": (("int4", "int8"),
                   ("blast_matmul_w4a8", "blast_matmul_grouped_w4a8"))}
 QUANT_MODES = ("int8", "w8a8", "int4", "w4a8")
+WEIGHT_ONLY = ("int8", "int4")
+# the kernels that launch blast_tile_kernel (float and weight-only codes)
+TILE_KERNELS = ("blast_matmul", "blast_matmul_grouped", "blast_matmul_q",
+                "blast_matmul_grouped_q", "blast_matmul_q4",
+                "blast_matmul_grouped_q4")
 
 
 def mode_bits_act(mode) -> tuple[int | None, str]:
@@ -229,6 +240,16 @@ def make_attn_inputs(B, Hq, Hkv, C, S, D, dtype, gen, device):
 B4_CASES = [(8, 256, 256, {}), (1, 2048, 2048, {}), (8, 200, 200, {}),
             (8, 256, 256, {"window": 64}), (8, 256, 320, {"q_offset": 64}),
             (8, 256, 256, {"causal": False})]
+# Past smollm-135m.  BLAST down projections whose n = b·q passes the tile
+# kernel's resident layout, so that it stages the input axis in panels:
+# (label, n, m, b, r) at keep 0.5, r = keep·m·n / (m + n + b²) rounded to
+# 16.  Attention at head dim 256: recurrentgemma-2b's 10 query heads over
+# 1 kv head (Hq, Hkv, D), with its B4 cases.
+WIDE_BLAST = [("granite-3-2b down", 8192, 2048, 16, 800),
+              ("gpt2-blast down", 3072, 768, 6, 304)]
+WIDE_HEADS = (10, 1, 256)
+B4_WIDE_CASES = [(2, 512, 512, {}), (2, 256, 256, {"window": 64}),
+                 (2, 256, 320, {"q_offset": 64})]
 
 
 def make_full_attn_inputs(B, Hq, Hkv, T, S, D, dtype, gen, device):
@@ -379,71 +400,90 @@ def phase_build():
           "ptxas": {k: ptxas_usage(log) for k, log in build.build_logs.items()}})
 
 
+def blast_calls(x, U, S, V, r, modes):
+    """(kernel name, kernel call, plain call) of the float kernel and of
+    the quantized ``modes`` at one shape: G = 1 the plain kernels, G > 1
+    the grouped ones."""
+    from repro_torch.kernels import ops, ref
+    if U.shape[0] == 1:
+        calls = [("blast_matmul",
+                  lambda: ops.blast_matmul(x, U[0], S[0], V[0]),
+                  lambda: ref.blast_matmul_ref(x, U[0], S[0], V[0]))]
+    else:
+        calls = [("blast_matmul_grouped",
+                  lambda: ops.blast_matmul_grouped(x, U, S, V),
+                  lambda: ref.blast_matmul_grouped_ref(x, U, S, V))]
+    packed = {bits: quantize_factors(U, S, V, bits=bits)
+              for bits in {mode_bits_act(mode)[0] for mode in modes}}
+    return calls + [quant_calls(mode, x, *packed[mode_bits_act(mode)[0]], r)
+                    for mode in modes]
+
+
 def phase_kernels(cfg):
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator().manual_seed(SEED)
     errs = {k: 0.0 for k in SOURCES}
+
+    def check(kname, label, got, want, dname):
+        torch.cuda.synchronize()
+        e = check_close(f"{kname}[{label}]", got.reshape(want.shape), want,
+                        dname)
+        if dname == "bfloat16":
+            errs[kname] = max(errs[kname], e)
+
+    def attention(hq, hkv, hd, full_cases, dtype, dname):
+        for C in (1, 32):
+            q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dtype,
+                                             gen, DEVICE)
+            check("flash_attention_prefill",
+                  f"B=8 Hq={hq} Hkv={hkv} C={C} S=512 D={hd}",
+                  ops.flash_attention_prefill(q, k, v, offs),
+                  ref.attention_prefill_ref(q, k, v, offs), dname)
+        for B, T, S, kw in full_cases:
+            q, k, v = make_full_attn_inputs(B, hq, hkv, T, S, hd, dtype, gen,
+                                            DEVICE)
+            check("flash_attention",
+                  f"B={B} Hq={hq} Hkv={hkv} T={T} S={S} D={hd} {kw}",
+                  ops.flash_attention(q, k, v, **kw),
+                  ref.attention_ref(q, k, v, **kw), dname)
+
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         for name, n, m, b, r, G in blast_shapes(cfg):
             for T in (8, 256, TRAIN_BATCH * TRAIN_SEQ):
                 x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dtype, gen,
                                                DEVICE)
-                if G == 1:
-                    calls = [("blast_matmul",
-                              lambda: ops.blast_matmul(x, U[0], S[0], V[0]),
-                              lambda: ref.blast_matmul_ref(x, U[0], S[0],
-                                                           V[0]))]
-                else:
-                    calls = [("blast_matmul_grouped",
-                              lambda: ops.blast_matmul_grouped(x, U, S, V),
-                              lambda: ref.blast_matmul_grouped_ref(x, U, S,
-                                                                   V))]
+                # 2048 tokens: the float and weight-only (tile) kernels
+                modes = (QUANT_MODES if T != TRAIN_BATCH * TRAIN_SEQ
+                         else WEIGHT_ONLY)
+                calls = blast_calls(x, U, S, V, r, modes)
                 if T != 256:          # T = 8 splits r, 2048 does not
-                    repeat_identical(calls[0], name, T, dname)
-                if T != TRAIN_BATCH * TRAIN_SEQ:   # 2048 tokens: float only
-                    packed = {8: quantize_factors(U, S, V),
-                              4: quantize_factors(U, S, V, bits=4)}
-                    calls += [quant_calls(mode, x,
-                                          *packed[mode_bits_act(mode)[0]], r)
-                              for mode in QUANT_MODES]
+                    for call in calls:
+                        if call[0] in TILE_KERNELS:
+                            repeat_identical(call, name, T, dname)
                 for kname, kern, plain in calls:
-                    got, want = kern(), plain()
-                    torch.cuda.synchronize()
-                    e = check_close(f"{kname}[{name} {n}->{m} b={b} r={r} "
-                                    f"G={G} T={T}]", got.reshape(want.shape),
-                                    want, dname)
-                    if dname == "bfloat16":
-                        errs[kname] = max(errs[kname], e)
-        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        for C in (1, 32):
-            q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dtype,
-                                             gen, DEVICE)
-            got = ops.flash_attention_prefill(q, k, v, offs)
-            want = ref.attention_prefill_ref(q, k, v, offs)
-            torch.cuda.synchronize()
-            e = check_close(f"flash_attention_prefill[B=8 Hq={hq} Hkv={hkv} "
-                            f"C={C} S=512 D={hd}]", got, want, dname)
-            if dname == "bfloat16":
-                errs["flash_attention_prefill"] = max(
-                    errs["flash_attention_prefill"], e)
-        for B, T, S, kw in B4_CASES:
-            q, k, v = make_full_attn_inputs(B, hq, hkv, T, S, hd, dtype, gen,
-                                            DEVICE)
-            got = ops.flash_attention(q, k, v, **kw)
-            want = ref.attention_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            e = check_close(f"flash_attention[B={B} Hq={hq} Hkv={hkv} T={T} "
-                            f"S={S} D={hd} {kw}]", got, want, dname)
-            if dname == "bfloat16":
-                errs["flash_attention"] = max(errs["flash_attention"], e)
+                    check(kname, f"{name} {n}->{m} b={b} r={r} G={G} T={T}",
+                          kern(), plain(), dname)
+        for label, n, m, b, r in WIDE_BLAST:
+            for G in (1, 2):
+                for T in (8, 256):
+                    x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dtype,
+                                                   gen, DEVICE)
+                    for kname, kern, plain in blast_calls(x, U, S, V, r,
+                                                          WEIGHT_ONLY):
+                        check(kname, f"{label} {n}->{m} b={b} r={r} G={G} "
+                              f"T={T}", kern(), plain(), dname)
+        attention(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, B4_CASES,
+                  dtype, dname)
+        attention(*WIDE_HEADS, B4_WIDE_CASES, dtype, dname)
     return errs
 
 
 def repeat_identical(call, linear, T, dname) -> None:
-    """Two launches of the float kernel on the same inputs must agree bit
-    for bit (split r summed in a fixed order, no atomics)."""
+    """Two launches of a tile kernel (float or weight-only codes) on the
+    same inputs must agree bit for bit (split r summed in a fixed order, no
+    atomics)."""
     import torch
     kname, kern, _ = call
     first = kern()
@@ -684,10 +724,10 @@ def phase_serve(cfg, model, params, mode):
     return launches
 
 
-def float_blast(kernels) -> dict:
-    """Calls and device ms of the float BLAST kernel's two ``__global__``s
-    in a profile's {name: [calls, ms]}: ``blast_tile_kernel``, and
-    ``blast_split_sum`` where r is split.  The split sum is launched as a
+def tile_blast(kernels) -> dict:
+    """Calls and device ms of the tile kernel's two ``__global__``s (float
+    and weight-only codes) in a profile's {name: [calls, ms]}:
+    ``blast_tile_kernel``, and ``blast_split_sum`` where r is split.  The split sum is launched as a
     programmatic dependent of the tile kernel and waits for it on the card,
     so its span overlaps the tile kernel's: ``ms`` counts the tile kernel
     and the part of the sum's span past it is not separated."""
@@ -727,16 +767,21 @@ def phase_profile(model, params, mode):
             k[1] += e.time_range.elapsed_us() / 1e3
     busy = sum(v[1] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    first = sorted(k for k in kernels if "blast_kernel<" in k)
+    if mode in ("none",) + WEIGHT_ONLY and (
+            first or not tile_blast(kernels)["blast_tile_kernel"]["calls"]):
+        raise RuntimeError(f"{mode} decode did not run the tile kernel alone:"
+                           f" first-design kernels {first}")
     emit({"phase": "profile", "mode": mode, "decode_steps": n_steps,
           "slots": 8, "wall_ms_per_step": wall_ms / n_steps,
           "device_busy_ms_per_step": busy / n_steps if kernels else None,
           "device_idle_share": 1 - busy / wall_ms if kernels else None,
           "device_ops_per_step": (sum(v[0] for v in kernels.values())
                                   / n_steps),
-          "float_blast_per_step": {
+          "tile_blast_per_step": {
               k: ({"calls": v["calls"] / n_steps, "ms": v["ms"] / n_steps}
                   if isinstance(v, dict) else v / n_steps)
-              for k, v in float_blast(kernels).items()},
+              for k, v in tile_blast(kernels).items()},
           "top": [{"name": n[:80], "calls_per_step": c / n_steps,
                    "ms_per_step": t / n_steps} for n, (c, t) in top]})
 
@@ -998,7 +1043,7 @@ def _profile_train_step(step_fn, result, data):
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall_ms if kernels else None,
             "device_ops": sum(v[0] for v in kernels.values()),
-            "float_blast": float_blast(kernels),
+            "tile_blast": tile_blast(kernels),
             "top": [{"name": n[:80], "calls": c, "ms": t}
                     for n, (c, t) in top]}
 
@@ -1013,7 +1058,9 @@ def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes_ms": t_bytes, "ops_ms": t_ops, "bytes": bytes_,
-           "flops": flops, **{k: time_ms(f, flush) for k, f in extra.items()}}
+           "flops": flops,
+           **{k: f if isinstance(f, bool) else time_ms(f, flush)
+              for k, f in extra.items()}}
     emit({"phase": "timing", **row})
     return row
 
@@ -1036,58 +1083,60 @@ def phase_timing(cfg):
     lib_name = "torch.matmul(x, to_dense(A).T) (dense work)"
     rows = []
 
-    def float_row(name, n, m, b, r, G, T):
+    def float_row(name, n, m, b, r, G, T, **kw):
         """B1 (G = 1) or B2 at one shape; returns its inputs."""
         x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dt, gen, DEVICE)
         dense = torch.cat([blast_lib.to_dense(
             blast_lib.BlastParams(U[g], S[g], V[g])) for g in range(G)],
             dim=0)                                       # (G·m, n)
-        if G == 1:
-            kname = "blast_matmul"
-            kern = lambda: ops.blast_matmul(x, U[0], S[0], V[0])  # noqa: E731
-            plain = lambda: ref.blast_matmul_ref(x, U[0], S[0], V[0])  # noqa: E731
-        else:
-            kname = "blast_matmul_grouped"
-            kern = lambda: ops.blast_matmul_grouped(x, U, S, V)  # noqa: E731
-            plain = lambda: ref.blast_matmul_grouped_ref(x, U, S, V)  # noqa: E731
+        kname, kern, plain = blast_calls(x, U, S, V, r, ())[0]
         rows.append(timing_row(
             kname, name, T, f"{n}->{m} b={b} r={r} G={G}", kern, plain,
             lambda: torch.matmul(x, dense.T), lib_name,
-            blast_cost(n, m, b, r, G, T, elt), flush))
+            blast_cost(n, m, b, r, G, T, elt), flush, **kw))
         return x, U, S, V
 
-    for name, n, m, b, r, G in blast_shapes(cfg):
+    def quant_rows(name, n, m, b, r, G, T, x, U, S, V, modes, **kw):
+        """The quantized ``modes`` at one shape, on the codes of U, S, V."""
         shape = f"{n}->{m} b={b} r={r} G={G}"
+        xq, sx = quant.quantize_act(x)
+        for bits in (8, 4):
+            mine = [mode for mode in modes if mode_bits_act(mode)[0] == bits]
+            if not mine:
+                continue
+            codes, scales = quantize_factors(U, S, V, bits=bits)
+            su, ss, sv = scales
+            ints = [quant.unpack_int4(c, r) if bits == 4 else c
+                    for c in codes]
+            deq = [a.float() * s_.reshape(*s_.shape,
+                                          *(1,) * (a.ndim - s_.ndim))
+                   for a, s_ in zip(ints, scales)]
+            dense_q = torch.cat([blast_lib.to_dense(blast_lib.BlastParams(
+                deq[0][g], deq[1][g], deq[2][g])) for g in range(G)],
+                dim=0).to(dt)
+            _, stored = bm.padded_rank(codes[0].shape[-1], bits,
+                                       bm.tiles()[1])
+            padded = [ops._pad_last(a, stored) for a in codes]
+            launch_a8 = bm.launch_w4a8 if bits == 4 else bm.launch_w8a8
+            for mode in mine:
+                qname, kern, plain = quant_calls(mode, x, codes, scales, r)
+                extra = dict(kw)
+                if mode_bits_act(mode)[1] == "int8":
+                    extra["launch_only_ms"] = lambda: launch_a8(  # noqa: E731
+                        xq, sx, *padded, su, ss, sv, out_dtype=dt)
+                rows.append(timing_row(
+                    qname, name, T, shape, kern, plain,
+                    lambda: torch.matmul(x, dense_q.T), lib_name,
+                    blast_cost(n, m, b, r, G, T, elt, mode), flush, **extra))
+
+    for name, n, m, b, r, G in blast_shapes(cfg):
         for T in (8, 256):
             x, U, S, V = float_row(name, n, m, b, r, G, T)
-            xq, sx = quant.quantize_act(x)
-            r_pad = -(-r // bm.tiles()[1]) * bm.tiles()[1]
-            for bits in (8, 4):
-                codes, scales = quantize_factors(U, S, V, bits=bits)
-                su, ss, sv = scales
-                ints = [quant.unpack_int4(c, r) if bits == 4 else c
-                        for c in codes]
-                deq = [a.float() * s_.reshape(*s_.shape,
-                                              *(1,) * (a.ndim - s_.ndim))
-                       for a, s_ in zip(ints, scales)]
-                dense_q = torch.cat([blast_lib.to_dense(blast_lib.BlastParams(
-                    deq[0][g], deq[1][g], deq[2][g])) for g in range(G)],
-                    dim=0).to(dt)
-                padded = [ops._pad_last(a, r_pad // 2 if bits == 4 else r_pad)
-                          for a in codes]
-                launch_a8 = bm.launch_w4a8 if bits == 4 else bm.launch_w8a8
-                for mode in (("int8", "w8a8") if bits == 8
-                             else ("int4", "w4a8")):
-                    qname, kern, plain = quant_calls(mode, x, codes, scales, r)
-                    extra = {}
-                    if mode_bits_act(mode)[1] == "int8":
-                        extra["launch_only_ms"] = lambda: launch_a8(  # noqa: E731
-                            xq, sx, *padded, su, ss, sv, out_dtype=dt)
-                    rows.append(timing_row(
-                        qname, name, T, shape, kern, plain,
-                        lambda: torch.matmul(x, dense_q.T), lib_name,
-                        blast_cost(n, m, b, r, G, T, elt, mode), flush,
-                        **extra))
+            quant_rows(name, n, m, b, r, G, T, x, U, S, V, QUANT_MODES)
+    # the panel path (n past the resident layout), at decode: B1, B5, B7
+    label, n, m, b, r = WIDE_BLAST[0]
+    x, U, S, V = float_row(label, n, m, b, r, 1, 8, panels=True)
+    quant_rows(label, n, m, b, r, 1, 8, x, U, S, V, WEIGHT_ONLY, panels=True)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     for C in (1, 32):
         q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen, DEVICE)
@@ -1195,7 +1244,7 @@ def summary(rows, errs, launches):
             picked = [r for r in mine if r["shape"].startswith("B=8 ")]
             per = "one call at the training shape (B=8, T=256)"
         else:
-            picked = [r for r in mine if r["T"] == 8]
+            picked = [r for r in mine if r["T"] == 8 and not r.get("panels")]
             per = "one layer's calls in one decode step (T=8)"
         tot = {k: sum(r[k] for r in picked)
                for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}

@@ -1,27 +1,29 @@
-"""Launchers of the fused BLAST CUDA kernel (``csrc/blast_matmul.cu``) and
-its plain PyTorch versions.
+"""Launchers of the fused BLAST CUDA kernels (``csrc/blast_matmul.cu``) and
+their plain PyTorch versions.
 
-All take the kernel's own layout — x (T, n), U (G, b, p, r), S (G, b, b, r),
-V (G, b, q, r), all contiguous, r a multiple of the kernel's rank tile — and
-return y (G, T, m):
+All take the kernels' own layout — x (T, n), U (G, b, p, r), S (G, b, b, r),
+V (G, b, q, r), all contiguous, r a multiple of the kernel's rank granule —
+and return y (G, T, m):
 
-- ``launch``: float factors of x's type (fp32 or bf16), through the float
+- ``launch``: float factors of x's type (fp32 or bf16), through the tile
   kernel (``blast_tile_kernel``: one block per 16-token tile, factor set,
-  split of r and group of at most 16 output blocks).  T is not padded (the
-  kernel masks its edge); where ⌈T/16⌉·G blocks would leave most SMs idle,
-  ``split_plan`` splits r across blocks (and at decode groups the output
-  blocks), and a second pass adds the splits' fp32 partials in order
-  (deterministic);
+  split of r and group of at most 16 output blocks; any n).  T is not
+  padded (the kernel masks its edge); where ⌈T/16⌉·G blocks would leave
+  most SMs idle, ``split_plan`` splits r across blocks (and at decode
+  groups the output blocks), and a second pass adds the splits' fp32
+  partials in order (deterministic);
 - ``launch_q``: int8 factor codes with fp32 scales su (G, b), ss (G, b, b),
-  sv (G, b), x fp32 or bf16; y has x's type;
+  sv (G, b), x fp32 or bf16, y of x's type — the same tile kernel and plan,
+  its factor tiles staged as codes;
 - ``launch_w8a8``: int8 activation codes xq (T, n) with fp32 scales sx
-  (T, 1) against int8 factor codes; y has ``out_dtype``;
+  (T, 1) against int8 factor codes, through the first design
+  (``blast_kernel``; T and r padded to its tiles); y has ``out_dtype``;
 - ``launch_q4`` / ``launch_w4a8``: as ``launch_q`` / ``launch_w8a8`` with
-  nibble-packed int4 factor codes, uint8 (G, b, ·, r/2): the kernel reads
-  them packed and takes the logical rank r = 2 × bytes.
+  nibble-packed int4 factor codes, uint8 (G, b, ·, r/2): the kernels read
+  them packed and take the logical rank r = 2 × bytes.
 
 Callers go through ``kernels/ops.py``, which flattens, pads, quantizes the
-activations and counts launches.  The kernel keeps no autograd graph: a
+activations and counts launches.  The kernels keep no autograd graph: a
 launcher refuses inputs that require grad while grad mode is on
 (``build.refuse_grad``); training reaches the float kernel through
 ``ops.BlastMatmulFn`` / ``ops.BlastMatmulGroupedFn``.
@@ -53,12 +55,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "blast_matmul_f32": [_P] * 6 + [_I] * 8 + [_P],
     "blast_matmul_bf16": [_P] * 6 + [_I] * 8 + [_P],
-    "blast_matmul_q_f32": [_P] * 8 + [_I] * 6 + [_P],
-    "blast_matmul_q_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "blast_matmul_q_f32": [_P] * 9 + [_I] * 8 + [_P],
+    "blast_matmul_q_bf16": [_P] * 9 + [_I] * 8 + [_P],
     "blast_matmul_w8a8_f32": [_P] * 9 + [_I] * 6 + [_P],
     "blast_matmul_w8a8_bf16": [_P] * 9 + [_I] * 6 + [_P],
-    "blast_matmul_q4_f32": [_P] * 8 + [_I] * 6 + [_P],
-    "blast_matmul_q4_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "blast_matmul_q4_f32": [_P] * 9 + [_I] * 8 + [_P],
+    "blast_matmul_q4_bf16": [_P] * 9 + [_I] * 8 + [_P],
     "blast_matmul_w4a8_f32": [_P] * 9 + [_I] * 6 + [_P],
     "blast_matmul_w4a8_bf16": [_P] * 9 + [_I] * 6 + [_P],
     "blast_matmul_tile_t": [],
@@ -84,17 +86,28 @@ def _lib():
 
 
 def tiles() -> tuple[int, int]:
-    """(token rows, ranks) per tile of the quantized kernel."""
+    """(token rows, ranks) per tile of the W8A8 / W4A8 kernel."""
     lib = _lib()
     return lib.blast_matmul_tile_t(), lib.blast_matmul_tile_r()
 
 
 def float_tiles() -> tuple[int, int, int]:
     """(token rows per block, rank granule of padding and splits, output
-    blocks per block at most) of the float kernel."""
+    blocks per block at most) of the tile kernel (float and weight-only
+    codes)."""
     lib = _lib()
     return (lib.blast_float_tile_t(), lib.blast_float_tile_r(),
             lib.blast_float_tile_b())
+
+
+def padded_rank(stored: int, bits: int | None, tile_r: int) -> tuple[int, int]:
+    """(logical ranks, stored length) of a factor rank axis of ``stored``
+    elements — ranks, or for nibble-packed int4 (``bits=4``) bytes of two
+    ranks each — zero-padded to the granule ``tile_r`` (exact: zero ranks,
+    and zero bytes are zero codes)."""
+    logical = 2 * stored if bits == 4 else stored
+    r = -(-logical // tile_r) * tile_r
+    return r, r // 2 if bits == 4 else r
 
 
 MAX_GROUPS = 4     # output-block groups a launch adds at small T, at most
@@ -103,7 +116,7 @@ MAX_GROUPS = 4     # output-block groups a launch adds at small T, at most
 @functools.lru_cache(maxsize=1024)    # every launch asks; decode is host-bound
 def split_plan(T: int, G: int, r: int, b: int, sms: int, tile_t: int,
                tile_r: int, tile_b: int) -> tuple[int, int, int]:
-    """(splits, ranks per split, output blocks per group) of a float-kernel
+    """(splits, ranks per split, output blocks per group) of a tile-kernel
     launch, whose grid is ⌈T/tile_t⌉ × splits · groups × G blocks (times the
     column chunks the kernel adds where p > 96).  The r range (padded to
     ``tile_r``) is cut into equal runs of whole ``tile_r`` granules, the
@@ -148,7 +161,7 @@ def _check(x, U, S, V, factor_dtype, scales=(),
            tile_r=None) -> tuple[int, ...]:
     """Validate the kernel's layout; returns (T, G, b, p, q, r) with r the
     logical rank (twice the row bytes for packed uint8 factors), a multiple
-    of ``tile_r`` (default: the quantized kernel's rank tile)."""
+    of ``tile_r`` (default: the W8A8 / W4A8 kernel's rank tile)."""
     T, n = x.shape
     G, b, p, rb = U.shape
     q = V.shape[2]
@@ -187,18 +200,17 @@ def _run(fn_name: str, ptrs, dims, y) -> torch.Tensor:
     return y
 
 
-def launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
-           V: torch.Tensor) -> torch.Tensor:
-    """The float kernel, launched as ``split_plan`` lays it out."""
-    build.refuse_grad("blast_matmul", x, U, S, V)
-    if x.dtype not in _SUFFIX:
-        raise TypeError(f"blast_matmul kernel takes fp32 or bf16, got {x.dtype}")
-    _check_device(x)
-    tile_t, tile_r, tile_b = float_tiles()
-    T, G, b, p, q, r = _check(x, U, S, V, x.dtype, tile_r=tile_r)
-    for name, a in (("U", U), ("S", S), ("V", V)):
+def _check_aligned(**factors) -> None:
+    for name, a in factors.items():
         if a.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
+
+
+def _launch_tile(fn_name: str, x: torch.Tensor, factors, scales,
+                 T: int, G: int, b: int, p: int, q: int, r: int,
+                 tile_t: int, tile_r: int, tile_b: int) -> torch.Tensor:
+    """The tile kernel ``fn_name`` as ``split_plan`` lays it out: y (G, T,
+    b·p) of x's type, with an fp32 workspace for the splits' partials."""
     y = torch.empty((G, T, b * p), dtype=x.dtype, device=x.device)
     if T == 0:
         return y
@@ -206,29 +218,44 @@ def launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
                                    tile_r, tile_b)
     part = (torch.empty((n_split, G, T, b * p), dtype=torch.float32,
                         device=x.device) if n_split > 1 else None)
-    fn_name = f"blast_matmul_{_SUFFIX[x.dtype]}"
     rc = getattr(_lib(), fn_name)(
-        x.data_ptr(), U.data_ptr(), S.data_ptr(), V.data_ptr(), y.data_ptr(),
-        None if part is None else part.data_ptr(), T, G, b, p, q, r, rps, ipg,
-        torch.cuda.current_stream().cuda_stream)
-    # cudaErrorInvalidValue here: the x and V tiles of n = b·q columns do
-    # not fit shared memory (n ≤ 2048 at b = 16 does; see the source note)
+        x.data_ptr(), *(a.data_ptr() for a in (*factors, *scales)),
+        y.data_ptr(), None if part is None else part.data_ptr(), T, G, b, p,
+        q, r, rps, ipg, torch.cuda.current_stream().cuda_stream)
     build.check(rc, f"{fn_name} (T={T}, G={G}, b={b}, p={p}, q={q}, r={r})")
     return y
+
+
+def launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+           V: torch.Tensor) -> torch.Tensor:
+    """The float kernel, launched as ``split_plan`` lays it out."""
+    build.refuse_grad("blast_matmul", x, U, S, V)
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"blast_matmul kernel takes fp32 or bf16, got {x.dtype}")
+    _check_device(x)
+    tiles_ = float_tiles()
+    T, G, b, p, q, r = _check(x, U, S, V, x.dtype, tile_r=tiles_[1])
+    _check_aligned(U=U, S=S, V=V)
+    return _launch_tile(f"blast_matmul_{_SUFFIX[x.dtype]}", x, (U, S, V), (),
+                        T, G, b, p, q, r, *tiles_)
 
 
 def _launch_q(bits: int, x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
               V: torch.Tensor, su: torch.Tensor, ss: torch.Tensor,
               sv: torch.Tensor) -> torch.Tensor:
+    """Weight-only codes through the tile kernel, as ``launch``."""
     name = "blast_matmul_q" if bits == 8 else "blast_matmul_q4"
     build.refuse_grad(name, x)
     if x.dtype not in _SUFFIX:
         raise TypeError(f"{name} kernel takes fp32 or bf16 x, got {x.dtype}")
+    _check_device(x)
+    tiles_ = float_tiles()
     T, G, b, p, q, r = _check(x, U, S, V, _CODES[bits],
-                              (("su", su), ("ss", ss), ("sv", sv)))
-    y = torch.empty((G, T, b * p), dtype=x.dtype, device=x.device)
-    return _run(f"{name}_{_SUFFIX[x.dtype]}", (x, U, S, V, su, ss, sv),
-                (T, G, b, p, q, r), y)
+                              (("su", su), ("ss", ss), ("sv", sv)),
+                              tile_r=tiles_[1])
+    _check_aligned(U=U, S=S, V=V)
+    return _launch_tile(f"{name}_{_SUFFIX[x.dtype]}", x, (U, S, V),
+                        (su, ss, sv), T, G, b, p, q, r, *tiles_)
 
 
 def launch_q(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,

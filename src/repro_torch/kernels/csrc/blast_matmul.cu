@@ -19,19 +19,19 @@
 //     z_j = x_j V_j,   w_i = Σ_j s_ij ⊙ z_j,   y_i = w_i U_iᵀ.
 // Float: x and the factors are fp32 or bf16 (one type for all four).
 // int8 (as the TPU kernels' _quant_loaders): U/S/V are int8 codes with fp32
-// scales su (G, b), ss (G, b, b), sv (G, b); codes are cast in-register,
-// z_j is scaled once by sv[g, j], stage 2 uses code(s_ij)·ss[g, i, j], and
-// the block's y accumulator is scaled once by su[g, i] before the store
-// (su is constant over the output block, so that is exact).  x is fp32 or
-// bf16 and y has x's type.
+// scales su (G, b), ss (G, b, b), sv (G, b); z_j is scaled once by
+// sv[g, j], stage 2 uses code(s_ij)·ss[g, i, j], and the block's y
+// accumulator is scaled once by su[g, i] before the store (su is constant
+// over the output block, so that is exact).  x is fp32 or bf16 and y has
+// x's type.
 // int4: as int8, but U/S/V rows are r/2 bytes, two codes in [-7, 7] per
 // byte (byte k holds logical rank 2k in its low nibble and 2k+1 in its
-// high nibble, the quant/qarray.py layout).  Each load reads byte k >> 1
-// and sign-extends nibble k & 1 in-register, so the kernel walks the
-// logical rank order directly.  (The TPU kernel unpacks each tile into
-// plane order [low | high] instead; both are exact, because stages 2–3
-// reduce over r and any rank permutation shared by U, S and V leaves the
-// sum unchanged up to fp32 summation order.)
+// high nibble, the quant/qarray.py layout).  The kernels read byte k >> 1
+// and sign-extend nibble k & 1 in-register, so they walk the logical rank
+// order directly.  (The TPU kernel unpacks each tile into plane order
+// [low | high] instead; both are exact, because stages 2–3 reduce over r
+// and any rank permutation shared by U, S and V leaves the sum unchanged
+// up to fp32 summation order.)
 // W8A8 / W4A8 (as _quant_act_loaders): x arrives as int8 per-token codes xq
 // with fp32 scales sx (T, 1); stage 1 is an int32 contraction of int8
 // codes against int8 (or sign-extended int4) factor codes, dequantized once
@@ -50,31 +50,29 @@
 //
 // Two designs share this file.
 //
-// Float (fp32, bf16: B1, B2, and B1 as the backward's dx) —
+// Float and weight-only codes (B1, B2, B1 as the backward's dx; B5–B8) —
 // blast_tile_kernel.  The TPU kernel fills its z scratch once per (T tile,
 // r tile), at i == 0, and reuses it for every output block; so does this
 // one.  A block of 16 warps owns 16 token rows, factor set g, a range of r
 // (a split) and a group of up to 16 output blocks (all b unless the plan
 // groups them, or b > 16): per r tile of RT ranks it computes z_j for
-// every j (warp j mod 16), w_i for its i, and adds w_i U_iᵀ into the fp32
-// accumulator of y_i that warp i holds in registers across the whole r
-// range — stage 1 runs once per (T tile, r tile, group), not once per
-// output block.  Registers hold up to 96 columns of y_i: a wider p (or one
-// whose tiles would not fit shared memory) is cut into column chunks, one
-// block each, which repeat stage 1 (none at smollm-135m's shapes).  The x
-// tile and the V, S and U r-tiles go through shared memory by cp.async
-// (factor rows in 16-byte halves, two lanes to a row); each factor's next
-// tile starts copying as soon as its buffer has been consumed, so the copy
-// overlaps the other two stages; no inner loop reads device memory.  bf16: stages 1 and 3
-// are mma.sync.m16n8k16 bf16 → fp32 with operands from shared memory by
-// ldmatrix (V transposed), rows padded to 48 bytes so that an 8-row load
-// hits 8 bank groups; q and p are zero-padded to 16 and 8 (exact).  Tokens
-// sit on the m = 16 side; at T ≤ 8 half the fragment is unused rows,
-// which decode does not notice: it is bound by the copies' latency, not by
-// the tensor cores.
-// w enters stage 3 as two bf16 parts, hi = bf16(w) and lo = bf16(w − hi),
-// in two mma passes over the same U fragment: w rounded once to bf16 moved
-// y past the 2e-2 check at entries near zero.
+// every j, w_i for its i, and adds w_i U_iᵀ into the fp32 accumulator of
+// y_i that warp i holds in registers across the whole r range — stage 1
+// runs once per (T tile, r tile, group), not once per output block.
+// Registers hold up to 96 columns of y_i: a wider p (or one whose tiles
+// would not fit shared memory) is cut into column chunks, one block each,
+// which repeat stage 1 (none at smollm-135m's shapes).  The x tile and the
+// V, S and U r-tiles go through shared memory by cp.async; each factor's
+// next tile starts copying as soon as its buffer has been consumed, so the
+// copy overlaps the other two stages; no inner loop reads device memory.
+// bf16: stages 1 and 3 are mma.sync.m16n8k16 bf16 → fp32, x from shared
+// memory by ldmatrix, rows padded to 48 bytes so that an 8-row load hits 8
+// bank groups; q and p are zero-padded to 16 and 8 (exact).  Tokens sit on
+// the m = 16 side; at T ≤ 8 half the fragment is unused rows, which decode
+// does not notice: it is bound by the copies' latency, not by the tensor
+// cores.  w enters stage 3 as two bf16 parts, hi = bf16(w) and lo = bf16(w
+// − hi), in two mma passes over the same U fragment: w rounded once to
+// bf16 moved y past the 2e-2 check at entries near zero.
 // fp32: the same tiling and fragment ownership with FFMA on the CUDA cores
 // (RT = 8, so the tiles fit shared memory), every sum a sequential fp32
 // FMA chain in the first design's order — no TF32.  Stage 2 (b² products
@@ -88,40 +86,57 @@
 // dependent of the tile kernel (its launch overlaps, griddepcontrol.wait
 // holds its reads), adds them in split order: the result is the same bit
 // for bit from run to run (no atomics).  At 2048 tokens nothing is split.
-// What bounds it: per r tile, the copies — every factor row gives 32
-// bytes, so each warp's cp.async touches 16 rows and the load/store unit
-// takes them row by row — then the three stages' latency chains and
-// barriers; at decode, the fixed chain of launch, prologue, one tile,
-// epilogue and the split sum.  x
-// rows past T are left unset (every stage keeps token rows apart, and
+// x rows past T are left unset (every stage keeps token rows apart, and
 // those rows of y are not stored); r must be a multiple of 16 (the wrapper
-// zero-pads: exact).  Shared memory holds the x tile and the V r-tile of
-// all b input blocks, which grow with n = b·q: n up to 2,048 at b = 16
-// (1,536 at b = 32) fits, in fp32 and bf16; the first design held n up to
-// about 7,000 (it kept no V tile).  The factor loader is a template
-// parameter (CopyRow for float factors), so a quantized loader can reuse
-// the tiling.  TMA (one instruction per tile instead of a row per lane
-// pair), a tile-major factor layout, wgmma and warp specialisation are
-// later work.
+// zero-pads: exact).
+// Any n: where the x tile and the V r-tile of all b input blocks fit
+// shared memory (n = b·q up to 2,048 at b = 16 for float), the block keeps
+// x resident and stages V whole per r tile ("resident"; warp j mod 16
+// computes z_j).  Past that, the input axis is staged in panels that the
+// r tile's stage 1 walks in turn ("panels", a second instantiation): jc
+// whole blocks at a time (a power of two below b, up to 16), each block's
+// rows shared by 16/jc warps in 16-row slices, or, where one block alone
+// is too wide, kc rows of one block at a time, all 16 warps sharing them.
+// A warp keeps its partial z_j in registers across a block's panels;
+// warps that share a block add their partials through shared memory in
+// warp order (deterministic).  x is then copied again per r tile (from L2).
+// Only b bounds the tiles (the z and S tiles grow with b; b ≤ 64 fits).
+// Codes (the factor loader is a template parameter: CopyRow for float
+// factors, CodeRow8 / CodeRow4 for int8 / packed int4 codes): the factor
+// tiles are staged raw, 1 or ½ byte a rank, so a tile row is 16 or 8 bytes
+// (bf16 x; 8 or 4 with fp32 x) — one cp.async a row.  A longer rank tile
+// (32-byte code rows, as the float rows) would halve the splits at decode
+// and double the z and w tiles; RT stays 16, the float kernel's granule,
+// so both share split_plan.  The codes become MMA operands in registers
+// (exact for |code| ≤ 127): stage 1 builds V's B fragment from 4 code
+// bytes, stage 3 U's from 2 adjacent codes (int4: two nibbles become a
+// bf16 pair by bit operations and one subtraction); fp32 converts them as
+// it reads them.  The scales ride in shared memory and multiply stage
+// outputs: sv the fp32 z tile, ss each code of stage 2, su y_i in the
+// epilogue.
+// What bounds it: per r tile, the copies — each warp's cp.async touches
+// 16 (float) or 32 (codes) factor rows and the load/store unit takes them
+// row by row — then the three stages' latency chains and barriers; at
+// decode, the fixed chain of launch, prologue, one tile, epilogue and the
+// split sum.  TMA (one instruction per tile instead of a row per lane), a
+// tile-major factor layout, wgmma and warp specialisation are later work.
 //
-// Quantized (B5–B12) — blast_kernel, the first design, unchanged: the TPU
-// kernel carries the y accumulator across its sequential (r-tile, i) grid
-// axes; Hopper blocks run in no order, so that carry becomes a loop inside
-// one block: one block per (output block i, 8-token tile, g), looping over
-// r tiles of RT ranks.  Per r tile it recomputes stage 1 (z_j for every j)
-// into shared memory, reading V straight from device memory, reduces stage
-// 2 into shared memory and accumulates y_i in an fp32 shared accumulator
-// the block owns.  Z and W never touch HBM and the result is deterministic;
-// the price is b-fold stage-1 recompute on the CUDA cores, which bounds it.
-// Against the bytes bound, the quantized variants read their factors as
-// 1-byte or half-byte codes and apply every scale to a stage output, never
-// to a weight tile.  p, q and r are not assumed to be powers of two: every
-// loop runs to its own bound, the T edge is masked and r (logical ranks)
-// must be a multiple of RT (the wrapper zero-pads, which is exact: zero
-// bytes are zero codes).  One template covers the quantized variants, as
-// the TPU kernels share _stages and differ in loaders and scalers; moving
-// them onto the float kernel's tiling (a code loader each, s8 mma.sync for
-// W8A8/W4A8) is the next work.
+// W8A8 / W4A8 (B9–B12) — blast_kernel, the first design, unchanged: the
+// TPU kernel carries the y accumulator across its sequential (r-tile, i)
+// grid axes; Hopper blocks run in no order, so that carry becomes a loop
+// inside one block: one block per (output block i, 8-token tile, g),
+// looping over r tiles of RT ranks.  Per r tile it recomputes stage 1 (z_j
+// for every j, an int32 sum of codes) into shared memory, reading V
+// straight from device memory, reduces stage 2 into shared memory and
+// accumulates y_i in an fp32 shared accumulator the block owns.  Z and W
+// never touch HBM and the result is deterministic; the price is b-fold
+// stage-1 recompute on the CUDA cores, which bounds it.  Every scale
+// multiplies a stage output, never a weight tile.  p, q and r are not
+// assumed to be powers of two: every loop runs to its own bound, the T
+// edge is masked and r (logical ranks) must be a multiple of RT (the
+// wrapper zero-pads, which is exact: zero bytes are zero codes).  Moving
+// them onto the tile kernel (s8 mma.sync for stage 1, the per-token
+// quantize fused into the x tile) is the next work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -137,10 +152,6 @@ constexpr int RT = 16;         // ranks per r tile
 constexpr int NT = 256;        // threads per block
 constexpr int UPAD = RT + 1;   // padded row stride of the U tile in smem
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
 __device__ __forceinline__ float to_f(int v) { return (float)v; }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
@@ -158,22 +169,17 @@ __device__ __forceinline__ int code(uint8_t v, int hi) {
   return (nib ^ 8) - 8;
 }
 
-// The quantized kernels (first design, see the note).  X: activation type
-// (float, bf16, or int8 codes); F: factor type (int8 codes, or uint8_t for
-// nibble-packed int4 codes); O: output type.
-template <typename X, typename F, typename O>
+// The W8A8 / W4A8 kernel (first design, see the note): int8 activation
+// codes xq with fp32 token scales sx.  F: factor type (int8 codes, or
+// uint8_t for nibble-packed int4 codes); O: output type.
+template <typename F, typename O>
 __global__ void __launch_bounds__(NT)
-blast_kernel(const X* __restrict__ x, const float* __restrict__ sx,
+blast_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
              const F* __restrict__ U, const F* __restrict__ S,
              const F* __restrict__ V, const float* __restrict__ su,
              const float* __restrict__ ss, const float* __restrict__ sv,
              O* __restrict__ y, int T_rows, int b, int p, int q, int r) {
-  constexpr bool PACKED = std::is_same<F, uint8_t>::value;  // int4 pairs
-  constexpr bool QUANT = std::is_same<F, int8_t>::value || PACKED;  // codes
-  constexpr bool A8 = std::is_same<X, int8_t>::value;     // W8A8 / W4A8
-  constexpr int SH = PACKED ? 1 : 0;  // logical rank → element of F: k >> SH
-  static_assert(QUANT, "float factors run blast_tile_kernel");
-  using Acc = typename std::conditional<A8, int, float>::type;
+  constexpr int SH = std::is_same<F, uint8_t>::value ? 1 : 0;  // k >> SH
 
   const int i = blockIdx.x;          // output block
   const int t0 = blockIdx.y * BT;    // first token row of this tile
@@ -189,22 +195,18 @@ blast_kernel(const X* __restrict__ x, const float* __restrict__ sx,
   O* yg = y + (size_t)g * T_rows * m;              // y[g]:    (T, m)
 
   extern __shared__ float smem[];
-  Acc* xs = reinterpret_cast<Acc*>(smem);  // (BT, n)  x tile (A8: codes)
+  int* xs = reinterpret_cast<int*>(smem);  // (BT, n)  activation codes
   float* zs = smem + BT * n;        // (b, BT, RT)  stage-1 tile
   float* ws = zs + b * BT * RT;     // (BT, RT)     stage-2 tile
   float* us = ws + BT * RT;         // (p, UPAD)    U_i r tile
   float* ys = us + p * UPAD;        // (BT, p)      fp32 accumulator
-  float* sxs = ys + BT * p;         // (BT,)        A8: token scales
+  float* sxs = ys + BT * p;         // (BT,)        token scales
 
   for (int idx = tid; idx < BT * n; idx += NT) {
     const int t = idx / n, c = idx - t * n;
-    if constexpr (A8)
-      xs[idx] = t < rows ? (int)x[(size_t)(t0 + t) * n + c] : 0;
-    else
-      xs[idx] = t < rows ? to_f(x[(size_t)(t0 + t) * n + c]) : 0.f;
+    xs[idx] = t < rows ? (int)x[(size_t)(t0 + t) * n + c] : 0;
   }
-  if constexpr (A8)
-    for (int t = tid; t < BT; t += NT) sxs[t] = t < rows ? sx[t0 + t] : 0.f;
+  for (int t = tid; t < BT; t += NT) sxs[t] = t < rows ? sx[t0 + t] : 0.f;
   for (int idx = tid; idx < BT * p; idx += NT) ys[idx] = 0.f;
 
   for (int r0 = 0; r0 < r; r0 += RT) {
@@ -214,36 +216,25 @@ blast_kernel(const X* __restrict__ x, const float* __restrict__ sx,
       us[pp * UPAD + rr] =
           to_f(code(Ui[(size_t)pp * rs + ((r0 + rr) >> SH)], rr & 1));
     }
-    // stage 1: z_j[t, rr] = Σ_k x[t, j·q + k] · V[j, k, r0 + rr]
+    // stage 1: z_j[t, rr] = Σ_k x[t, j·q + k] · V[j, k, r0 + rr], dequantized
+    // once: z · (sx_t · sv_j)
     for (int item = tid; item < b * RT; item += NT) {
       const int j = item / RT, rr = item - j * RT;
-      Acc acc[BT];
+      int acc[BT];
 #pragma unroll
       for (int t = 0; t < BT; ++t) acc[t] = 0;
       const F* vj = Vg + (size_t)j * q * rs + ((r0 + rr) >> SH);
       const int hi = rr & 1;           // r0 is even: the nibble of r0 + rr
-      const Acc* xj = xs + j * q;
+      const int* xj = xs + j * q;
       for (int k = 0; k < q; ++k) {
-        if constexpr (A8) {
-          const int v = code(vj[(size_t)k * rs], hi);
+        const int v = code(vj[(size_t)k * rs], hi);
 #pragma unroll
-          for (int t = 0; t < BT; ++t) acc[t] += xj[t * n + k] * v;
-        } else {
-          const float v = to_f(code(vj[(size_t)k * rs], hi));
-#pragma unroll
-          for (int t = 0; t < BT; ++t) acc[t] = fmaf(xj[t * n + k], v, acc[t]);
-        }
+        for (int t = 0; t < BT; ++t) acc[t] += xj[t * n + k] * v;
       }
-      if constexpr (A8) {            // dequantize once: z · (sx_t · sv_j)
-        const float svj = sv[(size_t)g * b + j];
+      const float svj = sv[(size_t)g * b + j];
 #pragma unroll
-        for (int t = 0; t < BT; ++t)
-          zs[(j * BT + t) * RT + rr] = (float)acc[t] * (sxs[t] * svj);
-      } else {                       // z_j · sv_j
-        const float svj = sv[(size_t)g * b + j];
-#pragma unroll
-        for (int t = 0; t < BT; ++t) zs[(j * BT + t) * RT + rr] = acc[t] * svj;
-      }
+      for (int t = 0; t < BT; ++t)
+        zs[(j * BT + t) * RT + rr] = (float)acc[t] * (sxs[t] * svj);
     }
     __syncthreads();
     // stage 2: w[t, rr] = Σ_j s_ij[r0 + rr] · z_j[t, rr]
@@ -278,35 +269,34 @@ blast_kernel(const X* __restrict__ x, const float* __restrict__ sx,
   }
 }
 
-template <typename X, typename F, typename O>
-int launch(const void* x, const void* sx, const void* U, const void* S,
-           const void* V, const void* su, const void* ss, const void* sv,
-           void* y, int T_rows, int G, int b, int p, int q, int r,
-           void* stream) {
-  constexpr bool A8 = std::is_same<X, int8_t>::value;
+template <typename F, typename O>
+int launch_a8(const void* x, const void* sx, const void* U, const void* S,
+              const void* V, const void* su, const void* ss, const void* sv,
+              void* y, int T_rows, int G, int b, int p, int q, int r,
+              void* stream) {
   if (T_rows <= 0 || G <= 0 || b <= 0 || p <= 0 || q <= 0 || r <= 0 ||
       r % RT != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * ((size_t)BT * b * q + (size_t)b * BT * RT + BT * RT +
-                       (size_t)p * UPAD + (size_t)BT * p + (A8 ? BT : 0));
+                       (size_t)p * UPAD + (size_t)BT * p + BT);
   static size_t opted_in = 48 * 1024;   // per instantiation
   if (smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        blast_kernel<X, F, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        blast_kernel<F, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = smem;
   }
   const dim3 grid(b, (T_rows + BT - 1) / BT, G);
-  blast_kernel<X, F, O><<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const X*)x, (const float*)sx, (const F*)U, (const F*)S, (const F*)V,
-      (const float*)su, (const float*)ss, (const float*)sv, (O*)y, T_rows, b,
-      p, q, r);
+  blast_kernel<F, O><<<grid, NT, smem, (cudaStream_t)stream>>>(
+      (const int8_t*)x, (const float*)sx, (const F*)U, (const F*)S,
+      (const F*)V, (const float*)su, (const float*)ss, (const float*)sv,
+      (O*)y, T_rows, b, p, q, r);
   return (int)cudaGetLastError();
 }
 
-// ---- the float kernel (B1, B2): blast_tile_kernel ------------------------
+// ---- the tile kernel (float B1, B2; int8 / int4 codes B5–B8) -------------
 
 constexpr int FBT = 16;          // token rows per block: one m16 fragment
 constexpr int FNW = 16;          // warps: warp j computes z_j, warp i owns y_i
@@ -316,38 +306,78 @@ constexpr int FRANKS = 16;       // rank granule of the padding and the splits
 constexpr int FMAXP8 = 12;       // columns per block ≤ 96 (8-column fragments)
 constexpr int SMEM_MAX = 232448; // shared memory one block may opt in to
 
-// Per element type: RT ranks per r tile (one staged tile row is RT·sizeof
-// = 32 bytes for both) and the shared-memory row strides of the V, U and w
-// tiles, in elements.  bf16 pads each ldmatrix'd row to 48 bytes, so that
-// 8 consecutive rows fall into 8 distinct bank groups; fp32 pads U and w,
-// of which a warp reads 8 rows at once.
+// Per x type E: RT ranks per r tile and the w tile's row stride, in
+// elements (bf16 pads each ldmatrix'd row to 48 bytes, so that 8
+// consecutive rows fall into 8 distinct bank groups; fp32 pads the rows a
+// warp reads 8 at once).
 template <typename E> struct FTile;
 template <> struct FTile<__nv_bfloat16> {
-  static constexpr int RT = 16, VROW = 24, UROW = 24, WROW = 24;
+  static constexpr int RT = 16, WROW = 24;
 };
 template <> struct FTile<float> {
-  static constexpr int RT = 8, VROW = 8, UROW = 12, WROW = 12;
+  static constexpr int RT = 8, WROW = 12;
 };
 
+// Factor loaders: what a factor tile holds and how its rows are copied.
+// E: x and y; F: a tile element, as the factor is stored in device memory
+// (codes are staged raw); logical rank k sits in element k >> SH; VROW,
+// UROW, SROW: the V, U and S tiles' row strides, in F; a tile row is PARTS
+// cp.asyncs of CP bytes, adjacent lanes taking the parts of one row.
+// Float factors: a tile row is 32 bytes (RT values), copied in two halves,
+// so that a warp's copies touch 16 rows (32-byte segments) and not 32.
+template <typename E_> struct CopyRow {
+  using E = E_;
+  using F = E_;
+  static constexpr bool CODES = false;
+  static constexpr int SH = 0, CP = 16, PARTS = 2, SROW = FTile<E>::RT;
+  static constexpr int VROW = std::is_same<E, float>::value ? 8 : 24;
+  static constexpr int UROW = std::is_same<E, float>::value ? 12 : 24;
+};
+// int8 codes: a tile row is RT bytes, one copy
+template <typename E_> struct CodeRow8 {
+  using E = E_;
+  using F = int8_t;
+  static constexpr bool CODES = true;
+  static constexpr int SH = 0, CP = FTile<E>::RT, PARTS = 1;
+  static constexpr int VROW = CP, UROW = CP, SROW = CP;
+};
+// nibble-packed int4 codes: a tile row is RT / 2 bytes, one copy
+template <typename E_> struct CodeRow4 {
+  using E = E_;
+  using F = uint8_t;
+  static constexpr bool CODES = true;
+  static constexpr int SH = 1, CP = FTile<E>::RT / 2, PARTS = 1;
+  static constexpr int VROW = CP, UROW = CP, SROW = CP;
+};
+
+__host__ __device__ constexpr int up16(int v) { return (v + 15) & ~15; }
+
 // Byte offsets of the shared-memory regions (each a multiple of 16 bytes)
-// of a block that owns up to nb output blocks and pc columns of each:
-// x tile (FBT, b·qpad + pad: block j at column j·qpad), V r-tile (b·qpad
-// rows), U r-tile (nb·pc rows), S r-tile (nb·b rows), z (b, FBT, RT) fp32,
-// w (nb, FBT rows; bf16: hi parts, then lo parts).  The epilogue's fp32 y
-// tile (FBT, nb·pc + 8) overlays them.
-template <typename E> struct FLayout {
-  int ldx, xs, vs, us, ss, zs, ws, bytes;
-  __host__ __device__ FLayout(int b, int qpad, int nb, int pc) {
-    using C = FTile<E>;
-    constexpr int e = (int)sizeof(E);
-    ldx = b * qpad + 16 / e;   // +16 bytes: 8 x rows in 8 bank groups
+// of a block that owns up to nb output blocks and pc columns of each, and
+// stages jc input blocks of kc rows at a time (resident: jc = b, kc = q
+// rounded up to 16): x tile (FBT, jc·kc + pad: block jl at column jl·kc),
+// V r-tile (jc·kc rows), U r-tile (nb·pc rows), S r-tile (nb·b rows), z
+// (b, FBT, RT) fp32, w (nb, FBT rows; bf16: hi parts, then lo parts), with
+// red the warps' partial z (FNW, FBT, RT) fp32, and for codes the scales
+// sv (b), ss (nb, b), su (nb).  The epilogue's fp32 y tile (FBT, nb·pc +
+// 8) overlays them.
+template <class L> struct FLayout {
+  int ldx, xs, vs, us, ss, zs, ws, rd, sc, bytes;
+  __host__ __device__ FLayout(int b, int nb, int pc, int jc, int kc,
+                              bool red) {
+    using E = typename L::E;
+    constexpr int e = (int)sizeof(E), f = (int)sizeof(typename L::F);
+    constexpr int RT = FTile<E>::RT, WROW = FTile<E>::WROW;
+    ldx = jc * kc + 16 / e;   // +16 bytes: 8 x rows in 8 bank groups
     int off = 0;
     xs = off; off += FBT * ldx * e;
-    vs = off; off += b * qpad * C::VROW * e;
-    us = off; off += nb * pc * C::UROW * e;
-    ss = off; off += nb * b * C::RT * e;
-    zs = off; off += b * FBT * C::RT * 4;
-    ws = off; off += (e == 2 ? 2 : 1) * nb * FBT * C::WROW * e;
+    vs = off; off += up16(jc * kc * L::VROW * f);
+    us = off; off += up16(nb * pc * L::UROW * f);
+    ss = off; off += up16(nb * b * L::SROW * f);
+    zs = off; off += b * FBT * RT * 4;
+    ws = off; off += (e == 2 ? 2 : 1) * nb * FBT * WROW * e;
+    rd = off; if (red) off += FNW * FBT * RT * 4;
+    sc = off; if (L::CODES) off += up16((b + nb * b + nb) * 4);
     const int ytile = FBT * (nb * pc + 8) * 4;
     bytes = off > ytile ? off : ytile;
   }
@@ -367,6 +397,23 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)), "l"(src) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src) {
+  if constexpr (N == 16)
+    cp_async16(dst, src);
+  else if constexpr (N == 8)
+    cp_async8(dst, src);
+  else
+    cp_async4(dst, src);
+}
+template <int N> __device__ __forceinline__ void zero_n(void* dst) {
+  if constexpr (N == 16)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  else if constexpr (N == 8)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(0, 0);
+  else
+    *reinterpret_cast<uint32_t*>(dst) = 0u;
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -398,18 +445,78 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+// two floats as one bf16 pair register (lo in the low half), exact for codes
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-// two adjacent values as floats
-__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
+// B-fragment registers of codes (two bf16 values, the first in the low
+// half), exact.  int4: the nibbles at bits 0–3 and 16–19 of `two` become
+// bf16 128 + (n ^ 8) by their bits alone, less 136: (n ^ 8) − 8, the code.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t two) {
+  const uint32_t biased = (two & 0x000F000Fu) ^ 0x43084308u;
+  const uint32_t bias = 0x43084308u;   // bf16 136.0, twice
+  const __nv_bfloat162 v =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
+              *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// ranks k, k + 1 (k even) of one tile row (stage 3's U)
+__device__ __forceinline__ uint32_t frag_pair(const int8_t* row, int k) {
+  const char2 v = *reinterpret_cast<const char2*>(row + k);
+  return bf16x2((float)v.x, (float)v.y);
+}
+__device__ __forceinline__ uint32_t frag_pair(const uint8_t* row, int k) {
+  const uint32_t v = row[k >> 1];
+  return nibbles_bf16x2(v | (v << 12));
+}
+// rank c of two tile rows (stage 1's V)
+__device__ __forceinline__ uint32_t frag_col(const int8_t* r0,
+                                             const int8_t* r1, int c) {
+  return bf16x2((float)r0[c], (float)r1[c]);
+}
+__device__ __forceinline__ uint32_t frag_col(const uint8_t* r0,
+                                             const uint8_t* r1, int c) {
+  const int sh = (c & 1) * 4;
+  return nibbles_bf16x2(((uint32_t)r0[c >> 1] >> sh) |
+                        (((uint32_t)r1[c >> 1] >> sh) << 16));
+}
+
+// rank k of a tile row as a float (codes: the code)
+__device__ __forceinline__ float rank_at(const float* row, int k) {
+  return row[k];
+}
+__device__ __forceinline__ float rank_at(const int8_t* row, int k) {
+  return (float)row[k];
+}
+__device__ __forceinline__ float rank_at(const uint8_t* row, int k) {
+  return (float)code(row[k >> 1], k & 1);
+}
+// ranks k and k + 1 (k even) of a tile row as floats
+__device__ __forceinline__ void pair(const float* row, int k, float& a,
+                                     float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(row + k);
   a = v.x;
   b = v.y;
 }
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a,
-                                      float& b) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+__device__ __forceinline__ void pair(const __nv_bfloat16* row, int k,
+                                     float& a, float& b) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(row + k);
   a = __low2float(v);
   b = __high2float(v);
+}
+__device__ __forceinline__ void pair(const int8_t* row, int k, float& a,
+                                     float& b) {
+  const char2 v = *reinterpret_cast<const char2*>(row + k);
+  a = (float)v.x;
+  b = (float)v.y;
+}
+__device__ __forceinline__ void pair(const uint8_t* row, int k, float& a,
+                                     float& b) {
+  const uint8_t v = row[k >> 1];
+  a = (float)code(v, 0);
+  b = (float)code(v, 1);
 }
 // two adjacent w values into the w tile: fp32 as they are; bf16 as hi parts
 // at p and lo parts (what rounding to bf16 left out) at p + lo
@@ -434,16 +541,10 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
 }
 
-// Factor loader of the float kernel: half h of one tile row (RT ranks, 32
-// bytes) from device memory into shared memory, asynchronously.  Adjacent
-// lanes take the two halves of a row, so that a warp's copies touch 16
-// rows (32-byte segments) and not 32.
-struct CopyRow {
-  template <typename E>
-  static __device__ __forceinline__ void half(E* dst, const E* src, int h) {
-    cp_async16(reinterpret_cast<char*>(dst) + 16 * h,
-               reinterpret_cast<const char*>(src) + 16 * h);
-  }
+// A panel of the input axis: blocks [j0, j0 + nj), rows [k0, k0 + kr) of
+// each.
+struct Panel {
+  int j0, nj, k0, kr;
 };
 
 // One block: token rows [t0, t0 + 16) of factor set g, the ranks of one
@@ -454,15 +555,25 @@ struct CopyRow {
 // and gr + 8, columns 2·tq and 2·tq + 1 of each 8-column tile.  With one
 // split the block writes its columns of y (E); with several, of its
 // split's fp32 partial, and blast_split_sum adds the partials into y.
-template <typename E, class Load, int P8>
+// PAN: the input axis in panels of jc blocks × kc rows (see the note);
+// otherwise resident (jc, kc are ignored).  su, ss, sv: the scales of
+// codes (unused for float factors).
+template <class L, bool PAN, int P8>
 __global__ void __launch_bounds__(FNT, 1)
-blast_tile_kernel(const E* __restrict__ x, const E* __restrict__ U,
-                  const E* __restrict__ S, const E* __restrict__ V,
-                  E* __restrict__ y, float* __restrict__ part, int T_rows,
-                  int b, int p, int q, int r, int rps, int ipg, int pc) {
-  using C = FTile<E>;
-  constexpr int RT = C::RT;
+blast_tile_kernel(const typename L::E* __restrict__ x,
+                  const typename L::F* __restrict__ U,
+                  const typename L::F* __restrict__ S,
+                  const typename L::F* __restrict__ V,
+                  const float* __restrict__ su, const float* __restrict__ ss,
+                  const float* __restrict__ sv, typename L::E* __restrict__ y,
+                  float* __restrict__ part, int T_rows, int b, int p, int q,
+                  int r, int rps, int ipg, int pc, int jc, int kc) {
+  using E = typename L::E;
+  using F = typename L::F;
+  constexpr int RT = FTile<E>::RT, WROW = FTile<E>::WROW;
+  constexpr int ZT = FBT * RT;   // one z tile, fp32
   constexpr bool BF = std::is_same<E, __nv_bfloat16>::value;
+  constexpr bool CODES = L::CODES;
   const int groups = (b + ipg - 1) / ipg, chunks = (p + pc - 1) / pc;
   const int splits = gridDim.y / (groups * chunks);
   const int t0 = blockIdx.x * FBT, g = blockIdx.z;
@@ -477,91 +588,126 @@ blast_tile_kernel(const E* __restrict__ x, const E* __restrict__ U,
   const int gr = lane >> 2, tq = (lane & 3) * 2;
   const int rows = min(FBT, T_rows - t0);
   const int nbl = min(ipg, b);   // output blocks the tiles hold room for
-  const FLayout<E> L(b, qpad, nbl, pc);
+  if constexpr (!PAN) {
+    jc = b;
+    kc = qpad;
+  }
+  const int wpb = PAN ? FNW / jc : 1;     // warps that share an input block
+  const int nsub = (q + kc - 1) / kc;     // panels a block's rows run over
+  const int npan = nsub > 1 ? b * nsub : (b + jc - 1) / jc;
+  const FLayout<L> Lay(b, nbl, pc, jc, kc, PAN && wpb > 1);
   // a split launch's blast_split_sum may start now and wait for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  E* xs = reinterpret_cast<E*>(tile_smem + L.xs);
-  E* vs = reinterpret_cast<E*>(tile_smem + L.vs);
-  E* us = reinterpret_cast<E*>(tile_smem + L.us);
-  E* ss = reinterpret_cast<E*>(tile_smem + L.ss);
-  float* zs = reinterpret_cast<float*>(tile_smem + L.zs);
-  E* ws = reinterpret_cast<E*>(tile_smem + L.ws);
-  [[maybe_unused]] const int WLO = nbl * FBT * C::WROW;  // bf16: lo parts
-  const E* Ug = U + (size_t)g * b * p * r;   // (b, p, r)
-  const E* Sg = S + (size_t)g * b * b * r;   // (b, b, r)
-  const E* Vg = V + (size_t)g * b * q * r;   // (b, q, r)
+  E* xs = reinterpret_cast<E*>(tile_smem + Lay.xs);
+  F* vt = reinterpret_cast<F*>(tile_smem + Lay.vs);
+  F* ut = reinterpret_cast<F*>(tile_smem + Lay.us);
+  F* st = reinterpret_cast<F*>(tile_smem + Lay.ss);
+  float* zs = reinterpret_cast<float*>(tile_smem + Lay.zs);
+  E* ws = reinterpret_cast<E*>(tile_smem + Lay.ws);
+  [[maybe_unused]] float* rd = reinterpret_cast<float*>(tile_smem + Lay.rd);
+  [[maybe_unused]] float* scv = reinterpret_cast<float*>(tile_smem + Lay.sc);
+  [[maybe_unused]] float* scs = scv + b;        // ss rows of the owned i
+  [[maybe_unused]] float* scu = scs + nbl * b;  // su of the owned i
+  [[maybe_unused]] const int WLO = nbl * FBT * WROW;  // bf16: lo parts
+  const int rs = r >> L::SH;                 // a factor row, in F
+  const F* Ug = U + (size_t)g * b * p * rs;  // (b, p, r)
+  const F* Sg = S + (size_t)g * b * b * rs;  // (b, b, r)
+  const F* Vg = V + (size_t)g * b * q * rs;  // (b, q, r)
 
+  auto panel = [&](int c) {
+    Panel P;
+    if (nsub > 1) {   // kc rows of one block
+      P.j0 = c / nsub;
+      P.nj = 1;
+      P.k0 = (c - P.j0 * nsub) * kc;
+      P.kr = min(kc, q - P.k0);
+    } else {          // jc whole blocks
+      P.j0 = c * jc;
+      P.nj = min(jc, b - P.j0);
+      P.k0 = 0;
+      P.kr = q;
+    }
+    return P;
+  };
+  // part h of one tile row, asynchronously
+  auto copy_part = [&](F* dst, const F* src, int h) {
+    cp_async_n<L::CP>(reinterpret_cast<char*>(dst) + L::CP * h,
+                      reinterpret_cast<const char*>(src) + L::CP * h);
+  };
   // each r tile's copies: one commit group per factor, always committed
   // (empty past the range) so that the group counts stay fixed
-  auto copy_v = [&](int r0) {
+  auto copy_v = [&](const Panel& P, int r0) {   // the panel's V rows
     if (r0 < hi)
-      for (int idx = tid; idx < 2 * b * q; idx += FNT) {
-        const int row = idx >> 1, j = row / q, k = row - j * q;
-        Load::half(vs + (j * qpad + k) * C::VROW, Vg + (size_t)row * r + r0,
-                   idx & 1);
+      for (int idx = tid; idx < L::PARTS * P.nj * P.kr; idx += FNT) {
+        const int row = idx / L::PARTS, jl = row / P.kr, k = row - jl * P.kr;
+        copy_part(vt + (jl * kc + k) * L::VROW,
+                  Vg + ((size_t)(P.j0 + jl) * q + P.k0 + k) * rs +
+                      (r0 >> L::SH),
+                  idx % L::PARTS);
       }
     cp_commit();
   };
   auto copy_s = [&](int r0) {   // rows s_i· of the owned i
     if (r0 < hi)
-      for (int idx = tid; idx < 2 * nb * b; idx += FNT) {
-        const int row = idx >> 1;
-        Load::half(ss + row * RT, Sg + (size_t)(ib * b + row) * r + r0,
-                   idx & 1);
+      for (int idx = tid; idx < L::PARTS * nb * b; idx += FNT) {
+        const int row = idx / L::PARTS;
+        copy_part(st + row * L::SROW,
+                  Sg + (size_t)(ib * b + row) * rs + (r0 >> L::SH),
+                  idx % L::PARTS);
       }
     cp_commit();
   };
   auto copy_u = [&](int r0) {   // the owned columns of the owned U_i
     if (r0 < hi)
-      for (int idx = tid; idx < 2 * nb * pw; idx += FNT) {
-        const int row = idx >> 1, il = row / pw, pp = row - il * pw;
-        Load::half(us + (il * pc + pp) * C::UROW,
-                   Ug + ((size_t)(ib + il) * p + c0 + pp) * r + r0, idx & 1);
+      for (int idx = tid; idx < L::PARTS * nb * pw; idx += FNT) {
+        const int row = idx / L::PARTS, il = row / pw, pp = row - il * pw;
+        copy_part(ut + (il * pc + pp) * L::UROW,
+                  Ug + ((size_t)(ib + il) * p + c0 + pp) * rs + (r0 >> L::SH),
+                  idx % L::PARTS);
       }
     cp_commit();
   };
-  // Zeros first, before the copies fill the load/store pipe: the x pad
-  // columns past q in each block, and the pad rows of the V and U tiles
-  // (never copied into; two 16-byte stores each, a tile row is 32 bytes).
+  // A panel's zeros: the x columns and V rows past its kr rows of each
+  // block, up to the next multiple of 16 (never copied into).
   E zero;
   put(&zero, 0.f);
-  for (int idx = tid; idx < rows * b * (qpad - q); idx += FNT) {
-    const int blk = idx / (qpad - q);     // (t, j) of this pad element
-    const int t = blk / b, j = blk - t * b;
-    xs[t * L.ldx + j * qpad + q + idx - blk * (qpad - q)] = zero;
-  }
-  for (int idx = tid; idx < 2 * b * (qpad - q); idx += FNT) {
-    const int row = idx >> 1, j = row / (qpad - q);
-    reinterpret_cast<uint4*>(vs + (j * qpad + q + row - j * (qpad - q)) *
-                                      C::VROW)[idx & 1] = make_uint4(0, 0, 0, 0);
-  }
-  for (int idx = tid; idx < 2 * nb * (pr - pw); idx += FNT) {
-    const int row = idx >> 1, il = row / (pr - pw);
-    reinterpret_cast<uint4*>(us + (il * pc + pw + row - il * (pr - pw)) *
-                                      C::UROW)[idx & 1] = make_uint4(0, 0, 0, 0);
-  }
-
-  // The x tile, in E, one padded block per j: copied asynchronously with
-  // the first V tile in chunks of 16, 8 or 4 bytes (the largest that
-  // divides a block's q·sizeof(E) bytes and x's alignment), else loaded
-  // element by element.  Rows past T are left as they are: every stage
-  // keeps token rows apart (mma rows, stage 2 per row) and those rows of y
-  // are not stored.
+  auto zero_panel = [&](const Panel& P) {
+    const int kz = (P.kr + 15) / 16 * 16 - P.kr;
+    if (kz == 0) return;
+    for (int idx = tid; idx < rows * P.nj * kz; idx += FNT) {
+      const int blk = idx / kz;           // (t, jl) of this pad element
+      const int t = blk / P.nj, jl = blk - t * P.nj;
+      xs[t * Lay.ldx + jl * kc + P.kr + idx - blk * kz] = zero;
+    }
+    for (int idx = tid; idx < L::PARTS * P.nj * kz; idx += FNT) {
+      const int row = idx / L::PARTS, jl = row / kz;
+      zero_n<L::CP>(reinterpret_cast<char*>(
+                        vt + (jl * kc + P.kr + row - jl * kz) * L::VROW) +
+                    L::CP * (idx % L::PARTS));
+    }
+  };
+  // A panel's x columns, in E, one padded block per j: copied
+  // asynchronously in chunks of 16, 8 or 4 bytes (the largest that divides
+  // a block's q·sizeof(E) bytes and x's alignment), else (xc = 0) loaded
+  // element by element by load_x.  Rows past T are left as they are: every
+  // stage keeps token rows apart (mma rows, stage 2 per row) and those rows
+  // of y are not stored.
   const int seg = q * (int)sizeof(E);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const int xc = seg % 16 == 0 && xa % 16 == 0 ? 16
                  : seg % 8 == 0 && xa % 8 == 0 ? 8
                  : seg % 4 == 0 && xa % 4 == 0 ? 4 : 0;
-  if (xc) {
-    const int per = seg / xc;   // chunks per (t, j) segment
-    for (int idx = tid; idx < rows * b * per; idx += FNT) {
-      const int tj = idx / per, t = tj / b, j = tj - t * b;
+  auto copy_x = [&](const Panel& P) {
+    if (!xc) return;
+    const int per = P.kr * (int)sizeof(E) / xc;   // chunks per (t, j)
+    for (int idx = tid; idx < rows * P.nj * per; idx += FNT) {
+      const int tj = idx / per, t = tj / P.nj, jl = tj - t * P.nj;
       const int off = (idx - tj * per) * xc;
-      char* dst = reinterpret_cast<char*>(xs + t * L.ldx + j * qpad) + off;
-      const char* src =
-          reinterpret_cast<const char*>(x + (size_t)(t0 + t) * n + j * q) +
-          off;
+      char* dst = reinterpret_cast<char*>(xs + t * Lay.ldx + jl * kc) + off;
+      const char* src = reinterpret_cast<const char*>(
+                            x + (size_t)(t0 + t) * n + (P.j0 + jl) * q +
+                            P.k0) + off;
       if (xc == 16)
         cp_async16(dst, src);
       else if (xc == 8)
@@ -569,69 +715,169 @@ blast_tile_kernel(const E* __restrict__ x, const E* __restrict__ U,
       else
         cp_async4(dst, src);
     }
+  };
+  auto load_x = [&](const Panel& P) {
+    if (xc) return;
+    const int w = P.nj * P.kr;
+    for (int idx = tid; idx < rows * w; idx += FNT) {
+      const int t = idx / w, c = idx - t * w, jl = c / P.kr;
+      xs[t * Lay.ldx + jl * kc + c - jl * P.kr] =
+          x[(size_t)(t0 + t) * n + (P.j0 + jl) * q + P.k0 + c - jl * P.kr];
+    }
+  };
+
+  // Zeros first, before the copies fill the load/store pipe: the first
+  // panel's pads, and the pad rows of the U tile.
+  const Panel P0 = panel(0);
+  zero_panel(P0);
+  for (int idx = tid; idx < L::PARTS * nb * (pr - pw); idx += FNT) {
+    const int row = idx / L::PARTS, il = row / (pr - pw);
+    zero_n<L::CP>(reinterpret_cast<char*>(
+                      ut + (il * pc + pw + row - il * (pr - pw)) * L::UROW) +
+                  L::CP * (idx % L::PARTS));
   }
-  copy_v(lo);   // commits the x copies with V(lo)
+  copy_x(P0);
+  copy_v(P0, lo);   // commits the x copies with V(lo)
   copy_s(lo);
   copy_u(lo);
-  if (!xc)
-    for (int idx = tid; idx < rows * b * q; idx += FNT) {
-      const int t = idx / n, c = idx - t * n, j = c / q;
-      xs[t * L.ldx + j * qpad + c - j * q] = x[(size_t)(t0 + t) * n + c];
-    }
+  if constexpr (CODES) {
+    for (int idx = tid; idx < b; idx += FNT) scv[idx] = sv[(size_t)g * b + idx];
+    for (int idx = tid; idx < nb * b; idx += FNT)
+      scs[idx] = ss[((size_t)g * b + ib) * b + idx];
+    for (int idx = tid; idx < nb; idx += FNT)
+      scu[idx] = su[(size_t)g * b + ib + idx];
+  }
+  load_x(P0);
   float acc[P8][4];
 #pragma unroll
   for (int nt = 0; nt < P8; ++nt)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+  float z[RT / 8][4];   // a warp's z_j (16 × RT), across a block's panels
+
+  // Stage 1 over one panel: z_j (16 × RT) += x_j (16 × kr) · V_j (kr × RT)
+  // for the panel's blocks j = j0 + jl, warp jl·wpb + w taking its 16-row
+  // slices w, w + wpb, ... (resident: warp j mod 16, every row).  Once a
+  // block's last rows are in, z_j (codes: times sv_j) goes to the z tile,
+  // directly where one warp owns the block, else through the warps'
+  // partials, added in warp order.
+  auto stage1 = [&](const Panel& P) {
+    const int kp = (P.kr + 15) / 16 * 16;
+    const bool last = P.k0 + P.kr == q;
+    for (int jl = warp / wpb; jl < P.nj; jl += FNW / wpb) {
+      const int w = warp - (warp / wpb) * wpb, j = P.j0 + jl;
+      if (P.k0 == 0)
+#pragma unroll
+        for (int nt = 0; nt < RT / 8; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) z[nt][c] = 0.f;
+      if constexpr (BF) {
+        for (int kk = 16 * w; kk < kp; kk += 16 * wpb) {
+          uint32_t a[4];
+          ldsm_x4(a, xs + (lane & 15) * Lay.ldx + jl * kc + kk +
+                         (lane >> 4) * 8);
+          if constexpr (CODES) {   // B fragments from 4 codes each
+            const F* v0 = vt + (jl * kc + kk + tq) * L::VROW;
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              const int c = nt * 8 + gr;
+              mma_bf16(z[nt], a, frag_col(v0, v0 + L::VROW, c),
+                       frag_col(v0 + 8 * L::VROW, v0 + 9 * L::VROW, c));
+            }
+          } else {
+            uint32_t v[4];
+            ldsm_x4_t(v, vt + (jl * kc + kk + (lane & 15)) * L::VROW +
+                             (lane >> 4) * 8);
+            mma_bf16(z[0], a, v[0], v[1]);
+            mma_bf16(z[1], a, v[2], v[3]);
+          }
+        }
+      } else {
+        const E* x0 = xs + gr * Lay.ldx + jl * kc;
+        const E* x1 = x0 + 8 * Lay.ldx;
+        const F* vj = vt + jl * kc * L::VROW;
+        for (int s = 16 * w; s < P.kr; s += 16 * wpb) {
+          const int se = min(s + 16, P.kr);
+          for (int k = s; k < se; ++k) {
+            const float a0 = x0[k], a1 = x1[k];
+            float v0, v1;
+            pair(vj + k * L::VROW, tq, v0, v1);
+            z[0][0] = fmaf(a0, v0, z[0][0]);
+            z[0][1] = fmaf(a0, v1, z[0][1]);
+            z[0][2] = fmaf(a1, v0, z[0][2]);
+            z[0][3] = fmaf(a1, v1, z[0][3]);
+          }
+        }
+      }
+      if (last) {
+        const bool own = wpb == 1;
+        float sc = 1.f;
+        if constexpr (CODES) sc = own ? scv[j] : 1.f;
+        float* zt = own ? zs + j * ZT : rd + warp * ZT;
+#pragma unroll
+        for (int nt = 0; nt < RT / 8; ++nt) {
+          float* z0 = zt + gr * RT + nt * 8 + tq;
+          if constexpr (CODES) {
+            z0[0] = z[nt][0] * sc;
+            z0[1] = z[nt][1] * sc;
+            z0[8 * RT] = z[nt][2] * sc;
+            z0[8 * RT + 1] = z[nt][3] * sc;
+          } else {
+            z0[0] = z[nt][0];
+            z0[1] = z[nt][1];
+            z0[8 * RT] = z[nt][2];
+            z0[8 * RT + 1] = z[nt][3];
+          }
+        }
+      }
+    }
+    if constexpr (PAN) {
+      if (wpb > 1 && last) {
+        __syncthreads();   // every warp's partial is in
+        for (int e = tid; e < P.nj * ZT; e += FNT) {
+          const int jl = e / ZT, o = e - jl * ZT;
+          float s = 0.f;
+          for (int w = 0; w < wpb; ++w) s += rd[(jl * wpb + w) * ZT + o];
+          if constexpr (CODES) s *= scv[P.j0 + jl];
+          zs[(P.j0 + jl) * ZT + o] = s;
+        }
+      }
+    }
+  };
 
   cp_wait<2>();      // V(lo) landed; S(lo), U(lo) may be in flight
   __syncthreads();
   for (int r0 = lo; r0 < hi; r0 += RT) {
-    // stage 1: z_j (16 × RT) = x_j (16 × q) · V_j (q × RT), warp j mod 16
-    for (int j = warp; j < b; j += FNW) {
-      float z[RT / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < RT / 8; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) z[nt][c] = 0.f;
-      if constexpr (BF) {
-        for (int kk = 0; kk < qpad; kk += 16) {
-          uint32_t a[4], v[4];
-          ldsm_x4(a, xs + (lane & 15) * L.ldx + j * qpad + kk + (lane >> 4) * 8);
-          ldsm_x4_t(v, vs + (j * qpad + kk + (lane & 15)) * C::VROW +
-                           (lane >> 4) * 8);
-          mma_bf16(z[0], a, v[0], v[1]);
-          mma_bf16(z[1], a, v[2], v[3]);
-        }
-      } else {
-        const float* x0 = xs + gr * L.ldx + j * qpad;
-        const float* x1 = x0 + 8 * L.ldx;
-        const float* vj = vs + j * qpad * C::VROW + tq;
-        for (int k = 0; k < q; ++k) {
-          const float a0 = x0[k], a1 = x1[k];
-          const float v0 = vj[k * C::VROW], v1 = vj[k * C::VROW + 1];
-          z[0][0] = fmaf(a0, v0, z[0][0]);
-          z[0][1] = fmaf(a0, v1, z[0][1]);
-          z[0][2] = fmaf(a1, v0, z[0][2]);
-          z[0][3] = fmaf(a1, v1, z[0][3]);
-        }
+    stage1(P0);
+    if constexpr (PAN)
+      for (int c = 1; c < npan; ++c) {   // the next panel of this r tile
+        const Panel P = panel(c);
+        __syncthreads();   // the last panel consumed
+        zero_panel(P);
+        copy_x(P);
+        copy_v(P, r0);
+        load_x(P);
+        cp_wait<0>();
+        __syncthreads();
+        stage1(P);
       }
-#pragma unroll
-      for (int nt = 0; nt < RT / 8; ++nt) {
-        float* z0 = zs + (j * FBT + gr) * RT + nt * 8 + tq;
-        z0[0] = z[nt][0];
-        z0[1] = z[nt][1];
-        z0[8 * RT] = z[nt][2];
-        z0[8 * RT + 1] = z[nt][3];
-      }
-    }
     cp_wait<1>();    // S(r0)
     __syncthreads(); // z ready, V tile free, S tile landed
-    copy_v(r0 + RT);
-    // stage 2: w_i[t, rr] = Σ_j s_ij[rr] · z_j[t, rr], fp32, j in order.  A
-    // thread owns 2 i × 2 t × 2 adjacent ranks: per j, 2 S pairs (broadcast
-    // over the warp's t lanes) and 2 z pairs for 8 FMAs.  Warps whose token
-    // rows all lie past T skip (at decode, half of them).
+    if constexpr (PAN) {   // the next r tile's first panel
+      if (r0 + RT < hi) {
+        zero_panel(P0);
+        copy_x(P0);
+      }
+      copy_v(P0, r0 + RT);
+      if (r0 + RT < hi) load_x(P0);
+    } else {
+      copy_v(P0, r0 + RT);
+    }
+    // stage 2: w_i[t, rr] = Σ_j s_ij[rr] · z_j[t, rr], fp32, j in order
+    // (codes: s_ij = code · ss[g, i, j]).  A thread owns 2 i × 2 t × 2
+    // adjacent ranks: per j, 2 S pairs (broadcast over the warp's t lanes)
+    // and 2 z pairs for 8 FMAs.  Warps whose token rows all lie past T skip
+    // (at decode, half of them).
     {
       constexpr int RP = RT / 2, TGL = 32 / RP, TGW = FBT / (2 * TGL);
       static_assert(2 * (FNW / TGW) >= FMAXB, "stage 2 covers every block");
@@ -651,8 +897,14 @@ blast_tile_kernel(const E* __restrict__ x, const E* __restrict__ U,
               zs + (j * FBT + tb) * RT + rr);
 #pragma unroll
           for (int a = 0; a < 2; ++a) {
+            const int ia = a ? i1 : i0;
             float s0, s1;
-            load2(ss + ((a ? i1 : i0) * b + j) * RT + rr, s0, s1);
+            pair(st + (ia * b + j) * L::SROW, rr, s0, s1);
+            if constexpr (CODES) {
+              const float c = scs[ia * b + j];
+              s0 *= c;
+              s1 *= c;
+            }
             w[a][0][0] = fmaf(s0, za.x, w[a][0][0]);
             w[a][0][1] = fmaf(s1, za.y, w[a][0][1]);
             w[a][1][0] = fmaf(s0, zb.x, w[a][1][0]);
@@ -664,8 +916,8 @@ blast_tile_kernel(const E* __restrict__ x, const E* __restrict__ U,
           if (i0 + a < nb)
 #pragma unroll
             for (int c = 0; c < 2; ++c)
-              store_w(ws + ((i0 + a) * FBT + (c ? tb : ta)) * C::WROW + rr,
-                      WLO, w[a][c][0], w[a][c][1]);
+              store_w(ws + ((i0 + a) * FBT + (c ? tb : ta)) * WROW + rr, WLO,
+                      w[a][c][0], w[a][c][1]);
       }
     }
     cp_wait<1>();    // U(r0)
@@ -676,48 +928,58 @@ blast_tile_kernel(const E* __restrict__ x, const E* __restrict__ U,
       const int i = warp;   // from ib, as the U, S and w tiles count
       if constexpr (BF) {
         uint32_t a[4], lo4[4];
-        const E* wi = ws + (i * FBT + (lane & 15)) * C::WROW + (lane >> 4) * 8;
+        const E* wi = ws + (i * FBT + (lane & 15)) * WROW + (lane >> 4) * 8;
         ldsm_x4(a, wi);
         ldsm_x4(lo4, wi + WLO);
 #pragma unroll
         for (int nt = 0; nt < P8; ++nt)
           if (nt < p8) {
             uint32_t u[2];
-            ldsm_x2(u, us + (i * pc + nt * 8 + (lane & 7)) * C::UROW +
-                           ((lane >> 3) & 1) * 8);
+            if constexpr (CODES) {   // B fragment from 2 code pairs
+              const F* urow = ut + (i * pc + nt * 8 + gr) * L::UROW;
+              u[0] = frag_pair(urow, tq);
+              u[1] = frag_pair(urow, tq + 8);
+            } else {
+              ldsm_x2(u, ut + (i * pc + nt * 8 + (lane & 7)) * L::UROW +
+                             ((lane >> 3) & 1) * 8);
+            }
             mma_bf16(acc[nt], a, u[0], u[1]);
             mma_bf16(acc[nt], lo4, u[0], u[1]);
           }
       } else {
-        const float* w0 = ws + (i * FBT + gr) * C::WROW;
-        const float* w1 = w0 + 8 * C::WROW;
+        const E* w0 = ws + (i * FBT + gr) * WROW;
+        const E* w1 = w0 + 8 * WROW;
 #pragma unroll
         for (int nt = 0; nt < P8; ++nt)
           if (nt < p8) {
-            const float* u0 = us + (i * pc + nt * 8 + tq) * C::UROW;
-            const float* u1 = u0 + C::UROW;
+            const F* u0 = ut + (i * pc + nt * 8 + tq) * L::UROW;
+            const F* u1 = u0 + L::UROW;
 #pragma unroll
             for (int rr = 0; rr < RT; ++rr) {
-              acc[nt][0] = fmaf(w0[rr], u0[rr], acc[nt][0]);
-              acc[nt][1] = fmaf(w0[rr], u1[rr], acc[nt][1]);
-              acc[nt][2] = fmaf(w1[rr], u0[rr], acc[nt][2]);
-              acc[nt][3] = fmaf(w1[rr], u1[rr], acc[nt][3]);
+              const float ua = rank_at(u0, rr), ub = rank_at(u1, rr);
+              acc[nt][0] = fmaf(w0[rr], ua, acc[nt][0]);
+              acc[nt][1] = fmaf(w0[rr], ub, acc[nt][1]);
+              acc[nt][2] = fmaf(w1[rr], ua, acc[nt][2]);
+              acc[nt][3] = fmaf(w1[rr], ub, acc[nt][3]);
             }
           }
       }
     }
-    cp_wait<1>();    // V(r0 + RT)
+    cp_wait<1>();    // V(r0 + RT) (and the first panel's x)
     __syncthreads(); // U and w tiles free, next V tile landed
     copy_u(r0 + RT);
   }
   cp_wait<0>();
 
-  // epilogue: the fragments into an fp32 (16 × nb·pw) tile in shared
-  // memory (rows padded by 8 floats), then rows of each owned block out, in
-  // 16-byte stores where p allows: y (E), or with a split this split's fp32
-  // partial
+  // epilogue: the fragments (codes: times su_i) into an fp32 (16 × nb·pw)
+  // tile in shared memory (rows padded by 8 floats), then rows of each
+  // owned block out, in 16-byte stores where p allows: y (E), or with a
+  // split this split's fp32 partial
   const int wd = nb * pw, ldy = wd + 8;
   float* ys = reinterpret_cast<float*>(tile_smem);
+  float sui = 1.f;
+  if constexpr (CODES)
+    if (warp < nb) sui = scu[warp];
   __syncthreads();   // every warp done with the tiles the y tile overlays
   if (warp < nb) {
 #pragma unroll
@@ -727,8 +989,13 @@ blast_tile_kernel(const E* __restrict__ x, const E* __restrict__ U,
         const int t = gr + 8 * h, pp = nt * 8 + tq;
         float* yt = ys + t * ldy + warp * pw + pp;
         if (nt < p8 && pp < pw) {
-          yt[0] = acc[nt][2 * h];
-          if (pp + 1 < pw) yt[1] = acc[nt][2 * h + 1];
+          if constexpr (CODES) {
+            yt[0] = acc[nt][2 * h] * sui;
+            if (pp + 1 < pw) yt[1] = acc[nt][2 * h + 1] * sui;
+          } else {
+            yt[0] = acc[nt][2 * h];
+            if (pp + 1 < pw) yt[1] = acc[nt][2 * h + 1];
+          }
         }
       }
   }
@@ -797,23 +1064,76 @@ blast_split_sum(const float* __restrict__ part, E* __restrict__ y,
   }
 }
 
-template <typename E, int P8>
-int launch_tile(const E* x, const E* U, const E* S, const E* V, E* y,
-                float* part, int T_rows, int G, int b, int p, int q, int r,
-                int rps, int ipg, int pc, int splits, int smem,
-                cudaStream_t stream) {
+// The shared-memory plan of a launch: resident (every input block's x
+// columns and V rows at once) at the widest column chunk pc that fits, as
+// the float kernel always ran where it could; else panels at the widest
+// chunk, of jc whole blocks (a power of two below b, at most 16), or,
+// where one block does not fit, of kc rows of one block.  false: not even
+// 16 rows fit (the z and S tiles grow with b).
+struct TilePlan {
+  int pc, jc, kc, smem;
+  bool pan;
+};
+
+template <class L>
+bool plan_tiles(int b, int p, int q, int nb, TilePlan& tp) {
+  const int qpad = (q + 15) / 16 * 16;
+  const int pc0 = 8 * std::min((p + 7) / 8, FMAXP8);
+  for (int pc = pc0; pc >= 8; pc -= 8) {
+    const int bytes = FLayout<L>(b, nb, pc, b, qpad, false).bytes;
+    if (bytes <= SMEM_MAX) {
+      tp = {pc, b, qpad, bytes, false};
+      return true;
+    }
+  }
+  for (int pc = pc0; pc >= 8; pc -= 8) {
+    for (int jc = FNW; jc >= 1; jc /= 2) {
+      if (jc >= b) continue;
+      const int bytes = FLayout<L>(b, nb, pc, jc, qpad, jc < FNW).bytes;
+      if (bytes <= SMEM_MAX) {
+        tp = {pc, jc, qpad, bytes, true};
+        return true;
+      }
+    }
+    // kc rows of one block: the layout grows by a fixed step per 16 rows
+    const int base = FLayout<L>(b, nb, pc, 1, 0, true).bytes;
+    const int step = std::max(FLayout<L>(b, nb, pc, 1, 16, true).bytes - base,
+                              1);
+    for (int kc = std::min(qpad - 16, (SMEM_MAX - base) / step * 16);
+         kc >= 16; kc -= 16) {
+      const int bytes = FLayout<L>(b, nb, pc, 1, kc, true).bytes;
+      if (bytes <= SMEM_MAX) {
+        tp = {pc, 1, kc, bytes, true};
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+template <class L, bool PAN, int P8>
+int run_tile(const void* x, const void* U, const void* S, const void* V,
+             const void* su, const void* ss, const void* sv, void* y,
+             float* part, int T_rows, int G, int b, int p, int q, int r,
+             int rps, int ipg, const TilePlan& tp, int splits,
+             cudaStream_t stream) {
+  using E = typename L::E;
+  using F = typename L::F;
   static int opted_in = 48 * 1024;   // per instantiation
-  if (smem > opted_in) {
+  if (tp.smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        blast_tile_kernel<E, CopyRow, P8>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        blast_tile_kernel<L, PAN, P8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, tp.smem);
     if (e != cudaSuccess) return (int)e;
-    opted_in = smem;
+    opted_in = tp.smem;
   }
   const dim3 grid((T_rows + FBT - 1) / FBT,
-                  splits * ((b + ipg - 1) / ipg) * ((p + pc - 1) / pc), G);
-  blast_tile_kernel<E, CopyRow, P8><<<grid, FNT, smem, stream>>>(
-      x, U, S, V, y, part, T_rows, b, p, q, r, rps, ipg, pc);
+                  splits * ((b + ipg - 1) / ipg) * ((p + tp.pc - 1) / tp.pc),
+                  G);
+  blast_tile_kernel<L, PAN, P8><<<grid, FNT, tp.smem, stream>>>(
+      (const E*)x, (const F*)U, (const F*)S, (const F*)V, (const float*)su,
+      (const float*)ss, (const float*)sv, (E*)y, part, T_rows, b, p, q, r,
+      rps, ipg, tp.pc, tp.jc, tp.kc);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   const size_t total = (size_t)G * T_rows * b * p;
@@ -831,47 +1151,51 @@ int launch_tile(const E* x, const E* U, const E* S, const E* V, E* y,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, blast_split_sum<E>, (const float*)part,
-                                 y, total, splits);
+                                 (E*)y, total, splits);
 }
 
-// x (T, n), U/S/V (G, b, ·, r) and y (G, T, m) of type E.  The grid is
-// (⌈T/16⌉, splits of r (rps ranks each) × groups of ipg ≤ 16 output blocks
-// × chunks of pc columns, G); pc is the widest multiple of 8, at most 96,
-// whose tiles fit shared memory (at smollm-135m's shapes, all of p).  With
-// rps < r (a split launch), part is an fp32 workspace (splits, G, T, m);
-// unused (may be null) otherwise.  cudaErrorInvalidValue: a bad argument,
-// or tiles that do not fit even at pc = 8 (x and V grow with n = b·q).
-template <typename E>
-int launch_float(const void* x, const void* U, const void* S, const void* V,
-                 void* y, void* part, int T_rows, int G, int b, int p, int q,
-                 int r, int rps, int ipg, void* stream) {
+// x (T, n) and y (G, T, m) of type L::E; U/S/V (G, b, ·, r) as L stores
+// them (r logical ranks; packed int4 rows are r/2 bytes); su (G, b), ss
+// (G, b, b), sv (G, b) fp32 for codes.  The grid is (⌈T/16⌉, splits of r
+// (rps ranks each) × groups of ipg ≤ 16 output blocks × chunks of pc
+// columns, G), pc and the panels as plan_tiles chooses.  With rps < r (a
+// split launch), part is an fp32 workspace (splits, G, T, m); unused (may
+// be null) otherwise.  cudaErrorInvalidValue: a bad argument, or a b so
+// large that the z and S tiles alone do not fit.
+template <class L>
+int launch_tile(const void* x, const void* U, const void* S, const void* V,
+                const void* su, const void* ss, const void* sv, void* y,
+                void* part, int T_rows, int G, int b, int p, int q, int r,
+                int rps, int ipg, void* stream) {
   if (T_rows <= 0 || G <= 0 || b <= 0 || p <= 0 || q <= 0 || r <= 0 ||
       r % FRANKS != 0 || rps <= 0 || rps % FRANKS != 0 || ipg <= 0 ||
-      ipg > FMAXB)
+      ipg > FMAXB || (L::CODES && (!su || !ss || !sv)))
     return (int)cudaErrorInvalidValue;
   const int splits = (r + rps - 1) / rps;
   if (splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
-  const int qpad = (q + 15) / 16 * 16, nb = std::min(ipg, b);
-  int pc = 8 * std::min((p + 7) / 8, FMAXP8);
-  while (pc > 8 && FLayout<E>(b, qpad, nb, pc).bytes > SMEM_MAX) pc -= 8;
-  const int smem = FLayout<E>(b, qpad, nb, pc).bytes;
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  auto go = [&](auto p8c) {
-    return launch_tile<E, decltype(p8c)::value>(
-        (const E*)x, (const E*)U, (const E*)S, (const E*)V, (E*)y,
-        (float*)part, T_rows, G, b, p, q, r, rps, ipg, pc, splits, smem,
-        (cudaStream_t)stream);
-  };
-  if (pc <= 32) return go(std::integral_constant<int, 4>());
-  if (pc <= 64) return go(std::integral_constant<int, 8>());
-  return go(std::integral_constant<int, FMAXP8>());
+  TilePlan tp;
+  if (!plan_tiles<L>(b, p, q, std::min(ipg, b), tp))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* pf = (float*)part;
+  if (tp.pan)
+    return run_tile<L, true, FMAXP8>(x, U, S, V, su, ss, sv, y, pf, T_rows,
+                                     G, b, p, q, r, rps, ipg, tp, splits, st);
+  if (tp.pc <= 32)
+    return run_tile<L, false, 4>(x, U, S, V, su, ss, sv, y, pf, T_rows, G, b,
+                                 p, q, r, rps, ipg, tp, splits, st);
+  if (tp.pc <= 64)
+    return run_tile<L, false, 8>(x, U, S, V, su, ss, sv, y, pf, T_rows, G, b,
+                                 p, q, r, rps, ipg, tp, splits, st);
+  return run_tile<L, false, FMAXP8>(x, U, S, V, su, ss, sv, y, pf, T_rows, G,
+                                    b, p, q, r, rps, ipg, tp, splits, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// tiles of the quantized kernel, and of the float kernel (token rows per
+// tiles of the W8A8 / W4A8 kernel, and of the tile kernel (token rows per
 // block; the rank granule of its padding and splits; output blocks per
 // block, at most)
 int blast_matmul_tile_t() { return BT; }
@@ -880,58 +1204,65 @@ int blast_float_tile_t() { return FBT; }
 int blast_float_tile_r() { return FRANKS; }
 int blast_float_tile_b() { return FMAXB; }
 
-// float factors (the float kernel): x, U, S, V and y of one type; part,
-// rps (ranks per split) and ipg (output blocks per group) as launch_float
-// says
+// float factors: x, U, S, V and y of one type; part, rps (ranks per split)
+// and ipg (output blocks per group) as launch_tile says
 int blast_matmul_f32(const void* x, const void* U, const void* S,
                      const void* V, void* y, void* part, int T_rows, int G,
                      int b, int p, int q, int r, int rps, int ipg,
                      void* stream) {
-  return launch_float<float>(x, U, S, V, y, part, T_rows, G, b, p, q, r, rps,
-                             ipg, stream);
+  return launch_tile<CopyRow<float>>(x, U, S, V, nullptr, nullptr, nullptr, y,
+                                     part, T_rows, G, b, p, q, r, rps, ipg,
+                                     stream);
 }
 
 int blast_matmul_bf16(const void* x, const void* U, const void* S,
                       const void* V, void* y, void* part, int T_rows, int G,
                       int b, int p, int q, int r, int rps, int ipg,
                       void* stream) {
-  return launch_float<__nv_bfloat16>(x, U, S, V, y, part, T_rows, G, b, p,
-                                     q, r, rps, ipg, stream);
+  return launch_tile<CopyRow<__nv_bfloat16>>(x, U, S, V, nullptr, nullptr,
+                                             nullptr, y, part, T_rows, G, b,
+                                             p, q, r, rps, ipg, stream);
 }
 
-// int8 factor codes, float x; y has x's type
+// int8 factor codes, float x (the tile kernel); y has x's type
 int blast_matmul_q_f32(const void* x, const void* U, const void* S,
                        const void* V, const void* su, const void* ss,
-                       const void* sv, void* y, int T_rows, int G, int b,
-                       int p, int q, int r, void* stream) {
-  return launch<float, int8_t, float>(x, nullptr, U, S, V, su, ss, sv, y,
-                                      T_rows, G, b, p, q, r, stream);
+                       const void* sv, void* y, void* part, int T_rows, int G,
+                       int b, int p, int q, int r, int rps, int ipg,
+                       void* stream) {
+  return launch_tile<CodeRow8<float>>(x, U, S, V, su, ss, sv, y, part, T_rows,
+                                      G, b, p, q, r, rps, ipg, stream);
 }
 
 int blast_matmul_q_bf16(const void* x, const void* U, const void* S,
                         const void* V, const void* su, const void* ss,
-                        const void* sv, void* y, int T_rows, int G, int b,
-                        int p, int q, int r, void* stream) {
-  return launch<__nv_bfloat16, int8_t, __nv_bfloat16>(
-      x, nullptr, U, S, V, su, ss, sv, y, T_rows, G, b, p, q, r, stream);
+                        const void* sv, void* y, void* part, int T_rows,
+                        int G, int b, int p, int q, int r, int rps, int ipg,
+                        void* stream) {
+  return launch_tile<CodeRow8<__nv_bfloat16>>(x, U, S, V, su, ss, sv, y, part,
+                                              T_rows, G, b, p, q, r, rps, ipg,
+                                              stream);
 }
 
 // int4 factor codes, nibble-packed (uint8, r/2 bytes per row; r counts
-// logical ranks), float x; y has x's type
+// logical ranks), float x (the tile kernel); y has x's type
 int blast_matmul_q4_f32(const void* x, const void* U, const void* S,
                         const void* V, const void* su, const void* ss,
-                        const void* sv, void* y, int T_rows, int G, int b,
-                        int p, int q, int r, void* stream) {
-  return launch<float, uint8_t, float>(x, nullptr, U, S, V, su, ss, sv, y,
-                                       T_rows, G, b, p, q, r, stream);
+                        const void* sv, void* y, void* part, int T_rows,
+                        int G, int b, int p, int q, int r, int rps, int ipg,
+                        void* stream) {
+  return launch_tile<CodeRow4<float>>(x, U, S, V, su, ss, sv, y, part, T_rows,
+                                      G, b, p, q, r, rps, ipg, stream);
 }
 
 int blast_matmul_q4_bf16(const void* x, const void* U, const void* S,
                          const void* V, const void* su, const void* ss,
-                         const void* sv, void* y, int T_rows, int G, int b,
-                         int p, int q, int r, void* stream) {
-  return launch<__nv_bfloat16, uint8_t, __nv_bfloat16>(
-      x, nullptr, U, S, V, su, ss, sv, y, T_rows, G, b, p, q, r, stream);
+                         const void* sv, void* y, void* part, int T_rows,
+                         int G, int b, int p, int q, int r, int rps, int ipg,
+                         void* stream) {
+  return launch_tile<CodeRow4<__nv_bfloat16>>(x, U, S, V, su, ss, sv, y, part,
+                                              T_rows, G, b, p, q, r, rps, ipg,
+                                              stream);
 }
 
 // W8A8: int8 activation codes xq with fp32 scales sx; the suffix names y's
@@ -940,8 +1271,8 @@ int blast_matmul_w8a8_f32(const void* xq, const void* sx, const void* U,
                           const void* S, const void* V, const void* su,
                           const void* ss, const void* sv, void* y, int T_rows,
                           int G, int b, int p, int q, int r, void* stream) {
-  return launch<int8_t, int8_t, float>(xq, sx, U, S, V, su, ss, sv, y,
-                                       T_rows, G, b, p, q, r, stream);
+  return launch_a8<int8_t, float>(xq, sx, U, S, V, su, ss, sv, y, T_rows, G,
+                                  b, p, q, r, stream);
 }
 
 int blast_matmul_w8a8_bf16(const void* xq, const void* sx, const void* U,
@@ -949,9 +1280,8 @@ int blast_matmul_w8a8_bf16(const void* xq, const void* sx, const void* U,
                            const void* ss, const void* sv, void* y,
                            int T_rows, int G, int b, int p, int q, int r,
                            void* stream) {
-  return launch<int8_t, int8_t, __nv_bfloat16>(xq, sx, U, S, V, su, ss, sv,
-                                               y, T_rows, G, b, p, q, r,
-                                               stream);
+  return launch_a8<int8_t, __nv_bfloat16>(xq, sx, U, S, V, su, ss, sv, y,
+                                          T_rows, G, b, p, q, r, stream);
 }
 
 // W4A8: int8 activation codes xq with fp32 scales sx against nibble-packed
@@ -960,8 +1290,8 @@ int blast_matmul_w4a8_f32(const void* xq, const void* sx, const void* U,
                           const void* S, const void* V, const void* su,
                           const void* ss, const void* sv, void* y, int T_rows,
                           int G, int b, int p, int q, int r, void* stream) {
-  return launch<int8_t, uint8_t, float>(xq, sx, U, S, V, su, ss, sv, y,
-                                        T_rows, G, b, p, q, r, stream);
+  return launch_a8<uint8_t, float>(xq, sx, U, S, V, su, ss, sv, y, T_rows, G,
+                                   b, p, q, r, stream);
 }
 
 int blast_matmul_w4a8_bf16(const void* xq, const void* sx, const void* U,
@@ -969,9 +1299,8 @@ int blast_matmul_w4a8_bf16(const void* xq, const void* sx, const void* U,
                            const void* ss, const void* sv, void* y,
                            int T_rows, int G, int b, int p, int q, int r,
                            void* stream) {
-  return launch<int8_t, uint8_t, __nv_bfloat16>(xq, sx, U, S, V, su, ss, sv,
-                                                y, T_rows, G, b, p, q, r,
-                                                stream);
+  return launch_a8<uint8_t, __nv_bfloat16>(xq, sx, U, S, V, su, ss, sv, y,
+                                           T_rows, G, b, p, q, r, stream);
 }
 
 }  // extern "C"

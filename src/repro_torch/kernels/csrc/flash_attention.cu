@@ -28,6 +28,11 @@
 //
 // Design: one block per (row b, query head, tile of BQ queries) — BQ = 16
 // with 4 warps for prefill chunks, BQ = 64 with 8 warps for full sequences.
+// Any head dim that is a multiple of 8 up to 256: the largest head dim DM
+// is a template parameter that sizes each thread's accumulator slice, 128
+// (every D ≤ 128, smollm-135m's 64 among them) or 256; at 256 both kernels
+// take the prefill tile (BQ = 16 queries, 4 warps), so that a thread keeps
+// 32 accumulator entries in registers.
 // Tiles are issued last-first, so the longest causal rows start first.  An
 // online softmax in fp32 (running max, sum and accumulator, as the TPU
 // kernel keeps them in VMEM scratch) walks KV tiles of BKV keys only up to
@@ -46,11 +51,12 @@
 namespace {
 
 constexpr int BKV = 32;       // keys per tile (one per lane in the softmax)
-constexpr int DMAX = 128;     // largest head dim
+constexpr int DMAX = 256;     // largest head dim
 constexpr float M_INIT = -1e30f;      // running-max start (TPU kernel's NEG_INF)
 // (query rows, threads) per block
 constexpr int PREFILL_BQ = 16, PREFILL_NT = 128;
 constexpr int FULL_BQ = 64, FULL_NT = 256;
+constexpr int WIDE_D = 128;   // head dims above it take the DM = 256 tiles
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -66,13 +72,14 @@ struct Strides {
 };
 
 // PER_ROW: the query offset is offs[b] (prefill) or the static q_offset.
-template <typename T, int BQ, int NT, bool PER_ROW>
+// DM: the largest head dim D this instantiation takes.
+template <typename T, int BQ, int NT, bool PER_ROW, int DM>
 __global__ void __launch_bounds__(NT)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const int* __restrict__ offs,
             int q_offset, T* __restrict__ o, int Hq, int Hkv, int C, int D,
             Strides st, int causal, int window, int kv_len, float scale) {
-  constexpr int EPT = BQ * DMAX / NT;   // accumulator entries per thread
+  constexpr int EPT = BQ * DM / NT;   // accumulator entries per thread
   const int b = blockIdx.x / Hq, h = blockIdx.x - b * Hq;
   const int kvh = h / (Hq / Hkv);
   const int t0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // last tile first
@@ -191,17 +198,17 @@ Strides make_strides(const long long* s) {
                  s[6], s[7], s[8], s[9], s[10], s[11]};
 }
 
-template <typename T, int BQ, int NT, bool PER_ROW>
-int launch(const void* q, const void* k, const void* v, const void* offs,
-           int q_offset, void* o, int B, int Hq, int Hkv, int C, int D,
-           const long long* strides, int causal, int window, int kv_len,
-           void* stream) {
-  if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > DMAX ||
+template <typename T, int BQ, int NT, bool PER_ROW, int DM>
+int launch_dm(const void* q, const void* k, const void* v, const void* offs,
+              int q_offset, void* o, int B, int Hq, int Hkv, int C, int D,
+              const long long* strides, int causal, int window, int kv_len,
+              void* stream) {
+  if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > DM ||
       D % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)BQ * D + (size_t)BKV * (D + 1) +
                                        (size_t)BKV * D + BQ * BKV + 3 * BQ);
-  auto kernel = attn_kernel<T, BQ, NT, PER_ROW>;
+  auto kernel = attn_kernel<T, BQ, NT, PER_ROW, DM>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -213,6 +220,24 @@ int launch(const void* q, const void* k, const void* v, const void* offs,
       (T*)o, Hq, Hkv, C, D, make_strides(strides), causal, window, kv_len,
       1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
+}
+
+// D ≤ 128: the tiles every smollm-135m launch takes; 128 < D ≤ 256: the
+// same kernel with a 256-wide accumulator slice on the prefill tile (16
+// query rows, 4 warps) for both (full-sequence tiles of 32 rows × 8 warps
+// and 16 rows × 8 warps spilled 60 and 4 bytes)
+template <typename T, int BQ, int NT, bool PER_ROW>
+int launch(const void* q, const void* k, const void* v, const void* offs,
+           int q_offset, void* o, int B, int Hq, int Hkv, int C, int D,
+           const long long* strides, int causal, int window, int kv_len,
+           void* stream) {
+  if (D <= WIDE_D)
+    return launch_dm<T, BQ, NT, PER_ROW, WIDE_D>(
+        q, k, v, offs, q_offset, o, B, Hq, Hkv, C, D, strides, causal,
+        window, kv_len, stream);
+  return launch_dm<T, PREFILL_BQ, PREFILL_NT, PER_ROW, DMAX>(
+      q, k, v, offs, q_offset, o, B, Hq, Hkv, C, D, strides, causal, window,
+      kv_len, stream);
 }
 
 }  // namespace

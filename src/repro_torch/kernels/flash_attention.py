@@ -37,7 +37,7 @@ _ARGTYPES = {
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _LIB: list = []
-D_MAX = 128
+D_MAX = 256         # head dims: any multiple of 8 up to this
 
 
 def _lib():

@@ -3,18 +3,19 @@
 A tensor on the CPU goes to the kernel's plain PyTorch version
 (``kernels/ref.py``); a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback.  The BLAST wrappers flatten the leading axes
-into T and zero-pad r to the kernel's rank tile, as the reference wrapper
-does (zero ranks are exact); the quantized ones also zero-pad T to their
-token tile (zero rows), the float kernel masks its T edge itself.  The int8 and int4 wrappers
-take per-block scales; int4 factors stay nibble-packed (uint8, two codes
-per byte along r) into the kernel, and their byte axis is zero-padded to
-half the padded rank (a zero byte is two zero codes).  With ``act="int8"``
-they quantize x per token first (a plain-PyTorch prologue, as the reference
-runs it in XLA outside its Pallas kernel) and zero-pad codes and scales
-alike.  ``launches`` counts kernel
-launches (plain-version calls are not counted), so a run can show that its
-model path went through the kernels; ``blast_matmul_dx`` counts the B1
-launches that compute a backward pass's dx.
+into T and zero-pad r to the kernel's rank granule, as the reference
+wrapper does (zero ranks are exact).  The float and weight-only int8 / int4
+wrappers run the tile kernel, which masks its T edge itself; the W8A8 /
+W4A8 ones also zero-pad T to their token tile (zero rows).  The quantized
+wrappers take per-block scales; int4 factors stay nibble-packed (uint8, two
+codes per byte along r) into the kernel, and their byte axis is zero-padded
+to half the padded rank (a zero byte is two zero codes).  With
+``act="int8"`` they quantize x per token first (a plain-PyTorch prologue,
+as the reference runs it in XLA outside its Pallas kernel) and zero-pad
+codes and scales alike.  ``launches`` counts kernel launches (plain-version
+calls are not counted), so a run can show that its model path went through
+the kernels; ``blast_matmul_dx`` counts the B1 launches that compute a
+backward pass's dx.
 
 Training.  The float kernels that the training path launches — B1
 ``blast_matmul``, B2 ``blast_matmul_grouped`` and B4 ``flash_attention`` —
@@ -79,22 +80,12 @@ def _pad_last(a: torch.Tensor, target: int) -> torch.Tensor:
     return F.pad(a, (0, target - a.shape[-1])).contiguous()
 
 
-def _flatten_pad_x(x: torch.Tensor, block_t: int):
-    lead = x.shape[:-1]
-    T = math.prod(lead)
-    xf = x.reshape(T, x.shape[-1])
-    T_pad = _round_up(max(T, 1), block_t)
-    if T_pad != T:
-        xf = F.pad(xf, (0, 0, 0, T_pad - T))
-    return xf.contiguous(), lead, T
-
-
 def _float_launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
                   V: torch.Tensor, key: str) -> torch.Tensor:
     """The float kernel on x (..., n) and stacked factors (G, b, ·, r) →
     (G, ..., m), counted under ``key``; x is flattened, not padded."""
     lead = x.shape[:-1]
-    r_pad = _round_up(U.shape[-1], _bm.float_tiles()[1])
+    _, r_pad = _bm.padded_rank(U.shape[-1], None, _bm.float_tiles()[1])
     U, S, V = (_pad_last(a, r_pad) for a in (U, S, V))
     y = _bm.launch(x.reshape(-1, x.shape[-1]).contiguous(), U, S, V)
     launches[key] += 1
@@ -231,12 +222,11 @@ def _grouped_q(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
         plain = (ref.blast_matmul_grouped_q4_ref if packed
                  else ref.blast_matmul_grouped_q_ref)
         return plain(x, U, S, V, su, ss, sv)
-    block_t, block_r = _bm.tiles()
-    r_pad = _round_up(2 * rb if packed else rb, block_r)     # logical ranks
-    U, S, V = (_pad_last(a, r_pad // 2 if packed else r_pad)
-               for a in (U, S, V))
+    lead = x.shape[:-1]
     if act == "int8":
-        lead = x.shape[:-1]
+        block_t, block_r = _bm.tiles()
+        _, stored = _bm.padded_rank(rb, bits, block_r)
+        U, S, V = (_pad_last(a, stored) for a in (U, S, V))
         T = math.prod(lead)
         xq, sx = qt.quantize_act(x.reshape(T, x.shape[-1]))
         T_pad = _round_up(max(T, 1), block_t)
@@ -245,14 +235,16 @@ def _grouped_q(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
             sx = F.pad(sx, (0, 0, 0, T_pad - T))
         launch = _bm.launch_w4a8 if packed else _bm.launch_w8a8
         y = launch(xq.contiguous(), sx.contiguous(), U, S, V, su, ss, sv,
-                   out_dtype=x.dtype)
+                   out_dtype=x.dtype)[:, :T]
         launches[names[1]] += 1
-    else:
-        xf, lead, T = _flatten_pad_x(x, block_t)
+    else:                     # the tile kernel: r to its granule, T as is
+        _, stored = _bm.padded_rank(rb, bits, _bm.float_tiles()[1])
+        U, S, V = (_pad_last(a, stored) for a in (U, S, V))
         launch = _bm.launch_q4 if packed else _bm.launch_q
-        y = launch(xf, U, S, V, su, ss, sv)
+        y = launch(x.reshape(-1, x.shape[-1]).contiguous(), U, S, V, su, ss,
+                   sv)
         launches[names[0]] += 1
-    return y[:, :T].reshape(G, *lead, b * p)
+    return y.reshape(G, *lead, b * p)
 
 
 def blast_matmul_q(x: torch.Tensor, Uq: qt.QArray, Sq: qt.QArray,

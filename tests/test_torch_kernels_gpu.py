@@ -27,6 +27,14 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+# (T, G, b, p, q, r) past the float kernel's resident n = 2048: n = 8192 at
+# b = 16 (q = 512), n = 3072 at b = 6, and qwen1.5-32b's down (n = 27392,
+# q = 1712), each at T = 8 (r split) and at 2048 tokens (unsplit)
+WIDE = [(8, 1, 16, 64, 512, 64), (2048, 2, 16, 64, 512, 48),
+        (8, 2, 6, 128, 512, 64), (2048, 1, 6, 128, 512, 32),
+        (8, 1, 16, 320, 1712, 32), (2048, 2, 16, 40, 1712, 32)]
+
+
 def _factors(rng, b, p, q, r, lead=()):
     return (rng.standard_normal((*lead, b, p, r)).astype(np.float32),
             rng.standard_normal((*lead, b, b, r)).astype(np.float32),
@@ -58,12 +66,14 @@ class TestOnCard:
                                              (37, 2, 8, 192, 72, 144),
                                              (300, 1, 8, 72, 192, 144),
                                              (16, 1, 16, 192, 128, 32),
-                                             (37, 1, 4, 101, 5, 19)])
+                                             (37, 1, 4, 101, 5, 19)]
+                             + WIDE)
     def test_blast_kernels(self, cuda, dtype, tol, T, G, b, p, q, r):
         """The float kernel's paths: r split (T ≤ 300) or whole, output
         blocks grouped (at decode, and b = 32 at any T) or not, p in column
         chunks (p > 96, or tiles too wide for one chunk at n = 2048),
-        ragged T, r, q and p."""
+        ragged T, r, q and p; past n = 2048 the input axis in panels of
+        whole blocks (n = 8192, 3072) or of rows of one block (n = 27392)."""
         rng = np.random.default_rng(T + G + r)
         U, S, V = (_t(a).to(cuda, dtype) / 4 for a in
                    _factors(rng, b, p, q, r, lead=(G,)))
@@ -95,18 +105,21 @@ class TestOnCard:
         assert torch.equal(first, second)
 
     @pytest.mark.parametrize("bits", [8, 4])
-    @pytest.mark.parametrize("act", ["none", "int8"])
     @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                            (torch.bfloat16, 2e-2)])
-    @pytest.mark.parametrize("T,G,b,p,q,r", [(1, 1, 4, 24, 16, 19),
-                                             (37, 1, 16, 60, 36, 144),
-                                             (37, 2, 4, 8, 8, 21),
-                                             (8, 2, 16, 96, 36, 176)])
+    @pytest.mark.parametrize("act,T,G,b,p,q,r", [
+        (act, *shape) for act in ("none", "int8")
+        for shape in [(1, 1, 4, 24, 16, 19), (37, 1, 16, 60, 36, 144),
+                      (37, 2, 4, 8, 8, 21), (8, 2, 16, 96, 36, 176),
+                      (8, 2, 6, 128, 512, 64), (2048, 1, 6, 128, 512, 32)]]
+        + [("none", *shape) for shape in WIDE if shape[2] * shape[4] > 3072])
     def test_blast_q_kernels(self, cuda, bits, act, dtype, tol, T, G, b, p,
                              q, r):
-        """int8 / int4 weights (act "none") and W8A8 / W4A8 (act "int8"):
-        the kernel and its plain version get the same codes (int4:
-        nibble-packed, odd ranks included), scales and activation codes."""
+        """int8 / int4 weights (act "none", the tile kernel, n up to 27392)
+        and W8A8 / W4A8 (act "int8", the first design, whose x tile holds n
+        up to about 7,000): the kernel and its plain version get the same
+        codes (int4: nibble-packed, odd ranks included), scales and
+        activation codes."""
         rng = np.random.default_rng(T + G + r)
         x = _t(rng.standard_normal((T, b * q)).astype(np.float32)).to(cuda, dtype)
         qas = [[quant.quantize(_t(a[g]).to(cuda) / 4, bits=bits,
@@ -141,6 +154,32 @@ class TestOnCard:
         assert ops.launches[key] == 1 and sum(ops.launches.values()) == 1
         assert got.dtype == dtype and got.shape == (G, T, b * p)
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("bits", [8, 4])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("T,G,q", [(8, 1, 36), (2048, 2, 36),
+                                       (8, 2, 512)])
+    def test_blast_q_repeats_bitwise(self, cuda, bits, dtype, T, G, q):
+        """Two launches of the weight-only tile kernel on the same inputs
+        give the same bits: split r (T = 8), unsplit (2048 tokens), and the
+        input axis in panels (n = 8192)."""
+        b, p, r = 16, 96, 176
+        rng = np.random.default_rng(T + G + q)
+        x = _t(rng.standard_normal((T, b * q)).astype(np.float32)).to(
+            cuda, dtype)
+        qas = [[quant.quantize(_t(a[g]).to(cuda) / 4, bits=bits,
+                               block_axes=axes) for g in range(G)]
+               for a, axes in zip(_factors(rng, b, p, q, r, lead=(G,)),
+                                  ((1, 2), (2,), (1, 2)))]
+        codes = [torch.stack([x_.q for x_ in qa]) for qa in qas]
+        scales = [torch.stack([x_.scale.reshape(shape) for x_ in qa])
+                  for qa, shape in zip(qas, ((b,), (b, b), (b,)))]
+        grouped = (ops.blast_matmul_grouped_q4 if bits == 4
+                   else ops.blast_matmul_grouped_q)
+        first = grouped(x, *codes, *scales)
+        second = grouped(x, *codes, *scales)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
     def test_q4_fp32_error_is_summation_order(self, cuda):
         """At unscaled factors the int4 kernel's fp32 outputs reach ~1e3,
@@ -225,7 +264,9 @@ class TestOnCard:
     @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                            (torch.bfloat16, 2e-2)])
     @pytest.mark.parametrize("C,window,D", [(1, None, 64), (32, None, 64),
-                                            (20, 9, 16), (3, None, 128)])
+                                            (20, 9, 16), (3, None, 128),
+                                            (1, None, 192), (32, 17, 192),
+                                            (1, 13, 256), (32, None, 256)])
     def test_flash_attention_prefill(self, cuda, dtype, tol, C, window, D):
         B, Hq, Hkv, S = 4, 9, 3, 96
         g = torch.Generator().manual_seed(C + D)
@@ -240,8 +281,8 @@ class TestOnCard:
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
-    # (B, Hq, Hkv, T, S, causal, window, q_offset): the chip_smoke shapes
-    # of B4 and a head dim of 128
+    # (B, Hq, Hkv, T, S, causal, window, q_offset, D): the chip_smoke shapes
+    # of B4, and head dims of 128, 192 and 256
     @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                            (torch.bfloat16, 2e-2)])
     @pytest.mark.parametrize("B,Hq,Hkv,T,S,causal,window,q_offset,D", [
@@ -251,7 +292,11 @@ class TestOnCard:
         (2, 9, 3, 256, 256, True, 64, 0, 64),
         (2, 9, 3, 256, 320, True, None, 64, 64),
         (2, 9, 3, 256, 256, False, None, 0, 64),
-        (2, 4, 1, 100, 100, True, None, 0, 128)])
+        (2, 4, 1, 100, 100, True, None, 0, 128),
+        (2, 4, 2, 300, 300, True, None, 0, 256),
+        (2, 4, 2, 256, 256, True, 64, 0, 192),
+        (2, 4, 1, 256, 320, True, None, 64, 256),
+        (1, 4, 2, 100, 100, False, None, 0, 192)])
     def test_flash_attention(self, cuda, dtype, tol, B, Hq, Hkv, T, S, causal,
                              window, q_offset, D):
         """B4 on strided views of one (B, T, heads, D) buffer, as the
@@ -272,16 +317,19 @@ class TestOnCard:
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
 
-    @pytest.mark.parametrize("which", ["blast", "grouped", "attention"])
+    @pytest.mark.parametrize("which", ["blast", "grouped", "attention",
+                                       "attention256"])
     def test_function_grads(self, cuda, which):
         """The autograd Functions' gradients on the card (kernel forward,
         B1 for BLAST dx) against torch.autograd through the plain versions,
-        fp32, within 1e-4 × each gradient's largest entry."""
+        fp32, within 1e-4 × each gradient's largest entry; attention at head
+        dims 64 and 256."""
         from repro_torch.core import blast
         g = torch.Generator().manual_seed(1)
-        if which == "attention":
+        if which.startswith("attention"):
+            D = 256 if which == "attention256" else 64
             inputs = [torch.randn(s, generator=g).to(cuda) for s in
-                      ((2, 9, 300, 64), (2, 3, 300, 64), (2, 3, 300, 64))]
+                      ((2, 9, 300, D), (2, 3, 300, D), (2, 3, 300, D))]
             fn, plain = ops.flash_attention, ref.attention_ref
         else:
             G = 2 if which == "grouped" else 1
@@ -308,7 +356,8 @@ class TestOnCard:
         assert launched == {"blast": {"blast_matmul": 1, "blast_matmul_dx": 1},
                             "grouped": {"blast_matmul_grouped": 1,
                                         "blast_matmul_dx": 2},
-                            "attention": {"flash_attention": 1}}[which]
+                            "attention": {"flash_attention": 1},
+                            "attention256": {"flash_attention": 1}}[which]
         for g_, w in zip(got, want):
             assert float((g_ - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
