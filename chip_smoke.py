@@ -10,17 +10,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the script stops here with exit code 1 and prints no result.
 2. build — nvcc builds every kernel under ``src/repro_torch/kernels/csrc``.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the full-width smollm-135m shapes, T = 8 and 256 (the float and the
-   int8- and int4-weight BLAST kernels also at the training step's 2048
-   tokens), fp32 and bf16, max error vs tolerance; two launches of the
-   float and of the int8- and int4-weight BLAST kernels at T = 8 (r split
-   across blocks) and 2048 (unsplit) equal bit for bit: the float BLAST
-   kernels, the int8- and int4-weight kernels, the W8A8 and W4A8 kernels
-   (each kernel and its plain version get the same activation codes),
-   prefill attention, and full-sequence attention (B4: causal at B=8
-   T=256 and B=1 T=2048, a ragged T=200, a window, a q_offset,
-   non-causal).  Past smollm-135m: the float and weight-only BLAST kernels
-   (B1, B2, B5–B8) at n = 8192 (granite-3-2b's down, b = 16) and n = 3072
+   the full-width smollm-135m shapes, T = 8, 256 and the training step's
+   2048 tokens, fp32 and bf16, max error vs tolerance; two launches of
+   every BLAST kernel at T = 8 (r split across blocks) and 2048 (unsplit)
+   equal bit for bit: the float BLAST kernels, the int8- and int4-weight
+   kernels, the W8A8 and W4A8 kernels (each kernel and its plain version
+   get the same activation codes), prefill attention, and full-sequence
+   attention (B4: causal at B=8 T=256 and B=1 T=2048, a ragged T=200, a
+   window, a q_offset, non-causal).  Past smollm-135m: every BLAST kernel
+   (B1, B2, B5–B12) at n = 8192 (granite-3-2b's down, b = 16) and n = 3072
    (gpt2-blast's down, b = 6), where the input axis is staged in panels,
    and B3 and B4 at head dim 256 (recurrentgemma-2b's heads).
 4. grads — fp32 gradients of the three autograd Functions on the training
@@ -43,8 +41,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    kernels' launch counters must equal steps × (90, 30, 30) and the others
    stay 0.  Then, in each mode, six steady decode steps (8 slots) under
    torch.profiler: device busy and idle share per step, kernel time by
-   name; the float, int8 and int4 modes run the tile kernel and never
-   ``blast_kernel``.
+   name; every mode's BLAST launches run the tile kernel's two
+   ``__global__``s and no other.
 8. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
    steps (bf16, remat, batch 8 × seq 256 of the Markov ``TokenStream``,
    lr 3e-4 with warmup 5): per step loss, grad norm, skipped flag, time
@@ -56,10 +54,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    flushed before each run: kernel, plain version and one PyTorch library
    call (a yardstick only; the port never calls it), at decode, prefill
    and training shapes (B4; B1 and B2 forward and B1 as the backward's dx
-   at 2048 tokens), and B1, B5 and B7 at n = 8192 (panels), beside each
-   call's bound on the H100.  The profiles of phases 7 and 8 also sum the
-   tile kernel's two ``__global__``s (``blast_tile_kernel``,
-   ``blast_split_sum``).
+   at 2048 tokens), and every BLAST kernel at n = 8192 (panels), beside
+   each call's bound on the H100; the W8A8 and W4A8 rows also time the
+   kernel alone on ready codes and print the quantize prologue's share.
+   The profiles of phases 7 and 8 also sum the tile kernel's two
+   ``__global__``s (``blast_tile_kernel``, ``blast_split_sum``).
 
 The last lines are the per-kernel JSON summary, the ``nvidia-smi`` line,
 and ``{"ok": true, "device": {...}}``.
@@ -100,11 +99,6 @@ MODES = {"none": (("none", "none"), ("blast_matmul", "blast_matmul_grouped")),
          "w4a8": (("int4", "int8"),
                   ("blast_matmul_w4a8", "blast_matmul_grouped_w4a8"))}
 QUANT_MODES = ("int8", "w8a8", "int4", "w4a8")
-WEIGHT_ONLY = ("int8", "int4")
-# the kernels that launch blast_tile_kernel (float and weight-only codes)
-TILE_KERNELS = ("blast_matmul", "blast_matmul_grouped", "blast_matmul_q",
-                "blast_matmul_grouped_q", "blast_matmul_q4",
-                "blast_matmul_grouped_q4")
 
 
 def mode_bits_act(mode) -> tuple[int | None, str]:
@@ -392,7 +386,7 @@ def phase_build():
     from repro_torch.kernels import blast_matmul, build, flash_attention
     t0 = time.perf_counter()
     paths = build.build_all()
-    blast_matmul.tiles()          # loads and types the libraries
+    blast_matmul.float_tiles()    # loads and types the libraries
     flash_attention._lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.build_seconds,
@@ -454,14 +448,10 @@ def phase_kernels(cfg):
             for T in (8, 256, TRAIN_BATCH * TRAIN_SEQ):
                 x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dtype, gen,
                                                DEVICE)
-                # 2048 tokens: the float and weight-only (tile) kernels
-                modes = (QUANT_MODES if T != TRAIN_BATCH * TRAIN_SEQ
-                         else WEIGHT_ONLY)
-                calls = blast_calls(x, U, S, V, r, modes)
+                calls = blast_calls(x, U, S, V, r, QUANT_MODES)
                 if T != 256:          # T = 8 splits r, 2048 does not
                     for call in calls:
-                        if call[0] in TILE_KERNELS:
-                            repeat_identical(call, name, T, dname)
+                        repeat_identical(call, name, T, dname)
                 for kname, kern, plain in calls:
                     check(kname, f"{name} {n}->{m} b={b} r={r} G={G} T={T}",
                           kern(), plain(), dname)
@@ -471,7 +461,7 @@ def phase_kernels(cfg):
                     x, U, S, V = make_blast_inputs(n, m, b, r, G, T, dtype,
                                                    gen, DEVICE)
                     for kname, kern, plain in blast_calls(x, U, S, V, r,
-                                                          WEIGHT_ONLY):
+                                                          QUANT_MODES):
                         check(kname, f"{label} {n}->{m} b={b} r={r} G={G} "
                               f"T={T}", kern(), plain(), dname)
         attention(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, B4_CASES,
@@ -481,9 +471,8 @@ def phase_kernels(cfg):
 
 
 def repeat_identical(call, linear, T, dname) -> None:
-    """Two launches of a tile kernel (float or weight-only codes) on the
-    same inputs must agree bit for bit (split r summed in a fixed order, no
-    atomics)."""
+    """Two launches of a BLAST kernel on the same inputs must agree bit for
+    bit (split r summed in a fixed order, no atomics)."""
     import torch
     kname, kern, _ = call
     first = kern()
@@ -767,11 +756,11 @@ def phase_profile(model, params, mode):
             k[1] += e.time_range.elapsed_us() / 1e3
     busy = sum(v[1] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
-    first = sorted(k for k in kernels if "blast_kernel<" in k)
-    if mode in ("none",) + WEIGHT_ONLY and (
-            first or not tile_blast(kernels)["blast_tile_kernel"]["calls"]):
+    other = sorted(k for k in kernels if "blast" in k and not any(
+        t in k for t in ("blast_tile_kernel", "blast_split_sum")))
+    if other or not tile_blast(kernels)["blast_tile_kernel"]["calls"]:
         raise RuntimeError(f"{mode} decode did not run the tile kernel alone:"
-                           f" first-design kernels {first}")
+                           f" other BLAST kernels {other}")
     emit({"phase": "profile", "mode": mode, "decode_steps": n_steps,
           "slots": 8, "wall_ms_per_step": wall_ms / n_steps,
           "device_busy_ms_per_step": busy / n_steps if kernels else None,
@@ -1061,6 +1050,8 @@ def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
            "flops": flops,
            **{k: f if isinstance(f, bool) else time_ms(f, flush)
               for k, f in extra.items()}}
+    if "launch_only_ms" in row:     # the quantize prologue and the wrapper
+        row["prologue_ms"] = row["ms"] - row["launch_only_ms"]
     emit({"phase": "timing", **row})
     return row
 
@@ -1115,14 +1106,14 @@ def phase_timing(cfg):
                 deq[0][g], deq[1][g], deq[2][g])) for g in range(G)],
                 dim=0).to(dt)
             _, stored = bm.padded_rank(codes[0].shape[-1], bits,
-                                       bm.tiles()[1])
+                                       bm.float_tiles()[1])
             padded = [ops._pad_last(a, stored) for a in codes]
-            launch_a8 = bm.launch_w4a8 if bits == 4 else bm.launch_w8a8
+            launch_act = bm.launch_w4a8 if bits == 4 else bm.launch_w8a8
             for mode in mine:
                 qname, kern, plain = quant_calls(mode, x, codes, scales, r)
                 extra = dict(kw)
                 if mode_bits_act(mode)[1] == "int8":
-                    extra["launch_only_ms"] = lambda: launch_a8(  # noqa: E731
+                    extra["launch_only_ms"] = lambda: launch_act(  # noqa: E731
                         xq, sx, *padded, su, ss, sv, out_dtype=dt)
                 rows.append(timing_row(
                     qname, name, T, shape, kern, plain,
@@ -1133,10 +1124,11 @@ def phase_timing(cfg):
         for T in (8, 256):
             x, U, S, V = float_row(name, n, m, b, r, G, T)
             quant_rows(name, n, m, b, r, G, T, x, U, S, V, QUANT_MODES)
-    # the panel path (n past the resident layout), at decode: B1, B5, B7
+    # the panel path (n past the resident layout), at decode: B1, B5, B7,
+    # B9, B10
     label, n, m, b, r = WIDE_BLAST[0]
     x, U, S, V = float_row(label, n, m, b, r, 1, 8, panels=True)
-    quant_rows(label, n, m, b, r, 1, 8, x, U, S, V, WEIGHT_ONLY, panels=True)
+    quant_rows(label, n, m, b, r, 1, 8, x, U, S, V, QUANT_MODES, panels=True)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     for C in (1, 32):
         q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen, DEVICE)

@@ -8,10 +8,13 @@ Imports ``repro_torch`` from ``--src``, and the timing harness of
 ``chip_smoke.py`` from this checkout, builds that tree's kernels, and
 prints one JSON line per row: bf16, the L2 cache flushed, the median of 25
 runs (``chip_smoke.time_ms``) of each BLAST wrapper in every serving mode
-at decode (T = 8) and prefill (T = 256) shapes, of the float BLAST kernels
-at the training step's 2048 tokens, and of prefill (C = 1, 32) and
-full-sequence (B = 8 × T = 256, B = 1 × T = 2048) attention.  Every tree
-gets the same inputs (one seed).  Two calls may land on two cards, so run
+at decode (T = 8) and prefill (T = 256) shapes, of the W8A8 and W4A8
+kernels alone on ready activation codes there (``... launch_only``: the
+tree's own ``launch_w8a8`` / ``launch_w4a8``: xq, sx, the codes padded to
+the rank granule, their scales and out_dtype), of
+the float BLAST kernels at the training step's 2048 tokens, and of prefill
+(C = 1, 32) and full-sequence (B = 8 × T = 256, B = 1 × T = 2048)
+attention.  Every tree gets the same inputs (one seed).  Two calls may land on two cards, so run
 the trees in turns (A, B, B, A) within one process group on one card.
 """
 
@@ -33,7 +36,8 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from repro_torch import configs
+    from repro_torch import configs, quant
+    from repro_torch.kernels import blast_matmul as bm
     from repro_torch.kernels import build, ops
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
@@ -48,6 +52,18 @@ def main() -> int:
                           "linear": linear, "T": T,
                           "ms": cs.time_ms(fn, flush)}), flush=True)
 
+    def launch_only(name, T, x, U, S, V):
+        xq, sx = quant.quantize_act(x)
+        for mode in ("w8a8", "w4a8"):
+            bits = cs.mode_bits_act(mode)[0]
+            codes, scales = cs.quantize_factors(U, S, V, bits=bits)
+            _, stored = bm.padded_rank(codes[0].shape[-1], bits,
+                                       bm.float_tiles()[1])
+            padded = [ops._pad_last(a, stored) for a in codes]
+            launch = bm.launch_w4a8 if bits == 4 else bm.launch_w8a8
+            row(f"{cs.MODES[mode][1][U.shape[0] > 1]} launch_only", name, T,
+                lambda: launch(xq, sx, *padded, *scales, out_dtype=dt))
+
     train_t = cs.TRAIN_BATCH * cs.TRAIN_SEQ
     for name, n, m, b, r, G in cs.blast_shapes(cfg):
         for T in (8, 256, train_t):
@@ -56,6 +72,8 @@ def main() -> int:
             modes = cs.QUANT_MODES if T != train_t else ()
             for kname, kern, _ in cs.blast_calls(x, U, S, V, r, modes):
                 row(kname, name, T, kern)
+            if T != train_t:
+                launch_only(name, T, x, U, S, V)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     for C in (1, 32):
         q, k, v, offs = cs.make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen,

@@ -16,14 +16,15 @@ and return y (G, T, m):
   sv (G, b), x fp32 or bf16, y of x's type — the same tile kernel and plan,
   its factor tiles staged as codes;
 - ``launch_w8a8``: int8 activation codes xq (T, n) with fp32 scales sx
-  (T, 1) against int8 factor codes, through the first design
-  (``blast_kernel``; T and r padded to its tiles); y has ``out_dtype``;
+  (T, 1) against int8 factor codes — the same tile kernel and plan, its x
+  tile holding the codes and stage 1 on s8 tensor cores; y has
+  ``out_dtype``;
 - ``launch_q4`` / ``launch_w4a8``: as ``launch_q`` / ``launch_w8a8`` with
   nibble-packed int4 factor codes, uint8 (G, b, ·, r/2): the kernels read
   them packed and take the logical rank r = 2 × bytes.
 
-Callers go through ``kernels/ops.py``, which flattens, pads, quantizes the
-activations and counts launches.  The kernels keep no autograd graph: a
+Callers go through ``kernels/ops.py``, which flattens, pads r, quantizes
+the activations and counts launches.  The kernels keep no autograd graph: a
 launcher refuses inputs that require grad while grad mode is on
 (``build.refuse_grad``); training reaches the float kernel through
 ``ops.BlastMatmulFn`` / ``ops.BlastMatmulGroupedFn``.
@@ -57,14 +58,12 @@ _ARGTYPES = {
     "blast_matmul_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "blast_matmul_q_f32": [_P] * 9 + [_I] * 8 + [_P],
     "blast_matmul_q_bf16": [_P] * 9 + [_I] * 8 + [_P],
-    "blast_matmul_w8a8_f32": [_P] * 9 + [_I] * 6 + [_P],
-    "blast_matmul_w8a8_bf16": [_P] * 9 + [_I] * 6 + [_P],
+    "blast_matmul_w8a8_f32": [_P] * 10 + [_I] * 8 + [_P],
+    "blast_matmul_w8a8_bf16": [_P] * 10 + [_I] * 8 + [_P],
     "blast_matmul_q4_f32": [_P] * 9 + [_I] * 8 + [_P],
     "blast_matmul_q4_bf16": [_P] * 9 + [_I] * 8 + [_P],
-    "blast_matmul_w4a8_f32": [_P] * 9 + [_I] * 6 + [_P],
-    "blast_matmul_w4a8_bf16": [_P] * 9 + [_I] * 6 + [_P],
-    "blast_matmul_tile_t": [],
-    "blast_matmul_tile_r": [],
+    "blast_matmul_w4a8_f32": [_P] * 10 + [_I] * 8 + [_P],
+    "blast_matmul_w4a8_bf16": [_P] * 10 + [_I] * 8 + [_P],
     "blast_float_tile_t": [],
     "blast_float_tile_r": [],
     "blast_float_tile_b": [],
@@ -85,16 +84,10 @@ def _lib():
     return _LIB[0]
 
 
-def tiles() -> tuple[int, int]:
-    """(token rows, ranks) per tile of the W8A8 / W4A8 kernel."""
-    lib = _lib()
-    return lib.blast_matmul_tile_t(), lib.blast_matmul_tile_r()
-
-
 def float_tiles() -> tuple[int, int, int]:
     """(token rows per block, rank granule of padding and splits, output
-    blocks per block at most) of the tile kernel (float and weight-only
-    codes)."""
+    blocks per block at most) of the tile kernel, which runs every BLAST
+    launch."""
     lib = _lib()
     return (lib.blast_float_tile_t(), lib.blast_float_tile_r(),
             lib.blast_float_tile_b())
@@ -157,11 +150,11 @@ def _check_device(x: torch.Tensor) -> None:
                          "CUDA device")
 
 
-def _check(x, U, S, V, factor_dtype, scales=(),
-           tile_r=None) -> tuple[int, ...]:
+def _check(x, U, S, V, factor_dtype, tile_r: int,
+           scales=()) -> tuple[int, ...]:
     """Validate the kernel's layout; returns (T, G, b, p, q, r) with r the
     logical rank (twice the row bytes for packed uint8 factors), a multiple
-    of ``tile_r`` (default: the W8A8 / W4A8 kernel's rank tile)."""
+    of ``tile_r``."""
     T, n = x.shape
     G, b, p, rb = U.shape
     q = V.shape[2]
@@ -185,19 +178,10 @@ def _check(x, U, S, V, factor_dtype, scales=(),
             raise ValueError(f"{name} has shape {tuple(a.shape)}, want "
                              f"{want[name]}")
     r = 2 * rb if factor_dtype == torch.uint8 else rb
-    tile_r = tile_r or tiles()[1]
     if r % tile_r:
         raise ValueError(f"rank {r} is not a multiple of the rank tile "
                          f"{tile_r} (ops.py pads it)")
     return T, G, b, p, q, r
-
-
-def _run(fn_name: str, ptrs, dims, y) -> torch.Tensor:
-    fn = getattr(_lib(), fn_name)
-    rc = fn(*(a.data_ptr() for a in ptrs), y.data_ptr(), *dims,
-            torch.cuda.current_stream().cuda_stream)
-    build.check(rc, fn_name)
-    return y
 
 
 def _check_aligned(**factors) -> None:
@@ -206,22 +190,25 @@ def _check_aligned(**factors) -> None:
             raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
 
 
-def _launch_tile(fn_name: str, x: torch.Tensor, factors, scales,
+def _launch_tile(fn_name: str, ins, dtype: torch.dtype,
                  T: int, G: int, b: int, p: int, q: int, r: int,
                  tile_t: int, tile_r: int, tile_b: int) -> torch.Tensor:
-    """The tile kernel ``fn_name`` as ``split_plan`` lays it out: y (G, T,
-    b·p) of x's type, with an fp32 workspace for the splits' partials."""
-    y = torch.empty((G, T, b * p), dtype=x.dtype, device=x.device)
+    """The tile kernel ``fn_name`` on ``ins`` (x, with activation codes
+    their scales sx, then the factors and their scales) as ``split_plan``
+    lays it out: y (G, T, b·p) of ``dtype``, with an fp32 workspace for the
+    splits' partials."""
+    dev = ins[0].device
+    y = torch.empty((G, T, b * p), dtype=dtype, device=dev)
     if T == 0:
         return y
-    n_split, rps, ipg = split_plan(T, G, r, b, _sm_count(x.device), tile_t,
+    n_split, rps, ipg = split_plan(T, G, r, b, _sm_count(dev), tile_t,
                                    tile_r, tile_b)
     part = (torch.empty((n_split, G, T, b * p), dtype=torch.float32,
-                        device=x.device) if n_split > 1 else None)
+                        device=dev) if n_split > 1 else None)
     rc = getattr(_lib(), fn_name)(
-        x.data_ptr(), *(a.data_ptr() for a in (*factors, *scales)),
-        y.data_ptr(), None if part is None else part.data_ptr(), T, G, b, p,
-        q, r, rps, ipg, torch.cuda.current_stream().cuda_stream)
+        *(a.data_ptr() for a in ins), y.data_ptr(),
+        None if part is None else part.data_ptr(), T, G, b, p, q, r, rps,
+        ipg, torch.cuda.current_stream().cuda_stream)
     build.check(rc, f"{fn_name} (T={T}, G={G}, b={b}, p={p}, q={q}, r={r})")
     return y
 
@@ -234,10 +221,10 @@ def launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
         raise TypeError(f"blast_matmul kernel takes fp32 or bf16, got {x.dtype}")
     _check_device(x)
     tiles_ = float_tiles()
-    T, G, b, p, q, r = _check(x, U, S, V, x.dtype, tile_r=tiles_[1])
+    T, G, b, p, q, r = _check(x, U, S, V, x.dtype, tiles_[1])
     _check_aligned(U=U, S=S, V=V)
-    return _launch_tile(f"blast_matmul_{_SUFFIX[x.dtype]}", x, (U, S, V), (),
-                        T, G, b, p, q, r, *tiles_)
+    return _launch_tile(f"blast_matmul_{_SUFFIX[x.dtype]}", (x, U, S, V),
+                        x.dtype, T, G, b, p, q, r, *tiles_)
 
 
 def _launch_q(bits: int, x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
@@ -250,12 +237,12 @@ def _launch_q(bits: int, x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
         raise TypeError(f"{name} kernel takes fp32 or bf16 x, got {x.dtype}")
     _check_device(x)
     tiles_ = float_tiles()
-    T, G, b, p, q, r = _check(x, U, S, V, _CODES[bits],
-                              (("su", su), ("ss", ss), ("sv", sv)),
-                              tile_r=tiles_[1])
+    T, G, b, p, q, r = _check(x, U, S, V, _CODES[bits], tiles_[1],
+                              (("su", su), ("ss", ss), ("sv", sv)))
     _check_aligned(U=U, S=S, V=V)
-    return _launch_tile(f"{name}_{_SUFFIX[x.dtype]}", x, (U, S, V),
-                        (su, ss, sv), T, G, b, p, q, r, *tiles_)
+    return _launch_tile(f"{name}_{_SUFFIX[x.dtype]}",
+                        (x, U, S, V, su, ss, sv), x.dtype, T, G, b, p, q, r,
+                        *tiles_)
 
 
 def launch_q(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
@@ -270,33 +257,37 @@ def launch_q4(x: torch.Tensor, Up: torch.Tensor, Sp: torch.Tensor,
     return _launch_q(4, x, Up, Sp, Vp, su, ss, sv)
 
 
-def _launch_a8(bits: int, xq: torch.Tensor, sx: torch.Tensor,
-               U: torch.Tensor, S: torch.Tensor, V: torch.Tensor,
-               su: torch.Tensor, ss: torch.Tensor, sv: torch.Tensor,
-               out_dtype: torch.dtype) -> torch.Tensor:
+def _launch_act(bits: int, xq: torch.Tensor, sx: torch.Tensor,
+                U: torch.Tensor, S: torch.Tensor, V: torch.Tensor,
+                su: torch.Tensor, ss: torch.Tensor, sv: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """Activation codes through the tile kernel, as ``launch``."""
     name = f"blast_matmul_w{bits}a8"
     build.refuse_grad(name, sx)
     if xq.dtype != torch.int8:
         raise TypeError(f"{name} kernel takes int8 codes, got {xq.dtype}")
     if out_dtype not in _SUFFIX:
         raise TypeError(f"{name} kernel writes fp32 or bf16, got {out_dtype}")
-    T, G, b, p, q, r = _check(xq, U, S, V, _CODES[bits],
+    _check_device(xq)
+    tiles_ = float_tiles()
+    T, G, b, p, q, r = _check(xq, U, S, V, _CODES[bits], tiles_[1],
                               (("sx", sx), ("su", su), ("ss", ss),
                                ("sv", sv)))
-    y = torch.empty((G, T, b * p), dtype=out_dtype, device=xq.device)
-    return _run(f"{name}_{_SUFFIX[out_dtype]}",
-                (xq, sx, U, S, V, su, ss, sv), (T, G, b, p, q, r), y)
+    _check_aligned(U=U, S=S, V=V)
+    return _launch_tile(f"{name}_{_SUFFIX[out_dtype]}",
+                        (xq, sx, U, S, V, su, ss, sv), out_dtype, T, G, b, p,
+                        q, r, *tiles_)
 
 
 def launch_w8a8(xq: torch.Tensor, sx: torch.Tensor, U: torch.Tensor,
                 S: torch.Tensor, V: torch.Tensor, su: torch.Tensor,
                 ss: torch.Tensor, sv: torch.Tensor,
                 out_dtype: torch.dtype) -> torch.Tensor:
-    return _launch_a8(8, xq, sx, U, S, V, su, ss, sv, out_dtype)
+    return _launch_act(8, xq, sx, U, S, V, su, ss, sv, out_dtype)
 
 
 def launch_w4a8(xq: torch.Tensor, sx: torch.Tensor, Up: torch.Tensor,
                 Sp: torch.Tensor, Vp: torch.Tensor, su: torch.Tensor,
                 ss: torch.Tensor, sv: torch.Tensor,
                 out_dtype: torch.dtype) -> torch.Tensor:
-    return _launch_a8(4, xq, sx, Up, Sp, Vp, su, ss, sv, out_dtype)
+    return _launch_act(4, xq, sx, Up, Sp, Vp, su, ss, sv, out_dtype)

@@ -1,7 +1,7 @@
 // Fused BLAST matmul (paper Alg. 1) for Hopper: float factors, int8 or
 // nibble-packed int4 factor codes with per-block scales, and int8 or int4
 // factors with per-token int8 activation codes (W8A8, W4A8); each plain and
-// grouped.
+// grouped, all through one kernel, blast_tile_kernel.
 //
 // Replaces (src/repro/kernels/blast_matmul.py):
 //   float:  blast_matmul_pallas (:285), blast_matmul_grouped_pallas (:324)
@@ -46,14 +46,11 @@
 // both T = 8 and T = 256 (the Alg.-1 work 2·T·((m + n)·r + b²·r)
 // operations sits far below the tensor-core ridge); at the training
 // step's 2048 tokens it is still bytes (x, y and factors), about 2–3 µs.
-// What bounds each design is its own overhead, not that bound.
+// What bounds the kernel is its own overhead, not that bound.
 //
-// Two designs share this file.
-//
-// Float and weight-only codes (B1, B2, B1 as the backward's dx; B5–B8) —
-// blast_tile_kernel.  The TPU kernel fills its z scratch once per (T tile,
-// r tile), at i == 0, and reuses it for every output block; so does this
-// one.  A block of 16 warps owns 16 token rows, factor set g, a range of r
+// The design (B1, B2, B1 as the backward's dx; B5–B12).  The TPU kernel
+// fills its z scratch once per (T tile, r tile), at i == 0, and reuses it
+// for every output block; so does this one.  A block of 16 warps owns 16 token rows, factor set g, a range of r
 // (a split) and a group of up to 16 output blocks (all b unless the plan
 // groups them, or b > 16): per r tile of RT ranks it computes z_j for
 // every j, w_i for its i, and adds w_i U_iᵀ into the fp32 accumulator of
@@ -120,23 +117,19 @@
 // decode, the fixed chain of launch, prologue, one tile, epilogue and the
 // split sum.  TMA (one instruction per tile instead of a row per lane), a
 // tile-major factor layout, wgmma and warp specialisation are later work.
-//
-// W8A8 / W4A8 (B9–B12) — blast_kernel, the first design, unchanged: the
-// TPU kernel carries the y accumulator across its sequential (r-tile, i)
-// grid axes; Hopper blocks run in no order, so that carry becomes a loop
-// inside one block: one block per (output block i, 8-token tile, g),
-// looping over r tiles of RT ranks.  Per r tile it recomputes stage 1 (z_j
-// for every j, an int32 sum of codes) into shared memory, reading V
-// straight from device memory, reduces stage 2 into shared memory and
-// accumulates y_i in an fp32 shared accumulator the block owns.  Z and W
-// never touch HBM and the result is deterministic; the price is b-fold
-// stage-1 recompute on the CUDA cores, which bounds it.  Every scale
-// multiplies a stage output, never a weight tile.  p, q and r are not
-// assumed to be powers of two: every loop runs to its own bound, the T
-// edge is masked and r (logical ranks) must be a multiple of RT (the
-// wrapper zero-pads, which is exact: zero bytes are zero codes).  Moving
-// them onto the tile kernel (s8 mma.sync for stage 1, the per-token
-// quantize fused into the x tile) is the next work.
+// Activation codes (ActRow8 / ActRow4: W8A8 / W4A8, B9–B12): the x tile
+// holds xq's int8 codes (rows padded by 16 bytes, so that an 8-row
+// ldmatrix hits 8 bank groups) and stage 1 runs on s8 tensor cores,
+// mma.sync.m16n8k32 s8 × s8 → s32, for either y type: A by ldmatrix (16
+// token rows × 32 codes), B from 4 code bytes of one rank in 4 V tile rows
+// (int4: nibbles sign-extended to bytes by bit operations).  The
+// contraction is zero-padded to 32 (exact).  z stays int32 in registers
+// across a block's panels, warps that share a block add their partials in
+// int32 (exact, so the result does not depend on the panel layout), and
+// z_j = (float)acc · (sx_t · sv_j) once, the TPU kernel's order; the 16
+// token scales ride in the scale region.  Stages 2–3, the plan and the
+// split sum are those of the output type's code path.  The per-token
+// quantize stays a plain PyTorch prologue, as the TPU kernel's runs in XLA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,17 +140,11 @@
 
 namespace {
 
-constexpr int BT = 8;          // token rows per block
-constexpr int RT = 16;         // ranks per r tile
-constexpr int NT = 256;        // threads per block
-constexpr int UPAD = RT + 1;   // padded row stride of the U tile in smem
-
-__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
-__device__ __forceinline__ float to_f(int v) { return (float)v; }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+__device__ __forceinline__ void put(int8_t* p, float v) { *p = (int8_t)v; }
 
 // The factor value at a logical rank: itself for unpacked types; for packed
 // int4 (F = uint8_t, the byte holding the rank) the low nibble (hi = 0) or
@@ -169,135 +156,6 @@ __device__ __forceinline__ int code(uint8_t v, int hi) {
   return (nib ^ 8) - 8;
 }
 
-// The W8A8 / W4A8 kernel (first design, see the note): int8 activation
-// codes xq with fp32 token scales sx.  F: factor type (int8 codes, or
-// uint8_t for nibble-packed int4 codes); O: output type.
-template <typename F, typename O>
-__global__ void __launch_bounds__(NT)
-blast_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
-             const F* __restrict__ U, const F* __restrict__ S,
-             const F* __restrict__ V, const float* __restrict__ su,
-             const float* __restrict__ ss, const float* __restrict__ sv,
-             O* __restrict__ y, int T_rows, int b, int p, int q, int r) {
-  constexpr int SH = std::is_same<F, uint8_t>::value ? 1 : 0;  // k >> SH
-
-  const int i = blockIdx.x;          // output block
-  const int t0 = blockIdx.y * BT;    // first token row of this tile
-  const int g = blockIdx.z;          // factor set
-  const int n = b * q, m = b * p;
-  const int tid = threadIdx.x;
-  const int rows = min(BT, T_rows - t0);
-  const int rs = r >> SH;                // row length of a factor, in F
-
-  const F* Ui = U + ((size_t)g * b + i) * p * rs;  // U[g, i]: (p, r)
-  const F* Si = S + ((size_t)g * b + i) * b * rs;  // S[g, i]: (b, r)
-  const F* Vg = V + (size_t)g * b * q * rs;        // V[g]:    (b, q, r)
-  O* yg = y + (size_t)g * T_rows * m;              // y[g]:    (T, m)
-
-  extern __shared__ float smem[];
-  int* xs = reinterpret_cast<int*>(smem);  // (BT, n)  activation codes
-  float* zs = smem + BT * n;        // (b, BT, RT)  stage-1 tile
-  float* ws = zs + b * BT * RT;     // (BT, RT)     stage-2 tile
-  float* us = ws + BT * RT;         // (p, UPAD)    U_i r tile
-  float* ys = us + p * UPAD;        // (BT, p)      fp32 accumulator
-  float* sxs = ys + BT * p;         // (BT,)        token scales
-
-  for (int idx = tid; idx < BT * n; idx += NT) {
-    const int t = idx / n, c = idx - t * n;
-    xs[idx] = t < rows ? (int)x[(size_t)(t0 + t) * n + c] : 0;
-  }
-  for (int t = tid; t < BT; t += NT) sxs[t] = t < rows ? sx[t0 + t] : 0.f;
-  for (int idx = tid; idx < BT * p; idx += NT) ys[idx] = 0.f;
-
-  for (int r0 = 0; r0 < r; r0 += RT) {
-    __syncthreads();  // x tile ready; the previous r tile fully consumed
-    for (int idx = tid; idx < p * RT; idx += NT) {
-      const int pp = idx / RT, rr = idx - pp * RT;
-      us[pp * UPAD + rr] =
-          to_f(code(Ui[(size_t)pp * rs + ((r0 + rr) >> SH)], rr & 1));
-    }
-    // stage 1: z_j[t, rr] = Σ_k x[t, j·q + k] · V[j, k, r0 + rr], dequantized
-    // once: z · (sx_t · sv_j)
-    for (int item = tid; item < b * RT; item += NT) {
-      const int j = item / RT, rr = item - j * RT;
-      int acc[BT];
-#pragma unroll
-      for (int t = 0; t < BT; ++t) acc[t] = 0;
-      const F* vj = Vg + (size_t)j * q * rs + ((r0 + rr) >> SH);
-      const int hi = rr & 1;           // r0 is even: the nibble of r0 + rr
-      const int* xj = xs + j * q;
-      for (int k = 0; k < q; ++k) {
-        const int v = code(vj[(size_t)k * rs], hi);
-#pragma unroll
-        for (int t = 0; t < BT; ++t) acc[t] += xj[t * n + k] * v;
-      }
-      const float svj = sv[(size_t)g * b + j];
-#pragma unroll
-      for (int t = 0; t < BT; ++t)
-        zs[(j * BT + t) * RT + rr] = (float)acc[t] * (sxs[t] * svj);
-    }
-    __syncthreads();
-    // stage 2: w[t, rr] = Σ_j s_ij[r0 + rr] · z_j[t, rr]
-    for (int item = tid; item < BT * RT; item += NT) {
-      const int t = item / RT, rr = item - t * RT;
-      float w = 0.f;
-      for (int j = 0; j < b; ++j) {
-        float s =
-            to_f(code(Si[(size_t)j * rs + ((r0 + rr) >> SH)], rr & 1));
-        s *= ss[((size_t)g * b + i) * b + j];
-        w = fmaf(s, zs[(j * BT + t) * RT + rr], w);
-      }
-      ws[item] = w;
-    }
-    __syncthreads();
-    // stage 3: y_i[t, pp] += Σ_rr w[t, rr] · U_i[pp, r0 + rr]
-    for (int item = tid; item < BT * p; item += NT) {
-      const int t = item / p, pp = item - t * p;
-      float a = ys[item];
-#pragma unroll
-      for (int rr = 0; rr < RT; ++rr)
-        a = fmaf(ws[t * RT + rr], us[pp * UPAD + rr], a);
-      ys[item] = a;
-    }
-  }
-  // each thread stores the accumulator entries it alone updated
-  const float sui = su[(size_t)g * b + i];
-  for (int item = tid; item < BT * p; item += NT) {
-    const int t = item / p, pp = item - t * p;
-    if (t < rows)
-      put(yg + (size_t)(t0 + t) * m + (size_t)i * p + pp, ys[item] * sui);
-  }
-}
-
-template <typename F, typename O>
-int launch_a8(const void* x, const void* sx, const void* U, const void* S,
-              const void* V, const void* su, const void* ss, const void* sv,
-              void* y, int T_rows, int G, int b, int p, int q, int r,
-              void* stream) {
-  if (T_rows <= 0 || G <= 0 || b <= 0 || p <= 0 || q <= 0 || r <= 0 ||
-      r % RT != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((size_t)BT * b * q + (size_t)b * BT * RT + BT * RT +
-                       (size_t)p * UPAD + (size_t)BT * p + BT);
-  static size_t opted_in = 48 * 1024;   // per instantiation
-  if (smem > opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        blast_kernel<F, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = smem;
-  }
-  const dim3 grid(b, (T_rows + BT - 1) / BT, G);
-  blast_kernel<F, O><<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const float*)sx, (const F*)U, (const F*)S,
-      (const F*)V, (const float*)su, (const float*)ss, (const float*)sv,
-      (O*)y, T_rows, b, p, q, r);
-  return (int)cudaGetLastError();
-}
-
-// ---- the tile kernel (float B1, B2; int8 / int4 codes B5–B8) -------------
-
 constexpr int FBT = 16;          // token rows per block: one m16 fragment
 constexpr int FNW = 16;          // warps: warp j computes z_j, warp i owns y_i
 constexpr int FNT = FNW * 32;    // threads per block
@@ -306,7 +164,7 @@ constexpr int FRANKS = 16;       // rank granule of the padding and the splits
 constexpr int FMAXP8 = 12;       // columns per block ≤ 96 (8-column fragments)
 constexpr int SMEM_MAX = 232448; // shared memory one block may opt in to
 
-// Per x type E: RT ranks per r tile and the w tile's row stride, in
+// Per y type E: RT ranks per r tile and the w tile's row stride, in
 // elements (bf16 pads each ldmatrix'd row to 48 bytes, so that 8
 // consecutive rows fall into 8 distinct bank groups; fp32 pads the rows a
 // warp reads 8 at once).
@@ -319,16 +177,18 @@ template <> struct FTile<float> {
 };
 
 // Factor loaders: what a factor tile holds and how its rows are copied.
-// E: x and y; F: a tile element, as the factor is stored in device memory
-// (codes are staged raw); logical rank k sits in element k >> SH; VROW,
-// UROW, SROW: the V, U and S tiles' row strides, in F; a tile row is PARTS
-// cp.asyncs of CP bytes, adjacent lanes taking the parts of one row.
+// E: y (and x where X is E); X: an x-tile element; F: a tile element, as
+// the factor is stored in device memory (codes are staged raw); logical
+// rank k sits in element k >> SH; VROW, UROW, SROW: the V, U and S tiles'
+// row strides, in F; a tile row is PARTS cp.asyncs of CP bytes, adjacent
+// lanes taking the parts of one row; A8: int8 activation codes.
 // Float factors: a tile row is 32 bytes (RT values), copied in two halves,
 // so that a warp's copies touch 16 rows (32-byte segments) and not 32.
 template <typename E_> struct CopyRow {
   using E = E_;
+  using X = E_;
   using F = E_;
-  static constexpr bool CODES = false;
+  static constexpr bool CODES = false, A8 = false;
   static constexpr int SH = 0, CP = 16, PARTS = 2, SROW = FTile<E>::RT;
   static constexpr int VROW = std::is_same<E, float>::value ? 8 : 24;
   static constexpr int UROW = std::is_same<E, float>::value ? 12 : 24;
@@ -336,48 +196,64 @@ template <typename E_> struct CopyRow {
 // int8 codes: a tile row is RT bytes, one copy
 template <typename E_> struct CodeRow8 {
   using E = E_;
+  using X = E_;
   using F = int8_t;
-  static constexpr bool CODES = true;
+  static constexpr bool CODES = true, A8 = false;
   static constexpr int SH = 0, CP = FTile<E>::RT, PARTS = 1;
   static constexpr int VROW = CP, UROW = CP, SROW = CP;
 };
 // nibble-packed int4 codes: a tile row is RT / 2 bytes, one copy
 template <typename E_> struct CodeRow4 {
   using E = E_;
+  using X = E_;
   using F = uint8_t;
-  static constexpr bool CODES = true;
+  static constexpr bool CODES = true, A8 = false;
   static constexpr int SH = 1, CP = FTile<E>::RT / 2, PARTS = 1;
   static constexpr int VROW = CP, UROW = CP, SROW = CP;
 };
+// W8A8 / W4A8: int8 activation codes in the x tile, the factor tiles as
+// CodeRow8 / CodeRow4; y of type E
+template <typename E_> struct ActRow8 : CodeRow8<E_> {
+  using X = int8_t;
+  static constexpr bool A8 = true;
+};
+template <typename E_> struct ActRow4 : CodeRow4<E_> {
+  using X = int8_t;
+  static constexpr bool A8 = true;
+};
+// the contraction granule: x columns and V rows are zero-padded to it
+template <class L> constexpr int KG = L::A8 ? 32 : 16;
 
 __host__ __device__ constexpr int up16(int v) { return (v + 15) & ~15; }
 
 // Byte offsets of the shared-memory regions (each a multiple of 16 bytes)
 // of a block that owns up to nb output blocks and pc columns of each, and
 // stages jc input blocks of kc rows at a time (resident: jc = b, kc = q
-// rounded up to 16): x tile (FBT, jc·kc + pad: block jl at column jl·kc),
-// V r-tile (jc·kc rows), U r-tile (nb·pc rows), S r-tile (nb·b rows), z
-// (b, FBT, RT) fp32, w (nb, FBT rows; bf16: hi parts, then lo parts), with
-// red the warps' partial z (FNW, FBT, RT) fp32, and for codes the scales
-// sv (b), ss (nb, b), su (nb).  The epilogue's fp32 y tile (FBT, nb·pc +
-// 8) overlays them.
+// rounded up to KG): x tile (FBT, jc·kc + pad of X: block jl at column
+// jl·kc), V r-tile (jc·kc rows), U r-tile (nb·pc rows), S r-tile (nb·b
+// rows), z (b, FBT, RT) fp32, w (nb, FBT rows; bf16: hi parts, then lo
+// parts), with red the warps' partial z (FNW, FBT, RT) fp32 (int32 for
+// A8), and for codes the scales sv (b), ss (nb, b), su (nb), and for A8
+// sx (FBT).  The epilogue's fp32 y tile (FBT, nb·pc + 8) overlays them.
 template <class L> struct FLayout {
   int ldx, xs, vs, us, ss, zs, ws, rd, sc, bytes;
   __host__ __device__ FLayout(int b, int nb, int pc, int jc, int kc,
                               bool red) {
     using E = typename L::E;
     constexpr int e = (int)sizeof(E), f = (int)sizeof(typename L::F);
+    constexpr int xe = (int)sizeof(typename L::X);
     constexpr int RT = FTile<E>::RT, WROW = FTile<E>::WROW;
-    ldx = jc * kc + 16 / e;   // +16 bytes: 8 x rows in 8 bank groups
+    ldx = jc * kc + 16 / xe;   // +16 bytes: 8 x rows in 8 bank groups
     int off = 0;
-    xs = off; off += FBT * ldx * e;
+    xs = off; off += FBT * ldx * xe;
     vs = off; off += up16(jc * kc * L::VROW * f);
     us = off; off += up16(nb * pc * L::UROW * f);
     ss = off; off += up16(nb * b * L::SROW * f);
     zs = off; off += b * FBT * RT * 4;
     ws = off; off += (e == 2 ? 2 : 1) * nb * FBT * WROW * e;
     rd = off; if (red) off += FNW * FBT * RT * 4;
-    sc = off; if (L::CODES) off += up16((b + nb * b + nb) * 4);
+    sc = off;
+    if (L::CODES) off += up16((b + nb * b + nb + (L::A8 ? FBT : 0)) * 4);
     const int ytile = FBT * (nb * pc + 8) * 4;
     bytes = off > ytile ? off : ytile;
   }
@@ -483,6 +359,34 @@ __device__ __forceinline__ uint32_t frag_col(const uint8_t* r0,
                         (((uint32_t)r1[c >> 1] >> sh) << 16));
 }
 
+// d += a·b, one m16n8k32 s8 fragment product with int32 accumulators
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// An s8 B-fragment register (stage 1's V, W8A8 / W4A8): rank c of 4
+// consecutive tile rows, ld bytes apart, one code a byte, the first row in
+// the low byte.  int4: the nibbles of rank c, sign-extended to bytes (a
+// nibble with bit 3 set gets bits 4–7 set: times 0x1E, no carry out of
+// its byte).
+__device__ __forceinline__ uint32_t frag_k4(const int8_t* v, int ld, int c) {
+  return (uint32_t)(uint8_t)v[c] | (uint32_t)(uint8_t)v[ld + c] << 8 |
+         (uint32_t)(uint8_t)v[2 * ld + c] << 16 |
+         (uint32_t)(uint8_t)v[3 * ld + c] << 24;
+}
+__device__ __forceinline__ uint32_t frag_k4(const uint8_t* v, int ld, int c) {
+  const int k = c >> 1;
+  const uint32_t four = (uint32_t)v[k] | (uint32_t)v[ld + k] << 8 |
+                        (uint32_t)v[2 * ld + k] << 16 |
+                        (uint32_t)v[3 * ld + k] << 24;
+  const uint32_t nib = (four >> ((c & 1) * 4)) & 0x0F0F0F0Fu;
+  return nib | (nib & 0x08080808u) * 0x1Eu;
+}
+
 // rank k of a tile row as a float (codes: the code)
 __device__ __forceinline__ float rank_at(const float* row, int k) {
   return row[k];
@@ -557,10 +461,12 @@ struct Panel {
 // split's fp32 partial, and blast_split_sum adds the partials into y.
 // PAN: the input axis in panels of jc blocks × kc rows (see the note);
 // otherwise resident (jc, kc are ignored).  su, ss, sv: the scales of
-// codes (unused for float factors).
+// codes (unused for float factors); sx: the token scales of activation
+// codes (A8 only).
 template <class L, bool PAN, int P8>
 __global__ void __launch_bounds__(FNT, 1)
-blast_tile_kernel(const typename L::E* __restrict__ x,
+blast_tile_kernel(const typename L::X* __restrict__ x,
+                  const float* __restrict__ sx,
                   const typename L::F* __restrict__ U,
                   const typename L::F* __restrict__ S,
                   const typename L::F* __restrict__ V,
@@ -569,11 +475,13 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
                   float* __restrict__ part, int T_rows, int b, int p, int q,
                   int r, int rps, int ipg, int pc, int jc, int kc) {
   using E = typename L::E;
+  using X = typename L::X;
   using F = typename L::F;
   constexpr int RT = FTile<E>::RT, WROW = FTile<E>::WROW;
   constexpr int ZT = FBT * RT;   // one z tile, fp32
   constexpr bool BF = std::is_same<E, __nv_bfloat16>::value;
-  constexpr bool CODES = L::CODES;
+  constexpr bool CODES = L::CODES, A8 = L::A8;
+  constexpr int K = KG<L>;       // contraction granule
   const int groups = (b + ipg - 1) / ipg, chunks = (p + pc - 1) / pc;
   const int splits = gridDim.y / (groups * chunks);
   const int t0 = blockIdx.x * FBT, g = blockIdx.z;
@@ -582,7 +490,7 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
   const int lo = split * rps, hi = min(r, lo + rps);
   const int ib = grp * ipg, nb = min(b, ib + ipg) - ib;  // output blocks owned
   const int c0 = chunk * pc, pw = min(pc, p - c0);       // their columns
-  const int qpad = (q + 15) / 16 * 16, p8 = (pw + 7) / 8, pr = 8 * p8;
+  const int qpad = (q + K - 1) / K * K, p8 = (pw + 7) / 8, pr = 8 * p8;
   const int n = b * q, m = b * p;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, tq = (lane & 3) * 2;
@@ -599,7 +507,7 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
   // a split launch's blast_split_sum may start now and wait for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   extern __shared__ __align__(128) unsigned char tile_smem[];
-  E* xs = reinterpret_cast<E*>(tile_smem + Lay.xs);
+  X* xs = reinterpret_cast<X*>(tile_smem + Lay.xs);
   F* vt = reinterpret_cast<F*>(tile_smem + Lay.vs);
   F* ut = reinterpret_cast<F*>(tile_smem + Lay.us);
   F* st = reinterpret_cast<F*>(tile_smem + Lay.ss);
@@ -609,6 +517,7 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
   [[maybe_unused]] float* scv = reinterpret_cast<float*>(tile_smem + Lay.sc);
   [[maybe_unused]] float* scs = scv + b;        // ss rows of the owned i
   [[maybe_unused]] float* scu = scs + nbl * b;  // su of the owned i
+  [[maybe_unused]] float* sct = scu + nbl;      // sx of the tile's rows
   [[maybe_unused]] const int WLO = nbl * FBT * WROW;  // bf16: lo parts
   const int rs = r >> L::SH;                 // a factor row, in F
   const F* Ug = U + (size_t)g * b * p * rs;  // (b, p, r)
@@ -669,11 +578,11 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
     cp_commit();
   };
   // A panel's zeros: the x columns and V rows past its kr rows of each
-  // block, up to the next multiple of 16 (never copied into).
-  E zero;
+  // block, up to the next multiple of K (never copied into).
+  X zero;
   put(&zero, 0.f);
   auto zero_panel = [&](const Panel& P) {
-    const int kz = (P.kr + 15) / 16 * 16 - P.kr;
+    const int kz = (P.kr + K - 1) / K * K - P.kr;
     if (kz == 0) return;
     for (int idx = tid; idx < rows * P.nj * kz; idx += FNT) {
       const int blk = idx / kz;           // (t, jl) of this pad element
@@ -687,20 +596,20 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
                     L::CP * (idx % L::PARTS));
     }
   };
-  // A panel's x columns, in E, one padded block per j: copied
+  // A panel's x columns, in X, one padded block per j: copied
   // asynchronously in chunks of 16, 8 or 4 bytes (the largest that divides
-  // a block's q·sizeof(E) bytes and x's alignment), else (xc = 0) loaded
+  // a block's q·sizeof(X) bytes and x's alignment), else (xc = 0) loaded
   // element by element by load_x.  Rows past T are left as they are: every
   // stage keeps token rows apart (mma rows, stage 2 per row) and those rows
   // of y are not stored.
-  const int seg = q * (int)sizeof(E);
+  const int seg = q * (int)sizeof(X);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const int xc = seg % 16 == 0 && xa % 16 == 0 ? 16
                  : seg % 8 == 0 && xa % 8 == 0 ? 8
                  : seg % 4 == 0 && xa % 4 == 0 ? 4 : 0;
   auto copy_x = [&](const Panel& P) {
     if (!xc) return;
-    const int per = P.kr * (int)sizeof(E) / xc;   // chunks per (t, j)
+    const int per = P.kr * (int)sizeof(X) / xc;   // chunks per (t, j)
     for (int idx = tid; idx < rows * P.nj * per; idx += FNT) {
       const int tj = idx / per, t = tj / P.nj, jl = tj - t * P.nj;
       const int off = (idx - tj * per) * xc;
@@ -746,6 +655,9 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
       scs[idx] = ss[((size_t)g * b + ib) * b + idx];
     for (int idx = tid; idx < nb; idx += FNT)
       scu[idx] = su[(size_t)g * b + ib + idx];
+    if constexpr (A8)   // not read past row T
+      for (int idx = tid; idx < FBT; idx += FNT)
+        sct[idx] = idx < rows ? sx[t0 + idx] : 0.f;
   }
   load_x(P0);
   float acc[P8][4];
@@ -753,16 +665,17 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
   for (int nt = 0; nt < P8; ++nt)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
-  float z[RT / 8][4];   // a warp's z_j (16 × RT), across a block's panels
+  // a warp's z_j (16 × RT), across a block's panels: int32 for A8
+  std::conditional_t<A8, int, float> z[RT / 8][4];
 
   // Stage 1 over one panel: z_j (16 × RT) += x_j (16 × kr) · V_j (kr × RT)
-  // for the panel's blocks j = j0 + jl, warp jl·wpb + w taking its 16-row
+  // for the panel's blocks j = j0 + jl, warp jl·wpb + w taking its K-row
   // slices w, w + wpb, ... (resident: warp j mod 16, every row).  Once a
-  // block's last rows are in, z_j (codes: times sv_j) goes to the z tile,
-  // directly where one warp owns the block, else through the warps'
-  // partials, added in warp order.
+  // block's last rows are in, z_j (codes: times sv_j; A8: times sx_t·sv_j)
+  // goes to the z tile, directly where one warp owns the block, else
+  // through the warps' partials, added in warp order.
   auto stage1 = [&](const Panel& P) {
-    const int kp = (P.kr + 15) / 16 * 16;
+    const int kp = (P.kr + K - 1) / K * K;
     const bool last = P.k0 + P.kr == q;
     for (int jl = warp / wpb; jl < P.nj; jl += FNW / wpb) {
       const int w = warp - (warp / wpb) * wpb, j = P.j0 + jl;
@@ -770,8 +683,21 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
 #pragma unroll
         for (int nt = 0; nt < RT / 8; ++nt)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) z[nt][c] = 0.f;
-      if constexpr (BF) {
+          for (int c = 0; c < 4; ++c) z[nt][c] = 0;
+      if constexpr (A8) {   // s8 × s8 → s32, K = 32 codes a step
+        for (int kk = K * w; kk < kp; kk += K * wpb) {
+          uint32_t a[4];
+          ldsm_x4(a, xs + (lane & 15) * Lay.ldx + jl * kc + kk +
+                         (lane >> 4) * 16);
+          const F* v0 = vt + (jl * kc + kk + 2 * tq) * L::VROW;
+#pragma unroll
+          for (int nt = 0; nt < RT / 8; ++nt) {
+            const int c = nt * 8 + gr;
+            mma_s8(z[nt], a, frag_k4(v0, L::VROW, c),
+                   frag_k4(v0 + 16 * L::VROW, L::VROW, c));
+          }
+        }
+      } else if constexpr (BF) {
         for (int kk = 16 * w; kk < kp; kk += 16 * wpb) {
           uint32_t a[4];
           ldsm_x4(a, xs + (lane & 15) * Lay.ldx + jl * kc + kk +
@@ -809,7 +735,27 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
           }
         }
       }
-      if (last) {
+      if (!last) continue;
+      if constexpr (A8) {   // exact int32: scaled once, or a partial as is
+        const float sa = sct[gr] * scv[j], sb = sct[gr + 8] * scv[j];
+        int* zi = reinterpret_cast<int*>(rd) + warp * ZT;
+#pragma unroll
+        for (int nt = 0; nt < RT / 8; ++nt) {
+          const int o = gr * RT + nt * 8 + tq;
+          if (wpb == 1) {
+            float* z0 = zs + j * ZT + o;
+            z0[0] = (float)z[nt][0] * sa;
+            z0[1] = (float)z[nt][1] * sa;
+            z0[8 * RT] = (float)z[nt][2] * sb;
+            z0[8 * RT + 1] = (float)z[nt][3] * sb;
+          } else {
+            zi[o] = z[nt][0];
+            zi[o + 1] = z[nt][1];
+            zi[o + 8 * RT] = z[nt][2];
+            zi[o + 8 * RT + 1] = z[nt][3];
+          }
+        }
+      } else {
         const bool own = wpb == 1;
         float sc = 1.f;
         if constexpr (CODES) sc = own ? scv[j] : 1.f;
@@ -836,10 +782,18 @@ blast_tile_kernel(const typename L::E* __restrict__ x,
         __syncthreads();   // every warp's partial is in
         for (int e = tid; e < P.nj * ZT; e += FNT) {
           const int jl = e / ZT, o = e - jl * ZT;
-          float s = 0.f;
-          for (int w = 0; w < wpb; ++w) s += rd[(jl * wpb + w) * ZT + o];
-          if constexpr (CODES) s *= scv[P.j0 + jl];
-          zs[(P.j0 + jl) * ZT + o] = s;
+          if constexpr (A8) {
+            const int* rdi = reinterpret_cast<const int*>(rd);
+            int s = 0;
+            for (int w = 0; w < wpb; ++w) s += rdi[(jl * wpb + w) * ZT + o];
+            zs[(P.j0 + jl) * ZT + o] =
+                (float)s * (sct[o / RT] * scv[P.j0 + jl]);
+          } else {
+            float s = 0.f;
+            for (int w = 0; w < wpb; ++w) s += rd[(jl * wpb + w) * ZT + o];
+            if constexpr (CODES) s *= scv[P.j0 + jl];
+            zs[(P.j0 + jl) * ZT + o] = s;
+          }
         }
       }
     }
@@ -1077,7 +1031,8 @@ struct TilePlan {
 
 template <class L>
 bool plan_tiles(int b, int p, int q, int nb, TilePlan& tp) {
-  const int qpad = (q + 15) / 16 * 16;
+  constexpr int K = KG<L>;
+  const int qpad = (q + K - 1) / K * K;
   const int pc0 = 8 * std::min((p + 7) / 8, FMAXP8);
   for (int pc = pc0; pc >= 8; pc -= 8) {
     const int bytes = FLayout<L>(b, nb, pc, b, qpad, false).bytes;
@@ -1095,12 +1050,12 @@ bool plan_tiles(int b, int p, int q, int nb, TilePlan& tp) {
         return true;
       }
     }
-    // kc rows of one block: the layout grows by a fixed step per 16 rows
+    // kc rows of one block: the layout grows by a fixed step per K rows
     const int base = FLayout<L>(b, nb, pc, 1, 0, true).bytes;
-    const int step = std::max(FLayout<L>(b, nb, pc, 1, 16, true).bytes - base,
+    const int step = std::max(FLayout<L>(b, nb, pc, 1, K, true).bytes - base,
                               1);
-    for (int kc = std::min(qpad - 16, (SMEM_MAX - base) / step * 16);
-         kc >= 16; kc -= 16) {
+    for (int kc = std::min(qpad - K, (SMEM_MAX - base) / step * K); kc >= K;
+         kc -= K) {
       const int bytes = FLayout<L>(b, nb, pc, 1, kc, true).bytes;
       if (bytes <= SMEM_MAX) {
         tp = {pc, 1, kc, bytes, true};
@@ -1112,12 +1067,13 @@ bool plan_tiles(int b, int p, int q, int nb, TilePlan& tp) {
 }
 
 template <class L, bool PAN, int P8>
-int run_tile(const void* x, const void* U, const void* S, const void* V,
-             const void* su, const void* ss, const void* sv, void* y,
-             float* part, int T_rows, int G, int b, int p, int q, int r,
-             int rps, int ipg, const TilePlan& tp, int splits,
+int run_tile(const void* x, const void* sx, const void* U, const void* S,
+             const void* V, const void* su, const void* ss, const void* sv,
+             void* y, float* part, int T_rows, int G, int b, int p, int q,
+             int r, int rps, int ipg, const TilePlan& tp, int splits,
              cudaStream_t stream) {
   using E = typename L::E;
+  using X = typename L::X;
   using F = typename L::F;
   static int opted_in = 48 * 1024;   // per instantiation
   if (tp.smem > opted_in) {
@@ -1131,7 +1087,7 @@ int run_tile(const void* x, const void* U, const void* S, const void* V,
                   splits * ((b + ipg - 1) / ipg) * ((p + tp.pc - 1) / tp.pc),
                   G);
   blast_tile_kernel<L, PAN, P8><<<grid, FNT, tp.smem, stream>>>(
-      (const E*)x, (const F*)U, (const F*)S, (const F*)V, (const float*)su,
+      (const X*)x, (const float*)sx, (const F*)U, (const F*)S, (const F*)V, (const float*)su,
       (const float*)ss, (const float*)sv, (E*)y, part, T_rows, b, p, q, r,
       rps, ipg, tp.pc, tp.jc, tp.kc);
   cudaError_t e = cudaGetLastError();
@@ -1154,22 +1110,23 @@ int run_tile(const void* x, const void* U, const void* S, const void* V,
                                  (E*)y, total, splits);
 }
 
-// x (T, n) and y (G, T, m) of type L::E; U/S/V (G, b, ·, r) as L stores
-// them (r logical ranks; packed int4 rows are r/2 bytes); su (G, b), ss
-// (G, b, b), sv (G, b) fp32 for codes.  The grid is (⌈T/16⌉, splits of r
+// x (T, n) of type L::X, y (G, T, m) of type L::E; U/S/V (G, b, ·, r) as
+// L stores them (r logical ranks; packed int4 rows are r/2 bytes); su (G,
+// b), ss (G, b, b), sv (G, b) fp32 for codes; sx (T, 1) fp32 for
+// activation codes.  The grid is (⌈T/16⌉, splits of r
 // (rps ranks each) × groups of ipg ≤ 16 output blocks × chunks of pc
 // columns, G), pc and the panels as plan_tiles chooses.  With rps < r (a
 // split launch), part is an fp32 workspace (splits, G, T, m); unused (may
 // be null) otherwise.  cudaErrorInvalidValue: a bad argument, or a b so
 // large that the z and S tiles alone do not fit.
 template <class L>
-int launch_tile(const void* x, const void* U, const void* S, const void* V,
-                const void* su, const void* ss, const void* sv, void* y,
-                void* part, int T_rows, int G, int b, int p, int q, int r,
-                int rps, int ipg, void* stream) {
+int launch_tile(const void* x, const void* sx, const void* U, const void* S,
+                const void* V, const void* su, const void* ss, const void* sv,
+                void* y, void* part, int T_rows, int G, int b, int p, int q,
+                int r, int rps, int ipg, void* stream) {
   if (T_rows <= 0 || G <= 0 || b <= 0 || p <= 0 || q <= 0 || r <= 0 ||
       r % FRANKS != 0 || rps <= 0 || rps % FRANKS != 0 || ipg <= 0 ||
-      ipg > FMAXB || (L::CODES && (!su || !ss || !sv)))
+      ipg > FMAXB || (L::CODES && (!su || !ss || !sv)) || (L::A8 && !sx))
     return (int)cudaErrorInvalidValue;
   const int splits = (r + rps - 1) / rps;
   if (splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
@@ -1179,27 +1136,26 @@ int launch_tile(const void* x, const void* U, const void* S, const void* V,
   const cudaStream_t st = (cudaStream_t)stream;
   float* pf = (float*)part;
   if (tp.pan)
-    return run_tile<L, true, FMAXP8>(x, U, S, V, su, ss, sv, y, pf, T_rows,
-                                     G, b, p, q, r, rps, ipg, tp, splits, st);
+    return run_tile<L, true, FMAXP8>(x, sx, U, S, V, su, ss, sv, y, pf,
+                                     T_rows, G, b, p, q, r, rps, ipg, tp,
+                                     splits, st);
   if (tp.pc <= 32)
-    return run_tile<L, false, 4>(x, U, S, V, su, ss, sv, y, pf, T_rows, G, b,
-                                 p, q, r, rps, ipg, tp, splits, st);
+    return run_tile<L, false, 4>(x, sx, U, S, V, su, ss, sv, y, pf, T_rows,
+                                 G, b, p, q, r, rps, ipg, tp, splits, st);
   if (tp.pc <= 64)
-    return run_tile<L, false, 8>(x, U, S, V, su, ss, sv, y, pf, T_rows, G, b,
-                                 p, q, r, rps, ipg, tp, splits, st);
-  return run_tile<L, false, FMAXP8>(x, U, S, V, su, ss, sv, y, pf, T_rows, G,
-                                    b, p, q, r, rps, ipg, tp, splits, st);
+    return run_tile<L, false, 8>(x, sx, U, S, V, su, ss, sv, y, pf, T_rows,
+                                 G, b, p, q, r, rps, ipg, tp, splits, st);
+  return run_tile<L, false, FMAXP8>(x, sx, U, S, V, su, ss, sv, y, pf,
+                                    T_rows, G, b, p, q, r, rps, ipg, tp,
+                                    splits, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// tiles of the W8A8 / W4A8 kernel, and of the tile kernel (token rows per
-// block; the rank granule of its padding and splits; output blocks per
-// block, at most)
-int blast_matmul_tile_t() { return BT; }
-int blast_matmul_tile_r() { return RT; }
+// the tile kernel's token rows per block, the rank granule of its padding
+// and splits, and its output blocks per block, at most
 int blast_float_tile_t() { return FBT; }
 int blast_float_tile_r() { return FRANKS; }
 int blast_float_tile_b() { return FMAXB; }
@@ -1210,28 +1166,30 @@ int blast_matmul_f32(const void* x, const void* U, const void* S,
                      const void* V, void* y, void* part, int T_rows, int G,
                      int b, int p, int q, int r, int rps, int ipg,
                      void* stream) {
-  return launch_tile<CopyRow<float>>(x, U, S, V, nullptr, nullptr, nullptr, y,
-                                     part, T_rows, G, b, p, q, r, rps, ipg,
-                                     stream);
+  return launch_tile<CopyRow<float>>(x, nullptr, U, S, V, nullptr, nullptr,
+                                     nullptr, y, part, T_rows, G, b, p, q, r,
+                                     rps, ipg, stream);
 }
 
 int blast_matmul_bf16(const void* x, const void* U, const void* S,
                       const void* V, void* y, void* part, int T_rows, int G,
                       int b, int p, int q, int r, int rps, int ipg,
                       void* stream) {
-  return launch_tile<CopyRow<__nv_bfloat16>>(x, U, S, V, nullptr, nullptr,
-                                             nullptr, y, part, T_rows, G, b,
-                                             p, q, r, rps, ipg, stream);
+  return launch_tile<CopyRow<__nv_bfloat16>>(x, nullptr, U, S, V, nullptr,
+                                             nullptr, nullptr, y, part,
+                                             T_rows, G, b, p, q, r, rps, ipg,
+                                             stream);
 }
 
-// int8 factor codes, float x (the tile kernel); y has x's type
+// int8 factor codes, float x; y has x's type
 int blast_matmul_q_f32(const void* x, const void* U, const void* S,
                        const void* V, const void* su, const void* ss,
                        const void* sv, void* y, void* part, int T_rows, int G,
                        int b, int p, int q, int r, int rps, int ipg,
                        void* stream) {
-  return launch_tile<CodeRow8<float>>(x, U, S, V, su, ss, sv, y, part, T_rows,
-                                      G, b, p, q, r, rps, ipg, stream);
+  return launch_tile<CodeRow8<float>>(x, nullptr, U, S, V, su, ss, sv, y,
+                                      part, T_rows, G, b, p, q, r, rps, ipg,
+                                      stream);
 }
 
 int blast_matmul_q_bf16(const void* x, const void* U, const void* S,
@@ -1239,20 +1197,21 @@ int blast_matmul_q_bf16(const void* x, const void* U, const void* S,
                         const void* sv, void* y, void* part, int T_rows,
                         int G, int b, int p, int q, int r, int rps, int ipg,
                         void* stream) {
-  return launch_tile<CodeRow8<__nv_bfloat16>>(x, U, S, V, su, ss, sv, y, part,
-                                              T_rows, G, b, p, q, r, rps, ipg,
-                                              stream);
+  return launch_tile<CodeRow8<__nv_bfloat16>>(x, nullptr, U, S, V, su, ss,
+                                              sv, y, part, T_rows, G, b, p, q,
+                                              r, rps, ipg, stream);
 }
 
 // int4 factor codes, nibble-packed (uint8, r/2 bytes per row; r counts
-// logical ranks), float x (the tile kernel); y has x's type
+// logical ranks), float x; y has x's type
 int blast_matmul_q4_f32(const void* x, const void* U, const void* S,
                         const void* V, const void* su, const void* ss,
                         const void* sv, void* y, void* part, int T_rows,
                         int G, int b, int p, int q, int r, int rps, int ipg,
                         void* stream) {
-  return launch_tile<CodeRow4<float>>(x, U, S, V, su, ss, sv, y, part, T_rows,
-                                      G, b, p, q, r, rps, ipg, stream);
+  return launch_tile<CodeRow4<float>>(x, nullptr, U, S, V, su, ss, sv, y,
+                                      part, T_rows, G, b, p, q, r, rps, ipg,
+                                      stream);
 }
 
 int blast_matmul_q4_bf16(const void* x, const void* U, const void* S,
@@ -1260,47 +1219,50 @@ int blast_matmul_q4_bf16(const void* x, const void* U, const void* S,
                          const void* sv, void* y, void* part, int T_rows,
                          int G, int b, int p, int q, int r, int rps, int ipg,
                          void* stream) {
-  return launch_tile<CodeRow4<__nv_bfloat16>>(x, U, S, V, su, ss, sv, y, part,
-                                              T_rows, G, b, p, q, r, rps, ipg,
-                                              stream);
+  return launch_tile<CodeRow4<__nv_bfloat16>>(x, nullptr, U, S, V, su, ss,
+                                              sv, y, part, T_rows, G, b, p, q,
+                                              r, rps, ipg, stream);
 }
 
-// W8A8: int8 activation codes xq with fp32 scales sx; the suffix names y's
-// type
+// W8A8: int8 activation codes xq (T, n) with fp32 token scales sx (T, 1)
+// against int8 factor codes; the suffix names y's type
 int blast_matmul_w8a8_f32(const void* xq, const void* sx, const void* U,
                           const void* S, const void* V, const void* su,
-                          const void* ss, const void* sv, void* y, int T_rows,
-                          int G, int b, int p, int q, int r, void* stream) {
-  return launch_a8<int8_t, float>(xq, sx, U, S, V, su, ss, sv, y, T_rows, G,
-                                  b, p, q, r, stream);
+                          const void* ss, const void* sv, void* y, void* part,
+                          int T_rows, int G, int b, int p, int q, int r,
+                          int rps, int ipg, void* stream) {
+  return launch_tile<ActRow8<float>>(xq, sx, U, S, V, su, ss, sv, y, part,
+                                     T_rows, G, b, p, q, r, rps, ipg, stream);
 }
 
 int blast_matmul_w8a8_bf16(const void* xq, const void* sx, const void* U,
                            const void* S, const void* V, const void* su,
                            const void* ss, const void* sv, void* y,
-                           int T_rows, int G, int b, int p, int q, int r,
-                           void* stream) {
-  return launch_a8<int8_t, __nv_bfloat16>(xq, sx, U, S, V, su, ss, sv, y,
-                                          T_rows, G, b, p, q, r, stream);
+                           void* part, int T_rows, int G, int b, int p, int q,
+                           int r, int rps, int ipg, void* stream) {
+  return launch_tile<ActRow8<__nv_bfloat16>>(xq, sx, U, S, V, su, ss, sv, y,
+                                             part, T_rows, G, b, p, q, r, rps,
+                                             ipg, stream);
 }
 
-// W4A8: int8 activation codes xq with fp32 scales sx against nibble-packed
-// int4 factor codes; the suffix names y's type
+// W4A8: as W8A8, against nibble-packed int4 factor codes
 int blast_matmul_w4a8_f32(const void* xq, const void* sx, const void* U,
                           const void* S, const void* V, const void* su,
-                          const void* ss, const void* sv, void* y, int T_rows,
-                          int G, int b, int p, int q, int r, void* stream) {
-  return launch_a8<uint8_t, float>(xq, sx, U, S, V, su, ss, sv, y, T_rows, G,
-                                   b, p, q, r, stream);
+                          const void* ss, const void* sv, void* y, void* part,
+                          int T_rows, int G, int b, int p, int q, int r,
+                          int rps, int ipg, void* stream) {
+  return launch_tile<ActRow4<float>>(xq, sx, U, S, V, su, ss, sv, y, part,
+                                     T_rows, G, b, p, q, r, rps, ipg, stream);
 }
 
 int blast_matmul_w4a8_bf16(const void* xq, const void* sx, const void* U,
                            const void* S, const void* V, const void* su,
                            const void* ss, const void* sv, void* y,
-                           int T_rows, int G, int b, int p, int q, int r,
-                           void* stream) {
-  return launch_a8<uint8_t, __nv_bfloat16>(xq, sx, U, S, V, su, ss, sv, y,
-                                           T_rows, G, b, p, q, r, stream);
+                           void* part, int T_rows, int G, int b, int p, int q,
+                           int r, int rps, int ipg, void* stream) {
+  return launch_tile<ActRow4<__nv_bfloat16>>(xq, sx, U, S, V, su, ss, sv, y,
+                                             part, T_rows, G, b, p, q, r, rps,
+                                             ipg, stream);
 }
 
 }  // extern "C"

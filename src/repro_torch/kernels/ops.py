@@ -4,15 +4,14 @@ A tensor on the CPU goes to the kernel's plain PyTorch version
 (``kernels/ref.py``); a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback.  The BLAST wrappers flatten the leading axes
 into T and zero-pad r to the kernel's rank granule, as the reference
-wrapper does (zero ranks are exact).  The float and weight-only int8 / int4
-wrappers run the tile kernel, which masks its T edge itself; the W8A8 /
-W4A8 ones also zero-pad T to their token tile (zero rows).  The quantized
-wrappers take per-block scales; int4 factors stay nibble-packed (uint8, two
-codes per byte along r) into the kernel, and their byte axis is zero-padded
-to half the padded rank (a zero byte is two zero codes).  With
-``act="int8"`` they quantize x per token first (a plain-PyTorch prologue,
-as the reference runs it in XLA outside its Pallas kernel) and zero-pad
-codes and scales alike.  ``launches`` counts kernel launches (plain-version
+wrapper does (zero ranks are exact); every one of them runs the tile
+kernel, which masks its T edge itself.  The quantized wrappers take
+per-block scales; int4 factors stay nibble-packed (uint8, two codes per
+byte along r) into the kernel, and their byte axis is zero-padded to half
+the padded rank (a zero byte is two zero codes).  With ``act="int8"`` they
+quantize x per token first (a plain-PyTorch prologue, as the reference
+runs it in XLA outside its Pallas kernel).  ``launches`` counts kernel
+launches (plain-version
 calls are not counted), so a run can show that its model path went through
 the kernels; ``blast_matmul_dx`` counts the B1 launches that compute a
 backward pass's dx.
@@ -67,10 +66,6 @@ def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
     return False
-
-
-def _round_up(x: int, mult: int) -> int:
-    return ((x + mult - 1) // mult) * mult
 
 
 def _pad_last(a: torch.Tensor, target: int) -> torch.Tensor:
@@ -223,26 +218,18 @@ def _grouped_q(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
                  else ref.blast_matmul_grouped_q_ref)
         return plain(x, U, S, V, su, ss, sv)
     lead = x.shape[:-1]
+    _, stored = _bm.padded_rank(rb, bits, _bm.float_tiles()[1])
+    U, S, V = (_pad_last(a, stored) for a in (U, S, V))
+    x2 = x.reshape(-1, x.shape[-1])
     if act == "int8":
-        block_t, block_r = _bm.tiles()
-        _, stored = _bm.padded_rank(rb, bits, block_r)
-        U, S, V = (_pad_last(a, stored) for a in (U, S, V))
-        T = math.prod(lead)
-        xq, sx = qt.quantize_act(x.reshape(T, x.shape[-1]))
-        T_pad = _round_up(max(T, 1), block_t)
-        if T_pad != T:        # zero codes with zero scales: exact zero rows
-            xq = F.pad(xq, (0, 0, 0, T_pad - T))
-            sx = F.pad(sx, (0, 0, 0, T_pad - T))
+        xq, sx = qt.quantize_act(x2)
         launch = _bm.launch_w4a8 if packed else _bm.launch_w8a8
         y = launch(xq.contiguous(), sx.contiguous(), U, S, V, su, ss, sv,
-                   out_dtype=x.dtype)[:, :T]
+                   out_dtype=x.dtype)
         launches[names[1]] += 1
-    else:                     # the tile kernel: r to its granule, T as is
-        _, stored = _bm.padded_rank(rb, bits, _bm.float_tiles()[1])
-        U, S, V = (_pad_last(a, stored) for a in (U, S, V))
+    else:
         launch = _bm.launch_q4 if packed else _bm.launch_q
-        y = launch(x.reshape(-1, x.shape[-1]).contiguous(), U, S, V, su, ss,
-                   sv)
+        y = launch(x2.contiguous(), U, S, V, su, ss, sv)
         launches[names[0]] += 1
     return y.reshape(G, *lead, b * p)
 

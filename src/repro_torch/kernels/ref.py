@@ -70,18 +70,17 @@ def blast_matmul_a8_ref(xq: torch.Tensor, sx: torch.Tensor, U: torch.Tensor,
     by ``sx · sv_j`` (sx (..., 1) fp32); stages 2–3 run on the fp32 ``z``
     as in the int8-weight path.  Returns fp32 (..., m).
 
-    Stage 1 runs in fp32 on the integer codes (a CUDA device has no integer
-    ``einsum``).  That is exact: every product is an integer of magnitude
-    ≤ 127², so every partial sum over q terms is an integer below
-    q·127² < 2^24 for q ≤ 1040, which fp32 holds exactly in any order
-    (smollm-135m's largest q is 96)."""
+    Stage 1 runs in float64 on the integer codes (a CUDA device has no
+    integer ``einsum``).  That is exact for any q: every product is an
+    integer of magnitude ≤ 127², so every partial sum over q terms is an
+    integer below q·127² < 2^53, which float64 holds exactly in any order.
+    The cast of z to fp32 then rounds as the oracle's int32 → fp32 cast
+    does."""
     b, q, r = V.shape
     p = U.shape[1]
-    if q * 127 * 127 >= 1 << 24:
-        raise ValueError(f"q = {q}: the fp32 stage-1 sum is no longer exact")
     lead = xq.shape[:-1]
-    xb = xq.reshape(*lead, b, q).float()
-    z = torch.einsum("...jq,jqr->...jr", xb, V.float())
+    xb = xq.reshape(*lead, b, q).double()
+    z = torch.einsum("...jq,jqr->...jr", xb, V.double()).float()
     z = z * sx.float()[..., None] * sv.float()[:, None]
     Sf = S.float() * ss.float()[:, :, None]
     w = torch.einsum("...jr,ijr->...ir", z, Sf)

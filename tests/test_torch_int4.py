@@ -32,6 +32,7 @@ from repro import quant as jq
 from repro.checkpoint import store
 from repro.core import structures as jstructures
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 
 from repro_torch import quant, weights
 from repro_torch.configs.base import StructureConfig
@@ -133,6 +134,29 @@ def _packed_group(rng, G, b, p, q, r):
         scales[k] = torch.stack([x_.scale.reshape((b,) * _SCALE_NDIM[k])
                                  for x_ in qa])
     return codes, scales
+
+
+@pytest.mark.parametrize("q", [1100, 1712])
+def test_a4_plain_version_matches_jax_at_wide_q(q):
+    """The grouped W4A8 plain version (packed codes, odd rank) against the
+    JAX oracle on the unpacked codes (int32 stage 1) past q = 1040, where an
+    fp32 stage 1 would no longer be exact."""
+    G, b, p, r, T = 2, 2, 3, 5, 5
+    rng = np.random.default_rng(q)
+    xq = rng.integers(-127, 128, (T, b * q), dtype=np.int8)
+    sx = rng.uniform(0.5, 1.0, (T, 1)).astype(np.float32) / 127
+    codes = [rng.integers(-7, 8, (G, b, k, r), dtype=np.int8)
+             for k in (p, b, q)]
+    scales = [rng.uniform(0.5, 1.0, shape).astype(np.float32) / 7
+              for shape in ((G, b), (G, b, b), (G, b))]
+    want = jref.blast_matmul_grouped_a8_ref(
+        *(jnp.asarray(a) for a in (xq, sx, *codes, *scales)))
+    packed = [quant.pack_int4(_t(c)) for c in codes]
+    assert packed[0].shape[-1] == (r + 1) // 2
+    got = ref.blast_matmul_grouped_a4_ref(
+        _t(xq), _t(sx), *packed, *(_t(a) for a in scales))
+    assert got.shape == (G, T, b * p)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KTOL)
 
 
 @pytest.mark.parametrize("act", ["none", "int8"])

@@ -110,16 +110,13 @@ class TestOnCard:
     @pytest.mark.parametrize("act,T,G,b,p,q,r", [
         (act, *shape) for act in ("none", "int8")
         for shape in [(1, 1, 4, 24, 16, 19), (37, 1, 16, 60, 36, 144),
-                      (37, 2, 4, 8, 8, 21), (8, 2, 16, 96, 36, 176),
-                      (8, 2, 6, 128, 512, 64), (2048, 1, 6, 128, 512, 32)]]
-        + [("none", *shape) for shape in WIDE if shape[2] * shape[4] > 3072])
+                      (37, 2, 4, 8, 8, 21), (8, 2, 16, 96, 36, 176)] + WIDE])
     def test_blast_q_kernels(self, cuda, bits, act, dtype, tol, T, G, b, p,
                              q, r):
-        """int8 / int4 weights (act "none", the tile kernel, n up to 27392)
-        and W8A8 / W4A8 (act "int8", the first design, whose x tile holds n
-        up to about 7,000): the kernel and its plain version get the same
-        codes (int4: nibble-packed, odd ranks included), scales and
-        activation codes."""
+        """int8 / int4 weights (act "none") and W8A8 / W4A8 (act "int8"),
+        all on the tile kernel, n up to 27392: the kernel and its plain
+        version get the same codes (int4: nibble-packed, odd ranks
+        included), scales and activation codes."""
         rng = np.random.default_rng(T + G + r)
         x = _t(rng.standard_normal((T, b * q)).astype(np.float32)).to(cuda, dtype)
         qas = [[quant.quantize(_t(a[g]).to(cuda) / 4, bits=bits,
@@ -155,14 +152,16 @@ class TestOnCard:
         assert got.dtype == dtype and got.shape == (G, T, b * p)
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
+    @pytest.mark.parametrize("act", ["none", "int8"])
     @pytest.mark.parametrize("bits", [8, 4])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("T,G,q", [(8, 1, 36), (2048, 2, 36),
                                        (8, 2, 512)])
-    def test_blast_q_repeats_bitwise(self, cuda, bits, dtype, T, G, q):
-        """Two launches of the weight-only tile kernel on the same inputs
-        give the same bits: split r (T = 8), unsplit (2048 tokens), and the
-        input axis in panels (n = 8192)."""
+    def test_blast_q_repeats_bitwise(self, cuda, act, bits, dtype, T, G, q):
+        """Two launches of the quantized tile kernel on the same inputs give
+        the same bits, weight-only (act "none") and W8A8 / W4A8 (act
+        "int8"): split r (T = 8), unsplit (2048 tokens), and the input axis
+        in panels (n = 8192)."""
         b, p, r = 16, 96, 176
         rng = np.random.default_rng(T + G + q)
         x = _t(rng.standard_normal((T, b * q)).astype(np.float32)).to(
@@ -176,10 +175,34 @@ class TestOnCard:
                   for qa, shape in zip(qas, ((b,), (b, b), (b,)))]
         grouped = (ops.blast_matmul_grouped_q4 if bits == 4
                    else ops.blast_matmul_grouped_q)
-        first = grouped(x, *codes, *scales)
-        second = grouped(x, *codes, *scales)
+        first = grouped(x, *codes, *scales, act=act)
+        second = grouped(x, *codes, *scales, act=act)
         torch.cuda.synchronize()
         assert torch.equal(first, second)
+
+    @pytest.mark.parametrize("q", [96, 1712])
+    def test_a8_stage_one_is_exact(self, cuda, q):
+        """The W8A8 kernel's s8 stage 1 and its int32 partial sums are
+        exact: with U and S passing z_0 of each block through to column 0
+        (unit scales), at the extreme codes ±127, y equals ∓q·127² exactly —
+        past 2^24 at q = 1712 (n = 27392: the input axis in panels of rows
+        of one block, partials added across warps)."""
+        T, b, p, r = 4, 16, 8, 16
+        xq = torch.full((T, b * q), 127, dtype=torch.int8, device=cuda)
+        xq[1] = -127
+        V = torch.full((1, b, q, r), -127, dtype=torch.int8, device=cuda)
+        U = torch.zeros((1, b, p, r), dtype=torch.int8, device=cuda)
+        U[:, :, 0, 0] = 1
+        S = torch.eye(b, dtype=torch.int8, device=cuda)[None, :, :, None]
+        S = S.expand(1, b, b, r).contiguous()
+        ones = torch.ones((1, b), device=cuda)
+        y = bm.launch_w8a8(xq, torch.ones((T, 1), device=cuda), U, S, V,
+                           ones, torch.ones((1, b, b), device=cuda), ones,
+                           out_dtype=torch.float32)
+        want = torch.zeros((1, T, b, p), dtype=torch.float64)
+        want[0, :, :, 0] = -q * 127 * 127
+        want[0, 1] *= -1
+        assert torch.equal(y.cpu().double(), want.reshape(1, T, b * p))
 
     def test_q4_fp32_error_is_summation_order(self, cuda):
         """At unscaled factors the int4 kernel's fp32 outputs reach ~1e3,

@@ -37,6 +37,7 @@ from repro import quant as jq
 from repro.checkpoint import store
 from repro.core import structures as jstructures
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 
 from repro_torch import quant, weights
 from repro_torch.core import structures
@@ -186,10 +187,12 @@ def test_cpu_q_paths_count_no_launches():
     assert set(ops.launches.values()) == {0}
 
 
-def test_a8_plain_version_is_exact_in_stage_one():
-    """The fp32 stage 1 of the W8A8 plain version equals an integer
-    contraction (here at the extreme codes ±127, q = 96)."""
-    b, p, q, r = 2, 3, 96, 5
+@pytest.mark.parametrize("q", [96, 1712])
+def test_a8_plain_version_is_exact_in_stage_one(q):
+    """Stage 1 of the W8A8 plain version equals an integer contraction (here
+    at the extreme codes ±127; at q = 1712, qwen1.5-32b's down, the partial
+    sums pass 2^24, where an fp32 sum would round)."""
+    b, p, r = 2, 3, 5
     xq = torch.full((4, b * q), 127, dtype=torch.int8)
     xq[1] = -127
     V = torch.full((b, q, r), -127, dtype=torch.int8)
@@ -200,8 +203,29 @@ def test_a8_plain_version_is_exact_in_stage_one():
     y = ref.blast_matmul_a8_ref(xq, torch.ones(4, 1), U, S, V, ones,
                                 torch.ones(b, b), ones)
     exact = int((xq[:, :q].long() * V[0, :, 0].long()).sum(-1)[0])
-    assert exact == -96 * 127 * 127
+    assert exact == -q * 127 * 127
     assert y[0, 0].item() == exact and y[1, 0].item() == -exact
+
+
+@pytest.mark.parametrize("q", [1100, 1712])
+def test_a8_plain_version_matches_jax_at_wide_q(q):
+    """The grouped W8A8 plain version against the JAX oracle (int32 stage
+    1) past q = 1040, where an fp32 stage 1 would no longer be exact, on
+    random codes."""
+    G, b, p, r, T = 2, 2, 3, 5, 5
+    rng = np.random.default_rng(q)
+    xq = rng.integers(-127, 128, (T, b * q), dtype=np.int8)
+    sx = rng.uniform(0.5, 1.0, (T, 1)).astype(np.float32) / 127
+    codes = [rng.integers(-127, 128, (G, b, k, r), dtype=np.int8)
+             for k in (p, b, q)]
+    scales = [rng.uniform(0.5, 1.0, shape).astype(np.float32) / 127
+              for shape in ((G, b), (G, b, b), (G, b))]
+    want = jref.blast_matmul_grouped_a8_ref(
+        *(jnp.asarray(a) for a in (xq, sx, *codes, *scales)))
+    got = ref.blast_matmul_grouped_a8_ref(
+        *(_t(a) for a in (xq, sx, *codes, *scales)))
+    assert got.shape == (G, T, b * p)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KTOL)
 
 
 # -- the model --------------------------------------------------------------
