@@ -15,9 +15,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    every BLAST kernel at T = 8 (r split across blocks) and 2048 (unsplit)
    equal bit for bit: the float BLAST kernels, the int8- and int4-weight
    kernels, the W8A8 and W4A8 kernels (each kernel and its plain version
-   get the same activation codes), prefill attention, and full-sequence
-   attention (B4: causal at B=8 T=256 and B=1 T=2048, a ragged T=200, a
-   window, a q_offset, non-causal).  Past smollm-135m: every BLAST kernel
+   get the same activation codes), prefill attention (B3: C = 1 and 32 at
+   random offsets, C = 1 at the serving run's positions and at the last
+   slot, a window, kv_len < S), and full-sequence attention (B4: causal at
+   B=8 T=256 and B=1 T=2048, a ragged T=200, a window, a q_offset,
+   non-causal); two launches of B3 at decode (bf16: split keys) and of B4
+   at the training shape equal bit for bit; B3's split combine kernel
+   alone against its plain version.  Past smollm-135m: every BLAST kernel
    (B1, B2, B5–B12) at n = 8192 (granite-3-2b's down, b = 16) and n = 3072
    (gpt2-blast's down, b = 6), where the input axis is staged in panels,
    and B3 and B4 at head dim 256 (recurrentgemma-2b's heads).
@@ -39,26 +43,34 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    random weights) served by the engine in each mode (weights quantized at
    load): 16 prompts of 16-200 tokens, 32 new tokens each; each mode's own
    kernels' launch counters must equal steps × (90, 30, 30) and the others
-   stay 0.  Then, in each mode, six steady decode steps (8 slots) under
-   torch.profiler: device busy and idle share per step, kernel time by
-   name; every mode's BLAST launches run the tile kernel's two
-   ``__global__``s and no other.
+   stay 0; each step's B3 key splits follow from its host geometry
+   (``split_plan``), and the run prints how many steps split.  Then, in
+   each mode, six steady decode steps (8 slots, prompts of 16 tokens)
+   under torch.profiler: device busy and idle share per step, kernel time
+   by name; every mode's BLAST launches run the tile kernel's two
+   ``__global__``s and no other, and its attention launches the bf16
+   attention kernel (30 a step) and no other (``attn_per_step``).  One
+   more float profile decodes after prompts of 192 tokens, where B3
+   splits the keys: the split combine must run 30 times a step.
 8. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
    steps (bf16, remat, batch 8 × seq 256 of the Markov ``TokenStream``,
    lr 3e-4 with warmup 5): per step loss, grad norm, skipped flag, time
    and launches; the median step time, training tokens/s, peak device
    memory, launches per step, and one more step under torch.profiler.
    Every loss finite, no step skipped, the last 5 losses' mean below the
-   first, B4 launched 30 × 2 times a step, no serving-only kernel.
+   first, B4 launched 30 × 2 times a step, no serving-only kernel; the
+   profiled step's attention is the bf16 tile kernel alone, 60 launches.
 9. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each run: kernel, plain version and one PyTorch library
    call (a yardstick only; the port never calls it), at decode, prefill
-   and training shapes (B4; B1 and B2 forward and B1 as the backward's dx
+   and training shapes (B3 at decode also at the serving run's positions,
+   16–32; B4; B1 and B2 forward and B1 as the backward's dx
    at 2048 tokens), and every BLAST kernel at n = 8192 (panels), beside
    each call's bound on the H100; the W8A8 and W4A8 rows also time the
    kernel alone on ready codes and print the quantize prologue's share.
-   The profiles of phases 7 and 8 also sum the tile kernel's two
-   ``__global__``s (``blast_tile_kernel``, ``blast_split_sum``).
+   The profiles of phases 7 and 8 also sum the BLAST tile kernel's two
+   ``__global__``s (``blast_tile_kernel``, ``blast_split_sum``) and the
+   attention kernel's (``attn_tile_kernel``, ``attn_split_combine``).
 
 The last lines are the per-kernel JSON summary, the ``nvidia-smi`` line,
 and ``{"ok": true, "device": {...}}``.
@@ -217,19 +229,34 @@ def quant_calls(mode, x, codes, scales, r):
     return kname, kern, plain
 
 
-def make_attn_inputs(B, Hq, Hkv, C, S, D, dtype, gen, device):
+def make_attn_inputs(B, Hq, Hkv, C, S, D, dtype, gen, device, offsets=None):
     """q (B, Hq, C, D) as the model's transposed view, the cache in its
-    (B, S, Hkv, D) layout viewed as (B, Hkv, S, D), random row offsets."""
+    (B, S, Hkv, D) layout viewed as (B, Hkv, S, D), row offsets drawn from
+    ``offsets`` = (lo, hi) inclusive (default: anywhere, 0 … S − C)."""
     import torch
+    lo, hi = offsets or (0, S - C)
     q = torch.randn((B, C, Hq, D), generator=gen).to(device=device, dtype=dtype)
     k = torch.randn((B, S, Hkv, D), generator=gen).to(device=device, dtype=dtype)
     v = torch.randn((B, S, Hkv, D), generator=gen).to(device=device, dtype=dtype)
-    offs = torch.randint(0, S - C + 1, (B,), generator=gen).to(device=device,
-                                                                dtype=torch.int32)
+    offs = torch.randint(lo, hi + 1, (B,), generator=gen).to(device=device,
+                                                             dtype=torch.int32)
     return (q.transpose(1, 2), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
             offs)
 
 
+# decode positions of the serving run's profiled steps (prompts of 16
+# tokens, then decode): the offsets of the timing phase's "serving" row
+SERVING_OFFSETS = (16, 32)
+# prompt tokens of the float decode profile whose context spans four key
+# tiles (positions 194–199, near the top of the serving run's 16–232), where
+# B3 takes its split path
+LONG_PROMPT = 192
+# B3 cases of the kernels phase (B = 8, S = 512): (C, offsets, options) —
+# anywhere, at the serving run's positions, at the last slot (every split
+# live), a window, kv_len < S
+B3_CASES = [(1, None, {}), (32, None, {}), (1, SERVING_OFFSETS, {}),
+            (1, (511, 511), {}), (32, None, {"window": 100}),
+            (20, None, {"kv_len": 400})]
 # B4 cases of the kernels phase: (B, T, S, options)
 B4_CASES = [(8, 256, 256, {}), (1, 2048, 2048, {}), (8, 200, 200, {}),
             (8, 256, 256, {"window": 64}), (8, 256, 320, {"q_offset": 64}),
@@ -417,6 +444,10 @@ def phase_kernels(cfg):
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator().manual_seed(SEED)
+    # the B3 cases past the first two, the repeats and the combine check
+    # draw from a generator of their own, so that the other cases keep
+    # their inputs (and fp32 errors) as the kernels change around them
+    gen_b3 = torch.Generator().manual_seed(SEED + 18)
     errs = {k: 0.0 for k in SOURCES}
 
     def check(kname, label, got, want, dname):
@@ -427,13 +458,20 @@ def phase_kernels(cfg):
             errs[kname] = max(errs[kname], e)
 
     def attention(hq, hkv, hd, full_cases, dtype, dname):
-        for C in (1, 32):
+        for i, (C, offsets, kw) in enumerate(B3_CASES):
             q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dtype,
-                                             gen, DEVICE)
+                                             gen if i < 2 else gen_b3, DEVICE,
+                                             offsets)
+            where = "" if offsets is None else f" offsets={list(offsets)}"
             check("flash_attention_prefill",
-                  f"B=8 Hq={hq} Hkv={hkv} C={C} S=512 D={hd}",
-                  ops.flash_attention_prefill(q, k, v, offs),
-                  ref.attention_prefill_ref(q, k, v, offs), dname)
+                  f"B=8 Hq={hq} Hkv={hkv} C={C} S=512 D={hd}{where}"
+                  + (f" {kw}" if kw else ""),
+                  ops.flash_attention_prefill(q, k, v, offs, **kw),
+                  ref.attention_prefill_ref(q, k, v, offs, **kw), dname)
+            if i == 1:        # the B4 cases draw after the first two
+                full(hq, hkv, hd, full_cases, dtype, dname)
+
+    def full(hq, hkv, hd, full_cases, dtype, dname):
         for B, T, S, kw in full_cases:
             q, k, v = make_full_attn_inputs(B, hq, hkv, T, S, hd, dtype, gen,
                                             DEVICE)
@@ -467,7 +505,60 @@ def phase_kernels(cfg):
         attention(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, B4_CASES,
                   dtype, dname)
         attention(*WIDE_HEADS, B4_WIDE_CASES, dtype, dname)
+        attention_repeats(cfg, dtype, dname, gen_b3)
+    errs["flash_attention_prefill"] = max(errs["flash_attention_prefill"],
+                                          check_combine(cfg, gen_b3))
     return errs
+
+
+def attention_repeats(cfg, dtype, dname, gen) -> None:
+    """Two launches of each attention kernel on the same inputs agree bit
+    for bit: B3 at decode, where the plan splits the keys and the combine
+    adds the splits in a fixed order, and B4 at the training shape."""
+    import torch
+    from repro_torch.kernels import ops
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q, k, v, offs = make_attn_inputs(8, hq, hkv, 1, 512, hd, dtype, gen,
+                                     DEVICE)
+    qf, kf, vf = make_full_attn_inputs(TRAIN_BATCH, hq, hkv, TRAIN_SEQ,
+                                       TRAIN_SEQ, hd, dtype, gen, DEVICE)
+    for kname, label, run in (
+            ("flash_attention_prefill", "B=8 C=1 S=512" + (
+                " (split)" if dtype == torch.bfloat16 else ""),
+             lambda: ops.flash_attention_prefill(q, k, v, offs)),
+            ("flash_attention", f"B={TRAIN_BATCH} T={TRAIN_SEQ}",
+             lambda: ops.flash_attention(qf, kf, vf))):
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(first, second))
+        emit({"phase": "kernels", "case": f"{kname}[{label}] repeat",
+              "dtype": dname, "bitwise_identical": same, "ok": same})
+        if not same:
+            raise RuntimeError(f"{kname}[{label} {dname}]: two launches "
+                               "differ")
+
+
+def check_combine(cfg, gen) -> float:
+    """B3's split combine kernel alone against its plain version, on the
+    partials of the plain split algorithm at decode (B = 8, C = 1, S = 512,
+    the plan's splits; rows at the first slots leave later splits empty);
+    bf16 output, bf16 tolerance.  Returns the max error."""
+    import torch
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as fa
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q, k, v, offs = make_attn_inputs(8, hq, hkv, 1, 512, hd, torch.float32,
+                                     gen, DEVICE)
+    offs[:2] = 0
+    _, _, splits, kps = fa.split_plan(8, hkv, hq // hkv, 1, 512,
+                                      build.sm_count(q.device))
+    acc, m, l = ref.attention_split_ref(q, k, v, offs, splits=splits,
+                                        keys_per_split=kps)
+    got = fa.launch_combine(acc, m, l)
+    torch.cuda.synchronize()
+    return check_close(f"flash_attention_prefill[combine splits={splits} "
+                       f"kps={kps}]", got, ref.attention_combine_ref(
+                           acc, m, l).to(torch.bfloat16), "bfloat16")
 
 
 def repeat_identical(call, linear, T, dname) -> None:
@@ -654,12 +745,22 @@ def phase_serve(cfg, model, params, mode):
     import numpy as np
     import torch
     from repro_torch import quant
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.serve import Engine, SamplingParams
     finite = []
+    splits = []         # each step's B3 key splits, from its host geometry
+    sms = build.sm_count(torch.device(DEVICE))
 
-    def step(*args):
-        logits, cache = model.prefill_chunk(*args)
+    def step(params, cache, tokens, steps, n_tokens):
+        # kv_len as the attention layer passes it: the largest live slot + 1
+        B, C = tokens.shape
+        kv_len = int(max(s + n for s, n in zip(steps, n_tokens) if n))
+        splits.append(fa.split_plan(B, cfg.n_kv_heads,
+                                    cfg.n_heads // cfg.n_kv_heads, C, kv_len,
+                                    sms)[2])
+        logits, cache = model.prefill_chunk(params, cache, tokens, steps,
+                                            n_tokens)
         finite.append(torch.isfinite(logits).all())
         return logits, cache
 
@@ -709,7 +810,9 @@ def phase_serve(cfg, model, params, mode):
           "decode_step_ms_median": 1e3 * statistics.median(
               engine.stats["decode_step_s"]),
           "launches": {k: v for k, v in launches.items() if v},
-          "per_step": [90, 30, 30]})
+          "per_step": [90, 30, 30],
+          "attn_split_steps": sum(k > 1 for k in splits),
+          "attn_splits_max": max(splits)})
     return launches
 
 
@@ -729,17 +832,48 @@ def tile_blast(kernels) -> dict:
     return out
 
 
-def phase_profile(model, params, mode):
-    """Device busy share of steady decode: 8 slots in decode, 6 engine
-    steps under ``torch.profiler``; kernel time by name from the trace."""
+ATTN_KERNELS = ("attn_tile_kernel", "attn_split_combine")
+
+
+def attention_kernels(kernels, per: int, want_tile: int,
+                      want_combine: int = 0) -> dict:
+    """Calls and device ms (divided by ``per``) of the bf16 attention
+    kernel and its split combine in a profile's {name: [calls, ms]}.
+    Raises unless every attention launch ran one of the two, the tile
+    kernel ran ``want_tile`` times (B3's or B4's launches) and the combine
+    ``want_combine`` times (B3's split launches)."""
+    out = {}
+    for name in ATTN_KERNELS:
+        mine = [v for k, v in kernels.items() if name in k]
+        out[name] = {"calls": sum(v[0] for v in mine) / per,
+                     "ms": sum(v[1] for v in mine) / per}
+    out["ms"] = sum(out[name]["ms"] for name in ATTN_KERNELS)
+    other = sorted(k for k in kernels if "attn" in k and not any(
+        t in k for t in ATTN_KERNELS))
+    if (other or out["attn_tile_kernel"]["calls"] * per != want_tile
+            or out["attn_split_combine"]["calls"] * per != want_combine):
+        raise RuntimeError(f"bf16 attention did not run the tile kernel "
+                           f"alone: {out}, other kernels {other}")
+    return out
+
+
+def phase_profile(model, params, mode, prompt_len=16):
+    """Device busy share of steady decode: 8 slots in decode after prompts
+    of ``prompt_len`` tokens, 6 engine steps under ``torch.profiler``;
+    kernel time by name from the trace.  Past one key tile of context
+    (``LONG_PROMPT``) B3 splits the keys: its combine must run once for
+    each of its launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.serve import Engine, Request
     engine = Engine(model, params, serve_config(mode), device=DEVICE)
     for i in range(8):
-        engine.submit(Request(uid=i, prompt=list(range(1, 17)),
+        engine.submit(Request(uid=i, prompt=list(range(1, prompt_len + 1)),
                               max_new_tokens=64))
-    engine.run(max_iters=3)          # prefill, then warm decode
+    # prefill (chunks of 32), then warm decode
+    engine.run(max_iters=-(-prompt_len // 32) + 2)
     n_steps = 6
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -761,7 +895,15 @@ def phase_profile(model, params, mode):
     if other or not tile_blast(kernels)["blast_tile_kernel"]["calls"]:
         raise RuntimeError(f"{mode} decode did not run the tile kernel alone:"
                            f" other BLAST kernels {other}")
-    emit({"phase": "profile", "mode": mode, "decode_steps": n_steps,
+    # the profiled steps write slots prompt_len + 2 … + 7 (after two warm
+    # decode steps): kv_len as the attention layer passes it, and B3's plan
+    cfg = model.cfg
+    sms = build.sm_count(torch.device(DEVICE))
+    split_steps = sum(
+        fa.split_plan(8, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, 1,
+                      prompt_len + 3 + i, sms)[2] > 1 for i in range(n_steps))
+    emit({"phase": "profile", "mode": mode, "prompt_len": prompt_len,
+          "decode_steps": n_steps,
           "slots": 8, "wall_ms_per_step": wall_ms / n_steps,
           "device_busy_ms_per_step": busy / n_steps if kernels else None,
           "device_idle_share": 1 - busy / wall_ms if kernels else None,
@@ -771,6 +913,9 @@ def phase_profile(model, params, mode):
               k: ({"calls": v["calls"] / n_steps, "ms": v["ms"] / n_steps}
                   if isinstance(v, dict) else v / n_steps)
               for k, v in tile_blast(kernels).items()},
+          "attn_per_step": attention_kernels(
+              kernels, n_steps, cfg.n_layers * n_steps,
+              cfg.n_layers * split_steps),
           "top": [{"name": n[:80], "calls_per_step": c / n_steps,
                    "ms_per_step": t / n_steps} for n, (c, t) in top]})
 
@@ -974,7 +1119,7 @@ def phase_train(cfg):
     trained = {"blast_matmul", "blast_matmul_grouped", "flash_attention",
                "blast_matmul_dx"}
     stray = {k: v for k, v in launches.items() if v and k not in trained}
-    prof = _profile_train_step(inner, result, data)
+    prof = _profile_train_step(inner, result, data, want_b4 // TRAIN_STEPS)
     emit({"phase": "train", "arch": cfg.name, "layers": L,
           "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.param_dtype,
           "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -1007,7 +1152,7 @@ def phase_train(cfg):
     return launches
 
 
-def _profile_train_step(step_fn, result, data):
+def _profile_train_step(step_fn, result, data, want_b4):
     """One more training step under torch.profiler: device time by kernel
     name and the device idle share of the step."""
     import torch
@@ -1033,6 +1178,7 @@ def _profile_train_step(step_fn, result, data):
             "device_idle_share": 1 - busy / wall_ms if kernels else None,
             "device_ops": sum(v[0] for v in kernels.values()),
             "tile_blast": tile_blast(kernels),
+            "attn": attention_kernels(kernels, 1, want_b4),
             "top": [{"name": n[:80], "calls": c, "ms": t}
                     for n, (c, t) in top]}
 
@@ -1048,7 +1194,7 @@ def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes_ms": t_bytes, "ops_ms": t_ops, "bytes": bytes_,
            "flops": flops,
-           **{k: f if isinstance(f, bool) else time_ms(f, flush)
+           **{k: time_ms(f, flush) if callable(f) else f
               for k, f in extra.items()}}
     if "launch_only_ms" in row:     # the quantize prologue and the wrapper
         row["prologue_ms"] = row["ms"] - row["launch_only_ms"]
@@ -1130,24 +1276,37 @@ def phase_timing(cfg):
     x, U, S, V = float_row(label, n, m, b, r, 1, 8, panels=True)
     quant_rows(label, n, m, b, r, 1, 8, x, U, S, V, QUANT_MODES, panels=True)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    for C in (1, 32):
-        q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen, DEVICE)
-        kc, vc = k.contiguous(), v.contiguous()
+    for C, offsets in ((1, None), (32, None), (1, SERVING_OFFSETS)):
+        q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen,
+                                         DEVICE, offsets)
+        # at the serving positions, kv_len as the attention layer passes it
+        # (its largest live slot + 1); elsewhere the whole cache.  SDPA gets
+        # the same key range
+        kw = {} if offsets is None else {"kv_len": int(offs.max()) + C}
+        kv = kw.get("kv_len", 512)
+        kc, vc = k[:, :, :kv].contiguous(), v[:, :, :kv].contiguous()
         qpos = offs[:, None].long() + torch.arange(C, device=DEVICE)[None]
-        mask = (torch.arange(512, device=DEVICE)[None, None]
-                <= qpos[:, :, None])[:, None]           # (B, 1, C, S)
-        kern = lambda: ops.flash_attention_prefill(q, k, v, offs)  # noqa: E731
-        plain = lambda: ref.attention_prefill_ref(q, k, v, offs)  # noqa: E731
+        mask = (torch.arange(kv, device=DEVICE)[None, None]
+                <= qpos[:, :, None])[:, None]           # (B, 1, C, kv)
+        kern = lambda: ops.flash_attention_prefill(  # noqa: E731
+            q, k, v, offs, **kw)
+        plain = lambda: ref.attention_prefill_ref(  # noqa: E731
+            q, k, v, offs, **kw)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, kc, vc, attn_mask=mask, enable_gqa=True)
         want = ref.attention_prefill_ref(q, k, v, offs)
-        check_close(f"sdpa yardstick C={C}", lib(), want, dname)
+        where = "random" if offsets is None else "serving"
+        check_close(f"sdpa yardstick C={C} offsets {where}", lib(), want,
+                    dname)
         bytes_, flops = attn_cost(q, k, offs, elt)
+        shape = (f"B=8 Hq={hq} Hkv={hkv} C={C} S=512 D={hd} offsets "
+                 f"{list(offsets or (0, 512 - C))}"
+                 + "".join(f" {k}={v}" for k, v in kw.items()))
+        check_close(f"flash_attention_prefill[{shape}]", kern(), want, dname)
         rows.append(timing_row(
-            "flash_attention_prefill", "attn", 8 * C,
-            f"B=8 Hq={hq} Hkv={hkv} C={C} S=512 D={hd}", kern, plain, lib,
+            "flash_attention_prefill", "attn", 8 * C, shape, kern, plain, lib,
             "scaled_dot_product_attention (masked, GQA)",
-            (bytes_, {dname: flops}), flush))
+            (bytes_, {dname: flops}), flush, offsets=where))
     for B, T in ((8, 256), (1, 2048)):
         q, k, v = make_full_attn_inputs(B, hq, hkv, T, T, hd, dt, gen, DEVICE)
         kern = lambda: ops.flash_attention(q, k, v)  # noqa: E731
@@ -1236,8 +1395,10 @@ def summary(rows, errs, launches):
             picked = [r for r in mine if r["shape"].startswith("B=8 ")]
             per = "one call at the training shape (B=8, T=256)"
         else:
-            picked = [r for r in mine if r["T"] == 8 and not r.get("panels")]
-            per = "one layer's calls in one decode step (T=8)"
+            picked = [r for r in mine if r["T"] == 8 and not r.get("panels")
+                      and r.get("offsets", "random") == "random"]
+            per = ("one layer's calls in one decode step (T=8; attention "
+                   "at random offsets)")
         tot = {k: sum(r[k] for r in picked)
                for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
         entry = {"name": kname, "route": "cuda", "source": src,
@@ -1278,6 +1439,7 @@ def main() -> int:
     launches = {mode: phase_serve(cfg, model, params, mode) for mode in MODES}
     for mode in MODES:
         phase_profile(model, params, mode)
+    phase_profile(model, params, "none", prompt_len=LONG_PROMPT)
     del model, params
     launches["train"] = phase_train(cfg)
     rows = phase_timing(cfg)

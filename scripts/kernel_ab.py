@@ -13,8 +13,11 @@ kernels alone on ready activation codes there (``... launch_only``: the
 tree's own ``launch_w8a8`` / ``launch_w4a8``: xq, sx, the codes padded to
 the rank granule, their scales and out_dtype), of
 the float BLAST kernels at the training step's 2048 tokens, and of prefill
-(C = 1, 32) and full-sequence (B = 8 × T = 256, B = 1 × T = 2048)
-attention.  Every tree gets the same inputs (one seed).  Two calls may land on two cards, so run
+(C = 1 and 32 at random offsets, and C = 1 at the serving run's decode
+positions, ``chip_smoke.SERVING_OFFSETS``, with kv_len as the attention
+layer passes it) and full-sequence (B = 8 × T =
+256, B = 1 × T = 2048) attention; ``--only attention`` times the attention
+rows alone.  Every tree gets the same inputs (one seed).  Two calls may land on two cards, so run
 the trees in turns (A, B, B, A) within one process group on one card.
 """
 
@@ -30,6 +33,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="the tree's src directory")
     ap.add_argument("--label", required=True, help="name printed on each row")
+    ap.add_argument("--only", choices=("all", "attention"), default="all",
+                    help="time every row, or the attention rows alone")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
@@ -65,7 +70,8 @@ def main() -> int:
                 lambda: launch(xq, sx, *padded, *scales, out_dtype=dt))
 
     train_t = cs.TRAIN_BATCH * cs.TRAIN_SEQ
-    for name, n, m, b, r, G in cs.blast_shapes(cfg):
+    blast = cs.blast_shapes(cfg) if args.only == "all" else []
+    for name, n, m, b, r, G in blast:
         for T in (8, 256, train_t):
             x, U, S, V = cs.make_blast_inputs(n, m, b, r, G, T, dt, gen,
                                               "cuda")
@@ -75,15 +81,18 @@ def main() -> int:
             if T != train_t:
                 launch_only(name, T, x, U, S, V)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    for C in (1, 32):
+    for C, offsets in ((1, None), (32, None), (1, cs.SERVING_OFFSETS)):
         q, k, v, offs = cs.make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen,
-                                            "cuda")
-        row("flash_attention_prefill", "attn", 8 * C,
-            lambda: ops.flash_attention_prefill(q, k, v, offs))
+                                            "cuda", offsets)
+        linear = "attn" if offsets is None else "attn serving"
+        # at the serving positions, kv_len as the attention layer passes it
+        kv = 512 if offsets is None else int(offs.max()) + C
+        row("flash_attention_prefill", linear, 8 * C,
+            lambda: ops.flash_attention_prefill(q, k, v, offs, kv_len=kv))
     for B, T in ((8, 256), (1, 2048)):
         q, k, v = cs.make_full_attn_inputs(B, hq, hkv, T, T, hd, dt, gen,
                                            "cuda")
-        row("flash_attention", "attn", B * T,
+        row("flash_attention", f"attn B={B} T={T}", B * T,
             lambda: ops.flash_attention(q, k, v))
     print(cs.nvidia_smi(), flush=True)
     return 0

@@ -131,16 +131,6 @@ def split_plan(T: int, G: int, r: int, b: int, sms: int, tile_t: int,
     return splits, per * tile_r, -(-b // min(need * more, b))
 
 
-_SMS: dict[int, int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else 0
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
 def _check_device(x: torch.Tensor) -> None:
     """Before any library is loaded: x lies on the current CUDA device."""
     if x.device.type != "cuda":
@@ -201,7 +191,7 @@ def _launch_tile(fn_name: str, ins, dtype: torch.dtype,
     y = torch.empty((G, T, b * p), dtype=dtype, device=dev)
     if T == 0:
         return y
-    n_split, rps, ipg = split_plan(T, G, r, b, _sm_count(dev), tile_t,
+    n_split, rps, ipg = split_plan(T, G, r, b, build.sm_count(dev), tile_t,
                                    tile_r, tile_b)
     part = (torch.empty((n_split, G, T, b * p), dtype=torch.float32,
                         device=dev) if n_split > 1 else None)

@@ -2,7 +2,7 @@
 
 Every ``kernels/csrc/*.cu`` is compiled by ``nvcc`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so
-a build takes seconds).  All sources are compiled together, one ``nvcc``
+a build takes seconds); ``csrc/*.cuh`` are headers they share.  All sources are compiled together, one ``nvcc``
 process each, the first time any kernel is needed.  Outputs go to
 ``build/kernels/`` at the repository root; the file name carries a hash of
 the source and flags, so an edited source is rebuilt and a stale library is
@@ -46,7 +46,11 @@ def sources() -> dict[str, Path]:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``src``, named by a hash of the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers
+                       + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -96,6 +100,18 @@ def load(name: str) -> ctypes.CDLL:
                 raise RuntimeError(f"cannot load {paths[name]}: {exc}") from exc
             _LIBS[name] = lib
         return lib
+
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (the launch plans' input)."""
+    import torch
+    idx = device.index if device.index is not None else 0
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def refuse_grad(what: str, *tensors) -> None:

@@ -138,6 +138,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "ptx.cuh"
+
 namespace {
 
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
@@ -258,74 +260,6 @@ template <class L> struct FLayout {
     bytes = off > ytile ? off : ytile;
   }
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   smem_addr(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)), "l"(src) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_n(void* dst, const void* src) {
-  if constexpr (N == 16)
-    cp_async16(dst, src);
-  else if constexpr (N == 8)
-    cp_async8(dst, src);
-  else
-    cp_async4(dst, src);
-}
-template <int N> __device__ __forceinline__ void zero_n(void* dst) {
-  if constexpr (N == 16)
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  else if constexpr (N == 8)
-    *reinterpret_cast<uint2*>(dst) = make_uint2(0, 0);
-  else
-    *reinterpret_cast<uint32_t*>(dst) = 0u;
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
-}
-// d += a·b, one m16n8k16 bf16 fragment product with fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// two floats as one bf16 pair register (lo in the low half), exact for codes
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // B-fragment registers of codes (two bf16 values, the first in the low
 // half), exact.  int4: the nibbles at bits 0–3 and 16–19 of `two` become

@@ -1,5 +1,5 @@
 // Flash attention for Hopper: the full-sequence kernel and the
-// chunked-prefill kernel at per-row offsets, one templated tile loop.
+// chunked-prefill kernel at per-row offsets.
 //
 // Replaces:
 //   src/repro/kernels/flash_attention.py::flash_attention_pallas (:98)
@@ -17,68 +17,108 @@
 // be contiguous), so q, k and v are read as views of the qkv projection (or
 // of the serving cache) and the output lands token-major for the out
 // projection with no transpose.  fp32 or bf16 (q, k, v and o share one
-// type); scores, softmax and P·V are fp32, with scale 1/sqrt(D).
+// type); scores, softmax and the P·V sums are fp32, with scale 1/sqrt(D).
+// Any head dim that is a multiple of 8 up to 256.
 //
 // What bounds it on the H100.  Prefill (C ≤ 32 queries against S ≤ 512
-// slots) is bytes-bound: 4·C·S·D FLOPs per head against reading the live
-// prefix of each row's K/V.  The full-sequence kernel is bytes-bound at
-// training shapes (B = 8, T = 256, D = 64: 6.3 MB against 0.6 GFLOP causal)
-// and operations-bound from T ≈ 1k (T = 2048: 4.8 GFLOP causal, 1.9 MB);
-// this first design runs on CUDA cores in fp32, far from either bound.
+// slots) and decode are bytes-bound: 4·C·S·D FLOPs per head against
+// reading the live prefix of each row's K/V.  The full-sequence kernel is
+// bytes-bound at training shapes (B = 8, T = 256, D = 64: 6.3 MB against
+// 0.6 GFLOP causal) and operations-bound from T ≈ 1k (T = 2048: 4.8 GFLOP
+// causal, 1.9 MB).
 //
-// Design: one block per (row b, query head, tile of BQ queries) — BQ = 16
-// with 4 warps for prefill chunks, BQ = 64 with 8 warps for full sequences.
-// Any head dim that is a multiple of 8 up to 256: the largest head dim DM
-// is a template parameter that sizes each thread's accumulator slice, 128
-// (every D ≤ 128, smollm-135m's 64 among them) or 256; at 256 both kernels
-// take the prefill tile (BQ = 16 queries, 4 warps), so that a thread keeps
-// 32 accumulator entries in registers.
-// Tiles are issued last-first, so the longest causal rows start first.  An
-// online softmax in fp32 (running max, sum and accumulator, as the TPU
-// kernel keeps them in VMEM scratch) walks KV tiles of BKV keys only up to
-// the tile's causal limit and from its window start, so dead tiles are never
-// loaded (the TPU kernel's `live` predicate).  K/V tiles are staged in
-// shared memory (K rows padded against bank conflicts), each warp owns whole
-// query rows for the max/sum reductions, and each thread owns a fixed slice
-// of the (BQ, D) accumulator in registers.  Tensor-core MMA (wgmma), TMA
-// and GQA head packing are later work.
+// bf16: attn_tile_kernel, FlashAttention-2 style on tensor cores.
+// - A block is up to 4 warps, each owning 16 query rows.  A row is one
+//   (token, query head).  The full-sequence kernel packs one head: a block
+//   is (row b, query head, tile of 64 tokens), 4 warps.  The prefill kernel
+//   packs the G = Hq / Hkv query heads of one kv head: a block is (row b, kv
+//   head, tile of packed rows), packed row r = t·G + g taking query head
+//   kvh·G + g of token t, so K/V is read once per kv head instead of G
+//   times and decode fills G of a fragment's 16 rows instead of 1.  Each
+//   row keeps its own causal limit and window start.  Tiles are issued
+//   last-first, so the longest causal rows start first.
+// - Q is staged once by cp.async; its A fragments (ldmatrix) stay in
+//   registers for D ≤ 128 and are re-read from shared memory per tile above
+//   that.  K/V tiles of 64 keys go through two shared-memory stages by
+//   cp.async: the next tile's copy is issued before the current tile's
+//   MMAs, one __syncthreads a tile.  Rows are padded by 16 bytes so that
+//   ldmatrix is free of bank conflicts; a head dim that is not a multiple
+//   of 16 is zero-padded to one in shared memory (exact).  Keys past the
+//   block's range are zero-filled, never read.  Head dims 64, 128 and 256
+//   take instantiations whose head-dim loops are compile-time (with a
+//   runtime D each k-step is its own basic block and the MMAs of one step
+//   cannot overlap the next step's ldmatrix: 1.7× slower on the H100 at
+//   B = 1, T = 2048).
+// - S = QKᵀ on mma.sync.m16n8k16 bf16 → fp32 (K's B fragments by
+//   ldmatrix); scale (with log2 e folded in, for exp2) and masks applied to
+//   the fp32 scores in registers, the mask skipped on tiles that every row
+//   sees in full; the online softmax (running max m, sum l, as the TPU
+//   kernel keeps them in VMEM scratch) in registers, the row max and sum
+//   reduced over the 4 lanes of a quad.  P is rounded to bf16 and reused in
+//   registers as the A operand of P·V (the m16n8 C fragment has the
+//   m16n8k16 A layout); V's B fragments by ldmatrix.trans; O in fp32
+//   registers.  The epilogue divides by l, or writes 0 where l = 0.
+// - Dead KV tiles are never loaded (the TPU kernel's `live` predicate):
+//   each block walks only the keys its rows can see.
+// - Split KV (prefill, where B·Hkv·row tiles leave most SMs idle): the key
+//   axis is cut into ranges of whole tiles (the plan,
+//   kernels/flash_attention.py::split_plan, reads no device data), one
+//   block each, writing its rows' fp32 (acc, m, l) to scratch that the
+//   wrapper allocates.  attn_split_combine, a programmatic dependent launch,
+//   adds the splits in split order (bitwise equal from run to run); a split
+//   with l = 0 contributes nothing, and a row with l = 0 in every split
+//   returns 0.
+//
+// fp32: attn_kernel, on CUDA cores, the path of the 1e-4 checks (TF32
+// would not hold them).  One block per (row b, query head, tile of BQ
+// queries) — BQ = 16 with 4 warps for prefill chunks, BQ = 64 with 8 warps
+// for full sequences; the largest head dim DM is a template parameter that
+// sizes each thread's accumulator slice, 128 or 256 (at 256 both kernels
+// take the prefill tile).  An online softmax over KV tiles of 32 keys
+// staged in shared memory, each warp owning whole query rows for the
+// max/sum reductions and each thread a fixed slice of the accumulator.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "ptx.cuh"
 
 namespace {
 
-constexpr int BKV = 32;       // keys per tile (one per lane in the softmax)
-constexpr int DMAX = 256;     // largest head dim
 constexpr float M_INIT = -1e30f;      // running-max start (TPU kernel's NEG_INF)
-// (query rows, threads) per block
-constexpr int PREFILL_BQ = 16, PREFILL_NT = 128;
-constexpr int FULL_BQ = 64, FULL_NT = 256;
-constexpr int WIDE_D = 128;   // head dims above it take the DM = 256 tiles
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+constexpr int DMAX = 256;             // largest head dim
 
 struct Strides {
   long long qb, qh, qt, kb, kh, ks, vb, vh, vs, ob, oh, ot;
 };
 
+Strides make_strides(const long long* s) {
+  return Strides{s[0], s[1], s[2], s[3], s[4], s[5],
+                 s[6], s[7], s[8], s[9], s[10], s[11]};
+}
+
+// ---------------------------------------------------------------- fp32 --
+
+constexpr int BKV = 32;       // keys per tile (one per lane in the softmax)
+// (query rows, threads) per block
+constexpr int PREFILL_BQ = 16, PREFILL_NT = 128;
+constexpr int FULL_BQ = 64, FULL_NT = 256;
+constexpr int WIDE_D = 128;   // head dims above it take the DM = 256 tiles
+
 // PER_ROW: the query offset is offs[b] (prefill) or the static q_offset.
 // DM: the largest head dim D this instantiation takes.
-template <typename T, int BQ, int NT, bool PER_ROW, int DM>
+template <int BQ, int NT, bool PER_ROW, int DM>
 __global__ void __launch_bounds__(NT)
-attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const int* __restrict__ offs,
-            int q_offset, T* __restrict__ o, int Hq, int Hkv, int C, int D,
-            Strides st, int causal, int window, int kv_len, float scale) {
+attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const int* __restrict__ offs,
+            int q_offset, float* __restrict__ o, int Hq, int Hkv, int C,
+            int D, Strides st, int causal, int window, int kv_len,
+            float scale) {
   constexpr int EPT = BQ * DM / NT;   // accumulator entries per thread
   const int b = blockIdx.x / Hq, h = blockIdx.x - b * Hq;
   const int kvh = h / (Hq / Hkv);
@@ -96,10 +136,10 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* lrow = mrow + BQ;            // (BQ,)        running sum
   float* arow = lrow + BQ;            // (BQ,)        this tile's rescale
 
-  const T* qp = q + b * st.qb + h * st.qh;
+  const float* qp = q + b * st.qb + h * st.qh;
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int t = idx / D, d = idx - t * D;
-    qs[idx] = t < rows ? to_f(qp[(t0 + t) * st.qt + d]) * scale : 0.f;
+    qs[idx] = t < rows ? qp[(t0 + t) * st.qt + d] * scale : 0.f;
   }
   if (tid < BQ) {
     mrow[tid] = M_INIT;
@@ -115,16 +155,16 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (causal) k_end = min(k_end, q_hi + 1);
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q_lo - window + 1);
-  const T* kp = k + b * st.kb + kvh * st.kh;
-  const T* vp = v + b * st.vb + kvh * st.vh;
+  const float* kp = k + b * st.kb + kvh * st.kh;
+  const float* vp = v + b * st.vb + kvh * st.vh;
 
   for (int j0 = (k_begin / BKV) * BKV; j0 < k_end; j0 += BKV) {
     __syncthreads();  // queries ready; the previous tile fully consumed
     for (int idx = tid; idx < BKV * D; idx += NT) {
       const int j = idx / D, d = idx - j * D;
       const bool in = j0 + j < k_end;
-      ks[j * (D + 1) + d] = in ? to_f(kp[(j0 + j) * st.ks + d]) : 0.f;
-      vs[j * D + d] = in ? to_f(vp[(j0 + j) * st.vs + d]) : 0.f;
+      ks[j * (D + 1) + d] = in ? kp[(j0 + j) * st.ks + d] : 0.f;
+      vs[j * D + d] = in ? vp[(j0 + j) * st.vs + d] : 0.f;
     }
     __syncthreads();
     for (int idx = tid; idx < BQ * BKV; idx += NT) {
@@ -179,7 +219,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();  // lrow final
-  T* op = o + b * st.ob + h * st.oh;
+  float* op = o + b * st.ob + h * st.oh;
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
     const int idx = tid + e * NT;
@@ -187,18 +227,13 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int t = idx / D, d = idx - t * D;
       if (t < rows) {
         const float l = lrow[t];
-        put(op + (t0 + t) * st.ot + d, l > 0.f ? acc[e] / l : 0.f);
+        op[(t0 + t) * st.ot + d] = l > 0.f ? acc[e] / l : 0.f;
       }
     }
   }
 }
 
-Strides make_strides(const long long* s) {
-  return Strides{s[0], s[1], s[2], s[3], s[4], s[5],
-                 s[6], s[7], s[8], s[9], s[10], s[11]};
-}
-
-template <typename T, int BQ, int NT, bool PER_ROW, int DM>
+template <int BQ, int NT, bool PER_ROW, int DM>
 int launch_dm(const void* q, const void* k, const void* v, const void* offs,
               int q_offset, void* o, int B, int Hq, int Hkv, int C, int D,
               const long long* strides, int causal, int window, int kv_len,
@@ -208,7 +243,7 @@ int launch_dm(const void* q, const void* k, const void* v, const void* offs,
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)BQ * D + (size_t)BKV * (D + 1) +
                                        (size_t)BKV * D + BQ * BKV + 3 * BQ);
-  auto kernel = attn_kernel<T, BQ, NT, PER_ROW, DM>;
+  auto kernel = attn_kernel<BQ, NT, PER_ROW, DM>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -216,9 +251,9 @@ int launch_dm(const void* q, const void* k, const void* v, const void* offs,
   }
   const dim3 grid(B * Hq, (C + BQ - 1) / BQ);
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)offs, q_offset,
-      (T*)o, Hq, Hkv, C, D, make_strides(strides), causal, window, kv_len,
-      1.0f / sqrtf((float)D));
+      (const float*)q, (const float*)k, (const float*)v, (const int*)offs,
+      q_offset, (float*)o, Hq, Hkv, C, D, make_strides(strides), causal,
+      window, kv_len, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -226,18 +261,376 @@ int launch_dm(const void* q, const void* k, const void* v, const void* offs,
 // same kernel with a 256-wide accumulator slice on the prefill tile (16
 // query rows, 4 warps) for both (full-sequence tiles of 32 rows × 8 warps
 // and 16 rows × 8 warps spilled 60 and 4 bytes)
-template <typename T, int BQ, int NT, bool PER_ROW>
-int launch(const void* q, const void* k, const void* v, const void* offs,
-           int q_offset, void* o, int B, int Hq, int Hkv, int C, int D,
-           const long long* strides, int causal, int window, int kv_len,
-           void* stream) {
+template <int BQ, int NT, bool PER_ROW>
+int launch_f32(const void* q, const void* k, const void* v, const void* offs,
+               int q_offset, void* o, int B, int Hq, int Hkv, int C, int D,
+               const long long* strides, int causal, int window, int kv_len,
+               void* stream) {
   if (D <= WIDE_D)
-    return launch_dm<T, BQ, NT, PER_ROW, WIDE_D>(
+    return launch_dm<BQ, NT, PER_ROW, WIDE_D>(
         q, k, v, offs, q_offset, o, B, Hq, Hkv, C, D, strides, causal,
         window, kv_len, stream);
-  return launch_dm<T, PREFILL_BQ, PREFILL_NT, PER_ROW, DMAX>(
+  return launch_dm<PREFILL_BQ, PREFILL_NT, PER_ROW, DMAX>(
       q, k, v, offs, q_offset, o, B, Hq, Hkv, C, D, strides, causal, window,
       kv_len, stream);
+}
+
+// ---------------------------------------------------------------- bf16 --
+
+using bf16 = __nv_bfloat16;
+constexpr int KT = 64;          // keys per tile
+constexpr int MAX_WARPS = 4;    // a block: up to 4 warps of 16 rows
+constexpr float LOG2E = 1.4426950408889634f;
+
+// One block: packed rows r0 .. r0 + 16·warps − 1 of (row b, head group)
+// against the keys of split blockIdx.z (all keys when part is null).  P
+// query heads are packed (1: full sequence; G: prefill): packed row r is
+// token r / P of query head hb + r % P.  DM: the largest padded head dim.
+// part: split scratch — acc (splits, B, C, Hq, D), then (m, l) pairs
+// (splits, B, C, Hq, 2) — or null, and then o is written.  EXACT: D = DM,
+// so the head-dim loops, row strides and copies are compile-time.
+template <int DM, bool EXACT>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ offs,
+                 int q_offset, bf16* __restrict__ o, float* __restrict__ part,
+                 int Hq, int Hkv, int P, int C, int D, Strides st, int causal,
+                 int window, int kv_len, int kps, float sl2) {
+  // a split launch's attn_split_combine may start now and wait for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  constexpr int NK = KT / 8;                 // key n-tiles of S
+  constexpr int ND = DM / 8;                 // head-dim n-tiles of O
+  constexpr bool QREG = DM <= 128;           // Q's A fragments in registers
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthr = blockDim.x, BR = nthr / 2;   // 16 rows a warp
+  const int HG = Hq / P, B = gridDim.x / HG;
+  const int b = blockIdx.x / HG, hb = (blockIdx.x - b * HG) * P;
+  const int kvh = hb / (Hq / Hkv);
+  const int R = C * P;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * BR;   // last tile first
+  const int rows = min(BR, R - r0);
+  const int off = offs ? offs[b] : q_offset;
+  if (EXACT) D = DM;
+  const int DP = (D + 15) & ~15, LD = DP + 8, CPR = D >> 3;
+  const bool split = part != nullptr;
+  const int s_lo = split ? blockIdx.z * kps : 0;
+  const int s_hi = split ? min(kv_len, s_lo + kps) : kv_len;
+
+  // this thread's two rows (fragment rows lane/4 and lane/4 + 8): token,
+  // query head and the key range [lo, hi) the row sees in this split
+  int rt[2], rh[2], lo[2], hi[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + warp * 16 + (lane >> 2) + 8 * i;
+    live[i] = r < R;
+    rt[i] = r / P;
+    rh[i] = hb + r - rt[i] * P;
+    const int pos = off + rt[i];
+    hi[i] = live[i] ? (causal ? min(s_hi, pos + 1) : s_hi) : 0;
+    lo[i] = max(s_lo, window > 0 ? pos - window + 1 : 0);
+  }
+  // keys some row of the block sees, and keys every row sees
+  const int t_lo = r0 / P, t_hi = (r0 + rows - 1) / P;
+  const int k_end = causal ? min(s_hi, off + t_hi + 1) : s_hi;
+  const int k_begin = max(s_lo, window > 0 ? off + t_lo - window + 1 : 0);
+  const int all_hi = causal ? min(s_hi, off + t_lo + 1) : s_hi;
+  const int all_lo = max(s_lo, window > 0 ? off + t_hi - window + 1 : 0);
+
+  float oacc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  float m[2] = {M_INIT, M_INIT}, l[2] = {0.f, 0.f};
+
+  if (k_begin < k_end) {   // block-uniform: a dead block loads nothing
+    extern __shared__ __align__(16) unsigned char smem[];
+    bf16* qs = reinterpret_cast<bf16*>(smem);   // (BR, LD)
+    bf16* kvs = qs + BR * LD;                   // 2 stages × (K, V) (KT, LD)
+    if (DP != D)   // the zero pad of D to 16, never written by cp.async
+      for (int i = tid; i < BR + 4 * KT; i += nthr)
+        zero_n<16>(qs + i * LD + D);
+    const bf16* qb = q + b * st.qb;
+    for (int c = tid; c < BR * CPR; c += nthr) {
+      const int r = c / CPR, ch = c - r * CPR, gr = r0 + r;
+      bf16* dst = qs + r * LD + ch * 8;
+      if (gr < R) {
+        const int t = gr / P;
+        cp_async16(dst, qb + (hb + gr - t * P) * st.qh + t * st.qt + ch * 8);
+      } else {
+        zero_n<16>(dst);
+      }
+    }
+    const bf16* kp = k + b * st.kb + kvh * st.kh;
+    const bf16* vp = v + b * st.vb + kvh * st.vh;
+    auto load = [&](int j0, int stage) {
+      bf16* ks = kvs + stage * 2 * KT * LD;
+      bf16* vs = ks + KT * LD;
+      for (int c = tid; c < KT * CPR; c += nthr) {
+        const int j = c / CPR, ch = c - j * CPR, at = j * LD + ch * 8;
+        if (j0 + j < k_end) {
+          cp_async16(ks + at, kp + (j0 + j) * st.ks + ch * 8);
+          cp_async16(vs + at, vp + (j0 + j) * st.vs + ch * 8);
+        } else {   // past every row's range: zeros (V must stay finite)
+          zero_n<16>(ks + at);
+          zero_n<16>(vs + at);
+        }
+      }
+      cp_commit();
+    };
+    const int j_first = (k_begin / KT) * KT;
+    const int ntiles = (k_end - j_first + KT - 1) / KT;
+    load(j_first, 0);   // one group with Q's copies
+    // ldmatrix row addresses: A fragments of Q and B fragments of V
+    // (.trans) take matrices (rows 0-7, 8-15) × (cols 0-7, 8-15) in column
+    // order; K's B fragments take them in row order
+    const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, acol = (lane >> 4) * 8;
+    const int krow = (lane & 7) + (lane >> 4) * 8, kcol = ((lane >> 3) & 1) * 8;
+    const bf16* qw = qs + (warp * 16 + arow) * LD + acol;
+    uint32_t qf[QREG ? DM / 16 : 1][4];
+
+    for (int it = 0; it < ntiles; ++it) {
+      const int j0 = j_first + it * KT;
+      cp_wait<0>();
+      __syncthreads();   // tile it landed; every warp is done with it - 1
+      if (it + 1 < ntiles) load(j0 + KT, (it + 1) & 1);
+      if constexpr (QREG) {
+        if (it == 0) {
+#pragma unroll
+          for (int kk = 0; kk < DM / 16; ++kk)
+            if (kk * 16 < DP) ldsm_x4(qf[kk], qw + kk * 16);
+        }
+      }
+      const bf16* ks = kvs + (it & 1) * 2 * KT * LD;
+      const bf16* vs = ks + KT * LD;
+
+      float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk) {
+        if (kk * 16 < DP) {
+          uint32_t a[4];
+          if constexpr (QREG) {
+            a[0] = qf[kk][0], a[1] = qf[kk][1], a[2] = qf[kk][2],
+            a[3] = qf[kk][3];
+          } else {
+            ldsm_x4(a, qw + kk * 16);
+          }
+#pragma unroll
+          for (int np = 0; np < NK / 2; ++np) {
+            uint32_t bk[4];
+            ldsm_x4(bk, ks + (np * 16 + krow) * LD + kk * 16 + kcol);
+            mma_bf16(s[2 * np], a, bk[0], bk[1]);
+            mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+          }
+        }
+      }
+      if (j0 < all_lo || j0 + KT > all_hi) {   // a row misses keys: mask
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = j0 + n * 8 + 2 * (lane & 3) + (e & 1);
+            if (key < lo[e >> 1] || key >= hi[e >> 1]) s[n][e] = -INFINITY;
+          }
+      }
+      // online softmax in log2 units: m is the running max of s·sl2
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mn = fmaxf(m[i], mx * sl2);
+        const float alpha = exp2f(m[i] - mn);
+        m[i] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 2 * i; e < 2 * i + 2; ++e) {
+            const float p = exp2f(fmaf(s[n][e], sl2, -mn));  // masked: 0
+            s[n][e] = p;
+            sum += p;
+          }
+        l[i] = l[i] * alpha + sum;   // this lane's part; quad sum at the end
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          oacc[n][2 * i] *= alpha;
+          oacc[n][2 * i + 1] *= alpha;
+        }
+      }
+      // O += P·V, P rounded to bf16 in registers
+#pragma unroll
+      for (int kk = 0; kk < NK / 2; ++kk) {
+        const uint32_t a[4] = {bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                               bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                               bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < DM / 16; ++dp) {
+          if (dp * 16 < DP) {
+            uint32_t bv[4];
+            ldsm_x4_t(bv, vs + (kk * 16 + arow) * LD + dp * 16 + acol);
+            mma_bf16(oacc[2 * dp], a, bv[0], bv[1]);
+            mma_bf16(oacc[2 * dp + 1], a, bv[2], bv[3]);
+          }
+        }
+      }
+    }
+  }
+
+  // epilogue: this thread's columns 2·(lane % 4) + {0, 1} of each n-tile
+  const int B_C_Hq = B * C * Hq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (!live[i]) continue;
+    const int d0 = 2 * (lane & 3);
+    if (split) {
+      const long long row = (long long)blockIdx.z * B_C_Hq +
+                            ((long long)b * C + rt[i]) * Hq + rh[i];
+      float* po = part + row * D;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        if (n * 8 < D)
+          *reinterpret_cast<float2*>(po + n * 8 + d0) =
+              make_float2(oacc[n][2 * i], oacc[n][2 * i + 1]);
+      if ((lane & 3) == 0)
+        reinterpret_cast<float2*>(part + (long long)gridDim.z * B_C_Hq * D)
+            [row] = make_float2(m[i], l[i]);
+    } else {
+      const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;   // no key: 0
+      bf16* po = o + b * st.ob + rh[i] * st.oh + rt[i] * st.ot;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        if (n * 8 < D)
+          *reinterpret_cast<uint32_t*>(po + n * 8 + d0) =
+              bf16x2(oacc[n][2 * i] * inv, oacc[n][2 * i + 1] * inv);
+    }
+  }
+}
+
+// o = Σ_s w_s·acc_s / Σ_s w_s·l_s with w_s = 2^(m_s − max m), over the
+// splits with l_s > 0 in split order (the same sum every run); 0 where no
+// split saw a key.  Four head-dim columns of one row a thread.
+__global__ void __launch_bounds__(256)
+attn_split_combine(const float* __restrict__ part, bf16* __restrict__ o,
+                   int B, int C, int Hq, int D, int splits, long long ob,
+                   long long oh, long long ot) {
+  // launched early (programmatic dependent launch): wait until the tile
+  // kernel has finished and its partials are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const long long rows = (long long)B * C * Hq;
+  const float2* ml =
+      reinterpret_cast<const float2*>(part + (long long)splits * rows * D);
+  const int D4 = D >> 2;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < rows * D4; idx += (long long)gridDim.x * blockDim.x) {
+    const long long row = idx / D4;
+    const int d = (int)(idx - row * D4) * 4;
+    float mx = M_INIT;
+    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ml[s * rows + row].x);
+    float L = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < splits; ++s) {
+      const float2 e = ml[s * rows + row];
+      if (e.y > 0.f) {
+        const float w = exp2f(e.x - mx);
+        const float4 a =
+            *reinterpret_cast<const float4*>(part + (s * rows + row) * D + d);
+        L += e.y * w;
+        acc.x += w * a.x, acc.y += w * a.y, acc.z += w * a.z, acc.w += w * a.w;
+      }
+    }
+    const float inv = L > 0.f ? 1.f / L : 0.f;
+    const int h = (int)(row % Hq);
+    const long long bt = row / Hq;
+    const int t = (int)(bt % C), b = (int)(bt / C);
+    *reinterpret_cast<uint2*>(o + b * ob + h * oh + t * ot + d) =
+        make_uint2(bf16x2(acc.x * inv, acc.y * inv),
+                   bf16x2(acc.z * inv, acc.w * inv));
+  }
+}
+
+int launch_combine(const float* part, bf16* o, int B, int C, int Hq, int D,
+                   int splits, long long ob, long long oh, long long ot,
+                   cudaStream_t stream) {
+  const long long total = (long long)B * C * Hq * (D / 4);
+  // programmatic dependent launch: the combine's launch overlaps the tile
+  // kernel, and griddepcontrol.wait holds its reads until that is done
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)std::min<long long>((total + 255) / 256, 1024));
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, attn_split_combine, part, o, B, C, Hq,
+                                 D, splits, ob, oh, ot);
+}
+
+template <int DM, bool EXACT>
+int launch_tile_dm(const void* q, const void* k, const void* v,
+                   const void* offs, int q_offset, void* o, float* part, int B,
+                   int Hq, int Hkv, int P, int C, int D, const Strides& st,
+                   int causal, int window, int kv_len, int warps, int splits,
+                   int kps, cudaStream_t stream) {
+  const int LD = ((D + 15) & ~15) + 8;
+  const size_t smem = sizeof(bf16) * (size_t)LD * (16 * warps + 4 * KT);
+  auto kernel = attn_tile_kernel<DM, EXACT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int br = 16 * warps;
+  const dim3 grid(B * (Hq / P), (C * P + br - 1) / br, splits);
+  kernel<<<grid, 32 * warps, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)offs,
+      q_offset, (bf16*)o, splits > 1 ? part : nullptr, Hq, Hkv, P, C, D, st,
+      causal, window, kv_len, kps, LOG2E / sqrtf((float)D));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return launch_combine(part, (bf16*)o, B, C, Hq, D, splits, st.ob, st.oh,
+                        st.ot, stream);
+}
+
+// The bf16 kernel at P packed heads, `warps` warps a block and `splits`
+// key ranges of kps keys (a multiple of KT covering kv_len; part holds
+// splits·B·C·Hq·(D + 2) floats when splits > 1).
+int launch_tile(const void* q, const void* k, const void* v, const void* offs,
+                int q_offset, void* o, float* part, int B, int Hq, int Hkv,
+                int P, int C, int D, const long long* strides, int causal,
+                int window, int kv_len, int warps, int splits, int kps,
+                void* stream) {
+  if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > DMAX ||
+      D % 8 != 0 || P <= 0 || Hq % P != 0 || (Hq / Hkv) % P != 0 ||
+      warps < 1 || warps > MAX_WARPS || splits < 1 ||
+      (splits > 1 && (part == nullptr || kps <= 0 || kps % KT != 0 ||
+                      (long long)kps * splits < kv_len)))
+    return (int)cudaErrorInvalidValue;
+  const Strides st = make_strides(strides);
+  auto s = (cudaStream_t)stream;
+#define ATTN_TILE(DM, EXACT)                                                 \
+  return launch_tile_dm<DM, EXACT>(q, k, v, offs, q_offset, o, part, B, Hq, \
+                                   Hkv, P, C, D, st, causal, window, kv_len, \
+                                   warps, splits, kps, s)
+  switch (D) {
+    case 64: ATTN_TILE(64, true);
+    case 128: ATTN_TILE(128, true);
+    case 256: ATTN_TILE(256, true);
+  }
+  if (D <= 64) ATTN_TILE(64, false);
+  if (D <= 128) ATTN_TILE(128, false);
+  ATTN_TILE(256, false);
+#undef ATTN_TILE
 }
 
 }  // namespace
@@ -248,36 +641,52 @@ int flash_prefill_f32(const void* q, const void* k, const void* v,
                       const void* offs, void* o, int B, int Hq, int Hkv, int C,
                       int D, const long long* strides, int causal, int window,
                       int kv_len, void* stream) {
-  return launch<float, PREFILL_BQ, PREFILL_NT, true>(
+  return launch_f32<PREFILL_BQ, PREFILL_NT, true>(
       q, k, v, offs, 0, o, B, Hq, Hkv, C, D, strides, causal, window, kv_len,
       stream);
 }
 
+// GQA-packed rows (P = Hq / Hkv) on the plan's warps and key splits
 int flash_prefill_bf16(const void* q, const void* k, const void* v,
-                       const void* offs, void* o, int B, int Hq, int Hkv,
-                       int C, int D, const long long* strides, int causal,
-                       int window, int kv_len, void* stream) {
-  return launch<__nv_bfloat16, PREFILL_BQ, PREFILL_NT, true>(
-      q, k, v, offs, 0, o, B, Hq, Hkv, C, D, strides, causal, window, kv_len,
-      stream);
+                       const void* offs, void* o, void* part, int B, int Hq,
+                       int Hkv, int C, int D, const long long* strides,
+                       int causal, int window, int kv_len, int warps,
+                       int splits, int kps, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  return launch_tile(q, k, v, offs, 0, o, (float*)part, B, Hq, Hkv, Hq / Hkv,
+                     C, D, strides, causal, window, kv_len, warps, splits, kps,
+                     stream);
 }
 
 int flash_full_f32(const void* q, const void* k, const void* v, void* o,
                    int B, int Hq, int Hkv, int T, int D,
                    const long long* strides, int causal, int window,
                    int q_offset, int kv_len, void* stream) {
-  return launch<float, FULL_BQ, FULL_NT, false>(
+  return launch_f32<FULL_BQ, FULL_NT, false>(
       q, k, v, nullptr, q_offset, o, B, Hq, Hkv, T, D, strides, causal,
       window, kv_len, stream);
 }
 
+// one query head a block, 64 tokens from 4 warps, no split
 int flash_full_bf16(const void* q, const void* k, const void* v, void* o,
                     int B, int Hq, int Hkv, int T, int D,
                     const long long* strides, int causal, int window,
                     int q_offset, int kv_len, void* stream) {
-  return launch<__nv_bfloat16, FULL_BQ, FULL_NT, false>(
-      q, k, v, nullptr, q_offset, o, B, Hq, Hkv, T, D, strides, causal,
-      window, kv_len, stream);
+  return launch_tile(q, k, v, nullptr, q_offset, o, nullptr, B, Hq, Hkv, 1, T,
+                     D, strides, causal, window, kv_len, MAX_WARPS, 1, 0,
+                     stream);
+}
+
+// the split combine alone, on partials laid out as the tile kernel writes
+// them: a check of the combine against its plain version
+int flash_combine_bf16(const void* part, void* o, int B, int C, int Hq, int D,
+                       int splits, const long long* ostrides, void* stream) {
+  if (B <= 0 || C <= 0 || Hq <= 0 || D <= 0 || D % 8 != 0 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  const int rc = launch_combine((const float*)part, (bf16*)o, B, C, Hq, D,
+                                splits, ostrides[0], ostrides[1], ostrides[2],
+                                (cudaStream_t)stream);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 }  // extern "C"

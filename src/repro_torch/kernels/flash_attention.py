@@ -14,6 +14,14 @@ projection then reads it with a free reshape.  The kernels keep no autograd
 graph, so a launcher refuses inputs that require grad while grad mode is on
 (``build.refuse_grad``); training reaches B4 through
 ``ops.FlashAttentionFn``.
+
+bf16 runs the tensor-core tile kernel, which copies 16-byte chunks of q, k
+and v by cp.async: each must start 16-byte aligned with every stride but
+the last a multiple of 8 elements, or the launcher raises.  B3 packs the G
+query heads of a kv head into one block's rows and, where the grid would
+leave most SMs idle, splits the key axis across blocks (``split_plan``);
+the split's fp32 partials go to scratch allocated here (``_split_scratch``)
+and a second kernel combines them.  fp32 runs the CUDA-core kernel.
 """
 
 from __future__ import annotations
@@ -31,25 +39,63 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _ARGTYPES = {
     # q, k, v, offs, o, B, Hq, Hkv, C, D, strides, causal, window, kv_len
-    "flash_prefill": [_P] * 5 + [_I] * 5 + [_STRIDES] + [_I] * 3 + [_P],
+    "flash_prefill_f32": [_P] * 5 + [_I] * 5 + [_STRIDES] + [_I] * 3 + [_P],
+    # q, k, v, offs, o, part, B, Hq, Hkv, C, D, strides, causal, window,
+    # kv_len, warps, splits, keys per split
+    "flash_prefill_bf16": [_P] * 6 + [_I] * 5 + [_STRIDES] + [_I] * 6 + [_P],
     # q, k, v, o, B, Hq, Hkv, T, D, strides, causal, window, q_offset, kv_len
-    "flash_full": [_P] * 4 + [_I] * 5 + [_STRIDES] + [_I] * 4 + [_P],
+    "flash_full_f32": [_P] * 4 + [_I] * 5 + [_STRIDES] + [_I] * 4 + [_P],
+    "flash_full_bf16": [_P] * 4 + [_I] * 5 + [_STRIDES] + [_I] * 4 + [_P],
+    # part, o, B, C, Hq, D, splits, o strides (b, h, t)
+    "flash_combine_bf16": [_P] * 2 + [_I] * 5 + [_STRIDES] + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _LIB: list = []
 D_MAX = 256         # head dims: any multiple of 8 up to this
+KEY_TILE = 64       # keys per tile of the bf16 kernel
+MAX_WARPS = 4       # warps (16 query rows each) per block of the bf16 kernel
 
 
 def _lib():
     if not _LIB:
         lib = build.load("flash_attention")
         for name, argtypes in _ARGTYPES.items():
-            for suffix in _SUFFIX.values():
-                fn = getattr(lib, f"{name}_{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _LIB.append(lib)
     return _LIB[0]
+
+
+def split_plan(B: int, Hkv: int, G: int, C: int, kv_len: int,
+               sms: int) -> tuple[int, int, int, int]:
+    """(warps, row tiles, splits, keys per split) of a bf16 B3 launch, from
+    host ints only (the row offsets stay on the device).  A block owns one
+    (row b, kv head, tile of packed rows): the G·C packed rows take ⌈G·C/16⌉
+    warp fragments, dealt into as few tiles of at most ``MAX_WARPS`` warps
+    as hold them, evenly.  Splits: none once the B·Hkv·tiles blocks fill
+    half of the ``sms`` SMs; below that, as many as keep every block in the
+    first wave, at most one per ``KEY_TILE`` tile of [0, kv_len).  Split s
+    takes keys [s·kps, min((s + 1)·kps, kv_len)): contiguous ranges of whole
+    tiles, none empty, covering [0, kv_len)."""
+    frags = -(-(G * C) // 16)
+    tiles = -(-frags // MAX_WARPS)
+    warps = -(-frags // tiles)
+    blocks = B * Hkv * tiles
+    key_tiles = max(1, -(-kv_len // KEY_TILE))
+    splits = 1 if 2 * blocks >= sms else sms // blocks
+    per = -(-key_tiles // min(splits, key_tiles))
+    return warps, tiles, -(-key_tiles // per), per * KEY_TILE
+
+
+def _split_scratch(splits: int, B: int, C: int, Hq: int, D: int,
+                   device) -> torch.Tensor | None:
+    """The split launch's fp32 scratch: acc (splits, B, C, Hq, D), then the
+    (m, l) pairs (splits, B, C, Hq, 2); None without a split."""
+    if splits == 1:
+        return None
+    return torch.empty(splits * B * C * Hq * (D + 2), dtype=torch.float32,
+                       device=device)
 
 
 def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,6 +120,12 @@ def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.stride(-1) != 1:
             raise ValueError(f"{name}'s last axis must be contiguous")
+        if q.dtype == torch.bfloat16 and (
+                a.data_ptr() % 16 or any(s % 8 for s in a.stride()[:-1])):
+            raise ValueError(
+                f"{name} is not 16-byte aligned for the bf16 kernel's copies"
+                f" (data_ptr % 16 = {a.data_ptr() % 16}, strides "
+                f"{a.stride()}: each but the last must be a multiple of 8)")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if not 0 <= kv_len <= S_len:
@@ -98,16 +150,26 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            kv_len: int) -> torch.Tensor:
     build.refuse_grad("flash_attention_prefill", q, k, v)
     B, Hq, C, D = q.shape
+    Hkv = k.shape[1]
     _check("flash_attention_prefill", q, k, v, window, kv_len)
     offs = q_offsets.to(device=q.device, dtype=torch.int32).contiguous()
     if offs.shape != (B,):
         raise ValueError(f"q_offsets has shape {tuple(offs.shape)}, want {(B,)}")
     out, o, strides = _out(q, k, v)
-    fn = getattr(_lib(), f"flash_prefill_{_SUFFIX[q.dtype]}")
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
-            out.data_ptr(), B, Hq, k.shape[1], C, D, strides, int(causal),
-            0 if window is None else int(window), int(kv_len),
-            torch.cuda.current_stream().cuda_stream)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
+            out.data_ptr())
+    opts = (int(causal), 0 if window is None else int(window), int(kv_len))
+    stream = torch.cuda.current_stream().cuda_stream
+    if q.dtype == torch.bfloat16:
+        warps, _, splits, kps = split_plan(B, Hkv, Hq // Hkv, C, kv_len,
+                                           build.sm_count(q.device))
+        part = _split_scratch(splits, B, C, Hq, D, q.device)
+        rc = _lib().flash_prefill_bf16(
+            *head, None if part is None else part.data_ptr(), B, Hq, Hkv, C,
+            D, strides, *opts, warps, splits, kps, stream)
+    else:
+        rc = _lib().flash_prefill_f32(*head, B, Hq, Hkv, C, D, strides, *opts,
+                                      stream)
     build.check(rc, "flash_attention_prefill")
     return o
 
@@ -127,4 +189,26 @@ def launch_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             0 if window is None else int(window), int(q_offset), int(kv_len),
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "flash_attention")
+    return o
+
+
+def launch_combine(acc: torch.Tensor, m: torch.Tensor,
+                   l: torch.Tensor) -> torch.Tensor:
+    """The split-combine kernel alone on partials laid out as the split
+    launch writes them — acc (splits, B, C, Hq, D), m and l (splits, B, C,
+    Hq), fp32 on the card — → (B, Hq, C, D) bf16: the check of the combine
+    step against ``ref.attention_combine_ref``."""
+    splits, B, C, Hq, D = acc.shape
+    if acc.device.type != "cuda" or D % 8:
+        raise ValueError("the combine kernel takes CUDA partials with a head "
+                         "dim that is a multiple of 8")
+    part = torch.cat([acc.float().reshape(-1),
+                      torch.stack([m.float(), l.float()], -1).reshape(-1)])
+    out = torch.empty((B, C, Hq, D), dtype=torch.bfloat16, device=acc.device)
+    o = out.permute(0, 2, 1, 3)
+    strides = (ctypes.c_longlong * 3)(*o.stride()[:3])
+    rc = _lib().flash_combine_bf16(part.data_ptr(), out.data_ptr(), B, C, Hq,
+                                   D, splits, strides,
+                                   torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "flash_attention combine")
     return o

@@ -134,8 +134,8 @@ def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv, S_len = k.shape[1], k.shape[2]
     G = Hq // Hkv
     kv_len = S_len if kv_len is None else kv_len
-    qf = q.reshape(B, Hkv, G, T, D).float()
-    scores = torch.einsum("bhgtd,bhsd->bhgts", qf, k.float()) / math.sqrt(D)
+    qf = acc(q).reshape(B, Hkv, G, T, D)
+    scores = torch.einsum("bhgtd,bhsd->bhgts", qf, acc(k)) / math.sqrt(D)
     offs = q_offsets.to(device=q.device, dtype=torch.int64)
     qi = offs[:, None, None] + torch.arange(T, device=q.device)[None, :, None]
     kj = torch.arange(S_len, device=q.device)[None, None, :]
@@ -147,8 +147,84 @@ def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)   # fully-masked rows → 0
-    out = torch.einsum("bhgts,bhsd->bhgtd", probs, v.float())
+    out = torch.einsum("bhgts,bhsd->bhgtd", probs, acc(v))
     return out.reshape(B, Hq, T, D).to(q.dtype)
+
+
+ATTN_KEY_TILE = 64      # keys per tile of the bf16 attention kernel
+ATTN_M_INIT = -1e30     # its running-max start
+
+
+def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_offsets: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None, kv_len: int | None = None,
+                        splits: int = 1, keys_per_split: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 prefill kernel's algorithm, plainly (a check of the
+    kernel's design; nothing on the main path calls it).  The G query heads
+    of each kv head are packed into rows r = t·G + g at positions
+    ``q_offsets[b] + t``; split s walks keys [s·kps, min((s + 1)·kps,
+    kv_len)) in tiles of ``ATTN_KEY_TILE`` with the online softmax, in
+    log2 units (m is the running max of score · log2(e) / √D).  Returns the
+    split partials in the kernel's scratch layout: the unnormalised acc
+    (splits, B, C, Hq, D), m and l (splits, B, C, Hq); a split in which a
+    row sees no key leaves it m = ``ATTN_M_INIT``, l = 0, acc = 0."""
+    B, Hq, C, D = q.shape
+    Hkv, S_len = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kv_len = S_len if kv_len is None else kv_len
+    kps = keys_per_split or max(ATTN_KEY_TILE, kv_len)
+    sl2 = math.log2(math.e) / math.sqrt(D)
+    qp = acc(q).reshape(B, Hkv, G, C, D).transpose(2, 3).reshape(
+        B, Hkv, C * G, D)
+    kf, vf = acc(k), acc(v)
+    offs = q_offsets.to(device=q.device, dtype=torch.int64)
+    pos = offs[:, None] + torch.arange(C * G, device=q.device) // G  # (B, R)
+    outs = []
+    for s in range(splits):
+        m = torch.full((B, Hkv, C * G), ATTN_M_INIT, dtype=qp.dtype,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros_like(qp)
+        hi_s = min(kv_len, (s + 1) * kps)
+        for j0 in range(s * kps, hi_s, ATTN_KEY_TILE):
+            j1 = min(j0 + ATTN_KEY_TILE, hi_s)
+            kj = torch.arange(j0, j1, device=q.device)
+            vis = torch.ones((B, C * G, j1 - j0), dtype=torch.bool,
+                             device=q.device)
+            if causal:
+                vis = vis & (kj <= pos[..., None])
+            if window is not None:
+                vis = vis & (kj > pos[..., None] - window)
+            sc = torch.einsum("bhrd,bhjd->bhrj", qp, kf[:, :, j0:j1])
+            sc = sc.masked_fill(~vis[:, None], float("-inf"))
+            mn = torch.maximum(m, sc.amax(-1) * sl2)
+            alpha = torch.exp2(m - mn)
+            p = torch.exp2(sc * sl2 - mn[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bhrj,bhjd->bhrd", p, vf[:, :, j0:j1])
+            m = mn
+        outs.append((o, m, l))
+
+    def unpack(a):   # (splits, B, Hkv, C·G, ...) → (splits, B, C, Hq, ...)
+        a = a.reshape(splits, B, Hkv, C, G, *a.shape[4:])
+        return a.transpose(2, 3).reshape(splits, B, C, Hq, *a.shape[5:])
+
+    return tuple(unpack(torch.stack(parts)) for parts in zip(*outs))
+
+
+def attention_combine_ref(acc_: torch.Tensor, m: torch.Tensor,
+                          l: torch.Tensor) -> torch.Tensor:
+    """The split combine, plainly: o = Σ_s w_s·acc_s / Σ_s w_s·l_s with
+    w_s = 2^(m_s − max_s m_s) over the splits with l_s > 0, 0 where none
+    has; partials as ``attention_split_ref`` returns them → (B, Hq, C, D)."""
+    w = torch.where(l > 0, torch.exp2(m - m.amax(0)), torch.zeros_like(m))
+    L = (w * l).sum(0)
+    o = (w[..., None] * acc_).sum(0)
+    o = torch.where(L[..., None] > 0, o / L.clamp_min(1e-38)[..., None],
+                    torch.zeros_like(o))
+    return o.permute(0, 2, 1, 3)
 
 
 def q_chunk_size(T: int, q_chunk: int = 512) -> int:

@@ -289,11 +289,14 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
     cache["k"][rg.rows, rg.slots] = k[rg.rows, rg.cols].to(cache["k"].dtype)
     cache["v"][rg.rows, rg.slots] = v[rg.rows, rg.cols].to(cache["v"].dtype)
     cache["pos"][rg.rows, rg.slots] = rg.slots.to(torch.int32)
-    # the cache is read through strides as (B, Hkv, S, D): no copy
+    # the cache is read through strides as (B, Hkv, S, D): no copy.  No
+    # live query sees a slot past the largest live one, so kv_len stops
+    # there: the kernel's launch plan then sees the live key range from the
+    # host (dead columns' outputs change; the caller discards them)
     o = kops.flash_attention_prefill(
         q.transpose(1, 2), cache["k"].permute(0, 2, 1, 3),
         cache["v"].permute(0, 2, 1, 3), rg.steps, causal=True,
-        window=spec.window)
+        window=spec.window, kv_len=rg.max_slot + 1)
     y = linear_apply(spec.out, params["out"],
                      o.transpose(1, 2).reshape(B, C, hq * hd))
     return y, cache

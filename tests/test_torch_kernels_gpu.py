@@ -340,6 +340,166 @@ class TestOnCard:
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
 
+    # B3 through the bf16 kernel's paths (and the fp32 kernel on the same
+    # inputs): GQA packing at G = 1, 3 and 10; decode at the first and the
+    # last slot (the split path: ``split_plan`` cuts the keys); chunks whose
+    # G·C is not a multiple of 16; kv_len < S; windows; head dims 64, 72,
+    # 128 and 256.  (B, Hq, Hkv, C, S, D, window, kv_len, offsets)
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                           (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("B,Hq,Hkv,C,S,D,window,kv_len,where", [
+        (8, 9, 3, 1, 512, 64, None, None, "first"),
+        (8, 9, 3, 1, 512, 64, None, None, "last"),
+        (4, 10, 1, 1, 512, 256, None, None, "last"),
+        (2, 4, 4, 1, 512, 72, None, None, "last"),
+        (8, 9, 3, 32, 512, 64, None, None, "random"),
+        (3, 9, 3, 7, 200, 72, None, None, "random"),
+        (2, 10, 1, 32, 512, 128, 100, None, "random"),
+        (4, 9, 3, 20, 300, 64, 40, 250, "random"),
+        (2, 3, 1, 5, 96, 256, None, 60, "random"),
+        (1, 6, 2, 3, 1024, 64, 300, 900, "last")])
+    def test_flash_attention_prefill_paths(self, cuda, dtype, tol, B, Hq, Hkv,
+                                           C, S, D, window, kv_len, where):
+        g = torch.Generator().manual_seed(B * C + S + D)
+        q = torch.randn((B, C, Hq, D), generator=g).to(cuda, dtype)
+        k = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
+        v = torch.randn((B, S, Hkv, D), generator=g).to(cuda, dtype)
+        offs = {"first": torch.zeros(B, dtype=torch.int32),
+                "last": torch.full((B,), S - C, dtype=torch.int32),
+                "random": torch.randint(0, S - C + 1, (B,), generator=g,
+                                        dtype=torch.int32)}[where].to(cuda)
+        args = (q.transpose(1, 2), k.permute(0, 2, 1, 3),
+                v.permute(0, 2, 1, 3), offs)
+        kw = dict(window=window, kv_len=kv_len)
+        if (B, C, where) == (8, 1, "last"):
+            plan = fa.split_plan(B, Hkv, Hq // Hkv, C, S,
+                                 torch.cuda.get_device_properties(
+                                     0).multi_processor_count)
+            assert plan[2] > 1            # this case takes the split path
+        ops.reset_launches()
+        got = ops.flash_attention_prefill(*args, **kw)
+        want = ref.attention_prefill_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert ops.launches["flash_attention_prefill"] == 1
+        assert got.shape == (B, Hq, C, D) and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+    # the bf16 split path as the plan takes it: grids that leave most SMs
+    # idle over several key tiles (``SPLIT_SHAPES`` of
+    # tests/test_torch_attention_plan.py pins each one's split count at
+    # 132 SMs); row 0 at slot 0 leaves later splits with no live key.
+    # (B, Hq, Hkv, C, S, D, window, kv_len)
+    @pytest.mark.parametrize("B,Hq,Hkv,C,S,D,window,kv_len", [
+        (8, 9, 3, 32, 512, 64, None, None),
+        (3, 9, 3, 7, 200, 72, 50, None),
+        (2, 10, 1, 4, 320, 256, None, 300),
+        (2, 4, 2, 1, 640, 128, 64, None),
+        (1, 9, 3, 1, 2048, 64, None, None),
+        (4, 10, 1, 32, 512, 128, None, None),
+        (2, 6, 2, 16, 1024, 64, 300, 1000),
+        (8, 9, 3, 1, 201, 64, None, None)])
+    def test_flash_attention_prefill_split(self, cuda, B, Hq, Hkv, C, S, D,
+                                           window, kv_len):
+        g = torch.Generator().manual_seed(B + C + D)
+        q = torch.randn((B, C, Hq, D), generator=g).to(cuda, torch.bfloat16)
+        k, v = (torch.randn((B, S, Hkv, D), generator=g).to(
+            cuda, torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+        offs = torch.randint(0, S - C + 1, (B,), generator=g,
+                             dtype=torch.int32).to(cuda)
+        offs[0] = 0
+        kv = S if kv_len is None else kv_len
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert fa.split_plan(B, Hkv, Hq // Hkv, C, kv, sms)[2] > 1
+        got = ops.flash_attention_prefill(q.transpose(1, 2), k, v, offs,
+                                          window=window, kv_len=kv)
+        want = ref.attention_prefill_ref(q.transpose(1, 2), k, v, offs,
+                                         window=window, kv_len=kv)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_rows_with_no_visible_key_are_zero(self, cuda, dtype):
+        """A window past kv_len leaves rows with no visible key: both
+        kernels write exactly 0 there (B3 on the split path: one kv head,
+        two rows) and agree with the plain versions elsewhere."""
+        g = torch.Generator().manual_seed(5)
+        q = torch.randn((2, 8, 3, 64), generator=g).to(cuda, dtype)
+        k = torch.randn((2, 512, 1, 64), generator=g).to(cuda, dtype)
+        v = torch.randn((2, 512, 1, 64), generator=g).to(cuda, dtype)
+        offs = torch.tensor([0, 310], dtype=torch.int32, device=cuda)
+        args = (q.transpose(1, 2), k.permute(0, 2, 1, 3),
+                v.permute(0, 2, 1, 3))
+        got = ops.flash_attention_prefill(*args, offs, window=4, kv_len=300)
+        want = ref.attention_prefill_ref(*args, offs, window=4, kv_len=300)
+        with torch.no_grad():
+            full = fa.launch_full(*args, causal=True, window=1, q_offset=4,
+                                  kv_len=6)
+        full_want = ref.attention_ref(*args, window=1, q_offset=4, kv_len=6)
+        torch.cuda.synchronize()
+        assert torch.all(got[1] == 0) and torch.any(got[0] != 0)
+        assert torch.all(full[:, :, 2:] == 0) and torch.any(full[:, :, :2] != 0)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        for a, b in ((got, want), (full, full_want)):
+            torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("which", ["prefill_split", "full"])
+    def test_attention_repeats_bitwise(self, cuda, which):
+        """Two bf16 launches on the same inputs agree bit for bit: B3 at
+        decode on the split path (the combine adds splits in a fixed
+        order), and B4 at the training shape."""
+        g = torch.Generator().manual_seed(6)
+        if which == "full":
+            q = torch.randn((8, 256, 9, 64), generator=g).to(cuda, torch.bfloat16)
+            kv = torch.randn((8, 256, 6, 64), generator=g).to(cuda,
+                                                              torch.bfloat16)
+            args = (q.transpose(1, 2), kv[:, :, :3].transpose(1, 2),
+                    kv[:, :, 3:].transpose(1, 2))
+            run = lambda: ops.flash_attention(*args)  # noqa: E731
+        else:
+            q = torch.randn((8, 1, 9, 64), generator=g).to(cuda, torch.bfloat16)
+            k, v = (torch.randn((8, 512, 3, 64), generator=g).to(
+                cuda, torch.bfloat16).permute(0, 2, 1, 3) for _ in range(2))
+            offs = torch.randint(0, 512, (8,), generator=g).to(cuda)
+            run = lambda: ops.flash_attention_prefill(  # noqa: E731
+                q.transpose(1, 2), k, v, offs)
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+    def test_split_combine_kernel(self, cuda):
+        """The combine kernel alone against its plain version, on split
+        partials from the plain split algorithm (some splits and rows with
+        no visible key)."""
+        g = torch.Generator().manual_seed(7)
+        q = torch.randn((3, 9, 4, 72), generator=g).to(cuda)
+        k, v = (torch.randn((3, 3, 400, 72), generator=g).to(cuda)
+                for _ in range(2))
+        offs = torch.tensor([0, 150, 396], dtype=torch.int32, device=cuda)
+        acc, m, l = ref.attention_split_ref(q, k, v, offs, window=30,
+                                            kv_len=360, splits=3,
+                                            keys_per_split=128)
+        got = fa.launch_combine(acc, m, l)
+        want = ref.attention_combine_ref(acc, m, l)
+        torch.cuda.synchronize()
+        assert torch.all(l[1:, 0] == 0) and torch.all(l[:, 2] == 0)
+        assert torch.all(got[2] == 0) and torch.any(got[:2] != 0)
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+
+    def test_bf16_kernel_refuses_misaligned_views(self, cuda):
+        """The bf16 kernel copies 16-byte chunks: a view whose rows do not
+        start 16-byte aligned raises instead of running."""
+        buf = torch.randn((1, 16, 2 * 64 + 4), device=cuda,
+                          dtype=torch.bfloat16)
+        q = buf[:, :, 4:68].reshape(1, 16, 1, 64).transpose(1, 2)
+        k = buf[:, :, 68:132].reshape(1, 16, 1, 64).transpose(1, 2)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops.flash_attention_prefill(q, k, k, torch.zeros(
+                1, dtype=torch.int32, device=cuda))
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops.flash_attention(q, k, k)
+
     @pytest.mark.parametrize("which", ["blast", "grouped", "attention",
                                        "attention256"])
     def test_function_grads(self, cuda, which):
