@@ -41,25 +41,41 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``prefill_chunk`` (B4 against B3).
 7. serve — full-width smollm-135m (30 layers, vocab 49152, bf16, seeded
    random weights) served by the engine in each mode (weights quantized at
-   load): 16 prompts of 16-200 tokens, 32 new tokens each; each mode's own
-   kernels' launch counters must equal steps × (90, 30, 30) and the others
-   stay 0; each step's B3 key splits follow from its host geometry
-   (``split_plan``), and the run prints how many steps split.  Then, in
-   each mode, six steady decode steps (8 slots, prompts of 16 tokens)
-   under torch.profiler: device busy and idle share per step, kernel time
-   by name; every mode's BLAST launches run the tile kernel's two
-   ``__global__``s and no other, and its attention launches the bf16
+   load): 16 prompts of 16-200 tokens, 32 new tokens each, once through
+   the captured engine (the default: one CUDA graph per chunk and kv
+   bucket, captured at first use) and once through an eager engine
+   (``step_fn=model.prefill_chunk``); the greedy tokens of every request
+   must be identical, and each run's launch counters (the captured one's
+   counted at capture and added on every replay) must equal steps × (90,
+   30, 30) in the mode's own kernels, the others staying 0.  Each step's
+   B3 key splits follow from its host geometry (``split_plan`` at the kv
+   bucket); the run prints how many steps split, and the splits the
+   bucket adds against the live key range.  Per mode, per path: graphs
+   captured, capture seconds, decode tok/s, step ms and
+   ``max_memory_allocated``.  Then, in each mode, through the graphs and
+   eagerly, six steady decode steps timed and six more under
+   torch.profiler (8 slots, prompts of 16 tokens): wall, device busy and
+   idle share per step, kernel time by name; on every profile whose trace names the kernels (the eager
+   one always; ``kernels_by_name``) every BLAST launch runs the tile
+   kernel's two ``__global__``s and no other, and attention the bf16
    attention kernel (30 a step) and no other (``attn_per_step``).  One
-   more float profile decodes after prompts of 192 tokens, where B3
-   splits the keys: the split combine must run 30 times a step.
+   more float profile each way decodes after prompts of 192 tokens, where
+   B3 splits the keys: the split combine must run 30 times a step.
 8. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
-   steps (bf16, remat, batch 8 × seq 256 of the Markov ``TokenStream``,
-   lr 3e-4 with warmup 5): per step loss, grad norm, skipped flag, time
-   and launches; the median step time, training tokens/s, peak device
-   memory, launches per step, and one more step under torch.profiler.
-   Every loss finite, no step skipped, the last 5 losses' mean below the
-   first, B4 launched 30 × 2 times a step, no serving-only kernel; the
-   profiled step's attention is the bf16 tile kernel alone, 60 launches.
+   steps through the captured step (bf16, remat, batch 8 × seq 256 of the
+   Markov ``TokenStream``, lr 3e-4 with warmup 5; one eager warm-up step,
+   then one CUDA graph of the whole step): per step loss, grad norm,
+   skipped flag, time and launches; the median step time, training
+   tokens/s, peak device memory, launches per step, and one more step
+   under torch.profiler each way.  Every loss finite, no step skipped, the
+   last 5 losses' mean below the first, B4 launched 30 × 2 times a step,
+   no serving-only kernel; the profiled step's attention is the bf16 tile
+   kernel alone, 60 launches.  A ``Trainer(jit=False)`` from the same init
+   on the same batches: loss, grad norm and every parameter equal the
+   captured run's bit for bit after each of 3 steps.  One more captured
+   step whose loss is made non-finite (NaN in the embedding row of its
+   first token) reports skipped, leaves params, m and v bit for bit and
+   still counts.
 9. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each run: kernel, plain version and one PyTorch library
    call (a yardstick only; the port never calls it), at decode, prefill
@@ -740,80 +756,119 @@ def serve_config(mode, **kw):
                                                 activations=act), **kw)
 
 
-def phase_serve(cfg, model, params, mode):
-    """One full-width serving run in ``mode``; returns its launch counts."""
-    import numpy as np
+def _serve_run(engine, prompts, max_new):
+    """Serve ``prompts`` → (requests, wall s, launch counts, peak bytes)."""
     import torch
-    from repro_torch import quant
-    from repro_torch.kernels import build, ops
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.serve import Engine, SamplingParams
-    finite = []
-    splits = []         # each step's B3 key splits, from its host geometry
-    sms = build.sm_count(torch.device(DEVICE))
-
-    def step(params, cache, tokens, steps, n_tokens):
-        # kv_len as the attention layer passes it: the largest live slot + 1
-        B, C = tokens.shape
-        kv_len = int(max(s + n for s, n in zip(steps, n_tokens) if n))
-        splits.append(fa.split_plan(B, cfg.n_kv_heads,
-                                    cfg.n_heads // cfg.n_kv_heads, C, kv_len,
-                                    sms)[2])
-        logits, cache = model.prefill_chunk(params, cache, tokens, steps,
-                                            n_tokens)
-        finite.append(torch.isfinite(logits).all())
-        return logits, cache
-
-    t0 = time.perf_counter()
-    engine = Engine(model, params, serve_config(mode), device=DEVICE,
-                    step_fn=step)
+    from repro_torch.kernels import ops
+    from repro_torch.serve import SamplingParams
     torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    rng = np.random.default_rng(SEED)
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, size=int(L))]
-               for L in rng.integers(16, 201, size=16)]
-    max_new = 32
-    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
     reqs = engine.generate_batch(prompts, SamplingParams(max_new_tokens=max_new))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.launches)
-    steps = engine.stats["steps"]
+    return (reqs, time.perf_counter() - t0, dict(ops.launches),
+            torch.cuda.max_memory_allocated())
+
+
+def phase_serve(cfg, model, params, mode):
+    """One full-width serving run in ``mode`` through the captured engine
+    (CUDA graphs, the default) and one through an eager engine
+    (``step_fn``, which observes every step): identical greedy tokens, and
+    each run's launch counts steps × (90, 30, 30).  Returns the captured
+    run's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import quant
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import Engine
+    finite = []
+    splits = []     # each step's B3 key splits: at its kv bucket, and at
+    #                 its largest live slot + 1 (what the layer passed before)
+    sms = build.sm_count(torch.device(DEVICE))
+    G = cfg.n_heads // cfg.n_kv_heads
+
+    def step(params, cache, tokens, steps, n_tokens, kv_len):
+        B, C = tokens.shape
+        live = int((steps + n_tokens)[n_tokens > 0].max())    # syncs
+        splits.append([fa.split_plan(B, cfg.n_kv_heads, G, C, kv, sms)[2]
+                       for kv in (kv_len, live)])
+        logits, cache = model.prefill_chunk(params, cache, tokens, steps,
+                                            n_tokens, kv_len=kv_len)
+        finite.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    rng = np.random.default_rng(SEED)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, size=int(L))]
+               for L in rng.integers(16, 201, size=16)]
+    max_new = 32
     L = cfg.n_layers
     blast, grouped = MODES[mode][1]
-    want = {k: 0 for k in launches}
-    want.update({blast: 3 * L * steps, grouped: L * steps,
-                 "flash_attention_prefill": L * steps})
-    if launches != want:
-        raise RuntimeError(f"{mode}: launch counts {launches} != {want} "
-                           f"({steps} steps × (90, 30, 30))")
-    bad = [r.uid for r in reqs
-           if not r.done or len(r.output) != max_new or r.stop_reason != "length"]
-    if bad:
-        raise RuntimeError(f"{mode}: requests did not finish with {max_new} "
-                           f"tokens: {bad}")
+    runs = {}
+    for path in ("graphs", "eager"):
+        t0 = time.perf_counter()
+        engine = Engine(model, params, serve_config(mode), device=DEVICE,
+                        step_fn=step if path == "eager" else None)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        reqs, wall, launches, peak = _serve_run(engine, prompts, max_new)
+        steps = engine.stats["steps"]
+        want = {k: 0 for k in launches}
+        want.update({blast: 3 * L * steps, grouped: L * steps,
+                     "flash_attention_prefill": L * steps})
+        if launches != want:
+            raise RuntimeError(f"{mode} ({path}): launch counts {launches} "
+                               f"!= {want} ({steps} steps × (90, 30, 30))")
+        bad = [r.uid for r in reqs if not r.done or len(r.output) != max_new
+               or r.stop_reason != "length"]
+        if bad:
+            raise RuntimeError(f"{mode} ({path}): requests did not finish "
+                               f"with {max_new} tokens: {bad}")
+        tp = engine.throughput()
+        runs[path] = {
+            "outputs": [r.output for r in reqs], "launches": launches,
+            "row": {"steps": steps, "graphs": engine.stats["graphs"],
+                    "capture_s": engine.stats["capture_s"],
+                    "decode_only_steps": len(engine.stats["decode_step_s"]),
+                    "wall_s": wall, "load_s": load_s,
+                    "max_memory_allocated_bytes": peak,
+                    "prefill_tok_s": tp["prefill_tok_s"],
+                    "decode_tok_s": tp["decode_tok_s"],
+                    "decode_step_ms_median": 1e3 * statistics.median(
+                        engine.stats["decode_step_s"]),
+                    "step_ms_median": 1e3 * statistics.median(
+                        engine.stats["step_s"])}}
+        param_bytes = quant.tree_nbytes(engine.params)
+        del engine
+    if runs["graphs"]["outputs"] != runs["eager"]["outputs"]:
+        raise RuntimeError(f"{mode}: the captured engine's greedy tokens "
+                           "differ from the eager engine's")
     if not bool(torch.stack(finite).all()):
         raise RuntimeError(f"{mode}: non-finite logits in the serving run")
-    tp = engine.throughput()
+    if runs["graphs"]["row"]["graphs"] == 0:
+        raise RuntimeError(f"{mode}: the default engine captured no graph")
+    bucket, live = zip(*splits)
     emit({"phase": "serve", "mode": mode, "arch": cfg.name, "layers": L,
           "vocab": cfg.vocab, "dtype": cfg.param_dtype, "slots": 8,
-          "chunk": 32, "max_len": 512, "requests": len(reqs),
+          "chunk": 32, "max_len": 512, "requests": len(prompts),
           "prompt_tokens": sum(map(len, prompts)),
-          "new_tokens": sum(len(r.output) for r in reqs), "steps": steps,
-          "decode_only_steps": len(engine.stats["decode_step_s"]),
-          "wall_s": wall, "load_s": load_s,
-          "param_bytes": quant.tree_nbytes(engine.params),
-          "prefill_tok_s": tp["prefill_tok_s"],
-          "decode_tok_s": tp["decode_tok_s"],
-          "decode_step_ms_median": 1e3 * statistics.median(
-              engine.stats["decode_step_s"]),
-          "launches": {k: v for k, v in launches.items() if v},
+          "new_tokens": len(prompts) * max_new,
+          "param_bytes": param_bytes,
+          "graphs": runs["graphs"]["row"], "eager": runs["eager"]["row"],
+          "greedy_tokens_identical": True,
+          "launches": {k: v for k, v in runs["graphs"]["launches"].items()
+                       if v},
           "per_step": [90, 30, 30],
-          "attn_split_steps": sum(k > 1 for k in splits),
-          "attn_splits_max": max(splits)})
-    return launches
+          "attn_split_steps": sum(k > 1 for k in bucket),
+          "attn_splits_max": max(bucket),
+          # what the kv bucket costs against the live key range: B3 key
+          # splits summed over steps (× 30 layers a step) and the steps
+          # whose launches add a combine
+          "attn_splits_sum": {"bucket": sum(bucket), "live": sum(live)},
+          "attn_combine_steps": {"bucket": sum(k > 1 for k in bucket),
+                                 "live": sum(k > 1 for k in live)}})
+    return runs["graphs"]["launches"]
 
 
 def tile_blast(kernels) -> dict:
@@ -857,67 +912,105 @@ def attention_kernels(kernels, per: int, want_tile: int,
     return out
 
 
-def phase_profile(model, params, mode, prompt_len=16):
-    """Device busy share of steady decode: 8 slots in decode after prompts
-    of ``prompt_len`` tokens, 6 engine steps under ``torch.profiler``;
-    kernel time by name from the trace.  Past one key tile of context
-    (``LONG_PROMPT``) B3 splits the keys: its combine must run once for
-    each of its launches."""
+def _device_kernels(prof) -> dict:
+    """{kernel name: [calls, device ms]} of a torch.profiler trace."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.serve import Engine, Request
-    engine = Engine(model, params, serve_config(mode), device=DEVICE)
-    for i in range(8):
-        engine.submit(Request(uid=i, prompt=list(range(1, prompt_len + 1)),
-                              max_new_tokens=64))
-    # prefill (chunks of 32), then warm decode
-    engine.run(max_iters=-(-prompt_len // 32) + 2)
-    n_steps = 6
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.run(max_iters=n_steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             k = kernels.setdefault(e.name, [0, 0.0])
             k[0] += 1
             k[1] += e.time_range.elapsed_us() / 1e3
+    return kernels
+
+
+def phase_profile(model, params, mode, prompt_len=16, graphs=True):
+    """Device busy share of steady decode: 8 slots in decode after prompts
+    of ``prompt_len`` tokens, 6 engine steps timed, then 6 more under
+    ``torch.profiler``, through the captured engine (``graphs``) or the
+    eager one: the wall time of each, the device busy time and kernel time
+    by name from the trace, and the idle share of the untraced wall time.  Past one key tile of context
+    (``LONG_PROMPT``) B3 splits the keys: its combine must run once for
+    each of its launches.  The by-name checks run on every profile whose
+    trace names the kernels (``kernels_by_name``); the eager profile of
+    each mode always does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import Engine, Request
+    engine = Engine(model, params, serve_config(mode), device=DEVICE,
+                    step_fn=None if graphs else model.prefill_chunk)
+    for i in range(8):
+        engine.submit(Request(uid=i, prompt=list(range(1, prompt_len + 1)),
+                              max_new_tokens=64))
+    # prefill (chunks of 32), then warm decode (which captures the decode
+    # graph of the profiled steps' kv bucket)
+    engine.run(max_iters=-(-prompt_len // 32) + 2)
+    n_steps = 6
+    graphs_before = engine.stats["graphs"]
+    # six steps timed without the profiler (which slows the host, and a
+    # graph's replay on the card, while it traces), then six under it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(max_iters=n_steps)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(max_iters=n_steps)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    if engine.stats["graphs"] != graphs_before:
+        raise RuntimeError(f"{mode}: a profiled decode step captured a graph")
+    kernels = _device_kernels(prof)
     busy = sum(v[1] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
-    other = sorted(k for k in kernels if "blast" in k and not any(
-        t in k for t in ("blast_tile_kernel", "blast_split_sum")))
-    if other or not tile_blast(kernels)["blast_tile_kernel"]["calls"]:
-        raise RuntimeError(f"{mode} decode did not run the tile kernel alone:"
-                           f" other BLAST kernels {other}")
-    # the profiled steps write slots prompt_len + 2 … + 7 (after two warm
-    # decode steps): kv_len as the attention layer passes it, and B3's plan
-    cfg = model.cfg
-    sms = build.sm_count(torch.device(DEVICE))
-    split_steps = sum(
-        fa.split_plan(8, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, 1,
-                      prompt_len + 3 + i, sms)[2] > 1 for i in range(n_steps))
-    emit({"phase": "profile", "mode": mode, "prompt_len": prompt_len,
-          "decode_steps": n_steps,
-          "slots": 8, "wall_ms_per_step": wall_ms / n_steps,
-          "device_busy_ms_per_step": busy / n_steps if kernels else None,
-          "device_idle_share": 1 - busy / wall_ms if kernels else None,
-          "device_ops_per_step": (sum(v[0] for v in kernels.values())
-                                  / n_steps),
-          "tile_blast_per_step": {
-              k: ({"calls": v["calls"] / n_steps, "ms": v["ms"] / n_steps}
-                  if isinstance(v, dict) else v / n_steps)
-              for k, v in tile_blast(kernels).items()},
-          "attn_per_step": attention_kernels(
-              kernels, n_steps, cfg.n_layers * n_steps,
-              cfg.n_layers * split_steps),
-          "top": [{"name": n[:80], "calls_per_step": c / n_steps,
-                   "ms_per_step": t / n_steps} for n, (c, t) in top]})
+    by_name = tile_blast(kernels)["blast_tile_kernel"]["calls"] > 0
+    if not (by_name or graphs):
+        raise RuntimeError(f"{mode}: the eager decode profile names no "
+                           "BLAST tile kernel")
+    row = {"phase": "profile", "mode": mode,
+           "path": "graphs" if graphs else "eager",
+           "prompt_len": prompt_len, "decode_steps": n_steps, "slots": 8,
+           "graphs": engine.stats["graphs"],
+           "wall_ms_per_step": wall_ms / n_steps,
+           "traced_wall_ms_per_step": traced_ms / n_steps,
+           "device_busy_ms_per_step": busy / n_steps if kernels else None,
+           # busy time under the profiler against the untraced wall time
+           "device_idle_share": 1 - busy / wall_ms if kernels else None,
+           "traced_idle_share": 1 - busy / traced_ms if kernels else None,
+           "device_ops_per_step": (sum(v[0] for v in kernels.values())
+                                   / n_steps),
+           "kernels_by_name": by_name}
+    if by_name:
+        other = sorted(k for k in kernels if "blast" in k and not any(
+            t in k for t in ("blast_tile_kernel", "blast_split_sum")))
+        if other:
+            raise RuntimeError(f"{mode} decode did not run the tile kernel "
+                               f"alone: other BLAST kernels {other}")
+        # the profiled steps write slots prompt_len + 8 … + 13 (after two
+        # warm decode steps and six timed ones): kv_len as the attention
+        # layer passes it (the bucket of the live key range), and B3's plan
+        cfg = model.cfg
+        sms = build.sm_count(torch.device(DEVICE))
+        split_steps = sum(
+            fa.split_plan(8, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                          1, fa.kv_bucket(prompt_len + 9 + i, 512),
+                          sms)[2] > 1 for i in range(n_steps))
+        row.update({
+            "tile_blast_per_step": {
+                k: ({"calls": v["calls"] / n_steps, "ms": v["ms"] / n_steps}
+                    if isinstance(v, dict) else v / n_steps)
+                for k, v in tile_blast(kernels).items()},
+            "attn_per_step": attention_kernels(
+                kernels, n_steps, cfg.n_layers * n_steps,
+                cfg.n_layers * split_steps)})
+    row["top"] = [{"name": n[:80], "calls_per_step": c / n_steps,
+                   "ms_per_step": t / n_steps} for n, (c, t) in top]
+    emit(row)
+    return row
 
 
 # -- training -------------------------------------------------------------------
@@ -1069,42 +1162,113 @@ def phase_train_reference(cfg):
                            "differs from the CPU's past its limits")
 
 
-def phase_train(cfg):
-    """Full-width smollm-135m trained by the port's ``Trainer`` (30 layers,
-    bf16, remat, seeded ``LM.init``, the ``TokenStream`` at the launcher's
-    batch 8 × seq 256, AdamW with a cosine schedule).  Returns the launch
-    counts of the run."""
+def _bits(t):
+    """A float tensor's bit patterns (NaNs compare equal to themselves)."""
+    import torch
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _trainer(cfg, jit, log):
+    """The port's ``Trainer`` at the launcher's shape, from ``LM.init(SEED)``,
+    its ``train_step`` wrapped to time each step and record its metrics,
+    its launches and (``log["keep"]`` steps) every parameter after it."""
     import torch
     from repro_torch.data import TokenStream
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, cosine_schedule
     from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
     model = build_model(cfg, device=DEVICE)
     opt = adamw(cosine_schedule(TRAIN_LR, TRAIN_STEPS, TRAIN_WARMUP))
     data = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                        global_batch=TRAIN_BATCH, seed=SEED)
-    trainer = Trainer(model, opt, data, log_every=10 ** 9)
-    per_step = []
-    inner = trainer.step_fn
+    trainer = Trainer(model, opt, data, jit=jit, log_every=10 ** 9)
+    inner = trainer.train_step
 
-    def step_fn(params, opt_state, batch):
+    def train_step(params, opt_state, batch):
         before = dict(ops.launches)
+        capture_s = trainer.stats["capture_s"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt_state, m = inner(params, opt_state, batch)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        row = {"step": len(per_step), "loss": float(m["loss"]),
+        ms = (time.perf_counter() - t0
+              - (trainer.stats["capture_s"] - capture_s)) * 1e3
+        row = {"path": "graphs" if jit else "eager",
+               "step": len(log["rows"]), "loss": float(m["loss"]),
                "grad_norm": float(m["grad_norm"]),
                "skipped": bool(m["skipped"]), "ms": ms,
                "launches": {k: v - before[k] for k, v in ops.launches.items()
                             if v != before[k]}}
-        per_step.append(row)
+        if len(log["rows"]) < log["keep"]:
+            log["params"].append([p.detach().clone()
+                                  for p in leaves(params)])
+        log["rows"].append(row)
         emit({"phase": "train_step", **row})
         return params, opt_state, m
 
-    trainer.step_fn = step_fn
+    trainer.train_step = train_step
+    return trainer
+
+
+def _profile_train_step(trainer, result, step, want_b4, eager=False):
+    """One more training step under torch.profiler — a replay of the
+    captured step, or (``eager``) the step function run eagerly: device
+    time by kernel name and the device idle share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    params, opt_state = result["params"], result["opt_state"]
+    batch = trainer.data.batch(step)
+    if eager:
+        batch = {"tokens": batch["tokens"].to(DEVICE)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        if eager:
+            trainer.step_fn(params, opt_state, batch)
+        else:
+            trainer.train_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_kernels(prof)
+    busy = sum(v[1] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    by_name = tile_blast(kernels)["blast_tile_kernel"]["calls"] > 0
+    out = {"path": "eager" if eager else "graphs", "wall_ms": wall_ms,
+           "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / wall_ms if kernels else None,
+           "device_ops": sum(v[0] for v in kernels.values()),
+           "kernels_by_name": by_name}
+    if by_name:
+        out.update(tile_blast=tile_blast(kernels),
+                   attn=attention_kernels(kernels, 1, want_b4))
+    elif eager:
+        raise RuntimeError("the eager training profile names no BLAST tile "
+                           "kernel")
+    out["top"] = [{"name": n[:80], "calls": c, "ms": t} for n, (c, t) in top]
+    return out
+
+
+def phase_train(cfg, eager_steps=3):
+    """Full-width smollm-135m trained by the port's ``Trainer`` (30 layers,
+    bf16, remat, seeded ``LM.init``, the ``TokenStream`` at the launcher's
+    batch 8 × seq 256, AdamW with a cosine schedule): 20 steps through the
+    captured step (``jit=True``, the default: one eager warm-up step, then
+    a CUDA graph), then ``eager_steps`` steps of a ``jit=False`` trainer
+    from the same init on the same batches, whose loss, grad norm and every
+    parameter must equal the captured run's bit for bit after each of the
+    first 3 steps.  One profiled step each way; then one captured step
+    whose loss is made non-finite (NaN in the embedding row of the batch's
+    first token) must be skipped, leave params, m and v bit for bit and
+    still count.  Returns the launch counts of the captured run."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.tree import leaves
+    logs = {path: {"rows": [], "params": [], "keep": 3}
+            for path in ("graphs", "eager")}
+    trainer = _trainer(cfg, True, logs["graphs"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -1112,18 +1276,61 @@ def phase_train(cfg):
     torch.cuda.synchronize()
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
-    losses = [r["loss"] for r in per_step]
-    ms = statistics.median(r["ms"] for r in per_step[3:])
     L = cfg.n_layers
-    want_b4 = L * (1 + int(cfg.remat)) * TRAIN_STEPS
+    want_b4 = L * (1 + int(cfg.remat))
+    prof = _profile_train_step(trainer, result, TRAIN_STEPS, want_b4)
+    ms = statistics.median(r["ms"] for r in
+                           logs["graphs"]["rows"][3:TRAIN_STEPS])
+    prof["device_idle_share_of_median_step"] = 1 - prof[
+        "device_busy_ms"] / ms
+    per_step = logs["graphs"]["rows"][:TRAIN_STEPS]
+    # the NaN step: a replay of the captured graph
+    params, state = result["params"], result["opt_state"]
+    batch = trainer.data.batch(TRAIN_STEPS + 1)
+    tok = int(batch["tokens"][0, 0])
+    embed = params["embed"]
+    held = embed.detach()[tok].clone()
+    with torch.no_grad():
+        embed[tok] = float("nan")
+    before = [t.detach().clone() for t in leaves((params, state["m"],
+                                                  state["v"]))]
+    count = int(state["count"])
+    _, _, m = trainer.train_step(params, state, batch)
+    nan_skipped = float(m["skipped"]) == 1.0
+    nan_held = all(torch.equal(_bits(a.detach()), _bits(b)) for a, b in
+                   zip(leaves((params, state["m"], state["v"])), before))
+    nan_counted = int(state["count"]) == count + 1
+    with torch.no_grad():
+        embed[tok] = held
+    graphs, capture_s = trainer.stats["graphs"], trainer.stats["capture_s"]
+    del trainer, result, params, state, before, embed
+    # the eager trainer, from the same init on the same batches
+    eager = _trainer(cfg, False, logs["eager"])
+    eager_result = eager.run(eager_steps, seed=SEED)
+    prof_eager = _profile_train_step(eager, eager_result, eager_steps,
+                                     want_b4, eager=True)
+    # the eager steps' median, the first (cold allocator) left out
+    eager_ms = statistics.median(r["ms"] for r in
+                                 logs["eager"]["rows"][1:eager_steps])
+    prof_eager["device_idle_share_of_median_step"] = 1 - prof_eager[
+        "device_busy_ms"] / eager_ms
+    del eager, eager_result
+    ga, ea = logs["graphs"], logs["eager"]
+    same = [ga["rows"][i]["loss"] == ea["rows"][i]["loss"]
+            and ga["rows"][i]["grad_norm"] == ea["rows"][i]["grad_norm"]
+            and all(torch.equal(x, y) for x, y in zip(ga["params"][i],
+                                                     ea["params"][i]))
+            for i in range(min(3, eager_steps))]
+    losses = [r["loss"] for r in per_step]
+    eager_rows = ea["rows"][:eager_steps]
     trained = {"blast_matmul", "blast_matmul_grouped", "flash_attention",
                "blast_matmul_dx"}
     stray = {k: v for k, v in launches.items() if v and k not in trained}
-    prof = _profile_train_step(inner, result, data, want_b4 // TRAIN_STEPS)
     emit({"phase": "train", "arch": cfg.name, "layers": L,
           "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.param_dtype,
           "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
           "steps": TRAIN_STEPS, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+          "graphs": graphs, "capture_s": capture_s,
           "first_loss": losses[0], "last5_mean_loss":
               statistics.fmean(losses[-5:]),
           "median_step_ms_after_3": ms,
@@ -1131,56 +1338,38 @@ def phase_train(cfg):
           "max_memory_allocated_bytes": peak,
           "launches_per_step": {k: v / TRAIN_STEPS
                                 for k, v in launches.items() if v},
-          "profile": prof})
+          "eager_steps": eager_steps,
+          "eager_step_ms": [r["ms"] for r in eager_rows],
+          "eager_median_step_ms_after_1": eager_ms,
+          "graphs_equal_eager_bitwise_per_step": same,
+          "nan_step": {"skipped": nan_skipped, "held": nan_held,
+                       "counted": nan_counted},
+          "profile": prof, "profile_eager": prof_eager})
     bad = []
     if not all(map(math.isfinite, losses)) or len(losses) != TRAIN_STEPS:
         bad.append(f"losses {losses}")
-    if any(r["skipped"] for r in per_step):
+    if any(r["skipped"] for r in per_step + eager_rows):
         bad.append("a step was skipped")
     if not statistics.fmean(losses[-5:]) < losses[0]:
         bad.append(f"the last 5 losses' mean is not below the first "
                    f"({losses})")
-    if launches["flash_attention"] != want_b4:
+    if launches["flash_attention"] != want_b4 * TRAIN_STEPS:
         bad.append(f"B4 launched {launches['flash_attention']} times, want "
-                   f"{want_b4}")
+                   f"{want_b4 * TRAIN_STEPS}")
     if stray:
         bad.append(f"kernels off the training path launched: {stray}")
     if any(launches[k] == 0 for k in trained):
         bad.append(f"a training kernel never launched: {launches}")
+    if graphs != 1:
+        bad.append(f"the trainer captured {graphs} graphs, want 1")
+    if not all(same):
+        bad.append(f"captured and eager training differ: {same}")
+    if not (nan_skipped and nan_held and nan_counted):
+        bad.append("the non-finite step under capture was not skipped "
+                   "cleanly")
     if bad:
         raise RuntimeError("train: " + "; ".join(bad))
     return launches
-
-
-def _profile_train_step(step_fn, result, data, want_b4):
-    """One more training step under torch.profiler: device time by kernel
-    name and the device idle share of the step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    params, opt_state = result["params"], result["opt_state"]
-    batch = data.batch(TRAIN_STEPS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_fn(params, opt_state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name, [0, 0.0])
-            k[0] += 1
-            k[1] += e.time_range.elapsed_us() / 1e3
-    busy = sum(v[1] for v in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": 1 - busy / wall_ms if kernels else None,
-            "device_ops": sum(v[0] for v in kernels.values()),
-            "tile_blast": tile_blast(kernels),
-            "attn": attention_kernels(kernels, 1, want_b4),
-            "top": [{"name": n[:80], "calls": c, "ms": t}
-                    for n, (c, t) in top]}
 
 
 def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
@@ -1213,6 +1402,7 @@ def phase_timing(cfg):
     from repro_torch import quant
     from repro_torch.core import blast as blast_lib
     from repro_torch.kernels import blast_matmul as bm
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     gen = torch.Generator().manual_seed(SEED + 2)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
@@ -1280,9 +1470,10 @@ def phase_timing(cfg):
         q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen,
                                          DEVICE, offsets)
         # at the serving positions, kv_len as the attention layer passes it
-        # (its largest live slot + 1); elsewhere the whole cache.  SDPA gets
-        # the same key range
-        kw = {} if offsets is None else {"kv_len": int(offs.max()) + C}
+        # (the bucket of its largest live slot + 1); elsewhere the whole
+        # cache.  SDPA gets the same key range
+        kw = ({} if offsets is None else
+              {"kv_len": fa.kv_bucket(int(offs.max()) + C, 512)})
         kv = kw.get("kv_len", 512)
         kc, vc = k[:, :, :kv].contiguous(), v[:, :, :kv].contiguous()
         qpos = offs[:, None].long() + torch.arange(C, device=DEVICE)[None]
@@ -1438,8 +1629,11 @@ def main() -> int:
     params = model.init(SEED)
     launches = {mode: phase_serve(cfg, model, params, mode) for mode in MODES}
     for mode in MODES:
-        phase_profile(model, params, mode)
-    phase_profile(model, params, "none", prompt_len=LONG_PROMPT)
+        for graphs in (True, False):
+            phase_profile(model, params, mode, graphs=graphs)
+    for graphs in (True, False):
+        phase_profile(model, params, "none", prompt_len=LONG_PROMPT,
+                      graphs=graphs)
     del model, params
     launches["train"] = phase_train(cfg)
     rows = phase_timing(cfg)

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Run one tree's end-to-end phases of ``chip_smoke.py``, so that two trees'
-serving and training numbers can be compared on one card.
+"""Run one tree's end-to-end phases of ``chip_smoke.py``, so that serving
+and training through the CUDA graphs and eagerly, or two trees, can be
+compared on one card.
 
     python3 scripts/e2e_ab.py --root PATH --label NAME [--modes none w4a8]
 
 Imports ``chip_smoke`` and ``repro_torch`` from the tree at ``--root`` (its
 own phases, with its own checks), builds that tree's kernels and runs, on
 full-width smollm-135m with seeded random weights: the serving phase in
-each of ``--modes`` (16 requests, 32 new tokens each: decode tok/s and the
-median decode step), the decode profile in each mode (8 slots, 6 steps
-under torch.profiler: wall and device-busy ms a step) and the 20-step
-training phase (median step ms); and the host's time per call of the B3
-wrapper at a decode step's shape, early (positions 16–32) and past one
-key tile (192–200) (``host``: the median of 5 rounds of 200 calls, each
-round's wall time over its calls, so that the host's enqueue cost and
-not the card sets it).  Every JSON line carries ``--label``.  Host speed
-moves between calls, so run the trees in turns (A, B, B, A) within one
-call.
+each of ``--modes`` (16 requests, 32 new tokens each, through the captured
+engine and an eager one: decode tok/s and the median decode step of each),
+the decode profile in each mode through the graphs and eagerly, in turns
+(8 slots, 6 steps under torch.profiler: wall and device-busy ms a step)
+and the training phase (20 captured steps and ``EAGER_STEPS`` eager ones:
+median step ms each, one profiled step each); and the host's time per call
+of the B3 wrapper at a decode step's shape, early (positions 16–32) and
+past one key tile (192–200) (``host``: the median of 5 rounds of 200
+calls, each round's wall time over its calls, so that the host's enqueue
+cost and not the card sets it).  Every JSON line carries ``--label``.  Host
+speed moves between calls, so run a tree several times, or two trees in
+turns (A, B, B, A), within one call.  A tree from before the compiled step
+runs with its own copy of this script.
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ from __future__ import annotations
 import argparse
 import sys
 from pathlib import Path
+
+EAGER_STEPS = 10    # eager training steps; the first 3 are held to the
+#                     captured run's bit for bit
 
 
 def main() -> int:
@@ -43,6 +50,7 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch import configs
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
     if not torch.cuda.is_available():
         raise SystemExit("e2e_ab: no CUDA device")
@@ -55,11 +63,12 @@ def main() -> int:
     for mode in args.modes:
         cs.phase_serve(cfg, model, params, mode)
     for mode in args.modes:
-        cs.phase_profile(model, params, mode)
+        for graphs in (True, False):
+            cs.phase_profile(model, params, mode, graphs=graphs)
     del model, params
-    cs.phase_train(cfg)
+    cs.phase_train(cfg, eager_steps=EAGER_STEPS)
     # B3 at decode: 8 slots of a 512-slot cache, kv_len as the attention
-    # layer passes it
+    # layer passes it (the bucket of the live key range)
     gen = torch.Generator().manual_seed(cs.SEED)
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = torch.randn((8, 1, hq, hd), generator=gen).to("cuda", torch.bfloat16)
@@ -68,7 +77,7 @@ def main() -> int:
     for lo, hi in ((16, 32), (192, 200)):
         offs = torch.randint(lo, hi + 1, (8,), generator=gen).to(
             "cuda", torch.int32)
-        kv_len = int(offs.max()) + 1
+        kv_len = fa.kv_bucket(int(offs.max()) + 1, 512)
         rounds = []
         for _ in range(6):
             torch.cuda.synchronize()

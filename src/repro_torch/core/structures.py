@@ -183,7 +183,9 @@ def activations(mode: str):
 
 def record_dispatch(n: int = 1) -> None:
     """Count one projection-matmul dispatch (== one kernel launch on the
-    CUDA path)."""
+    CUDA path) where the apply runs in Python: every eager step, and a CUDA
+    graph's capture but not its replays — as the reference's counter counts
+    traces, not calls of a jitted step."""
     _DISPATCHES[0] += n
 
 

@@ -88,6 +88,18 @@ def split_plan(B: int, Hkv: int, G: int, C: int, kv_len: int,
     return warps, tiles, -(-key_tiles // per), per * KEY_TILE
 
 
+def kv_bucket(kv_len: int, S: int) -> int:
+    """The kv_len a serving step passes to B3 when its live keys end at
+    ``kv_len``: whole ``KEY_TILE`` tiles, their count rounded up to a power
+    of two, at most ``S`` (host ints only).  A CUDA graph fixes kv_len, and
+    with it ``split_plan``, at capture, so a step is keyed by its bucket:
+    a few buckets cover every position.  Keys past a row's own causal limit
+    are masked per row, so a larger kv_len changes no live row beyond the
+    split count."""
+    tiles = max(1, -(-kv_len // KEY_TILE))
+    return min(S, KEY_TILE << (tiles - 1).bit_length())
+
+
 def _split_scratch(splits: int, B: int, C: int, Hq: int, D: int,
                    device) -> torch.Tensor | None:
     """The split launch's fp32 scratch: acc (splits, B, C, Hq, D), then the

@@ -14,7 +14,9 @@ runs it in XLA outside its Pallas kernel).  ``launches`` counts kernel
 launches (plain-version
 calls are not counted), so a run can show that its model path went through
 the kernels; ``blast_matmul_dx`` counts the B1 launches that compute a
-backward pass's dx.
+backward pass's dx.  A wrapper counts in Python, where it launches; a
+captured CUDA graph's replays are counted by its owner
+(``launches_apart``, ``add_launches``).
 
 Training.  The float kernels that the training path launches — B1
 ``blast_matmul``, B2 ``blast_matmul_grouped`` and B4 ``flash_attention`` —
@@ -35,6 +37,7 @@ JAX package has no backward kernel (XLA differentiates its mirrors), so:
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -58,6 +61,29 @@ launches: dict[str, int] = {
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def launches_apart():
+    """Keep a block's launches out of ``launches``: yields a dict that
+    receives, on exit, the counts the block made, and leaves ``launches``
+    as it was.  A CUDA graph's warm-up and capture run under it; the
+    counts made by the capture are what every replay launches
+    (``add_launches``), since a replay runs no Python."""
+    before = dict(launches)
+    made: dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        made.update({k: v - before[k] for k, v in launches.items()
+                     if v != before[k]})
+        launches.update(before)
+
+
+def add_launches(made: dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for name, n in made.items():
+        launches[name] += n
 
 
 def _on_cpu(t: torch.Tensor) -> bool:

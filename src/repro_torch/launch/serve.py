@@ -5,7 +5,10 @@ chunked-prefill engine, on the card by default.
         --requests 16 --max-new 32 --chunk 32 --slots 8 --max-len 512
 
 ``--reduced`` runs the small test variant; ``--device cpu`` runs the plain
-PyTorch path on the host.  Weights are random, drawn from ``--seed``.
+PyTorch path on the host, eagerly.  On the card the engine captures its
+step as CUDA graphs (one per chunk and kv bucket) and replays them; the
+launcher prints how many it captured and the seconds that took, which the
+prefill and decode rates leave out.  Weights are random, drawn from ``--seed``.
 ``--quant-weights int8`` (or ``int4``) quantizes them at load (the int8 or
 int4 BLAST kernels); adding ``--quant-activations int8`` runs the W8A8 (or
 W4A8) kernels.
@@ -86,6 +89,8 @@ def main(argv=None) -> list[Request]:
           f"{tp['prefill_tok_s']:.1f} tok/s · decode "
           f"{engine.stats['decode_tokens']} toks @ {tp['decode_tok_s']:.1f} "
           "tok/s")
+    print(f"[serve] CUDA graphs captured: {engine.stats['graphs']} in "
+          f"{engine.stats['capture_s']:.3f}s")
     return reqs
 
 

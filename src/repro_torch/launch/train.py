@@ -4,7 +4,9 @@
         --steps 100 --batch 8 --seq 256 [--reduced] [--ckpt DIR]
 
 ``--reduced`` runs the small test variant; ``--device cpu`` runs the plain
-PyTorch path on the host (without it, a machine with no GPU raises).
+PyTorch path on the host, eagerly (without it, a machine with no GPU
+raises).  On the card the trainer captures its step as a CUDA graph after
+one eager warm-up step and replays it (``Trainer(jit=True)``).
 Weights are random, drawn from ``--seed``; the data is the synthetic Markov
 ``TokenStream``.
 """
@@ -53,7 +55,9 @@ def main(argv=None) -> dict:
     result = trainer.run(args.steps, seed=args.seed)
     hist = result["history"]
     print(f"[train] {args.arch} ({cfg.structure.kind}): "
-          f"loss {hist[0]:.4f} → {hist[-1]:.4f} over {len(hist)} steps")
+          f"loss {hist[0]:.4f} → {hist[-1]:.4f} over {len(hist)} steps; CUDA "
+          f"graphs captured: {trainer.stats['graphs']} in "
+          f"{trainer.stats['capture_s']:.3f}s")
     return result
 
 

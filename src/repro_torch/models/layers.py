@@ -21,6 +21,7 @@ from repro_torch.configs.base import ArchConfig, StructureConfig
 from repro_torch.core import structures
 from repro_torch.core.structures import LinearSpec, make_linear
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import kv_bucket
 from repro_torch.models import ops
 from repro_torch.quant import qarray as qt
 
@@ -134,36 +135,69 @@ def norm_apply(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Ragged:
-    """Where a (B, C) chunk's live tokens go.  Column i of row b is live iff
+    """Where a (B, C) chunk's tokens go.  Column i of row b is live iff
     ``i < n_tokens[b]``; its absolute position (and cache slot) is
-    ``steps[b] + i``.  All tensors are on the model's device."""
+    ``steps[b] + i``.  Every tensor has a fixed shape and lies on the
+    model's device, so a step built on it can be captured as a CUDA graph;
+    ``kv_len`` is the host int the attention kernel's launch plan reads
+    (a bucket, ``flash_attention.kv_bucket``: a graph fixes it)."""
     steps: torch.Tensor     # (B,) int32 — the attention kernel's q_offsets
     q_pos: torch.Tensor     # (B, C) int64 — RoPE positions
-    rows: torch.Tensor      # (L,) int64 — live (row, column, slot) triples
-    cols: torch.Tensor      # (L,)
-    slots: torch.Tensor     # (L,)
+    slot: torch.Tensor      # (B, C) int64 — where each column writes
     last: torch.Tensor      # (B,) int64 — each row's last live column
-    max_slot: int           # host copy: largest live slot (-1 if none)
+    kv_len: int
 
 
-def ragged(steps, n_tokens, B: int, C: int, device) -> Ragged:
-    """Build the chunk geometry on the host (``steps``/``n_tokens`` come from
-    the scheduler) and move it to ``device`` in one copy."""
-    st = torch.as_tensor(steps, dtype=torch.int64).cpu().expand(B).contiguous()
+def ragged(steps: torch.Tensor, n_tokens: torch.Tensor, C: int, S: int,
+           kv_len: int) -> Ragged:
+    """The chunk geometry from device tensors ``steps`` and ``n_tokens``
+    (B,), on their device, with no host work, for a cache of ``S`` slots.
+    A live column writes its position's slot; a dead one writes slot S,
+    the spare slot past the cache's end that ``attn_cache_init`` allocates
+    and nothing reads — the fixed-shape form of the reference's write
+    (``src/repro/models/layers.py``: ``slot = where(valid, q_pos, S)``,
+    whose out-of-bounds writes are dropped).  Every write of a step then
+    has the shape (B, C), and the S slots end as the reference leaves
+    them."""
+    st = steps.to(torch.int64)
+    n = n_tokens.to(torch.int64)
+    offs = torch.arange(C, dtype=torch.int64, device=st.device)
+    q_pos = st[:, None] + offs[None, :]
+    slot = torch.where(offs[None, :] < n[:, None], q_pos,
+                       torch.full_like(q_pos, S))
+    return Ragged(steps=st.to(torch.int32), q_pos=q_pos, slot=slot,
+                  last=(n - 1).clamp(0, C - 1), kv_len=kv_len)
+
+
+def chunk_inputs(steps, n_tokens, B: int, C: int, S: int,
+                 device) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The host side of a step whose ``steps`` and ``n_tokens`` (default C)
+    come as host values: (steps, n_tokens) on ``device`` in one copy, and
+    the kv bucket of the largest live position.  Raises where a live
+    position is past the cache's ``S`` slots (the device step does not
+    check: an index past the cache would fault on the card)."""
+    st = torch.as_tensor(steps, dtype=torch.int64).cpu().expand(B)
     n = (torch.full((B,), C, dtype=torch.int64) if n_tokens is None else
          torch.as_tensor(n_tokens, dtype=torch.int64).cpu().expand(B))
-    offs = torch.arange(C, dtype=torch.int64)
-    rows, cols = (offs[None, :] < n[:, None]).nonzero(as_tuple=True)
-    slots = st[rows] + cols
-    q_pos = st[:, None] + offs[None, :]
-    last = (n - 1).clamp(0, C - 1)
-    L = rows.numel()
-    packed = torch.cat([st, q_pos.reshape(-1), rows, cols, slots, last])
-    dev = packed.to(device)
-    parts = torch.split(dev, [B, B * C, L, L, L, B])
-    return Ragged(steps=parts[0].to(torch.int32), q_pos=parts[1].view(B, C),
-                  rows=parts[2], cols=parts[3], slots=parts[4], last=parts[5],
-                  max_slot=int(slots.max()) if L else -1)
+    live = n > 0
+    need = int((st + n)[live].max()) if bool(live.any()) else 0
+    if need > S:
+        raise ValueError(f"position {need - 1} exceeds the cache's {S} "
+                         "slots")
+    dev = torch.cat([st, n]).to(device)
+    return dev[:B], dev[B:], kv_bucket(need, S)
+
+
+def _write(leaf: torch.Tensor, rg: Ragged, new: torch.Tensor) -> None:
+    """Write a chunk's (B, C, ...) values into a (B, S, ...) cache leaf in
+    place, dead columns into its spare slot S.  The leaf is the [:, :S]
+    view ``attn_cache_init`` returns; a leaf without the spare slot makes
+    ``as_strided`` raise (out of its storage's bounds)."""
+    B, S = leaf.shape[:2]
+    full = leaf.as_strided((B, S + 1, *leaf.shape[2:]), leaf.stride(),
+                           leaf.storage_offset())
+    rows = torch.arange(B, device=leaf.device)[:, None]
+    full[rows, rg.slot] = new.to(leaf.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -246,14 +280,17 @@ def attn_apply(spec: AttnSpec, params: Params, x: torch.Tensor,
 def attn_cache_init(spec: AttnSpec, batch: int, max_len: int, dtype,
                     device) -> Params:
     """Slot-static float KV cache in the reference layout (B, S, Hkv, D);
-    ``pos`` is each slot's absolute position, -1 for empty."""
+    ``pos`` is each slot's absolute position, -1 for empty.  Each leaf is
+    the [:, :S] view of a buffer with one spare slot, where a step's dead
+    columns write (``ragged``); nothing reads it."""
     hq, hkv, hd = spec.dims
-    return {"pos": torch.full((batch, max_len), -1, dtype=torch.int32,
-                              device=device),
-            "k": torch.zeros((batch, max_len, hkv, hd), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, max_len, hkv, hd), dtype=dtype,
-                             device=device)}
+    S = max_len
+    return {"pos": torch.full((batch, S + 1), -1, dtype=torch.int32,
+                              device=device)[:, :S],
+            "k": torch.zeros((batch, S + 1, hkv, hd), dtype=dtype,
+                             device=device)[:, :S],
+            "v": torch.zeros((batch, S + 1, hkv, hd), dtype=dtype,
+                             device=device)[:, :S]}
 
 
 def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
@@ -262,8 +299,9 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
     """Multi-token prefill at per-row offsets (the chunked-prefill step).
 
     x: (B, C, d); steps: (B,) absolute position of each row's first token;
-    n_tokens: (B,) live tokens per row.  Dead columns are dropped from the
-    cache write and produce outputs the caller discards.  C=1 with
+    n_tokens: (B,) live tokens per row (host values, read through
+    ``chunk_inputs``, when no ``rg`` is given).  Dead columns leave the
+    cache as it was and produce outputs the caller discards.  C=1 with
     n_tokens=1 is single-token decode.
 
     The attention kernel masks by slot index (slot == absolute position),
@@ -274,29 +312,26 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
     hq, hkv, hd = spec.dims
     B, C, _ = x.shape
     if rg is None:
-        rg = ragged(steps, n_tokens, B, C, x.device)
-    S = cache["k"].shape[1]
-    if rg.max_slot >= S:
-        raise ValueError(f"position {rg.max_slot} exceeds the cache's {S} "
-                         "slots")
+        S = cache["k"].shape[1]
+        st, n, kv_len = chunk_inputs(steps, n_tokens, B, C, S, x.device)
+        rg = ragged(st, n, C, S, kv_len)
     qkv = linear_apply(spec.qkv, params["qkv"], x)
     q, k, v = _split_qkv(spec, qkv)
     if cfg.pos_embed == "rope":
         q = ops.rope(q, rg.q_pos, cfg.rope_theta)
         k = ops.rope(k, rg.q_pos, cfg.rope_theta)
-    # Ragged write: an in-place index_put_ on the live columns only — the
-    # reference's out-of-bounds scatter with mode="drop" skips the dead ones.
-    cache["k"][rg.rows, rg.slots] = k[rg.rows, rg.cols].to(cache["k"].dtype)
-    cache["v"][rg.rows, rg.slots] = v[rg.rows, rg.cols].to(cache["v"].dtype)
-    cache["pos"][rg.rows, rg.slots] = rg.slots.to(torch.int32)
+    # fixed-shape in-place writes, dead columns into the spare slot
+    _write(cache["k"], rg, k)
+    _write(cache["v"], rg, v)
+    _write(cache["pos"], rg, rg.q_pos)
     # the cache is read through strides as (B, Hkv, S, D): no copy.  No
-    # live query sees a slot past the largest live one, so kv_len stops
-    # there: the kernel's launch plan then sees the live key range from the
-    # host (dead columns' outputs change; the caller discards them)
+    # live query sees a slot past the largest live one, so kv_len (a bucket
+    # at or past it) only cuts the key range the launch plan splits (dead
+    # columns' outputs change; the caller discards them)
     o = kops.flash_attention_prefill(
         q.transpose(1, 2), cache["k"].permute(0, 2, 1, 3),
         cache["v"].permute(0, 2, 1, 3), rg.steps, causal=True,
-        window=spec.window, kv_len=rg.max_slot + 1)
+        window=spec.window, kv_len=rg.kv_len)
     y = linear_apply(spec.out, params["out"],
                      o.transpose(1, 2).reshape(B, C, hq * hd))
     return y, cache

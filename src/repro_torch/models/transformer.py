@@ -177,8 +177,12 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for spec, p in zip(self.specs, params["layers"]):
             if self.cfg.remat and torch.is_grad_enabled():
+                # no random draws in a block, so no generator state to
+                # keep (reading the CUDA generator's state is not allowed
+                # while a training step is captured as a CUDA graph)
                 x, a = torch.utils.checkpoint.checkpoint(
-                    block_apply, spec, p, x, positions, use_reentrant=False)
+                    block_apply, spec, p, x, positions, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
                 x, a = block_apply(spec, p, x, positions)
             aux = aux + a
@@ -198,7 +202,8 @@ class LM:
 
     @torch.no_grad()
     def prefill_chunk(self, params: Params, cache: list[Params], tokens,
-                      steps, n_tokens=None) -> tuple[torch.Tensor, list]:
+                      steps, n_tokens=None, kv_len: int | None = None
+                      ) -> tuple[torch.Tensor, list]:
         """Multi-token cached step — the serving entry point.
 
         tokens: (B, C) int; steps: (B,) absolute position of each row's first
@@ -206,10 +211,24 @@ class LM:
         consumes tokens[b, :n_tokens[b]] and writes its cache at
         steps[b]..steps[b]+n_tokens[b]-1 (in place); trailing columns are
         padding.  Returns (logits (B, 1, V) of each row's last live column,
-        cache).  C=1 with n_tokens=1 is a decode step."""
-        tokens = torch.as_tensor(tokens).to(self.device)
+        cache).  C=1 with n_tokens=1 is a decode step.
+
+        With ``kv_len`` (a host int, ``flash_attention.kv_bucket`` of the
+        largest live position + 1) the three inputs are tensors on the
+        model's device, and the step does no host work: no copy, no sync,
+        no check of a position (the caller knows them), so it can be
+        captured as a CUDA graph.  Without it they are host values, checked
+        and moved in one copy (``layers.chunk_inputs``), as the reference's
+        signature takes them."""
+        S = cache[0]["k"].shape[1]
+        if kv_len is None:
+            tokens = torch.as_tensor(tokens)
+            B, C = tokens.shape
+            steps, n_tokens, kv_len = L.chunk_inputs(steps, n_tokens, B, C,
+                                                     S, self.device)
+            tokens = tokens.to(self.device)
         B, C = tokens.shape
-        rg = L.ragged(steps, n_tokens, B, C, self.device)
+        rg = L.ragged(steps, n_tokens, C, S, kv_len)
         x = L.embed_lookup(params["embed"], tokens, self.compute_dtype)
         for spec, p, c in zip(self.specs, params["layers"], cache):
             x = block_prefill(spec, p, c, x, rg)

@@ -1,6 +1,8 @@
 """Learning-rate schedules (counterpart of ``repro/optim/schedules.py``):
-functions of the step counter returning an fp32 0-d tensor, computed in
-fp32 as the reference computes them."""
+functions of the step counter returning an fp32 0-d tensor on the
+counter's device, computed in fp32 as the reference computes them.  The
+optimizer keeps its counter on the params' device, so a training step reads
+no host value and can be captured as a CUDA graph."""
 
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ def _f32(step) -> torch.Tensor:
 
 
 def constant_schedule(lr: float):
-    return lambda step: torch.tensor(lr, dtype=torch.float32)
+    return lambda step: torch.full((), lr, dtype=torch.float32,
+                                   device=torch.as_tensor(step).device)
 
 
 def linear_schedule(lr: float, total_steps: int, warmup: int = 0,

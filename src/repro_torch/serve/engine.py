@@ -8,14 +8,30 @@ prompt tokens, slots in generation exactly one token.  The chunk width C is
 bucketed to a power of two.  A finished slot is reset and recycled for the
 next queued request at once.
 
+The compiled step.  The reference runs ``jax.jit(model.prefill_chunk)``;
+here, on the card, the engine captures the step as one CUDA graph per
+(C bucket, kv bucket) — the kv bucket is ``flash_attention.kv_bucket`` of
+the step's largest live position, which fixes the attention kernel's
+launch plan — the first time the pair is seen, and replays it: the
+kernels run with no Python between them.  The graphs read static device
+buffers (tokens, steps, n_tokens), filled from one pinned host buffer by
+one copy a step; only the greedy argmax's copy to the host stays outside.
+A capture that fails raises, naming its bucket: there is no fallback to
+the eager step.  On the CPU, and with ``step_fn=`` (the reference's
+override of the compiled step, run eagerly every step), the same step runs
+eagerly on the same buffers.
+
 Quantized serving: ``EngineConfig.quant`` (or the model's ``cfg.quant``)
 quantizes float weights at load, before the pre-stack, and selects the
 activation mode.  The reference sets that mode process-wide at engine build;
 here each engine scopes it to its own steps, so engines of different modes
 can live in one process.
 
-Not ported yet: the paged cache, speculation, resilience, async streaming,
-temperature sampling (``temperature > 0`` raises) and int8 caches.
+Not ported yet: the paged cache (prefix sharing, preemption), speculation,
+resilience (guardrail, health, watchdog, fault injection), async
+``generate``, ``cancel`` and ``sla_report``, serving over a device mesh,
+the legacy flat keyword arguments, temperature sampling
+(``temperature > 0`` raises) and int8 caches.
 """
 
 from __future__ import annotations
@@ -31,6 +47,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import structures
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import kv_bucket
 from repro_torch.quant import qarray as qt
 from repro_torch.serve.config import EngineConfig, SamplingParams
 
@@ -60,13 +78,23 @@ def _bucket(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One captured step: its graph, its logits (graph memory, rewritten by
+    every replay) and the kernel launches one replay makes."""
+    graph: torch.cuda.CUDAGraph
+    logits: torch.Tensor
+    launches: dict
+
+
 class Engine:
     def __init__(self, model, params, config: EngineConfig | None = None, *,
                  device=None, step_fn=None):
         """``model``: a ``repro_torch.models.LM`` on ``device`` (default
         cuda; raises without a GPU unless ``device="cpu"``).  ``step_fn``
-        replaces ``model.prefill_chunk`` (same signature) — e.g. to observe
-        every step's logits."""
+        replaces the compiled step, ``model.prefill_chunk`` (same
+        signature: device tensors and ``kv_len=``), and runs eagerly every
+        step — e.g. to observe every step's logits."""
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"engine device {dev} != model device "
@@ -91,10 +119,23 @@ class Engine:
         self.queue: list = []   # heap of (prio_key, seq, Request)
         self._seq = 0
         self._step = step_fn if step_fn is not None else model.prefill_chunk
+        # (C, kv_len) -> _Graph; None: the step runs eagerly
+        self._graphs = ({} if step_fn is None and dev.type == "cuda"
+                        else None)
+        self._pool = None                   # the graphs' shared memory pool
+        # static inputs: tokens (B, C) of every C bucket share the first
+        # B·C entries, then steps (B,) and n_tokens (B,)
+        self._cmax = _bucket(self.chunk)
+        self._host = torch.zeros((self.B * (self._cmax + 2),),
+                                 dtype=torch.int64,
+                                 pin_memory=dev.type == "cuda")
+        self._host_np = self._host.numpy()
+        self._inputs = torch.zeros_like(self._host, device=dev)
         self.finished: list[Request] = []
         self.stats = {"steps": 0, "prefill_tokens": 0, "decode_tokens": 0,
                       "prefill_time": 0.0, "decode_time": 0.0,
-                      "decode_step_s": []}
+                      "step_s": [], "decode_step_s": [],
+                      "graphs": 0, "capture_s": 0.0}
         self._lock = threading.Lock()
         self._auto_uid = 1 << 40
         self.params = (model.prestack_params(params) if config.prestack
@@ -214,6 +255,61 @@ class Engine:
             budget -= take
         return n
 
+    def _views(self, C: int):
+        """(tokens (B, C), steps (B,), n_tokens (B,)) of the static inputs."""
+        B, off = self.B, self.B * self._cmax
+        d = self._inputs
+        return d[:B * C].view(B, C), d[off:off + B], d[off + B:]
+
+    def _capture(self, key: tuple[int, int]) -> None:
+        """Capture the step at bucket ``key`` = (C, kv_len) as a CUDA graph.
+        Warm-up (the first launch builds the kernels, cuBLAS makes its
+        handles: neither may happen under capture) runs eagerly on the
+        capture stream; warm-up and capture see every row dead (n_tokens = 0), so
+        neither changes the cache, and their launches are not counted."""
+        C, kv = key
+        t0 = time.perf_counter()
+        self._inputs.zero_()
+        args = (self.params, self.cache, *self._views(C))
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(graph, pool=self._pool)
+        # warm up on the capture stream, which every graph of the process
+        # shares: cuBLAS keeps a workspace for each stream it has run on
+        main = torch.cuda.current_stream(self.device)
+        side = capture.capture_stream
+        side.wait_stream(main)
+        with (torch.cuda.stream(side), structures.activations(self.act_mode),
+              kops.launches_apart()):
+            self._step(*args, kv_len=kv)
+        main.wait_stream(side)
+        try:
+            with (structures.activations(self.act_mode),
+                  kops.launches_apart() as made, capture):
+                logits, _ = self._step(*args, kv_len=kv)
+        except RuntimeError as exc:
+            raise RuntimeError(
+                f"capturing the engine's step as a CUDA graph failed at "
+                f"bucket C={C}, kv_len={kv}") from exc
+        self._graphs[key] = _Graph(graph, logits, made)
+        self.stats["graphs"] += 1
+        self.stats["capture_s"] += time.perf_counter() - t0
+
+    def _run_step(self, key: tuple[int, int]) -> torch.Tensor:
+        """The step on the static inputs → logits (B, 1, V): a replay of
+        the bucket's graph, or the step run eagerly."""
+        if self._graphs is None:
+            with structures.activations(self.act_mode):
+                logits, self.cache = self._step(
+                    self.params, self.cache, *self._views(key[0]),
+                    kv_len=key[1])
+            return logits
+        g = self._graphs[key]
+        g.graph.replay()
+        kops.add_launches(g.launches)
+        return g.logits
+
     def _advance(self):
         n = self._schedule()
         if not n.any():  # every active slot is out of cache headroom
@@ -221,15 +317,20 @@ class Engine:
                 if slot.req is not None:
                     self._finish_slot(b, "capacity")
             return
-        C = _bucket(int(n.max()))
-        tokens = np.zeros((self.B, C), np.int64)
-        steps = np.zeros((self.B,), np.int64)
-        sampling = [False] * self.B
-        prompt_toks = decode_toks = 0
+        B, C = self.B, _bucket(int(n.max()))
+        off = B * self._cmax
+        host = self._host_np
+        host[:] = 0
+        tokens = host[:B * C].reshape(B, C)
+        steps = host[off:off + B]
+        host[off + B:] = n
+        sampling = [False] * B
+        prompt_toks = decode_toks = need = 0
         for b, slot in enumerate(self.slots):
             if slot.req is None or n[b] == 0:
                 continue
             steps[b] = slot.pos
+            need = max(need, slot.pos + int(n[b]))
             if slot.to_feed:
                 prompt_toks += int(n[b])
                 for i in range(n[b]):
@@ -239,16 +340,23 @@ class Engine:
                 decode_toks += 1
                 tokens[b, 0] = slot.req.output[-1]
                 sampling[b] = True
+        if need > self.max_len:       # the device step does not check
+            raise ValueError(f"position {need - 1} exceeds the cache's "
+                             f"{self.max_len} slots")
+        key = (C, kv_bucket(need, self.max_len))
+        if self._graphs is not None and key not in self._graphs:
+            self._capture(key)        # its time is kept out of the step's
         t0 = time.perf_counter()
-        with structures.activations(self.act_mode):
-            logits, self.cache = self._step(
-                self.params, self.cache, torch.from_numpy(tokens), steps, n)
-        # logits (B, 1, V): the head ran on each row's last live column only
+        self._inputs.copy_(self._host, non_blocking=True)
+        logits = self._run_step(key)
+        # logits (B, 1, V): the head ran on each row's last live column
+        # only; read before the next replay (graphs share one pool)
         greedy = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()  # syncs
         dt = time.perf_counter() - t0
         self.stats["steps"] += 1
         self.stats["prefill_tokens"] += prompt_toks
         self.stats["decode_tokens"] += decode_toks
+        self.stats["step_s"].append(dt)
         if prompt_toks == 0 and decode_toks > 0:
             self.stats["decode_step_s"].append(dt)
         total = prompt_toks + decode_toks

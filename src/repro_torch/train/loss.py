@@ -28,7 +28,9 @@ def make_loss_fn(model, *, aux_weight: float = 0.01):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP A17)")
 
     def lm_loss(params, batch):
-        tokens = torch.as_tensor(batch["tokens"]).to(model.device)  # (B, S+1)
+        # (B, S+1); the trainer passes its static device buffer, so no
+        # copy is made inside the step
+        tokens = torch.as_tensor(batch["tokens"]).to(model.device)
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         out = model.apply(params, tokens=inputs)
         loss, acc = ops.cross_entropy(out.logits, labels)
