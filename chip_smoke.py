@@ -24,7 +24,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    alone against its plain version.  Past smollm-135m: every BLAST kernel
    (B1, B2, B5–B12) at n = 8192 (granite-3-2b's down, b = 16) and n = 3072
    (gpt2-blast's down, b = 6), where the input axis is staged in panels,
-   and B3 and B4 at head dim 256 (recurrentgemma-2b's heads).
+   and B3 and B4 at head dim 256 (recurrentgemma-2b's heads).  Then
+   llama7b-blast's kernels: B1, B2, B5 and B6 at its four BLAST shapes
+   (Table 9's r = 1024 and 1488) at T = 8 and 256, fp32 and bf16, two
+   launches at T = 8 bit for bit; B3 over int8 K/V (the int8 cache's
+   codes and scales) for MHA 32/32 × 128 and GQA 9/3 × 64, C = 1 and 32
+   at random offsets, the last slot (one row: split keys, two launches bit
+   for bit) and kv_len < S, fp32 and bf16.
 4. grads — fp32 gradients of the three autograd Functions on the training
    path (B1, B2, B4) against torch.autograd through the plain versions, at
    2048 tokens: within 1e-4 × each gradient's largest entry.
@@ -35,6 +41,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    weight's codes (int4: packed bytes) and scales equal on both.  With
    int8 activations the gated run shares the card's activation codes with
    the CPU, after checking that the two differ only by boundary flips.
+   llama7b-blast the same way (d_model 4096, vocab 32000, the untied head)
+   in three modes from one init: float; the int8 cache; int8 weights and
+   the int8 cache — the cache's K/V rows shared the same way
+   (``SharedRowCodes``, after the CPU's codec on the card's inputs gives
+   the card's codes bit for bit), and every cache leaf equal on both; and
+   gpt2-blast (LayerNorm, learned positions, GELU), float.
 6. train_reference — the same 2-layer fp32 model, one training batch:
    loss, every gradient and the parameters after one AdamW step on the
    card against the CPU; ``LM.apply(last_only=True)`` against
@@ -61,6 +73,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    attention kernel (30 a step) and no other (``attn_per_step``).  One
    more float profile each way decodes after prompts of 192 tokens, where
    B3 splits the keys: the split combine must run 30 times a step.
+   Then llama7b-blast at full width (32 layers, vocab 32000, bf16, seeded
+   random weights drawn tensor by tensor; the init's 3,278,639,104
+   parameters counted before the pre-stack) in three modes — float, the
+   int8 cache, int8 weights with the int8 cache — the same way, launches
+   steps × (96, 32, 32) with attention in the int8-K/V kernel under the
+   int8 cache, and the int8-cache run's peak memory below the float run's;
+   temperature sampling (T = 0.8) twice with one seed (identical tokens)
+   and once with another (different); the decode profile in float and
+   with the int8 cache, both ways; gpt2-blast at full width, float.
 8. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
    steps through the captured step (bf16, remat, batch 8 × seq 256 of the
    Markov ``TokenStream``, lr 3e-4 with warmup 5; one eager warm-up step,
@@ -84,12 +105,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    at 2048 tokens), and every BLAST kernel at n = 8192 (panels), beside
    each call's bound on the H100; the W8A8 and W4A8 rows also time the
    kernel alone on ready codes and print the quantize prologue's share.
-   The profiles of phases 7 and 8 also sum the BLAST tile kernel's two
+   llama7b-blast's rows: its BLAST shapes (float, int8 weights) at T = 8
+   and 256, and B3 over int8 K/V at its decode and prefill (library:
+   ``dequantize_rows``, then masked SDPA; ``float_kv_ms``: B3 on bf16 K/V
+   of the same values).  The profiles of phases 7 and 8 also sum the BLAST tile kernel's two
    ``__global__``s (``blast_tile_kernel``, ``blast_split_sum``) and the
    attention kernel's (``attn_tile_kernel``, ``attn_split_combine``).
 
-The last lines are the per-kernel JSON summary, the ``nvidia-smi`` line,
-and ``{"ok": true, "device": {...}}``.
+Each phase's seconds are printed on a ``{"phase": "seconds"}`` line.  The
+last lines are the per-kernel JSON summary, the ``nvidia-smi`` line, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -127,6 +152,13 @@ MODES = {"none": (("none", "none"), ("blast_matmul", "blast_matmul_grouped")),
          "w4a8": (("int4", "int8"),
                   ("blast_matmul_w4a8", "blast_matmul_grouped_w4a8"))}
 QUANT_MODES = ("int8", "w8a8", "int4", "w4a8")
+# llama7b-blast's serving modes: (quant.weights, quant.cache)
+LLAMA_MODES = {"float": ("none", "none"), "int8_cache": ("none", "int8"),
+               "int8_int8_cache": ("int8", "int8")}
+# model.init's parameters of llama7b-blast before the pre-stack: 32 layers of
+# BLAST qkv (r = 1024), out (1024), gate, up and down (1488) and two norms,
+# the embedding, the untied head and the final norm
+LLAMA_PARAMS = 3_278_639_104
 
 
 def mode_bits_act(mode) -> tuple[int | None, str]:
@@ -323,13 +355,17 @@ def blast_cost(n, m, b, r, G, T, elt, mode="none"):
     return bytes_, {"bfloat16": stage1 + rest}
 
 
-def attn_cost(q, k, offs, elt):
+def attn_cost(q, k, offs, elt, int8_kv=False):
+    """(bytes, flops) of B3: q read and o written in ``elt`` bytes, the
+    visible K/V rows read once — in ``elt`` bytes, or as int8 codes with a
+    bf16 scale per (key, head) — and the row offsets."""
     B, Hq, C, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     offs = [int(o) for o in offs.cpu()]
     keys = sum(min(S, o + C) for o in offs)                    # visible rows
     pairs = sum(min(S, o + t + 1) for o in offs for t in range(C))
-    bytes_ = (2 * B * Hq * C * D + 2 * keys * Hkv * D) * elt + 4 * B
+    kv_row = D + 2 if int8_kv else D * elt
+    bytes_ = 2 * B * Hq * C * D * elt + 2 * keys * Hkv * kv_row + 4 * B
     flops = 4 * D * Hq * pairs
     return bytes_, flops
 
@@ -527,6 +563,91 @@ def phase_kernels(cfg):
     return errs
 
 
+# llama7b-blast's kernels (the paper's Table-9 ranks, MHA heads of 128):
+# its four BLAST launches at decode and prefill, and B3 over int8 K/V
+# (B, C, offsets, options) for MHA 32/32 × 128 and smollm-135m's 9/3 × 64,
+# S = 512: anywhere, a chunk, the last slot (8 rows: every key tile; 1 row:
+# the key split), a chunk with kv_len < S
+LLAMA_T = (8, 256)
+Q8_HEADS = [(32, 32, 128), (9, 3, 64)]
+Q8_CASES = [(8, 1, None, {}), (8, 32, None, {}), (8, 1, (511, 511), {}),
+            (1, 1, (511, 511), {}), (8, 20, None, {"kv_len": 400})]
+
+
+def make_q8_inputs(B, Hq, Hkv, C, S, D, dtype, gen, offsets=None):
+    """``make_attn_inputs`` with K and V stored as the int8 cache stores
+    them: codes (B, S, Hkv, D) and bf16 scales (B, S, Hkv) from
+    ``quantize_rows``, passed as their (B, Hkv, S, ·) views."""
+    from repro_torch import quant
+    q, k, v, offs = make_attn_inputs(B, Hq, Hkv, C, S, D, dtype, gen, DEVICE,
+                                     offsets)
+    (kq, ks), (vq, vs) = (quant.quantize_rows(a.permute(0, 2, 1, 3))
+                          for a in (k, v))
+    return (q, kq.permute(0, 2, 1, 3), vq.permute(0, 2, 1, 3),
+            ks.transpose(1, 2), vs.transpose(1, 2), offs)
+
+
+def phase_kernels_llama(llama, errs) -> None:
+    """llama7b-blast's kernels against their plain versions on the card:
+    B1, B2 (gate+up) and their int8-weight twins B5, B6 at its four BLAST
+    shapes (qkv 4096→12288 and out 4096→4096 at r = 1024, gate+up
+    4096→11008 and down 11008→4096 at r = 1488: p = 688 and q = 688 in
+    ragged column chunks, down in panels) at T = 8 and 256, fp32 and bf16,
+    two launches at T = 8 bit for bit; B3 over int8 K/V (``Q8_CASES``),
+    fp32 and bf16, two launches of the split case bit for bit."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(SEED + 20)
+
+    def check(kname, label, got, want, dname):
+        torch.cuda.synchronize()
+        e = check_close(f"{kname}[llama7b-blast {label}]",
+                        got.reshape(want.shape), want, dname)
+        if dname == "bfloat16":
+            errs[kname] = max(errs[kname], e)
+
+    def repeat(kname, label, kern, dname):
+        first, second = kern(), kern()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(first, second))
+        emit({"phase": "kernels", "case": f"{kname}[llama7b-blast {label}] "
+              "repeat", "dtype": dname, "bitwise_identical": same,
+              "ok": same})
+        if not same:
+            raise RuntimeError(f"{kname}[{label} {dname}]: two launches "
+                               "differ")
+
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for name, n, m, b, r, G in blast_shapes(llama):
+            _, U, S, V = make_blast_inputs(n, m, b, r, G, 1, dtype, gen,
+                                           DEVICE)
+            for T in LLAMA_T:
+                x = torch.randn((T, n), generator=gen).to(DEVICE, dtype)
+                label = f"{name} {n}->{m} b={b} r={r} G={G} T={T}"
+                for kname, kern, plain in blast_calls(x, U, S, V, r,
+                                                      ("int8",)):
+                    if T == LLAMA_T[0]:
+                        repeat(kname, label, kern, dname)
+                    check(kname, label, kern(), plain(), dname)
+            del U, S, V
+        for hq, hkv, hd in Q8_HEADS:
+            for B, C, offsets, kw in Q8_CASES:
+                args = make_q8_inputs(B, hq, hkv, C, 512, hd, dtype, gen,
+                                      offsets)
+                label = (f"B={B} Hq={hq} Hkv={hkv} C={C} S=512 D={hd}"
+                         + ("" if offsets is None else
+                            f" offsets={list(offsets)}")
+                         + (f" {kw}" if kw else ""))
+                if (B, offsets) == (1, (511, 511)):
+                    repeat("flash_attention_prefill_q8", label,
+                           lambda: ops.flash_attention_prefill_q8(*args),
+                           dname)
+                check("flash_attention_prefill_q8", label,
+                      ops.flash_attention_prefill_q8(*args, **kw),
+                      ref.attention_prefill_q8_ref(*args, **kw), dname)
+
+
 def attention_repeats(cfg, dtype, dname, gen) -> None:
     """Two launches of each attention kernel on the same inputs agree bit
     for bit: B3 at decode, where the plan splits the keys and the combine
@@ -615,6 +736,8 @@ class SharedActCodes:
     logits by about 1% of their scale; sharing the codes keeps one flip
     from hiding, or being taken for, a fault elsewhere on the path."""
 
+    CODEC = "quantize_act"
+
     def __init__(self):
         self.card: list = []
         self.recording = True     # True: the card's run; False: the CPU's
@@ -622,7 +745,7 @@ class SharedActCodes:
 
     def __enter__(self):
         from repro_torch.quant import qarray as qt
-        self.real = real = qt.quantize_act
+        self.real = real = getattr(qt, self.CODEC)
 
         def shared(x):
             xq, sx = real(x)
@@ -633,15 +756,15 @@ class SharedActCodes:
             self.check(x, xq, sx, xg, qg, sg)
             return qg, sg
 
-        qt.quantize_act = shared
+        setattr(qt, self.CODEC, shared)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.quant import qarray as qt
-        qt.quantize_act = self.real
+        setattr(qt, self.CODEC, self.real)
         if exc[0] is None and self.card:
-            raise RuntimeError(f"{len(self.card)} card quantize_act calls had "
-                               "no CPU counterpart")
+            raise RuntimeError(f"{len(self.card)} card {self.CODEC} calls "
+                               "had no CPU counterpart")
 
     def check(self, x, xq, sx, xg, qg, sg):
         step = (qg.int() - xq.int()).abs()
@@ -660,8 +783,45 @@ class SharedActCodes:
         self.flips += int(flips.sum())
 
 
-def _reference_rows(gpu, cpu, params_gpu, params_cpu, act, shared=None):
-    """Logit row errors and limits, card vs CPU, over three ragged chunks."""
+class SharedRowCodes(SharedActCodes):
+    """The same for ``quantize_rows``, the int8 KV cache's write.  Each CPU
+    call first runs the CPU's codec on the card's own input: codes and bf16
+    scales must equal the card's bit for bit (the codec across devices).
+    On its own input the CPU's codes must be within one step of the card's
+    and its bf16 scales equal or one bf16 step apart (a scale near a bf16
+    rounding boundary, which moves its row's codes by up to one step); the
+    rows whose scale moved are counted.  The CPU then writes the card's
+    codes, so the two caches must end equal."""
+
+    CODEC = "quantize_rows"
+
+    def __init__(self):
+        super().__init__()
+        self.moved_scales = 0
+
+    def check(self, x, xq, sx, xg, qg, sg):
+        import torch
+        qs, ss = self.real(xg)
+        if not (torch.equal(qs, qg) and torch.equal(ss, sg)):
+            raise RuntimeError("quantize_rows on the CPU gives other codes "
+                               "or scales than on the card for the same "
+                               "input")
+        step = (qg.int() - xq.int()).abs()
+        rel = ((sg.float() - sx.float()).abs() / sx.float()).max()
+        if qg.shape != xq.shape or step.max() > 1 or rel > 2.0 ** -7:
+            raise RuntimeError(f"cache codes differ beyond boundary flips: "
+                               f"max code step {int(step.max())}, max scale "
+                               f"rel diff {float(rel)}")
+        self.calls += 1
+        self.elements += xq.numel()
+        self.flips += int((step > 0).sum())
+        self.moved_scales += int((sg != sx).sum())
+
+
+def _reference_rows(gpu, cpu, params_gpu, params_cpu, act, shared=()):
+    """Logit row errors and limits, card vs CPU, over three ragged chunks;
+    and the two caches.  ``shared``: codecs whose card codes the CPU takes
+    (``SharedActCodes``, ``SharedRowCodes``)."""
     import contextlib
     import torch
     from repro_torch.core import structures
@@ -672,13 +832,14 @@ def _reference_rows(gpu, cpu, params_gpu, params_cpu, act, shared=None):
     for n_tok in ([16, 5, 0], [7, 16, 3], [1, 1, 16]):
         n_tok = torch.tensor(n_tok)
         toks = torch.randint(0, gpu.cfg.vocab, (3, 16), generator=rng)
-        with structures.activations(act), (shared or contextlib.nullcontext()):
-            if shared:
-                shared.recording = True
+        with structures.activations(act), contextlib.ExitStack() as stack:
+            for codec in shared:
+                stack.enter_context(codec)
+                codec.recording = True
             lg, cache_g = gpu.prefill_chunk(params_gpu, cache_g, toks, steps,
                                             n_tok)
-            if shared:
-                shared.recording = False
+            for codec in shared:
+                codec.recording = False
             lc, cache_c = cpu.prefill_chunk(params_cpu, cache_c, toks, steps,
                                             n_tok)
         live = n_tok > 0
@@ -689,53 +850,71 @@ def _reference_rows(gpu, cpu, params_gpu, params_cpu, act, shared=None):
         row_err += (got - want).abs().amax(dim=(1, 2)).tolist()
         row_limit += [1e-3 + 1e-3 * scale] * int(live.sum())
         steps = steps + n_tok
-    return torch.tensor(row_err), torch.tensor(row_limit)
+    return torch.tensor(row_err), torch.tensor(row_limit), (cache_g, cache_c)
 
 
-def phase_reference(cfg, mode):
+def phase_reference(cfg, mode, weights="none", act="none", cache="none",
+                    base=None):
     """Full-width fp32 model, 2 layers: card (kernels) vs CPU (plain), in
-    one serving mode; the codes (int4: packed bytes) and scales must be
-    equal on both.  Logits: every live row within 1e-3 abs +
-    1e-3·max|logit|.  With int8 activations the two devices feed each
+    one serving mode (``mode`` labels it); the codes (int4: packed bytes)
+    and scales must be equal on both.  Logits: every live row within 1e-3
+    abs + 1e-3·max|logit|.  With int8 activations the two devices feed each
     per-token activation quantizer the same values only up to summation
     order, and a value that close to a rounding boundary moves its code by
     one step (about 1% of the logit scale); so the gated run shares the
     card's activation codes with the CPU after checking that the two
     differ only by such flips (``SharedActCodes``).  The free-running
-    comparison is reported beside it.  A wrong scale or layout moves every
-    row by O(1)."""
+    comparison is reported beside it.  With the int8 cache the K/V rows are
+    shared the same way (``SharedRowCodes``), and every cache leaf — pos,
+    codes, scales — must end equal on both.  A wrong scale or layout moves
+    every row by O(1).  ``base``: the CPU float params of the 2-layer model
+    (default its ``init(SEED)``), moved to the card for the card's run."""
     import torch
     from repro_torch import quant
     from repro_torch.models import build_model
-    (weights, act), _ = MODES[mode]
+    from repro_torch.tree import tree_map
     qcfg = quant.QuantConfig(weights=weights, activations=act)
     small = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
-                                compute_dtype="float32")
+                                compute_dtype="float32",
+                                quant=quant.QuantConfig(cache=cache))
     gpu = build_model(small, device=DEVICE)
     cpu = build_model(small, device="cpu")
-    params_cpu = cpu.quantize_params(cpu.init(SEED), qcfg)
-    params_gpu = gpu.quantize_params(gpu.init(SEED), qcfg)
+    base = cpu.init(SEED) if base is None else base
+    params_cpu = cpu.quantize_params(base, qcfg)
+    params_gpu = gpu.quantize_params(
+        tree_map(lambda t: t.to(DEVICE), base), qcfg)
     pairs = list(zip(qarrays(params_gpu), qarrays(params_cpu)))
     if any(not (torch.equal(a.q.cpu(), b_.q)
                 and torch.equal(a.scale.cpu(), b_.scale)) for a, b_ in pairs):
         raise RuntimeError(f"reference[{mode}]: codes or scales differ "
                            "between the card and the CPU")
     extra = {}
-    shared = None
-    if act == "int8":
-        free_err, free_lim = _reference_rows(gpu, cpu, params_gpu, params_cpu,
-                                             act)
-        shared = SharedActCodes()
+    shared = []
+    if act == "int8" or cache == "int8":
+        free_err, free_lim, _ = _reference_rows(gpu, cpu, params_gpu,
+                                                params_cpu, act)
         extra = {"free_running_max_abs_logit_err": float(free_err.max()),
                  "free_running_rows_past_limit":
                      int((free_err > free_lim).sum())}
-    err, lim = _reference_rows(gpu, cpu, params_gpu, params_cpu, act, shared)
+        shared = ([SharedActCodes()] if act == "int8" else []) + (
+            [SharedRowCodes()] if cache == "int8" else [])
+    err, lim, (cache_g, cache_c) = _reference_rows(
+        gpu, cpu, params_gpu, params_cpu, act, shared)
     past = int((err > lim).sum())
-    if shared is not None:
-        extra.update(act_quantize_calls=shared.calls,
-                     act_codes=shared.elements, act_code_flips=shared.flips)
-    emit({"phase": "reference", "mode": mode, "layers": 2,
+    for codec in shared:
+        extra[codec.CODEC] = {"calls": codec.calls, "codes": codec.elements,
+                              "code_flips": codec.flips,
+                              **({"moved_scales": codec.moved_scales}
+                                 if hasattr(codec, "moved_scales") else {})}
+    leaves_equal = []
+    if cache == "int8":
+        leaves_equal = [n for c_g, c_c in zip(cache_g, cache_c)
+                        for n, leaf in c_g.items()
+                        if not torch.equal(leaf.cpu(), c_c[n])]
+        extra["cache_leaves_equal"] = not leaves_equal
+    emit({"phase": "reference", "mode": mode, "arch": cfg.name, "layers": 2,
           "d_model": small.d_model, "vocab": small.vocab, "dtype": "float32",
+          "weights": weights, "activations": act, "cache": cache,
           "chunks": 3, "qarrays_equal": len(pairs),
           "max_abs_logit_err": float(err.max()),
           "rows": len(err), "rows_past_limit": past,
@@ -744,19 +923,61 @@ def phase_reference(cfg, mode):
         raise RuntimeError(f"reference[{mode}]: card logits differ from the "
                            f"CPU plain path: row errors {err.tolist()}, "
                            f"limits {lim.tolist()}")
+    if cache == "int8" and leaves_equal:
+        raise RuntimeError(f"reference[{mode}]: int8 cache leaves differ "
+                           f"between the card and the CPU: {leaves_equal}")
 
 
-def serve_config(mode, **kw):
+def phase_reference_dense(llama, gpt2):
+    """``phase_reference`` at llama7b-blast's full width (d_model 4096,
+    vocab 32000, the untied head, Table 9's per-role ranks) in three modes
+    from one init — float; float weights with the int8 cache; int8
+    weights with the int8 cache — and gpt2-blast's (LayerNorm, learned
+    positions, GELU, b = 6), float."""
+    from repro_torch.models import build_model
+    base = build_model(dataclasses.replace(
+        llama, n_layers=2, param_dtype="float32", compute_dtype="float32"),
+        device="cpu").init(SEED)
+    for mode, (weights, cache) in LLAMA_MODES.items():
+        phase_reference(llama, f"llama:{mode}", weights=weights, cache=cache,
+                        base=base)
+    del base
+    phase_reference(gpt2, "gpt2:float")
+
+
+def serve_config(mode, weights=None, **kw):
+    """The serving runs' engine: 8 slots, chunk 32, max_len 512, weights
+    (and activations) of a smollm-135m ``mode``, or ``weights``."""
     from repro_torch import quant
     from repro_torch.serve import EngineConfig, MemoryConfig, SchedulerConfig
-    (weights, act), _ = MODES[mode]
+    (w, act), _ = MODES[mode] if weights is None else ((weights, "none"),
+                                                       None)
     return EngineConfig(scheduler=SchedulerConfig(slots=8, chunk_size=32),
                         memory=MemoryConfig(max_len=512),
-                        quant=quant.QuantConfig(weights=weights,
-                                                activations=act), **kw)
+                        quant=quant.QuantConfig(weights=w, activations=act),
+                        **kw)
 
 
-def _serve_run(engine, prompts, max_new):
+def smollm_per_step(cfg, mode) -> dict:
+    """Launches a serving step of smollm-135m makes in ``mode``."""
+    blast, grouped = MODES[mode][1]
+    L = cfg.n_layers
+    return {blast: 3 * L, grouped: L, "flash_attention_prefill": L}
+
+
+def llama_per_step(cfg, mode) -> dict:
+    """Launches a serving step of llama7b-blast makes in ``mode``: 96 BLAST
+    (qkv, out, down), 32 grouped (gate+up), 32 attention, in the mode's
+    own kernels."""
+    weights, cache = LLAMA_MODES[mode]
+    blast, grouped = MODES["int8" if weights == "int8" else "none"][1]
+    attn = ("flash_attention_prefill_q8" if cache == "int8"
+            else "flash_attention_prefill")
+    L = cfg.n_layers
+    return {blast: 3 * L, grouped: L, attn: L}
+
+
+def _serve_run(engine, prompts, max_new, temperature=0.0):
     """Serve ``prompts`` → (requests, wall s, launch counts, peak bytes)."""
     import torch
     from repro_torch.kernels import ops
@@ -765,24 +986,33 @@ def _serve_run(engine, prompts, max_new):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    reqs = engine.generate_batch(prompts, SamplingParams(max_new_tokens=max_new))
+    reqs = engine.generate_batch(prompts, SamplingParams(
+        max_new_tokens=max_new, temperature=temperature))
     torch.cuda.synchronize()
     return (reqs, time.perf_counter() - t0, dict(ops.launches),
             torch.cuda.max_memory_allocated())
 
 
-def phase_serve(cfg, model, params, mode):
-    """One full-width serving run in ``mode`` through the captured engine
-    (CUDA graphs, the default) and one through an eager engine
-    (``step_fn``, which observes every step): identical greedy tokens, and
-    each run's launch counts steps × (90, 30, 30).  Returns the captured
-    run's launch counts."""
+def serve_prompts(vocab, n=16):
+    """``n`` seeded prompts of 16-200 tokens."""
     import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [[int(t) for t in rng.integers(0, vocab, size=int(L))]
+            for L in rng.integers(16, 201, size=n)]
+
+
+def phase_serve(model, params, mode, config, per_step, **extra):
+    """One full-width serving run of ``model`` in ``mode`` through the
+    captured engine (CUDA graphs, the default) and one through an eager
+    engine (``step_fn``, which observes every step): identical greedy
+    tokens, and each run's launch counts steps × ``per_step`` (every other
+    kernel 0).  Returns (the captured run's launch counts, its row)."""
     import torch
     from repro_torch import quant
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serve import Engine
+    cfg = model.cfg
     finite = []
     splits = []     # each step's B3 key splits: at its kv bucket, and at
     #                 its largest live slot + 1 (what the layer passed before)
@@ -799,27 +1029,22 @@ def phase_serve(cfg, model, params, mode):
         finite.append(torch.isfinite(logits).all())
         return logits, cache
 
-    rng = np.random.default_rng(SEED)
-    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, size=int(L))]
-               for L in rng.integers(16, 201, size=16)]
+    prompts = serve_prompts(cfg.vocab)
     max_new = 32
-    L = cfg.n_layers
-    blast, grouped = MODES[mode][1]
     runs = {}
     for path in ("graphs", "eager"):
         t0 = time.perf_counter()
-        engine = Engine(model, params, serve_config(mode), device=DEVICE,
+        engine = Engine(model, params, config, device=DEVICE,
                         step_fn=step if path == "eager" else None)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
         reqs, wall, launches, peak = _serve_run(engine, prompts, max_new)
         steps = engine.stats["steps"]
         want = {k: 0 for k in launches}
-        want.update({blast: 3 * L * steps, grouped: L * steps,
-                     "flash_attention_prefill": L * steps})
+        want.update({k: n * steps for k, n in per_step.items()})
         if launches != want:
             raise RuntimeError(f"{mode} ({path}): launch counts {launches} "
-                               f"!= {want} ({steps} steps × (90, 30, 30))")
+                               f"!= {want} ({steps} steps × {per_step})")
         bad = [r.uid for r in reqs if not r.done or len(r.output) != max_new
                or r.stop_reason != "length"]
         if bad:
@@ -840,6 +1065,7 @@ def phase_serve(cfg, model, params, mode):
                     "step_ms_median": 1e3 * statistics.median(
                         engine.stats["step_s"])}}
         param_bytes = quant.tree_nbytes(engine.params)
+        cache_bytes = quant.tree_nbytes(engine.cache)
         del engine
     if runs["graphs"]["outputs"] != runs["eager"]["outputs"]:
         raise RuntimeError(f"{mode}: the captured engine's greedy tokens "
@@ -849,26 +1075,56 @@ def phase_serve(cfg, model, params, mode):
     if runs["graphs"]["row"]["graphs"] == 0:
         raise RuntimeError(f"{mode}: the default engine captured no graph")
     bucket, live = zip(*splits)
-    emit({"phase": "serve", "mode": mode, "arch": cfg.name, "layers": L,
-          "vocab": cfg.vocab, "dtype": cfg.param_dtype, "slots": 8,
-          "chunk": 32, "max_len": 512, "requests": len(prompts),
-          "prompt_tokens": sum(map(len, prompts)),
-          "new_tokens": len(prompts) * max_new,
-          "param_bytes": param_bytes,
-          "graphs": runs["graphs"]["row"], "eager": runs["eager"]["row"],
-          "greedy_tokens_identical": True,
-          "launches": {k: v for k, v in runs["graphs"]["launches"].items()
-                       if v},
-          "per_step": [90, 30, 30],
-          "attn_split_steps": sum(k > 1 for k in bucket),
-          "attn_splits_max": max(bucket),
-          # what the kv bucket costs against the live key range: B3 key
-          # splits summed over steps (× 30 layers a step) and the steps
-          # whose launches add a combine
-          "attn_splits_sum": {"bucket": sum(bucket), "live": sum(live)},
-          "attn_combine_steps": {"bucket": sum(k > 1 for k in bucket),
-                                 "live": sum(k > 1 for k in live)}})
-    return runs["graphs"]["launches"]
+    row = {"phase": "serve", "mode": mode, "arch": cfg.name,
+           "layers": cfg.n_layers, "vocab": cfg.vocab,
+           "dtype": cfg.param_dtype, "weights": config.quant.weights,
+           "activations": config.quant.activations,
+           "cache": cfg.quant.cache, "slots": 8, "chunk": 32,
+           "max_len": 512, "requests": len(prompts),
+           "prompt_tokens": sum(map(len, prompts)),
+           "new_tokens": len(prompts) * max_new,
+           # engine params (quantized, the pre-stacked bundle included)
+           "param_bytes": param_bytes, "cache_bytes": cache_bytes, **extra,
+           "graphs": runs["graphs"]["row"], "eager": runs["eager"]["row"],
+           "greedy_tokens_identical": True,
+           "launches": {k: v for k, v in runs["graphs"]["launches"].items()
+                        if v},
+           "per_step": per_step,
+           "attn_split_steps": sum(k > 1 for k in bucket),
+           "attn_splits_max": max(bucket),
+           # what the kv bucket costs against the live key range: B3 key
+           # splits summed over steps (× the layers a step) and the steps
+           # whose launches add a combine
+           "attn_splits_sum": {"bucket": sum(bucket), "live": sum(live)},
+           "attn_combine_steps": {"bucket": sum(k > 1 for k in bucket),
+                                  "live": sum(k > 1 for k in live)}}
+    emit(row)
+    return runs["graphs"]["launches"], row
+
+
+def phase_temperature(model, params):
+    """Temperature sampling through the captured engine: 8 prompts, 16 new
+    tokens each at T = 0.8, twice with the engine's seed and once with
+    another: the same seed gives the same tokens, the other does not."""
+    import torch
+    from repro_torch.serve import Engine
+    prompts = serve_prompts(model.cfg.vocab, n=8)
+    outs = []
+    for seed in (SEED, SEED, SEED + 1):
+        engine = Engine(model, params, serve_config(
+            None, weights="none", seed=seed), device=DEVICE)
+        reqs, wall, _, _ = _serve_run(engine, prompts, 16, temperature=0.8)
+        outs.append([r.output for r in reqs])
+        del engine
+    same, other = outs[0] == outs[1], outs[0] != outs[2]
+    emit({"phase": "temperature", "arch": model.cfg.name, "temperature": 0.8,
+          "requests": len(prompts), "new_tokens": 16,
+          "same_seed_identical": same, "other_seed_differs": other,
+          "ok": same and other})
+    if not (same and other):
+        raise RuntimeError("temperature sampling: the seed does not set the "
+                           "stream")
+    torch.cuda.synchronize()
 
 
 def tile_blast(kernels) -> dict:
@@ -924,7 +1180,7 @@ def _device_kernels(prof) -> dict:
     return kernels
 
 
-def phase_profile(model, params, mode, prompt_len=16, graphs=True):
+def phase_profile(model, params, mode, config, prompt_len=16, graphs=True):
     """Device busy share of steady decode: 8 slots in decode after prompts
     of ``prompt_len`` tokens, 6 engine steps timed, then 6 more under
     ``torch.profiler``, through the captured engine (``graphs``) or the
@@ -939,7 +1195,7 @@ def phase_profile(model, params, mode, prompt_len=16, graphs=True):
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serve import Engine, Request
-    engine = Engine(model, params, serve_config(mode), device=DEVICE,
+    engine = Engine(model, params, config, device=DEVICE,
                     step_fn=None if graphs else model.prefill_chunk)
     for i in range(8):
         engine.submit(Request(uid=i, prompt=list(range(1, prompt_len + 1)),
@@ -971,7 +1227,7 @@ def phase_profile(model, params, mode, prompt_len=16, graphs=True):
     if not (by_name or graphs):
         raise RuntimeError(f"{mode}: the eager decode profile names no "
                            "BLAST tile kernel")
-    row = {"phase": "profile", "mode": mode,
+    row = {"phase": "profile", "mode": mode, "arch": model.cfg.name,
            "path": "graphs" if graphs else "eager",
            "prompt_len": prompt_len, "decode_steps": n_steps, "slots": 8,
            "graphs": engine.stats["graphs"],
@@ -1391,12 +1647,14 @@ def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
     return row
 
 
-def phase_timing(cfg):
+def phase_timing(cfg, llama):
     """bf16 timings.  ``ms`` times the wrapper the model calls (for W8A8 and
     W4A8 it includes the per-token quantize prologue; ``launch_only_ms``
     times the kernel alone on ready codes).  Library: ``torch.matmul`` on
     the dense (dequantized) matrix — dense work, not the same
-    operations."""
+    operations.  llama7b-blast's rows (``arch``): its BLAST shapes, float
+    and int8 weights, and B3 over int8 K/V (library: ``dequantize_rows``
+    then masked SDPA)."""
     import torch
     import torch.nn.functional as F
     from repro_torch import quant
@@ -1465,6 +1723,51 @@ def phase_timing(cfg):
     label, n, m, b, r = WIDE_BLAST[0]
     x, U, S, V = float_row(label, n, m, b, r, 1, 8, panels=True)
     quant_rows(label, n, m, b, r, 1, 8, x, U, S, V, QUANT_MODES, panels=True)
+    for name, n, m, b, r, G in blast_shapes(llama):
+        for T in LLAMA_T:
+            x, U, S, V = float_row(name, n, m, b, r, G, T, arch=llama.name)
+            quant_rows(name, n, m, b, r, G, T, x, U, S, V, ("int8",),
+                       arch=llama.name)
+    del x, U, S, V
+    lq, lkv, ld = llama.n_heads, llama.n_kv_heads, llama.head_dim_
+    for C, offsets in ((1, None), (32, None), (1, SERVING_OFFSETS)):
+        q, kq, vq, ks, vs, offs = make_q8_inputs(8, lq, lkv, C, 512, ld, dt,
+                                                 gen, offsets)
+        kw = ({} if offsets is None else
+              {"kv_len": fa.kv_bucket(int(offs.max()) + C, 512)})
+        kv = kw.get("kv_len", 512)
+        qpos = offs[:, None].long() + torch.arange(C, device=DEVICE)[None]
+        mask = (torch.arange(kv, device=DEVICE)[None, None]
+                <= qpos[:, :, None])[:, None]           # (B, 1, C, kv)
+        args = (q, kq, vq, ks, vs, offs)
+        kern = lambda: ops.flash_attention_prefill_q8(  # noqa: E731
+            *args, **kw)
+        plain = lambda: ref.attention_prefill_q8_ref(  # noqa: E731
+            *args, **kw)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, quant.dequantize_rows(kq[:, :, :kv], ks[:, :, :kv], dt),
+            quant.dequantize_rows(vq[:, :, :kv], vs[:, :, :kv], dt),
+            attn_mask=mask, enable_gqa=True)
+        want = ref.attention_prefill_q8_ref(*args)
+        where = "random" if offsets is None else "serving"
+        check_close(f"dequantize+sdpa yardstick C={C} offsets {where}",
+                    lib(), want, dname)
+        shape = (f"B=8 Hq={lq} Hkv={lkv} C={C} S=512 D={ld} int8 K/V "
+                 f"offsets {list(offsets or (0, 512 - C))}"
+                 + "".join(f" {k}={v}" for k, v in kw.items()))
+        check_close(f"flash_attention_prefill_q8[{shape}]", kern(), want,
+                    dname)
+        bytes_, flops = attn_cost(q, kq, offs, elt, int8_kv=True)
+        # beside it, B3 on bf16 K/V holding the same values (the float
+        # cache's kernel at this shape)
+        kd, vd = (quant.dequantize_rows(a, sc, dt) for a, sc in
+                  ((kq, ks), (vq, vs)))
+        rows.append(timing_row(
+            "flash_attention_prefill_q8", "attn", 8 * C, shape, kern, plain,
+            lib, "dequantize_rows, then scaled_dot_product_attention (masked)",
+            (bytes_, {dname: flops}), flush, offsets=where, arch=llama.name,
+            float_kv_ms=lambda: ops.flash_attention_prefill(
+                q, kd, vd, offs, **kw)))
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     for C, offsets in ((1, None), (32, None), (1, SERVING_OFFSETS)):
         q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen,
@@ -1534,51 +1837,58 @@ def phase_timing(cfg):
 
 
 _BLAST_CU = "src/repro_torch/kernels/csrc/blast_matmul.cu"
-SOURCES = {   # kernel → (source, TPU kernel it replaces, serving mode)
+_ATTN_CU = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SMOLLM, LLAMA = "smollm-135m", "llama7b-blast"
+SOURCES = {   # kernel → (source, TPU kernel it replaces, run, arch)
     "blast_matmul": (_BLAST_CU, "src/repro/kernels/blast_matmul.py:285",
-                     "none"),
+                     "none", SMOLLM),
     "blast_matmul_grouped": (_BLAST_CU,
-                             "src/repro/kernels/blast_matmul.py:324", "none"),
+                             "src/repro/kernels/blast_matmul.py:324", "none",
+                             SMOLLM),
     "blast_matmul_q": (_BLAST_CU, "src/repro/kernels/blast_matmul.py:369",
-                       "int8"),
+                       "int8", SMOLLM),
     "blast_matmul_grouped_q": (_BLAST_CU,
                                "src/repro/kernels/blast_matmul.py:475",
-                               "int8"),
+                               "int8", SMOLLM),
     "blast_matmul_w8a8": (_BLAST_CU, "src/repro/kernels/blast_matmul.py:633",
-                          "w8a8"),
+                          "w8a8", SMOLLM),
     "blast_matmul_grouped_w8a8": (_BLAST_CU,
                                   "src/repro/kernels/blast_matmul.py:726",
-                                  "w8a8"),
+                                  "w8a8", SMOLLM),
     "blast_matmul_q4": (_BLAST_CU, "src/repro/kernels/blast_matmul.py:420",
-                        "int4"),
+                        "int4", SMOLLM),
     "blast_matmul_grouped_q4": (_BLAST_CU,
                                 "src/repro/kernels/blast_matmul.py:528",
-                                "int4"),
+                                "int4", SMOLLM),
     "blast_matmul_w4a8": (_BLAST_CU, "src/repro/kernels/blast_matmul.py:660",
-                          "w4a8"),
+                          "w4a8", SMOLLM),
     "blast_matmul_grouped_w4a8": (_BLAST_CU,
                                   "src/repro/kernels/blast_matmul.py:748",
-                                  "w4a8"),
+                                  "w4a8", SMOLLM),
     "flash_attention_prefill": (
-        "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:155", "none"),
+        _ATTN_CU, "src/repro/kernels/flash_attention.py:155", "none", SMOLLM),
+    # B3's int8-K/V instantiation: the reference reads its int8 cache in
+    # XLA (src/repro/models/layers.py:423), with no Pallas kernel of its own
+    "flash_attention_prefill_q8": (
+        _ATTN_CU, "src/repro/kernels/flash_attention.py:155",
+        "llama:int8_cache", LLAMA),
     "flash_attention": (
-        "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:98", "train"),
+        _ATTN_CU, "src/repro/kernels/flash_attention.py:98", "train", SMOLLM),
 }
 
 
 def summary(rows, errs, launches):
     """One entry per kernel.  Its numbers are one layer's calls of that
-    kernel in one decode step (T = 8 slots, C = 1), summed — for B4, which
-    only training runs, one call at the training step's shape (B = 8,
-    T = 256); ``cases`` holds every timed shape.  ``launches`` is the count
-    from the run of the kernel's own path (its serving mode, or training);
-    the kernels that training also runs carry ``train_launches``, and B1
-    its backward-dx launches (``train_dx_launches``, timed as the
+    kernel in one decode step (T = 8 slots, C = 1) of its own arch's
+    serving run, summed — for B4, which only training runs, one call at the
+    training step's shape (B = 8, T = 256); ``cases`` holds every timed
+    shape, llama7b-blast's too.  ``launches`` is the count from the run of
+    the kernel's own path (its serving mode, or training);
+    ``launches_by_run`` has every run's count that is not 0, and B1 its
+    backward-dx launches (``train_dx_launches``, timed as the
     ``blast_matmul_dx`` cases)."""
     out = []
-    for kname, (src, replaces, mode) in SOURCES.items():
+    for kname, (src, replaces, mode, arch) in SOURCES.items():
         mine = [r for r in rows if r["kernel"] == kname]
         if kname == "blast_matmul":
             mine += [r for r in rows if r["kernel"] == "blast_matmul_dx"]
@@ -1587,9 +1897,10 @@ def summary(rows, errs, launches):
             per = "one call at the training shape (B=8, T=256)"
         else:
             picked = [r for r in mine if r["T"] == 8 and not r.get("panels")
-                      and r.get("offsets", "random") == "random"]
-            per = ("one layer's calls in one decode step (T=8; attention "
-                   "at random offsets)")
+                      and r.get("offsets", "random") == "random"
+                      and r.get("arch", SMOLLM) == arch]
+            per = (f"one {arch} layer's calls in one decode step (T=8; "
+                   "attention at random offsets)")
         tot = {k: sum(r[k] for r in picked)
                for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
         entry = {"name": kname, "route": "cuda", "source": src,
@@ -1600,43 +1911,120 @@ def summary(rows, errs, launches):
                  "bound_ms": max(tot["bytes_ms"], tot["ops_ms"]),
                  "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                               else "operations"),
-                 "library_ms": tot["library_ms"], "per": per}
-        if mode != "train" and launches["train"][kname]:
-            entry["train_launches"] = launches["train"][kname]
+                 "library_ms": tot["library_ms"], "per": per,
+                 "launches_by_run": {run: c[kname] for run, c in
+                                     launches.items() if c.get(kname)}}
         if kname == "blast_matmul":
             entry["train_dx_launches"] = launches["train"]["blast_matmul_dx"]
-        entry["cases"] = [{k: r[k] for k in ("kernel", "linear", "T", "shape",
-                                             "ms", "plain_ms", "library_ms",
-                                             "bound_ms", "bound_by")}
+        entry["cases"] = [{k: r.get(k, SMOLLM) if k == "arch" else r[k]
+                           for k in ("kernel", "arch", "linear", "T", "shape",
+                                     "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")}
                           for r in mine]
         out.append(entry)
     return out
+
+
+def timed(name, fn, *args, **kw):
+    """Run one phase and print its seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    emit({"phase": "seconds", "of": name,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
+def phase_dense_serving(llama, gpt2) -> dict:
+    """llama7b-blast at full width (32 layers, vocab 32000, bf16, seeded
+    random weights ``LM.init(SEED)``, drawn tensor by tensor) served in its
+    three modes from one init, with each mode's own model (the cache mode
+    is the model's): captured = eager greedy tokens, launches steps × (96,
+    32, 32) in the mode's kernels, the init's parameter count (before the
+    pre-stack) = ``LLAMA_PARAMS``, the int8-cache runs' peak memory below
+    the float run's; temperature sampling; the decode profile in float and
+    with the int8 cache, through the graphs and eagerly.  Then gpt2-blast
+    (12 layers, vocab 50257, LayerNorm, learned positions, GELU), float,
+    captured = eager.  Returns each run's launch counts."""
+    import torch
+    from repro_torch import quant
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    models = {mode: build_model(dataclasses.replace(
+        llama, quant=quant.QuantConfig(cache=cache)), device=DEVICE)
+        for mode, (_, cache) in LLAMA_MODES.items()}
+    params = models["float"].init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    init = {"init_params": n_params, "init_bytes": quant.tree_nbytes(params),
+            "init_s": init_s}
+    if n_params != LLAMA_PARAMS:
+        raise RuntimeError(f"llama7b-blast: {n_params} parameters, want "
+                           f"{LLAMA_PARAMS}")
+    launches, peaks = {}, {}
+    for mode, (weights, _) in LLAMA_MODES.items():
+        launches[f"llama:{mode}"], row = timed(
+            f"serve llama:{mode}", phase_serve, models[mode], params,
+            f"llama:{mode}", serve_config(None, weights=weights),
+            llama_per_step(llama, mode), **init)
+        peaks[mode] = row["graphs"]["max_memory_allocated_bytes"]
+    if not peaks["int8_cache"] < peaks["float"]:
+        raise RuntimeError(f"llama7b-blast: the int8-cache run's peak memory "
+                           f"is not below the float run's: {peaks}")
+    timed("temperature", phase_temperature, models["float"], params)
+    for mode in ("float", "int8_cache"):
+        for graphs in (True, False):
+            timed(f"profile llama:{mode}", phase_profile, models[mode],
+                  params, f"llama:{mode}", serve_config(None, weights="none"),
+                  graphs=graphs)
+    del models, params
+    model = build_model(gpt2, device=DEVICE)
+    params = model.init(SEED)
+    L = gpt2.n_layers
+    launches["gpt2:float"], _ = timed(
+        "serve gpt2:float", phase_serve, model, params, "gpt2:float",
+        serve_config("none"),
+        {"blast_matmul": 4 * L, "flash_attention_prefill": L},
+        init_params=sum(t.numel() for t in leaves(params)))
+    return launches
 
 
 def main() -> int:
     dev, smi = phase_device()
     sys.path.insert(0, str(SRC))
     from repro_torch import configs
-    cfg = configs.get("smollm-135m")
+    cfg = configs.get(SMOLLM)
+    llama, gpt2 = configs.get(LLAMA), configs.get("gpt2-blast")
     from repro_torch.models import build_model
-    phase_build()
-    errs = phase_kernels(cfg)
-    phase_grads(cfg)
+    timed("build", phase_build)
+    errs = timed("kernels", phase_kernels, cfg)
+    timed("kernels llama7b-blast", phase_kernels_llama, llama, errs)
+    timed("grads", phase_grads, cfg)
     for mode in MODES:
-        phase_reference(cfg, mode)
-    phase_train_reference(cfg)
+        timed(f"reference {mode}", phase_reference, cfg, mode,
+              *MODES[mode][0])
+    timed("reference llama7b-blast, gpt2-blast", phase_reference_dense,
+          llama, gpt2)
+    timed("train_reference", phase_train_reference, cfg)
     model = build_model(cfg, device=DEVICE)
     params = model.init(SEED)
-    launches = {mode: phase_serve(cfg, model, params, mode) for mode in MODES}
+    launches = {mode: timed(f"serve {mode}", phase_serve, model, params,
+                            mode, serve_config(mode),
+                            smollm_per_step(cfg, mode))[0]
+                for mode in MODES}
     for mode in MODES:
         for graphs in (True, False):
-            phase_profile(model, params, mode, graphs=graphs)
+            timed(f"profile {mode}", phase_profile, model, params, mode,
+                  serve_config(mode), graphs=graphs)
     for graphs in (True, False):
-        phase_profile(model, params, "none", prompt_len=LONG_PROMPT,
-                      graphs=graphs)
+        timed("profile long prompt", phase_profile, model, params, "none",
+              serve_config("none"), prompt_len=LONG_PROMPT, graphs=graphs)
     del model, params
-    launches["train"] = phase_train(cfg)
-    rows = phase_timing(cfg)
+    launches.update(timed("llama7b-blast and gpt2-blast serving",
+                          phase_dense_serving, llama, gpt2))
+    launches["train"] = timed("train", phase_train, cfg)
+    rows = timed("timing", phase_timing, cfg, llama)
     emit({"kernels": summary(rows, errs, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": dev})

@@ -2,8 +2,8 @@
 ``repro/core/structures.py::StructureConfig``, kept jax-free).
 
 Only the fields the ported serving and training slices read, plus every
-field that changes numbers (``reduced()`` gives the same shapes and dtypes
-as the reference).
+field that changes numbers (``reduced()`` gives the same shapes, dtypes and
+learned-position table as the reference).
 Families and knobs the slice does not run yet (MoE, MLA, SSD, RG-LRU,
 encoders) are not carried; ``LM`` raises on them.
 """
@@ -62,7 +62,11 @@ class ArchConfig:
     pattern: Sequence[str] = ("attn",)
     window: int = 0
     structure: StructureConfig = dataclasses.field(default_factory=StructureConfig)
+    # per-role structure: ``structure`` covers the attention projections,
+    # ``structure_ffn`` (if set) the FFN's (paper Table 9: r=1024 attention,
+    # r=1488 MLP for Llama-7B at 50%)
     structure_ffn: StructureConfig | None = None
+    max_seq: int = 8192               # learned-position table (pos_embed=learned)
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     # training: recompute each layer's activations in the backward pass
@@ -73,12 +77,18 @@ class ArchConfig:
     q_chunk: int = 512
     kv_chunk: int = 1024
     # serving-time storage: ``quant.weights`` drives the engine's
-    # quantize-at-load and ``LM.quantize_params``
+    # quantize-at-load and ``LM.quantize_params``; ``quant.cache="int8"``
+    # makes ``init_cache`` allocate int8 K/V with per-(slot, head) scales
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
 
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def cache_quant(self) -> bool:
+        """int8 caches requested (``quant.cache``)."""
+        return self.quant.cache != "none"
 
     @property
     def ffn_structure(self) -> StructureConfig:
@@ -116,5 +126,6 @@ class ArchConfig:
             return st
         small["structure"] = shrink(self.structure)
         small["structure_ffn"] = shrink(self.structure_ffn)
+        small["max_seq"] = 256
         small.update(overrides)
         return dataclasses.replace(self, **small)

@@ -144,7 +144,7 @@ def make_linear(d_in: int, d_out: int, structure: StructureConfig | None = None,
         cfg = StructureConfig(kind="dense")
     if cfg.kind not in _MAKERS:
         raise NotImplementedError(
-            f"structure {cfg.kind!r} is not ported yet (ROADMAP A13)")
+            f"structure {cfg.kind!r} is not ported yet (ROADMAP A7)")
     return _MAKERS[cfg.kind](d_in, d_out, cfg)
 
 

@@ -6,7 +6,12 @@
 //     — entry points flash_full_f32 / flash_full_bf16: a static q_offset;
 //   src/repro/kernels/flash_attention.py::flash_attention_prefill_pallas
 //     (:155) — entry points flash_prefill_f32 / flash_prefill_bf16: a per-row
-//     offset read from q_offsets[b].
+//     offset read from q_offsets[b];
+//   and, beyond the Pallas set, the reference's int8-cache read
+//     (src/repro/models/layers.py:416-424: dequantize_rows of the cache it
+//     just wrote, then attention, in XLA) — entry points flash_prefill_q8_f32
+//     / flash_prefill_q8_bf16: B3 with k and v int8 codes and per-(slot,
+//     head) bf16 scales k_scale, v_scale (B, Hkv, S).
 //
 // Function: q (B, Hq, T, D), k and v (B, Hkv, S, D) → o (B, Hq, T, D).
 // Query (b, t) sits at absolute position off + t, where off is q_offset
@@ -18,7 +23,10 @@
 // of the serving cache) and the output lands token-major for the out
 // projection with no transpose.  fp32 or bf16 (q, k, v and o share one
 // type); scores, softmax and the P·V sums are fp32, with scale 1/sqrt(D).
-// Any head dim that is a multiple of 8 up to 256.
+// Any head dim that is a multiple of 8 up to 256.  Over int8 K/V each key
+// reads as bf16(float(code) · float(scale)) in the bf16 kernel and
+// float(code) · float(scale) in the fp32 one: dequantize_rows to q's type
+// (the product is exact in fp32 and rounds once).
 //
 // What bounds it on the H100.  Prefill (C ≤ 32 queries against S ≤ 512
 // slots) and decode are bytes-bound: 4·C·S·D FLOPs per head against
@@ -26,6 +34,14 @@
 // bytes-bound at training shapes (B = 8, T = 256, D = 64: 6.3 MB against
 // 0.6 GFLOP causal) and operations-bound from T ≈ 1k (T = 2048: 4.8 GFLOP
 // causal, 1.9 MB).
+//
+// Over int8 K/V the tiles cost half the bytes, and the loader does the
+// dequantize: a tile's codes (64 keys × D bytes) go to shared memory by
+// cp.async, 8 bytes a copy, double-buffered as bf16 tiles are; its 64 + 64
+// scales, strided by Hkv in the cache, by plain loads beside them.  Once a
+// tile has landed, the block writes bf16(code · scale) into one bf16 K/V
+// tile and the MMA loop below runs on it unchanged (one more barrier a
+// tile).
 //
 // bf16: attn_tile_kernel, FlashAttention-2 style on tensor cores.
 // - A block is up to 4 warps, each owning 16 query rows.  A row is one
@@ -85,21 +101,46 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "ptx.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 constexpr float M_INIT = -1e30f;      // running-max start (TPU kernel's NEG_INF)
 constexpr int DMAX = 256;             // largest head dim
 
+// element strides of q, k, v, o (b, h, t/s) and, over int8 K/V, of the
+// scales (b, h, s)
 struct Strides {
   long long qb, qh, qt, kb, kh, ks, vb, vh, vs, ob, oh, ot;
+  long long sb, sh, ss, tb, th, ts;    // k_scale, v_scale
 };
 
-Strides make_strides(const long long* s) {
-  return Strides{s[0], s[1], s[2], s[3], s[4], s[5],
-                 s[6], s[7], s[8], s[9], s[10], s[11]};
+// 12 strides, or 18 with the scales'
+Strides make_strides(const long long* s, bool scales) {
+  Strides st{s[0], s[1], s[2], s[3], s[4], s[5],
+             s[6], s[7], s[8], s[9], s[10], s[11], 0, 0, 0, 0, 0, 0};
+  if (scales) {
+    st.sb = s[12], st.sh = s[13], st.ss = s[14];
+    st.tb = s[15], st.th = s[16], st.ts = s[17];
+  }
+  return st;
+}
+
+template <typename KV>
+constexpr bool IS_Q8 = std::is_same_v<KV, int8_t>;
+
+// key or value element p[i] as fp32: a float, or its code times scale[si]
+// (scale is null for float K/V, and not read)
+template <typename KV>
+__device__ __forceinline__ float kv_value(const KV* p, long long i,
+                                          const bf16* scale, long long si) {
+  if constexpr (IS_Q8<KV>)
+    return (float)p[i] * __bfloat162float(scale[si]);
+  else
+    return p[i];
 }
 
 // ---------------------------------------------------------------- fp32 --
@@ -111,11 +152,13 @@ constexpr int FULL_BQ = 64, FULL_NT = 256;
 constexpr int WIDE_D = 128;   // head dims above it take the DM = 256 tiles
 
 // PER_ROW: the query offset is offs[b] (prefill) or the static q_offset.
-// DM: the largest head dim D this instantiation takes.
-template <int BQ, int NT, bool PER_ROW, int DM>
+// DM: the largest head dim D this instantiation takes.  KV: float, or int8
+// codes with their scales ksc, vsc.
+template <int BQ, int NT, bool PER_ROW, int DM, typename KV>
 __global__ void __launch_bounds__(NT)
-attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const int* __restrict__ offs,
+attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
+            const KV* __restrict__ v, const bf16* __restrict__ ksc,
+            const bf16* __restrict__ vsc, const int* __restrict__ offs,
             int q_offset, float* __restrict__ o, int Hq, int Hkv, int C,
             int D, Strides st, int causal, int window, int kv_len,
             float scale) {
@@ -155,16 +198,20 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (causal) k_end = min(k_end, q_hi + 1);
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q_lo - window + 1);
-  const float* kp = k + b * st.kb + kvh * st.kh;
-  const float* vp = v + b * st.vb + kvh * st.vh;
+  const KV* kp = k + b * st.kb + kvh * st.kh;
+  const KV* vp = v + b * st.vb + kvh * st.vh;
+  const bf16* kscp = IS_Q8<KV> ? ksc + b * st.sb + kvh * st.sh : nullptr;
+  const bf16* vscp = IS_Q8<KV> ? vsc + b * st.tb + kvh * st.th : nullptr;
 
   for (int j0 = (k_begin / BKV) * BKV; j0 < k_end; j0 += BKV) {
     __syncthreads();  // queries ready; the previous tile fully consumed
     for (int idx = tid; idx < BKV * D; idx += NT) {
-      const int j = idx / D, d = idx - j * D;
-      const bool in = j0 + j < k_end;
-      ks[j * (D + 1) + d] = in ? kp[(j0 + j) * st.ks + d] : 0.f;
-      vs[j * D + d] = in ? vp[(j0 + j) * st.vs + d] : 0.f;
+      const int j = idx / D, d = idx - j * D, key = j0 + j;
+      const bool in = key < k_end;
+      ks[j * (D + 1) + d] =
+          in ? kv_value(kp, key * st.ks + d, kscp, key * st.ss) : 0.f;
+      vs[j * D + d] =
+          in ? kv_value(vp, key * st.vs + d, vscp, key * st.ts) : 0.f;
     }
     __syncthreads();
     for (int idx = tid; idx < BQ * BKV; idx += NT) {
@@ -233,17 +280,17 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int BQ, int NT, bool PER_ROW, int DM>
-int launch_dm(const void* q, const void* k, const void* v, const void* offs,
-              int q_offset, void* o, int B, int Hq, int Hkv, int C, int D,
-              const long long* strides, int causal, int window, int kv_len,
-              void* stream) {
+template <int BQ, int NT, bool PER_ROW, int DM, typename KV>
+int launch_dm(const void* q, const void* k, const void* v, const void* ksc,
+              const void* vsc, const void* offs, int q_offset, void* o, int B,
+              int Hq, int Hkv, int C, int D, const long long* strides,
+              int causal, int window, int kv_len, void* stream) {
   if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > DM ||
       D % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)BQ * D + (size_t)BKV * (D + 1) +
                                        (size_t)BKV * D + BQ * BKV + 3 * BQ);
-  auto kernel = attn_kernel<BQ, NT, PER_ROW, DM>;
+  auto kernel = attn_kernel<BQ, NT, PER_ROW, DM, KV>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -251,9 +298,10 @@ int launch_dm(const void* q, const void* k, const void* v, const void* offs,
   }
   const dim3 grid(B * Hq, (C + BQ - 1) / BQ);
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)offs,
-      q_offset, (float*)o, Hq, Hkv, C, D, make_strides(strides), causal,
-      window, kv_len, 1.0f / sqrtf((float)D));
+      (const float*)q, (const KV*)k, (const KV*)v, (const bf16*)ksc,
+      (const bf16*)vsc, (const int*)offs, q_offset, (float*)o, Hq, Hkv, C, D,
+      make_strides(strides, IS_Q8<KV>), causal, window, kv_len,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -261,23 +309,23 @@ int launch_dm(const void* q, const void* k, const void* v, const void* offs,
 // same kernel with a 256-wide accumulator slice on the prefill tile (16
 // query rows, 4 warps) for both (full-sequence tiles of 32 rows × 8 warps
 // and 16 rows × 8 warps spilled 60 and 4 bytes)
-template <int BQ, int NT, bool PER_ROW>
+template <int BQ, int NT, bool PER_ROW, typename KV = float>
 int launch_f32(const void* q, const void* k, const void* v, const void* offs,
                int q_offset, void* o, int B, int Hq, int Hkv, int C, int D,
                const long long* strides, int causal, int window, int kv_len,
-               void* stream) {
+               void* stream, const void* ksc = nullptr,
+               const void* vsc = nullptr) {
   if (D <= WIDE_D)
-    return launch_dm<BQ, NT, PER_ROW, WIDE_D>(
-        q, k, v, offs, q_offset, o, B, Hq, Hkv, C, D, strides, causal,
-        window, kv_len, stream);
-  return launch_dm<PREFILL_BQ, PREFILL_NT, PER_ROW, DMAX>(
-      q, k, v, offs, q_offset, o, B, Hq, Hkv, C, D, strides, causal, window,
-      kv_len, stream);
+    return launch_dm<BQ, NT, PER_ROW, WIDE_D, KV>(
+        q, k, v, ksc, vsc, offs, q_offset, o, B, Hq, Hkv, C, D, strides,
+        causal, window, kv_len, stream);
+  return launch_dm<PREFILL_BQ, PREFILL_NT, PER_ROW, DMAX, KV>(
+      q, k, v, ksc, vsc, offs, q_offset, o, B, Hq, Hkv, C, D, strides, causal,
+      window, kv_len, stream);
 }
 
 // ---------------------------------------------------------------- bf16 --
 
-using bf16 = __nv_bfloat16;
 constexpr int KT = 64;          // keys per tile
 constexpr int MAX_WARPS = 4;    // a block: up to 4 warps of 16 rows
 constexpr float LOG2E = 1.4426950408889634f;
@@ -288,14 +336,19 @@ constexpr float LOG2E = 1.4426950408889634f;
 // token r / P of query head hb + r % P.  DM: the largest padded head dim.
 // part: split scratch — acc (splits, B, C, Hq, D), then (m, l) pairs
 // (splits, B, C, Hq, 2) — or null, and then o is written.  EXACT: D = DM,
-// so the head-dim loops, row strides and copies are compile-time.
-template <int DM, bool EXACT>
+// so the head-dim loops, row strides and copies are compile-time.  KV: bf16,
+// or int8 codes with their scales ksc, vsc, dequantized into one bf16 K/V
+// tile per key tile.
+template <int DM, bool EXACT, typename KV>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
-attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ offs,
+attn_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
+                 const KV* __restrict__ v, const bf16* __restrict__ ksc,
+                 const bf16* __restrict__ vsc, const int* __restrict__ offs,
                  int q_offset, bf16* __restrict__ o, float* __restrict__ part,
                  int Hq, int Hkv, int P, int C, int D, Strides st, int causal,
                  int window, int kv_len, int kps, float sl2) {
+  constexpr bool Q8 = IS_Q8<KV>;
+  constexpr int KV_STAGES = Q8 ? 1 : 2;     // bf16 K/V tiles in shared memory
   // a split launch's attn_split_combine may start now and wait for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   constexpr int NK = KT / 8;                 // key n-tiles of S
@@ -346,9 +399,12 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (k_begin < k_end) {   // block-uniform: a dead block loads nothing
     extern __shared__ __align__(16) unsigned char smem[];
     bf16* qs = reinterpret_cast<bf16*>(smem);   // (BR, LD)
-    bf16* kvs = qs + BR * LD;                   // 2 stages × (K, V) (KT, LD)
-    if (DP != D)   // the zero pad of D to 16, never written by cp.async
-      for (int i = tid; i < BR + 4 * KT; i += nthr)
+    bf16* kvs = qs + BR * LD;   // KV_STAGES × (K, V) (KT, LD)
+    // int8 K/V: 2 stages × (K, V) of codes (KT, D), then of scales (KT,)
+    int8_t* raw = reinterpret_cast<int8_t*>(kvs + KV_STAGES * 2 * KT * LD);
+    bf16* rsc = reinterpret_cast<bf16*>(raw + 4 * KT * D);
+    if (DP != D)   // the zero pad of D to 16, never written by a copy
+      for (int i = tid; i < BR + KV_STAGES * 2 * KT; i += nthr)
         zero_n<16>(qs + i * LD + D);
     const bf16* qb = q + b * st.qb;
     for (int c = tid; c < BR * CPR; c += nthr) {
@@ -361,22 +417,68 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         zero_n<16>(dst);
       }
     }
-    const bf16* kp = k + b * st.kb + kvh * st.kh;
-    const bf16* vp = v + b * st.vb + kvh * st.vh;
+    const KV* kp = k + b * st.kb + kvh * st.kh;
+    const KV* vp = v + b * st.vb + kvh * st.vh;
     auto load = [&](int j0, int stage) {
-      bf16* ks = kvs + stage * 2 * KT * LD;
-      bf16* vs = ks + KT * LD;
-      for (int c = tid; c < KT * CPR; c += nthr) {
-        const int j = c / CPR, ch = c - j * CPR, at = j * LD + ch * 8;
-        if (j0 + j < k_end) {
-          cp_async16(ks + at, kp + (j0 + j) * st.ks + ch * 8);
-          cp_async16(vs + at, vp + (j0 + j) * st.vs + ch * 8);
-        } else {   // past every row's range: zeros (V must stay finite)
-          zero_n<16>(ks + at);
-          zero_n<16>(vs + at);
+      if constexpr (Q8) {
+        // codes: 8 bytes (8 keys' elements) a copy
+        int8_t* kr = raw + stage * 2 * KT * D;
+        int8_t* vr = kr + KT * D;
+        for (int c = tid; c < KT * CPR; c += nthr) {
+          const int j = c / CPR, ch = c - j * CPR, at = j * D + ch * 8;
+          if (j0 + j < k_end) {
+            cp_async8(kr + at, kp + (j0 + j) * st.ks + ch * 8);
+            cp_async8(vr + at, vp + (j0 + j) * st.vs + ch * 8);
+          } else {   // past every row's range: zero codes and scales
+            zero_n<8>(kr + at);
+            zero_n<8>(vr + at);
+          }
+        }
+        // scales, Hkv apart in the cache: plain loads
+        bf16* sc = rsc + stage * 2 * KT;
+        for (int i = tid; i < 2 * KT; i += nthr) {
+          const int j = i & (KT - 1), key = j0 + j;
+          const bool isv = i >= KT;
+          sc[i] = key < k_end
+                      ? (isv ? vsc[b * st.tb + kvh * st.th + key * st.ts]
+                             : ksc[b * st.sb + kvh * st.sh + key * st.ss])
+                      : __float2bfloat16(0.f);
+        }
+      } else {
+        bf16* ks = kvs + stage * 2 * KT * LD;
+        bf16* vs = ks + KT * LD;
+        for (int c = tid; c < KT * CPR; c += nthr) {
+          const int j = c / CPR, ch = c - j * CPR, at = j * LD + ch * 8;
+          if (j0 + j < k_end) {
+            cp_async16(ks + at, kp + (j0 + j) * st.ks + ch * 8);
+            cp_async16(vs + at, vp + (j0 + j) * st.vs + ch * 8);
+          } else {   // past every row's range: zeros (V must stay finite)
+            zero_n<16>(ks + at);
+            zero_n<16>(vs + at);
+          }
         }
       }
       cp_commit();
+    };
+    // int8 K/V: a landed stage of codes → the bf16 K/V tile, each element
+    // bf16(code · its key's scale), 8 elements a thread at a time
+    auto dequantize = [&](int stage) {
+      const int8_t* kr = raw + stage * 2 * KT * D;
+      const bf16* sc = rsc + stage * 2 * KT;
+      for (int c = tid; c < 2 * KT * CPR; c += nthr) {
+        const int row = c / CPR, ch = c - row * CPR;   // row: K 0-63, V 64-
+        const uint2 codes =
+            *reinterpret_cast<const uint2*>(kr + row * D + ch * 8);
+        const float s = __bfloat162float(sc[row]);
+        // element e of the 8: byte e % 4 of word e / 4, sign-extended
+        auto x = [&](int e) {
+          const uint32_t word = e < 4 ? codes.x : codes.y;
+          return (float)(int8_t)(word >> (8 * (e & 3))) * s;
+        };
+        *reinterpret_cast<uint4*>(kvs + row * LD + ch * 8) =
+            make_uint4(bf16x2(x(0), x(1)), bf16x2(x(2), x(3)),
+                       bf16x2(x(4), x(5)), bf16x2(x(6), x(7)));
+      }
     };
     const int j_first = (k_begin / KT) * KT;
     const int ntiles = (k_end - j_first + KT - 1) / KT;
@@ -394,6 +496,10 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_wait<0>();
       __syncthreads();   // tile it landed; every warp is done with it - 1
       if (it + 1 < ntiles) load(j0 + KT, (it + 1) & 1);
+      if constexpr (Q8) {
+        dequantize(it & 1);
+        __syncthreads();   // the bf16 tile is whole
+      }
       if constexpr (QREG) {
         if (it == 0) {
 #pragma unroll
@@ -401,7 +507,7 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (kk * 16 < DP) ldsm_x4(qf[kk], qw + kk * 16);
         }
       }
-      const bf16* ks = kvs + (it & 1) * 2 * KT * LD;
+      const bf16* ks = kvs + (Q8 ? 0 : it & 1) * 2 * KT * LD;
       const bf16* vs = ks + KT * LD;
 
       float s[NK][4];
@@ -576,15 +682,21 @@ int launch_combine(const float* part, bf16* o, int B, int C, int Hq, int D,
                                  D, splits, ob, oh, ot);
 }
 
-template <int DM, bool EXACT>
+template <int DM, bool EXACT, typename KV>
 int launch_tile_dm(const void* q, const void* k, const void* v,
-                   const void* offs, int q_offset, void* o, float* part, int B,
-                   int Hq, int Hkv, int P, int C, int D, const Strides& st,
-                   int causal, int window, int kv_len, int warps, int splits,
-                   int kps, cudaStream_t stream) {
+                   const void* ksc, const void* vsc, const void* offs,
+                   int q_offset, void* o, float* part, int B, int Hq, int Hkv,
+                   int P, int C, int D, const Strides& st, int causal,
+                   int window, int kv_len, int warps, int splits, int kps,
+                   cudaStream_t stream) {
   const int LD = ((D + 15) & ~15) + 8;
-  const size_t smem = sizeof(bf16) * (size_t)LD * (16 * warps + 4 * KT);
-  auto kernel = attn_tile_kernel<DM, EXACT>;
+  // Q and the bf16 K/V tiles; over int8 K/V one bf16 stage, then two of
+  // codes and scales
+  const size_t smem =
+      IS_Q8<KV> ? sizeof(bf16) * (size_t)LD * (16 * warps + 2 * KT) +
+                      4 * (size_t)KT * D + 4 * KT * sizeof(bf16)
+                : sizeof(bf16) * (size_t)LD * (16 * warps + 4 * KT);
+  auto kernel = attn_tile_kernel<DM, EXACT, KV>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -593,9 +705,10 @@ int launch_tile_dm(const void* q, const void* k, const void* v,
   const int br = 16 * warps;
   const dim3 grid(B * (Hq / P), (C * P + br - 1) / br, splits);
   kernel<<<grid, 32 * warps, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)offs,
-      q_offset, (bf16*)o, splits > 1 ? part : nullptr, Hq, Hkv, P, C, D, st,
-      causal, window, kv_len, kps, LOG2E / sqrtf((float)D));
+      (const bf16*)q, (const KV*)k, (const KV*)v, (const bf16*)ksc,
+      (const bf16*)vsc, (const int*)offs, q_offset, (bf16*)o,
+      splits > 1 ? part : nullptr, Hq, Hkv, P, C, D, st, causal, window,
+      kv_len, kps, LOG2E / sqrtf((float)D));
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   return launch_combine(part, (bf16*)o, B, C, Hq, D, splits, st.ob, st.oh,
@@ -604,24 +717,28 @@ int launch_tile_dm(const void* q, const void* k, const void* v,
 
 // The bf16 kernel at P packed heads, `warps` warps a block and `splits`
 // key ranges of kps keys (a multiple of KT covering kv_len; part holds
-// splits·B·C·Hq·(D + 2) floats when splits > 1).
+// splits·B·C·Hq·(D + 2) floats when splits > 1); K/V of type KV (int8:
+// with the scales ksc, vsc and 18 strides).
+template <typename KV = bf16>
 int launch_tile(const void* q, const void* k, const void* v, const void* offs,
                 int q_offset, void* o, float* part, int B, int Hq, int Hkv,
                 int P, int C, int D, const long long* strides, int causal,
                 int window, int kv_len, int warps, int splits, int kps,
-                void* stream) {
+                void* stream, const void* ksc = nullptr,
+                const void* vsc = nullptr) {
   if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > DMAX ||
       D % 8 != 0 || P <= 0 || Hq % P != 0 || (Hq / Hkv) % P != 0 ||
       warps < 1 || warps > MAX_WARPS || splits < 1 ||
       (splits > 1 && (part == nullptr || kps <= 0 || kps % KT != 0 ||
                       (long long)kps * splits < kv_len)))
     return (int)cudaErrorInvalidValue;
-  const Strides st = make_strides(strides);
+  const Strides st = make_strides(strides, IS_Q8<KV>);
   auto s = (cudaStream_t)stream;
-#define ATTN_TILE(DM, EXACT)                                                 \
-  return launch_tile_dm<DM, EXACT>(q, k, v, offs, q_offset, o, part, B, Hq, \
-                                   Hkv, P, C, D, st, causal, window, kv_len, \
-                                   warps, splits, kps, s)
+#define ATTN_TILE(DM, EXACT)                                               \
+  return launch_tile_dm<DM, EXACT, KV>(q, k, v, ksc, vsc, offs, q_offset, \
+                                       o, part, B, Hq, Hkv, P, C, D, st,   \
+                                       causal, window, kv_len, warps,      \
+                                       splits, kps, s)
   switch (D) {
     case 64: ATTN_TILE(64, true);
     case 128: ATTN_TILE(128, true);
@@ -656,6 +773,30 @@ int flash_prefill_bf16(const void* q, const void* k, const void* v,
   return launch_tile(q, k, v, offs, 0, o, (float*)part, B, Hq, Hkv, Hq / Hkv,
                      C, D, strides, causal, window, kv_len, warps, splits, kps,
                      stream);
+}
+
+// the same over int8 K/V with per-(slot, head) bf16 scales; 18 strides
+int flash_prefill_q8_f32(const void* q, const void* k, const void* v,
+                         const void* k_scale, const void* v_scale,
+                         const void* offs, void* o, int B, int Hq, int Hkv,
+                         int C, int D, const long long* strides, int causal,
+                         int window, int kv_len, void* stream) {
+  return launch_f32<PREFILL_BQ, PREFILL_NT, true, int8_t>(
+      q, k, v, offs, 0, o, B, Hq, Hkv, C, D, strides, causal, window, kv_len,
+      stream, k_scale, v_scale);
+}
+
+int flash_prefill_q8_bf16(const void* q, const void* k, const void* v,
+                          const void* k_scale, const void* v_scale,
+                          const void* offs, void* o, void* part, int B,
+                          int Hq, int Hkv, int C, int D,
+                          const long long* strides, int causal, int window,
+                          int kv_len, int warps, int splits, int kps,
+                          void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  return launch_tile<int8_t>(q, k, v, offs, 0, o, (float*)part, B, Hq, Hkv,
+                             Hq / Hkv, C, D, strides, causal, window, kv_len,
+                             warps, splits, kps, stream, k_scale, v_scale);
 }
 
 int flash_full_f32(const void* q, const void* k, const void* v, void* o,

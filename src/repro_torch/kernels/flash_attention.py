@@ -4,7 +4,11 @@ and their plain PyTorch versions.
 - ``launch``: chunked prefill at per-row offsets (B3) — q (B, Hq, C, D)
   against a serving cache k, v (B, Hkv, S, D) with q_offsets (B,);
 - ``launch_full``: full-sequence attention at a static ``q_offset`` (B4) —
-  q (B, Hq, T, D), k, v (B, Hkv, S, D).
+  q (B, Hq, T, D), k, v (B, Hkv, S, D);
+- ``launch`` with ``k_scale`` and ``v_scale``: B3 over an int8 cache — k, v
+  int8 codes (B, Hkv, S, D) with their bf16 scales (B, Hkv, S), each
+  given with its scales; the kernel dequantizes each K/V tile as it stages
+  it, as ``quant.dequantize_rows`` does.
 
 Both read q, k and v through their strides (last axis contiguous), so a
 (B, S, Hkv, D) serving cache or a (B, T, H, D) view of the qkv projection is
@@ -21,7 +25,9 @@ the last a multiple of 8 elements, or the launcher raises.  B3 packs the G
 query heads of a kv head into one block's rows and, where the grid would
 leave most SMs idle, splits the key axis across blocks (``split_plan``);
 the split's fp32 partials go to scratch allocated here (``_split_scratch``)
-and a second kernel combines them.  fp32 runs the CUDA-core kernel.
+and a second kernel combines them.  fp32 runs the CUDA-core kernel.  int8
+codes are copied 8 bytes at a time: for the bf16 kernel they must start
+8-byte aligned with every stride but the last a multiple of 8.
 """
 
 from __future__ import annotations
@@ -48,6 +54,12 @@ _ARGTYPES = {
     "flash_full_bf16": [_P] * 4 + [_I] * 5 + [_STRIDES] + [_I] * 4 + [_P],
     # part, o, B, C, Hq, D, splits, o strides (b, h, t)
     "flash_combine_bf16": [_P] * 2 + [_I] * 5 + [_STRIDES] + [_P],
+    # the prefill entry points over int8 K/V: k_scale and v_scale after v,
+    # and 18 strides (the scales' (b, h, s) last)
+    "flash_prefill_q8_f32": [_P] * 7 + [_I] * 5 + [_STRIDES] + [_I] * 3
+                            + [_P],
+    "flash_prefill_q8_bf16": [_P] * 8 + [_I] * 5 + [_STRIDES] + [_I] * 6
+                             + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _LIB: list = []
@@ -111,9 +123,11 @@ def _split_scratch(splits: int, B: int, C: int, Hq: int, D: int,
 
 
 def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int | None, kv_len: int) -> None:
+           window: int | None, kv_len: int, kv_dtype=None) -> None:
+    """q, k, v as a kernel takes them; K/V in ``kv_dtype`` (default q's)."""
     B, Hq, C, D = q.shape
     _, Hkv, S_len, _ = k.shape
+    kv_dtype = q.dtype if kv_dtype is None else kv_dtype
     if q.device.type != "cuda":
         raise ValueError(f"{what} kernel needs CUDA tensors")
     if q.dtype not in _SUFFIX:
@@ -124,20 +138,23 @@ def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
     for name, a in (("k", k), ("v", v)):
-        if a.dtype != q.dtype or a.device != q.device:
-            raise TypeError(f"{name} must be {q.dtype} on {q.device}")
+        if a.dtype != kv_dtype or a.device != q.device:
+            raise TypeError(f"{name} must be {kv_dtype} on {q.device}")
         if a.shape != (B, Hkv, S_len, D):
             raise ValueError(f"{name} has shape {tuple(a.shape)}, want "
                              f"{(B, Hkv, S_len, D)}")
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.stride(-1) != 1:
             raise ValueError(f"{name}'s last axis must be contiguous")
+        # the tile kernel's copies: 16 bytes of bf16, 8 bytes of int8 codes
+        align = 16 if a.dtype == torch.bfloat16 else 8
         if q.dtype == torch.bfloat16 and (
-                a.data_ptr() % 16 or any(s % 8 for s in a.stride()[:-1])):
+                a.data_ptr() % align or any(s % 8 for s in a.stride()[:-1])):
             raise ValueError(
-                f"{name} is not 16-byte aligned for the bf16 kernel's copies"
-                f" (data_ptr % 16 = {a.data_ptr() % 16}, strides "
-                f"{a.stride()}: each but the last must be a multiple of 8)")
+                f"{name} is not {align}-byte aligned for the bf16 kernel's "
+                f"copies (data_ptr % {align} = {a.data_ptr() % align}, "
+                f"strides {a.stride()}: each but the last must be a "
+                "multiple of 8)")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if not 0 <= kv_len <= S_len:
@@ -147,42 +164,57 @@ def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "device")
 
 
-def _out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Token-major output, its (B, Hq, T, D) view and the 12 strides."""
+def _out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *scales):
+    """Token-major output, its (B, Hq, T, D) view and the strides: 12, and
+    the two scales' 3 each after them."""
     B, Hq, T, D = q.shape
     out = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
     o = out.permute(0, 2, 1, 3)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
-    return out, o, strides
+    st = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+          *(s for sc in scales for s in sc.stride())]
+    return out, o, (ctypes.c_longlong * len(st))(*st)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offsets: torch.Tensor, *, causal: bool, window: int | None,
-           kv_len: int) -> torch.Tensor:
-    build.refuse_grad("flash_attention_prefill", q, k, v)
+           kv_len: int, k_scale: torch.Tensor | None = None,
+           v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """B3; with ``k_scale`` and ``v_scale`` (bf16, (B, Hkv, S), any
+    strides), k and v are int8 codes, given with both scales."""
+    q8 = k_scale is not None or v_scale is not None
+    what = "flash_attention_prefill" + ("_q8" if q8 else "")
+    build.refuse_grad(what, q, k, v)
     B, Hq, C, D = q.shape
-    Hkv = k.shape[1]
-    _check("flash_attention_prefill", q, k, v, window, kv_len)
+    Hkv, S_len = k.shape[1], k.shape[2]
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if q8 and (not isinstance(sc, torch.Tensor)
+                   or sc.dtype != torch.bfloat16
+                   or sc.shape != (B, Hkv, S_len) or sc.device != q.device):
+            raise ValueError(
+                f"{name} must be a bf16 tensor of shape {(B, Hkv, S_len)} on "
+                f"{q.device}: int8 K/V take both scales as a pair")
+    _check(what, q, k, v, window, kv_len, torch.int8 if q8 else None)
     offs = q_offsets.to(device=q.device, dtype=torch.int32).contiguous()
     if offs.shape != (B,):
         raise ValueError(f"q_offsets has shape {tuple(offs.shape)}, want {(B,)}")
-    out, o, strides = _out(q, k, v)
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
-            out.data_ptr())
+    out, o, strides = _out(q, k, v, *((k_scale, v_scale) if q8 else ()))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *((k_scale.data_ptr(), v_scale.data_ptr()) if q8 else ()),
+            offs.data_ptr(), out.data_ptr())
     opts = (int(causal), 0 if window is None else int(window), int(kv_len))
     stream = torch.cuda.current_stream().cuda_stream
+    name = "flash_prefill" + ("_q8" if q8 else "")
     if q.dtype == torch.bfloat16:
         warps, _, splits, kps = split_plan(B, Hkv, Hq // Hkv, C, kv_len,
                                            build.sm_count(q.device))
         part = _split_scratch(splits, B, C, Hq, D, q.device)
-        rc = _lib().flash_prefill_bf16(
+        rc = getattr(_lib(), f"{name}_bf16")(
             *head, None if part is None else part.data_ptr(), B, Hq, Hkv, C,
             D, strides, *opts, warps, splits, kps, stream)
     else:
-        rc = _lib().flash_prefill_f32(*head, B, Hq, Hkv, C, D, strides, *opts,
-                                      stream)
-    build.check(rc, "flash_attention_prefill")
+        rc = getattr(_lib(), f"{name}_f32")(*head, B, Hq, Hkv, C, D, strides,
+                                            *opts, stream)
+    build.check(rc, what)
     return o
 
 

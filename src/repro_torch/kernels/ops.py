@@ -54,7 +54,8 @@ launches: dict[str, int] = {
     "blast_matmul_w8a8": 0, "blast_matmul_grouped_w8a8": 0,
     "blast_matmul_q4": 0, "blast_matmul_grouped_q4": 0,
     "blast_matmul_w4a8": 0, "blast_matmul_grouped_w4a8": 0,
-    "flash_attention_prefill": 0, "flash_attention": 0,
+    "flash_attention_prefill": 0, "flash_attention_prefill_q8": 0,
+    "flash_attention": 0,
     "blast_matmul_dx": 0}
 
 
@@ -323,6 +324,27 @@ def flash_attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = _fa.launch(q, k, v, q_offsets, causal=causal, window=window,
                    kv_len=S_len if kv_len is None else kv_len)
     launches["flash_attention_prefill"] += 1
+    return o
+
+
+def flash_attention_prefill_q8(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, k_scale: torch.Tensor,
+                               v_scale: torch.Tensor, q_offsets: torch.Tensor,
+                               *, causal: bool = True,
+                               window: int | None = None,
+                               kv_len: int | None = None) -> torch.Tensor:
+    """``flash_attention_prefill`` over an int8 cache: k, v int8 codes
+    (B, Hkv, S, D) with per-(slot, head) bf16 scales k_scale, v_scale
+    (B, Hkv, S) (any strides).  K/V are read as ``dequantize_rows`` gives
+    them in q's type; the kernel dequantizes each tile as it stages it."""
+    if _on_cpu(q):
+        return ref.attention_prefill_q8_ref(q, k, v, k_scale, v_scale,
+                                            q_offsets, causal=causal,
+                                            window=window, kv_len=kv_len)
+    o = _fa.launch(q, k, v, q_offsets, causal=causal, window=window,
+                   kv_len=k.shape[2] if kv_len is None else kv_len,
+                   k_scale=k_scale, v_scale=v_scale)
+    launches["flash_attention_prefill_q8"] += 1
     return o
 
 

@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from repro_torch.quant.qarray import unpack_int4_planes
+from repro_torch.quant.qarray import dequantize_rows, unpack_int4_planes
 
 
 def acc(t: torch.Tensor) -> torch.Tensor:
@@ -149,6 +149,21 @@ def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.nan_to_num(probs, nan=0.0)   # fully-masked rows → 0
     out = torch.einsum("bhgts,bhsd->bhgtd", probs, acc(v))
     return out.reshape(B, Hq, T, D).to(q.dtype)
+
+
+def attention_prefill_q8_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, k_scale: torch.Tensor,
+                             v_scale: torch.Tensor, q_offsets: torch.Tensor,
+                             *, causal: bool = True,
+                             window: int | None = None,
+                             kv_len: int | None = None) -> torch.Tensor:
+    """Prefill attention over an int8 cache: k, v int8 codes (B, Hkv, S, D)
+    with scales (B, Hkv, S), dequantized to q's type (``dequantize_rows``,
+    the reference's int8 cache read), then ``attention_prefill_ref``."""
+    return attention_prefill_ref(
+        q, dequantize_rows(k, k_scale, q.dtype),
+        dequantize_rows(v, v_scale, q.dtype), q_offsets, causal=causal,
+        window=window, kv_len=kv_len)
 
 
 ATTN_KEY_TILE = 64      # keys per tile of the bf16 attention kernel

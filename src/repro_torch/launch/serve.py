@@ -11,7 +11,12 @@ launcher prints how many it captured and the seconds that took, which the
 prefill and decode rates leave out.  Weights are random, drawn from ``--seed``.
 ``--quant-weights int8`` (or ``int4``) quantizes them at load (the int8 or
 int4 BLAST kernels); adding ``--quant-activations int8`` runs the W8A8 (or
-W4A8) kernels.
+W4A8) kernels.  ``--quant-cache int8`` keeps K/V as int8 codes with
+per-(slot, head) scales, attended by the int8-K/V attention kernel.  The
+paper's Llama-7B BLAST at full width on one card:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama7b-blast \
+        --quant-cache int8 --slots 8 --max-len 512
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ def parse_args(argv=None):
                     choices=["none", "int8"],
                     help="per-token int8 activations: the BLAST layers run "
                          "the W8A8 (int8 weights) or W4A8 (int4) kernels")
+    ap.add_argument("--quant-cache", default="none", choices=["none", "int8"],
+                    help="int8 KV cache with per-(slot, head) bf16 scales")
     return ap.parse_args(argv)
 
 
@@ -58,7 +65,8 @@ def main(argv=None) -> list[Request]:
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, quant=QuantConfig(
-        weights=args.quant_weights, activations=args.quant_activations))
+        weights=args.quant_weights, cache=args.quant_cache,
+        activations=args.quant_activations))
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
     engine = Engine(model, params, EngineConfig(
@@ -83,8 +91,8 @@ def main(argv=None) -> list[Request]:
     print(f"[serve] {len(reqs)} requests, {total} tokens in {dt:.3f}s on "
           f"{args.device}, {args.slots} slots, chunk={args.chunk}, "
           f"{tp['steps']} steps, weights {args.quant_weights}, activations "
-          f"{args.quant_activations}, {tree_nbytes(engine.params)} "
-          "parameter bytes")
+          f"{args.quant_activations}, cache {args.quant_cache}, "
+          f"{tree_nbytes(engine.params)} parameter bytes")
     print(f"[serve] prefill {engine.stats['prefill_tokens']} toks @ "
           f"{tp['prefill_tok_s']:.1f} tok/s · decode "
           f"{engine.stats['decode_tokens']} toks @ {tp['decode_tok_s']:.1f} "

@@ -1,7 +1,8 @@
 """Model layers of the ported slices (counterpart of
-``repro/models/layers.py``): linears over any ported structure, norms, the
-tied embedding, GQA attention (full-sequence, and chunked prefill over a
-slot-static cache), and the SwiGLU FFN.
+``repro/models/layers.py``): linears over any ported structure, norms
+(RMSNorm, LayerNorm), the tied embedding, GQA attention (full-sequence,
+and chunked prefill over a slot-static float or int8 cache), and the
+SwiGLU and GELU FFNs.
 
 Parameters are plain dicts of tensors with the reference's key names.
 Caches are updated in place (the reference returns new immutable arrays);
@@ -117,15 +118,20 @@ def tied_logits(table, x: torch.Tensor) -> torch.Tensor:
 
 
 def norm_init(d: int, kind: str, dtype, device) -> Params:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+    """RMSNorm: a zero scale (it scales by 1 + scale); LayerNorm: scale 1,
+    bias 0."""
+    if kind == "rmsnorm":
+        return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+    if kind != "layernorm":
+        raise ValueError(f"unknown norm {kind!r}")
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def norm_apply(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return ops.rms_norm(x, params["scale"])
+    if kind == "rmsnorm":
+        return ops.rms_norm(x, params["scale"])
+    return ops.layer_norm(x, params["scale"], params["bias"])
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +227,7 @@ class AttnSpec:
 def make_attention(cfg: ArchConfig, *, window: int | None = None) -> AttnSpec:
     if window is not None:
         raise NotImplementedError("sliding-window ring caches are not ported "
-                                  "yet (ROADMAP A13)")
+                                  "yet (ROADMAP A7)")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     # q/k/v stacked and modeled by ONE structured matrix (paper §C.2)
     qkv = make_linear(cfg.d_model, (hq + 2 * hkv) * hd, cfg.structure)
@@ -279,18 +285,28 @@ def attn_apply(spec: AttnSpec, params: Params, x: torch.Tensor,
 
 def attn_cache_init(spec: AttnSpec, batch: int, max_len: int, dtype,
                     device) -> Params:
-    """Slot-static float KV cache in the reference layout (B, S, Hkv, D);
-    ``pos`` is each slot's absolute position, -1 for empty.  Each leaf is
-    the [:, :S] view of a buffer with one spare slot, where a step's dead
-    columns write (``ragged``); nothing reads it."""
+    """Slot-static KV cache in the reference layout (B, S, Hkv, D); ``pos``
+    is each slot's absolute position, -1 for empty.  With
+    ``cfg.cache_quant`` K and V are int8 codes with per-(slot, head) bf16
+    scales ``k_scale``, ``v_scale`` (B, S, Hkv) — half the bytes of a bf16
+    cache.  Each leaf is the [:, :S] view of a buffer with one spare slot,
+    where a step's dead columns write (``ragged``); nothing reads it."""
     hq, hkv, hd = spec.dims
     S = max_len
-    return {"pos": torch.full((batch, S + 1), -1, dtype=torch.int32,
-                              device=device)[:, :S],
-            "k": torch.zeros((batch, S + 1, hkv, hd), dtype=dtype,
-                             device=device)[:, :S],
-            "v": torch.zeros((batch, S + 1, hkv, hd), dtype=dtype,
-                             device=device)[:, :S]}
+
+    def leaf(*shape, fill=0, dtype_=dtype):
+        return torch.full((batch, S + 1, *shape), fill, dtype=dtype_,
+                          device=device)[:, :S]
+
+    c = {"pos": leaf(fill=-1, dtype_=torch.int32)}
+    if spec.cfg.cache_quant:
+        c.update(k=leaf(hkv, hd, dtype_=torch.int8),
+                 v=leaf(hkv, hd, dtype_=torch.int8),
+                 k_scale=leaf(hkv, dtype_=torch.bfloat16),
+                 v_scale=leaf(hkv, dtype_=torch.bfloat16))
+    else:
+        c.update(k=leaf(hkv, hd), v=leaf(hkv, hd))
+    return c
 
 
 def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
@@ -307,7 +323,8 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
     The attention kernel masks by slot index (slot == absolute position),
     while the reference masks by the cache's ``pos``.  The two agree on the
     live columns because the engine resets a slot's row (pos=-1, K=V=0) on
-    admission and every row writes positions 0..pos contiguously."""
+    admission and every row writes positions 0..pos contiguously (an int8
+    cache's row is reset with its scales)."""
     cfg = spec.cfg
     hq, hkv, hd = spec.dims
     B, C, _ = x.shape
@@ -321,17 +338,31 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
         q = ops.rope(q, rg.q_pos, cfg.rope_theta)
         k = ops.rope(k, rg.q_pos, cfg.rope_theta)
     # fixed-shape in-place writes, dead columns into the spare slot
-    _write(cache["k"], rg, k)
-    _write(cache["v"], rg, v)
     _write(cache["pos"], rg, rg.q_pos)
+    if cfg.cache_quant:
+        # the chunk's rows quantized on the card; attention reads the
+        # cache it just wrote through its codes and scales
+        for name, t in (("k", k), ("v", v)):
+            codes, scales = qt.quantize_rows(t)
+            _write(cache[name], rg, codes)
+            _write(cache[f"{name}_scale"], rg, scales)
+    else:
+        _write(cache["k"], rg, k)
+        _write(cache["v"], rg, v)
     # the cache is read through strides as (B, Hkv, S, D): no copy.  No
     # live query sees a slot past the largest live one, so kv_len (a bucket
     # at or past it) only cuts the key range the launch plan splits (dead
     # columns' outputs change; the caller discards them)
-    o = kops.flash_attention_prefill(
-        q.transpose(1, 2), cache["k"].permute(0, 2, 1, 3),
-        cache["v"].permute(0, 2, 1, 3), rg.steps, causal=True,
-        window=spec.window, kv_len=rg.kv_len)
+    kv = (q.transpose(1, 2), cache["k"].permute(0, 2, 1, 3),
+          cache["v"].permute(0, 2, 1, 3))
+    if cfg.cache_quant:
+        o = kops.flash_attention_prefill_q8(
+            *kv, cache["k_scale"].transpose(1, 2),
+            cache["v_scale"].transpose(1, 2), rg.steps, causal=True,
+            window=spec.window, kv_len=rg.kv_len)
+    else:
+        o = kops.flash_attention_prefill(
+            *kv, rg.steps, causal=True, window=spec.window, kv_len=rg.kv_len)
     y = linear_apply(spec.out, params["out"],
                      o.transpose(1, 2).reshape(B, C, hq * hd))
     return y, cache
@@ -346,56 +377,70 @@ def attn_decode(spec: AttnSpec, params: Params, cache: Params,
 
 
 # ---------------------------------------------------------------------------
-# SwiGLU feed-forward.
+# Feed-forward: SwiGLU (gate, up, wo) or GELU (wi, wo).
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class FFNSpec:
-    """gate and up are two congruent (d → ff) linears sharing the input:
-    they dispatch as ONE grouped kernel launch."""
-    kind: str
+    """SwiGLU: gate and up are two congruent (d → ff) linears sharing the
+    input, dispatched as ONE grouped kernel launch.  GELU keeps the single
+    ``wi`` (tanh approximation, as ``jax.nn.gelu``'s default)."""
+    kind: str                        # swiglu | gelu
     wo: LinearSpec
-    gate: LinearSpec
-    up: LinearSpec
+    wi: LinearSpec | None = None
+    gate: LinearSpec | None = None
+    up: LinearSpec | None = None
 
     @property
     def in_specs(self) -> tuple[LinearSpec, ...]:
-        return (self.gate, self.up)
+        return (self.gate, self.up) if self.kind == "swiglu" else (self.wi,)
+
+    @property
+    def names(self) -> tuple[str, ...]:
+        return ("gate", "up", "wo") if self.kind == "swiglu" else ("wi", "wo")
 
 
 def make_ffn(d_model: int, d_ff: int, kind: str,
              structure: StructureConfig) -> FFNSpec:
-    if kind != "swiglu":
+    wo = make_linear(d_ff, d_model, structure)
+    if kind == "swiglu":
+        return FFNSpec(kind=kind, wo=wo,
+                       gate=make_linear(d_model, d_ff, structure),
+                       up=make_linear(d_model, d_ff, structure))
+    if kind != "gelu":
         raise NotImplementedError(f"ffn {kind!r} is not ported yet")
-    return FFNSpec(kind=kind, wo=make_linear(d_ff, d_model, structure),
-                   gate=make_linear(d_model, d_ff, structure),
-                   up=make_linear(d_model, d_ff, structure))
+    return FFNSpec(kind=kind, wo=wo, wi=make_linear(d_model, d_ff, structure))
 
 
 def ffn_init(spec: FFNSpec, generator: torch.Generator, dtype, device,
              n_layers: int = 1) -> Params:
     wo_scale = 1.0 / math.sqrt(2 * n_layers * spec.wo.d_in)
-    return {"gate": linear_init(spec.gate, generator, dtype, device),
-            "up": linear_init(spec.up, generator, dtype, device),
-            "wo": linear_init(spec.wo, generator, dtype, device,
-                              scale=wo_scale)}
+    return {name: linear_init(getattr(spec, name), generator, dtype, device,
+                              scale=wo_scale if name == "wo" else None)
+            for name in spec.names}
 
 
 def ffn_quantize(spec: FFNSpec, params: Params, bits: int = 8) -> Params:
     return {name: linear_quantize(getattr(spec, name), params[name], bits)
-            for name in ("gate", "up", "wo")}
+            for name in spec.names}
 
 
 def ffn_prestack(spec: FFNSpec, params: Params) -> Params:
-    """Pre-stack the gate+up bundle once at load."""
+    """Pre-stack the SwiGLU gate+up bundle once at load (GELU: none)."""
+    if spec.kind != "swiglu":
+        return params
     b = linear_group_prestack((spec.gate, spec.up),
                               (params["gate"], params["up"]))
     return {**params, "_bundle_in": b} if b is not None else params
 
 
 def ffn_apply(spec: FFNSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
-    gate, up = linear_group_apply((spec.gate, spec.up),
-                                  (params["gate"], params["up"]), x,
-                                  bundle=params.get("_bundle_in"))
-    return linear_apply(spec.wo, params["wo"], F.silu(gate) * up)
+    if spec.kind == "swiglu":
+        gate, up = linear_group_apply((spec.gate, spec.up),
+                                      (params["gate"], params["up"]), x,
+                                      bundle=params.get("_bundle_in"))
+        h = F.silu(gate) * up
+    else:
+        h = F.gelu(linear_apply(spec.wi, params["wi"], x), approximate="tanh")
+    return linear_apply(spec.wo, params["wo"], h)

@@ -1,7 +1,8 @@
 """Model-level numeric ops (counterpart of ``repro/models/ops.py``): RMSNorm,
-RoPE, softcap, ``chunked_attention`` (full-sequence attention: the B4 kernel
-on the card, the chunked plain version on the CPU, both through
-``kernels/ops.flash_attention``'s autograd Function), ``cross_entropy``, and
+LayerNorm, RoPE, softcap, ``chunked_attention`` (full-sequence attention:
+the B4 kernel on the card, the chunked plain version on the CPU, both
+through ``kernels/ops.flash_attention``'s autograd Function),
+``cross_entropy``, and
 ``cache_attention`` — the reference's position-masked cache attention, kept
 as the semantics the prefill-attention kernel is held against in the
 tests."""
@@ -24,6 +25,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, computed in fp32 and cast back."""
+    dtype = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
     return out.to(dtype)
 
 

@@ -1,7 +1,9 @@
 """Decoder LM of the ported slices (counterpart of
-``repro/models/transformer.py``): GQA attention + SwiGLU FFN blocks, tied
-embeddings, the full-sequence forward ``apply`` (training, prefill) and the
-chunked cached step ``prefill_chunk`` the engine drives.
+``repro/models/transformer.py``): GQA attention blocks with a SwiGLU or GELU
+FFN and RMSNorm or LayerNorm, RoPE or learned positions, a tied embedding
+or an untied dense vocab head, the full-sequence forward ``apply``
+(training, prefill) and the chunked cached step ``prefill_chunk`` the engine
+drives, over a float or int8 KV cache.
 
 The reference scans over layer params stacked on a leading axis; here the
 params hold a list of per-layer dicts and each pass is a Python loop
@@ -20,6 +22,7 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.structures import make_linear
 from repro_torch.models import layers as L
 from repro_torch.models import ops
 from repro_torch.quant import qarray as qt
@@ -47,7 +50,7 @@ class BlockSpec:
 def make_block(cfg: ArchConfig, kind: str) -> BlockSpec:
     if kind != "attn":
         raise NotImplementedError(f"mixer {kind!r} is not ported yet "
-                                  "(ROADMAP A13)")
+                                  "(ROADMAP A7)")
     if not cfg.d_ff:
         raise NotImplementedError("blocks without an FFN are not ported yet")
     return BlockSpec(kind=kind, mixer=L.make_attention(cfg),
@@ -99,18 +102,16 @@ def block_prestack(spec: BlockSpec, params: Params) -> Params:
 
 
 class LM:
-    """Decoder-only LM for the ``("attn",)`` pattern with a SwiGLU FFN."""
+    """Decoder-only LM for the ``("attn",)`` pattern of the dense family."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         unsupported = [
             (cfg.family not in ("dense",), f"family {cfg.family!r}"),
-            (not cfg.tie_embeddings, "an untied vocab head"),
-            (cfg.pos_embed != "rope", f"pos_embed {cfg.pos_embed!r}"),
+            (cfg.pos_embed not in ("rope", "learned"),
+             f"pos_embed {cfg.pos_embed!r}"),
             (cfg.window != 0, "sliding-window attention"),
             (cfg.embed_scale, "embedding scaling"),
         ]
-        if cfg.quant.cache != "none":
-            raise NotImplementedError(qt.CACHE_TODO)
         for bad, what in unsupported:
             if bad:
                 raise NotImplementedError(f"{what} is not ported yet")
@@ -119,36 +120,51 @@ class LM:
         self.dtype = _DTYPES[cfg.param_dtype]
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.specs = [make_block(cfg, k) for k in cfg.layer_kinds()]
+        # the untied vocab head: a dense linear, as the reference's
+        self.head = make_linear(cfg.d_model, cfg.vocab, structured=False)
 
     # -- init -------------------------------------------------------------------
 
     def init(self, seed: int | torch.Generator = 0) -> Params:
         """Seeded random weights.  Draws on a CPU generator, so a seed gives
-        the same weights on every device."""
+        the same weights on every device, one tensor at a time: each is
+        drawn in fp32, cast and moved before the next, so the host never
+        holds an fp32 copy of the model."""
         gen = (seed if isinstance(seed, torch.Generator)
                else torch.Generator().manual_seed(int(seed)))
         cfg, dev, dt = self.cfg, self.device, self.dtype
-        embed = 0.02 * torch.randn((cfg.vocab, cfg.d_model), generator=gen)
-        return {
-            "embed": embed.to(device=dev, dtype=dt),
-            "final_norm": L.norm_init(cfg.d_model, cfg.norm, dt, dev),
-            "layers": [block_init(spec, gen, dt, dev, cfg.d_model)
-                       for spec in self.specs],
-        }
+
+        def normal(*shape):
+            return (0.02 * torch.randn(shape, generator=gen)).to(
+                device=dev, dtype=dt)
+
+        params = {"embed": normal(cfg.vocab, cfg.d_model),
+                  "final_norm": L.norm_init(cfg.d_model, cfg.norm, dt, dev)}
+        if cfg.pos_embed == "learned":
+            params["pos"] = normal(cfg.max_seq, cfg.d_model)
+        if not cfg.tie_embeddings:
+            params["head"] = L.linear_init(self.head, gen, dt, dev, scale=0.02)
+        params["layers"] = [block_init(spec, gen, dt, dev, cfg.d_model)
+                            for spec in self.specs]
+        return params
 
     def quantize_params(self, params: Params, quant: QuantConfig) -> Params:
         """Quantize-at-load: every structured linear becomes per-block int8
-        or int4 QArrays and the tied embedding per-row int8 or int4 (its
-        gather and the tied head both fuse the row scale); norms stay float.
-        Run it before ``prestack_params``, as the reference orders them."""
+        or int4 QArrays, the embedding per-row int8 or int4 (its gather and
+        a tied head both fuse the row scale) and an untied head per output
+        channel; norms and learned positions stay float.  Run it before
+        ``prestack_params``, as the reference orders them."""
         bits = quant.weight_bits
         if bits is None:
             return params
-        return {**params,
-                "embed": qt.quantize(params["embed"], bits=bits,
-                                     block_axes=(1,)),
-                "layers": [block_quantize(s, p, bits) for s, p in
-                           zip(self.specs, params["layers"])]}
+        qp = {**params,
+              "embed": qt.quantize(params["embed"], bits=bits,
+                                   block_axes=(1,)),
+              "layers": [block_quantize(s, p, bits) for s, p in
+                         zip(self.specs, params["layers"])]}
+        if not self.cfg.tie_embeddings:
+            qp["head"] = L.linear_quantize(self.head, params["head"], bits)
+        return qp
 
     def prestack_params(self, params: Params) -> Params:
         """Pre-stack every grouped projection bundle (SwiGLU gate+up) once at
@@ -174,6 +190,8 @@ class LM:
             x = torch.as_tensor(embeds).to(device=self.device,
                                            dtype=self.dtype)
         positions = torch.arange(x.shape[1], device=self.device)
+        if self.cfg.pos_embed == "learned":
+            x = x + params["pos"][:x.shape[1]][None]
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for spec, p in zip(self.specs, params["layers"]):
             if self.cfg.remat and torch.is_grad_enabled():
@@ -197,7 +215,10 @@ class LM:
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = L.norm_apply(params["final_norm"], x, self.cfg.norm)
-        logits = L.tied_logits(params["embed"], x)
+        if self.cfg.tie_embeddings:
+            logits = L.tied_logits(params["embed"], x)
+        else:   # a plain large product, left to torch.matmul (XLA there)
+            logits = L.linear_apply(self.head, params["head"], x)
         return ops.softcap(logits, self.cfg.logit_softcap)
 
     @torch.no_grad()
@@ -230,6 +251,8 @@ class LM:
         B, C = tokens.shape
         rg = L.ragged(steps, n_tokens, C, S, kv_len)
         x = L.embed_lookup(params["embed"], tokens, self.compute_dtype)
+        if self.cfg.pos_embed == "learned":
+            x = x + params["pos"][rg.q_pos.clamp(0, self.cfg.max_seq - 1)]
         for spec, p, c in zip(self.specs, params["layers"], cache):
             x = block_prefill(spec, p, c, x, rg)
         x = x[torch.arange(B, device=x.device), rg.last][:, None]  # (B, 1, d)

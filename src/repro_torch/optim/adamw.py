@@ -15,7 +15,7 @@ and v bit for bit as they were and still counts.  The guard is branchless
 the step reads no value on the host.  The arithmetic is the reference's,
 run as multi-tensor ``torch._foreach_*`` updates over groups of leaves of
 one type that decay alike.  ``grad_transform`` (gradient compression) and
-``sgdm`` are not ported yet (ROADMAP A16)."""
+``sgdm`` are not ported yet (ROADMAP A10)."""
 
 from __future__ import annotations
 

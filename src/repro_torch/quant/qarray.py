@@ -26,8 +26,6 @@ import dataclasses
 import torch
 
 _QMAX = {8: 127, 4: 7}
-CACHE_TODO = ("int8 caches are not ported yet (ROADMAP A9: quant.cache="
-              "'int8' with its int8-KV attention kernel)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +167,27 @@ def dequantize(qa: QArray, dtype=None) -> torch.Tensor:
     return y if dtype is None else y.to(dtype)
 
 
+def quantize_rows(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise cache codec: t (..., D) → int8 codes (..., D) and one scale
+    per last-axis vector (...,), zero-guarded like ``quantize``.  The codes
+    are computed with the fp32 scale ``amax / 127`` (a division); the scale
+    is then stored as bf16, as the reference stores it.
+    No host work: the int8 KV cache's writes run inside a captured step."""
+    tf = t.float()
+    amax = tf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127,
+                    127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """codes (..., D) × scales (...,) in fp32, rounded once to ``dtype``."""
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
 def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token activation codes (the A8 half of W8A8): x (..., D) → int8
     codes (..., D) and fp32 per-row scales (..., 1).  A zero row gets scale
@@ -198,7 +217,8 @@ class QuantConfig:
 
     weights:     structured-linear and embedding storage
                  ("none"|"int8"|"int4")
-    cache:       KV caches ("none"|"int8"; int8 raises where it is used)
+    cache:       KV caches ("none"|"int8": int8 codes with per-(slot, head)
+                 bf16 scales)
     activations: per-token int8 layer inputs feeding the integer (W8A8)
                  kernels ("none"|"int8"); requires quantized weights
     """

@@ -30,6 +30,8 @@ class EngineConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     memory: MemoryConfig = dataclasses.field(default_factory=MemoryConfig)
     # overrides the model's ``cfg.quant`` when given: weights are quantized
-    # at load, and ``activations="int8"`` runs every step in W8A8 mode
+    # at load, and ``activations="int8"`` runs every step in W8A8 mode (a
+    # cache mode is the model's own: given here, the engine refuses it)
     quant: QuantConfig | None = None
+    seed: int = 0               # the sampling noise's generator
     prestack: bool = True

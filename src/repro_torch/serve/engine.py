@@ -1,5 +1,6 @@
 """Continuous-batching inference engine with chunked prefill — the plain
-slot-static greedy path of ``repro/serve/engine.py``.
+slot-static path of ``repro/serve/engine.py``, greedy or with temperature
+sampling, over a float or int8 KV cache.
 
 A fixed pool of B slots advances through one ``prefill_chunk`` per
 iteration.  Each iteration the scheduler packs a mixed batch under a token
@@ -15,7 +16,8 @@ the step's largest live position, which fixes the attention kernel's
 launch plan — the first time the pair is seen, and replays it: the
 kernels run with no Python between them.  The graphs read static device
 buffers (tokens, steps, n_tokens), filled from one pinned host buffer by
-one copy a step; only the greedy argmax's copy to the host stays outside.
+one copy a step; only the sampling pass and its copy to the host stay
+outside.
 A capture that fails raises, naming its bucket: there is no fallback to
 the eager step.  On the CPU, and with ``step_fn=`` (the reference's
 override of the compiled step, run eagerly every step), the same step runs
@@ -25,13 +27,24 @@ Quantized serving: ``EngineConfig.quant`` (or the model's ``cfg.quant``)
 quantizes float weights at load, before the pre-stack, and selects the
 activation mode.  The reference sets that mode process-wide at engine build;
 here each engine scopes it to its own steps, so engines of different modes
-can live in one process.
+can live in one process.  The int8 KV cache is the model's
+(``ArchConfig.quant.cache``, which shapes ``init_cache``); a cache mode
+given through ``EngineConfig.quant`` is refused, as the reference refuses
+it.
+
+Sampling (``sample_tokens``): a request with ``temperature > 0`` takes
+``argmax(logits / T + g)`` with g standard Gumbel noise — a draw from
+``softmax(logits / T)`` — the others the greedy argmax.  The noise, one
+(B, V) tensor a step in which some row samples, comes from the engine's
+own ``torch.Generator`` on its device, seeded by ``EngineConfig.seed``: one
+seed gives the same tokens on the same device and schedule.  The reference
+draws with ``jax.random.categorical`` from its own key; that stream is not
+reproduced bit for bit, only its distribution.
 
 Not ported yet: the paged cache (prefix sharing, preemption), speculation,
 resilience (guardrail, health, watchdog, fault injection), async
-``generate``, ``cancel`` and ``sla_report``, serving over a device mesh,
-the legacy flat keyword arguments, temperature sampling
-(``temperature > 0`` raises) and int8 caches.
+``generate``, ``cancel`` and ``sla_report``, serving over a device mesh and
+the legacy flat keyword arguments.
 """
 
 from __future__ import annotations
@@ -51,6 +64,21 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import kv_bucket
 from repro_torch.quant import qarray as qt
 from repro_torch.serve.config import EngineConfig, SamplingParams
+
+
+def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Next tokens (B,) from logits (B, V): rows with ``temperature[b] > 0``
+    draw from ``softmax(logits[b] / T)`` as ``argmax(logits / T + g)``, g
+    standard Gumbel noise (B, V) from ``generator`` (``-log(-log u)``, u
+    uniform in [0, 1); u = 0 gives -inf, never picked); the others take the
+    greedy argmax.  One pass on the logits' device."""
+    lf = logits.float()
+    t = temperature.to(device=lf.device, dtype=torch.float32)[:, None]
+    u = torch.rand(lf.shape, generator=generator, device=lf.device)
+    noisy = lf / torch.where(t > 0, t, torch.ones_like(t)) - torch.log(
+        -torch.log(u))
+    return torch.argmax(torch.where(t > 0, noisy, lf), dim=-1)
 
 
 @dataclasses.dataclass
@@ -103,8 +131,12 @@ class Engine:
         self.config = config = config or EngineConfig()
         sch, mem = config.scheduler, config.memory
         qcfg = config.quant if config.quant is not None else model.cfg.quant
-        if qcfg.cache != "none":
-            raise NotImplementedError(qt.CACHE_TODO)
+        if qcfg.cache != "none" and not model.cfg.cache_quant:
+            # cache shapes are baked into the model at construction
+            raise ValueError(
+                "quant.cache is a model-construction knob: build the model "
+                "with ArchConfig.quant (init_cache allocates int8 + scales "
+                "from it); the Engine quant= override only covers weights")
         if qcfg.weight_bits is not None and not qt.tree_is_quantized(params):
             params = model.quantize_params(params, qcfg)
         self.act_mode = qcfg.activations
@@ -131,6 +163,8 @@ class Engine:
                                  pin_memory=dev.type == "cuda")
         self._host_np = self._host.numpy()
         self._inputs = torch.zeros_like(self._host, device=dev)
+        # the sampling noise's generator
+        self._gen = torch.Generator(device=dev).manual_seed(int(config.seed))
         self.finished: list[Request] = []
         self.stats = {"steps": 0, "prefill_tokens": 0, "decode_tokens": 0,
                       "prefill_time": 0.0, "decode_time": 0.0,
@@ -147,9 +181,6 @@ class Engine:
         if not req.prompt:
             raise ValueError(f"request {req.uid}: empty prompt (generation "
                              "needs at least one conditioning token)")
-        if req.temperature > 0:
-            raise NotImplementedError("temperature sampling is not ported yet"
-                                      " (greedy only)")
         with self._lock:
             self._seq += 1
             heapq.heappush(self.queue, (req.priority, self._seq, req))
@@ -200,13 +231,13 @@ class Engine:
         return True
 
     def _reset_slot(self, b: int):
-        """Restore row b of every layer cache to its initial state: pos = -1
-        and K = V = 0.  The attention kernel masks by slot index and relies
-        on a fresh row (reference: ``_reset_slot`` restores the template)."""
+        """Restore row b of every leaf of every layer cache to its initial
+        state: pos = -1, and K, V (float, or int8 codes and their scales)
+        = 0.  The attention kernel masks by slot index and relies on a fresh
+        row (reference: ``_reset_slot`` restores the template)."""
         for c in self.cache:
-            c["pos"][b].fill_(-1)
-            c["k"][b].zero_()
-            c["v"][b].zero_()
+            for name, leaf in c.items():
+                leaf[b].fill_(-1 if name == "pos" else 0)
 
     def _release_slot(self, b: int):
         slot = self.slots[b]
@@ -351,7 +382,13 @@ class Engine:
         logits = self._run_step(key)
         # logits (B, 1, V): the head ran on each row's last live column
         # only; read before the next replay (graphs share one pool)
-        greedy = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()  # syncs
+        temps = [slot.req.temperature if sampling[b] else 0.0
+                 for b, slot in enumerate(self.slots)]
+        if any(t > 0 for t in temps):
+            nxt = sample_tokens(logits[:, 0], torch.tensor(temps), self._gen)
+        else:
+            nxt = torch.argmax(logits[:, 0], dim=-1)
+        nxt = nxt.cpu().numpy()   # syncs
         dt = time.perf_counter() - t0
         self.stats["steps"] += 1
         self.stats["prefill_tokens"] += prompt_toks
@@ -369,7 +406,7 @@ class Engine:
             if not sampling[b]:
                 continue
             req = slot.req
-            req.output.append(int(greedy[b]))
+            req.output.append(int(nxt[b]))
             if (len(req.output) >= req.max_new_tokens
                     or slot.pos >= self.max_len - 1):
                 self._finish_slot(

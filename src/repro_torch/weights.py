@@ -4,8 +4,11 @@
 as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
 port's params: the leading layer axis of ``params["cycles"]`` is unstacked
 into a list of per-layer dicts, every float leaf is cast to the model's
-dtype and moved to its device, and a key the port does not know (an untied
-head, a prestacked ``_bundle_in``, another mixer's leaves, …) raises.  A
+dtype and moved to its device, and a key the model does not have (a
+prestacked ``_bundle_in``, another mixer's leaves, a head the config ties,
+…) raises, as does a key it misses.  The tree holds what the model's
+config asks for: an untied ``head``, the learned-position table ``pos``,
+LayerNorm ``bias`` leaves, the QKV ``bias``, the GELU FFN's ``wi``/``wo``.  A
 quantized leaf — the reference's ``QArray`` (any object with ``q`` and
 ``scale``) or the ``{"q", "scale"}`` pair a checkpoint stores for it —
 becomes the port's ``QArray``: int8 codes stay int8, nibble-packed int4
@@ -30,14 +33,6 @@ import torch
 
 from repro_torch.quant import qarray as qt
 
-_BLAST = ("U", "S", "V")
-_LAYER_KEYS = {
-    "norm1": {"scale": None},
-    "mixer": {"qkv": _BLAST, "out": _BLAST},
-    "norm2": {"scale": None},
-    "ffn": {"gate": _BLAST, "up": _BLAST, "wo": _BLAST},
-}
-
 
 def _check_keys(tree: dict, allowed, where: str) -> None:
     if not isinstance(tree, dict):
@@ -50,11 +45,34 @@ def _check_keys(tree: dict, allowed, where: str) -> None:
                          f"{sorted(missing)}")
 
 
+def _layer_keys(model) -> dict:
+    """The reference's per-layer tree of ``model``: group → member → its
+    leaf names (None for a norm's leaves, which are not linears)."""
+    cfg, spec = model.cfg, model.specs[0]   # one layer kind in the slice
+
+    def linear(lin, bias=False):
+        return (*lin.shapes, *(("bias",) if bias else ()))
+
+    norm = dict.fromkeys(("scale",) if cfg.norm == "rmsnorm"
+                         else ("scale", "bias"))
+    return {"norm1": norm,
+            "mixer": {"qkv": linear(spec.mixer.qkv, cfg.qkv_bias),
+                      "out": linear(spec.mixer.out)},
+            "norm2": norm,
+            "ffn": {name: linear(getattr(spec.ffn, name))
+                    for name in spec.ffn.names}}
+
+
 def from_jax_params(model, tree: dict) -> dict:
     """Reference ``LM.init`` tree (numpy leaves, float or quantized) → the
     port's params."""
-    _check_keys(tree, ("embed", "final_norm", "cycles"), "params")
-    _check_keys(tree["final_norm"], ("scale",), "params/final_norm")
+    cfg = model.cfg
+    top = ("embed", "final_norm", "cycles",
+           *(("pos",) if cfg.pos_embed == "learned" else ()),
+           *(() if cfg.tie_embeddings else ("head",)))
+    _check_keys(tree, top, "params")
+    layer_keys = _layer_keys(model)
+    _check_keys(tree["final_norm"], layer_keys["norm1"], "params/final_norm")
     _check_keys(tree["cycles"], ("blk_0",), "params/cycles")
     dev, dt = model.device, model.dtype
 
@@ -98,23 +116,25 @@ def from_jax_params(model, tree: dict) -> dict:
         return leaf[i].contiguous()
 
     blk = tree["cycles"]["blk_0"]
-    _check_keys(blk, _LAYER_KEYS, "params/cycles/blk_0")
-    spec = model.specs[0]       # every layer of the slice is one kind
+    _check_keys(blk, layer_keys, "params/cycles/blk_0")
+    spec = model.specs[0]
     linears = {"mixer": spec.mixer, "ffn": spec.ffn}
-    layers = [{} for _ in range(model.cfg.n_layers)]
-    for group, members in _LAYER_KEYS.items():
+    layers = [{} for _ in range(cfg.n_layers)]
+    for group, members in layer_keys.items():
         sub = blk[group]
-        _check_keys(sub, members, f"params/cycles/blk_0/{group}")
+        where = f"params/cycles/blk_0/{group}"
+        _check_keys(sub, members, where)
         for name, leaves in members.items():
-            if leaves is None:
+            if leaves is None:      # a norm's scale or bias
                 stacked = conv(sub[name])
                 for i, lp in enumerate(layers):
                     lp.setdefault(group, {})[name] = stacked[i]
                 continue
-            _check_keys(sub[name], leaves, f"params/cycles/blk_0/{group}/{name}")
+            _check_keys(sub[name], leaves, f"{where}/{name}")
             lin = getattr(linears[group], name)
             for leaf in leaves:
-                stacked = conv_leaf(sub[name][leaf], lin.shapes[leaf][-1])
+                stacked = (conv(sub[name][leaf]) if leaf == "bias" else
+                           conv_leaf(sub[name][leaf], lin.shapes[leaf][-1]))
                 if stacked.shape[0] != len(layers):
                     raise ValueError(f"{group}/{name}/{leaf} stacks "
                                      f"{stacked.shape[0]} layers, model has "
@@ -122,9 +142,17 @@ def from_jax_params(model, tree: dict) -> dict:
                 for i, lp in enumerate(layers):
                     lp.setdefault(group, {}).setdefault(name, {})[leaf] = (
                         layer(stacked, i))
-    return {"embed": conv_leaf(tree["embed"], model.cfg.d_model),
-            "final_norm": {"scale": conv(tree["final_norm"]["scale"])},
-            "layers": layers}
+    params = {"embed": conv_leaf(tree["embed"], cfg.d_model),
+              "final_norm": {k: conv(tree["final_norm"][k])
+                             for k in layer_keys["norm1"]}}
+    if "pos" in top:
+        params["pos"] = conv(tree["pos"])
+    if "head" in top:
+        _check_keys(tree["head"], model.head.shapes, "params/head")
+        params["head"] = {k: conv_leaf(tree["head"][k], shape[-1])
+                          for k, shape in model.head.shapes.items()}
+    params["layers"] = layers
+    return params
 
 
 def _bf16_to_f32(bits: np.ndarray) -> np.ndarray:

@@ -90,6 +90,31 @@ def _train(jit, steps=3):
     return trainer, out, rows
 
 
+def _replay_equals_eager(model, mode):
+    """Serve through the graphs and eagerly: the same tokens and buckets,
+    logits equal bit for bit, equal launch counts (5 a layer a step).
+    Returns (launch counts, steps)."""
+    params = model.init(0)
+    graphs = _engine(model, params, mode)
+    eager = _engine(model, params, mode, step_fn=model.prefill_chunk)
+    out_g, seen_g, launches_g = _serve(graphs)
+    out_e, seen_e, launches_e = _serve(eager)
+    assert out_g == out_e
+    assert [k for k, _ in seen_g] == [k for k, _ in seen_e]
+    keys = {k for k, _ in seen_g}
+    assert {c for c, _ in keys} == {1, 4, 8}
+    assert {kv for _, kv in keys} == {64, 128, 192}
+    assert graphs.stats["graphs"] == len(keys)
+    assert eager.stats["graphs"] == 0
+    for (key, g), (_, e) in zip(seen_g, seen_e):
+        assert torch.equal(g, e), key
+    # every replay counts the launches its capture recorded
+    assert launches_g == launches_e
+    L, steps = model.cfg.n_layers, graphs.stats["steps"]
+    assert sum(launches_g.values()) == 5 * L * steps
+    return launches_g, steps
+
+
 @pytest.mark.gpu
 class TestGraphs:
 
@@ -102,25 +127,20 @@ class TestGraphs:
     @pytest.mark.parametrize("dtype", DTYPES)
     @pytest.mark.parametrize("mode", list(MODES))
     def test_replay_equals_eager_step(self, cuda, mode, dtype):
-        model = build_model(_cfg(dtype), device=cuda)
-        params = model.init(0)
-        graphs = _engine(model, params, mode)
-        eager = _engine(model, params, mode, step_fn=model.prefill_chunk)
-        out_g, seen_g, launches_g = _serve(graphs)
-        out_e, seen_e, launches_e = _serve(eager)
-        assert out_g == out_e
-        assert [k for k, _ in seen_g] == [k for k, _ in seen_e]
-        keys = {k for k, _ in seen_g}
-        assert {c for c, _ in keys} == {1, 4, 8}
-        assert {kv for _, kv in keys} == {64, 128, 192}
-        assert graphs.stats["graphs"] == len(keys)
-        assert eager.stats["graphs"] == 0
-        for (key, g), (_, e) in zip(seen_g, seen_e):
-            assert torch.equal(g, e), key
-        # every replay counts the launches its capture recorded
-        assert launches_g == launches_e
-        L, steps = model.cfg.n_layers, graphs.stats["steps"]
-        assert sum(launches_g.values()) == 5 * L * steps
+        _replay_equals_eager(build_model(_cfg(dtype), device=cuda), mode)
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    @pytest.mark.parametrize("mode", ["none", "int8"])
+    def test_int8_cache_replay_equals_eager_step(self, cuda, mode, dtype):
+        """The int8 KV cache's write (``quantize_rows`` and two scatters a
+        leaf, on the card) is captured with the step: replay == eager bit
+        for bit, attention in the int8-K/V kernel."""
+        model = build_model(_cfg(dtype, quant=quant.QuantConfig(
+            cache="int8")), device=cuda)
+        launches, steps = _replay_equals_eager(model, mode)
+        assert launches["flash_attention_prefill_q8"] == (
+            model.cfg.n_layers * steps)
+        assert launches["flash_attention_prefill"] == 0
 
     def test_captured_training_equals_eager(self, cuda):
         tg, out_g, rows_g = _train(jit=True)

@@ -134,6 +134,10 @@ def test_cpu_path_counts_no_launches():
     k = torch.zeros((1, 1, 4, 8))
     ops.flash_attention_prefill(q, k, k, torch.zeros(1, dtype=torch.int32))
     ops.flash_attention(q, k, k)
+    k8 = torch.zeros((1, 1, 4, 8), dtype=torch.int8)
+    s8 = torch.ones((1, 1, 4), dtype=torch.bfloat16)
+    ops.flash_attention_prefill_q8(q, k8, k8, s8, s8,
+                                   torch.zeros(1, dtype=torch.int32))
     assert ops.launches == {"blast_matmul": 0, "blast_matmul_grouped": 0,
                             "blast_matmul_q": 0, "blast_matmul_grouped_q": 0,
                             "blast_matmul_w8a8": 0,
@@ -142,6 +146,7 @@ def test_cpu_path_counts_no_launches():
                             "blast_matmul_w4a8": 0,
                             "blast_matmul_grouped_w4a8": 0,
                             "flash_attention_prefill": 0,
+                            "flash_attention_prefill_q8": 0,
                             "flash_attention": 0, "blast_matmul_dx": 0}
 
 

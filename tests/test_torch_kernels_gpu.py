@@ -7,7 +7,8 @@ port's dependencies:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 (``--noconftest``: the suite's conftest imports the JAX package.)
-Tolerances: fp32 ``atol = rtol = 1e-4``; bf16 ``2e-2``.  The int8, int4,
+Tolerances: fp32 ``atol = rtol = 1e-4``; bf16 ``2e-2`` (B3 over int8 K/V
+too: its plain version dequantizes the same codes and scales).  The int8, int4,
 W8A8 and W4A8 kernels are held to the same: their plain versions take the
 same codes and scales (and, with int8 activations, the same activation
 codes), so only the order of the float sums differs.
@@ -418,6 +419,62 @@ class TestOnCard:
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
+
+    # B3 over int8 K/V (codes and per-(slot, head) bf16 scales from
+    # ``quantize_rows``, the model's cache layout): MHA at llama7b-blast's
+    # 32 heads of 128, GQA at smollm-135m's 9/3 of 64, decode and chunks at
+    # random offsets, the last slot (bf16: split keys), kv_len < S, a
+    # window, head dim 72.  (B, Hq, Hkv, C, S, D, window, kv_len, offsets)
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                           (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("B,Hq,Hkv,C,S,D,window,kv_len,where", [
+        (8, 32, 32, 1, 512, 128, None, None, "random"),
+        (8, 32, 32, 32, 512, 128, None, None, "random"),
+        (8, 9, 3, 1, 512, 64, None, None, "last"),
+        (8, 9, 3, 32, 512, 64, None, 400, "random"),
+        (2, 32, 32, 1, 1024, 128, None, None, "last"),
+        (3, 4, 2, 7, 200, 72, 50, None, "random")])
+    def test_flash_attention_prefill_q8(self, cuda, dtype, tol, B, Hq, Hkv,
+                                        C, S, D, window, kv_len, where):
+        g = torch.Generator().manual_seed(B * C + S + D + Hq)
+        q = torch.randn((B, C, Hq, D), generator=g).to(cuda, dtype)
+        kv = [quant.quantize_rows(torch.randn((B, S, Hkv, D), generator=g)
+                                  .to(cuda, dtype)) for _ in range(2)]
+        offs = {"last": torch.full((B,), S - C, dtype=torch.int32),
+                "random": torch.randint(0, S - C + 1, (B,), generator=g,
+                                        dtype=torch.int32)}[where].to(cuda)
+        args = (q.transpose(1, 2), kv[0][0].permute(0, 2, 1, 3),
+                kv[1][0].permute(0, 2, 1, 3), kv[0][1].transpose(1, 2),
+                kv[1][1].transpose(1, 2), offs)
+        kw = dict(window=window, kv_len=kv_len)
+        ops.reset_launches()
+        got = ops.flash_attention_prefill_q8(*args, **kw)
+        want = ref.attention_prefill_q8_ref(*args, **kw)
+        again = ops.flash_attention_prefill_q8(*args, **kw)
+        torch.cuda.synchronize()
+        assert ops.launches["flash_attention_prefill_q8"] == 2
+        assert ops.launches["flash_attention_prefill"] == 0
+        assert got.shape == (B, Hq, C, D) and got.dtype == dtype
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+    def test_q8_kernel_refuses_unpaired_or_misaligned_codes(self, cuda):
+        """int8 K/V come with both bf16 scales; the bf16 kernel copies 8
+        bytes of codes at a time, and refuses rows that do not start 8-byte
+        aligned."""
+        q = torch.randn((1, 4, 1, 64), device=cuda, dtype=torch.bfloat16)
+        k = torch.zeros((1, 4, 16, 64), device=cuda, dtype=torch.int8)
+        sc = torch.ones((1, 4, 16), device=cuda, dtype=torch.bfloat16)
+        offs = torch.zeros(1, dtype=torch.int32, device=cuda)
+        for scales in ((sc, sc.float()), (sc, None), (None, sc)):
+            with pytest.raises(ValueError, match="pair"):
+                fa.launch(q, k, k, offs, causal=True, window=None, kv_len=16,
+                          k_scale=scales[0], v_scale=scales[1])
+        buf = torch.zeros((1, 16, 4 * 64 + 4), device=cuda, dtype=torch.int8)
+        kb = buf[:, :, 4:].reshape(1, 16, 4, 64).permute(0, 2, 1, 3)
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            ops.flash_attention_prefill_q8(q, kb, kb, sc, sc, offs)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_rows_with_no_visible_key_are_zero(self, cuda, dtype):

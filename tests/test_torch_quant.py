@@ -334,12 +334,14 @@ def test_activation_mode_is_scoped_per_engine(pair, monkeypatch):
 
 def test_engine_refuses_int8_cache_and_int4_weights(pair):
     _, _, model, params = pair
-    with pytest.raises(NotImplementedError, match="A9"):
+    # the int8 cache is ported as a model-construction knob: the engine's
+    # quant= override of a float model's cache raises, as the reference's
+    with pytest.raises(ValueError, match="model-construction knob"):
         Engine(model, params, EngineConfig(
             quant=quant.QuantConfig(cache="int8")), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_model(dataclasses.replace(
-            model.cfg, quant=quant.QuantConfig(cache="int8")), device="cpu")
+    model8 = build_model(dataclasses.replace(
+        model.cfg, quant=quant.QuantConfig(cache="int8")), device="cpu")
+    assert model8.init_cache(2, 8)[0]["k"].dtype == torch.int8
     # int4 weights are ported: the engine quantizes them at load, packed
     eng = Engine(model, params, EngineConfig(
         scheduler=SchedulerConfig(slots=2, chunk_size=4),

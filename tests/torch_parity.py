@@ -1,7 +1,9 @@
 """Shared reference state and checks of the port's parity tests: the JAX
 ``smollm-135m.reduced()`` model and its ``LM.init(PRNGKey(0))`` weights,
-built once per process, and the quantized-model checks that the int8 and
-int4 test files both run (tolerances are stated in those files)."""
+built once per process, the quantized-model checks that the int8 and int4
+test files both run, and the ragged-prefill and engine-token checks of the
+dense-decoder and int8-cache files (tolerances are stated in those
+files)."""
 
 import functools
 
@@ -13,6 +15,7 @@ import torch
 from repro import configs as jconfigs
 from repro import quant as jq
 from repro.core import structures as jstructures
+from repro.core.structures import StructureConfig as JStructureConfig
 from repro.models import build_model as jbuild_model
 from repro.serve import Engine as JEngine
 from repro.serve import EngineConfig as JEngineConfig
@@ -21,6 +24,7 @@ from repro.serve import SamplingParams as JSamplingParams
 from repro.serve import SchedulerConfig as JSchedulerConfig
 
 from repro_torch import configs, quant, weights
+from repro_torch.configs import StructureConfig
 from repro_torch.core import structures
 from repro_torch.models import build_model
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig,
@@ -44,6 +48,58 @@ def reference_lm():
     init = jax.jit(jmodel.init).lower(key).compile(
         compiler_options={"xla_backend_optimization_level": 0})
     return jmodel, init(key)
+
+
+# llama7b-blast's Table-9 ranks differ by role (1024 attention, 1488 FFN);
+# reduced() drops explicit ranks, so its test config sets its own, also
+# different by role
+ROLE_RANKS = {"llama7b-blast": (16, 24)}
+
+
+def dense_pair(name: str):
+    """(JAX config, port config) of ``name`` reduced the same way."""
+    over = {}
+    jover = {}
+    if name in ROLE_RANKS:
+        ra, rf = ROLE_RANKS[name]
+        over = dict(structure=StructureConfig(kind="blast", b=4, rank=ra),
+                    structure_ffn=StructureConfig(kind="blast", b=4, rank=rf))
+        jover = dict(structure=JStructureConfig(kind="blast", b=4, rank=ra),
+                     structure_ffn=JStructureConfig(kind="blast", b=4,
+                                                    rank=rf))
+    return jconfigs.get(name).reduced(**jover), configs.get(name).reduced(**over)
+
+
+def _moved(tree, rng):
+    """``tree`` with every norm scale and bias and the QKV bias moved by
+    N(0, 0.1) noise."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, (*path, k)) for k, v in node.items()}
+        if path[-1] in ("scale", "bias") and (
+                "norm" in "/".join(path) or "qkv" in path):
+            return (node + 0.1 * rng.standard_normal(node.shape)).astype(
+                node.dtype)
+        return node
+    return walk(tree, ())
+
+
+@functools.lru_cache(maxsize=None)
+def dense_reference(name: str):
+    """(JAX model, numpy params, port model, port params) of ``name``
+    reduced, sharing the reference's ``LM.init(PRNGKey(0))`` weights with
+    their norm scales and biases and QKV bias moved by seeded noise (which
+    ``init`` leaves at 1 or 0, where they would not change the logits).
+    The init program is compiled as in ``reference_lm``."""
+    jcfg, cfg = dense_pair(name)
+    jmodel = jbuild_model(jcfg)
+    key = jax.random.PRNGKey(0)
+    init = jax.jit(jmodel.init).lower(key).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+    tree = _moved(jax.tree.map(np.asarray, init(key)),
+                  np.random.default_rng(len(name)))
+    model = build_model(cfg, device="cpu")
+    return jmodel, tree, model, weights.from_jax_params(model, tree)
 
 
 def reference_pair():
@@ -96,6 +152,74 @@ def _run_prefills(run, params, cache):
         outs.append((np.asarray(logits, np.float32), n > 0))
         steps = steps + n
     return outs
+
+
+def prefill_logits(jmodel, jtree, model, params):
+    """Three ragged ``prefill_chunk`` steps of the reference (jitted) and
+    the port from fresh caches of 4 rows × 32 slots → (port outputs,
+    reference outputs, (port cache, reference cache)); an output is
+    (logits (4, 1, V) as numpy, live rows)."""
+    jcache, cache = jmodel.init_cache(4, 32), model.init_cache(4, 32)
+    caches = {}
+
+    def keep(run, key):
+        def step(p, c, t, s, n):
+            logits, caches[key] = run(p, c, t, s, n)
+            return logits, caches[key]
+        return step
+
+    want = _run_prefills(keep(jax.jit(jmodel.prefill_chunk), "jax"), jtree,
+                         jcache)
+    got = _run_prefills(keep(lambda p, c, t, s, n: model.prefill_chunk(
+        p, c, torch.from_numpy(t), s, n), "port"), params, cache)
+    return got, want, (caches["port"], caches["jax"])
+
+
+def _margin_safe(jmodel, jparams, outs):
+    """For each prompt, how many leading output tokens the reference's
+    full-sequence forward predicts with a top-1/top-2 margin ≥ ``MARGIN``
+    (past that, a summation-order difference could flip the argmax)."""
+    seqs = [p + o for p, o in zip(_prompts(), outs)]
+    toks = np.zeros((len(seqs), max(map(len, seqs))), np.int32)
+    for i, s in enumerate(seqs):
+        toks[i, :len(s)] = s
+    logits = np.asarray(jax.jit(lambda p, t: jmodel.apply(p, t).logits)(
+        jparams, jnp.asarray(toks)))
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    safe = []
+    for i, p in enumerate(_prompts()):
+        low = np.nonzero(margin[i, len(p) - 1: len(p) - 1 + MAX_NEW]
+                         < MARGIN)[0]
+        safe.append(int(low[0]) if low.size else MAX_NEW)
+    assert sum(safe) >= len(safe) * MAX_NEW // 2, safe   # the check has teeth
+    return safe
+
+
+def check_engine_tokens(jmodel, jparams, model, params, chunks=(1, 8, 32)):
+    """Greedy tokens of the port's engine equal the JAX engine's at each
+    chunk size (4 slots, max_len 64), up to each request's first output
+    position whose reference margin is below ``MARGIN``; both models carry
+    their own cache mode.  Returns the port's outputs at the last chunk."""
+    step = jax.jit(jmodel.prefill_chunk)   # shared: compiles once per width
+    safe = None
+    for C in chunks:
+        jeng = JEngine(jmodel, jparams, JEngineConfig(
+            scheduler=JSchedulerConfig(slots=4, chunk_size=C),
+            memory=JMemoryConfig(max_len=64)), step_fn=step)
+        want = [list(r.output) for r in jeng.generate_batch(
+            _prompts(), JSamplingParams(max_new_tokens=MAX_NEW))]
+        if safe is None:
+            safe = _margin_safe(jmodel, jparams, want)
+        eng = Engine(model, params, EngineConfig(
+            scheduler=SchedulerConfig(slots=4, chunk_size=C),
+            memory=MemoryConfig(max_len=64)), device="cpu")
+        reqs = eng.generate_batch(_prompts(),
+                                  SamplingParams(max_new_tokens=MAX_NEW))
+        assert all(r.done and len(r.output) == MAX_NEW for r in reqs)
+        for r, w, n in zip(reqs, want, safe):
+            assert r.output[:n] == w[:n], (C, r.output, w, n)
+    return [r.output for r in reqs]
 
 
 def check_prefill_logits(jmodel, jtree, model, qp, act):
