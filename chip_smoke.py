@@ -82,7 +82,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    temperature sampling (T = 0.8) twice with one seed (identical tokens)
    and once with another (different); the decode profile in float and
    with the int8 cache, both ways; gpt2-blast at full width, float.
-8. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
+8. paged — the paged cache (``serve/paged.py``, pages of 16 tokens)
+   through the same engine, captured per (C, kv, F, M) bucket.  Run 1, in
+   smollm-135m float and int8 weights and llama7b-blast float and int8
+   cache: the serve phase's 16 prompts through a paged engine with the
+   default pool, captured and eager: greedy tokens equal the same mode's
+   slot-static run and each other bit for bit, launches steps × the
+   mode's per-step counts, ``audit`` (refcounts, free list, the zero page
+   still the template) after each run; decode step ms and tok/s against
+   slot-static, graphs and capture seconds, pool and view bytes, peak
+   memory, and the gather's and scatter's device ms of a decode step at
+   kv 64 and 256 (CUDA events).  Run 2, smollm-135m and llama7b-blast float: 16 requests
+   sharing a 256-token system prompt on a pool of half of B·max_len
+   tokens: ≥ 15·256 prefix-hit tokens, tokens equal an unshared
+   slot-static run's up to each request's first near-tie (``near_tie``:
+   the margin rule of ``tests/test_torch_engine.py`` in the logits'
+   precision).  Run 3, llama7b-blast float: 6 bulk requests at priority
+   1, then 4 at priority 0 after 8 ticks, on a pool too small for them:
+   preemptions, every request finished by length, two runs identical,
+   tokens equal a roomy pool's up to each first near-tie; then the same
+   run in fp32 at 2 layers, where the rule is the 1e-4 margin alone.
+9. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
    steps through the captured step (bf16, remat, batch 8 × seq 256 of the
    Markov ``TokenStream``, lr 3e-4 with warmup 5; one eager warm-up step,
    then one CUDA graph of the whole step): per step loss, grad norm,
@@ -97,7 +117,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    step whose loss is made non-finite (NaN in the embedding row of its
    first token) reports skipped, leaves params, m and v bit for bit and
    still counts.
-9. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
+10. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each run: kernel, plain version and one PyTorch library
    call (a yardstick only; the port never calls it), at decode, prefill
    and training shapes (B3 at decode also at the serving run's positions,
@@ -108,9 +128,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    llama7b-blast's rows: its BLAST shapes (float, int8 weights) at T = 8
    and 256, and B3 over int8 K/V at its decode and prefill (library:
    ``dequantize_rows``, then masked SDPA; ``float_kv_ms``: B3 on bf16 K/V
-   of the same values).  The profiles of phases 7 and 8 also sum the BLAST tile kernel's two
-   ``__global__``s (``blast_tile_kernel``, ``blast_split_sum``) and the
-   attention kernel's (``attn_tile_kernel``, ``attn_split_combine``).
+   of the same values).  The profiles of phases 7 and 9 also sum the
+   BLAST tile kernel's two ``__global__``s (``blast_tile_kernel``,
+   ``blast_split_sum``) and the attention kernel's (``attn_tile_kernel``,
+   ``attn_split_combine``).
 
 Each phase's seconds are printed on a ``{"phase": "seconds"}`` line.  The
 last lines are the per-kernel JSON summary, the ``nvidia-smi`` line, and
@@ -1099,7 +1120,7 @@ def phase_serve(model, params, mode, config, per_step, **extra):
            "attn_combine_steps": {"bucket": sum(k > 1 for k in bucket),
                                   "live": sum(k > 1 for k in live)}}
     emit(row)
-    return runs["graphs"]["launches"], row
+    return runs["graphs"]["launches"], row, runs["graphs"]["outputs"]
 
 
 def phase_temperature(model, params):
@@ -1125,6 +1146,356 @@ def phase_temperature(model, params):
         raise RuntimeError("temperature sampling: the seed does not set the "
                            "stream")
     torch.cuda.synchronize()
+
+
+
+# -- the paged cache --------------------------------------------------------------
+
+PAGE_SIZE = 16
+# tokens are compared up to each request's first output whose top-1/top-2
+# logit margin in the reference run marks a near-tie (``near_tie``)
+MARGIN = 1e-4           # tests/test_torch_engine.py, fp32
+PREEMPT_PAGES = 56      # 55 usable pages (880 tokens) for 1158 tokens of work
+
+
+def near_tie(top: float, margin: float, dtype) -> bool:
+    """The margin rule of ``tests/test_torch_engine.py`` (a top-1/top-2
+    margin below ``MARGIN``), in the logits' own precision: a margin below
+    two steps of the logits' type at the top logit is a near-tie too.  Two
+    bf16 logits one step apart may have been equal before rounding, and a
+    recompute in other batch shapes (other kernel splits, so other
+    rounding of the cache) moves a bf16 logit by about a step; for fp32
+    logits the two-step floor is ~1e-6 and ``MARGIN`` rules."""
+    import torch
+    step = torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(
+        max(abs(top), torch.finfo(dtype).tiny)))
+    return margin < max(MARGIN, 2 * step)
+
+
+def paged_config(config, pages=None):
+    """``config`` with a paged cache of ``PAGE_SIZE``-token pages (default
+    pool: B·max_len/PAGE_SIZE + 1 pages, slot-static parity)."""
+    mem = dataclasses.replace(config.memory, paged=True, page_size=PAGE_SIZE,
+                              pages=pages)
+    return dataclasses.replace(config, memory=mem)
+
+
+def _with_margins(engine) -> dict:
+    """Record, for every token ``engine`` emits, whether the logits it came
+    from make it a near-tie (``near_tie``), and its margin:
+    {uid: [(near_tie, margin), ...]}.  The wrappers hold the engine in a
+    reference cycle: delete them (``del engine._run_step, engine._emit``)
+    before the engine, or its memory outlives it."""
+    import torch
+    last, margins = {}, {}
+    run_step, emit_tok = engine._run_step, engine._emit
+
+    def run(key):
+        last["logits"] = run_step(key)
+        return last["logits"]
+
+    def emit_(req, tok):
+        b = next(i for i, s in enumerate(engine.slots) if s.req is req)
+        row = last["logits"][b, 0]
+        top2 = torch.topk(row.float(), 2).values.tolist()
+        margin = top2[0] - top2[1]
+        margins.setdefault(req.uid, []).append(
+            (near_tie(top2[0], margin, row.dtype), margin))
+        emit_tok(req, tok)
+
+    engine._run_step, engine._emit = run, emit_
+    return margins
+
+
+def _margin_compare(got: dict, want: dict, margins: dict, what: str) -> dict:
+    """{uid: tokens} of a run against the reference run's, up to each
+    request's first output that is a near-tie in the reference run; raises
+    on a difference.  Returns what was compared."""
+    compared, identical = 0, 0
+    for uid, w in want.items():
+        ties = [i for i, (tie, _) in enumerate(margins[uid]) if tie]
+        n = ties[0] if ties else len(w)
+        if got[uid][:n] != w[:n]:
+            first = next(i for i in range(n) if got[uid][i] != w[i])
+            raise RuntimeError(
+                f"{what}: request {uid} differs from the reference run at "
+                f"output {first} (reference margin {margins[uid][first][1]:.3g}"
+                f", compared {n} of {len(w)})")
+        compared += n
+        identical += got[uid] == w
+    return {"tokens_compared": compared,
+            "tokens_total": sum(len(w) for w in want.values()),
+            "requests_identical_in_full": identical}
+
+
+def paged_step_ms(model, params, config, prompt_len) -> dict:
+    """Device ms of one decode step's gather (fresh-page reset and the page
+    copy into the view) and scatter (the write-window pages back to the
+    pool), each timed alone with CUDA events (``time_ms``: median of 25, L2
+    flushed) on the operands of a steady decode step: 8 slots after
+    ``prompt_len``-token prompts, 10 decode steps in.  A throwaway engine:
+    re-running the reset clobbers that step's fresh pages."""
+    import torch
+    from repro_torch.serve import Engine, Request
+    engine = Engine(model, params, config, device=DEVICE)
+    for i in range(8):
+        engine.submit(Request(uid=i, prompt=list(range(1, prompt_len + 1)),
+                              max_new_tokens=64))
+    keys = []
+    run_step = engine._run_step
+    engine._run_step = lambda key: (keys.append(key), run_step(key))[1]
+    engine.run(max_iters=-(-prompt_len // 32) + 10)
+    C, kv, F, M = keys[-1]
+    pc, d, o = engine._pc, engine._inputs, engine._offs
+    g = pc.gather_pages(kv)
+    table = d[o["table"]:o["table"] + engine.B * g]
+    fresh = d[o["fresh"]:o["fresh"] + F]
+    rows, lps, phys = (d[o[k]:o[k] + M] for k in ("rows", "lps", "phys"))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    out = {"prompt_len": prompt_len, "key": [C, kv, F, M],
+           "gather_pages_per_row": g,
+           "gather_ms": time_ms(lambda: pc.gather(table, fresh), flush),
+           "scatter_ms": time_ms(lambda: pc.scatter(rows, lps, phys), flush)}
+    elt = sum(t[0].numel() * t.element_size() for t in pc.pool.values())
+    # bytes each must move: a gathered page read and written once, a fresh
+    # page written once; a scattered page read from the view and written
+    # to the pool once
+    out["gather_bytes"] = (2 * engine.B * g + F) * elt
+    out["scatter_bytes"] = 2 * M * elt
+    out["gather_bound_ms"] = out["gather_bytes"] / HBM_BYTES_PER_S * 1e3
+    out["scatter_bound_ms"] = out["scatter_bytes"] / HBM_BYTES_PER_S * 1e3
+    del engine._run_step, engine    # the wrapper's cycle holds the engine
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_paged(model, params, mode, config, per_step, static):
+    """Run 1 of the paged cache: the serve phase's 16 prompts and 32 new
+    tokens through a paged engine with the default pool, captured and
+    eager (``step_fn``): greedy tokens equal the same mode's slot-static
+    run (``static``: its row and outputs) bit for bit and each other,
+    launches steps × ``per_step``, ``audit`` (refcounts, free list, the
+    zero page still the template) after each run; decode step ms and tok/s
+    against slot-static, graphs and capture seconds, pool and view bytes,
+    peak memory, and the gather and scatter device ms of a decode step.
+    Returns the captured run's launch counts."""
+    import torch
+    from repro_torch import quant
+    from repro_torch.serve import Engine
+    cfg = model.cfg
+    s_row, s_out = static
+    prompts = serve_prompts(cfg.vocab)
+    max_new = 32
+    runs = {}
+    for path in ("graphs", "eager"):
+        engine = Engine(model, params, paged_config(config), device=DEVICE,
+                        step_fn=None if path == "graphs" else
+                        model.prefill_chunk)
+        reqs, wall, launches, peak = _serve_run(engine, prompts, max_new)
+        steps = engine.stats["steps"]
+        want = {k: 0 for k in launches}
+        want.update({k: n * steps for k, n in per_step.items()})
+        if launches != want:
+            raise RuntimeError(f"paged {mode} ({path}): launch counts "
+                               f"{launches} != {want}")
+        if any(not r.done or len(r.output) != max_new for r in reqs):
+            raise RuntimeError(f"paged {mode} ({path}): a request did not "
+                               f"finish with {max_new} tokens")
+        engine._pc.audit()
+        tp = engine.throughput()
+        runs[path] = {"outputs": [r.output for r in reqs],
+                      "launches": launches,
+                      "row": {"steps": steps, "graphs": engine.stats["graphs"],
+                              "capture_s": engine.stats["capture_s"],
+                              "wall_s": wall,
+                              "max_memory_allocated_bytes": peak,
+                              "prefill_tok_s": tp["prefill_tok_s"],
+                              "decode_tok_s": tp["decode_tok_s"],
+                              "decode_step_ms_median": 1e3 * statistics.median(
+                                  engine.stats["decode_step_s"]),
+                              "step_ms_median": 1e3 * statistics.median(
+                                  engine.stats["step_s"])}}
+        pc = engine._pc
+        pool = {"cache_bytes": pc.nbytes(),
+                "view_bytes": quant.tree_nbytes(pc.view),
+                "pool_tokens": pc.pool_tokens(), "pages": pc.n_pages,
+                "page_size": pc.ps}
+        del engine, pc
+    if runs["graphs"]["outputs"] != s_out:
+        raise RuntimeError(f"paged {mode}: the paged engine's greedy tokens "
+                           "differ from the slot-static engine's")
+    if runs["eager"]["outputs"] != runs["graphs"]["outputs"]:
+        raise RuntimeError(f"paged {mode}: the captured paged engine's "
+                           "tokens differ from the eager paged engine's")
+    if runs["graphs"]["row"]["graphs"] == 0:
+        raise RuntimeError(f"paged {mode}: the default engine captured no "
+                           "graph")
+    g = runs["graphs"]["row"]
+    row = {"phase": "paged", "run": "paged = slot-static", "mode": mode,
+           "arch": cfg.name, "layers": cfg.n_layers,
+           "weights": config.quant.weights, "cache": cfg.quant.cache,
+           "slots": 8, "chunk": 32, "max_len": 512, "requests": len(prompts),
+           "new_tokens": len(prompts) * max_new, **pool,
+           "graphs": g, "eager": runs["eager"]["row"],
+           "slot_static": {k: s_row["graphs"][k] for k in (
+               "steps", "graphs", "capture_s", "decode_tok_s",
+               "decode_step_ms_median", "step_ms_median",
+               "max_memory_allocated_bytes")},
+           "slot_static_cache_bytes": s_row["cache_bytes"],
+           "decode_step_ms_paged_minus_static": (
+               g["decode_step_ms_median"]
+               - s_row["graphs"]["decode_step_ms_median"]),
+           "tokens_identical_to_slot_static": True,
+           "captured_equals_eager": True,
+           "launches": {k: v for k, v in runs["graphs"]["launches"].items()
+                        if v},
+           "per_step": per_step,
+           # the serve run decodes at kv 256 (live positions up to 232)
+           "decode_step": [paged_step_ms(model, params, paged_config(config),
+                                         n) for n in (16, 200)],
+           "nvidia_smi": nvidia_smi()}
+    emit(row)
+    torch.cuda.synchronize()
+    return runs["graphs"]["launches"]
+
+
+def phase_paged_prefix(model, params, mode, config):
+    """Run 2: 16 requests sharing a 256-token system prompt plus 4 distinct
+    tokens each, 32 new tokens, through a paged engine whose pool holds half
+    of B·max_len tokens: the first request alone to completion (registering
+    the prefix levels), then the other 15: ``prefix_hit_tokens`` ≥ 15·256,
+    ``audit`` after, and the tokens equal an unshared slot-static engine's
+    under the margin rule."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import Engine, Request, SamplingParams
+    rng = np.random.default_rng(SEED + 2)
+    vocab = model.cfg.vocab
+    system = [int(t) for t in rng.integers(0, vocab, size=256)]
+    prompts = [system + [int(t) for t in rng.integers(0, vocab, size=4)]
+               for _ in range(16)]
+    ref = Engine(model, params, config, device=DEVICE)
+    margins = _with_margins(ref)
+    ref_reqs = ref.generate_batch(prompts, SamplingParams(max_new_tokens=32))
+    want = {i: r.output for i, r in enumerate(ref_reqs)}
+    margins = {i: margins[r.uid] for i, r in enumerate(ref_reqs)}
+    del ref._run_step, ref._emit, ref     # the wrappers' cycles
+    pages = 8 * 512 // PAGE_SIZE // 2 + 1
+    engine = Engine(model, params, paged_config(config, pages=pages),
+                    device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.submit(Request(uid=0, prompt=prompts[0], max_new_tokens=32))
+    engine.run()
+    for i in range(1, 16):
+        engine.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=32))
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine._pc.audit()
+    got = {r.uid: r.output for r in engine.finished}
+    sla = engine.sla_report()
+    if sla["prefix_hit_tokens"] < 15 * 256:
+        raise RuntimeError(f"paged prefix {mode}: {sla['prefix_hit_tokens']} "
+                           f"prefix-hit tokens < {15 * 256}")
+    if engine._pc.pool_tokens() > 8 * 512 // 2:
+        raise RuntimeError("paged prefix: the pool is not under half")
+    cmp = _margin_compare(got, want, margins, f"paged prefix {mode}")
+    emit({"phase": "paged", "run": "prefix sharing", "mode": mode,
+          "arch": model.cfg.name, "requests": 16, "system_prompt": 256,
+          "new_tokens": 16 * 32, "pages": pages,
+          "pool_tokens": engine._pc.pool_tokens(),
+          "cache_bytes": engine._pc.nbytes(),
+          "prefix_hit_tokens": sla["prefix_hit_tokens"],
+          "prefix_hit_rate": sla["prefix_hit_rate"],
+          "steps": engine.stats["steps"], "graphs": engine.stats["graphs"],
+          "capture_s": engine.stats["capture_s"], "wall_s": wall,
+          "decode_tok_s": engine.throughput()["decode_tok_s"],
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          **cmp})
+    del engine
+
+
+def phase_paged_preempt(model, params, mode, config):
+    """Run 3: 6 bulk requests at priority 1 (the serve phase's first 6
+    prompts, 32 new tokens), then 4 at priority 0 arriving after 8 ticks,
+    on a pool of ``PREEMPT_PAGES`` pages, too small for all of them: twice
+    (identical tokens and preemption counts), preemptions > 0, every
+    request finishing by length; the tokens equal a roomy-pool run's under
+    the margin rule."""
+    import torch
+    from repro_torch.serve import Engine, Request
+    prompts = serve_prompts(model.cfg.vocab, n=10)
+
+    def run(pages, margins=False):
+        engine = Engine(model, params, paged_config(config, pages=pages),
+                        device=DEVICE)
+        marg = _with_margins(engine) if margins else None
+        for i in range(6):
+            engine.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=32,
+                                  priority=1))
+        for _ in range(8):
+            engine.tick()
+        for i in range(6, 10):
+            engine.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=32,
+                                  priority=0))
+        engine.run()
+        torch.cuda.synchronize()
+        engine._pc.audit()
+        done = {r.uid: r for r in engine.finished}
+        if sorted(done) != list(range(10)) or any(
+                r.stop_reason != "length" or len(r.output) != 32
+                for r in done.values()):
+            raise RuntimeError(f"paged preempt {mode}: not every request "
+                               f"finished by length ({pages} pages)")
+        out = {"outputs": {u: r.output for u, r in done.items()},
+               "preemptions": engine.stats["preemptions"],
+               "preempted": {u: r.n_preempted for u, r in done.items()
+                             if r.n_preempted},
+               "steps": engine.stats["steps"],
+               "graphs": engine.stats["graphs"],
+               "sla": engine.sla_report(), "margins": marg}
+        if margins:
+            del engine._run_step, engine._emit    # the wrappers' cycles
+        del engine
+        return out
+
+    a, b = run(PREEMPT_PAGES), run(PREEMPT_PAGES)
+    roomy = run(None, margins=True)
+    if a["outputs"] != b["outputs"] or a["preemptions"] != b["preemptions"]:
+        raise RuntimeError(f"paged preempt {mode}: two runs differ")
+    if a["preemptions"] == 0 or roomy["preemptions"] != 0:
+        raise RuntimeError(f"paged preempt {mode}: preemptions "
+                           f"{a['preemptions']} (roomy {roomy['preemptions']})")
+    cmp = _margin_compare(a["outputs"], roomy["outputs"], roomy["margins"],
+                          f"paged preempt {mode}")
+    classes = {c: {k: v for k, v in row.items() if k != "stop_reasons"}
+               for c, row in a["sla"]["classes"].items()}
+    emit({"phase": "paged", "run": "preemption", "mode": mode,
+          "arch": model.cfg.name, "layers": model.cfg.n_layers,
+          "dtype": model.cfg.compute_dtype, "pages": PREEMPT_PAGES,
+          "pool_tokens": (PREEMPT_PAGES - 1) * PAGE_SIZE,
+          "preemptions": a["preemptions"], "preempted": a["preempted"],
+          "runs_identical": True, "steps": a["steps"], "graphs": a["graphs"],
+          "roomy_steps": roomy["steps"], "classes": classes, **cmp})
+
+
+def phase_paged_preempt_fp32(llama):
+    """Run 3 again at llama7b-blast's full width in fp32, 2 layers (as the
+    ``reference`` phase builds it): the same schedule and pool (page counts
+    follow tokens, not layers), so the same preemptions.  In fp32 a
+    recompute in other batch shapes moves a logit by ~1e-6, so the margin
+    rule is ``MARGIN`` alone (``near_tie``'s two-step floor is ~1e-6 here):
+    a resume that restored the wrong cache would flip tokens whose margin
+    is far above it.  This is the witness that the bf16 run's flips near a
+    bf16 step are rounding, not a resume fault."""
+    from repro_torch.models import build_model
+    small = dataclasses.replace(llama, n_layers=2, param_dtype="float32",
+                                compute_dtype="float32")
+    model = build_model(small, device=DEVICE)
+    phase_paged_preempt(model, model.init(SEED), "llama:fp32",
+                        serve_config(None, weights="none"))
 
 
 def tile_blast(kernels) -> dict:
@@ -1962,16 +2333,27 @@ def phase_dense_serving(llama, gpt2) -> dict:
     if n_params != LLAMA_PARAMS:
         raise RuntimeError(f"llama7b-blast: {n_params} parameters, want "
                            f"{LLAMA_PARAMS}")
-    launches, peaks = {}, {}
+    launches, peaks, static = {}, {}, {}
     for mode, (weights, _) in LLAMA_MODES.items():
-        launches[f"llama:{mode}"], row = timed(
+        launches[f"llama:{mode}"], row, outputs = timed(
             f"serve llama:{mode}", phase_serve, models[mode], params,
             f"llama:{mode}", serve_config(None, weights=weights),
             llama_per_step(llama, mode), **init)
         peaks[mode] = row["graphs"]["max_memory_allocated_bytes"]
+        static[mode] = (row, outputs)
     if not peaks["int8_cache"] < peaks["float"]:
         raise RuntimeError(f"llama7b-blast: the int8-cache run's peak memory "
                            f"is not below the float run's: {peaks}")
+    for mode in ("float", "int8_cache"):
+        launches[f"paged:llama:{mode}"] = timed(
+            f"paged llama:{mode}", phase_paged, models[mode], params,
+            f"llama:{mode}", serve_config(None, weights="none"),
+            llama_per_step(llama, mode), static[mode])
+    timed("paged prefix llama:float", phase_paged_prefix, models["float"],
+          params, "llama:float", serve_config(None, weights="none"))
+    timed("paged preempt llama:float", phase_paged_preempt, models["float"],
+          params, "llama:float", serve_config(None, weights="none"))
+    timed("paged preempt llama:fp32", phase_paged_preempt_fp32, llama)
     timed("temperature", phase_temperature, models["float"], params)
     for mode in ("float", "int8_cache"):
         for graphs in (True, False):
@@ -1982,7 +2364,7 @@ def phase_dense_serving(llama, gpt2) -> dict:
     model = build_model(gpt2, device=DEVICE)
     params = model.init(SEED)
     L = gpt2.n_layers
-    launches["gpt2:float"], _ = timed(
+    launches["gpt2:float"], _, _ = timed(
         "serve gpt2:float", phase_serve, model, params, "gpt2:float",
         serve_config("none"),
         {"blast_matmul": 4 * L, "flash_attention_prefill": L},
@@ -2009,10 +2391,17 @@ def main() -> int:
     timed("train_reference", phase_train_reference, cfg)
     model = build_model(cfg, device=DEVICE)
     params = model.init(SEED)
-    launches = {mode: timed(f"serve {mode}", phase_serve, model, params,
-                            mode, serve_config(mode),
-                            smollm_per_step(cfg, mode))[0]
-                for mode in MODES}
+    launches, static = {}, {}
+    for mode in MODES:
+        launches[mode], *static[mode] = timed(
+            f"serve {mode}", phase_serve, model, params, mode,
+            serve_config(mode), smollm_per_step(cfg, mode))
+    for mode in ("none", "int8"):
+        launches[f"paged:{mode}"] = timed(
+            f"paged {mode}", phase_paged, model, params, mode,
+            serve_config(mode), smollm_per_step(cfg, mode), static[mode])
+    timed("paged prefix none", phase_paged_prefix, model, params, "none",
+          serve_config("none"))
     for mode in MODES:
         for graphs in (True, False):
             timed(f"profile {mode}", phase_profile, model, params, mode,

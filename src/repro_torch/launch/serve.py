@@ -17,6 +17,16 @@ paper's Llama-7B BLAST at full width on one card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama7b-blast \
         --quant-cache int8 --slots 8 --max-len 512
+
+``--paged`` sizes the cache in pages (``--pages`` of ``--page-size``
+tokens) with prefix sharing and priority preemption; ``--trace`` drives a
+small multi-tenant trace (bulk requests plus shared-prefix interactive
+arrivals) tick by tick and prints the SLA report per priority class and
+the pool's occupancy:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --reduced --device cpu --paged --pages 16 --page-size 16 \
+        --priority-classes 2 --trace
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ from repro_torch import configs
 from repro_torch.models import build_model
 from repro_torch.quant import QuantConfig, tree_nbytes
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig, Request,
-                               SchedulerConfig)
+                               ResilienceConfig, SchedulerConfig)
 
 
 def parse_args(argv=None):
@@ -56,7 +66,100 @@ def parse_args(argv=None):
                          "the W8A8 (int8 weights) or W4A8 (int4) kernels")
     ap.add_argument("--quant-cache", default="none", choices=["none", "int8"],
                     help="int8 KV cache with per-(slot, head) bf16 scales")
+    ap.add_argument("--token-budget", type=int, default=None,
+                    help="max total tokens packed into one mixed batch")
+    ap.add_argument("--paged", action="store_true",
+                    help="page the KV cache: pool sized in tokens, prefix "
+                         "sharing + preemption (serve/paged.py)")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="page-pool size (default: slots*max_len/page_size "
+                         "+ 1, slot-static parity)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per cache page (--paged)")
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help=">1 enables priority scheduling: class 0 is most "
+                         "urgent and may preempt higher classes under page "
+                         "pressure (1 = FIFO)")
+    ap.add_argument("--deadline", type=float, default=None, metavar="S",
+                    help="per-request end-to-end deadline in seconds "
+                         "(stop_reason 'deadline' past it)")
+    ap.add_argument("--queue-high-water", type=int, default=None,
+                    help="shed queued work above this many requests in "
+                         "flight")
+    ap.add_argument("--trace", action="store_true",
+                    help="run the built-in multi-tenant trace and print the "
+                         "SLA report")
     return ap.parse_args(argv)
+
+
+def build_engine_config(args) -> EngineConfig:
+    """Map the command line onto an ``EngineConfig``."""
+    return EngineConfig(
+        scheduler=SchedulerConfig(
+            slots=args.slots, chunk_size=args.chunk,
+            token_budget=args.token_budget,
+            policy="priority" if args.priority_classes > 1 else "fifo",
+            deadline_s=args.deadline),
+        memory=MemoryConfig(max_len=args.max_len, paged=args.paged,
+                            page_size=args.page_size, pages=args.pages),
+        resilience=ResilienceConfig(queue_high_water=args.queue_high_water),
+        seed=args.seed)
+
+
+def make_cli_trace(vocab, *, n_classes: int, max_new: int, seed: int):
+    """Small multi-tenant trace: bulk class-(n-1) requests saturating the
+    slots plus interactive class-0 arrivals sharing one 48-token prompt
+    prefix, tokens drawn by a numpy generator from ``seed``.  Returns
+    [(arrival_tick, Request)] sorted by arrival."""
+    rng = np.random.default_rng(seed + 17)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, vocab, size=n)]
+    shared = toks(48)
+    lo = max(0, n_classes - 1)
+    trace = [(0, Request(uid=i, prompt=toks(8), max_new_tokens=max_new * 2,
+                         priority=lo))
+             for i in range(6)]   # bulk: long generations, lowest priority
+    for i in range(8):   # interactive: the shared prefix, short answers
+        trace.append((3 + 2 * i, Request(
+            uid=100 + i, prompt=shared + toks(4), max_new_tokens=max_new,
+            priority=0)))
+    return sorted(trace, key=lambda a: a[0])
+
+
+def run_trace(engine: Engine, trace) -> dict:
+    """Drive the engine tick by tick, submitting each request at its
+    arrival tick; returns the SLA report."""
+    pending = list(trace)
+    tick = 0
+    while pending or engine.queue or any(
+            s.req is not None for s in engine.slots):
+        while pending and pending[0][0] <= tick:
+            engine.submit(pending.pop(0)[1])
+        engine.tick()
+        tick += 1
+    return engine.sla_report()
+
+
+def _ms(s):
+    return "-" if s is None else f"{s * 1e3:.1f} ms"
+
+
+def print_sla(engine: Engine, sla: dict) -> None:
+    for c, row in sla["classes"].items():
+        print(f"[serve] class {c}: {row['requests']} requests "
+              f"{row['stop_reasons']}, TTFT p50 {_ms(row['ttft_p50_s'])} "
+              f"p99 {_ms(row['ttft_p99_s'])}, TPOT p50 "
+              f"{_ms(row['tpot_p50_s'])} p99 {_ms(row['tpot_p99_s'])}")
+    print(f"[serve] preemptions {sla['preemptions']}, prefix-hit "
+          f"{sla['prefix_hit_rate']:.2f} ({sla['prefix_hit_tokens']} "
+          f"tokens), queue depth p50 {sla['queue_depth_p50']:.1f} max "
+          f"{sla['queue_depth_max']}")
+    if engine._pc is not None:
+        occ = engine._pc.occupancy()
+        print(f"[serve] pool: {occ['pages']} pages, {occ['pages_free']} "
+              f"free, occupancy {occ['occupancy']:.2f}, "
+              f"{sla['pool_tokens']} tokens, {sla['cache_bytes']} bytes")
 
 
 def main(argv=None) -> list[Request]:
@@ -69,10 +172,23 @@ def main(argv=None) -> list[Request]:
         activations=args.quant_activations))
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
-    engine = Engine(model, params, EngineConfig(
-        scheduler=SchedulerConfig(slots=args.slots, chunk_size=args.chunk),
-        memory=MemoryConfig(max_len=args.max_len)),
-        device=args.device)
+    engine = Engine(model, params, build_engine_config(args),
+                    device=args.device)
+    if args.paged:
+        pc = engine._pc
+        print(f"[serve] paged: {pc.n_pages} pages x {pc.ps} tokens "
+              f"({pc.pool_tokens()} pool tokens vs "
+              f"{args.slots * args.max_len} slot-static)")
+    if args.trace:
+        trace = make_cli_trace(cfg.vocab, n_classes=args.priority_classes,
+                               max_new=args.max_new, seed=args.seed)
+        t0 = time.perf_counter()
+        sla = run_trace(engine, trace)
+        print(f"[serve] trace: {len(engine.finished)} requests in "
+              f"{time.perf_counter() - t0:.3f}s on {args.device}, "
+              f"{engine.stats['steps']} steps")
+        print_sla(engine, sla)
+        return [r for _, r in trace]
     rng = np.random.default_rng(args.seed + 1)
     reqs = [Request(uid=i + 1, max_new_tokens=args.max_new,
                     prompt=[int(t) for t in rng.integers(

@@ -309,6 +309,19 @@ def attn_cache_init(spec: AttnSpec, batch: int, max_len: int, dtype,
     return c
 
 
+def attn_cache_axes(spec: AttnSpec) -> dict[str, tuple]:
+    """Logical axis names of each leaf ``attn_cache_init`` allocates, as
+    the reference names them: the paged cache pages the leaves with a
+    ``kv_seq`` axis."""
+    a = {"k": ("batch", "kv_seq", "kv_heads", None),
+         "v": ("batch", "kv_seq", "kv_heads", None),
+         "pos": ("batch", "kv_seq")}
+    if spec.cfg.cache_quant:
+        a["k_scale"] = ("batch", "kv_seq", "kv_heads")
+        a["v_scale"] = ("batch", "kv_seq", "kv_heads")
+    return a
+
+
 def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
                  x: torch.Tensor, steps, n_tokens, *,
                  rg: Ragged | None = None) -> tuple[torch.Tensor, Params]:

@@ -89,6 +89,12 @@ def block_prefill(spec: BlockSpec, params: Params, cache: Params,
     return x + L.ffn_apply(spec.ffn, params["ffn"], h)
 
 
+def block_cache_axes(spec: BlockSpec) -> dict[str, tuple]:
+    """Axis names of one layer's cache leaves (the layer's cache is its
+    attention cache: batch axis 0, ``kv_seq`` axis 1)."""
+    return L.attn_cache_axes(spec.mixer)
+
+
 def block_quantize(spec: BlockSpec, params: Params, bits: int = 8) -> Params:
     """Quantize a block's structured linears to per-block QArrays (norms
     pass through)."""
@@ -212,6 +218,10 @@ class LM:
     def init_cache(self, batch: int, max_len: int) -> list[Params]:
         return [L.attn_cache_init(s.mixer, batch, max_len, self.compute_dtype,
                                   self.device) for s in self.specs]
+
+    def cache_axes(self) -> list[dict[str, tuple]]:
+        """Axis names of ``init_cache``'s leaves, one dict a layer."""
+        return [block_cache_axes(s) for s in self.specs]
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = L.norm_apply(params["final_norm"], x, self.cfg.norm)

@@ -1,27 +1,43 @@
-"""Continuous-batching inference engine with chunked prefill — the plain
-slot-static path of ``repro/serve/engine.py``, greedy or with temperature
-sampling, over a float or int8 KV cache.
+"""Continuous-batching inference engine with chunked prefill — the port of
+``repro/serve/engine.py``: slot-static or paged caches, greedy or
+temperature sampling, over a float or int8 KV cache, with Engine API v2.
 
 A fixed pool of B slots advances through one ``prefill_chunk`` per
 iteration.  Each iteration the scheduler packs a mixed batch under a token
 budget: slots still ingesting their prompt contribute up to ``chunk_size``
 prompt tokens, slots in generation exactly one token.  The chunk width C is
-bucketed to a power of two.  A finished slot is reset and recycled for the
-next queued request at once.
+bucketed to a power of two.  A finished slot is released and recycled for
+the next queued request at once.
 
-The compiled step.  The reference runs ``jax.jit(model.prefill_chunk)``;
-here, on the card, the engine captures the step as one CUDA graph per
-(C bucket, kv bucket) — the kv bucket is ``flash_attention.kv_bucket`` of
-the step's largest live position, which fixes the attention kernel's
-launch plan — the first time the pair is seen, and replays it: the
-kernels run with no Python between them.  The graphs read static device
-buffers (tokens, steps, n_tokens), filled from one pinned host buffer by
-one copy a step; only the sampling pass and its copy to the host stay
-outside.
-A capture that fails raises, naming its bucket: there is no fallback to
-the eager step.  On the CPU, and with ``step_fn=`` (the reference's
-override of the compiled step, run eagerly every step), the same step runs
-eagerly on the same buffers.
+API v2 (``serve/config.py``): ``Engine(model, params, EngineConfig(...))``
+plus ``async generate(prompt, sampling, priority=...)`` streaming one token
+at a time, ``generate_batch`` for scripts, ``tick`` for trace-driven
+callers, ``cancel(uid)``, ``throughput``, ``overloaded`` and
+``sla_report``.  ``SchedulerConfig.policy`` picks priority-aware or FIFO admission;
+``deadline_s`` and ``ResilienceConfig.queue_high_water`` stop requests
+with ``"deadline"`` and ``"shed"``.
+
+With ``MemoryConfig(paged=True)`` cache memory is sized in tokens, not
+slots: ``serve/paged.py`` pools fixed-size pages under the K/V leaves,
+shares page-aligned prompt prefixes across requests, and the scheduler
+preempts the lowest-priority longest-running generation when the pool runs
+dry (recompute on resume: the request re-feeds prompt and output).
+
+The compiled step.  The reference runs ``jax.jit`` of its step; here, on
+the card, the engine captures the step as one CUDA graph per bucket and
+replays it: (C bucket, kv bucket) slot-static — the kv bucket is
+``flash_attention.kv_bucket`` of the step's largest live position, which
+fixes the attention kernel's launch plan — and (C, kv, F, M) paged, F and
+M the power-of-two buckets of the step's fresh pages and write triples.
+The graphs read static device buffers (tokens, steps, n_tokens; paged also
+the page table, fresh list and triples), filled from one pinned host
+buffer by one copy a step; only the sampling pass and its copy to the host
+stay outside.  A capture that fails raises, naming its bucket: there is no
+fallback to the eager step.  On the CPU, and with ``step_fn=`` (the
+reference's override of the compiled step; paged, it replaces the inner
+``prefill_chunk``), the same step runs eagerly on the same buffers.  All
+device work runs under the engine lock: ``generate`` ticks in a worker
+thread, and ``cancel`` may run on the event loop's.
 
 Quantized serving: ``EngineConfig.quant`` (or the model's ``cfg.quant``)
 quantizes float weights at load, before the pre-stack, and selects the
@@ -41,14 +57,17 @@ seed gives the same tokens on the same device and schedule.  The reference
 draws with ``jax.random.categorical`` from its own key; that stream is not
 reproduced bit for bit, only its distribution.
 
-Not ported yet: the paged cache (prefix sharing, preemption), speculation,
-resilience (guardrail, health, watchdog, fault injection), async
-``generate``, ``cancel`` and ``sla_report``, serving over a device mesh and
-the legacy flat keyword arguments.
+Not ported yet: speculation and the paged speculative round (ROADMAP A6),
+state leaves and their snapshot slots (A7), resilience (guardrail, health,
+watchdog, fault injection, step-error requeues, ``healthz``) and the HTTP
+frontend (A8), serving over a device mesh (A9) and autotune (A12).  The
+reference's legacy flat constructor keywords are not kept: an
+``EngineConfig`` is the one way to configure the engine.
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import heapq
 import threading
@@ -64,6 +83,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import kv_bucket
 from repro_torch.quant import qarray as qt
 from repro_torch.serve.config import EngineConfig, SamplingParams
+from repro_torch.serve.paged import PagedCache
 
 
 def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
@@ -87,11 +107,19 @@ class Request:
     prompt: list[int]
     max_new_tokens: int = 32
     temperature: float = 0.0
-    priority: int = 0          # lower = more urgent
+    priority: int = 0          # lower = more urgent (0 = interactive)
+    deadline_s: float | None = None  # end-to-end deadline override
+    #                            (None: SchedulerConfig.deadline_s)
     # filled by the engine:
     output: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    stop_reason: str | None = None  # length | capacity
+    truncated: bool = False    # cache-capacity truncation only
+    stop_reason: str | None = None  # length | capacity | cancelled | shed |
+    #                            deadline | error
+    n_preempted: int = 0       # times this request lost its pages and re-queued
+    t_submit: float | None = None
+    t_first: float | None = None   # first output token (TTFT = t_first-t_submit)
+    t_done: float | None = None
 
 
 @dataclasses.dataclass
@@ -99,10 +127,12 @@ class _Slot:
     req: Request | None = None
     pos: int = 0            # next absolute position to write
     to_feed: deque = dataclasses.field(default_factory=deque)  # prompt left
+    feed: list = dataclasses.field(default_factory=list)  # full feed (prefix reg)
+    reg_at: int | None = None  # page-aligned prefix-registration boundary
 
 
 def _bucket(n: int) -> int:
-    """Round a chunk width up to a power of two."""
+    """Round a width up to a power of two."""
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
 
@@ -119,10 +149,11 @@ class Engine:
     def __init__(self, model, params, config: EngineConfig | None = None, *,
                  device=None, step_fn=None):
         """``model``: a ``repro_torch.models.LM`` on ``device`` (default
-        cuda; raises without a GPU unless ``device="cpu"``).  ``step_fn``
-        replaces the compiled step, ``model.prefill_chunk`` (same
-        signature: device tensors and ``kv_len=``), and runs eagerly every
-        step — e.g. to observe every step's logits."""
+        cuda; raises without a GPU unless ``device="cpu"``).  ``config``:
+        an ``EngineConfig`` (default ``EngineConfig()``).  ``step_fn``
+        replaces ``model.prefill_chunk`` (same signature: device tensors
+        and ``kv_len=``) and runs eagerly every step — e.g. to observe
+        every step's logits."""
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"engine device {dev} != model device "
@@ -144,46 +175,102 @@ class Engine:
         self.B = sch.slots
         self.max_len = mem.max_len
         self.chunk = max(1, int(sch.chunk_size))
-        self.token_budget = self.B * self.chunk   # tokens per mixed batch
-        self.cache = model.init_cache(self.B, mem.max_len)
+        self.token_budget = (self.B * self.chunk if sch.token_budget is None
+                             else max(1, int(sch.token_budget)))
+        self.policy = sch.policy
+        if self.policy not in ("priority", "fifo"):
+            raise ValueError(f"unknown scheduler policy {sch.policy!r}")
+
+        # -- cache storage: slot-static rows, or the paged pool ---------------
+        self._pc: PagedCache | None = None
+        if mem.paged:
+            n_pp = mem.max_len // mem.page_size
+            pages = (self.B * n_pp + 1 if mem.pages is None
+                     else int(mem.pages))
+            self._pc = PagedCache(model, self.B, mem.max_len, mem.page_size,
+                                  pages, mem.prefix_sharing)
+            self.cache = self._pc.view
+        else:
+            self.cache = model.init_cache(self.B, mem.max_len)
         self.slots = [_Slot() for _ in range(self.B)]
         self._rr = 0
         self.queue: list = []   # heap of (prio_key, seq, Request)
         self._seq = 0
         self._step = step_fn if step_fn is not None else model.prefill_chunk
-        # (C, kv_len) -> _Graph; None: the step runs eagerly
+        # bucket key -> _Graph; None: the step runs eagerly
         self._graphs = ({} if step_fn is None and dev.type == "cuda"
                         else None)
         self._pool = None                   # the graphs' shared memory pool
-        # static inputs: tokens (B, C) of every C bucket share the first
-        # B·C entries, then steps (B,) and n_tokens (B,)
+        # static inputs, one int64 buffer: tokens (B, C) of every C bucket
+        # share the first B·C entries, then steps (B,) and n_tokens (B,);
+        # paged, then the page table (B·g of a gather of g pages a row),
+        # fresh pages (F), and the triples' rows, logical and physical
+        # pages (M each) of every F and M bucket
         self._cmax = _bucket(self.chunk)
-        self._host = torch.zeros((self.B * (self._cmax + 2),),
-                                 dtype=torch.int64,
+        off = self.B * (self._cmax + 2)
+        size = off
+        if self._pc is not None:
+            pc = self._pc
+            # a write window of ≤ chunk tokens spans ≤ (chunk-1)//ps + 2 pages
+            self._mmax = _bucket(self.B * min(
+                pc.n_pp, (self.chunk - 1) // pc.ps + 2))
+            self._offs = {"table": off,
+                          "fresh": off + self.B * pc.n_pp}
+            for i, name in enumerate(("rows", "lps", "phys")):
+                self._offs[name] = (self._offs["fresh"]
+                                    + (i + 1) * self._mmax)
+            size = self._offs["phys"] + self._mmax
+        self._host = torch.zeros((size,), dtype=torch.int64,
                                  pin_memory=dev.type == "cuda")
         self._host_np = self._host.numpy()
         self._inputs = torch.zeros_like(self._host, device=dev)
         # the sampling noise's generator
         self._gen = torch.Generator(device=dev).manual_seed(int(config.seed))
-        self.finished: list[Request] = []
+        self.finished: list[Request] = []   # everything ever completed
         self.stats = {"steps": 0, "prefill_tokens": 0, "decode_tokens": 0,
                       "prefill_time": 0.0, "decode_time": 0.0,
+                      # per-step wall times: all steps + pure-decode steps
                       "step_s": [], "decode_step_s": [],
-                      "graphs": 0, "capture_s": 0.0}
+                      "graphs": 0, "capture_s": 0.0,
+                      # multi-tenant serving signals
+                      "preemptions": 0, "prefix_hit_tokens": 0,
+                      "prompt_tokens_submitted": 0, "queue_depth": [],
+                      "shed": 0, "deadline_expired": 0}
+        # async streaming state
         self._lock = threading.Lock()
+        self._streams: dict[int, tuple[Request, asyncio.Queue]] = {}
+        self._driver: asyncio.Task | None = None
         self._auto_uid = 1 << 40
+        self.resilience = config.resilience
+        self._deadline_s = sch.deadline_s
+        self._deadlines_armed = sch.deadline_s is not None
         self.params = (model.prestack_params(params) if config.prestack
                        else params)
 
     # -- public -----------------------------------------------------------------
 
     def submit(self, req: Request):
+        with self._lock:
+            self._submit_locked(req)
+
+    def _submit_locked(self, req: Request):
         if not req.prompt:
             raise ValueError(f"request {req.uid}: empty prompt (generation "
                              "needs at least one conditioning token)")
-        with self._lock:
-            self._seq += 1
-            heapq.heappush(self.queue, (req.priority, self._seq, req))
+        req.t_submit = time.perf_counter()
+        if req.deadline_s is not None:
+            self._deadlines_armed = True
+        self.stats["prompt_tokens_submitted"] += len(req.prompt)
+        self._enqueue(req)
+
+    def _prio(self, req: Request) -> int:
+        """Effective scheduling priority: FIFO mode ignores priority
+        classes (arrival order, no priority preemption)."""
+        return req.priority if self.policy == "priority" else 0
+
+    def _enqueue(self, req: Request):
+        self._seq += 1
+        heapq.heappush(self.queue, (self._prio(req), self._seq, req))
 
     def run(self, max_iters: int = 100_000) -> list[Request]:
         """Drive until queue + slots drain.  Returns completed requests."""
@@ -193,6 +280,12 @@ class Engine:
                 if not self._tick_locked():
                     break
         return self.finished[n0:]
+
+    def tick(self) -> bool:
+        """One scheduler iteration (trace-driven callers submit between
+        ticks).  Returns False once queue + slots are drained."""
+        with self._lock:
+            return self._tick_locked()
 
     def generate_batch(self, prompts, sampling: SamplingParams | None = None,
                        priority: int = 0) -> list[Request]:
@@ -212,7 +305,111 @@ class Engine:
         self.run()
         return reqs
 
+    async def generate(self, prompt, sampling: SamplingParams | None = None,
+                       *, priority: int = 0,
+                       uid: int | None = None,
+                       deadline_s: float | None = None):
+        """Async token stream for one request.  Closing the iterator early
+        (client disconnect) cancels the request and releases its pages at
+        once.  All concurrent ``generate`` calls batch through one shared
+        driver task, so streams interleave at engine-iteration
+        granularity."""
+        sampling = sampling or SamplingParams()
+        with self._lock:
+            if uid is None:
+                uid = self._auto_uid
+                self._auto_uid += 1
+        req = Request(uid=uid, prompt=list(prompt),
+                      max_new_tokens=sampling.max_new_tokens,
+                      temperature=sampling.temperature, priority=priority,
+                      deadline_s=deadline_s)
+        q: asyncio.Queue = asyncio.Queue()
+        with self._lock:
+            self._submit_locked(req)
+            self._streams[uid] = (req, q)
+        self._ensure_driver()
+        try:
+            while True:
+                tok = await q.get()
+                if tok is None:
+                    break
+                yield tok
+        finally:
+            if not req.done:
+                self.cancel(uid)
+            with self._lock:
+                self._streams.pop(uid, None)
+
+    def cancel(self, uid: int):
+        """Abort a queued or running request: its slot (pages, cache row) is
+        released at once, not at the next natural recycle."""
+        with self._lock:
+            for i, (_, _, req) in enumerate(self.queue):
+                if req.uid == uid:
+                    self.queue.pop(i)
+                    heapq.heapify(self.queue)
+                    self._finish(req, "cancelled")
+                    return
+            for b, slot in enumerate(self.slots):
+                if slot.req is not None and slot.req.uid == uid:
+                    req = slot.req
+                    self._release_slot(b)
+                    self._finish(req, "cancelled")
+                    return
+
+    def _ensure_driver(self):
+        if self._driver is None or self._driver.done():
+            self._driver = asyncio.get_running_loop().create_task(
+                self._drive())
+
+    async def _drive(self):
+        """Single background task batching all async ``generate`` streams:
+        run one engine iteration in a worker thread, flush freshly emitted
+        tokens to each stream's queue, repeat until drained.  A tick that
+        raises fails every in-flight request (each stream sees its
+        terminator) and re-raises."""
+        emitted: dict[int, int] = {}
+        try:
+            while True:
+                with self._lock:
+                    work = bool(self.queue) or any(s.req for s in self.slots)
+                if not work:
+                    break
+                await asyncio.to_thread(self._tick_threadsafe)
+                self._flush_streams(emitted)
+        except Exception:
+            with self._lock:
+                for b, s in enumerate(self.slots):
+                    if s.req is not None:
+                        req = s.req
+                        self._release_slot(b)
+                        self._finish(req, "error")
+                while self.queue:
+                    self._finish(heapq.heappop(self.queue)[2], "error")
+            raise
+        finally:
+            self._flush_streams(emitted)
+
+    def _tick_threadsafe(self):
+        with self._lock:
+            self._tick_locked()
+
+    def _flush_streams(self, emitted: dict[int, int]):
+        with self._lock:
+            streams = list(self._streams.values())
+        for req, q in streams:
+            sent = emitted.get(req.uid, 0)
+            for tok in req.output[sent:]:
+                q.put_nowait(tok)
+            emitted[req.uid] = len(req.output)
+            if req.done:
+                q.put_nowait(None)
+                emitted.pop(req.uid, None)
+                with self._lock:
+                    self._streams.pop(req.uid, None)
+
     def throughput(self) -> dict:
+        """Prefill / decode tokens-per-second split from engine stats."""
         s = self.stats
         return {"steps": s["steps"],
                 "prefill_tok_s": (s["prefill_tokens"] / s["prefill_time"]
@@ -220,48 +417,271 @@ class Engine:
                 "decode_tok_s": (s["decode_tokens"] / s["decode_time"]
                                  if s["decode_time"] else 0.0)}
 
-    # -- internals --------------------------------------------------------------
+    def overloaded(self) -> bool:
+        """Admission-control signal: requests in flight at or above
+        ``ResilienceConfig.queue_high_water``.  Lock-free on purpose."""
+        hw = self.resilience.queue_high_water
+        if hw is None:
+            return False
+        n_active = sum(1 for s in self.slots if s.req is not None)
+        return len(self.queue) + n_active >= hw
+
+    def sla_report(self) -> dict:
+        """TTFT / TPOT percentiles per priority class, plus the multi-tenant
+        counters (preemption and prefix-hit rates, queue depth) and, paged,
+        the pool's size.
+
+        Every finished request counts in its class's ``requests`` and
+        ``stop_reasons``, but only requests that produced a first token
+        give latency samples: a class with none reports ``None``
+        percentiles."""
+        def pct(xs, q):
+            return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+        classes: dict[int, dict] = {}
+        for r in self.finished:
+            c = classes.setdefault(r.priority, {"ttft": [], "tpot": [],
+                                                "requests": 0,
+                                                "stop_reasons": {}})
+            c["requests"] += 1
+            reason = r.stop_reason or "unknown"
+            c["stop_reasons"][reason] = c["stop_reasons"].get(reason, 0) + 1
+            if r.t_submit is None or r.t_first is None:
+                continue
+            c["ttft"].append(r.t_first - r.t_submit)
+            if r.t_done is not None and len(r.output) > 1:
+                c["tpot"].append((r.t_done - r.t_first)
+                                 / (len(r.output) - 1))
+        per_class = {
+            str(p): {"requests": c["requests"],
+                     "completed": len(c["ttft"]),
+                     "stop_reasons": c["stop_reasons"],
+                     "ttft_p50_s": pct(c["ttft"], 50),
+                     "ttft_p99_s": pct(c["ttft"], 99),
+                     "tpot_p50_s": pct(c["tpot"], 50),
+                     "tpot_p99_s": pct(c["tpot"], 99)}
+            for p, c in sorted(classes.items())}
+        s = self.stats
+        out = {
+            "classes": per_class,
+            "preemptions": s["preemptions"],
+            "preemption_rate": (s["preemptions"] / len(self.finished)
+                                if self.finished else 0.0),
+            "prefix_hit_tokens": s["prefix_hit_tokens"],
+            "prefix_hit_rate": (s["prefix_hit_tokens"]
+                                / s["prompt_tokens_submitted"]
+                                if s["prompt_tokens_submitted"] else 0.0),
+            "queue_depth_p50": pct(s["queue_depth"], 50) or 0.0,
+            "queue_depth_max": (max(s["queue_depth"])
+                                if s["queue_depth"] else 0),
+        }
+        if self._pc is not None:
+            out["pool_tokens"] = self._pc.pool_tokens()
+            out["pool_pages_free"] = self._pc.pages.n_free
+            out["cache_bytes"] = self._pc.nbytes()
+        return out
+
+    # -- request lifecycle ------------------------------------------------------
 
     def _tick_locked(self) -> bool:
         """One scheduler iteration.  Returns False when fully drained."""
+        self._expire_deadlines()
+        self._shed_overflow()
         self._admit()
+        self.stats["queue_depth"].append(len(self.queue))
         if not any(s.req for s in self.slots):
             return bool(self.queue)
         self._advance()
         return True
 
     def _reset_slot(self, b: int):
-        """Restore row b of every leaf of every layer cache to its initial
-        state: pos = -1, and K, V (float, or int8 codes and their scales)
-        = 0.  The attention kernel masks by slot index and relies on a fresh
-        row (reference: ``_reset_slot`` restores the template)."""
+        """Restore row b of every leaf of every slot-static layer cache to
+        its initial state: pos = -1, and K, V (float, or int8 codes and
+        their scales) = 0.  The attention kernel masks by slot index and
+        relies on a fresh row (reference: ``_reset_slot`` restores the
+        template).  Paged, a row holds no state of its own: its pages are
+        freed, and a recycled page is reset when it is allocated."""
+        if self._pc is not None:
+            return
         for c in self.cache:
             for name, leaf in c.items():
                 leaf[b].fill_(-1 if name == "pos" else 0)
 
     def _release_slot(self, b: int):
+        """Free everything a departing request holds: its pages and its
+        cache row."""
         slot = self.slots[b]
+        if self._pc is not None:
+            self._pc.free_slot(b)
         self._reset_slot(b)
         slot.req = None
         slot.to_feed = deque()
+        slot.feed = []
+        slot.reg_at = None
         slot.pos = 0
+
+    def _finish(self, req: Request, reason: str):
+        req.done = True
+        req.stop_reason = reason
+        req.truncated = reason == "capacity"
+        req.t_done = time.perf_counter()
+        self.finished.append(req)
 
     def _finish_slot(self, b: int, reason: str):
         req = self.slots[b].req
         self._release_slot(b)
-        req.done = True
-        req.stop_reason = reason
-        self.finished.append(req)
+        self._finish(req, reason)
+
+    def _preempt(self, b: int):
+        """Evict slot b's request: free its pages, re-queue it for
+        recompute-on-resume (its sampled output is kept; the resumed
+        request re-feeds prompt + output, and may hit its own registered
+        prefix)."""
+        req = self.slots[b].req
+        self._release_slot(b)
+        req.n_preempted += 1
+        self.stats["preemptions"] += 1
+        # the resume re-feeds prompt + output: count it into the prefix-hit
+        # denominator so re-admission hits keep the rate a true fraction
+        self.stats["prompt_tokens_submitted"] += (len(req.prompt)
+                                                  + len(req.output))
+        self._enqueue(req)
+
+    def _expire_deadlines(self):
+        """Fail queued and running requests past their end-to-end deadline
+        (``Request.deadline_s`` overriding ``SchedulerConfig.deadline_s``),
+        measured from submit: a deadline survives preemption."""
+        if not self._deadlines_armed:
+            return
+        now = time.perf_counter()
+
+        def expired(req: Request) -> bool:
+            dl = (req.deadline_s if req.deadline_s is not None
+                  else self._deadline_s)
+            return (dl is not None and req.t_submit is not None
+                    and now - req.t_submit > dl)
+
+        keep = [item for item in self.queue if not expired(item[2])]
+        if len(keep) != len(self.queue):
+            for item in self.queue:
+                if expired(item[2]):
+                    self.stats["deadline_expired"] += 1
+                    self._finish(item[2], "deadline")
+            self.queue = keep
+            heapq.heapify(self.queue)
+        for b, slot in enumerate(self.slots):
+            if slot.req is not None and expired(slot.req):
+                self.stats["deadline_expired"] += 1
+                self._finish_slot(b, "deadline")
+
+    def _shed_overflow(self):
+        """Admission control: above ``ResilienceConfig.queue_high_water``
+        requests in flight, shed the lowest-priority newest queued work
+        (``stop_reason="shed"``)."""
+        hw = self.resilience.queue_high_water
+        if hw is None:
+            return
+        n_active = sum(1 for s in self.slots if s.req is not None)
+        while self.queue and len(self.queue) + n_active > hw:
+            i = max(range(len(self.queue)),
+                    key=lambda j: (self.queue[j][0], self.queue[j][1]))
+            _, _, req = self.queue.pop(i)
+            heapq.heapify(self.queue)
+            self.stats["shed"] += 1
+            self._finish(req, "shed")
+
+    def _victim(self, below: int, exclude: set[int]) -> int | None:
+        """Deterministic preemption victim: among active slots with strictly
+        lower priority than ``below`` (higher number), the longest-running
+        (most output tokens), ties to the highest slot index."""
+        best = None
+        for b, slot in enumerate(self.slots):
+            if b in exclude or slot.req is None:
+                continue
+            if self._prio(slot.req) <= below:
+                continue
+            key = (self._prio(slot.req), len(slot.req.output), b)
+            if best is None or key > best[0]:
+                best = (key, b)
+        return None if best is None else best[1]
+
+    # -- admission -------------------------------------------------------------
+
+    def _pages_needed(self, feed_len: int, hit: int) -> int:
+        """Pages a request still needs to ingest its feed and sample once
+        (admission gate; decode growth beyond that is handled by the
+        in-step escalation)."""
+        pc = self._pc
+        return (feed_len + 1 + pc.ps - 1) // pc.ps - hit // pc.ps
 
     def _admit(self):
         for b, slot in enumerate(self.slots):
             if slot.req is not None or not self.queue:
                 continue
-            _, _, req = heapq.heappop(self.queue)
+            item = heapq.heappop(self.queue)
+            req = item[2]
+            feed = req.prompt + req.output   # resume recomputes its output
+            hit = None
+            if self._pc is not None:
+                pc = self._pc
+                hit = pc.prefix_lookup(feed)
+                need = self._pages_needed(len(feed), hit.length if hit else 0)
+                # admission never preempts equal-or-higher priority work and
+                # never waits on it either: evict cold prefix entries, then
+                # strictly-lower-priority victims, else leave it queued
+                while need > pc.pages.n_free:
+                    if pc.evict_one(require_free=True):
+                        # eviction can invalidate the hit entry: re-resolve
+                        hit = pc.prefix_lookup(feed)
+                        need = self._pages_needed(len(feed),
+                                                  hit.length if hit else 0)
+                        continue
+                    v = self._victim(self._prio(req), exclude=set())
+                    if v is not None:
+                        self._preempt(v)
+                        continue
+                    break
+                if need > pc.pages.n_free:
+                    if any(s.req for s in self.slots):
+                        # wait for running work to free pages: the original
+                        # heap key goes back, so arrival order is preserved
+                        heapq.heappush(self.queue, item)
+                        return
+                    # sole candidate and the whole pool is still too small:
+                    # this request can never fit
+                    self._finish(req, "capacity")
+                    continue
             self._reset_slot(b)
             slot.req = req
             slot.pos = 0
-            slot.to_feed = deque(req.prompt + req.output)
+            slot.feed = feed
+            slot.to_feed = deque(feed)
+            slot.reg_at = None
+            if self._pc is not None:
+                if hit is not None:
+                    self._pc.prefix_admit(b, hit)
+                    slot.pos = hit.length
+                    slot.to_feed = deque(feed[hit.length:])
+                    self.stats["prefix_hit_tokens"] += hit.length
+                self._plan_registration(slot, hit)
+
+    def _plan_registration(self, slot: _Slot, hit):
+        """Register every page-aligned level of the prompt once it is
+        ingested (page references cost nothing) — past what the hit
+        already covers."""
+        pc = self._pc
+        if not pc.sharing:
+            return
+        reg = (len(slot.feed) // pc.ps) * pc.ps
+        covered = hit.length if hit else 0
+        if reg > covered and reg > slot.pos:
+            slot.reg_at = reg
+
+    def _register(self, b: int, slot: _Slot):
+        self._pc.register_levels(b, slot.feed, slot.reg_at)
+        slot.reg_at = None
+
+    # -- scheduling ------------------------------------------------------------
 
     def _schedule(self) -> np.ndarray:
         """Token-budget pass: decodes first (1 token each), then prefills
@@ -286,22 +706,113 @@ class Engine:
             budget -= take
         return n
 
+    def _alloc(self, n: np.ndarray) -> list:
+        """Allocate pool pages for every scheduled row's write window,
+        escalating on a dry pool: evict cold prefix entries → preempt a
+        strictly-lower-priority victim → shrink the prefill take → as a
+        last resort preempt the row itself (or capacity-finish it when it
+        is the only active request and the empty pool still cannot hold
+        it).  Returns per-slot (fresh, triples) plans."""
+        pc = self._pc
+        plans = [([], []) for _ in range(self.B)]
+        allocated: set[int] = set()
+        for b in range(self.B):
+            slot = self.slots[b]
+            if slot.req is None or n[b] == 0:
+                continue
+            while True:
+                plan = pc.plan_writes(b, slot.pos, int(n[b]))
+                if plan is not None:
+                    plans[b] = plan
+                    allocated.add(b)
+                    break
+                if pc.evict_one(require_free=True):
+                    continue
+                v = self._victim(self._prio(slot.req), allocated | {b})
+                if v is not None:
+                    n[v] = 0
+                    self._preempt(v)
+                    continue
+                take = pc.max_take(b, slot.pos)
+                if slot.to_feed and take > 0:
+                    n[b] = min(int(n[b]), take)
+                    continue
+                if sum(1 for s in self.slots if s.req is not None) == 1:
+                    # the whole pool is free for this one request and its
+                    # next token still does not fit: genuine capacity end
+                    self._finish_slot(b, "capacity")
+                else:
+                    self._preempt(b)
+                n[b] = 0
+                break
+        return plans
+
+    def _pack_plans(self, plans: list, g: int) -> tuple[int, int]:
+        """Write the step's page operands into the host buffer: the first
+        ``g`` logical pages of every row's table, fresh page ids (padding:
+        the sink page) and write-window (row, logical, physical) triples
+        (padding: physical = the sink).  Returns the buckets (F, M)."""
+        pc, host, offs = self._pc, self._host_np, self._offs
+        fresh = [p for f, _ in plans for p in f]
+        triples = [t for _, ts in plans for t in ts]
+        F = _bucket(max(len(fresh), 1))
+        M = _bucket(max(len(triples), 1))
+        assert M <= self._mmax, (M, self._mmax)
+        o = offs["table"]
+        host[o:o + self.B * g] = pc.tables[:, :g].ravel()
+        o = offs["fresh"]
+        host[o:o + F] = pc.n_pages
+        host[o:o + len(fresh)] = fresh
+        for i, name in enumerate(("rows", "lps", "phys")):
+            o = offs[name]
+            host[o:o + M] = pc.n_pages if name == "phys" else 0
+            host[o:o + len(triples)] = [t[i] for t in triples]
+        return F, M
+
+    # -- the step ----------------------------------------------------------------
+
     def _views(self, C: int):
         """(tokens (B, C), steps (B,), n_tokens (B,)) of the static inputs."""
         B, off = self.B, self.B * self._cmax
         d = self._inputs
-        return d[:B * C].view(B, C), d[off:off + B], d[off + B:]
+        return d[:B * C].view(B, C), d[off:off + B], d[off + B:off + 2 * B]
 
-    def _capture(self, key: tuple[int, int]) -> None:
-        """Capture the step at bucket ``key`` = (C, kv_len) as a CUDA graph.
-        Warm-up (the first launch builds the kernels, cuBLAS makes its
-        handles: neither may happen under capture) runs eagerly on the
-        capture stream; warm-up and capture see every row dead (n_tokens = 0), so
-        neither changes the cache, and their launches are not counted."""
-        C, kv = key
-        t0 = time.perf_counter()
+    def _device_step(self, key: tuple) -> torch.Tensor:
+        """The step at bucket ``key`` on the static inputs → logits
+        (B, 1, V); paged, the step around the page operands."""
+        C, kv = key[:2]
+        args = (self.params, *self._views(C))
+        if self._pc is None:
+            logits, self.cache = self._step(args[0], self.cache, *args[1:],
+                                            kv_len=kv)
+            return logits
+        F, M = key[2:]
+        d, o = self._inputs, self._offs
+        g = self._pc.gather_pages(kv)
+        return self._pc.step(
+            self._step, *args, kv, d[o["table"]:o["table"] + self.B * g],
+            d[o["fresh"]:o["fresh"] + F], d[o["rows"]:o["rows"] + M],
+            d[o["lps"]:o["lps"] + M], d[o["phys"]:o["phys"] + M])
+
+    def _dead_inputs(self) -> None:
+        """Static inputs of a step that changes no state: every row dead,
+        every table entry the zero page, every fresh page and triple the
+        sink."""
         self._inputs.zero_()
-        args = (self.params, self.cache, *self._views(C))
+        if self._pc is not None:
+            o = self._offs
+            self._inputs[o["fresh"]:o["rows"]].fill_(self._pc.n_pages)
+            self._inputs[o["phys"]:].fill_(self._pc.n_pages)
+
+    def _capture(self, key: tuple) -> None:
+        """Capture the step at bucket ``key`` as a CUDA graph.  Warm-up (the
+        first launch builds the kernels, cuBLAS makes its handles: neither
+        may happen under capture) runs eagerly on the capture stream;
+        warm-up and capture see every row dead and every page write pointed
+        at the sink (``_dead_inputs``), so neither changes a cache or a
+        page, and their launches are not counted."""
+        t0 = time.perf_counter()
+        self._dead_inputs()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -313,29 +824,29 @@ class Engine:
         side.wait_stream(main)
         with (torch.cuda.stream(side), structures.activations(self.act_mode),
               kops.launches_apart()):
-            self._step(*args, kv_len=kv)
+            self._device_step(key)
         main.wait_stream(side)
         try:
             with (structures.activations(self.act_mode),
                   kops.launches_apart() as made, capture):
-                logits, _ = self._step(*args, kv_len=kv)
+                logits = self._device_step(key)
         except RuntimeError as exc:
+            where = f"C={key[0]}, kv_len={key[1]}"
+            if len(key) > 2:
+                where += f", F={key[2]}, M={key[3]}"
             raise RuntimeError(
                 f"capturing the engine's step as a CUDA graph failed at "
-                f"bucket C={C}, kv_len={kv}") from exc
+                f"bucket {where}") from exc
         self._graphs[key] = _Graph(graph, logits, made)
         self.stats["graphs"] += 1
         self.stats["capture_s"] += time.perf_counter() - t0
 
-    def _run_step(self, key: tuple[int, int]) -> torch.Tensor:
+    def _run_step(self, key: tuple) -> torch.Tensor:
         """The step on the static inputs → logits (B, 1, V): a replay of
         the bucket's graph, or the step run eagerly."""
         if self._graphs is None:
             with structures.activations(self.act_mode):
-                logits, self.cache = self._step(
-                    self.params, self.cache, *self._views(key[0]),
-                    kv_len=key[1])
-            return logits
+                return self._device_step(key)
         g = self._graphs[key]
         g.graph.replay()
         kops.add_launches(g.launches)
@@ -343,6 +854,7 @@ class Engine:
 
     def _advance(self):
         n = self._schedule()
+        plans = self._alloc(n) if self._pc is not None else None
         if not n.any():  # every active slot is out of cache headroom
             for b, slot in enumerate(self.slots):
                 if slot.req is not None:
@@ -351,10 +863,11 @@ class Engine:
         B, C = self.B, _bucket(int(n.max()))
         off = B * self._cmax
         host = self._host_np
-        host[:] = 0
+        host[:B * C] = 0
         tokens = host[:B * C].reshape(B, C)
         steps = host[off:off + B]
-        host[off + B:] = n
+        steps[:] = 0
+        host[off + B:off + 2 * B] = n
         sampling = [False] * B
         prompt_toks = decode_toks = need = 0
         for b, slot in enumerate(self.slots):
@@ -375,6 +888,8 @@ class Engine:
             raise ValueError(f"position {need - 1} exceeds the cache's "
                              f"{self.max_len} slots")
         key = (C, kv_bucket(need, self.max_len))
+        if self._pc is not None:
+            key += self._pack_plans(plans, self._pc.gather_pages(key[1]))
         if self._graphs is not None and key not in self._graphs:
             self._capture(key)        # its time is kept out of the step's
         t0 = time.perf_counter()
@@ -403,12 +918,19 @@ class Engine:
             if slot.req is None or n[b] == 0:
                 continue
             slot.pos += int(n[b])
+            if slot.reg_at is not None and slot.pos >= slot.reg_at:
+                self._register(b, slot)
             if not sampling[b]:
                 continue
             req = slot.req
-            req.output.append(int(nxt[b]))
+            self._emit(req, int(nxt[b]))
             if (len(req.output) >= req.max_new_tokens
                     or slot.pos >= self.max_len - 1):
                 self._finish_slot(
                     b, "length" if len(req.output) >= req.max_new_tokens
                     else "capacity")
+
+    def _emit(self, req: Request, tok: int):
+        if not req.output:
+            req.t_first = time.perf_counter()
+        req.output.append(tok)

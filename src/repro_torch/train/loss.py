@@ -25,7 +25,7 @@ def make_loss_fn(model, *, aux_weight: float = 0.01):
     if what is None and getattr(cfg, "mtp", False):
         what = "the DeepSeek MTP (t+2) loss"
     if what is not None:
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP A17)")
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP A11)")
 
     def lm_loss(params, batch):
         # (B, S+1); the trainer passes its static device buffer, so no

@@ -176,6 +176,40 @@ class TestGraphs:
         _, _, m = trainer.train_step(params, state, trainer.data.batch(4))
         assert float(m["skipped"]) == 0.0
 
+    @pytest.mark.parametrize("cache", ["none", "int8"])
+    def test_paged_replay_equals_eager_step(self, cuda, cache):
+        """The paged step (fresh-page reset, gather, step, scatter) captured
+        per (C, kv, F, M) bucket against the same step run eagerly: the
+        same tokens and buckets, logits and every pool page (the sink
+        aside) equal bit for bit, at two or more (F, M) buckets; the tokens
+        also equal the slot-static engine's."""
+        model = build_model(_cfg("bfloat16", quant=quant.QuantConfig(
+            cache=cache)), device=cuda)
+        params = model.init(0)
+
+        def paged(**kw):
+            return Engine(model, params, EngineConfig(
+                scheduler=SchedulerConfig(slots=3, chunk_size=8),
+                memory=MemoryConfig(max_len=192, paged=True, page_size=8)),
+                **kw)
+        graphs, eager = paged(), paged(step_fn=model.prefill_chunk)
+        out_g, seen_g, launches_g = _serve(graphs)
+        out_e, seen_e, launches_e = _serve(eager)
+        out_s, _, _ = _serve(_engine(model, params, "none"))
+        assert out_g == out_e == out_s
+        keys = [k for k, _ in seen_g]
+        assert keys == [k for k, _ in seen_e]
+        assert len({k[2:] for k in keys}) >= 2
+        assert graphs.stats["graphs"] == len(set(keys))
+        for (key, g), (_, e) in zip(seen_g, seen_e):
+            assert torch.equal(g, e), key
+        assert launches_g == launches_e
+        n = graphs._pc.n_pages
+        for name, pool in graphs._pc.pool.items():
+            assert torch.equal(pool[:n], eager._pc.pool[name][:n]), name
+        graphs._pc.audit()
+        eager._pc.audit()
+
     def test_capture_failure_raises(self, cuda):
         model = build_model(_cfg("bfloat16"), device=cuda)
         step = model.prefill_chunk
