@@ -102,7 +102,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    preemptions, every request finished by length, two runs identical,
    tokens equal a roomy pool's up to each first near-tie; then the same
    run in fp32 at 2 layers, where the rule is the 1e-4 margin alone.
-9. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
+9. spec — self-speculative decoding (k = 4) of the serve phase's 16
+   prompts, at draft rank fractions 0.5 and 1.0, in smollm-135m float and
+   int8 weights, and llama7b-blast (full width, 16 of its 32 layers) float
+   and with the int8 cache: the tokens equal the same config's plain
+   engine's up to each request's first near-tie; at frac 0.5 the captured
+   round equals the eager round (``step_fn``; llama float) and paged
+   equals slot-static (int8 cache aside) bit for bit (every round's token
+   ids, every plain step's logits); launches
+   rounds × (k + 2) plus plain steps × 2 (the step and the draft's
+   replay) times the per-step counts; no launch pads its factors' rank
+   (the draft is padded once at load; smollm also checks the padded
+   draft's logits against the unpadded draft's, bit for bit); ``audit``
+   when paged.  Each run prints rounds, acceptance, tokens a round, decode
+   tok/s and ms a round against the plain engine's, graphs, capture s,
+   peak memory and the draft's parameter bytes.  The same in fp32 at 2
+   layers of llama7b-blast, held to the 1e-4 margin alone, frac 1.0
+   accepting ≥ 90%.  ``spec_split``: at llama7b-blast's full width and
+   depth, a draft step and the resync at frac 0.5 and 1.0, the verify
+   chunk (T = 64), the plain step and a whole captured round at each frac,
+   each a CUDA graph timed by CUDA events.
+10. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
    steps through the captured step (bf16, remat, batch 8 × seq 256 of the
    Markov ``TokenStream``, lr 3e-4 with warmup 5; one eager warm-up step,
    then one CUDA graph of the whole step): per step loss, grad norm,
@@ -117,7 +137,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    step whose loss is made non-finite (NaN in the embedding row of its
    first token) reports skipped, leaves params, m and v bit for bit and
    still counts.
-10. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
+11. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each run: kernel, plain version and one PyTorch library
    call (a yardstick only; the port never calls it), at decode, prefill
    and training shapes (B3 at decode also at the serving run's positions,
@@ -128,7 +148,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    llama7b-blast's rows: its BLAST shapes (float, int8 weights) at T = 8
    and 256, and B3 over int8 K/V at its decode and prefill (library:
    ``dequantize_rows``, then masked SDPA; ``float_kv_ms``: B3 on bf16 K/V
-   of the same values).  The profiles of phases 7 and 9 also sum the
+   of the same values).  The profiles of phases 7 and 10 also sum the
    BLAST tile kernel's two ``__global__``s (``blast_tile_kernel``,
    ``blast_split_sum``) and the attention kernel's (``attn_tile_kernel``,
    ``attn_split_combine``).
@@ -988,8 +1008,8 @@ def smollm_per_step(cfg, mode) -> dict:
 
 def llama_per_step(cfg, mode) -> dict:
     """Launches a serving step of llama7b-blast makes in ``mode``: 96 BLAST
-    (qkv, out, down), 32 grouped (gate+up), 32 attention, in the mode's
-    own kernels."""
+    (qkv, out, down), 32 grouped (gate+up), 32 attention at 32 layers, in
+    the mode's own kernels."""
     weights, cache = LLAMA_MODES[mode]
     blast, grouped = MODES["int8" if weights == "int8" else "none"][1]
     attn = ("flash_attention_prefill_q8" if cache == "int8"
@@ -1496,6 +1516,389 @@ def phase_paged_preempt_fp32(llama):
     model = build_model(small, device=DEVICE)
     phase_paged_preempt(model, model.init(SEED), "llama:fp32",
                         serve_config(None, weights="none"))
+
+
+# -- self-speculative decoding ------------------------------------------------
+
+SPEC_K = 4
+SPEC_FRACS = (0.5, 1.0)
+SPEC_LAYERS = 16        # llama7b-blast's depth in the speculative runs
+
+
+def spec_config(config, frac, paged=False):
+    """``config`` decoding self-speculatively: ``SPEC_K`` drafts a round
+    from the model's factors truncated to ``frac`` of the rank budget;
+    ``paged``: through the paged cache (``paged_config``)."""
+    from repro_torch.serve import SpeculativeConfig
+    config = dataclasses.replace(config, speculative=SpeculativeConfig(
+        k=SPEC_K, draft_rank_frac=frac))
+    return paged_config(config) if paged else config
+
+
+class PadCount:
+    """Counts the BLAST wrappers' per-launch rank pads (``ops._pad_last``
+    where it copies) while active: a draft padded once at load pads in no
+    launch, neither eagerly nor in a capture, whose copies every replay
+    would repeat."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.n, self._ops, self._pad = 0, ops, ops._pad_last
+
+        def counted(a, target):
+            self.n += a.shape[-1] != target
+            return self._pad(a, target)
+        ops._pad_last = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._ops._pad_last = self._pad
+        return False
+
+
+def _recorded(engine) -> list:
+    """Record every output of ``engine``'s steps (a round's token ids, a
+    plain step's logits) with its bucket: [(key, output)].  Delete the
+    wrapper (``del engine._run_step``) before the engine."""
+    seen = []
+    run_step = engine._run_step
+
+    def run(key):
+        out = run_step(key)
+        seen.append((key, out.clone()))
+        return out
+    engine._run_step = run
+    return seen
+
+
+def _spec_run(model, params, config, prompts, max_new, per_step, what,
+              step_fn=None) -> dict:
+    """Serve ``prompts`` through a speculative engine: tokens, each step's
+    output, counters, the launch equality (rounds × (k + 2) and plain
+    steps × 2 — the step and the draft's replay — times ``per_step``), no
+    per-launch rank pad, ``audit`` when paged; decode tok/s, ms a round,
+    graphs, capture s, peak memory and the draft's parameter bytes."""
+    import torch
+    from repro_torch import quant
+    from repro_torch.serve import Engine
+    t0 = time.perf_counter()
+    engine = Engine(model, params, config, device=DEVICE, step_fn=step_fn)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    seen = _recorded(engine)
+    with PadCount() as pads:
+        reqs, wall, launches, peak = _serve_run(engine, prompts, max_new)
+    s = engine.stats
+    rounds, plain = s["spec_rounds"], s["steps"] - s["spec_rounds"]
+    want = {k: 0 for k in launches}
+    want.update({k: n * (rounds * (SPEC_K + 2) + plain * 2)
+                 for k, n in per_step.items()})
+    if launches != want:
+        raise RuntimeError(f"spec {what}: launch counts {launches} != {want} "
+                           f"({rounds} rounds, {plain} plain steps)")
+    if pads.n:
+        raise RuntimeError(f"spec {what}: {pads.n} launches padded their "
+                           "factors' rank")
+    if rounds == 0:
+        raise RuntimeError(f"spec {what}: no speculative round ran")
+    if any(not r.done or len(r.output) != max_new for r in reqs):
+        raise RuntimeError(f"spec {what}: a request did not finish with "
+                           f"{max_new} tokens")
+    if engine._pc is not None:
+        engine._pc.audit()
+    tp = engine.throughput()
+    row = {"steps": s["steps"], "rounds": rounds, "plain_steps": plain,
+           "acceptance_rate": tp["acceptance_rate"],
+           "tokens_per_round": tp["tokens_per_round"],
+           "spec_drafted": s["spec_drafted"],
+           "spec_accepted": s["spec_accepted"],
+           "spec_emitted": s["spec_emitted"],
+           "draft_plan": engine.draft_plan,
+           "draft_param_bytes": quant.tree_nbytes(engine.draft_params),
+           "graphs": s["graphs"], "capture_s": s["capture_s"],
+           "load_s": load_s, "wall_s": wall,
+           "decode_tok_s": tp["decode_tok_s"],
+           "round_ms_median": 1e3 * statistics.median(s["decode_step_s"]),
+           "max_memory_allocated_bytes": peak,
+           "launches": {k: v for k, v in launches.items() if v}}
+    out = {"outputs": {r.uid: r.output for r in reqs}, "seen": seen,
+           "row": row}
+    del engine._run_step, engine
+    return out
+
+
+def _same_steps(a: dict, b: dict, what: str) -> None:
+    """Two runs made the same steps at the same buckets (paged keys compared
+    on their (C, kv) part) with equal outputs bit for bit."""
+    import torch
+    if [k[:2] for k, _ in a["seen"]] != [k[:2] for k, _ in b["seen"]]:
+        raise RuntimeError(f"spec {what}: the runs stepped differently")
+    for (key, x), (_, y) in zip(a["seen"], b["seen"]):
+        if not torch.equal(x, y):
+            raise RuntimeError(f"spec {what}: outputs differ at {key}")
+    if a["outputs"] != b["outputs"]:
+        raise RuntimeError(f"spec {what}: tokens differ")
+
+
+def _plain_with_margins(model, params, config, prompts, max_new) -> dict:
+    """The plain captured engine on ``prompts``: tokens, each token's
+    near-tie flag and margin (``_with_margins``), decode tok/s and step
+    ms."""
+    import torch
+    from repro_torch.serve import Engine
+    engine = Engine(model, params, config, device=DEVICE)
+    margins = _with_margins(engine)
+    reqs, wall, _, peak = _serve_run(engine, prompts, max_new)
+    torch.cuda.synchronize()
+    tp = engine.throughput()
+    out = {"outputs": {r.uid: r.output for r in reqs},
+           "margins": {r.uid: margins[r.uid] for r in reqs},
+           "row": {"steps": engine.stats["steps"],
+                   "decode_tok_s": tp["decode_tok_s"],
+                   "decode_step_ms_median": 1e3 * statistics.median(
+                       engine.stats["decode_step_s"]),
+                   "max_memory_allocated_bytes": peak}}
+    del engine._run_step, engine._emit, engine
+    return out
+
+
+def padded_draft_equal(engine_params, model, plan) -> bool:
+    """The draft padded once at load (``LM.pad_ranks``) against the same
+    draft unpadded (each launch pads its factors): one ragged chunk's
+    logits on fresh caches, equal bit for bit."""
+    import torch
+    from repro_torch.kernels import blast_matmul as kbm
+    from repro_torch.kernels import ops
+    unpadded = model.prestack_params(model.truncate_params(engine_params,
+                                                           plan))
+    padded = model.prestack_params(model.pad_ranks(unpadded,
+                                                   kbm.float_tiles()[1]))
+    gen = torch.Generator().manual_seed(SEED)
+    toks = torch.randint(0, model.cfg.vocab, (8, 32), generator=gen)
+    steps = torch.zeros(8, dtype=torch.int64)
+    n = torch.arange(1, 33, 4, dtype=torch.int64)
+    outs = []
+    with ops.launches_apart():
+        for tree in (unpadded, padded):
+            cache = model.init_cache(8, 64)
+            logits, _ = model.prefill_chunk(tree, cache, toks.to(DEVICE),
+                                            steps.to(DEVICE), n.to(DEVICE),
+                                            kv_len=64, all_logits=True)
+            outs.append(logits)
+    return bool(torch.equal(outs[0], outs[1]))
+
+
+def phase_spec(model, params, mode, config, per_step, *, paged=True,
+               eager=True, pad_check=False):
+    """Self-speculative decoding (k = ``SPEC_K``) of the serve phase's 16
+    prompts, 32 new tokens, 8 slots, chunk 32, max_len 512, at each of
+    ``SPEC_FRACS`` through the captured engine, and at frac 0.5 also
+    through the eager one (``step_fn``; with ``eager``) and the paged one
+    (with ``paged``: the round's code is the same at every frac).  Each
+    run: the launch equality, no per-launch rank pad, ``audit`` when
+    paged; the tokens equal the plain engine's up to each request's first
+    near-tie (``near_tie``, in the logits' precision); captured = eager
+    and paged = slot-static bit for bit (every round's token ids and every
+    plain step's logits).  Prints rounds, acceptance, tokens a round,
+    decode tok/s and ms a round against the plain engine's, graphs,
+    capture s, peak memory and the draft's parameter bytes."""
+    import torch
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab)
+    max_new = 32
+    plain = _plain_with_margins(model, params, config, prompts, max_new)
+    rows = []
+    for frac in SPEC_FRACS:
+        what = f"{mode} frac {frac}"
+        runs = {"graphs": _spec_run(model, params, spec_config(config, frac),
+                                    prompts, max_new, per_step, what)}
+        if eager and frac == SPEC_FRACS[0]:
+            runs["eager"] = _spec_run(
+                model, params, spec_config(config, frac), prompts, max_new,
+                per_step, what + " eager", step_fn=model.prefill_chunk)
+            _same_steps(runs["graphs"], runs["eager"], what + " captured "
+                        "against eager")
+        if paged and frac == SPEC_FRACS[0]:
+            runs["paged"] = _spec_run(
+                model, params, spec_config(config, frac, paged=True),
+                prompts, max_new, per_step, what + " paged")
+            _same_steps(runs["graphs"], runs["paged"], what + " paged "
+                        "against slot-static")
+        cmp = _margin_compare(runs["graphs"]["outputs"], plain["outputs"],
+                              plain["margins"], f"spec {what}")
+        g = runs["graphs"]["row"]
+        row = {"phase": "spec", "mode": mode, "arch": cfg.name,
+               "layers": cfg.n_layers, "dtype": cfg.compute_dtype,
+               "weights": config.quant.weights, "cache": cfg.quant.cache,
+               "k": SPEC_K, "draft_rank_frac": frac, "slots": 8, "chunk": 32,
+               "max_len": 512, "requests": len(prompts),
+               "new_tokens": len(prompts) * max_new, **cmp,
+               "graphs": g,
+               **{path: run["row"] for path, run in runs.items()
+                  if path != "graphs"},
+               "plain": plain["row"],
+               "round_ms_over_plain_step_ms": (
+                   g["round_ms_median"]
+                   / plain["row"]["decode_step_ms_median"]),
+               "decode_tok_s_over_plain": (g["decode_tok_s"]
+                                           / plain["row"]["decode_tok_s"]),
+               "captured_equals_eager": "eager" in runs or None,
+               "paged_equals_slot_static": "paged" in runs or None,
+               "per_step": per_step, "nvidia_smi": nvidia_smi()}
+        if pad_check:
+            from repro_torch.serve import Engine
+            engine = Engine(model, params, spec_config(config, frac),
+                            device=DEVICE)
+            row["padded_draft_equals_unpadded"] = padded_draft_equal(
+                engine.params, model, engine.draft_plan)
+            del engine
+            if not row["padded_draft_equals_unpadded"]:
+                raise RuntimeError(f"spec {what}: the draft padded at load "
+                                   "differs from the unpadded draft")
+        emit(row)
+        rows.append(row)
+        del runs
+        torch.cuda.synchronize()
+    return rows
+
+
+def phase_spec_fp32(llama):
+    """llama7b-blast at full width in fp32, 2 layers (as the ``reference``
+    phase builds it), speculative at each of ``SPEC_FRACS``: there a logit
+    moves by ~1e-6 between batch shapes, so the tokens are held to the
+    plain engine's under the 1e-4 margin alone (``near_tie``'s two-step
+    floor is far below it), and at frac 1.0 — the draft is the full model —
+    at least 90% of the drafts are accepted."""
+    from repro_torch.models import build_model
+    small = dataclasses.replace(llama, n_layers=2, param_dtype="float32",
+                                compute_dtype="float32")
+    model = build_model(small, device=DEVICE)
+    rows = phase_spec(model, model.init(SEED), "llama:fp32",
+                      serve_config(None, weights="none"),
+                      llama_per_step(small, "float"), paged=False,
+                      eager=False)
+    full = rows[SPEC_FRACS.index(1.0)]["graphs"]["acceptance_rate"]
+    if full < 0.9:
+        raise RuntimeError(f"spec llama:fp32: acceptance {full} at frac 1.0")
+
+
+def spec_llama(llama, model, params) -> None:
+    """The ``spec`` phase's llama7b-blast runs: float and int8 cache at
+    ``SPEC_LAYERS`` of ``params``' layers (float also eager and paged), the
+    round's parts at full depth through ``model`` (``spec_split``), and the
+    fp32 runs."""
+    from repro_torch import quant
+    from repro_torch.models import build_model
+    cut = dataclasses.replace(llama, n_layers=min(SPEC_LAYERS,
+                                                  llama.n_layers))
+    cut_params = {**params, "layers": params["layers"][:cut.n_layers]}
+    for mode in ("float", "int8_cache"):
+        cache = LLAMA_MODES[mode][1]
+        timed(f"spec llama:{mode}", phase_spec, build_model(
+            dataclasses.replace(cut, quant=quant.QuantConfig(cache=cache)),
+            device=DEVICE), cut_params, f"llama:{mode}",
+            serve_config(None, weights="none"), llama_per_step(cut, mode),
+            paged=mode == "float", eager=mode == "float")
+    del cut_params
+    timed("spec split llama:float", phase_spec_split, model, params,
+          serve_config(None, weights="none"))
+    timed("spec llama:fp32", phase_spec_fp32, llama)
+
+
+def _events_ms(fn, reps=20) -> float:
+    """Median device ms of ``fn`` (one graph replay) by CUDA events, the
+    device kept busy while the host enqueues it."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(a.elapsed_time(e))
+    return statistics.median(times)
+
+
+def _graph_ms(fn, reps=20) -> float:
+    """Median device ms of one replay of ``fn`` captured as a CUDA graph
+    (warmed up eagerly on the capture stream first); launches kept
+    apart."""
+    import torch
+    from repro_torch.kernels import ops
+    graph = torch.cuda.CUDAGraph()
+    capture = torch.cuda.graph(graph)
+    side = capture.capture_stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), ops.launches_apart():
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with ops.launches_apart(), capture:
+        fn()
+    ms = _events_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
+def phase_spec_split(model, params, config, context=200):
+    """The round's parts at llama7b-blast's width, each captured as a CUDA
+    graph and timed by CUDA events (median of 20 replays): 8 rows at
+    ``context`` cached tokens (kv bucket 256); one draft step (C = 1) at
+    frac 0.5 and 1.0; the verify chunk (C = 8, T = 64, logits on every
+    column); the draft resync chunk (C = 8, 3 live tokens a row) at each
+    frac; the plain decode step; and one whole captured round of an engine
+    at each frac."""
+    import torch
+    from repro_torch.kernels.flash_attention import kv_bucket
+    from repro_torch.serve import Engine, Request
+    B, S, Cv = 8, 512, 8
+    kv = kv_bucket(context + SPEC_K + 1, S)
+    steps = torch.full((B,), context, dtype=torch.int64, device=DEVICE)
+    one = torch.ones(B, dtype=torch.int64, device=DEVICE)
+    gen = torch.Generator().manual_seed(SEED)
+    tok1 = torch.randint(0, model.cfg.vocab, (B, 1), generator=gen).to(DEVICE)
+    tokv = torch.randint(0, model.cfg.vocab, (B, Cv), generator=gen).to(DEVICE)
+    cache = model.init_cache(B, S)
+    out = {"phase": "spec_split", "arch": model.cfg.name, "rows": B,
+           "context": context, "kv_len": kv, "k": SPEC_K}
+    full = model.prestack_params(params)
+    out["plain_step_ms"] = _graph_ms(lambda: model.prefill_chunk(
+        full, cache, tok1, steps, one, kv_len=kv))
+    out["verify_ms"] = _graph_ms(lambda: model.prefill_chunk(
+        full, cache, tokv, steps, one * (SPEC_K + 1), kv_len=kv,
+        all_logits=True))
+    for frac in SPEC_FRACS:
+        engine = Engine(model, params, spec_config(config, frac),
+                        device=DEVICE)
+        dp = engine.draft_params
+        out[f"draft_step_ms_frac_{frac}"] = _graph_ms(
+            lambda: model.prefill_chunk(dp, cache, tok1, steps, one,
+                                        kv_len=kv))
+        out[f"resync_ms_frac_{frac}"] = _graph_ms(
+            lambda: model.prefill_chunk(dp, cache, tokv, steps, one * 3,
+                                        kv_len=kv))
+        # one whole round, as the engine replays it
+        for i in range(B):
+            engine.submit(Request(uid=i, prompt=list(range(1, context)),
+                                  max_new_tokens=64))
+        while not engine.stats["spec_rounds"]:
+            engine.tick()
+        key = next(k for k in engine._graphs if k[0] == "spec")
+        out["round_key"] = list(key)
+        out[f"round_ms_frac_{frac}"] = _events_ms(
+            engine._graphs[key].graph.replay)
+        del engine, dp
+        torch.cuda.synchronize()
+    for frac in SPEC_FRACS:
+        out[f"round_parts_ms_frac_{frac}"] = (
+            SPEC_K * out[f"draft_step_ms_frac_{frac}"] + out["verify_ms"]
+            + out[f"resync_ms_frac_{frac}"])
+    out["nvidia_smi"] = nvidia_smi()
+    emit(out)
+    return out
 
 
 def tile_blast(kernels) -> dict:
@@ -2354,6 +2757,7 @@ def phase_dense_serving(llama, gpt2) -> dict:
     timed("paged preempt llama:float", phase_paged_preempt, models["float"],
           params, "llama:float", serve_config(None, weights="none"))
     timed("paged preempt llama:fp32", phase_paged_preempt_fp32, llama)
+    spec_llama(llama, models["float"], params)
     timed("temperature", phase_temperature, models["float"], params)
     for mode in ("float", "int8_cache"):
         for graphs in (True, False):
@@ -2402,6 +2806,10 @@ def main() -> int:
             serve_config(mode), smollm_per_step(cfg, mode), static[mode])
     timed("paged prefix none", phase_paged_prefix, model, params, "none",
           serve_config("none"))
+    for mode in ("none", "int8"):
+        timed(f"spec {mode}", phase_spec, model, params, mode,
+              serve_config(mode), smollm_per_step(cfg, mode), eager=False,
+              pad_check=True)
     for mode in MODES:
         for graphs in (True, False):
             timed(f"profile {mode}", phase_profile, model, params, mode,

@@ -149,6 +149,131 @@ def make_linear(d_in: int, d_out: int, structure: StructureConfig | None = None,
 
 
 # ---------------------------------------------------------------------------
+# Nested-rank truncation: a rank-r BLAST factor set holds every lower-rank
+# model for free — keeping a subset of the rank components of U, S and V
+# gives a cheaper model whose factors are column subsets of the full ones.
+# This is the draft side of self-speculative decoding (serve/engine.py).
+# ---------------------------------------------------------------------------
+
+_RANK_AXES = {"blast": {"U": 2, "S": 2, "V": 2}}
+
+
+def rank_kind(params) -> str | None:
+    """'blast' for a BLAST linear's param dict, else None (dense linears
+    pass truncation through).  Key-based, so it works on float and
+    quantized storage alike.  The reference's 'low_rank' kind is not a
+    ported structure (ROADMAP A7)."""
+    if not isinstance(params, dict):
+        return None
+    return "blast" if set(params) - {"bias"} == {"U", "S", "V"} else None
+
+
+def linear_rank(params) -> int | None:
+    """Rank of a rank-bearing linear (a QArray's shape is logical: ranks,
+    not packed int4 bytes)."""
+    if rank_kind(params) is None:
+        return None
+    return int(params["U"].shape[-1])
+
+
+def _as_f32(a) -> torch.Tensor:
+    return qt.dequantize(a) if qt.is_qarray(a) else a.float()
+
+
+def rank_spectrum(params) -> torch.Tensor | None:
+    """Per-component energy e_rho, the exact squared-Frobenius contribution
+    of rank component rho to the dense matrix (block rows and columns are
+    disjoint, so contributions add):
+    ``e_rho = sum_ij S[i,j,rho]^2 * |U[i,:,rho]|^2 * |V[j,:,rho]|^2``, in
+    fp32 (quantized factors are dequantized first).  None for kinds with
+    no rank axis."""
+    if rank_kind(params) is None:
+        return None
+    U, S, V = (_as_f32(params[k]) for k in ("U", "S", "V"))
+    su = torch.sum(U * U, dim=1)                      # (b, r)
+    sv = torch.sum(V * V, dim=1)                      # (b, r)
+    return torch.einsum("ijr,ir,jr->r", S * S, su, sv)
+
+
+def _gather_rank(arr: torch.Tensor, idx: torch.Tensor, axis: int,
+                 full: int) -> torch.Tensor:
+    """Gather rank components along ``axis``; axes without the full rank
+    extent (per-block scales) pass through."""
+    if arr.shape[axis] != full:
+        return arr
+    return torch.index_select(arr, axis, idx)
+
+
+def _take_rank(a, idx: torch.Tensor, axis: int, full: int):
+    """Rank-gather one factor in its storage format.  int8 QArrays gather
+    codes; their per-block scales have no rank extent and stay as they
+    are.  Packed int4 with the rank on the packed (last) axis unpacks,
+    gathers and repacks (bit-exact).  A gathered last axis gets the kept
+    rank as its ``last_dim`` (the reference keeps the full rank there for
+    int8, so its int8 draft reports the full rank in ``shape``)."""
+    if not qt.is_qarray(a):
+        return _gather_rank(a, idx, axis, full)
+    scale = _gather_rank(a.scale, idx, axis, full)
+    last = axis == a.q.ndim - 1
+    if a.bits == 4 and last:
+        v = torch.index_select(qt.int_values(a), axis, idx)
+        return qt.QArray(qt.pack_int4(v), scale, bits=4,
+                         last_dim=int(idx.shape[0]))
+    q = _gather_rank(a.q, idx, axis, full)
+    return qt.QArray(q, scale, bits=a.bits,
+                     last_dim=q.shape[-1] if last else a.last_dim)
+
+
+def truncate_rank(params, r_prime: int):
+    """Truncate a rank-bearing linear to its ``r_prime`` highest-energy
+    components; other kinds, and ``r_prime >= r``, return the params
+    unchanged.
+
+    The kept indices are sorted ascending (``sort(topk(spectrum, r'))``),
+    so full-rank truncation is the identity, and since the rank
+    contraction is permutation-invariant the truncated apply equals the
+    full apply with the dropped components zeroed.  Float, int8 and packed
+    int4 storage."""
+    if rank_kind(params) is None:
+        return params
+    full = linear_rank(params)
+    r_prime = max(1, min(int(r_prime), full))
+    if r_prime == full:
+        return dict(params)
+    idx = torch.sort(torch.topk(rank_spectrum(params), r_prime).indices).values
+    axes = _RANK_AXES["blast"]
+    return {k: (_take_rank(v, idx, axes[k], full) if k in axes else v)
+            for k, v in params.items()}
+
+
+def pad_rank(params, granule: int):
+    """A rank-bearing linear with its rank axis zero-padded to a multiple of
+    ``granule`` (exact: a zero component adds nothing; int4 pads whole
+    zero bytes, two zero codes each).  The BLAST wrappers pad each launch's
+    factors to the tile kernel's granule; a draft truncated to arbitrary
+    ranks is padded once, at load, instead."""
+    if rank_kind(params) is None:
+        return params
+    r = linear_rank(params)
+    r_pad = -(-r // granule) * granule
+    if r_pad == r:
+        return params
+
+    def pad(a):
+        if not qt.is_qarray(a):
+            return torch.nn.functional.pad(a, (0, r_pad - r))
+        if a.bits == 4:
+            width = r_pad // 2 - a.q.shape[-1]
+            return qt.QArray(torch.nn.functional.pad(a.q, (0, width)),
+                             a.scale, bits=4, last_dim=r_pad)
+        return qt.QArray(torch.nn.functional.pad(a.q, (0, r_pad - r)),
+                         a.scale, bits=a.bits, last_dim=r_pad)
+
+    return {k: (pad(v) if k in _RANK_AXES["blast"] else v)
+            for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
 # Activation mode, dispatch counter and grouped dispatch.
 # ---------------------------------------------------------------------------
 

@@ -27,6 +27,15 @@ the pool's occupancy:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --reduced --device cpu --paged --pages 16 --page-size 16 \
         --priority-classes 2 --trace
+
+``--speculative K`` decodes self-speculatively: a draft of the model's own
+factors truncated to their highest-energy ranks (``--draft-rank-frac`` of
+the pooled rank budget) proposes K tokens a round, and one verify chunk of
+the full model accepts the agreeing prefix; the launcher prints the draft's
+plan and the rounds, acceptance rate and tokens per round:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+        --reduced --device cpu --speculative 4
 """
 
 from __future__ import annotations
@@ -41,7 +50,8 @@ from repro_torch import configs
 from repro_torch.models import build_model
 from repro_torch.quant import QuantConfig, tree_nbytes
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig, Request,
-                               ResilienceConfig, SchedulerConfig)
+                               ResilienceConfig, SchedulerConfig,
+                               SpeculativeConfig)
 
 
 def parse_args(argv=None):
@@ -86,6 +96,13 @@ def parse_args(argv=None):
     ap.add_argument("--queue-high-water", type=int, default=None,
                     help="shed queued work above this many requests in "
                          "flight")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="self-speculative decoding: draft K tokens per "
+                         "round with a rank-truncated copy of the model, "
+                         "verify in one full-model chunk (0 = off)")
+    ap.add_argument("--draft-rank-frac", type=float, default=0.5,
+                    help="fraction of the pooled rank budget the draft "
+                         "keeps (--speculative)")
     ap.add_argument("--trace", action="store_true",
                     help="run the built-in multi-tenant trace and print the "
                          "SLA report")
@@ -102,6 +119,8 @@ def build_engine_config(args) -> EngineConfig:
             deadline_s=args.deadline),
         memory=MemoryConfig(max_len=args.max_len, paged=args.paged,
                             page_size=args.page_size, pages=args.pages),
+        speculative=SpeculativeConfig(k=args.speculative,
+                                      draft_rank_frac=args.draft_rank_frac),
         resilience=ResilienceConfig(queue_high_water=args.queue_high_water),
         seed=args.seed)
 
@@ -179,6 +198,11 @@ def main(argv=None) -> list[Request]:
         print(f"[serve] paged: {pc.n_pages} pages x {pc.ps} tokens "
               f"({pc.pool_tokens()} pool tokens vs "
               f"{args.slots * args.max_len} slot-static)")
+    if args.speculative:
+        plan = engine.draft_plan
+        print(f"[serve] speculative k={args.speculative}: draft keeps "
+              f"{sum(plan.values())} ranks ({len(plan)} calibrated linears, "
+              f"frac={args.draft_rank_frac}): {plan}")
     if args.trace:
         trace = make_cli_trace(cfg.vocab, n_classes=args.priority_classes,
                                max_new=args.max_new, seed=args.seed)
@@ -213,6 +237,10 @@ def main(argv=None) -> list[Request]:
           f"{tp['prefill_tok_s']:.1f} tok/s · decode "
           f"{engine.stats['decode_tokens']} toks @ {tp['decode_tok_s']:.1f} "
           "tok/s")
+    if args.speculative:
+        print(f"[serve] speculative: {tp['spec_rounds']} rounds, "
+              f"acceptance {tp['acceptance_rate']:.2f}, "
+              f"{tp['tokens_per_round']:.2f} tok/round")
     print(f"[serve] CUDA graphs captured: {engine.stats['graphs']} in "
           f"{engine.stats['capture_s']:.3f}s")
     return reqs

@@ -162,14 +162,16 @@ def ragged(steps: torch.Tensor, n_tokens: torch.Tensor, C: int, S: int,
     the spare slot past the cache's end that ``attn_cache_init`` allocates
     and nothing reads — the fixed-shape form of the reference's write
     (``src/repro/models/layers.py``: ``slot = where(valid, q_pos, S)``,
-    whose out-of-bounds writes are dropped).  Every write of a step then
-    has the shape (B, C), and the S slots end as the reference leaves
-    them."""
+    whose out-of-bounds writes are dropped).  A live column at a position
+    past the cache (a speculative round's verify near ``max_len``, whose
+    extra columns are never committed) writes the spare slot too, as the
+    reference drops its out-of-range write.  Every write of a step then has
+    the shape (B, C), and the S slots end as the reference leaves them."""
     st = steps.to(torch.int64)
     n = n_tokens.to(torch.int64)
     offs = torch.arange(C, dtype=torch.int64, device=st.device)
     q_pos = st[:, None] + offs[None, :]
-    slot = torch.where(offs[None, :] < n[:, None], q_pos,
+    slot = torch.where(offs[None, :] < n[:, None], q_pos.clamp(max=S),
                        torch.full_like(q_pos, S))
     return Ragged(steps=st.to(torch.int32), q_pos=q_pos, slot=slot,
                   last=(n - 1).clamp(0, C - 1), kv_len=kv_len)
@@ -194,16 +196,62 @@ def chunk_inputs(steps, n_tokens, B: int, C: int, S: int,
     return dev[:B], dev[B:], kv_bucket(need, S)
 
 
-def _write(leaf: torch.Tensor, rg: Ragged, new: torch.Tensor) -> None:
-    """Write a chunk's (B, C, ...) values into a (B, S, ...) cache leaf in
-    place, dead columns into its spare slot S.  The leaf is the [:, :S]
-    view ``attn_cache_init`` returns; a leaf without the spare slot makes
-    ``as_strided`` raise (out of its storage's bounds)."""
+def _with_spare(leaf: torch.Tensor) -> torch.Tensor:
+    """A (B, S, ...) cache leaf — the [:, :S] view ``attn_cache_init``
+    returns — as (B, S + 1, ...) with its spare slot; a leaf without the
+    spare slot makes ``as_strided`` raise (out of its storage's bounds)."""
     B, S = leaf.shape[:2]
-    full = leaf.as_strided((B, S + 1, *leaf.shape[2:]), leaf.stride(),
+    return leaf.as_strided((B, S + 1, *leaf.shape[2:]), leaf.stride(),
                            leaf.storage_offset())
-    rows = torch.arange(B, device=leaf.device)[:, None]
-    full[rows, rg.slot] = new.to(leaf.dtype)
+
+
+def _put(leaf: torch.Tensor, slot: torch.Tensor, new: torch.Tensor) -> None:
+    """Write (B, C, ...) values into a (B, S, ...) cache leaf in place at
+    ``slot`` (B, C); slot S is the spare slot."""
+    rows = torch.arange(leaf.shape[0], device=leaf.device)[:, None]
+    _with_spare(leaf)[rows, slot] = new.to(leaf.dtype)
+
+
+def _write(leaf: torch.Tensor, rg: Ragged, new: torch.Tensor) -> None:
+    """Write a chunk's (B, C, ...) values into a cache leaf in place, dead
+    columns into its spare slot S."""
+    _put(leaf, rg.slot, new)
+
+
+def window_slots(steps: torch.Tensor, C: int, S: int) -> torch.Tensor:
+    """The slots (B, C) of a C-column write window at ``steps`` (B,) in a
+    cache of S slots: column i at position steps + i, a position past the
+    cache at the spare slot S (as ``ragged`` sends it)."""
+    offs = torch.arange(C, dtype=torch.int64, device=steps.device)
+    return (steps.to(torch.int64)[:, None] + offs[None, :]).clamp(max=S)
+
+
+def kv_cache_window(cache: Params, slot: torch.Tensor) -> Params:
+    """A copy of what every leaf of a layer's cache holds at ``slot``
+    (B, C): what a chunk written there will overwrite."""
+    rows = torch.arange(slot.shape[0], device=slot.device)[:, None]
+    return {name: _with_spare(leaf)[rows, slot]
+            for name, leaf in cache.items()}
+
+
+def kv_cache_rollback(cache: Params, saved: Params, slot: torch.Tensor,
+                      n_comm: torch.Tensor) -> Params:
+    """Rewind a layer's cache, in place, to the first ``n_comm`` (B,)
+    columns of a chunk written in the window ``slot`` (B, C): every later
+    column gets back what ``kv_cache_window`` saved there before the
+    chunk — bit-identical to having written only ``n_comm`` tokens.  The
+    reference rebuilds its immutable cache instead
+    (``src/repro/models/layers.py``: ``where(pos > steps + n_comm - 1, old,
+    new)``); writing the pre-chunk values back is its in-place form, and
+    stays exact for a ring cache, where a rejected column may have
+    overwritten a live slot (a reset to the template would not).  Kept
+    columns rewrite the spare slot S."""
+    offs = torch.arange(slot.shape[1], device=slot.device)
+    back = torch.where(offs[None, :] < n_comm.to(slot.device)[:, None],
+                       torch.full_like(slot, cache["pos"].shape[1]), slot)
+    for name, leaf in cache.items():
+        _put(leaf, back, saved[name])
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@
 FFN and RMSNorm or LayerNorm, RoPE or learned positions, a tied embedding
 or an untied dense vocab head, the full-sequence forward ``apply``
 (training, prefill) and the chunked cached step ``prefill_chunk`` the engine
-drives, over a float or int8 KV cache.
+drives, over a float or int8 KV cache, and the nested-rank draft of
+self-speculative decoding (``rank_spectra``, ``draft_plan``,
+``truncate_params``, ``pad_ranks``) with the all-logits verify and its
+in-place rollback (``cache_window``, ``rollback_cache``).
 
 The reference scans over layer params stacked on a leading axis; here the
 params hold a list of per-layer dicts and each pass is a Python loop
@@ -22,6 +25,8 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import structures
+from repro_torch.core.compress import calibrate_ranks
 from repro_torch.core.structures import make_linear
 from repro_torch.models import layers as L
 from repro_torch.models import ops
@@ -89,6 +94,14 @@ def block_prefill(spec: BlockSpec, params: Params, cache: Params,
     return x + L.ffn_apply(spec.ffn, params["ffn"], h)
 
 
+def block_cache_rollback(spec: BlockSpec, cache: Params, saved: Params,
+                         slot: torch.Tensor, n_comm: torch.Tensor) -> Params:
+    """Rewind one block's cache, in place, after a speculative verify chunk
+    written in the window ``slot``: keep its first ``n_comm`` tokens, give
+    the rest back what ``saved`` holds (``layers.kv_cache_rollback``)."""
+    return L.kv_cache_rollback(cache, saved, slot, n_comm)
+
+
 def block_cache_axes(spec: BlockSpec) -> dict[str, tuple]:
     """Axis names of one layer's cache leaves (the layer's cache is its
     attention cache: batch axis 0, ``kv_seq`` axis 1)."""
@@ -105,6 +118,22 @@ def block_quantize(spec: BlockSpec, params: Params, bits: int = 8) -> Params:
 
 def block_prestack(spec: BlockSpec, params: Params) -> Params:
     return {**params, "ffn": L.ffn_prestack(spec.ffn, params["ffn"])}
+
+
+def _map_linears(tree, fn, path: str = ""):
+    """``tree`` with every rank-bearing linear ``lin`` replaced by
+    ``fn(path, lin)``; a linear's path joins its keys with dots, and the
+    per-layer list adds none, so one linear of every layer shares its path
+    (``layers.mixer.qkv``).  Other leaves (a prestacked ``GroupBundle``
+    too) pass through."""
+    if structures.rank_kind(tree) is not None:
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: _map_linears(v, fn, f"{path}.{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_linears(v, fn, path) for v in tree]
+    return tree
 
 
 class LM:
@@ -178,6 +207,68 @@ class LM:
         return {**params, "layers": [block_prestack(s, p) for s, p in
                                      zip(self.specs, params["layers"])]}
 
+    # -- nested-rank drafts (self-speculative decoding) ------------------------
+
+    def rank_spectra(self, params: Params) -> dict[str, torch.Tensor]:
+        """Name → fp32 energy spectrum of every rank-bearing linear, a name
+        for each linear of a layer (``layers.mixer.qkv``, ``layers.mixer.out``,
+        ``layers.ffn.gate``, ``layers.ffn.up``, ``layers.ffn.wo``; the
+        reference's ``cycles.blk_0.…``, ``weights.plan_from_jax``), its
+        spectra averaged over the layers in fp32 as the reference's
+        ``jnp.mean`` over its scan axis does: one rank serves every layer."""
+        found: dict[str, list] = {}
+
+        def collect(path, lin):
+            found.setdefault(path, []).append(structures.rank_spectrum(lin))
+            return lin
+
+        _map_linears(params, collect)
+        return {k: torch.stack(v).mean(dim=0) for k, v in found.items()}
+
+    def draft_plan(self, params: Params, frac: float) -> dict[str, int]:
+        """Per-linear draft ranks: the globally highest-energy ~``frac`` of
+        the pooled rank budget (``core/compress.py::calibrate_ranks``).  Run
+        once at engine load."""
+        spectra = self.rank_spectra(params)
+        return calibrate_ranks(
+            {k: v.cpu().numpy() for k, v in spectra.items()}, frac)
+
+    def truncate_params(self, params: Params, plan: dict) -> Params:
+        """The draft model: every planned linear truncated to its r' (each
+        layer keeps its own highest-energy components).  The draft's
+        factors are column subsets of the full ones (the paper's nesting
+        property); the apply paths read ranks from the factors' shapes."""
+        return _map_linears(params, lambda path, lin: (
+            lin if path not in plan else
+            structures.truncate_rank(lin, plan[path])))
+
+    def pad_ranks(self, params: Params, granule: int) -> Params:
+        """Every rank-bearing linear zero-padded to a multiple of ``granule``
+        ranks (``structures.pad_rank``: exact)."""
+        return _map_linears(params,
+                            lambda _, lin: structures.pad_rank(lin, granule))
+
+    def cache_window(self, cache: list[Params], steps: torch.Tensor,
+                     C: int) -> list[Params]:
+        """A copy of what every layer's cache holds in the C-column window
+        at ``steps`` (B,), taken before a chunk that ``rollback_cache`` may
+        rewind writes there."""
+        slot = L.window_slots(steps, C, cache[0]["pos"].shape[1])
+        return [L.kv_cache_window(c, slot) for c in cache]
+
+    def rollback_cache(self, cache: list[Params], saved: list[Params],
+                       steps: torch.Tensor, n_comm: torch.Tensor) -> list:
+        """Rewind, in place, a chunk written at ``steps`` to its first
+        ``n_comm[b]`` tokens per row — bit-identical to having fed exactly
+        those tokens.  ``saved``: ``cache_window`` of the chunk's window,
+        taken before it (the reference's ``rollback_cache(old, new, steps,
+        n_comm)`` takes the whole pre-chunk cache)."""
+        slot = L.window_slots(steps, saved[0]["pos"].shape[1],
+                              cache[0]["pos"].shape[1])
+        for spec, c, sv in zip(self.specs, cache, saved):
+            block_cache_rollback(spec, c, sv, slot, n_comm)
+        return cache
+
     # -- full-sequence forward --------------------------------------------------
 
     def apply(self, params: Params, tokens=None, embeds=None, *,
@@ -233,8 +324,8 @@ class LM:
 
     @torch.no_grad()
     def prefill_chunk(self, params: Params, cache: list[Params], tokens,
-                      steps, n_tokens=None, kv_len: int | None = None
-                      ) -> tuple[torch.Tensor, list]:
+                      steps, n_tokens=None, kv_len: int | None = None, *,
+                      all_logits: bool = False) -> tuple[torch.Tensor, list]:
         """Multi-token cached step — the serving entry point.
 
         tokens: (B, C) int; steps: (B,) absolute position of each row's first
@@ -242,7 +333,10 @@ class LM:
         consumes tokens[b, :n_tokens[b]] and writes its cache at
         steps[b]..steps[b]+n_tokens[b]-1 (in place); trailing columns are
         padding.  Returns (logits (B, 1, V) of each row's last live column,
-        cache).  C=1 with n_tokens=1 is a decode step.
+        cache).  C=1 with n_tokens=1 is a decode step.  With ``all_logits``
+        the head runs on every column: logits (B, C, V), column i predicting
+        the token at position steps + i + 1 (a speculative verify scores k
+        drafts in one chunk).
 
         With ``kv_len`` (a host int, ``flash_attention.kv_bucket`` of the
         largest live position + 1) the three inputs are tensors on the
@@ -265,7 +359,8 @@ class LM:
             x = x + params["pos"][rg.q_pos.clamp(0, self.cfg.max_seq - 1)]
         for spec, p, c in zip(self.specs, params["layers"], cache):
             x = block_prefill(spec, p, c, x, rg)
-        x = x[torch.arange(B, device=x.device), rg.last][:, None]  # (B, 1, d)
+        if not all_logits:
+            x = x[torch.arange(B, device=x.device), rg.last][:, None]
         return self._head(params, x), cache
 
     def decode_step(self, params: Params, cache: list[Params], tokens,

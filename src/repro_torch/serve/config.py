@@ -7,6 +7,9 @@ grouped sub-configs instead of the flat constructor keywords.
   * ``MemoryConfig``   — cache geometry: ``max_len`` per request, and the
     paged-allocator knobs (``paged``, ``pages``, ``page_size``,
     ``prefix_sharing``) of ``serve/paged.py``.
+  * ``SpeculativeConfig`` — self-speculative decoding: ``k`` draft
+    tokens a round (0: off) from the model's own factors truncated to
+    ``draft_rank_frac`` of the pooled rank budget.
   * ``ResilienceConfig`` — the overflow shedding bound.
   * ``quant`` — a ``QuantConfig`` override (weights and activations; the
     cache codec is a model-construction knob).
@@ -49,6 +52,12 @@ class MemoryConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpeculativeConfig:
+    k: int = 0                  # draft tokens per round (0 = off)
+    draft_rank_frac: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
 class ResilienceConfig:
     """Failure-handling knobs.  This slice reads only ``queue_high_water``:
     above that many requests in flight, the lowest-priority newest queued
@@ -62,6 +71,8 @@ class ResilienceConfig:
 class EngineConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     memory: MemoryConfig = dataclasses.field(default_factory=MemoryConfig)
+    speculative: SpeculativeConfig = dataclasses.field(
+        default_factory=SpeculativeConfig)
     resilience: ResilienceConfig = dataclasses.field(
         default_factory=ResilienceConfig)
     # overrides the model's ``cfg.quant`` when given: weights are quantized

@@ -57,11 +57,28 @@ seed gives the same tokens on the same device and schedule.  The reference
 draws with ``jax.random.categorical`` from its own key; that stream is not
 reproduced bit for bit, only its distribution.
 
-Not ported yet: speculation and the paged speculative round (ROADMAP A6),
-state leaves and their snapshot slots (A7), resilience (guardrail, health,
-watchdog, fault injection, step-error requeues, ``healthz``) and the HTTP
-frontend (A8), serving over a device mesh (A9) and autotune (A12).  The
-reference's legacy flat constructor keywords are not kept: an
+Self-speculative decoding (``EngineConfig.speculative``, k > 0): the
+draft is the model itself with every BLAST linear truncated to its
+highest-energy ranks (``LM.draft_plan``, ``truncate_params``: the paper's
+nested ranks), with a slot-static cache of its own (also in paged mode).
+When every active slot is in greedy decode, an iteration is one round
+(``_spec_round``): k single-token draft steps, one verify chunk of the
+full model over [current token, k drafts] with logits on every column,
+the longest agreeing draft prefix plus the verifier's next token committed
+(at most the row's budget), the verify's cache rolled back past it, and a
+draft resync chunk over the committed tokens.  The verifier's argmax
+decides every emitted token, so greedy outputs equal plain decoding's.
+Other iterations run the plain step and replay the same chunk through the
+draft on its cache.  On the card the whole round is one CUDA graph per kv
+bucket (paged: per (kv, F, M), around the gather and scatter of the
+round's pages), and its token ids come back in one copy.
+
+Not ported yet: state leaves and their snapshot slots, with the round's
+recurrent-state snapshots (ROADMAP A7), resilience (guardrail, health,
+watchdog, fault injection, step-error requeues, ``healthz``, the round's
+logit health check and its ``spec_off`` rung) and the HTTP frontend (A8),
+serving over a device mesh (A9) and autotune with the draft's warm-up
+(A12).  The reference's legacy flat constructor keywords are not kept: an
 ``EngineConfig`` is the one way to configure the engine.
 """
 
@@ -79,6 +96,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import structures
+from repro_torch.kernels import blast_matmul as kbm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import kv_bucket
 from repro_torch.quant import qarray as qt
@@ -138,10 +156,11 @@ def _bucket(n: int) -> int:
 
 @dataclasses.dataclass
 class _Graph:
-    """One captured step: its graph, its logits (graph memory, rewritten by
-    every replay) and the kernel launches one replay makes."""
+    """One captured step: its graph, its output (logits, or a round's token
+    ids: graph memory, rewritten by every replay) and the kernel launches
+    one replay makes."""
     graph: torch.cuda.CUDAGraph
-    logits: torch.Tensor
+    out: torch.Tensor
     launches: dict
 
 
@@ -152,8 +171,8 @@ class Engine:
         cuda; raises without a GPU unless ``device="cpu"``).  ``config``:
         an ``EngineConfig`` (default ``EngineConfig()``).  ``step_fn``
         replaces ``model.prefill_chunk`` (same signature: device tensors
-        and ``kv_len=``) and runs eagerly every step — e.g. to observe
-        every step's logits."""
+        and ``kv_len=``; with speculation also ``all_logits=``) and runs
+        eagerly every step — e.g. to observe every step's logits."""
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"engine device {dev} != model device "
@@ -193,6 +212,25 @@ class Engine:
         else:
             self.cache = model.init_cache(self.B, mem.max_len)
         self.slots = [_Slot() for _ in range(self.B)]
+        # -- the speculative draft: the model's own factors at the ranks
+        # of the plan, calibrated on the (quantized) weights before the
+        # pre-stack, as the reference orders them
+        spec = config.speculative
+        self.spec_k = max(0, int(spec.k))
+        self.draft_rank_frac = float(spec.draft_rank_frac)
+        self._cv = _bucket(self.spec_k + 1)    # the verify chunk's width
+        if self.spec_k:
+            self.draft_plan = model.draft_plan(params, self.draft_rank_frac)
+            draft = model.truncate_params(params, self.draft_plan)
+            if dev.type == "cuda":
+                # arbitrary draft ranks, padded to the tile kernel's rank
+                # granule once here: each launch would pad a copy otherwise
+                draft = model.pad_ranks(draft, kbm.float_tiles()[1])
+            self.draft_params = (model.prestack_params(draft)
+                                 if config.prestack else draft)
+            # slot-static in paged mode too: every round rewinds it, so it
+            # holds no prefix worth sharing
+            self.draft_cache = model.init_cache(self.B, mem.max_len)
         self._rr = 0
         self.queue: list = []   # heap of (prio_key, seq, Request)
         self._seq = 0
@@ -202,18 +240,21 @@ class Engine:
                         else None)
         self._pool = None                   # the graphs' shared memory pool
         # static inputs, one int64 buffer: tokens (B, C) of every C bucket
-        # share the first B·C entries, then steps (B,) and n_tokens (B,);
+        # share the first B·C entries, then steps (B,), n_tokens (B,) and
+        # budget (B,) (a round's current tokens, positions, live flags and
+        # token budgets are tokens[:, 0], steps, n_tokens and budget);
         # paged, then the page table (B·g of a gather of g pages a row),
         # fresh pages (F), and the triples' rows, logical and physical
         # pages (M each) of every F and M bucket
         self._cmax = _bucket(self.chunk)
-        off = self.B * (self._cmax + 2)
+        off = self.B * (self._cmax + 3)
         size = off
         if self._pc is not None:
             pc = self._pc
-            # a write window of ≤ chunk tokens spans ≤ (chunk-1)//ps + 2 pages
-            self._mmax = _bucket(self.B * min(
-                pc.n_pp, (self.chunk - 1) // pc.ps + 2))
+            # a write window of w tokens spans ≤ (w-1)//ps + 2 pages; a
+            # round's window is k + 1 tokens
+            w = max(self.chunk, self.spec_k + 1)
+            self._mmax = _bucket(self.B * min(pc.n_pp, (w - 1) // pc.ps + 2))
             self._offs = {"table": off,
                           "fresh": off + self.B * pc.n_pp}
             for i, name in enumerate(("rows", "lps", "phys")):
@@ -235,7 +276,11 @@ class Engine:
                       # multi-tenant serving signals
                       "preemptions": 0, "prefix_hit_tokens": 0,
                       "prompt_tokens_submitted": 0, "queue_depth": [],
-                      "shed": 0, "deadline_expired": 0}
+                      "shed": 0, "deadline_expired": 0,
+                      # speculative rounds: rounds, drafted, accepted and
+                      # emitted tokens
+                      "spec_rounds": 0, "spec_drafted": 0,
+                      "spec_accepted": 0, "spec_emitted": 0}
         # async streaming state
         self._lock = threading.Lock()
         self._streams: dict[int, tuple[Request, asyncio.Queue]] = {}
@@ -409,13 +454,22 @@ class Engine:
                     self._streams.pop(req.uid, None)
 
     def throughput(self) -> dict:
-        """Prefill / decode tokens-per-second split from engine stats."""
+        """Prefill / decode tokens-per-second split from engine stats; with
+        speculation also the rounds, the share of drafts accepted and the
+        tokens a round emits."""
         s = self.stats
-        return {"steps": s["steps"],
-                "prefill_tok_s": (s["prefill_tokens"] / s["prefill_time"]
-                                  if s["prefill_time"] else 0.0),
-                "decode_tok_s": (s["decode_tokens"] / s["decode_time"]
-                                 if s["decode_time"] else 0.0)}
+        out = {"steps": s["steps"],
+               "prefill_tok_s": (s["prefill_tokens"] / s["prefill_time"]
+                                 if s["prefill_time"] else 0.0),
+               "decode_tok_s": (s["decode_tokens"] / s["decode_time"]
+                                if s["decode_time"] else 0.0)}
+        if self.spec_k:
+            out["spec_rounds"] = s["spec_rounds"]
+            out["acceptance_rate"] = (s["spec_accepted"] / s["spec_drafted"]
+                                      if s["spec_drafted"] else 0.0)
+            out["tokens_per_round"] = (s["spec_emitted"] / s["spec_rounds"]
+                                       if s["spec_rounds"] else 0.0)
+        return out
 
     def overloaded(self) -> bool:
         """Admission-control signal: requests in flight at or above
@@ -491,21 +545,36 @@ class Engine:
         self.stats["queue_depth"].append(len(self.queue))
         if not any(s.req for s in self.slots):
             return bool(self.queue)
-        self._advance()
+        if self.spec_k and self._spec_eligible():
+            self._advance_spec()
+        else:
+            self._advance()
         return True
 
+    def _spec_eligible(self) -> bool:
+        """A round runs only when every active slot is in greedy decode:
+        prompt fed, one token sampled, temperature 0 (the accept rule's
+        exactness needs argmax on both sides)."""
+        active = [s for s in self.slots if s.req is not None]
+        return bool(active) and all(
+            not s.to_feed and s.req.output and s.req.temperature == 0
+            for s in active)
+
     def _reset_slot(self, b: int):
-        """Restore row b of every leaf of every slot-static layer cache to
-        its initial state: pos = -1, and K, V (float, or int8 codes and
-        their scales) = 0.  The attention kernel masks by slot index and
-        relies on a fresh row (reference: ``_reset_slot`` restores the
-        template).  Paged, a row holds no state of its own: its pages are
-        freed, and a recycled page is reset when it is allocated."""
-        if self._pc is not None:
-            return
-        for c in self.cache:
-            for name, leaf in c.items():
-                leaf[b].fill_(-1 if name == "pos" else 0)
+        """Restore row b of every leaf of every slot-static layer cache, the
+        draft's included, to its initial state: pos = -1, and K, V (float,
+        or int8 codes and their scales) = 0.  The attention kernel masks by
+        slot index and relies on a fresh row (reference: ``_reset_slot``
+        restores the template).  Paged, a row of the pool holds no state of
+        its own: its pages are freed, and a recycled page is reset when it
+        is allocated; the draft's cache is slot-static in both modes."""
+        caches = [] if self._pc is not None else [self.cache]
+        if self.spec_k:
+            caches.append(self.draft_cache)
+        for cache in caches:
+            for c in cache:
+                for name, leaf in c.items():
+                    leaf[b].fill_(-1 if name == "pos" else 0)
 
     def _release_slot(self, b: int):
         """Free everything a departing request holds: its pages and its
@@ -771,28 +840,100 @@ class Engine:
 
     # -- the step ----------------------------------------------------------------
 
-    def _views(self, C: int):
-        """(tokens (B, C), steps (B,), n_tokens (B,)) of the static inputs."""
+    def _views(self, C: int, buf=None):
+        """(tokens (B, C), steps (B,), n_tokens (B,), budget (B,)) of the
+        static inputs on the device, or views of ``buf`` (the pinned host
+        buffer's numpy view) laid out alike."""
         B, off = self.B, self.B * self._cmax
-        d = self._inputs
-        return d[:B * C].view(B, C), d[off:off + B], d[off + B:off + 2 * B]
+        d = self._inputs if buf is None else buf
+        return (d[:B * C].reshape(B, C), d[off:off + B],
+                d[off + B:off + 2 * B], d[off + 2 * B:off + 3 * B])
 
     def _device_step(self, key: tuple) -> torch.Tensor:
-        """The step at bucket ``key`` on the static inputs → logits
-        (B, 1, V); paged, the step around the page operands."""
+        """The step at bucket ``key`` on the static inputs → its output:
+        logits (B, 1, V) of a chunk (C, kv), or a round's token ids
+        (``"spec"``, kv: ``_spec_round``); paged, around the page
+        operands."""
         C, kv = key[:2]
-        args = (self.params, *self._views(C))
+        if C == "spec":
+            def inner(cache):
+                return self._spec_round(cache, kv)
+        else:
+            tokens, steps, n, _ = self._views(C)
+
+            def inner(cache):
+                logits, _ = self._step(self.params, cache, tokens, steps, n,
+                                       kv_len=kv)
+                if self.spec_k:
+                    # keep the draft's cache in step: the same chunk
+                    # through the draft
+                    self._step(self.draft_params, self.draft_cache, tokens,
+                               steps, n, kv_len=kv)
+                return logits
         if self._pc is None:
-            logits, self.cache = self._step(args[0], self.cache, *args[1:],
-                                            kv_len=kv)
-            return logits
+            return inner(self.cache)
         F, M = key[2:]
         d, o = self._inputs, self._offs
         g = self._pc.gather_pages(kv)
         return self._pc.step(
-            self._step, *args, kv, d[o["table"]:o["table"] + self.B * g],
+            inner, d[o["table"]:o["table"] + self.B * g],
             d[o["fresh"]:o["fresh"] + F], d[o["rows"]:o["rows"] + M],
             d[o["lps"]:o["lps"] + M], d[o["phys"]:o["phys"] + M])
+
+    def _spec_round(self, cache: list, kv: int) -> torch.Tensor:
+        """One draft-verify round on the static inputs (``_views``: current
+        token ``tokens[:, 0]``, positions ``steps``, live flags in
+        ``n_tokens``, token budgets), over the target cache ``cache`` (the
+        slot-static cache or the paged view) and the draft's cache, every
+        chunk at kv bucket ``kv``.  The reference's ``_make_spec_round``:
+
+          draft    k C=1 steps of the draft model → d_1..d_k (greedy)
+          verify   one all-logits chunk of the full model over
+                   [t0, d_1..d_k, pad] (width Cv = bucket(k + 1)): column
+                   i's argmax g_i is what plain decoding samples after
+                   t0..d_i
+          accept   n_acc = the longest prefix with d_{i+1} = g_i; the row
+                   commits n_comm = min(n_acc + 1, budget) tokens (the
+                   accepted drafts and the bonus g_{n_acc})
+          commit   the verify's cache rolled back to n_comm tokens, and a
+                   draft resync chunk over the same columns at n_tokens =
+                   n_comm
+
+        The reference drafts on a copy of the draft's cache that it throws
+        away, and only the resync writes the kept one.  Here every chunk
+        writes in place, so the draft's window is saved before the draft
+        steps and rolled back after the resync, as the verify's is: both
+        caches end bit for bit as the reference leaves them.  Returns the
+        round's token ids (B, k + Cv + 2) int64: drafts, the verify's
+        greedy tokens, n_acc and n_comm."""
+        model, k, Cv, step = self.model, self.spec_k, self._cv, self._step
+        tokens, steps, live, budget = self._views(1)
+        cur = tokens[:, 0]
+        dsaved = model.cache_window(self.draft_cache, steps, Cv)
+        tok, drafts = cur, []
+        for i in range(k):
+            logits, _ = step(self.draft_params, self.draft_cache,
+                             tok[:, None], steps + i, live, kv_len=kv)
+            tok = torch.argmax(logits[:, 0], dim=-1)
+            drafts.append(tok)
+        draft = torch.stack(drafts, dim=1)                       # (B, k)
+        vt = torch.cat([tokens, draft,
+                        draft.new_zeros((self.B, Cv - k - 1))], dim=1)
+        saved = model.cache_window(cache, steps, Cv)
+        logits, _ = step(self.params, cache, vt, steps, live * (k + 1),
+                         kv_len=kv, all_logits=True)
+        greedy = torch.argmax(logits, dim=-1)                    # (B, Cv)
+        miss = draft != greedy[:, :k]
+        n_acc = torch.where(miss.any(dim=1),
+                            torch.argmax(miss.to(torch.int32), dim=1),
+                            torch.full_like(cur, k))
+        n_comm = torch.minimum(n_acc + 1, budget) * live
+        model.rollback_cache(cache, saved, steps, n_comm)
+        step(self.draft_params, self.draft_cache, vt, steps, n_comm,
+             kv_len=kv)
+        model.rollback_cache(self.draft_cache, dsaved, steps, n_comm)
+        return torch.cat([draft, greedy, n_acc[:, None], n_comm[:, None]],
+                         dim=1)
 
     def _dead_inputs(self) -> None:
         """Static inputs of a step that changes no state: every row dead,
@@ -829,28 +970,29 @@ class Engine:
         try:
             with (structures.activations(self.act_mode),
                   kops.launches_apart() as made, capture):
-                logits = self._device_step(key)
+                out = self._device_step(key)
         except RuntimeError as exc:
-            where = f"C={key[0]}, kv_len={key[1]}"
+            where = ("spec round" if key[0] == "spec" else f"C={key[0]}")
+            where += f", kv_len={key[1]}"
             if len(key) > 2:
                 where += f", F={key[2]}, M={key[3]}"
             raise RuntimeError(
                 f"capturing the engine's step as a CUDA graph failed at "
                 f"bucket {where}") from exc
-        self._graphs[key] = _Graph(graph, logits, made)
+        self._graphs[key] = _Graph(graph, out, made)
         self.stats["graphs"] += 1
         self.stats["capture_s"] += time.perf_counter() - t0
 
     def _run_step(self, key: tuple) -> torch.Tensor:
-        """The step on the static inputs → logits (B, 1, V): a replay of
-        the bucket's graph, or the step run eagerly."""
+        """The step on the static inputs → its output (``_device_step``): a
+        replay of the bucket's graph, or the step run eagerly."""
         if self._graphs is None:
             with structures.activations(self.act_mode):
                 return self._device_step(key)
         g = self._graphs[key]
         g.graph.replay()
         kops.add_launches(g.launches)
-        return g.logits
+        return g.out
 
     def _advance(self):
         n = self._schedule()
@@ -861,13 +1003,10 @@ class Engine:
                     self._finish_slot(b, "capacity")
             return
         B, C = self.B, _bucket(int(n.max()))
-        off = B * self._cmax
-        host = self._host_np
-        host[:B * C] = 0
-        tokens = host[:B * C].reshape(B, C)
-        steps = host[off:off + B]
+        tokens, steps, n_host, _ = self._views(C, self._host_np)
+        tokens[:] = 0
         steps[:] = 0
-        host[off + B:off + 2 * B] = n
+        n_host[:] = n
         sampling = [False] * B
         prompt_toks = decode_toks = need = 0
         for b, slot in enumerate(self.slots):
@@ -929,6 +1068,116 @@ class Engine:
                 self._finish_slot(
                     b, "length" if len(req.output) >= req.max_new_tokens
                     else "capacity")
+
+    def _advance_spec(self):
+        """One draft-verify round (``_spec_round``) for every active slot,
+        each in greedy decode at cache length ``pos`` with its last output
+        not yet fed.  A row's budget clamps what it may commit to its
+        request's remaining tokens and its cache headroom.
+
+        Paged, each live row's write window (min(k + 1, budget) tokens) is
+        allocated first (``_alloc_spec``); when the pool cannot hold one,
+        the iteration runs the plain step instead, which can shrink to one
+        token or preempt.  After the commit, pages wholly past a row's new
+        length return to the pool: the round already rewound their
+        contents in the view, so nothing stale is scattered."""
+        k, Cv = self.spec_k, self._cv
+        tokens, steps, live, budget = self._views(1, self._host_np)
+        for a in (tokens, steps, live, budget):
+            a[:] = 0
+        for b, slot in enumerate(self.slots):
+            if slot.req is not None:
+                req = slot.req
+                tokens[b, 0] = req.output[-1]
+                steps[b] = slot.pos
+                live[b] = 1
+                budget[b] = min(req.max_new_tokens - len(req.output),
+                                self.max_len - 1 - slot.pos)
+        plans = None
+        if self._pc is not None:
+            plans = self._alloc_spec(live, steps, budget)
+            if plans is None:
+                self._advance()       # pool pressure: the plain path
+                return
+        # the verify's columns reach steps + k; past the cache they are
+        # never committed and write the spare slot (layers.ragged)
+        need = int((steps + k + 1)[live > 0].max())
+        key = ("spec", kv_bucket(need, self.max_len))
+        if self._pc is not None:
+            key += self._pack_plans(plans, self._pc.gather_pages(key[1]))
+        if self._graphs is not None and key not in self._graphs:
+            self._capture(key)
+        t0 = time.perf_counter()
+        self._inputs.copy_(self._host, non_blocking=True)
+        out = self._run_step(key).cpu().numpy()       # syncs: one copy
+        dt = time.perf_counter() - t0
+        draft, greedy = out[:, :k], out[:, k:k + Cv]
+        n_acc, n_comm = out[:, k + Cv], out[:, k + Cv + 1]
+        on = live > 0
+        emitted = int(n_comm[on].sum())
+        s = self.stats
+        s["steps"] += 1
+        s["decode_tokens"] += emitted
+        s["decode_time"] += dt
+        s["step_s"].append(dt)
+        s["decode_step_s"].append(dt)
+        s["spec_rounds"] += 1
+        s["spec_drafted"] += k * int(on.sum())
+        s["spec_accepted"] += int(n_acc[on].sum())
+        s["spec_emitted"] += emitted
+        for b, slot in enumerate(self.slots):
+            if slot.req is None or not on[b]:
+                continue
+            req, n = slot.req, int(n_comm[b])
+            # the accepted drafts, and the verifier's token at the first
+            # miss when the budget leaves room for it
+            toks = [int(t) for t in draft[b, :min(n, int(n_acc[b]))]]
+            if n == int(n_acc[b]) + 1:
+                toks.append(int(greedy[b, n_acc[b]]))
+            for t in toks:
+                self._emit(req, t)
+            slot.pos += n
+            if self._pc is not None:
+                self._pc.free_beyond(b, slot.pos)
+            if (len(req.output) >= req.max_new_tokens
+                    or slot.pos >= self.max_len - 1):
+                self._finish_slot(
+                    b, "length" if len(req.output) >= req.max_new_tokens
+                    else "capacity")
+
+    def _alloc_spec(self, live, steps, budget) -> list | None:
+        """Allocate each live row's round window, escalating as ``_alloc``
+        does (evict cold prefix entries, then preempt a strictly
+        lower-priority victim, whose row turns dead).  Returns the plans,
+        or None after rolling back every allocation made here when the
+        pool cannot hold some window (the caller runs the plain step)."""
+        pc = self._pc
+        plans = [([], []) for _ in range(self.B)]
+        allocated: set[int] = set()
+        for b in range(self.B):
+            if not live[b]:
+                continue
+            window = min(self.spec_k + 1, int(budget[b]))
+            while True:
+                plan = pc.plan_writes(b, int(steps[b]), window)
+                if plan is not None:
+                    plans[b] = plan
+                    allocated.add(b)
+                    break
+                if pc.evict_one(require_free=True):
+                    continue
+                v = self._victim(self._prio(self.slots[b].req),
+                                 allocated | {b})
+                if v is not None:
+                    self._preempt(v)
+                    live[v] = 0
+                    continue
+                for ob in allocated:   # roll back: never-reset fresh pages
+                    for p in plans[ob][0]:
+                        pc.pages.deref(p)
+                        pc.tables[ob, np.where(pc.tables[ob] == p)[0]] = 0
+                return None
+        return plans
 
     def _emit(self, req: Request, tok: int):
         if not req.output:

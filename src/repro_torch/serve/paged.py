@@ -24,7 +24,8 @@ of a step's fresh list and write triples point at it, in place of the
 reference's out-of-range indices that ``mode="drop"`` discards, so no
 index ever leaves the tensor on the card; nothing reads the sink.
 
-The step (``step``), as the reference's ``make_step``:
+The step (``step``), as the reference's ``make_step`` and
+``make_spec_step``:
 
   1. reset freshly allocated pages to the template (a recycled page
      carries the previous owner's ``pos`` values),
@@ -32,7 +33,7 @@ The step (``step``), as the reference's ``make_step``:
      ``(layers, B, max_len + 1, ...)`` per leaf name, whose ``[l, :, :max_len]``
      slices are the per-layer cache ``prefill_chunk`` takes; slot max_len
      is the spare slot the step's dead columns write (``layers.ragged``),
-  3. run ``prefill_chunk`` on that view,
+  3. run ``prefill_chunk``, or a speculative round, on that view,
   4. scatter back only the pages inside each row's write window.
 
 The gather covers the pages below the step's kv bucket (``kv_len``,
@@ -223,21 +224,23 @@ class PagedCache:
         """Pages per row the step at kv bucket ``kv_len`` gathers."""
         return -(-kv_len // self.ps)
 
-    def step(self, step_fn, params, tokens, steps, n_tokens, kv_len: int,
-             table, fresh, rows, lps, phys) -> torch.Tensor:
-        """reset fresh pages → gather → ``step_fn`` → scatter the write
-        windows; returns the step's logits.  ``table``: (B·g,) page ids of
-        each row's first g = ``gather_pages(kv_len)`` logical pages;
-        ``fresh`` (F,): pages to reset; ``rows``, ``lps``, ``phys`` (M,):
-        the (row, logical page) → physical page triples to write back.
-        Padding entries of ``fresh`` and ``phys`` point at the sink page
-        ``n_pages``.  Every index is a device tensor of fixed shape, and
-        the step does no host work."""
+    def step(self, fn, table, fresh, rows, lps, phys):
+        """reset fresh pages → gather → ``fn(view)`` → scatter the write
+        windows; returns what ``fn`` returns.  ``fn`` runs on the view: a
+        ``prefill_chunk`` (the reference's ``make_step``) or a speculative
+        round (``make_spec_step``: its rollback rewinds the view, so the
+        scatter of the whole k+1-token window writes rejected positions
+        back with their pre-round bytes).  ``table``: (B·g,) page ids of
+        each row's first g = ``gather_pages(kv_len)`` logical pages, kv_len
+        the kv bucket ``fn`` attends to; ``fresh`` (F,): pages to reset;
+        ``rows``, ``lps``, ``phys`` (M,): the (row, logical page) →
+        physical page triples to write back.  Padding entries of ``fresh``
+        and ``phys`` point at the sink page ``n_pages``.  Every index is a
+        device tensor of fixed shape, and the step does no host work."""
         self.gather(table, fresh)
-        logits, _ = step_fn(params, self.view, tokens, steps, n_tokens,
-                            kv_len=kv_len)
+        out = fn(self.view)
         self.scatter(rows, lps, phys)
-        return logits
+        return out
 
     def gather(self, table, fresh) -> None:
         """Reset the ``fresh`` pages to the template, then copy each row's
@@ -264,11 +267,7 @@ class PagedCache:
     def free_slot(self, b: int):
         """Release every page slot b's table references (shared prefix pages
         survive through their index entries' refcounts)."""
-        for lp in range(self.n_pp):
-            p = int(self.tables[b, lp])
-            if p:
-                self.pages.deref(p)
-                self.tables[b, lp] = 0
+        self.free_beyond(b, 0)
 
     def slot_pages(self, b: int) -> int:
         return int(np.count_nonzero(self.tables[b]))
@@ -314,6 +313,15 @@ class PagedCache:
             off = (lp + 1) * self.ps
             lp += 1
         return take
+
+    def free_beyond(self, b: int, pos: int):
+        """Release row b's pages wholly at or past position ``pos`` (a
+        speculative round's uncommitted window pages; 0: all of them)."""
+        for lp in range((pos + self.ps - 1) // self.ps, self.n_pp):
+            p = int(self.tables[b, lp])
+            if p:
+                self.pages.deref(p)
+                self.tables[b, lp] = 0
 
     # -- prefix sharing -------------------------------------------------------
 

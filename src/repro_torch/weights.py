@@ -17,6 +17,13 @@ bytes (uint8) stay packed, scales stay fp32.  A checkpoint stores neither
 int4 and its logical last dim is the model's own: the linear's rank, or
 ``d_model`` for the embedding.
 
+``plan_from_jax(plan)`` maps a speculative draft plan (name → rank, from
+the reference's ``LM.draft_plan``) onto the port's names, one to one: the
+reference names a linear of its scanned cycle ``cycles.blk_0.<group>.<name>``
+(one pattern position, one rank for every layer), the port
+``layers.<group>.<name>`` (``LM.rank_spectra``), e.g.
+``cycles.blk_0.ffn.gate`` ↔ ``layers.ffn.gate``.
+
 ``load_store(directory)`` reads a ``repro/checkpoint/store.py::save``
 directory (``manifest.json`` plus one ``.npy`` per '/'-joined leaf; bf16
 stored as a ``u2`` view) into that same numpy tree, with numpy alone.
@@ -153,6 +160,21 @@ def from_jax_params(model, tree: dict) -> dict:
                           for k, shape in model.head.shapes.items()}
     params["layers"] = layers
     return params
+
+
+_JAX_CYCLE = "cycles.blk_0."
+
+
+def plan_from_jax(plan: dict[str, int]) -> dict[str, int]:
+    """A reference draft plan → the port's names (see the module doc); a
+    name outside the scanned cycle raises."""
+    out = {}
+    for name, r in plan.items():
+        if not name.startswith(_JAX_CYCLE):
+            raise ValueError(f"draft-plan entry {name!r} is not a linear of "
+                             "the reference's scanned cycle")
+        out["layers." + name[len(_JAX_CYCLE):]] = int(r)
+    return out
 
 
 def _bf16_to_f32(bits: np.ndarray) -> np.ndarray:

@@ -21,7 +21,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig,
-                               SamplingParams, SchedulerConfig)
+                               SamplingParams, SchedulerConfig,
+                               SpeculativeConfig)
 from repro_torch.train import Trainer
 from repro_torch.tree import leaves
 
@@ -209,6 +210,48 @@ class TestGraphs:
             assert torch.equal(pool[:n], eager._pc.pool[name][:n]), name
         graphs._pc.audit()
         eager._pc.audit()
+
+    @pytest.mark.parametrize("paged", [False, True])
+    @pytest.mark.parametrize("mode", ["none", "int8"])
+    def test_spec_round_replay_equals_eager(self, cuda, mode, paged):
+        """Self-speculative decoding (k = 4, frac 0.5): the round captured
+        as one CUDA graph per kv bucket (paged: per (kv, F, M)) against the
+        same round run eagerly: the same tokens and buckets, every round's
+        token ids and every plain step's logits equal bit for bit; launches
+        are rounds × (k + 2) and plain steps × 2 (the draft's replay) times
+        a step's 5 a layer; in fp32 the tokens equal plain decoding's."""
+        model = build_model(_cfg("float32"), device=cuda)
+        params = model.init(0)
+        weights, act = MODES[mode]
+
+        def engine(k, **kw):
+            return Engine(model, params, EngineConfig(
+                scheduler=SchedulerConfig(slots=3, chunk_size=8),
+                memory=MemoryConfig(max_len=192, paged=paged, page_size=8),
+                speculative=SpeculativeConfig(k=k, draft_rank_frac=0.5),
+                quant=quant.QuantConfig(weights=weights, activations=act)),
+                **kw)
+        graphs = engine(4)
+        eager = engine(4, step_fn=model.prefill_chunk)
+        out_g, seen_g, launches_g = _serve(graphs)
+        out_e, seen_e, launches_e = _serve(eager)
+        assert out_g == out_e
+        keys = [k for k, _ in seen_g]
+        assert keys == [k for k, _ in seen_e]
+        assert any(k[0] == "spec" for k in keys)
+        assert graphs.stats["graphs"] == len(set(keys))
+        for (key, g), (_, e) in zip(seen_g, seen_e):
+            assert torch.equal(g, e), key
+        assert launches_g == launches_e
+        rounds = graphs.stats["spec_rounds"]
+        plain = graphs.stats["steps"] - rounds
+        assert rounds > 0
+        assert sum(launches_g.values()) == 5 * model.cfg.n_layers * (
+            rounds * (4 + 2) + plain * 2)
+        out_p, _, _ = _serve(engine(0))
+        assert out_g == out_p
+        if paged:
+            graphs._pc.audit()
 
     def test_capture_failure_raises(self, cuda):
         model = build_model(_cfg("bfloat16"), device=cuda)
