@@ -30,7 +30,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    launches at T = 8 bit for bit; B3 over int8 K/V (the int8 cache's
    codes and scales) for MHA 32/32 × 128 and GQA 9/3 × 64, C = 1 and 32
    at random offsets, the last slot (one row: split keys, two launches bit
-   for bit) and kv_len < S, fp32 and bf16.
+   for bit) and kv_len < S, fp32 and bf16.  Then recurrentgemma-2b's: B3
+   over its sliding-window ring (``flash_attention_ring``: key positions
+   from the ring's ``pos``; 10/1 heads of 256, B = 8, a 2048-slot ring with
+   wrapped rows) at C = 1 and at C = 32 over [ring ‖ chunk], and B1, B2,
+   B5, B6 at its BLAST shapes at T = 8 and 128, fp32 and bf16, two
+   launches of each bit for bit.
 4. grads — fp32 gradients of the three autograd Functions on the training
    path (B1, B2, B4) against torch.autograd through the plain versions, at
    2048 tokens: within 1e-4 × each gradient's largest entry.
@@ -46,7 +51,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    the int8 cache — the cache's K/V rows shared the same way
    (``SharedRowCodes``, after the CPU's codec on the card's inputs gives
    the card's codes bit for bit), and every cache leaf equal on both; and
-   gpt2-blast (LayerNorm, learned positions, GELU), float.
+   gpt2-blast (LayerNorm, learned positions, GELU), float; and
+   recurrentgemma-2b at full width cut to 3 layers (rglru, rglru,
+   local_attn) and a window of 64, prompts of 200, 120 and 40 tokens in
+   chunks of 32 then 4 decode steps, so that the rings wrap: logits, and
+   every cache leaf (``pos`` equal; K/V, ``conv``, ``h`` within 1e-3 +
+   1e-3·max).
 6. train_reference — the same 2-layer fp32 model, one training batch:
    loss, every gradient and the parameters after one AdamW step on the
    card against the CPU; ``LM.apply(last_only=True)`` against
@@ -66,22 +76,33 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    captured, capture seconds, decode tok/s, step ms and
    ``max_memory_allocated``.  Then, in each mode, through the graphs and
    eagerly, six steady decode steps timed and six more under
-   torch.profiler (8 slots, prompts of 16 tokens): wall, device busy and
+   torch.profiler (8 slots, prompts of 16 tokens; 15 of the 30 layers,
+   for the script's time): wall, device busy and
    idle share per step, kernel time by name; on every profile whose trace names the kernels (the eager
    one always; ``kernels_by_name``) every BLAST launch runs the tile
    kernel's two ``__global__``s and no other, and attention the bf16
-   attention kernel (30 a step) and no other (``attn_per_step``).  One
-   more float profile each way decodes after prompts of 192 tokens, where
-   B3 splits the keys: the split combine must run 30 times a step.
+   attention kernel (one a layer a step) and no other
+   (``attn_per_step``).  One more float profile each way decodes after
+   prompts of 192 tokens, where B3 splits the keys: the split combine must
+   run once a layer a step.
    Then llama7b-blast at full width (32 layers, vocab 32000, bf16, seeded
    random weights drawn tensor by tensor; the init's 3,278,639,104
    parameters counted before the pre-stack) in three modes — float, the
    int8 cache, int8 weights with the int8 cache — the same way, launches
    steps × (96, 32, 32) with attention in the int8-K/V kernel under the
    int8 cache, and the int8-cache run's peak memory below the float run's;
-   temperature sampling (T = 0.8) twice with one seed (identical tokens)
-   and once with another (different); the decode profile in float and
+   temperature sampling (T = 0.8, 8 layers) twice with one seed
+   (identical tokens) and once with another (different); the decode
+   profile in float and
    with the int8 cache, both ways; gpt2-blast at full width, float.
+   Then ``hybrid``: recurrentgemma-2b at full width (26 layers, vocab
+   256000, 1,419,506,176 parameters counted), float and int8 weights,
+   captured and eager (tokens equal bit for bit, launches steps × (86 B1,
+   18 B2, 8 B3 over the ring)), in the usual run and in a long run of 4
+   prompts of 2,100–2,600 tokens at max_len 4096 that wraps every ring;
+   the float decode profile both ways (launches a step, the tile and ring
+   kernels' calls and ms, and eagerly the RG-LRU recurrence's kernels and
+   ms under a ``record_function`` range).
 8. paged — the paged cache (``serve/paged.py``, pages of 16 tokens)
    through the same engine, captured per (C, kv, F, M) bucket.  Run 1, in
    smollm-135m float and int8 weights and llama7b-blast float and int8
@@ -92,19 +113,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    still the template) after each run; decode step ms and tok/s against
    slot-static, graphs and capture seconds, pool and view bytes, peak
    memory, and the gather's and scatter's device ms of a decode step at
-   kv 64 and 256 (CUDA events).  Run 2, smollm-135m and llama7b-blast float: 16 requests
+   kv 64 and 256 (CUDA events).  Run 2, smollm-135m and llama7b-blast
+   float (8 layers): 16 requests
    sharing a 256-token system prompt on a pool of half of B·max_len
    tokens: ≥ 15·256 prefix-hit tokens, tokens equal an unshared
    slot-static run's up to each request's first near-tie (``near_tie``:
    the margin rule of ``tests/test_torch_engine.py`` in the logits'
-   precision).  Run 3, llama7b-blast float: 6 bulk requests at priority
+   precision).  Run 3, llama7b-blast float (8 layers): 6 bulk requests at priority
    1, then 4 at priority 0 after 8 ticks, on a pool too small for them:
    preemptions, every request finished by length, two runs identical,
    tokens equal a roomy pool's up to each first near-tie; then the same
    run in fp32 at 2 layers, where the rule is the 1e-4 margin alone.
 9. spec — self-speculative decoding (k = 4) of the serve phase's 16
    prompts, at draft rank fractions 0.5 and 1.0, in smollm-135m float and
-   int8 weights, and llama7b-blast (full width, 16 of its 32 layers) float
+   int8 weights (full width, 15 of its 30 layers), and llama7b-blast (full
+   width, 8 of its 32 layers) float
    and with the int8 cache: the tokens equal the same config's plain
    engine's up to each request's first near-tie; at frac 0.5 the captured
    round equals the eager round (``step_fn``; llama float) and paged
@@ -118,8 +141,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    tok/s and ms a round against the plain engine's, graphs, capture s,
    peak memory and the draft's parameter bytes.  The same in fp32 at 2
    layers of llama7b-blast, held to the 1e-4 margin alone, frac 1.0
-   accepting ≥ 90%.  ``spec_split``: at llama7b-blast's full width and
-   depth, a draft step and the resync at frac 0.5 and 1.0, the verify
+   accepting ≥ 90%.  ``spec_split``: at llama7b-blast's full width, 8
+   layers, a draft step and the resync at frac 0.5 and 1.0, the verify
    chunk (T = 64), the plain step and a whole captured round at each frac,
    each a CUDA graph timed by CUDA events.
 10. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
@@ -148,7 +171,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    llama7b-blast's rows: its BLAST shapes (float, int8 weights) at T = 8
    and 256, and B3 over int8 K/V at its decode and prefill (library:
    ``dequantize_rows``, then masked SDPA; ``float_kv_ms``: B3 on bf16 K/V
-   of the same values).  The profiles of phases 7 and 10 also sum the
+   of the same values).  recurrentgemma-2b's: B3 over its ring at decode
+   and at C = 32 (library: SDPA with the mask of the ring's positions).
+   The profiles of phases 7 and 10 also sum the
    BLAST tile kernel's two ``__global__``s (``blast_tile_kernel``,
    ``blast_split_sum``) and the attention kernel's (``attn_tile_kernel``,
    ``attn_split_combine``).
@@ -161,6 +186,7 @@ last lines are the per-kernel JSON summary, the ``nvidia-smi`` line, and
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -221,23 +247,28 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_close(name: str, got, want, dtype: str) -> float:
-    """Max |got - want|; raises past ``atol + rtol·|want|`` (atol = rtol)."""
+def check_close(name: str, got, want, dtype: str,
+                scaled: bool = False) -> float:
+    """Max |got - want|; raises past ``atol + rtol·|want|`` (rtol = the
+    dtype's tolerance; atol = rtol, or with ``scaled`` rtol·min(1,
+    max|want|): a limit in the output's own scale where outputs are small,
+    as attention's over thousands of keys are)."""
     import torch
     tol = TOL[dtype]
     g, w = got.float(), want.float()
     if g.shape != w.shape or not torch.isfinite(g).all():
         raise RuntimeError(f"{name}: shape {tuple(g.shape)} vs "
                            f"{tuple(w.shape)} or non-finite output")
+    atol = tol * min(1.0, float(w.abs().max())) if scaled else tol
     err = (g - w).abs()
-    bad = err > tol + tol * w.abs()
+    bad = err > atol + tol * w.abs()
     max_err = float(err.max())
     emit({"phase": "kernels", "case": name, "dtype": dtype,
-          "max_abs_err": max_err, "rtol": tol, "atol": tol,
+          "max_abs_err": max_err, "rtol": tol, "atol": atol,
           "ok": not bool(bad.any())})
     if bad.any():
         raise RuntimeError(f"{name}: kernel disagrees with its plain version"
-                           f" (max abs err {max_err}, tol {tol})")
+                           f" (max abs err {max_err}, atol {atol}, rtol {tol})")
     return max_err
 
 
@@ -689,6 +720,136 @@ def phase_kernels_llama(llama, errs) -> None:
                       ref.attention_prefill_q8_ref(*args, **kw), dname)
 
 
+HYBRID = "recurrentgemma-2b"
+HYBRID_PARAMS = 1_419_506_176        # the reference's LM.init, eval_shape
+HYBRID_T = (8, 128)                  # decode; a long-run prefill step
+# B3 over the ring at recurrentgemma-2b's shapes: B = 8, a 2048-slot ring
+# (wrapped rows), C = 1 (decode: the ring alone) and C = 32 (a chunk:
+# [ring ‖ chunk], 2080 keys)
+RING_CASES = (1, 32)
+
+
+def make_ring_inputs(B, Hq, Hkv, C, S, D, dtype, gen):
+    """B3-over-a-ring inputs as the ring layer passes them: q (B, Hq, C, D)
+    and K/V (B, Hkv, S_k, D) views, key positions (B, S_k) int32 and row
+    offsets.  Row b's ring holds positions up to a random ``last[b]`` in
+    [S, 4S) (row 0: S // 3, unwrapped), slot j the latest p ≤ last with
+    p % S = j (-1 where none).  C = 1: the query is the newest position,
+    written before the step attends; C > 1: the chunk's keys follow the
+    ring (S_k = S + C) at positions last + 1 + t, row 1's second half dead
+    (-1)."""
+    import torch
+    last = torch.randint(S, 4 * S, (B,), generator=gen)
+    last[0] = S // 3
+    j = torch.arange(S)
+    pos = last[:, None] - (last[:, None] - j[None, :]) % S
+    pos = torch.where(pos >= 0, pos, -1)
+    offs = last if C == 1 else last + 1
+    if C > 1:
+        chunk = offs[:, None] + torch.arange(C)[None, :]
+        chunk[1, C // 2:] = -1
+        pos = torch.cat([pos, chunk], dim=1)
+    Sk = pos.shape[1]
+    q = torch.randn((B, C, Hq, D), generator=gen).to(DEVICE, dtype)
+    k, v = (torch.randn((B, Sk, Hkv, D), generator=gen).to(DEVICE, dtype)
+            for _ in range(2))
+    return (q.transpose(1, 2), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+            pos.to(DEVICE, torch.int32), offs.to(DEVICE, torch.int32))
+
+
+def ring_cost(q, k, kpos, offs, window, elt):
+    """(bytes, flops) of B3 over a ring: q read and o written in ``elt``
+    bytes, the key positions read, and the K/V rows some query of the row
+    sees read once; 4·D flops per visible (query, key) pair of each query
+    head (counted from this call's positions)."""
+    import torch
+    B, Hq, C, D = q.shape
+    Hkv = k.shape[1]
+    qpos = offs[:, None].long() + torch.arange(C, device=q.device)[None]
+    kp = kpos.long()[:, None, :]
+    vis = (kp >= 0) & (kp <= qpos[:, :, None]) & (kp > qpos[:, :, None]
+                                                  - window)   # (B, C, S_k)
+    keys = int(vis.any(dim=1).sum())
+    bytes_ = (2 * B * Hq * C * D * elt + 2 * keys * Hkv * D * elt
+              + 4 * kpos.numel() + 4 * B)
+    return bytes_, 4 * D * Hq * int(vis.sum())
+
+
+def hybrid_blast_shapes(cfg):
+    """(name, n, m, b, r, G) of every BLAST launch shape of recurrentgemma-2b:
+    the RG-LRU's in_gate+in_x (grouped) and out, the attention's qkv (its
+    out has in_x's shape), the GELU FFN's wi and wo."""
+    from repro_torch.models.transformer import make_block
+    rec, att = make_block(cfg, "rglru"), make_block(cfg, "local_attn")
+    out = []
+    for name, spec, G in (("in_gate+in_x", rec.mixer.in_x, 2),
+                          ("out", rec.mixer.out, 1),
+                          ("qkv", att.mixer.qkv, 1),
+                          ("wi", rec.ffn.wi, 1), ("wo", rec.ffn.wo, 1)):
+        out.append((name, spec.d_in, spec.d_out, spec.meta["b"],
+                    spec.meta["r"], G))
+    return out
+
+
+def phase_kernels_hybrid(hyb, errs) -> None:
+    """recurrentgemma-2b's kernels against their plain versions on the card:
+    B3 over the ring (``flash_attention_ring``: 10/1 heads of 256, B = 8,
+    a 2048-slot ring with wrapped rows, window 2048) at C = 1 and 32, two
+    launches of each bit for bit; B1, B2 and their int8-weight twins B5,
+    B6 at its BLAST shapes (r = 608, 656 and 928; wo's n = 7680 in
+    panels) at T = 8 and 128, two launches at T = 8 bit for bit; fp32 and
+    bf16."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(SEED + 30)
+    hq, hkv, hd, S = hyb.n_heads, hyb.n_kv_heads, hyb.head_dim_, hyb.window
+
+    def check(kname, label, got, want, dname, scaled=False):
+        torch.cuda.synchronize()
+        e = check_close(f"{kname}[{HYBRID} {label}]",
+                        got.reshape(want.shape), want, dname, scaled)
+        if dname == "bfloat16":
+            errs[kname] = max(errs[kname], e)
+
+    def repeat(kname, label, kern, dname):
+        first, second = kern(), kern()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(first, second))
+        emit({"phase": "kernels", "case": f"{kname}[{HYBRID} {label}] "
+              "repeat", "dtype": dname, "bitwise_identical": same,
+              "ok": same})
+        if not same:
+            raise RuntimeError(f"{kname}[{label} {dname}]: two launches "
+                               "differ")
+
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for C in RING_CASES:
+            q, k, v, kpos, offs = make_ring_inputs(8, hq, hkv, C, S, hd,
+                                                   dtype, gen)
+            label = f"B=8 Hq={hq} Hkv={hkv} C={C} S_k={k.shape[2]} D={hd}"
+
+            def kern():
+                return ops.flash_attention_ring(q, k, v, kpos, offs,
+                                                window=S)
+            repeat("flash_attention_ring", label, kern, dname)
+            check("flash_attention_ring", label, kern(),
+                  ref.attention_ring_ref(q, k, v, kpos, offs, window=S),
+                  dname, scaled=True)
+        for name, n, m, b, r, G in hybrid_blast_shapes(hyb):
+            _, U, S_, V = make_blast_inputs(n, m, b, r, G, 1, dtype, gen,
+                                            DEVICE)
+            for T in HYBRID_T:
+                x = torch.randn((T, n), generator=gen).to(DEVICE, dtype)
+                label = f"{name} {n}->{m} b={b} r={r} G={G} T={T}"
+                for kname, kern, plain in blast_calls(x, U, S_, V, r,
+                                                      ("int8",)):
+                    if T == HYBRID_T[0]:
+                        repeat(kname, label, kern, dname)
+                    check(kname, label, kern(), plain(), dname)
+            del U, S_, V
+
+
 def attention_repeats(cfg, dtype, dname, gen) -> None:
     """Two launches of each attention kernel on the same inputs agree bit
     for bit: B3 at decode, where the plan splits the keys and the combine
@@ -986,15 +1147,93 @@ def phase_reference_dense(llama, gpt2):
     phase_reference(gpt2, "gpt2:float")
 
 
-def serve_config(mode, weights=None, **kw):
-    """The serving runs' engine: 8 slots, chunk 32, max_len 512, weights
-    (and activations) of a smollm-135m ``mode``, or ``weights``."""
+def phase_reference_hybrid(hyb):
+    """recurrentgemma-2b at full width (d_model 2560, vocab 256000, 10/1
+    heads of 256, the tied head scaled by √d_model and softcapped), fp32,
+    cut to 3 layers (rglru, rglru, local_attn) and a window of 64, so that
+    prompts of 200, 120 and 40 tokens wrap the ring: card (kernels) vs CPU
+    (plain), the prompts fed in ragged chunks of 32, then 4 decode steps.
+    Every live logit row within 1e-3 abs + 1e-3·max|logit|; every cache
+    leaf after the last step: ``pos`` equal, K/V, ``conv`` and ``h``
+    within 1e-3 + 1e-3·max|leaf|."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    small = dataclasses.replace(hyb, n_layers=3, window=64,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    gpu = build_model(small, device=DEVICE)
+    cpu = build_model(small, device="cpu")
+    params_cpu = cpu.init(SEED)
+    params_gpu = tree_map(lambda t: t.to(DEVICE), params_cpu)
+    cache_g, cache_c = gpu.init_cache(3, 256), cpu.init_cache(3, 256)
+    rng = torch.Generator().manual_seed(SEED + 3)
+    lens = torch.tensor([200, 120, 40])
+    prompts = torch.randint(0, hyb.vocab, (3, int(lens.max())), generator=rng)
+    fed = torch.zeros(3, dtype=torch.int64)
+    row_err, row_limit = [], []
+
+    def step(toks, n_tok):
+        """One ragged step on both devices; the live rows' errors."""
+        lg, _ = gpu.prefill_chunk(params_gpu, cache_g, toks, fed, n_tok)
+        lc, _ = cpu.prefill_chunk(params_cpu, cache_c, toks, fed, n_tok)
+        live = n_tok > 0
+        got, want = lg.float().cpu()[live], lc[live]
+        if not torch.isfinite(got).all():
+            raise RuntimeError("reference: non-finite logits on the card")
+        row_err.extend((got - want).abs().amax(dim=(1, 2)).tolist())
+        row_limit.extend([1e-3 + 1e-3 * float(want.abs().max())]
+                         * int(live.sum()))
+
+    chunks = 0
+    while bool((fed < lens).any()):
+        n_tok = torch.clamp(lens - fed, 0, 32)
+        toks = torch.zeros((3, 32), dtype=torch.int64)
+        for b in range(3):
+            toks[b, :n_tok[b]] = prompts[b, fed[b]:fed[b] + n_tok[b]]
+        step(toks, n_tok)
+        fed, chunks = fed + n_tok, chunks + 1
+    for _ in range(4):
+        step(torch.randint(0, hyb.vocab, (3, 1), generator=rng),
+             torch.ones(3, dtype=torch.int64))
+        fed = fed + 1
+    err, lim = torch.tensor(row_err), torch.tensor(row_limit)
+    leaves = {}
+    for i, (c_g, c_c) in enumerate(zip(cache_g, cache_c)):
+        for name, leaf in c_g.items():
+            got, want = leaf.cpu(), c_c[name]
+            if name == "pos":
+                ok, e = bool(torch.equal(got, want)), 0.0
+            else:
+                e = float((got.float() - want.float()).abs().max())
+                ok = e <= 1e-3 + 1e-3 * float(want.abs().max())
+            leaves[f"{i}.{name}"] = {"max_abs_err": e, "ok": ok}
+    past = int((err > lim).sum())
+    bad = [k for k, v in leaves.items() if not v["ok"]]
+    emit({"phase": "reference", "mode": "hybrid:float", "arch": hyb.name,
+          "layers": 3, "pattern": small.layer_kinds(), "window": 64,
+          "d_model": small.d_model, "vocab": small.vocab, "dtype": "float32",
+          "prompt_tokens": lens.tolist(), "chunks": chunks,
+          "decode_steps": 4, "positions_past_window": int(fed.max()) - 64,
+          "max_abs_logit_err": float(err.max()), "rows": len(err),
+          "rows_past_limit": past, "cache_leaves": leaves,
+          "limit": "1e-3 + 1e-3*max|logit| per row"})
+    if past or bad:
+        raise RuntimeError(f"reference[{HYBRID}]: card differs from the CPU "
+                           f"plain path: row errors {err.tolist()}, limits "
+                           f"{lim.tolist()}, cache leaves past the limit "
+                           f"{bad}")
+
+
+def serve_config(mode, weights=None, max_len=512, **kw):
+    """The serving runs' engine: 8 slots, chunk 32, ``max_len`` (512),
+    weights (and activations) of a smollm-135m ``mode``, or ``weights``."""
     from repro_torch import quant
     from repro_torch.serve import EngineConfig, MemoryConfig, SchedulerConfig
     (w, act), _ = MODES[mode] if weights is None else ((weights, "none"),
                                                        None)
     return EngineConfig(scheduler=SchedulerConfig(slots=8, chunk_size=32),
-                        memory=MemoryConfig(max_len=512),
+                        memory=MemoryConfig(max_len=max_len),
                         quant=quant.QuantConfig(weights=w, activations=act),
                         **kw)
 
@@ -1042,12 +1281,14 @@ def serve_prompts(vocab, n=16):
             for L in rng.integers(16, 201, size=n)]
 
 
-def phase_serve(model, params, mode, config, per_step, **extra):
+def phase_serve(model, params, mode, config, per_step, prompts=None,
+                **extra):
     """One full-width serving run of ``model`` in ``mode`` through the
     captured engine (CUDA graphs, the default) and one through an eager
     engine (``step_fn``, which observes every step): identical greedy
     tokens, and each run's launch counts steps × ``per_step`` (every other
-    kernel 0).  Returns (the captured run's launch counts, its row)."""
+    kernel 0).  ``prompts``: default ``serve_prompts``.  Returns (the
+    captured run's launch counts, its row, its outputs)."""
     import torch
     from repro_torch import quant
     from repro_torch.kernels import build
@@ -1062,15 +1303,16 @@ def phase_serve(model, params, mode, config, per_step, **extra):
 
     def step(params, cache, tokens, steps, n_tokens, kv_len):
         B, C = tokens.shape
-        live = int((steps + n_tokens)[n_tokens > 0].max())    # syncs
-        splits.append([fa.split_plan(B, cfg.n_kv_heads, G, C, kv, sms)[2]
-                       for kv in (kv_len, live)])
+        if not model.slot_resident:   # the slot-index B3's plan
+            live = int((steps + n_tokens)[n_tokens > 0].max())    # syncs
+            splits.append([fa.split_plan(B, cfg.n_kv_heads, G, C, kv,
+                                         sms)[2] for kv in (kv_len, live)])
         logits, cache = model.prefill_chunk(params, cache, tokens, steps,
                                             n_tokens, kv_len=kv_len)
         finite.append(torch.isfinite(logits).all())
         return logits, cache
 
-    prompts = serve_prompts(cfg.vocab)
+    prompts = serve_prompts(cfg.vocab) if prompts is None else prompts
     max_new = 32
     runs = {}
     for path in ("graphs", "eager"):
@@ -1115,13 +1357,13 @@ def phase_serve(model, params, mode, config, per_step, **extra):
         raise RuntimeError(f"{mode}: non-finite logits in the serving run")
     if runs["graphs"]["row"]["graphs"] == 0:
         raise RuntimeError(f"{mode}: the default engine captured no graph")
-    bucket, live = zip(*splits)
     row = {"phase": "serve", "mode": mode, "arch": cfg.name,
            "layers": cfg.n_layers, "vocab": cfg.vocab,
            "dtype": cfg.param_dtype, "weights": config.quant.weights,
            "activations": config.quant.activations,
-           "cache": cfg.quant.cache, "slots": 8, "chunk": 32,
-           "max_len": 512, "requests": len(prompts),
+           "cache": cfg.quant.cache, "slots": config.scheduler.slots,
+           "chunk": config.scheduler.chunk_size,
+           "max_len": config.memory.max_len, "requests": len(prompts),
            "prompt_tokens": sum(map(len, prompts)),
            "new_tokens": len(prompts) * max_new,
            # engine params (quantized, the pre-stacked bundle included)
@@ -1130,15 +1372,18 @@ def phase_serve(model, params, mode, config, per_step, **extra):
            "greedy_tokens_identical": True,
            "launches": {k: v for k, v in runs["graphs"]["launches"].items()
                         if v},
-           "per_step": per_step,
-           "attn_split_steps": sum(k > 1 for k in bucket),
-           "attn_splits_max": max(bucket),
-           # what the kv bucket costs against the live key range: B3 key
-           # splits summed over steps (× the layers a step) and the steps
-           # whose launches add a combine
-           "attn_splits_sum": {"bucket": sum(bucket), "live": sum(live)},
-           "attn_combine_steps": {"bucket": sum(k > 1 for k in bucket),
-                                  "live": sum(k > 1 for k in live)}}
+           "per_step": per_step}
+    if splits:
+        bucket, live = zip(*splits)
+        row.update({
+            "attn_split_steps": sum(k > 1 for k in bucket),
+            "attn_splits_max": max(bucket),
+            # what the kv bucket costs against the live key range: B3 key
+            # splits summed over steps (× the layers a step) and the steps
+            # whose launches add a combine
+            "attn_splits_sum": {"bucket": sum(bucket), "live": sum(live)},
+            "attn_combine_steps": {"bucket": sum(k > 1 for k in bucket),
+                                   "live": sum(k > 1 for k in live)}})
     emit(row)
     return runs["graphs"]["launches"], row, runs["graphs"]["outputs"]
 
@@ -1522,7 +1767,12 @@ def phase_paged_preempt_fp32(llama):
 
 SPEC_K = 4
 SPEC_FRACS = (0.5, 1.0)
-SPEC_LAYERS = 16        # llama7b-blast's depth in the speculative runs
+# depth cuts, for the script's time: llama7b-blast's in the speculative
+# runs, the round's parts, the prefix-sharing and bf16 preemption runs and
+# temperature sampling; smollm-135m's in its speculative runs and decode
+# profiles
+LLAMA_CUT_LAYERS = 8
+SMOLLM_CUT_LAYERS = 15
 
 
 def spec_config(config, frac, paged=False):
@@ -1782,26 +2032,30 @@ def phase_spec_fp32(llama):
         raise RuntimeError(f"spec llama:fp32: acceptance {full} at frac 1.0")
 
 
-def spec_llama(llama, model, params) -> None:
-    """The ``spec`` phase's llama7b-blast runs: float and int8 cache at
-    ``SPEC_LAYERS`` of ``params``' layers (float also eager and paged), the
-    round's parts at full depth through ``model`` (``spec_split``), and the
-    fp32 runs."""
+def cut_models(cfg, params, n_layers, modes):
+    """(a model of each cache mode, params) of ``cfg`` cut to its first
+    ``n_layers`` layers: the full model's layers, shared, not copied."""
     from repro_torch import quant
     from repro_torch.models import build_model
-    cut = dataclasses.replace(llama, n_layers=min(SPEC_LAYERS,
-                                                  llama.n_layers))
-    cut_params = {**params, "layers": params["layers"][:cut.n_layers]}
+    cut = dataclasses.replace(cfg, n_layers=min(n_layers, cfg.n_layers))
+    models = {mode: build_model(dataclasses.replace(
+        cut, quant=quant.QuantConfig(cache=cache)), device=DEVICE)
+        for mode, cache in modes.items()}
+    return models, {**params, "layers": params["layers"][:cut.n_layers]}
+
+
+def spec_llama(llama, models, params) -> None:
+    """The ``spec`` phase's llama7b-blast runs at ``LLAMA_CUT_LAYERS``
+    layers (``models`` of each cache mode and their ``params``): float and
+    int8 cache (float also eager and paged), the round's parts
+    (``spec_split``), and the fp32 runs."""
     for mode in ("float", "int8_cache"):
-        cache = LLAMA_MODES[mode][1]
-        timed(f"spec llama:{mode}", phase_spec, build_model(
-            dataclasses.replace(cut, quant=quant.QuantConfig(cache=cache)),
-            device=DEVICE), cut_params, f"llama:{mode}",
-            serve_config(None, weights="none"), llama_per_step(cut, mode),
-            paged=mode == "float", eager=mode == "float")
-    del cut_params
-    timed("spec split llama:float", phase_spec_split, model, params,
-          serve_config(None, weights="none"))
+        timed(f"spec llama:{mode}", phase_spec, models[mode], params,
+              f"llama:{mode}", serve_config(None, weights="none"),
+              llama_per_step(models[mode].cfg, mode),
+              paged=mode == "float", eager=mode == "float")
+    timed("spec split llama:float", phase_spec_split, models["float"],
+          params, serve_config(None, weights="none"))
     timed("spec llama:fp32", phase_spec_fp32, llama)
 
 
@@ -1836,6 +2090,7 @@ def _graph_ms(fn, reps=20) -> float:
     with torch.cuda.stream(side), ops.launches_apart():
         fn()
     torch.cuda.current_stream().wait_stream(side)
+    gc.collect()    # no dropped engine's graph freed under the capture
     with ops.launches_apart(), capture:
         fn()
     ms = _events_ms(graph.replay, reps)
@@ -2002,6 +2257,7 @@ def phase_profile(model, params, mode, config, prompt_len=16, graphs=True):
         raise RuntimeError(f"{mode}: the eager decode profile names no "
                            "BLAST tile kernel")
     row = {"phase": "profile", "mode": mode, "arch": model.cfg.name,
+           "layers": model.cfg.n_layers,
            "path": "graphs" if graphs else "eager",
            "prompt_len": prompt_len, "decode_steps": n_steps, "slots": 8,
            "graphs": engine.stats["graphs"],
@@ -2421,14 +2677,16 @@ def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
     return row
 
 
-def phase_timing(cfg, llama):
+def phase_timing(cfg, llama, hyb):
     """bf16 timings.  ``ms`` times the wrapper the model calls (for W8A8 and
     W4A8 it includes the per-token quantize prologue; ``launch_only_ms``
     times the kernel alone on ready codes).  Library: ``torch.matmul`` on
     the dense (dequantized) matrix — dense work, not the same
     operations.  llama7b-blast's rows (``arch``): its BLAST shapes, float
     and int8 weights, and B3 over int8 K/V (library: ``dequantize_rows``
-    then masked SDPA)."""
+    then masked SDPA).  recurrentgemma-2b's: B3 over its 2048-slot ring at
+    decode and over [ring ‖ chunk] at C = 32 (library: SDPA with the
+    positions' mask)."""
     import torch
     import torch.nn.functional as F
     from repro_torch import quant
@@ -2542,6 +2800,29 @@ def phase_timing(cfg, llama):
             (bytes_, {dname: flops}), flush, offsets=where, arch=llama.name,
             float_kv_ms=lambda: ops.flash_attention_prefill(
                 q, kd, vd, offs, **kw)))
+    rq, rkv, rd, rw = hyb.n_heads, hyb.n_kv_heads, hyb.head_dim_, hyb.window
+    for C in RING_CASES:
+        q, k, v, kpos, offs = make_ring_inputs(8, rq, rkv, C, rw, rd, dt, gen)
+        qpos = offs[:, None].long() + torch.arange(C, device=DEVICE)[None]
+        kp = kpos.long()[:, None, :]
+        mask = ((kp >= 0) & (kp <= qpos[:, :, None])
+                & (kp > qpos[:, :, None] - rw))[:, None]   # (B, 1, C, S_k)
+        kern = lambda: ops.flash_attention_ring(  # noqa: E731
+            q, k, v, kpos, offs, window=rw)
+        plain = lambda: ref.attention_ring_ref(  # noqa: E731
+            q, k, v, kpos, offs, window=rw)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True)
+        want = plain()
+        shape = f"B=8 Hq={rq} Hkv={rkv} C={C} S_k={k.shape[2]} D={rd} ring"
+        check_close(f"ring sdpa yardstick C={C}", lib(), want, dname)
+        check_close(f"flash_attention_ring[{shape}]", kern(), want, dname,
+                    scaled=True)
+        bytes_, flops = ring_cost(q, k, kpos, offs, rw, elt)
+        rows.append(timing_row(
+            "flash_attention_ring", "attn", 8 * C, shape, kern, plain, lib,
+            "scaled_dot_product_attention (mask from the ring's positions, "
+            "GQA)", (bytes_, {dname: flops}), flush, arch=hyb.name))
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     for C, offsets in ((1, None), (32, None), (1, SERVING_OFFSETS)):
         q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen,
@@ -2648,6 +2929,12 @@ SOURCES = {   # kernel → (source, TPU kernel it replaces, run, arch)
         "llama:int8_cache", LLAMA),
     "flash_attention": (
         _ATTN_CU, "src/repro/kernels/flash_attention.py:98", "train", SMOLLM),
+    # B3's ring instantiation: the reference attends over its ring in XLA
+    # (src/repro/models/ops.py:133, cache_attention, masked by the ring's
+    # pos), beside the Pallas B3 that masks by slot index
+    "flash_attention_ring": (
+        _ATTN_CU, "src/repro/kernels/flash_attention.py:155", "hybrid:float",
+        HYBRID),
 }
 
 
@@ -2752,13 +3039,17 @@ def phase_dense_serving(llama, gpt2) -> dict:
             f"paged llama:{mode}", phase_paged, models[mode], params,
             f"llama:{mode}", serve_config(None, weights="none"),
             llama_per_step(llama, mode), static[mode])
-    timed("paged prefix llama:float", phase_paged_prefix, models["float"],
-          params, "llama:float", serve_config(None, weights="none"))
-    timed("paged preempt llama:float", phase_paged_preempt, models["float"],
-          params, "llama:float", serve_config(None, weights="none"))
+    cut, cut_params = cut_models(llama, params, LLAMA_CUT_LAYERS,
+                                 {mode: cache for mode, (_, cache)
+                                  in LLAMA_MODES.items()})
+    timed("paged prefix llama:float", phase_paged_prefix, cut["float"],
+          cut_params, "llama:float", serve_config(None, weights="none"))
+    timed("paged preempt llama:float", phase_paged_preempt, cut["float"],
+          cut_params, "llama:float", serve_config(None, weights="none"))
     timed("paged preempt llama:fp32", phase_paged_preempt_fp32, llama)
-    spec_llama(llama, models["float"], params)
-    timed("temperature", phase_temperature, models["float"], params)
+    spec_llama(llama, cut, cut_params)
+    timed("temperature", phase_temperature, cut["float"], cut_params)
+    del cut, cut_params
     for mode in ("float", "int8_cache"):
         for graphs in (True, False):
             timed(f"profile llama:{mode}", phase_profile, models[mode],
@@ -2776,22 +3067,213 @@ def phase_dense_serving(llama, gpt2) -> dict:
     return launches
 
 
+LONG_PROMPTS = (2100, 2600)   # the long run's prompt lengths: past the ring
+LONG_MAX_LEN = 4096
+
+
+def hybrid_per_step(cfg, weights) -> dict:
+    """Launches a serving step of the hybrid makes: an RG-LRU layer 1 B2
+    (in_gate+in_x) and 3 B1 (out, the FFN's wi and wo), an attention layer
+    4 B1 (qkv, out, wi, wo) and 1 B3 over its ring; recurrentgemma-2b's 26
+    layers: 18 B2, 86 B1, 8 B3 (B5/B6 with int8 weights)."""
+    blast, grouped = MODES["int8" if weights == "int8" else "none"][1]
+    kinds = cfg.layer_kinds()
+    rec, att = kinds.count("rglru"), kinds.count("local_attn")
+    return {blast: 3 * rec + 4 * att, grouped: rec,
+            "flash_attention_ring": att}
+
+
+def long_prompts(vocab, n=4):
+    """``n`` seeded prompts of ``LONG_PROMPTS`` tokens: each wraps every
+    2048-slot ring."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 5)
+    lo, hi = LONG_PROMPTS
+    return [[int(t) for t in rng.integers(0, vocab, size=int(L))]
+            for L in rng.integers(lo, hi + 1, size=n)]
+
+
+RING_KERNELS = ("attn_tile_ring_kernel", "attn_split_combine")
+
+
+def _annotated(prof, name) -> tuple[int, float]:
+    """(kernels, device ms) launched under the ``record_function`` range
+    ``name`` in a trace."""
+    import torch
+    calls, us = 0, 0.0
+
+    def walk(e):
+        nonlocal calls, us
+        calls += len(e.kernels)
+        us += sum(k.duration for k in e.kernels)
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name == name and e.device_type == torch.autograd.DeviceType.CPU:
+            walk(e)
+    return calls, us / 1e3
+
+
+def phase_profile_hybrid(model, params, config, graphs=True):
+    """recurrentgemma-2b's steady bf16 decode, float weights: 8 slots after
+    prompts of 16 tokens, 6 engine steps timed, 6 more under
+    ``torch.profiler``, through the graphs or eagerly: wall, device busy
+    and idle share a step, kernel time by name, the launches a step
+    (``ops.launches``: B1, B2, B3 over the ring), the tile kernel's and the
+    ring kernel's calls and ms a step.  Eagerly, the RG-LRU recurrence
+    (``rglru._scan``) runs under a ``record_function`` range: its kernels
+    and their device ms a step.  Every BLAST launch must run the tile
+    kernel and every attention launch the ring kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ops
+    from repro_torch.models import rglru
+    from repro_torch.serve import Engine, Request
+    mark = "rglru_recurrence"
+    scan = rglru._scan
+    if not graphs:
+        def marked(*args):
+            with record_function(mark):
+                return scan(*args)
+        rglru._scan = marked
+    try:
+        engine = Engine(model, params, config, device=DEVICE,
+                        step_fn=None if graphs else model.prefill_chunk)
+        for i in range(8):
+            engine.submit(Request(uid=i, prompt=list(range(1, 17)),
+                                  max_new_tokens=64))
+        engine.run(max_iters=3)
+        n_steps = 6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run(max_iters=n_steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.run(max_iters=n_steps)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v / n_steps for k, v in ops.launches.items() if v}
+    finally:
+        rglru._scan = scan
+    kernels = {k: v for k, v in _device_kernels(prof).items() if k != mark}
+    busy = sum(v[1] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    by_name = tile_blast(kernels)["blast_tile_kernel"]["calls"] > 0
+    want = hybrid_per_step(model.cfg, "none")
+    if launched != want:
+        raise RuntimeError(f"hybrid decode: launches a step {launched} != "
+                           f"{want}")
+    row = {"phase": "profile", "mode": "hybrid:float", "arch": model.cfg.name,
+           "path": "graphs" if graphs else "eager", "prompt_len": 16,
+           "decode_steps": n_steps, "slots": 8,
+           "graphs": engine.stats["graphs"],
+           "launches_per_step": launched,
+           "wall_ms_per_step": wall_ms / n_steps,
+           "traced_wall_ms_per_step": traced_ms / n_steps,
+           "device_busy_ms_per_step": busy / n_steps if kernels else None,
+           "device_idle_share": 1 - busy / wall_ms if kernels else None,
+           "traced_idle_share": 1 - busy / traced_ms if kernels else None,
+           "device_ops_per_step": (sum(v[0] for v in kernels.values())
+                                   / n_steps),
+           "kernels_by_name": by_name}
+    if by_name:
+        ring = {}
+        for name in RING_KERNELS:
+            mine = [v for k, v in kernels.items() if name in k]
+            ring[name] = {"calls": sum(v[0] for v in mine) / n_steps,
+                          "ms": sum(v[1] for v in mine) / n_steps}
+        other = sorted(k for k in kernels if ("attn" in k and not any(
+            t in k for t in RING_KERNELS)) or ("blast" in k and not any(
+                t in k for t in ("blast_tile_kernel", "blast_split_sum"))))
+        if other or ring[RING_KERNELS[0]]["calls"] != want[
+                "flash_attention_ring"]:
+            raise RuntimeError(f"hybrid decode: attention did not run the "
+                               f"ring kernel alone: {ring}, other {other}")
+        row.update({
+            "tile_blast_per_step": {
+                k: ({"calls": v["calls"] / n_steps, "ms": v["ms"] / n_steps}
+                    if isinstance(v, dict) else v / n_steps)
+                for k, v in tile_blast(kernels).items()},
+            "ring_per_step": ring})
+    if not graphs:
+        calls, ms = _annotated(prof, mark)
+        row["rglru_recurrence_per_step"] = {"kernels": calls / n_steps,
+                                            "ms": ms / n_steps}
+    row["top"] = [{"name": n[:80], "calls_per_step": c / n_steps,
+                   "ms_per_step": t / n_steps} for n, (c, t) in top]
+    emit(row)
+    return row
+
+
+def phase_hybrid(hyb) -> dict:
+    """recurrentgemma-2b at full width (26 layers: 8 cycles of rglru, rglru,
+    local_attn and a 2-layer RG-LRU tail; d_model 2560, vocab 256000, 10/1
+    heads of 256, window 2048; bf16, seeded random weights ``LM.init(SEED)``
+    drawn tensor by tensor, 1,419,506,176 params) served slot-static with
+    float and with int8 weights, each through the graphs and eagerly
+    (greedy tokens equal bit for bit, launches steps × ``hybrid_per_step``):
+    the usual run (``serve_prompts``: 16 prompts of 16–200 tokens, 32 new,
+    8 slots, chunk 32, max_len 512) and a long run that wraps every ring
+    (``long_prompts``: 4 prompts of 2,100–2,600 tokens, 32 new, max_len
+    4096); then the float decode profile, graphs and eager.  Returns each
+    run's launch counts."""
+    import torch
+    from repro_torch import quant
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    model = build_model(hyb, device=DEVICE)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    init = {"init_params": n_params, "init_bytes": quant.tree_nbytes(params),
+            "init_s": time.perf_counter() - t0}
+    if n_params != HYBRID_PARAMS:
+        raise RuntimeError(f"{HYBRID}: {n_params} parameters, want "
+                           f"{HYBRID_PARAMS}")
+    launches = {}
+    long = long_prompts(hyb.vocab)
+    for weights, label in (("none", "float"), ("int8", "int8")):
+        mode = f"hybrid:{label}"
+        per_step = hybrid_per_step(hyb, weights)
+        launches[mode], _, _ = timed(
+            f"serve {mode}", phase_serve, model, params, mode,
+            serve_config(None, weights=weights), per_step, **init)
+        launches[f"{mode}:long"], _, _ = timed(
+            f"serve {mode}:long", phase_serve, model, params, f"{mode}:long",
+            serve_config(None, weights=weights, max_len=LONG_MAX_LEN),
+            per_step, prompts=long, positions_past_window=min(
+                map(len, long)) - hyb.window)
+    for graphs in (True, False):
+        timed("profile hybrid:float", phase_profile_hybrid, model, params,
+              serve_config(None, weights="none"), graphs=graphs)
+    return launches
+
+
 def main() -> int:
     dev, smi = phase_device()
     sys.path.insert(0, str(SRC))
     from repro_torch import configs
     cfg = configs.get(SMOLLM)
     llama, gpt2 = configs.get(LLAMA), configs.get("gpt2-blast")
+    hyb = configs.get(HYBRID)
     from repro_torch.models import build_model
     timed("build", phase_build)
     errs = timed("kernels", phase_kernels, cfg)
     timed("kernels llama7b-blast", phase_kernels_llama, llama, errs)
+    timed(f"kernels {HYBRID}", phase_kernels_hybrid, hyb, errs)
     timed("grads", phase_grads, cfg)
     for mode in MODES:
         timed(f"reference {mode}", phase_reference, cfg, mode,
               *MODES[mode][0])
     timed("reference llama7b-blast, gpt2-blast", phase_reference_dense,
           llama, gpt2)
+    timed(f"reference {HYBRID}", phase_reference_hybrid, hyb)
     timed("train_reference", phase_train_reference, cfg)
     model = build_model(cfg, device=DEVICE)
     params = model.init(SEED)
@@ -2806,22 +3288,26 @@ def main() -> int:
             serve_config(mode), smollm_per_step(cfg, mode), static[mode])
     timed("paged prefix none", phase_paged_prefix, model, params, "none",
           serve_config("none"))
+    cut, cut_params = cut_models(cfg, params, SMOLLM_CUT_LAYERS,
+                                 {"none": "none"})
+    cut = cut["none"]
     for mode in ("none", "int8"):
-        timed(f"spec {mode}", phase_spec, model, params, mode,
-              serve_config(mode), smollm_per_step(cfg, mode), eager=False,
-              pad_check=True)
+        timed(f"spec {mode}", phase_spec, cut, cut_params, mode,
+              serve_config(mode), smollm_per_step(cut.cfg, mode),
+              eager=False, pad_check=True)
     for mode in MODES:
         for graphs in (True, False):
-            timed(f"profile {mode}", phase_profile, model, params, mode,
+            timed(f"profile {mode}", phase_profile, cut, cut_params, mode,
                   serve_config(mode), graphs=graphs)
     for graphs in (True, False):
-        timed("profile long prompt", phase_profile, model, params, "none",
+        timed("profile long prompt", phase_profile, cut, cut_params, "none",
               serve_config("none"), prompt_len=LONG_PROMPT, graphs=graphs)
-    del model, params
+    del model, params, cut, cut_params
     launches.update(timed("llama7b-blast and gpt2-blast serving",
                           phase_dense_serving, llama, gpt2))
+    launches.update(timed(f"{HYBRID} serving", phase_hybrid, hyb))
     launches["train"] = timed("train", phase_train, cfg)
-    rows = timed("timing", phase_timing, cfg, llama)
+    rows = timed("timing", phase_timing, cfg, llama, hyb)
     emit({"kernels": summary(rows, errs, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": dev})

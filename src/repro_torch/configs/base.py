@@ -4,8 +4,8 @@
 Only the fields the ported serving and training slices read, plus every
 field that changes numbers (``reduced()`` gives the same shapes, dtypes and
 learned-position table as the reference).
-Families and knobs the slice does not run yet (MoE, MLA, SSD, RG-LRU,
-encoders) are not carried; ``LM`` raises on them.
+Families and knobs the port does not run yet (MoE, MLA, SSD, encoders) are
+not carried; ``LM`` raises on them.
 """
 
 from __future__ import annotations
@@ -41,6 +41,14 @@ class StructureConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUCfg:
+    """The RG-LRU mixer of the hybrid family (Griffin)."""
+    lru_width: int = 0      # 0 → d_model
+    conv_width: int = 4
+    c: float = 8.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                       # dense | moe | ssm | hybrid | audio | vlm
@@ -59,8 +67,11 @@ class ArchConfig:
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
     embed_scale: bool = False
+    # per-layer mixer pattern, cycled over n_layers: 'attn' | 'local_attn'
+    # (sliding window of ``window`` keys over a ring cache) | 'rglru'
     pattern: Sequence[str] = ("attn",)
     window: int = 0
+    rglru: RGLRUCfg | None = None
     structure: StructureConfig = dataclasses.field(default_factory=StructureConfig)
     # per-role structure: ``structure`` covers the attention projections,
     # ``structure_ffn`` (if set) the FFN's (paper Table 9: r=1024 attention,
@@ -119,6 +130,8 @@ class ArchConfig:
         small.update(n_heads=n_heads, n_kv_heads=n_kv, head_dim=16)
         if self.window:
             small["window"] = 16
+        if self.rglru:
+            small["rglru"] = dataclasses.replace(self.rglru, lru_width=0)
 
         def shrink(st):
             if st is not None and st.kind in ("blast", "monarch", "block_diag"):

@@ -1,7 +1,8 @@
 """Structured-linear interface, main-path part (counterpart of
-``repro/core/structures.py``): dense and BLAST linears behind one spec, and
-the grouped dispatch that runs same-input BLAST bundles (SwiGLU gate+up) as
-one kernel launch.
+``repro/core/structures.py``): dense, block-diagonal and BLAST linears
+behind one spec, and the grouped dispatch that runs same-input BLAST
+bundles (SwiGLU gate+up) as one kernel launch and same-input block-diagonal
+bundles (the RG-LRU gates) as one batched product.
 
 A spec carries ``init(generator, dtype, device, scale)`` → params (a dict of
 tensors) and ``apply(params, x)``: ``x (..., d_in) → (..., d_out)``.  BLAST
@@ -12,8 +13,9 @@ Quantized storage: ``spec.quantize(params, bits)`` turns the factors into
 per-block int8 or nibble-packed int4 ``QArray``s and ``spec.apply_q`` runs
 them — BLAST through ``kernels/ops.blast_matmul_q`` (the int8 or int4
 kernel or, with the activation mode set to "int8", the W8A8 or W4A8
-kernel), dense as a plain matmul on the codes.  Mixed storage raises
-(``check_storage``).
+kernel), dense and block-diagonal as plain products on the codes (the
+reference leaves both to XLA, outside any Pallas kernel).  Mixed storage
+raises (``check_storage``).
 """
 
 from __future__ import annotations
@@ -105,6 +107,41 @@ def _dense_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
                       quantize=_block_quantizer({"w": (0,)}), apply_q=apply_q)
 
 
+def _block_diag_spec(d_in: int, d_out: int,
+                     cfg: StructureConfig) -> LinearSpec:
+    """b diagonal blocks W_i (q, p): y_i = x_i W_i.  Budget m·n/b: with no
+    explicit rank, b grows until the params fit ``keep_ratio``, as in the
+    reference."""
+    b = _pick_blocks(d_in, d_out, cfg.b)
+    if cfg.rank is None and cfg.keep_ratio < 1.0 / b:
+        b = _pick_blocks(d_in, d_out, max(math.ceil(1.0 / cfg.keep_ratio), b))
+    q, p = d_in // b, d_out // b
+
+    def init(generator, dtype=torch.float32, device=None, scale=None):
+        w = torch.randn((b, q, p), generator=generator) / math.sqrt(q)
+        return {"w": w.to(device=device, dtype=dtype)}
+
+    def apply(params, x):
+        lead = x.shape[:-1]
+        y = torch.einsum("...bq,bqp->...bp", x.reshape(*lead, b, q),
+                         params["w"])
+        return y.reshape(*lead, d_out)
+
+    def apply_q(params, x):
+        w = params["w"]
+        lead = x.shape[:-1]
+        y = torch.einsum("...bq,bqp->...bp", x.reshape(*lead, b, q),
+                         qt.int_values(w).to(x.dtype))
+        y = y.float() * w.scale[:, :, 0]                 # one scale a block
+        return y.reshape(*lead, d_out).to(x.dtype)
+
+    return LinearSpec(kind="block_diag", d_in=d_in, d_out=d_out,
+                      shapes={"w": (b, q, p)}, init=init, apply=apply,
+                      meta={"b": b},
+                      quantize=_block_quantizer({"w": (1, 2)}),
+                      apply_q=apply_q)
+
+
 def _blast_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
     m, n = d_out, d_in
     b = _pick_blocks(n, m, cfg.b)
@@ -133,7 +170,8 @@ def _blast_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
         apply_q=apply_q)
 
 
-_MAKERS = {"dense": _dense_spec, "blast": _blast_spec}
+_MAKERS = {"dense": _dense_spec, "blast": _blast_spec,
+           "block_diag": _block_diag_spec}
 
 
 def make_linear(d_in: int, d_out: int, structure: StructureConfig | None = None,
@@ -325,25 +363,29 @@ def reset_dispatch_count() -> None:
 def group_plan(specs: Sequence[LinearSpec],
                params_list: Sequence[Params]) -> dict | None:
     """Can these same-input linears run as one grouped launch?  Eligible: ≥2
-    BLAST members with the same d_in, block count b and storage (all float,
-    all int8 or all int4); d_out and rank may differ (zero-padded to the
-    group max, which is exact).  Other bundles return None → the caller
-    loops per projection (the grouped dense and block-diagonal paths of the
-    reference are not on this slice)."""
+    members of one kind, BLAST or block-diagonal, with the same d_in, block
+    count b and storage (all float, all int8 or all int4); d_out and rank
+    may differ (zero-padded to the group max, which is exact).  Other
+    bundles return None → the caller loops per projection (the grouped
+    dense path of the reference is not on a ported slice)."""
     if len(specs) < 2:
         return None
+    kind = specs[0].kind
     storages = {check_storage(p) for p in params_list}
-    if any(s.kind != "blast" or s.d_in != specs[0].d_in for s in specs):
+    if kind not in ("blast", "block_diag") or any(
+            s.kind != kind or s.d_in != specs[0].d_in for s in specs):
         return None
     b = specs[0].meta["b"]
     if len(storages) != 1 or any(s.meta["b"] != b for s in specs):
         return None
-    return {"kind": "blast", "storage": storages.pop(), "d_in": specs[0].d_in,
+    plan = {"kind": kind, "storage": storages.pop(), "d_in": specs[0].d_in,
             "d_outs": [s.d_out for s in specs], "b": b,
-            "p": max(s.d_out // b for s in specs),
-            # rank from the factor arrays, not the spec (a QArray's shape
-            # is logical: ranks, not packed bytes)
-            "r": max(int(p["U"].shape[-1]) for p in params_list)}
+            "p": max(s.d_out // b for s in specs)}
+    if kind == "blast":
+        # rank from the factor arrays, not the spec (a QArray's shape is
+        # logical: ranks, not packed bytes)
+        plan["r"] = max(int(p["U"].shape[-1]) for p in params_list)
+    return plan
 
 
 def _pad_to(a: torch.Tensor, axis: int, size: int) -> torch.Tensor:
@@ -374,7 +416,18 @@ def _stack_group(params_list: Sequence[Params], plan: dict) -> Params:
     over G; quantized bundles also stack their scales su/sv (G, b), ss
     (G, b, b).  int4 members stack *packed*: the byte axis pads to
     ⌈r̂/2⌉ with zero bytes (two zero codes each), so the grouped int4
-    kernel reads them as they are stored."""
+    kernel reads them as they are stored.  Block-diagonal members stack W
+    (G, b, q, p̂) — int4 unpacked to int8 codes — and quantized ones their
+    per-block scales sw (G, b)."""
+    if plan["kind"] == "block_diag":
+        quantized = plan["storage"] != "float"
+        out = {"W": torch.stack([
+            _pad_to(qt.int_values(pp["w"]) if quantized else pp["w"], 2,
+                    plan["p"]) for pp in params_list]).contiguous()}
+        if quantized:
+            out["sw"] = torch.stack([pp["w"].scale[:, 0, 0]
+                                     for pp in params_list]).contiguous()
+        return out
     b, p_hat, r_hat = plan["b"], plan["p"], plan["r"]
     q = plan["d_in"] // b
     packed = plan["storage"] == "int4"
@@ -422,8 +475,10 @@ def group_apply(specs: Sequence[LinearSpec], params_list: Sequence[Params],
     """Apply G congruent same-input BLAST linears as ONE grouped kernel
     launch (``kernels/ops.blast_matmul_grouped``; for int8 bundles
     ``blast_matmul_grouped_q`` and for int4 bundles
-    ``blast_matmul_grouped_q4``, both in the current activation mode).
-    Counts one dispatch."""
+    ``blast_matmul_grouped_q4``, both in the current activation mode), or
+    G block-diagonal ones as one batched product (codes with their block
+    scales when quantized, as the reference's einsum).  Counts one
+    dispatch."""
     if plan is None:
         plan = group_plan(specs, params_list)
     if plan is None:
@@ -431,6 +486,14 @@ def group_apply(specs: Sequence[LinearSpec], params_list: Sequence[Params],
     record_dispatch(1)
     st = stacked if stacked is not None else _stack_group(params_list, plan)
     lead = x.shape[:-1]
+    if plan["kind"] == "block_diag":
+        b, G = plan["b"], len(specs)
+        xb = x.reshape(*lead, b, plan["d_in"] // b)
+        y = torch.einsum("...bq,gbqp->g...bp", xb, st["W"].to(x.dtype))
+        if "sw" in st:
+            y = y.float() * st["sw"].reshape(G, *([1] * len(lead)), b, 1)
+        return _split_group(y.reshape(G, *lead, b * plan["p"]), plan, lead,
+                            x.dtype)
     if plan["storage"] in ("int8", "int4"):
         grouped = (kops.blast_matmul_grouped_q4 if plan["storage"] == "int4"
                    else kops.blast_matmul_grouped_q)

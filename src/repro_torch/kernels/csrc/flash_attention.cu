@@ -11,13 +11,26 @@
 //     (src/repro/models/layers.py:416-424: dequantize_rows of the cache it
 //     just wrote, then attention, in XLA) — entry points flash_prefill_q8_f32
 //     / flash_prefill_q8_bf16: B3 with k and v int8 codes and per-(slot,
-//     head) bf16 scales k_scale, v_scale (B, Hkv, S).
+//     head) bf16 scales k_scale, v_scale (B, Hkv, S);
+//   and the reference's attention over a sliding-window ring
+//     (src/repro/models/ops.py::cache_attention (:133), reached from
+//     src/repro/models/layers.py::attn_prefill, in XLA; the Pallas prefill
+//     kernel masks by slot index, which a wrapped ring breaks) — entry points
+//     flash_prefill_ring_f32 / flash_prefill_ring_bf16: B3 with each key's
+//     position read from kpos (B, S) int32 (the ring's pos, -1 empty).
 //
 // Function: q (B, Hq, T, D), k and v (B, Hkv, S, D) → o (B, Hq, T, D).
 // Query (b, t) sits at absolute position off + t, where off is q_offset
 // (full) or q_offsets[b] (prefill); it sees key j iff j <= off + t
-// (causal), j < kv_len, and with a window j > off + t - window.  GQA: query
-// head h reads kv head h / (Hq / Hkv).  A row with no visible key returns 0.
+// (causal), j < kv_len, and with a window j > off + t - window.  Over a
+// ring, key j sits at position kpos[b, j] instead of j: the query sees it
+// iff j < kv_len, 0 <= kpos[b, j] <= off + t and kpos[b, j] > off + t -
+// window.  Slots of a wrapped ring are not in position order, so the ring
+// instantiations scan every slot below kv_len, skip no tile by index, and
+// mask every tile (their K/V tiles and code are those of the slot-index
+// instantiations, with a 64-int tile of positions staged beside each).
+// GQA: query head h reads kv head h / (Hq / Hkv).  A row with no visible
+// key returns 0.
 // Every tensor is read and written through its strides (the last axis must
 // be contiguous), so q, k and v are read as views of the qkv projection (or
 // of the serving cache) and the output lands token-major for the out
@@ -30,10 +43,10 @@
 //
 // What bounds it on the H100.  Prefill (C ≤ 32 queries against S ≤ 512
 // slots) and decode are bytes-bound: 4·C·S·D FLOPs per head against
-// reading the live prefix of each row's K/V.  The full-sequence kernel is
-// bytes-bound at training shapes (B = 8, T = 256, D = 64: 6.3 MB against
-// 0.6 GFLOP causal) and operations-bound from T ≈ 1k (T = 2048: 4.8 GFLOP
-// causal, 1.9 MB).
+// reading the live prefix of each row's K/V (a ring: its S slots).  The
+// full-sequence kernel is bytes-bound at training shapes (B = 8, T = 256,
+// D = 64: 6.3 MB against 0.6 GFLOP causal) and operations-bound from
+// T ≈ 1k (T = 2048: 4.8 GFLOP causal, 1.9 MB).
 //
 // Over int8 K/V the tiles cost half the bytes, and the loader does the
 // dequantize: a tile's codes (64 keys × D bytes) go to shared memory by
@@ -153,15 +166,18 @@ constexpr int WIDE_D = 128;   // head dims above it take the DM = 256 tiles
 
 // PER_ROW: the query offset is offs[b] (prefill) or the static q_offset.
 // DM: the largest head dim D this instantiation takes.  KV: float, or int8
-// codes with their scales ksc, vsc.
-template <int BQ, int NT, bool PER_ROW, int DM, typename KV>
-__global__ void __launch_bounds__(NT)
-attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
-            const KV* __restrict__ v, const bf16* __restrict__ ksc,
-            const bf16* __restrict__ vsc, const int* __restrict__ offs,
-            int q_offset, float* __restrict__ o, int Hq, int Hkv, int C,
-            int D, Strides st, int causal, int window, int kv_len,
-            float scale) {
+// codes with their scales ksc, vsc.  KPOS: key j's position is kpos[b·kpb
+// + j] (a ring cache's pos, -1 for an empty slot), not j: the block scans
+// every slot below kv_len and masks by that position (live iff 0 <= kpos
+// <= qpos and, with a window, kpos > qpos - window); causal is not read.
+template <int BQ, int NT, bool PER_ROW, int DM, typename KV, bool KPOS>
+__device__ __forceinline__ void
+attn_body(const float* __restrict__ q, const KV* __restrict__ k,
+          const KV* __restrict__ v, const bf16* __restrict__ ksc,
+          const bf16* __restrict__ vsc, const int* __restrict__ offs,
+          int q_offset, float* __restrict__ o, int Hq, int Hkv, int C, int D,
+          const Strides& st, int causal, int window, int kv_len, float scale,
+          const int* __restrict__ kpos, long long kpb) {
   constexpr int EPT = BQ * DM / NT;   // accumulator entries per thread
   const int b = blockIdx.x / Hq, h = blockIdx.x - b * Hq;
   const int kvh = h / (Hq / Hkv);
@@ -178,6 +194,7 @@ attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   float* mrow = ps + BQ * BKV;        // (BQ,)        running max
   float* lrow = mrow + BQ;            // (BQ,)        running sum
   float* arow = lrow + BQ;            // (BQ,)        this tile's rescale
+  int* kps = reinterpret_cast<int*>(arow + BQ);   // KPOS: (BKV,) positions
 
   const float* qp = q + b * st.qb + h * st.qh;
   for (int idx = tid; idx < BQ * D; idx += NT) {
@@ -192,12 +209,12 @@ attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
   for (int e = 0; e < EPT; ++e) acc[e] = 0.f;
 
-  // keys any query of this tile can see
+  // keys any query of this tile can see (KPOS: every slot below kv_len)
   const int q_lo = off + t0, q_hi = off + t0 + rows - 1;
   int k_end = kv_len;
-  if (causal) k_end = min(k_end, q_hi + 1);
+  if (causal && !KPOS) k_end = min(k_end, q_hi + 1);
   int k_begin = 0;
-  if (window > 0) k_begin = max(0, q_lo - window + 1);
+  if (window > 0 && !KPOS) k_begin = max(0, q_lo - window + 1);
   const KV* kp = k + b * st.kb + kvh * st.kh;
   const KV* vp = v + b * st.vb + kvh * st.vh;
   const bf16* kscp = IS_Q8<KV> ? ksc + b * st.sb + kvh * st.sh : nullptr;
@@ -213,13 +230,16 @@ attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
       vs[j * D + d] =
           in ? kv_value(vp, key * st.vs + d, vscp, key * st.ts) : 0.f;
     }
+    if constexpr (KPOS)   // past kv_len: -1, an empty slot
+      if (tid < BKV)
+        kps[tid] = j0 + tid < k_end ? kpos[b * kpb + j0 + tid] : -1;
     __syncthreads();
     for (int idx = tid; idx < BQ * BKV; idx += NT) {
       const int t = idx / BKV, j = idx - t * BKV;
-      const int qpos = off + t0 + t, kpos = j0 + j;
-      bool live = t < rows && kpos < kv_len;
-      if (causal) live = live && kpos <= qpos;
-      if (window > 0) live = live && kpos > qpos - window;
+      const int qpos = off + t0 + t, kp = KPOS ? kps[j] : j0 + j;
+      bool live = t < rows && (KPOS ? kp >= 0 && kp <= qpos : kp < kv_len);
+      if (causal && !KPOS) live = live && kp <= qpos;
+      if (window > 0) live = live && kp > qpos - window;
       float s = -INFINITY;
       if (live) {
         float a = 0.f;
@@ -281,27 +301,70 @@ attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 }
 
 template <int BQ, int NT, bool PER_ROW, int DM, typename KV>
+__global__ void __launch_bounds__(NT)
+attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
+            const KV* __restrict__ v, const bf16* __restrict__ ksc,
+            const bf16* __restrict__ vsc, const int* __restrict__ offs,
+            int q_offset, float* __restrict__ o, int Hq, int Hkv, int C,
+            int D, Strides st, int causal, int window, int kv_len,
+            float scale) {
+  attn_body<BQ, NT, PER_ROW, DM, KV, false>(q, k, v, ksc, vsc, offs,
+                                            q_offset, o, Hq, Hkv, C, D, st,
+                                            causal, window, kv_len, scale,
+                                            nullptr, 0);
+}
+
+// B3 over a ring: key positions from kpos (B, S) with row stride kpb
+template <int BQ, int NT, int DM>
+__global__ void __launch_bounds__(NT)
+attn_ring_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ kpos,
+                 long long kpb, const int* __restrict__ offs,
+                 float* __restrict__ o, int Hq, int Hkv, int C, int D,
+                 Strides st, int window, int kv_len, float scale) {
+  attn_body<BQ, NT, true, DM, float, true>(q, k, v, nullptr, nullptr, offs,
+                                           0, o, Hq, Hkv, C, D, st, 1, window,
+                                           kv_len, scale, kpos, kpb);
+}
+
+// KPOS: the ring kernel (KV float, PER_ROW), with kpos and its row stride
+template <int BQ, int NT, bool PER_ROW, int DM, typename KV, bool KPOS = false>
 int launch_dm(const void* q, const void* k, const void* v, const void* ksc,
               const void* vsc, const void* offs, int q_offset, void* o, int B,
               int Hq, int Hkv, int C, int D, const long long* strides,
-              int causal, int window, int kv_len, void* stream) {
+              int causal, int window, int kv_len, void* stream,
+              const void* kpos = nullptr, long long kpb = 0) {
   if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > DM ||
       D % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)BQ * D + (size_t)BKV * (D + 1) +
-                                       (size_t)BKV * D + BQ * BKV + 3 * BQ);
-  auto kernel = attn_kernel<BQ, NT, PER_ROW, DM, KV>;
+  const size_t smem =
+      sizeof(float) * ((size_t)BQ * D + (size_t)BKV * (D + 1) +
+                       (size_t)BKV * D + BQ * BKV + 3 * BQ) +
+      (KPOS ? sizeof(int) * BKV : 0);
+  const void* kernel;
+  if constexpr (KPOS)
+    kernel = (const void*)attn_ring_kernel<BQ, NT, DM>;
+  else
+    kernel = (const void*)attn_kernel<BQ, NT, PER_ROW, DM, KV>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(B * Hq, (C + BQ - 1) / BQ);
-  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const KV*)k, (const KV*)v, (const bf16*)ksc,
-      (const bf16*)vsc, (const int*)offs, q_offset, (float*)o, Hq, Hkv, C, D,
-      make_strides(strides, IS_Q8<KV>), causal, window, kv_len,
-      1.0f / sqrtf((float)D));
+  const float scale = 1.0f / sqrtf((float)D);
+  if constexpr (KPOS)
+    attn_ring_kernel<BQ, NT, DM><<<grid, NT, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const int*)kpos,
+        kpb, (const int*)offs, (float*)o, Hq, Hkv, C, D,
+        make_strides(strides, false), window, kv_len, scale);
+  else
+    attn_kernel<BQ, NT, PER_ROW, DM, KV>
+        <<<grid, NT, smem, (cudaStream_t)stream>>>(
+            (const float*)q, (const KV*)k, (const KV*)v, (const bf16*)ksc,
+            (const bf16*)vsc, (const int*)offs, q_offset, (float*)o, Hq, Hkv,
+            C, D, make_strides(strides, IS_Q8<KV>), causal, window, kv_len,
+            scale);
   return (int)cudaGetLastError();
 }
 
@@ -338,16 +401,22 @@ constexpr float LOG2E = 1.4426950408889634f;
 // (splits, B, C, Hq, 2) — or null, and then o is written.  EXACT: D = DM,
 // so the head-dim loops, row strides and copies are compile-time.  KV: bf16,
 // or int8 codes with their scales ksc, vsc, dequantized into one bf16 K/V
-// tile per key tile.
-template <int DM, bool EXACT, typename KV>
-__global__ void __launch_bounds__(32 * MAX_WARPS)
-attn_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
-                 const KV* __restrict__ v, const bf16* __restrict__ ksc,
-                 const bf16* __restrict__ vsc, const int* __restrict__ offs,
-                 int q_offset, bf16* __restrict__ o, float* __restrict__ part,
-                 int Hq, int Hkv, int P, int C, int D, Strides st, int causal,
-                 int window, int kv_len, int kps, float sl2) {
+// tile per key tile.  KPOS (bf16 K/V): key j's position is kpos[b·kpb + j]
+// (a ring cache's pos; -1: empty), staged as a tile of 64 ints beside each
+// K/V tile; the block scans every slot of its split below kv_len, skips
+// nothing by index, and masks every tile by position (live iff 0 <= kpos
+// <= qpos and, with a window, kpos > qpos - window); causal is not read.
+template <int DM, bool EXACT, typename KV, bool KPOS>
+__device__ __forceinline__ void
+attn_tile_body(const bf16* __restrict__ q, const KV* __restrict__ k,
+               const KV* __restrict__ v, const bf16* __restrict__ ksc,
+               const bf16* __restrict__ vsc, const int* __restrict__ offs,
+               int q_offset, bf16* __restrict__ o, float* __restrict__ part,
+               int Hq, int Hkv, int P, int C, int D, const Strides& st,
+               int causal, int window, int kv_len, int kps, float sl2,
+               const int* __restrict__ kpos, long long kpb) {
   constexpr bool Q8 = IS_Q8<KV>;
+  static_assert(!(Q8 && KPOS), "the ring instantiation takes bf16 K/V");
   constexpr int KV_STAGES = Q8 ? 1 : 2;     // bf16 K/V tiles in shared memory
   // a split launch's attn_split_combine may start now and wait for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -371,6 +440,7 @@ attn_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
 
   // this thread's two rows (fragment rows lane/4 and lane/4 + 8): token,
   // query head and the key range [lo, hi) the row sees in this split
+  // (KPOS: the row's position, -1 for a padding row, which sees no key)
   int rt[2], rh[2], lo[2], hi[2];
   bool live[2];
 #pragma unroll
@@ -380,13 +450,18 @@ attn_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
     rt[i] = r / P;
     rh[i] = hb + r - rt[i] * P;
     const int pos = off + rt[i];
-    hi[i] = live[i] ? (causal ? min(s_hi, pos + 1) : s_hi) : 0;
-    lo[i] = max(s_lo, window > 0 ? pos - window + 1 : 0);
+    if constexpr (KPOS) {
+      lo[i] = live[i] ? pos : -1;
+    } else {
+      hi[i] = live[i] ? (causal ? min(s_hi, pos + 1) : s_hi) : 0;
+      lo[i] = max(s_lo, window > 0 ? pos - window + 1 : 0);
+    }
   }
   // keys some row of the block sees, and keys every row sees
   const int t_lo = r0 / P, t_hi = (r0 + rows - 1) / P;
-  const int k_end = causal ? min(s_hi, off + t_hi + 1) : s_hi;
-  const int k_begin = max(s_lo, window > 0 ? off + t_lo - window + 1 : 0);
+  const int k_end = causal && !KPOS ? min(s_hi, off + t_hi + 1) : s_hi;
+  const int k_begin =
+      max(s_lo, window > 0 && !KPOS ? off + t_lo - window + 1 : 0);
   const int all_hi = causal ? min(s_hi, off + t_lo + 1) : s_hi;
   const int all_lo = max(s_lo, window > 0 ? off + t_hi - window + 1 : 0);
 
@@ -403,6 +478,8 @@ attn_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
     // int8 K/V: 2 stages × (K, V) of codes (KT, D), then of scales (KT,)
     int8_t* raw = reinterpret_cast<int8_t*>(kvs + KV_STAGES * 2 * KT * LD);
     bf16* rsc = reinterpret_cast<bf16*>(raw + 4 * KT * D);
+    // KPOS: 2 stages of the tile's key positions (KT,) after the K/V tiles
+    int* kpt = reinterpret_cast<int*>(kvs + KV_STAGES * 2 * KT * LD);
     if (DP != D)   // the zero pad of D to 16, never written by a copy
       for (int i = tid; i < BR + KV_STAGES * 2 * KT; i += nthr)
         zero_n<16>(qs + i * LD + D);
@@ -457,6 +534,10 @@ attn_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
             zero_n<16>(vs + at);
           }
         }
+        if constexpr (KPOS)   // plain loads; past the range -1 (empty)
+          for (int j = tid; j < KT; j += nthr)
+            kpt[stage * KT + j] =
+                j0 + j < k_end ? kpos[b * kpb + j0 + j] : -1;
       }
       cp_commit();
     };
@@ -532,7 +613,18 @@ attn_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
           }
         }
       }
-      if (j0 < all_lo || j0 + KT > all_hi) {   // a row misses keys: mask
+      if constexpr (KPOS) {   // every tile: mask by each key's position
+        const int* kt = kpt + (it & 1) * KT;
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kq = kt[n * 8 + 2 * (lane & 3) + (e & 1)];
+            const int pos = lo[e >> 1];
+            if (kq < 0 || kq > pos || (window > 0 && kq <= pos - window))
+              s[n][e] = -INFINITY;
+          }
+      } else if (j0 < all_lo || j0 + KT > all_hi) {   // a row misses keys
 #pragma unroll
         for (int n = 0; n < NK; ++n)
 #pragma unroll
@@ -621,6 +713,33 @@ attn_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
+template <int DM, bool EXACT, typename KV>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+attn_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
+                 const KV* __restrict__ v, const bf16* __restrict__ ksc,
+                 const bf16* __restrict__ vsc, const int* __restrict__ offs,
+                 int q_offset, bf16* __restrict__ o, float* __restrict__ part,
+                 int Hq, int Hkv, int P, int C, int D, Strides st, int causal,
+                 int window, int kv_len, int kps, float sl2) {
+  attn_tile_body<DM, EXACT, KV, false>(q, k, v, ksc, vsc, offs, q_offset, o,
+                                       part, Hq, Hkv, P, C, D, st, causal,
+                                       window, kv_len, kps, sl2, nullptr, 0);
+}
+
+// B3 over a ring: key positions from kpos (B, S) with row stride kpb
+template <int DM, bool EXACT>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+attn_tile_ring_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const int* __restrict__ kpos,
+                      long long kpb, const int* __restrict__ offs,
+                      bf16* __restrict__ o, float* __restrict__ part, int Hq,
+                      int Hkv, int P, int C, int D, Strides st, int window,
+                      int kv_len, int kps, float sl2) {
+  attn_tile_body<DM, EXACT, bf16, true>(q, k, v, nullptr, nullptr, offs, 0,
+                                        o, part, Hq, Hkv, P, C, D, st, 1,
+                                        window, kv_len, kps, sl2, kpos, kpb);
+}
+
 // o = Σ_s w_s·acc_s / Σ_s w_s·l_s with w_s = 2^(m_s − max m), over the
 // splits with l_s > 0 in split order (the same sum every run); 0 where no
 // split saw a key.  Four head-dim columns of one row a thread.
@@ -682,21 +801,27 @@ int launch_combine(const float* part, bf16* o, int B, int C, int Hq, int D,
                                  D, splits, ob, oh, ot);
 }
 
-template <int DM, bool EXACT, typename KV>
+// KPOS: the ring kernel (bf16 K/V), with kpos and its row stride kpb
+template <int DM, bool EXACT, typename KV, bool KPOS>
 int launch_tile_dm(const void* q, const void* k, const void* v,
                    const void* ksc, const void* vsc, const void* offs,
                    int q_offset, void* o, float* part, int B, int Hq, int Hkv,
                    int P, int C, int D, const Strides& st, int causal,
                    int window, int kv_len, int warps, int splits, int kps,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const void* kpos, long long kpb) {
   const int LD = ((D + 15) & ~15) + 8;
   // Q and the bf16 K/V tiles; over int8 K/V one bf16 stage, then two of
-  // codes and scales
+  // codes and scales; over a ring two stages of key positions after them
   const size_t smem =
       IS_Q8<KV> ? sizeof(bf16) * (size_t)LD * (16 * warps + 2 * KT) +
                       4 * (size_t)KT * D + 4 * KT * sizeof(bf16)
-                : sizeof(bf16) * (size_t)LD * (16 * warps + 4 * KT);
-  auto kernel = attn_tile_kernel<DM, EXACT, KV>;
+                : sizeof(bf16) * (size_t)LD * (16 * warps + 4 * KT) +
+                      (KPOS ? 2 * KT * sizeof(int) : 0);
+  const void* kernel;
+  if constexpr (KPOS)
+    kernel = (const void*)attn_tile_ring_kernel<DM, EXACT>;
+  else
+    kernel = (const void*)attn_tile_kernel<DM, EXACT, KV>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -704,11 +829,18 @@ int launch_tile_dm(const void* q, const void* k, const void* v,
   }
   const int br = 16 * warps;
   const dim3 grid(B * (Hq / P), (C * P + br - 1) / br, splits);
-  kernel<<<grid, 32 * warps, smem, stream>>>(
-      (const bf16*)q, (const KV*)k, (const KV*)v, (const bf16*)ksc,
-      (const bf16*)vsc, (const int*)offs, q_offset, (bf16*)o,
-      splits > 1 ? part : nullptr, Hq, Hkv, P, C, D, st, causal, window,
-      kv_len, kps, LOG2E / sqrtf((float)D));
+  const float sl2 = LOG2E / sqrtf((float)D);
+  if constexpr (KPOS)
+    attn_tile_ring_kernel<DM, EXACT><<<grid, 32 * warps, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)kpos, kpb,
+        (const int*)offs, (bf16*)o, splits > 1 ? part : nullptr, Hq, Hkv, P,
+        C, D, st, window, kv_len, kps, sl2);
+  else
+    attn_tile_kernel<DM, EXACT, KV><<<grid, 32 * warps, smem, stream>>>(
+        (const bf16*)q, (const KV*)k, (const KV*)v, (const bf16*)ksc,
+        (const bf16*)vsc, (const int*)offs, q_offset, (bf16*)o,
+        splits > 1 ? part : nullptr, Hq, Hkv, P, C, D, st, causal, window,
+        kv_len, kps, sl2);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   return launch_combine(part, (bf16*)o, B, C, Hq, D, splits, st.ob, st.oh,
@@ -718,14 +850,16 @@ int launch_tile_dm(const void* q, const void* k, const void* v,
 // The bf16 kernel at P packed heads, `warps` warps a block and `splits`
 // key ranges of kps keys (a multiple of KT covering kv_len; part holds
 // splits·B·C·Hq·(D + 2) floats when splits > 1); K/V of type KV (int8:
-// with the scales ksc, vsc and 18 strides).
-template <typename KV = bf16>
+// with the scales ksc, vsc and 18 strides).  KPOS: the ring kernel, key
+// positions kpos with row stride kpb.
+template <typename KV = bf16, bool KPOS = false>
 int launch_tile(const void* q, const void* k, const void* v, const void* offs,
                 int q_offset, void* o, float* part, int B, int Hq, int Hkv,
                 int P, int C, int D, const long long* strides, int causal,
                 int window, int kv_len, int warps, int splits, int kps,
                 void* stream, const void* ksc = nullptr,
-                const void* vsc = nullptr) {
+                const void* vsc = nullptr, const void* kpos = nullptr,
+                long long kpb = 0) {
   if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > DMAX ||
       D % 8 != 0 || P <= 0 || Hq % P != 0 || (Hq / Hkv) % P != 0 ||
       warps < 1 || warps > MAX_WARPS || splits < 1 ||
@@ -734,11 +868,10 @@ int launch_tile(const void* q, const void* k, const void* v, const void* offs,
     return (int)cudaErrorInvalidValue;
   const Strides st = make_strides(strides, IS_Q8<KV>);
   auto s = (cudaStream_t)stream;
-#define ATTN_TILE(DM, EXACT)                                               \
-  return launch_tile_dm<DM, EXACT, KV>(q, k, v, ksc, vsc, offs, q_offset, \
-                                       o, part, B, Hq, Hkv, P, C, D, st,   \
-                                       causal, window, kv_len, warps,      \
-                                       splits, kps, s)
+#define ATTN_TILE(DM, EXACT)                                                \
+  return launch_tile_dm<DM, EXACT, KV, KPOS>(                              \
+      q, k, v, ksc, vsc, offs, q_offset, o, part, B, Hq, Hkv, P, C, D, st, \
+      causal, window, kv_len, warps, splits, kps, s, kpos, kpb)
   switch (D) {
     case 64: ATTN_TILE(64, true);
     case 128: ATTN_TILE(128, true);
@@ -797,6 +930,36 @@ int flash_prefill_q8_bf16(const void* q, const void* k, const void* v,
   return launch_tile<int8_t>(q, k, v, offs, 0, o, (float*)part, B, Hq, Hkv,
                              Hq / Hkv, C, D, strides, causal, window, kv_len,
                              warps, splits, kps, stream, k_scale, v_scale);
+}
+
+// B3 over a ring cache: key positions kpos (B, S) int32, row stride kpb;
+// fp32 on CUDA cores, bf16 on the tile kernel (GQA-packed, the plan's warps
+// and key splits)
+int flash_prefill_ring_f32(const void* q, const void* k, const void* v,
+                           const void* kpos, long long kpb, const void* offs,
+                           void* o, int B, int Hq, int Hkv, int C, int D,
+                           const long long* strides, int window, int kv_len,
+                           void* stream) {
+  if (D <= WIDE_D)
+    return launch_dm<PREFILL_BQ, PREFILL_NT, true, WIDE_D, float, true>(
+        q, k, v, nullptr, nullptr, offs, 0, o, B, Hq, Hkv, C, D, strides, 1,
+        window, kv_len, stream, kpos, kpb);
+  return launch_dm<PREFILL_BQ, PREFILL_NT, true, DMAX, float, true>(
+      q, k, v, nullptr, nullptr, offs, 0, o, B, Hq, Hkv, C, D, strides, 1,
+      window, kv_len, stream, kpos, kpb);
+}
+
+int flash_prefill_ring_bf16(const void* q, const void* k, const void* v,
+                            const void* kpos, long long kpb, const void* offs,
+                            void* o, void* part, int B, int Hq, int Hkv, int C,
+                            int D, const long long* strides, int window,
+                            int kv_len, int warps, int splits, int kps,
+                            void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  return launch_tile<bf16, true>(q, k, v, offs, 0, o, (float*)part, B, Hq,
+                                 Hkv, Hq / Hkv, C, D, strides, 1, window,
+                                 kv_len, warps, splits, kps, stream, nullptr,
+                                 nullptr, kpos, kpb);
 }
 
 int flash_full_f32(const void* q, const void* k, const void* v, void* o,

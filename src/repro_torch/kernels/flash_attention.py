@@ -8,7 +8,10 @@ and their plain PyTorch versions.
 - ``launch`` with ``k_scale`` and ``v_scale``: B3 over an int8 cache — k, v
   int8 codes (B, Hkv, S, D) with their bf16 scales (B, Hkv, S), each
   given with its scales; the kernel dequantizes each K/V tile as it stages
-  it, as ``quant.dequantize_rows`` does.
+  it, as ``quant.dequantize_rows`` does;
+- ``launch_ring``: B3 over a sliding-window ring — each key's position
+  read from ``k_pos`` (B, S) int32, the ring's ``pos``, not from its slot
+  index (the ring instantiations of both kernels).
 
 Both read q, k and v through their strides (last axis contiguous), so a
 (B, S, Hkv, D) serving cache or a (B, T, H, D) view of the qkv projection is
@@ -60,6 +63,13 @@ _ARGTYPES = {
                             + [_P],
     "flash_prefill_q8_bf16": [_P] * 8 + [_I] * 5 + [_STRIDES] + [_I] * 6
                              + [_P],
+    # over a ring: q, k, v, kpos, kpos' row stride, offs, o, B, Hq, Hkv, C,
+    # D, strides, window, kv_len; bf16: part after o, then warps, splits,
+    # keys per split
+    "flash_prefill_ring_f32": [_P] * 4 + [ctypes.c_longlong] + [_P] * 2
+                              + [_I] * 5 + [_STRIDES] + [_I] * 2 + [_P],
+    "flash_prefill_ring_bf16": [_P] * 4 + [ctypes.c_longlong] + [_P] * 3
+                               + [_I] * 5 + [_STRIDES] + [_I] * 5 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _LIB: list = []
@@ -214,6 +224,46 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         rc = getattr(_lib(), f"{name}_f32")(*head, B, Hq, Hkv, C, D, strides,
                                             *opts, stream)
+    build.check(rc, what)
+    return o
+
+
+def launch_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                k_pos: torch.Tensor, q_offsets: torch.Tensor, *,
+                window: int | None, kv_len: int) -> torch.Tensor:
+    """B3 over a ring: k_pos (B, S) int32 on the card with a contiguous last
+    axis (the ring's ``pos``, a view of the cache's leaf, or the
+    concatenated [ring ‖ chunk] positions of a chunk step); keys at slots
+    ``>= kv_len`` are not read.  The launch plan is ``split_plan``'s."""
+    what = "flash_attention_ring"
+    build.refuse_grad(what, q, k, v)
+    B, Hq, C, D = q.shape
+    Hkv, S_len = k.shape[1], k.shape[2]
+    _check(what, q, k, v, window, kv_len)
+    if (k_pos.dtype != torch.int32 or k_pos.shape != (B, S_len)
+            or k_pos.device != q.device or k_pos.stride(-1) != 1):
+        raise ValueError(f"k_pos must be an int32 tensor of shape "
+                         f"{(B, S_len)} on {q.device} with a contiguous last "
+                         f"axis, got {k_pos.dtype} {tuple(k_pos.shape)} "
+                         f"strides {k_pos.stride()}")
+    offs = q_offsets.to(device=q.device, dtype=torch.int32).contiguous()
+    if offs.shape != (B,):
+        raise ValueError(f"q_offsets has shape {tuple(offs.shape)}, want {(B,)}")
+    out, o, strides = _out(q, k, v)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pos.data_ptr(),
+            k_pos.stride(0), offs.data_ptr(), out.data_ptr())
+    opts = (0 if window is None else int(window), int(kv_len))
+    stream = torch.cuda.current_stream().cuda_stream
+    if q.dtype == torch.bfloat16:
+        warps, _, splits, kps = split_plan(B, Hkv, Hq // Hkv, C, kv_len,
+                                           build.sm_count(q.device))
+        part = _split_scratch(splits, B, C, Hq, D, q.device)
+        rc = _lib().flash_prefill_ring_bf16(
+            *head, None if part is None else part.data_ptr(), B, Hq, Hkv, C,
+            D, strides, *opts, warps, splits, kps, stream)
+    else:
+        rc = _lib().flash_prefill_ring_f32(*head, B, Hq, Hkv, C, D, strides,
+                                           *opts, stream)
     build.check(rc, what)
     return o
 

@@ -55,7 +55,7 @@ launches: dict[str, int] = {
     "blast_matmul_q4": 0, "blast_matmul_grouped_q4": 0,
     "blast_matmul_w4a8": 0, "blast_matmul_grouped_w4a8": 0,
     "flash_attention_prefill": 0, "flash_attention_prefill_q8": 0,
-    "flash_attention": 0,
+    "flash_attention_ring": 0, "flash_attention": 0,
     "blast_matmul_dx": 0}
 
 
@@ -345,6 +345,24 @@ def flash_attention_prefill_q8(q: torch.Tensor, k: torch.Tensor,
                    kv_len=k.shape[2] if kv_len is None else kv_len,
                    k_scale=k_scale, v_scale=v_scale)
     launches["flash_attention_prefill_q8"] += 1
+    return o
+
+
+def flash_attention_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         k_pos: torch.Tensor, q_offsets: torch.Tensor, *,
+                         window: int | None,
+                         kv_len: int | None = None) -> torch.Tensor:
+    """Attention over a sliding-window ring cache at per-row offsets: q
+    (B, Hq, C, D), k, v (B, Hkv, S, D) (any strides with a contiguous last
+    axis), k_pos (B, S) int32 — each slot's absolute position, -1 empty —
+    and q_offsets (B,) → (B, Hq, C, D).  Masks by ``k_pos``, not by slot
+    index; slots at ``j >= kv_len`` are not read (default: all S)."""
+    if _on_cpu(q):
+        return ref.attention_ring_ref(q, k, v, k_pos, q_offsets,
+                                      window=window, kv_len=kv_len)
+    o = _fa.launch_ring(q, k, v, k_pos, q_offsets, window=window,
+                        kv_len=k.shape[2] if kv_len is None else kv_len)
+    launches["flash_attention_ring"] += 1
     return o
 
 

@@ -122,6 +122,27 @@ def blast_matmul_grouped_a4_ref(xq: torch.Tensor, sx: torch.Tensor,
     return blast_matmul_grouped_a8_ref(xq, sx, U, S, V, su, ss, sv)
 
 
+def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """q (B, Hq, T, D); k, v (B, Hkv, S, D); mask (B, T, S) of visible keys
+    → (B, Hq, T, D) in q's type; a row that sees no key returns 0."""
+    B, Hq, T, D = q.shape
+    Hkv = k.shape[1]
+    qf = acc(q).reshape(B, Hkv, Hq // Hkv, T, D)
+    scores = torch.einsum("bhgtd,bhsd->bhgts", qf, acc(k)) / math.sqrt(D)
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)   # fully-masked rows → 0
+    out = torch.einsum("bhgts,bhsd->bhgtd", probs, acc(v))
+    return out.reshape(B, Hq, T, D).to(q.dtype)
+
+
+def _query_positions(q_offsets: torch.Tensor, T: int, device) -> torch.Tensor:
+    """(B, T, 1) absolute position of query (b, t): q_offsets[b] + t."""
+    offs = q_offsets.to(device=device, dtype=torch.int64)
+    return offs[:, None, None] + torch.arange(T, device=device)[None, :, None]
+
+
 def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_offsets: torch.Tensor, *, causal: bool = True,
                           window: int | None = None,
@@ -130,25 +151,39 @@ def attention_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (any strides); q_offsets (B,).  Query (b, t) at absolute position
     ``q_offsets[b] + t`` attends to key j iff ``j <= q_offsets[b] + t``,
     ``j < kv_len`` and (with a window) ``j > q_offsets[b] + t - window``."""
-    B, Hq, T, D = q.shape
-    Hkv, S_len = k.shape[1], k.shape[2]
-    G = Hq // Hkv
+    B, _, T, _ = q.shape
+    S_len = k.shape[2]
     kv_len = S_len if kv_len is None else kv_len
-    qf = acc(q).reshape(B, Hkv, G, T, D)
-    scores = torch.einsum("bhgtd,bhsd->bhgts", qf, acc(k)) / math.sqrt(D)
-    offs = q_offsets.to(device=q.device, dtype=torch.int64)
-    qi = offs[:, None, None] + torch.arange(T, device=q.device)[None, :, None]
+    qi = _query_positions(q_offsets, T, q.device)
     kj = torch.arange(S_len, device=q.device)[None, None, :]
     mask = (kj < kv_len).expand(B, T, S_len)
     if causal:
         mask = mask & (kj <= qi)
     if window is not None:
         mask = mask & (kj > qi - window)
-    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    probs = torch.nan_to_num(probs, nan=0.0)   # fully-masked rows → 0
-    out = torch.einsum("bhgts,bhsd->bhgtd", probs, acc(v))
-    return out.reshape(B, Hq, T, D).to(q.dtype)
+    return _masked_attention(q, k, v, mask)
+
+
+def attention_ring_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       k_pos: torch.Tensor, q_offsets: torch.Tensor, *,
+                       window: int | None,
+                       kv_len: int | None = None) -> torch.Tensor:
+    """Attention over a ring cache, by key position: q (B, Hq, C, D); k, v
+    (B, Hkv, S, D) (any strides); k_pos (B, S) the absolute position of
+    each slot (-1: empty); q_offsets (B,).  Query (b, t) at ``q_offsets[b]
+    + t`` attends to slot j iff ``j < kv_len``, ``0 <= k_pos[b, j] <=``
+    its position and (with a window) ``k_pos[b, j] >`` its position ``-
+    window`` — the reference's ``cache_attention`` (``models/ops.py``),
+    except that a row with no visible key returns 0."""
+    T, S_len = q.shape[2], k.shape[2]
+    kv_len = S_len if kv_len is None else kv_len
+    qi = _query_positions(q_offsets, T, q.device)
+    kp = k_pos.to(device=q.device, dtype=torch.int64)[:, None, :]
+    kj = torch.arange(S_len, device=q.device)[None, None, :]
+    mask = (kj < kv_len) & (kp >= 0) & (kp <= qi)
+    if window is not None:
+        mask = mask & (kp > qi - window)
+    return _masked_attention(q, k, v, mask)
 
 
 def attention_prefill_q8_ref(q: torch.Tensor, k: torch.Tensor,

@@ -28,6 +28,15 @@ the pool's occupancy:
         --reduced --device cpu --paged --pages 16 --page-size 16 \
         --priority-classes 2 --trace
 
+The hybrid recurrentgemma-2b (RG-LRU and sliding-window attention over a
+ring cache) serves slot-static, with float or quantized weights:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --reduced --device cpu
+
+its ``--paged``, ``--speculative`` and ``--quant-cache int8`` raise
+``NotImplementedError`` (ROADMAP A7: the state leaves' snapshot slots).
+
 ``--speculative K`` decodes self-speculatively: a draft of the model's own
 factors truncated to their highest-energy ranks (``--draft-rank-frac`` of
 the pooled rank budget) proposes K tokens a round, and one verify chunk of

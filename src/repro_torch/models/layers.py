@@ -1,8 +1,8 @@
 """Model layers of the ported slices (counterpart of
 ``repro/models/layers.py``): linears over any ported structure, norms
 (RMSNorm, LayerNorm), the tied embedding, GQA attention (full-sequence,
-and chunked prefill over a slot-static float or int8 cache), and the
-SwiGLU and GELU FFNs.
+and chunked prefill over a slot-static float or int8 cache, or over the
+ring cache of a sliding-window layer), and the SwiGLU and GELU FFNs.
 
 Parameters are plain dicts of tensors with the reference's key names.
 Caches are updated in place (the reference returns new immutable arrays);
@@ -141,21 +141,25 @@ def norm_apply(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Ragged:
-    """Where a (B, C) chunk's tokens go.  Column i of row b is live iff
-    ``i < n_tokens[b]``; its absolute position (and cache slot) is
-    ``steps[b] + i``.  Every tensor has a fixed shape and lies on the
+    """Where a (B, C) chunk's tokens go in one layer's cache.  Column i of
+    row b is live iff ``i < n[b]``; its absolute position is ``steps[b] +
+    i``, and its cache slot that position (a ring: the position modulo the
+    ring's S slots).  Every tensor has a fixed shape and lies on the
     model's device, so a step built on it can be captured as a CUDA graph;
     ``kv_len`` is the host int the attention kernel's launch plan reads
-    (a bucket, ``flash_attention.kv_bucket``: a graph fixes it)."""
+    (a bucket, ``flash_attention.kv_bucket``: a graph fixes it; a ring's is
+    at most its S slots)."""
     steps: torch.Tensor     # (B,) int32 — the attention kernel's q_offsets
+    n: torch.Tensor         # (B,) int64 — live tokens per row
     q_pos: torch.Tensor     # (B, C) int64 — RoPE positions
+    live: torch.Tensor      # (B, C) bool — live columns
     slot: torch.Tensor      # (B, C) int64 — where each column writes
     last: torch.Tensor      # (B,) int64 — each row's last live column
     kv_len: int
 
 
 def ragged(steps: torch.Tensor, n_tokens: torch.Tensor, C: int, S: int,
-           kv_len: int) -> Ragged:
+           kv_len: int, *, ring: bool = False) -> Ragged:
     """The chunk geometry from device tensors ``steps`` and ``n_tokens``
     (B,), on their device, with no host work, for a cache of ``S`` slots.
     A live column writes its position's slot; a dead one writes slot S,
@@ -166,34 +170,47 @@ def ragged(steps: torch.Tensor, n_tokens: torch.Tensor, C: int, S: int,
     past the cache (a speculative round's verify near ``max_len``, whose
     extra columns are never committed) writes the spare slot too, as the
     reference drops its out-of-range write.  Every write of a step then has
-    the shape (B, C), and the S slots end as the reference leaves them."""
+    the shape (B, C), and the S slots end as the reference leaves them.
+
+    ``ring``: a sliding-window layer's ring of S slots.  Column i writes
+    slot ``position % S`` if no later live column of its row rewrites that
+    slot in the same chunk (``i + S >= n``: the reference's "survives"
+    rule), else the spare slot; its kv extent is ``min(kv_len, S)``."""
     st = steps.to(torch.int64)
     n = n_tokens.to(torch.int64)
     offs = torch.arange(C, dtype=torch.int64, device=st.device)
     q_pos = st[:, None] + offs[None, :]
-    slot = torch.where(offs[None, :] < n[:, None], q_pos.clamp(max=S),
-                       torch.full_like(q_pos, S))
-    return Ragged(steps=st.to(torch.int32), q_pos=q_pos, slot=slot,
-                  last=(n - 1).clamp(0, C - 1), kv_len=kv_len)
+    live = offs[None, :] < n[:, None]
+    spare = torch.full_like(q_pos, S)
+    if ring:
+        survives = live & (offs[None, :] + S >= n[:, None])
+        slot = torch.where(survives, q_pos % S, spare)
+        kv_len = min(kv_len, S)
+    else:
+        slot = torch.where(live, q_pos.clamp(max=S), spare)
+    return Ragged(steps=st.to(torch.int32), n=n, q_pos=q_pos, live=live,
+                  slot=slot, last=(n - 1).clamp(0, C - 1), kv_len=kv_len)
 
 
-def chunk_inputs(steps, n_tokens, B: int, C: int, S: int,
+def chunk_inputs(steps, n_tokens, B: int, C: int, max_len: int,
                  device) -> tuple[torch.Tensor, torch.Tensor, int]:
     """The host side of a step whose ``steps`` and ``n_tokens`` (default C)
     come as host values: (steps, n_tokens) on ``device`` in one copy, and
     the kv bucket of the largest live position.  Raises where a live
-    position is past the cache's ``S`` slots (the device step does not
-    check: an index past the cache would fault on the card)."""
+    position is past the ``max_len`` positions the cache was allocated for
+    (the device step does not check: an index past a full-length cache
+    would fault on the card).  A ring's S slots are no limit: its slots
+    wrap."""
     st = torch.as_tensor(steps, dtype=torch.int64).cpu().expand(B)
     n = (torch.full((B,), C, dtype=torch.int64) if n_tokens is None else
          torch.as_tensor(n_tokens, dtype=torch.int64).cpu().expand(B))
     live = n > 0
     need = int((st + n)[live].max()) if bool(live.any()) else 0
-    if need > S:
-        raise ValueError(f"position {need - 1} exceeds the cache's {S} "
-                         "slots")
+    if need > max_len:
+        raise ValueError(f"position {need - 1} exceeds the cache's "
+                         f"{max_len} positions")
     dev = torch.cat([st, n]).to(device)
-    return dev[:B], dev[B:], kv_bucket(need, S)
+    return dev[:B], dev[B:], kv_bucket(need, max_len)
 
 
 def _with_spare(leaf: torch.Tensor) -> torch.Tensor:
@@ -273,9 +290,8 @@ class AttnSpec:
 
 
 def make_attention(cfg: ArchConfig, *, window: int | None = None) -> AttnSpec:
-    if window is not None:
-        raise NotImplementedError("sliding-window ring caches are not ported "
-                                  "yet (ROADMAP A7)")
+    """GQA attention; ``window``: a sliding window of that many keys, whose
+    cache is a ring (``attn_cache_init``)."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     # q/k/v stacked and modeled by ONE structured matrix (paper §C.2)
     qkv = make_linear(cfg.d_model, (hq + 2 * hkv) * hd, cfg.structure)
@@ -334,13 +350,15 @@ def attn_apply(spec: AttnSpec, params: Params, x: torch.Tensor,
 def attn_cache_init(spec: AttnSpec, batch: int, max_len: int, dtype,
                     device) -> Params:
     """Slot-static KV cache in the reference layout (B, S, Hkv, D); ``pos``
-    is each slot's absolute position, -1 for empty.  With
-    ``cfg.cache_quant`` K and V are int8 codes with per-(slot, head) bf16
-    scales ``k_scale``, ``v_scale`` (B, S, Hkv) — half the bytes of a bf16
-    cache.  Each leaf is the [:, :S] view of a buffer with one spare slot,
-    where a step's dead columns write (``ragged``); nothing reads it."""
+    is each slot's absolute position, -1 for empty.  S = max_len, or for a
+    sliding-window layer a ring of S = min(max_len, window) slots that
+    position p writes at p % S.  With ``cfg.cache_quant`` K and V are int8
+    codes with per-(slot, head) bf16 scales ``k_scale``, ``v_scale`` (B, S,
+    Hkv) — half the bytes of a bf16 cache.  Each leaf is the [:, :S] view
+    of a buffer with one spare slot, where a step's dead columns write
+    (``ragged``); nothing reads it."""
     hq, hkv, hd = spec.dims
-    S = max_len
+    S = min(max_len, spec.window) if spec.window else max_len
 
     def leaf(*shape, fill=0, dtype_=dtype):
         return torch.full((batch, S + 1, *shape), fill, dtype=dtype_,
@@ -381,16 +399,30 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
     cache as it was and produce outputs the caller discards.  C=1 with
     n_tokens=1 is single-token decode.
 
-    The attention kernel masks by slot index (slot == absolute position),
-    while the reference masks by the cache's ``pos``.  The two agree on the
-    live columns because the engine resets a slot's row (pos=-1, K=V=0) on
-    admission and every row writes positions 0..pos contiguously (an int8
-    cache's row is reset with its scales)."""
+    The full-length cache's attention kernel masks by slot index (slot ==
+    absolute position), while the reference masks by the cache's ``pos``.
+    The two agree on the live columns because the engine resets a slot's
+    row (pos=-1, K=V=0) on admission and every row writes positions
+    0..pos contiguously (an int8 cache's row is reset with its scales).
+
+    A sliding-window layer's ring breaks slot == position once it wraps, so
+    it attends through the ring kernel, which reads each key's position
+    from ``pos`` (``kops.flash_attention_ring``), as the reference does
+    (``src/repro/models/layers.py``: ``attn_prefill``).  A chunk (C > 1)
+    attends over [the ring before its write ‖ the chunk's own keys], with
+    [``pos`` ‖ the chunk's positions, -1 for dead columns] as key
+    positions: a later column may overwrite a slot still inside an earlier
+    column's window.  A decode step (C = 1) writes first, then attends
+    over the ring."""
     cfg = spec.cfg
     hq, hkv, hd = spec.dims
     B, C, _ = x.shape
     if rg is None:
-        S = cache["k"].shape[1]
+        if spec.window is not None:   # the ring's S slots are not max_len
+            raise ValueError("a sliding-window layer's step needs the "
+                             "model's max_len: step it through "
+                             "LM.prefill_chunk")
+        S = cache["pos"].shape[1]
         st, n, kv_len = chunk_inputs(steps, n_tokens, B, C, S, x.device)
         rg = ragged(st, n, C, S, kv_len)
     qkv = linear_apply(spec.qkv, params["qkv"], x)
@@ -398,6 +430,13 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
     if cfg.pos_embed == "rope":
         q = ops.rope(q, rg.q_pos, cfg.rope_theta)
         k = ops.rope(k, rg.q_pos, cfg.rope_theta)
+    if spec.window is not None:
+        if cfg.cache_quant:
+            raise NotImplementedError("int8 K/V over a sliding-window ring "
+                                      "is not ported yet (ROADMAP A7)")
+        o = _ring_attention(spec, cache, q, k, v, rg)
+        return linear_apply(spec.out, params["out"],
+                            o.transpose(1, 2).reshape(B, C, hq * hd)), cache
     # fixed-shape in-place writes, dead columns into the spare slot
     _write(cache["pos"], rg, rg.q_pos)
     if cfg.cache_quant:
@@ -427,6 +466,32 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
     y = linear_apply(spec.out, params["out"],
                      o.transpose(1, 2).reshape(B, C, hq * hd))
     return y, cache
+
+
+def _ring_attention(spec: AttnSpec, cache: Params, q: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor,
+                    rg: Ragged) -> torch.Tensor:
+    """Write a chunk's (B, C, H, D) K/V into a ring cache in place and
+    attend (``attn_prefill``): (B, Hq, C, D).  Only the ring's first
+    ``rg.kv_len`` slots can hold a key (before it wraps, slot ==
+    position)."""
+    ext = rg.kv_len
+    C = q.shape[1]
+    if C > 1:
+        # [ring before the write ‖ chunk], copied before the write
+        kv_pos = torch.where(rg.live, rg.q_pos, -1).to(torch.int32)
+        kpos = torch.cat([cache["pos"][:, :ext], kv_pos], dim=1)
+        kc = torch.cat([cache["k"][:, :ext], k.to(cache["k"].dtype)], dim=1)
+        vc = torch.cat([cache["v"][:, :ext], v.to(cache["v"].dtype)], dim=1)
+    _write(cache["pos"], rg, rg.q_pos)
+    _write(cache["k"], rg, k)
+    _write(cache["v"], rg, v)
+    if C == 1:
+        kpos, kc, vc = cache["pos"], cache["k"], cache["v"]
+    return kops.flash_attention_ring(
+        q.transpose(1, 2), kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3),
+        kpos, rg.steps, window=spec.window,
+        kv_len=ext + (C if C > 1 else 0))
 
 
 def attn_decode(spec: AttnSpec, params: Params, cache: Params,

@@ -2,10 +2,10 @@
 LayerNorm, RoPE, softcap, ``chunked_attention`` (full-sequence attention:
 the B4 kernel on the card, the chunked plain version on the CPU, both
 through ``kernels/ops.flash_attention``'s autograd Function),
-``cross_entropy``, and
-``cache_attention`` — the reference's position-masked cache attention, kept
-as the semantics the prefill-attention kernel is held against in the
-tests."""
+``cross_entropy``, ``causal_conv_chunk`` (the RG-LRU's depthwise causal
+conv over [cached history ‖ chunk]), and ``cache_attention`` — the
+reference's position-masked cache attention, kept as the semantics the
+prefill-attention kernel is held against in the tests."""
 
 from __future__ import annotations
 
@@ -103,6 +103,31 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The backward pass is chunked the same way."""
     return kops.flash_attention(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, q_chunk=q_chunk)
+
+
+def causal_conv_chunk(cache_conv: torch.Tensor, x: torch.Tensor,
+                      w: torch.Tensor, b: torch.Tensor, n_tokens: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over [cached history ‖ chunk], ragged rows.
+
+    cache_conv: (B, K-1, ch) — each row's last K-1 pre-conv inputs; x: (B,
+    C, ch) — the chunk's pre-conv inputs, live prefix per row given by
+    ``n_tokens`` (B,) (dead tail columns produce outputs the caller
+    discards, and never enter the returned history); w: (K, ch); b: (ch,).
+    Returns (y (B, C, ch), the new history (B, K-1, ch)) — C sequential
+    single-token conv steps, computed position-parallel, in the
+    reference's order of sums (``y = b + Σ_k hist[k:k+C]·w[k]``)."""
+    K, C = w.shape[0], x.shape[1]
+    hist = torch.cat([cache_conv.to(x.dtype), x], dim=1)   # (B, K-1+C, ch)
+    y = b
+    for k in range(K):
+        y = y + hist[:, k:k + C] * w[k]
+    # hist index i holds the input at position i-(K-1) of the chunk: each
+    # row's last K-1 live inputs end at index n + K - 2
+    idx = (n_tokens.to(torch.int64)[:, None]
+           + torch.arange(K - 1, device=x.device)[None, :])
+    tail = torch.gather(hist, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+    return y, tail.to(cache_conv.dtype)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

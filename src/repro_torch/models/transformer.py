@@ -1,23 +1,28 @@
 """Decoder LM of the ported slices (counterpart of
-``repro/models/transformer.py``): GQA attention blocks with a SwiGLU or GELU
-FFN and RMSNorm or LayerNorm, RoPE or learned positions, a tied embedding
-or an untied dense vocab head, the full-sequence forward ``apply``
+``repro/models/transformer.py``): GQA attention blocks — full, or over a
+sliding window with a ring cache — and RG-LRU blocks (the hybrid family),
+each with a SwiGLU or GELU FFN and RMSNorm or LayerNorm, RoPE or learned
+positions, a tied embedding (optionally scaled by √d_model) or an untied
+dense vocab head, a logit softcap, the full-sequence forward ``apply``
 (training, prefill) and the chunked cached step ``prefill_chunk`` the engine
 drives, over a float or int8 KV cache, and the nested-rank draft of
 self-speculative decoding (``rank_spectra``, ``draft_plan``,
 ``truncate_params``, ``pad_ranks``) with the all-logits verify and its
 in-place rollback (``cache_window``, ``rollback_cache``).
 
-The reference scans over layer params stacked on a leading axis; here the
-params hold a list of per-layer dicts and each pass is a Python loop
-(``cfg.remat`` checkpoints each layer, as the reference's ``jax.checkpoint``
-does its scanned cycle).  Families, mixers and options outside the slices
-raise ``NotImplementedError``.
+The reference scans over layer params stacked on a leading axis (one
+``cycles.blk_j`` per position of the layer pattern, then unrolled
+``tail_i`` layers); here the params hold a list of per-layer dicts, layer i
+the reference's ``cycles.blk_{i % P}[i // P]`` and then its tails, and each
+pass is a Python loop (``cfg.remat`` checkpoints each layer, as the
+reference's ``jax.checkpoint`` does its scanned cycle).  Families, mixers
+and options outside the slices raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -30,6 +35,7 @@ from repro_torch.core.compress import calibrate_ranks
 from repro_torch.core.structures import make_linear
 from repro_torch.models import layers as L
 from repro_torch.models import ops
+from repro_torch.models import rglru as R
 from repro_torch.quant import qarray as qt
 from repro_torch.quant.qarray import QuantConfig
 
@@ -44,21 +50,37 @@ class Output(NamedTuple):
     mtp_logits: torch.Tensor | None = None
 
 
+_ATTN_KINDS = ("attn", "local_attn")
+
+
+def slot_resident_refusal(what: str) -> NotImplementedError:
+    """The error of a serving feature that a model with RG-LRU state or
+    sliding-window ring caches does not have yet."""
+    return NotImplementedError(
+        f"{what} is not ported for models with RG-LRU state or "
+        "sliding-window ring caches yet (ROADMAP A7)")
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    kind: str
-    mixer: L.AttnSpec
+    kind: str                       # attn | local_attn | rglru
+    mixer: L.AttnSpec | R.RGLRUSpec
     ffn: L.FFNSpec
     norm: str
 
 
 def make_block(cfg: ArchConfig, kind: str) -> BlockSpec:
-    if kind != "attn":
+    if kind in _ATTN_KINDS:
+        mixer = L.make_attention(
+            cfg, window=cfg.window if kind == "local_attn" else None)
+    elif kind == "rglru":
+        mixer = R.make_rglru(cfg)
+    else:
         raise NotImplementedError(f"mixer {kind!r} is not ported yet "
                                   "(ROADMAP A7)")
     if not cfg.d_ff:
         raise NotImplementedError("blocks without an FFN are not ported yet")
-    return BlockSpec(kind=kind, mixer=L.make_attention(cfg),
+    return BlockSpec(kind=kind, mixer=mixer,
                      ffn=L.make_ffn(cfg.d_model, cfg.d_ff, cfg.ffn_kind,
                                     cfg.ffn_structure),
                      norm=cfg.norm)
@@ -66,8 +88,9 @@ def make_block(cfg: ArchConfig, kind: str) -> BlockSpec:
 
 def block_init(spec: BlockSpec, generator: torch.Generator, dtype, device,
                d_model: int) -> Params:
+    init = L.attn_init if spec.kind in _ATTN_KINDS else R.rglru_init
     return {"norm1": L.norm_init(d_model, spec.norm, dtype, device),
-            "mixer": L.attn_init(spec.mixer, generator, dtype, device),
+            "mixer": init(spec.mixer, generator, dtype, device),
             "norm2": L.norm_init(d_model, spec.norm, dtype, device),
             "ffn": L.ffn_init(spec.ffn, generator, dtype, device)}
 
@@ -75,9 +98,10 @@ def block_init(spec: BlockSpec, generator: torch.Generator, dtype, device,
 def block_apply(spec: BlockSpec, params: Params, x: torch.Tensor,
                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One residual block over a full sequence → (x, aux); aux is the MoE
-    load-balance loss, zero for this block kind."""
+    load-balance loss, zero for these block kinds."""
+    apply = L.attn_apply if spec.kind in _ATTN_KINDS else R.rglru_apply
     h = L.norm_apply(params["norm1"], x, spec.norm)
-    x = x + L.attn_apply(spec.mixer, params["mixer"], h, positions)
+    x = x + apply(spec.mixer, params["mixer"], h, positions)
     h = L.norm_apply(params["norm2"], x, spec.norm)
     x = x + L.ffn_apply(spec.ffn, params["ffn"], h)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -85,10 +109,15 @@ def block_apply(spec: BlockSpec, params: Params, x: torch.Tensor,
 
 def block_prefill(spec: BlockSpec, params: Params, cache: Params,
                   x: torch.Tensor, rg: L.Ragged) -> torch.Tensor:
-    """One residual block over a ragged chunk; writes ``cache`` in place."""
+    """One residual block over a ragged chunk; writes ``cache`` in place.
+    ``rg``: the chunk's geometry in this layer's cache."""
     h = L.norm_apply(params["norm1"], x, spec.norm)
-    m, _ = L.attn_prefill(spec.mixer, params["mixer"], cache, h, None, None,
-                          rg=rg)
+    if spec.kind in _ATTN_KINDS:
+        m, _ = L.attn_prefill(spec.mixer, params["mixer"], cache, h, None,
+                              None, rg=rg)
+    else:
+        m, _ = R.rglru_prefill(spec.mixer, params["mixer"], cache, h, None,
+                               rg.n)
     x = x + m
     h = L.norm_apply(params["norm2"], x, spec.norm)
     return x + L.ffn_apply(spec.ffn, params["ffn"], h)
@@ -102,22 +131,46 @@ def block_cache_rollback(spec: BlockSpec, cache: Params, saved: Params,
     return L.kv_cache_rollback(cache, saved, slot, n_comm)
 
 
+def block_cache_init(spec: BlockSpec, batch: int, max_len: int, dtype,
+                     device) -> Params:
+    """One layer's cache: its attention cache (a ring for a sliding window)
+    or its RG-LRU state."""
+    init = (L.attn_cache_init if spec.kind in _ATTN_KINDS
+            else R.rglru_cache_init)
+    return init(spec.mixer, batch, max_len, dtype, device)
+
+
 def block_cache_axes(spec: BlockSpec) -> dict[str, tuple]:
-    """Axis names of one layer's cache leaves (the layer's cache is its
-    attention cache: batch axis 0, ``kv_seq`` axis 1)."""
-    return L.attn_cache_axes(spec.mixer)
+    """Axis names of one layer's cache leaves (attention: batch axis 0,
+    ``kv_seq`` axis 1; RG-LRU state: batch axis 0, no ``kv_seq``)."""
+    if spec.kind in _ATTN_KINDS:
+        return L.attn_cache_axes(spec.mixer)
+    return R.rglru_cache_axes(spec.mixer)
 
 
 def block_quantize(spec: BlockSpec, params: Params, bits: int = 8) -> Params:
-    """Quantize a block's structured linears to per-block QArrays (norms
-    pass through)."""
-    return {**params,
-            "mixer": L.attn_quantize(spec.mixer, params["mixer"], bits),
+    """Quantize a block's structured linears to per-block QArrays (norms,
+    the conv and Λ pass through)."""
+    quantize = (L.attn_quantize if spec.kind in _ATTN_KINDS
+                else R.rglru_quantize)
+    return {**params, "mixer": quantize(spec.mixer, params["mixer"], bits),
             "ffn": L.ffn_quantize(spec.ffn, params["ffn"], bits)}
 
 
 def block_prestack(spec: BlockSpec, params: Params) -> Params:
-    return {**params, "ffn": L.ffn_prestack(spec.ffn, params["ffn"])}
+    p = {**params, "ffn": L.ffn_prestack(spec.ffn, params["ffn"])}
+    if spec.kind == "rglru":
+        p["mixer"] = R.rglru_prestack(spec.mixer, params["mixer"])
+    return p
+
+
+class LayerCaches(list):
+    """``LM.init_cache``'s per-layer caches, and ``max_len``, the positions
+    they were allocated for: a ring layer's S slots do not say it."""
+
+    def __init__(self, layers, max_len: int):
+        super().__init__(layers)
+        self.max_len = max_len
 
 
 def _map_linears(tree, fn, path: str = ""):
@@ -137,15 +190,16 @@ def _map_linears(tree, fn, path: str = ""):
 
 
 class LM:
-    """Decoder-only LM for the ``("attn",)`` pattern of the dense family."""
+    """Decoder-only LM of the dense family (pattern ``("attn",)``) and the
+    hybrid family (RG-LRU and sliding-window attention layers)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         unsupported = [
-            (cfg.family not in ("dense",), f"family {cfg.family!r}"),
+            (cfg.family not in ("dense", "hybrid"), f"family {cfg.family!r}"),
             (cfg.pos_embed not in ("rope", "learned"),
              f"pos_embed {cfg.pos_embed!r}"),
-            (cfg.window != 0, "sliding-window attention"),
-            (cfg.embed_scale, "embedding scaling"),
+            ("local_attn" in cfg.pattern and not cfg.window,
+             "local attention without a window"),
         ]
         for bad, what in unsupported:
             if bad:
@@ -155,8 +209,16 @@ class LM:
         self.dtype = _DTYPES[cfg.param_dtype]
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.specs = [make_block(cfg, k) for k in cfg.layer_kinds()]
+        if self.slot_resident and cfg.cache_quant:
+            raise slot_resident_refusal("the int8 cache")
         # the untied vocab head: a dense linear, as the reference's
         self.head = make_linear(cfg.d_model, cfg.vocab, structured=False)
+
+    @property
+    def slot_resident(self) -> bool:
+        """Whether a layer keeps cache state that is not one slot a
+        position: an RG-LRU state or a sliding-window ring."""
+        return any(s.kind in ("rglru", "local_attn") for s in self.specs)
 
     # -- init -------------------------------------------------------------------
 
@@ -282,7 +344,7 @@ class LM:
         backward pass."""
         if embeds is None:
             tokens = torch.as_tensor(tokens).to(self.device)
-            x = L.embed_lookup(params["embed"], tokens, self.dtype)
+            x = self._embed(params, tokens, self.dtype)
         else:
             x = torch.as_tensor(embeds).to(device=self.device,
                                            dtype=self.dtype)
@@ -306,13 +368,39 @@ class LM:
 
     # -- cached decode ----------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int) -> list[Params]:
-        return [L.attn_cache_init(s.mixer, batch, max_len, self.compute_dtype,
-                                  self.device) for s in self.specs]
+    def init_cache(self, batch: int, max_len: int) -> LayerCaches:
+        return LayerCaches([block_cache_init(s, batch, max_len,
+                                             self.compute_dtype, self.device)
+                            for s in self.specs], max_len)
 
     def cache_axes(self) -> list[dict[str, tuple]]:
         """Axis names of ``init_cache``'s leaves, one dict a layer."""
         return [block_cache_axes(s) for s in self.specs]
+
+    def _cache_len(self, cache: list[Params]) -> int:
+        """The positions a cache was allocated for: ``LayerCaches.max_len``,
+        or else (a paged view: a plain list) the slots of its full-length
+        attention layers.  A ring's slots do not say it: a plain list of
+        ring and state caches raises."""
+        if isinstance(cache, LayerCaches):
+            return cache.max_len
+        full = [c["pos"].shape[1] for s, c in zip(self.specs, cache)
+                if s.kind == "attn"]
+        if not full:
+            raise ValueError("a cache without full-length attention layers "
+                             "must come from LM.init_cache (LayerCaches)")
+        return min(full)
+
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               dtype) -> torch.Tensor:
+        """The token embedding; with ``embed_scale`` times √d_model cast to
+        the embedding's dtype first, as the reference does (50.5 in bf16
+        for d_model 2560, not 50.596)."""
+        x = L.embed_lookup(params["embed"], tokens, dtype)
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model),
+                                 dtype=torch.float32).to(x.dtype)
+        return x
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = L.norm_apply(params["final_norm"], x, self.cfg.norm)
@@ -345,20 +433,29 @@ class LM:
         captured as a CUDA graph.  Without it they are host values, checked
         and moved in one copy (``layers.chunk_inputs``), as the reference's
         signature takes them."""
-        S = cache[0]["k"].shape[1]
+        max_len = self._cache_len(cache)
         if kv_len is None:
             tokens = torch.as_tensor(tokens)
             B, C = tokens.shape
             steps, n_tokens, kv_len = L.chunk_inputs(steps, n_tokens, B, C,
-                                                     S, self.device)
+                                                     max_len, self.device)
             tokens = tokens.to(self.device)
         B, C = tokens.shape
-        rg = L.ragged(steps, n_tokens, C, S, kv_len)
-        x = L.embed_lookup(params["embed"], tokens, self.compute_dtype)
+        # the chunk's geometry in a full-length cache (the RG-LRU layers
+        # read only its live columns), and one per ring size
+        rg = L.ragged(steps, n_tokens, C, max_len, kv_len)
+        geometry = {(max_len, False): rg}
+        x = self._embed(params, tokens, self.compute_dtype)
         if self.cfg.pos_embed == "learned":
             x = x + params["pos"][rg.q_pos.clamp(0, self.cfg.max_seq - 1)]
         for spec, p, c in zip(self.specs, params["layers"], cache):
-            x = block_prefill(spec, p, c, x, rg)
+            key = (max_len, False)
+            if spec.kind in _ATTN_KINDS:
+                key = (c["pos"].shape[1], spec.kind == "local_attn")
+                if key not in geometry:
+                    geometry[key] = L.ragged(steps, n_tokens, C, key[0],
+                                             kv_len, ring=key[1])
+            x = block_prefill(spec, p, c, x, geometry[key])
         if not all_logits:
             x = x[torch.arange(B, device=x.device), rg.last][:, None]
         return self._head(params, x), cache

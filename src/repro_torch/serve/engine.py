@@ -73,8 +73,14 @@ draft on its cache.  On the card the whole round is one CUDA graph per kv
 bucket (paged: per (kv, F, M), around the gather and scatter of the
 round's pages), and its token ids come back in one copy.
 
-Not ported yet: state leaves and their snapshot slots, with the round's
-recurrent-state snapshots (ROADMAP A7), resilience (guardrail, health,
+A model with RG-LRU state or sliding-window ring caches (the hybrid
+family, ``LM.slot_resident``) is served slot-static: ``_reset_slot`` zeroes
+a row's conv history and state ``h`` with its ring.  The paged cache,
+speculative decoding and the int8 cache raise ``NotImplementedError`` for
+it: their state leaves, snapshot slots and the round's recurrent-state
+snapshots are not ported yet (ROADMAP A7).
+
+Not ported yet, besides: resilience (guardrail, health,
 watchdog, fault injection, step-error requeues, ``healthz``, the round's
 logit health check and its ``spec_off`` rung) and the HTTP frontend (A8),
 serving over a device mesh (A9) and autotune with the draft's warm-up
@@ -86,6 +92,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import heapq
 import threading
 import time
@@ -99,6 +106,7 @@ from repro_torch.core import structures
 from repro_torch.kernels import blast_matmul as kbm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import kv_bucket
+from repro_torch.models.transformer import slot_resident_refusal
 from repro_torch.quant import qarray as qt
 from repro_torch.serve.config import EngineConfig, SamplingParams
 from repro_torch.serve.paged import PagedCache
@@ -181,6 +189,13 @@ class Engine:
         self.config = config = config or EngineConfig()
         sch, mem = config.scheduler, config.memory
         qcfg = config.quant if config.quant is not None else model.cfg.quant
+        if model.slot_resident:
+            for bad, what in ((mem.paged, "the paged cache"),
+                              (config.speculative.k > 0,
+                               "speculative decoding"),
+                              (qcfg.cache != "none", "the int8 cache")):
+                if bad:
+                    raise slot_resident_refusal(what)
         if qcfg.cache != "none" and not model.cfg.cache_quant:
             # cache shapes are baked into the model at construction
             raise ValueError(
@@ -563,7 +578,8 @@ class Engine:
     def _reset_slot(self, b: int):
         """Restore row b of every leaf of every slot-static layer cache, the
         draft's included, to its initial state: pos = -1, and K, V (float,
-        or int8 codes and their scales) = 0.  The attention kernel masks by
+        or int8 codes and their scales), an RG-LRU layer's conv history and
+        state h = 0.  The attention kernel masks by
         slot index and relies on a fresh row (reference: ``_reset_slot``
         restores the template).  Paged, a row of the pool holds no state of
         its own: its pages are freed, and a recycled page is reset when it
@@ -967,6 +983,11 @@ class Engine:
               kops.launches_apart()):
             self._device_step(key)
         main.wait_stream(side)
+        # free the graphs of dropped engines now: a garbage collection under
+        # the capture would destroy them there, an unsafe call that
+        # invalidates the capture (torch.cuda.graph collects first only
+        # with torch.compiler.config.force_cudagraph_gc)
+        gc.collect()
         try:
             with (structures.activations(self.act_mode),
                   kops.launches_apart() as made, capture):

@@ -12,7 +12,8 @@ Leaves split by their axes (``model.cache_axes()``): a leaf with a
 ``kv_seq`` axis of length ``max_len`` (K, V, pos, and the int8 cache's
 scales) is paged; any other leaf is state (recurrent state, sliding-window
 rings) that the reference keeps slot-resident and shares through snapshot
-slots.  No ported family has one: a state leaf raises (ROADMAP A7).
+slots.  The hybrid family has them (the engine refuses to page it before
+this module is reached); a state leaf raises here too (ROADMAP A7).
 
 Storage.  Per leaf name, one contiguous pool tensor of
 ``(n_pages + 1, layers, page_size, ...)``, built from the model's own

@@ -28,6 +28,7 @@ It adds the operational layer:
 
 from __future__ import annotations
 
+import gc
 import signal
 import time
 from typing import Any, Callable
@@ -127,6 +128,7 @@ class Trainer:
     def _capture(self, params, opt_state, batch) -> None:
         t0 = time.perf_counter()
         graph = self._graph_ctx.cuda_graph
+        gc.collect()    # no dropped graph freed under the capture (Engine)
         try:
             with kops.launches_apart() as made, self._graph_ctx:
                 _, _, metrics = self.step_fn(params, opt_state, batch)

@@ -2,13 +2,19 @@
 
 ``from_jax_params(model, tree)`` takes the tree of ``repro.models.LM.init``
 as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
-port's params: the leading layer axis of ``params["cycles"]`` is unstacked
-into a list of per-layer dicts, every float leaf is cast to the model's
-dtype and moved to its device, and a key the model does not have (a
-prestacked ``_bundle_in``, another mixer's leaves, a head the config ties,
-…) raises, as does a key it misses.  The tree holds what the model's
-config asks for: an untied ``head``, the learned-position table ``pos``,
-LayerNorm ``bias`` leaves, the QKV ``bias``, the GELU FFN's ``wi``/``wo``.  A
+port's params: the reference stacks the layers of each position j of the
+layer pattern (P positions) on the leading axis of
+``params["cycles"]["blk_j"]`` and keeps the layers past the last whole
+cycle as ``tail_0``, ``tail_1``, …; the port's layer i is
+``cycles.blk_{i % P}[i // P]``, then the tails in order.  Every float leaf
+is cast to the model's dtype and moved to its device — the RG-LRU's decay
+``lam`` stays fp32, as the reference keeps it — and a key the model does
+not have (a prestacked ``_bundle_in``, another mixer's leaves, a head the
+config ties, …) raises, as does a key it misses.  The tree holds what the
+model's config asks for: an untied ``head``, the learned-position table
+``pos``, LayerNorm ``bias`` leaves, the QKV ``bias``, the GELU FFN's
+``wi``/``wo``, the RG-LRU's linears (its block-diagonal gates with their
+``bias``), ``conv_w``, ``conv_b`` and ``lam``.  A
 quantized leaf — the reference's ``QArray`` (any object with ``q`` and
 ``scale``) or the ``{"q", "scale"}`` pair a checkpoint stores for it —
 becomes the port's ``QArray``: int8 codes stay int8, nibble-packed int4
@@ -52,20 +58,28 @@ def _check_keys(tree: dict, allowed, where: str) -> None:
                          f"{sorted(missing)}")
 
 
-def _layer_keys(model) -> dict:
-    """The reference's per-layer tree of ``model``: group → member → its
-    leaf names (None for a norm's leaves, which are not linears)."""
-    cfg, spec = model.cfg, model.specs[0]   # one layer kind in the slice
+_F32 = "fp32"   # a plain leaf kept in fp32 (the RG-LRU's decay)
+
+
+def _layer_keys(model, spec) -> dict:
+    """The reference's per-layer tree of one layer of ``spec``: group →
+    member → its leaf names (a linear), or None (a plain float leaf: a
+    norm's scale or bias, the conv) or ``_F32`` (a plain leaf kept fp32)."""
+    cfg = model.cfg
 
     def linear(lin, bias=False):
         return (*lin.shapes, *(("bias",) if bias else ()))
 
     norm = dict.fromkeys(("scale",) if cfg.norm == "rmsnorm"
                          else ("scale", "bias"))
-    return {"norm1": norm,
-            "mixer": {"qkv": linear(spec.mixer.qkv, cfg.qkv_bias),
-                      "out": linear(spec.mixer.out)},
-            "norm2": norm,
+    mx = spec.mixer
+    if spec.kind == "rglru":
+        mixer = {name: linear(getattr(mx, name), name.startswith("gate"))
+                 for name in ("in_x", "in_gate", "out", "gate_a", "gate_x")}
+        mixer.update(conv_w=None, conv_b=None, lam=_F32)
+    else:
+        mixer = {"qkv": linear(mx.qkv, cfg.qkv_bias), "out": linear(mx.out)}
+    return {"norm1": norm, "mixer": mixer, "norm2": norm,
             "ffn": {name: linear(getattr(spec.ffn, name))
                     for name in spec.ffn.names}}
 
@@ -74,22 +88,27 @@ def from_jax_params(model, tree: dict) -> dict:
     """Reference ``LM.init`` tree (numpy leaves, float or quantized) → the
     port's params."""
     cfg = model.cfg
-    top = ("embed", "final_norm", "cycles",
+    P = len(cfg.pattern)
+    n_cycles, n_tail = divmod(cfg.n_layers, P)
+    top = ("embed", "final_norm", *(("cycles",) if n_cycles else ()),
+           *(f"tail_{t}" for t in range(n_tail)),
            *(("pos",) if cfg.pos_embed == "learned" else ()),
            *(() if cfg.tie_embeddings else ("head",)))
     _check_keys(tree, top, "params")
-    layer_keys = _layer_keys(model)
-    _check_keys(tree["final_norm"], layer_keys["norm1"], "params/final_norm")
-    _check_keys(tree["cycles"], ("blk_0",), "params/cycles")
+    norm_keys = _layer_keys(model, model.specs[0])["norm1"]
+    _check_keys(tree["final_norm"], norm_keys, "params/final_norm")
+    if n_cycles:
+        _check_keys(tree["cycles"], [f"blk_{j}" for j in range(P)],
+                    "params/cycles")
     dev, dt = model.device, model.dtype
 
-    def conv(a) -> torch.Tensor:
+    def conv(a, dtype=dt) -> torch.Tensor:
         arr = np.asarray(a)
         if not (np.issubdtype(arr.dtype, np.floating)
                 or arr.dtype.name == "bfloat16"):   # ml_dtypes' bf16
             raise ValueError(f"expected a float leaf, got {arr.dtype}")
         return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
-            device=dev, dtype=dt)
+            device=dev, dtype=dtype)
 
     def conv_leaf(a, last_dim: int):
         """A float leaf → tensor; a quantized leaf → QArray.  ``last_dim``:
@@ -122,36 +141,59 @@ def from_jax_params(model, tree: dict) -> dict:
                                        scale=leaf.scale[i].contiguous())
         return leaf[i].contiguous()
 
-    blk = tree["cycles"]["blk_0"]
-    _check_keys(blk, layer_keys, "params/cycles/blk_0")
-    spec = model.specs[0]
-    linears = {"mixer": spec.mixer, "ffn": spec.ffn}
+    def unstacked(leaf):
+        """A tail layer's leaf with the leading layer axis of a cycle's."""
+        if qt.is_qarray(leaf):
+            return dataclasses.replace(leaf, q=leaf.q[None],
+                                       scale=leaf.scale[None])
+        return leaf[None]
+
     layers = [{} for _ in range(cfg.n_layers)]
-    for group, members in layer_keys.items():
-        sub = blk[group]
-        where = f"params/cycles/blk_0/{group}"
-        _check_keys(sub, members, where)
-        for name, leaves in members.items():
-            if leaves is None:      # a norm's scale or bias
-                stacked = conv(sub[name])
-                for i, lp in enumerate(layers):
-                    lp.setdefault(group, {})[name] = stacked[i]
-                continue
-            _check_keys(sub[name], leaves, f"{where}/{name}")
-            lin = getattr(linears[group], name)
-            for leaf in leaves:
-                stacked = (conv(sub[name][leaf]) if leaf == "bias" else
-                           conv_leaf(sub[name][leaf], lin.shapes[leaf][-1]))
-                if stacked.shape[0] != len(layers):
-                    raise ValueError(f"{group}/{name}/{leaf} stacks "
-                                     f"{stacked.shape[0]} layers, model has "
-                                     f"{len(layers)}")
-                for i, lp in enumerate(layers):
-                    lp.setdefault(group, {}).setdefault(name, {})[leaf] = (
-                        layer(stacked, i))
+
+    def fill(blk, where: str, idx: list[int], stacked: bool) -> None:
+        """Carry the reference's layer tree ``blk`` into ``layers[i]`` for
+        i in ``idx``: the leading axis of each leaf when ``stacked``."""
+        spec = model.specs[idx[0]]
+        layer_keys = _layer_keys(model, spec)
+        _check_keys(blk, layer_keys, where)
+        linears = {"mixer": spec.mixer, "ffn": spec.ffn}
+
+        def put(group, path, leaf):
+            if not stacked:
+                leaf = unstacked(leaf)
+            if leaf.shape[0] != len(idx):
+                raise ValueError(f"{where}/{group}/{'/'.join(path)} stacks "
+                                 f"{leaf.shape[0]} layers, want {len(idx)}")
+            for n, i in enumerate(idx):
+                node = layers[i].setdefault(group, {})
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = layer(leaf, n)
+
+        for group, members in layer_keys.items():
+            sub = blk[group]
+            _check_keys(sub, members, f"{where}/{group}")
+            for name, leaves in members.items():
+                if leaves is None or leaves == _F32:
+                    put(group, (name,), conv(sub[name], torch.float32
+                                             if leaves == _F32 else dt))
+                    continue
+                _check_keys(sub[name], leaves, f"{where}/{group}/{name}")
+                lin = getattr(linears[group], name)
+                for leaf in leaves:
+                    put(group, (name, leaf),
+                        conv(sub[name][leaf]) if leaf == "bias" else
+                        conv_leaf(sub[name][leaf], lin.shapes[leaf][-1]))
+
+    for j in range(P if n_cycles else 0):
+        fill(tree["cycles"][f"blk_{j}"], f"params/cycles/blk_{j}",
+             list(range(j, n_cycles * P, P)), stacked=True)
+    for t in range(n_tail):
+        fill(tree[f"tail_{t}"], f"params/tail_{t}", [n_cycles * P + t],
+             stacked=False)
     params = {"embed": conv_leaf(tree["embed"], cfg.d_model),
               "final_norm": {k: conv(tree["final_norm"][k])
-                             for k in layer_keys["norm1"]}}
+                             for k in norm_keys}}
     if "pos" in top:
         params["pos"] = conv(tree["pos"])
     if "head" in top:

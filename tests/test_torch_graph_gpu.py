@@ -1,5 +1,6 @@
 """The compiled step on the card: the engine's and the trainer's CUDA graphs
-against the same step run eagerly, on ``smollm-135m.reduced()``.
+against the same step run eagerly, on ``smollm-135m.reduced()`` (and the
+hybrid recurrentgemma-2b at full width, 3 layers).
 
 Marked ``gpu``: each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package:
@@ -10,6 +11,10 @@ A replay launches the kernels the eager step launches, in the same order,
 on the same inputs, so the two are held to equality bit for bit.  The test
 that forces a capture to fail runs last.
 """
+
+import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -252,6 +257,65 @@ class TestGraphs:
         assert out_g == out_p
         if paged:
             graphs._pc.audit()
+
+    @pytest.mark.parametrize("mode", ["none", "int8"])
+    def test_hybrid_replay_equals_eager(self, cuda, mode):
+        """recurrentgemma-2b at full width (3 layers: rglru, rglru,
+        local_attn; window cut to 64 so the prompts wrap the ring), bf16:
+        the captured step equals the eager one bit for bit — tokens, every
+        step's logits, launches (per step 1 B2 and 3 B1 an RG-LRU layer,
+        4 B1 and 1 ring B3 an attention layer)."""
+        cfg = configs.get("recurrentgemma-2b")
+        cfg = dataclasses.replace(cfg, n_layers=3, window=64)
+        model = build_model(cfg, device="cuda")
+        params = model.init(0)
+        graphs = _engine(model, params, mode)
+        eager = _engine(model, params, mode, step_fn=model.prefill_chunk)
+        out_g, seen_g, launches_g = _serve(graphs)
+        out_e, seen_e, launches_e = _serve(eager)
+        assert out_g == out_e
+        assert [k for k, _ in seen_g] == [k for k, _ in seen_e]
+        for (key, g), (_, e) in zip(seen_g, seen_e):
+            assert torch.equal(g, e), key
+        assert launches_g == launches_e
+        steps = graphs.stats["steps"]
+        suffix = "" if mode == "none" else "_q"
+        assert launches_g == {**{k: 0 for k in launches_g},
+                              f"blast_matmul{suffix}": 10 * steps,
+                              f"blast_matmul_grouped{suffix}": 2 * steps,
+                              "flash_attention_ring": steps}
+
+    def test_capture_after_a_dropped_engine(self, cuda, monkeypatch):
+        """A dropped engine whose graphs a reference cycle holds (``_serve``
+        makes one): a garbage collection under a later engine's capture
+        would destroy them there, an unsafe call that invalidates that
+        capture.  The collector is held off and then forced under every
+        capture, where it otherwise runs when an allocation crosses its
+        thresholds; the engine collects before it captures, so the old
+        graphs are gone first and the new engine serves the same tokens."""
+        model = build_model(_cfg("bfloat16"), device=cuda)
+        params = model.init(0)
+        step = Engine._device_step
+
+        def collecting(self, key):
+            if torch.cuda.is_current_stream_capturing():
+                gc.collect()
+            return step(self, key)
+
+        gc.disable()
+        try:
+            old = _engine(model, params, "none")
+            out, _, _ = _serve(old)
+            assert old.stats["graphs"] > 0
+            gone = weakref.ref(old)
+            del old
+            assert gone() is not None        # its cycle keeps it
+            monkeypatch.setattr(Engine, "_device_step", collecting)
+            new = _engine(model, params, "none")
+            assert _serve(new)[0] == out
+            assert gone() is None and new.stats["graphs"] > 0
+        finally:
+            gc.enable()
 
     def test_capture_failure_raises(self, cuda):
         model = build_model(_cfg("bfloat16"), device=cuda)

@@ -8,7 +8,8 @@ port's dependencies:
 
 (``--noconftest``: the suite's conftest imports the JAX package.)
 Tolerances: fp32 ``atol = rtol = 1e-4``; bf16 ``2e-2`` (B3 over int8 K/V
-too: its plain version dequantizes the same codes and scales).  The int8, int4,
+too: its plain version dequantizes the same codes and scales; B3 over a
+ring: its plain version masks by the same key positions).  The int8, int4,
 W8A8 and W4A8 kernels are held to the same: their plain versions take the
 same codes and scales (and, with int8 activations, the same activation
 codes), so only the order of the float sums differs.
@@ -40,6 +41,35 @@ def _factors(rng, b, p, q, r, lead=()):
     return (rng.standard_normal((*lead, b, p, r)).astype(np.float32),
             rng.standard_normal((*lead, b, b, r)).astype(np.float32),
             rng.standard_normal((*lead, b, q, r)).astype(np.float32))
+
+
+def _ring_inputs(B, Hq, Hkv, C, S, D, dtype, device, seed):
+    """B3-over-a-ring inputs: q (B, Hq, C, D) and K/V (B, Hkv, S_k, D) as
+    the model's views, key positions (B, S_k) int32 and row offsets.  Row
+    b's ring holds positions up to ``last[b]`` (row 0 unwrapped, the others
+    wrapped up to three times), slot j the latest p ≤ last with p % S = j,
+    -1 where none.  C = 1: the query is the newest position (written
+    before the step attends); C > 1: the chunk's keys follow the ring
+    (S_k = S + C) at positions last + 1 + t, row 1's second half dead
+    (-1)."""
+    g = torch.Generator().manual_seed(seed)
+    last = torch.randint(S, 4 * S, (B,), generator=g)
+    last[0] = S // 3
+    j = torch.arange(S)
+    pos = last[:, None] - (last[:, None] - j[None, :]) % S
+    pos = torch.where(pos >= 0, pos, -1)
+    offs = last if C == 1 else last + 1
+    if C > 1:
+        chunk = offs[:, None] + torch.arange(C)[None, :]
+        if B > 1:
+            chunk[1, C // 2:] = -1
+        pos = torch.cat([pos, chunk], dim=1)
+    Sk = pos.shape[1]
+    q = torch.randn((B, C, Hq, D), generator=g).to(device, dtype)
+    k, v = (torch.randn((B, Sk, Hkv, D), generator=g).to(device, dtype)
+            for _ in range(2))
+    return (q.transpose(1, 2), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+            pos.to(device, torch.int32), offs.to(device, torch.int32))
 
 
 @pytest.mark.gpu
@@ -458,6 +488,49 @@ class TestOnCard:
         assert torch.equal(got, again)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+    # B3 over a sliding-window ring (``flash_attention_ring``): key
+    # positions from a wrapped ``pos`` (``_ring_inputs``), recurrentgemma-2b's
+    # 10/1 × 256 heads at its 2048-slot ring — decode (bf16: split keys)
+    # and a 32-token chunk over [ring ‖ chunk] — and smaller rings with a
+    # window below S, kv_len < S and GQA 9/3.
+    # (B, Hq, Hkv, C, S, D, window, kv_len)
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                           (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("B,Hq,Hkv,C,S,D,window,kv_len", [
+        (8, 10, 1, 1, 2048, 256, 2048, None),
+        (8, 10, 1, 32, 2048, 256, 2048, None),
+        (4, 9, 3, 1, 300, 64, 100, 250),
+        (4, 9, 3, 20, 64, 128, 64, None),
+        (2, 4, 2, 7, 96, 72, 40, None)])
+    def test_flash_attention_ring(self, cuda, dtype, tol, B, Hq, Hkv, C, S,
+                                  D, window, kv_len):
+        q, k, v, kpos, offs = _ring_inputs(B, Hq, Hkv, C, S, D, dtype, cuda,
+                                           seed=B + C + S + D)
+        kv = kpos.shape[1] if kv_len is None else kv_len
+        kw = dict(window=window, kv_len=kv)
+        ops.reset_launches()
+        got = ops.flash_attention_ring(q, k, v, kpos, offs, **kw)
+        again = ops.flash_attention_ring(q, k, v, kpos, offs, **kw)
+        want = ref.attention_ring_ref(q, k, v, kpos, offs, **kw)
+        torch.cuda.synchronize()
+        assert ops.launches["flash_attention_ring"] == 2
+        assert ops.launches["flash_attention_prefill"] == 0
+        assert got.shape == (B, Hq, C, D) and got.dtype == dtype
+        assert torch.equal(got, again)
+        # atol in the output's scale: over a 2048-slot ring |o| is ~0.03,
+        # so a fixed 2e-2 would pass a dropped or mis-masked key tile
+        atol = tol * min(1.0, float(want.float().abs().max()))
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=tol)
+
+    def test_ring_kernel_refuses_bad_positions(self, cuda):
+        q, k, v, kpos, offs = _ring_inputs(2, 4, 2, 1, 64, 64,
+                                           torch.bfloat16, cuda, seed=1)
+        for bad in (kpos.long(), kpos[:, :32], kpos.cpu(),
+                    kpos.t().contiguous().t()):
+            with pytest.raises(ValueError, match="k_pos"):
+                ops.flash_attention_ring(q, k, v, bad, offs, window=64)
 
     def test_q8_kernel_refuses_unpaired_or_misaligned_codes(self, cuda):
         """int8 K/V come with both bf16 scales; the bf16 kernel copies 8
