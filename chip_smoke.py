@@ -33,9 +33,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    for bit) and kv_len < S, fp32 and bf16.  Then recurrentgemma-2b's: B3
    over its sliding-window ring (``flash_attention_ring``: key positions
    from the ring's ``pos``; 10/1 heads of 256, B = 8, a 2048-slot ring with
-   wrapped rows) at C = 1 and at C = 32 over [ring ‖ chunk], and B1, B2,
-   B5, B6 at its BLAST shapes at T = 8 and 128, fp32 and bf16, two
-   launches of each bit for bit.
+   wrapped rows) at C = 1 and at C = 32 over [ring ‖ chunk], over bf16
+   K/V and over the int8 ring's codes and scales
+   (``flash_attention_ring_q8``), and B1, B2, B5, B6 at its BLAST shapes
+   at T = 8 and 128, fp32 and bf16, two launches of each bit for bit.
 4. grads — fp32 gradients of the three autograd Functions on the training
    path (B1, B2, B4) against torch.autograd through the plain versions, at
    2048 tokens: within 1e-4 × each gradient's largest entry.
@@ -56,7 +57,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    local_attn) and a window of 64, prompts of 200, 120 and 40 tokens in
    chunks of 32 then 4 decode steps, so that the rings wrap: logits, and
    every cache leaf (``pos`` equal; K/V, ``conv``, ``h`` within 1e-3 +
-   1e-3·max).
+   1e-3·max); and the same over the int8 cache (an int8 ring and int8
+   RG-LRU state), the CPU given the card's codes (``SharedRowCodes``).
 6. train_reference — the same 2-layer fp32 model, one training batch:
    loss, every gradient and the parameters after one AdamW step on the
    card against the CPU; ``LM.apply(last_only=True)`` against
@@ -76,7 +78,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    captured, capture seconds, decode tok/s, step ms and
    ``max_memory_allocated``.  Then, in each mode, through the graphs and
    eagerly, six steady decode steps timed and six more under
-   torch.profiler (8 slots, prompts of 16 tokens; 15 of the 30 layers,
+   torch.profiler (8 slots, prompts of 16 tokens; 4 of the 30 layers,
    for the script's time): wall, device busy and
    idle share per step, kernel time by name; on every profile whose trace names the kernels (the eager
    one always; ``kernels_by_name``) every BLAST launch runs the tile
@@ -91,22 +93,33 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    int8 cache, int8 weights with the int8 cache — the same way, launches
    steps × (96, 32, 32) with attention in the int8-K/V kernel under the
    int8 cache, and the int8-cache run's peak memory below the float run's;
-   temperature sampling (T = 0.8, 8 layers) twice with one seed
+   temperature sampling (T = 0.8, 2 layers) twice with one seed
    (identical tokens) and once with another (different); the decode
-   profile in float and
-   with the int8 cache, both ways; gpt2-blast at full width, float.
+   profile in float and with the int8 cache, both ways (2 layers);
+   gpt2-blast at full width, float.
    Then ``hybrid``: recurrentgemma-2b at full width (26 layers, vocab
-   256000, 1,419,506,176 parameters counted), float and int8 weights,
+   256000, 1,419,506,176 parameters counted; the embedding scaled by
+   ``HYBRID_EMBED_SCALE``, so that the tokens depend on the layers, and
+   every hybrid run's requests emit more than one distinct token),
+   float and int8 weights,
    captured and eager (tokens equal bit for bit, launches steps × (86 B1,
-   18 B2, 8 B3 over the ring)), in the usual run and in a long run of 4
-   prompts of 2,100–2,600 tokens at max_len 4096 that wraps every ring;
-   the float decode profile both ways (launches a step, the tile and ring
-   kernels' calls and ms, and eagerly the RG-LRU recurrence's kernels and
-   ms under a ``record_function`` range).
+   18 B2, 8 B3 over the ring)), in the usual run and (6 of 26 layers) in
+   a long run of 4 prompts of 2,100–2,600 tokens at max_len 4096 that
+   wraps every ring; the float decode profile both ways (launches a step,
+   the tile and ring kernels' calls and ms, and eagerly the RG-LRU
+   recurrence's kernels and ms under a ``record_function`` range); then
+   its other serving modes (``phase_hybrid_modes``): the int8 cache alone
+   and with int8 weights (launches with B3 over the int8 ring), int4
+   weights (6 layers), the paged cache at max_len 512 (rings paged: paged
+   = slot-static bit for bit), prefix sharing through snapshot slots at
+   max_len 4096 (fp32 at 3 layers and window 64 too, where the rings
+   wrap inside the shared prefix), and speculative decoding at frac 0.5
+   (fp32 at 3 layers and window 64 past the rings' wraps, both fracs).
 8. paged — the paged cache (``serve/paged.py``, pages of 16 tokens)
    through the same engine, captured per (C, kv, F, M) bucket.  Run 1, in
-   smollm-135m float and int8 weights and llama7b-blast float and int8
-   cache: the serve phase's 16 prompts through a paged engine with the
+   smollm-135m float and int8 weights, llama7b-blast float (32 layers)
+   and int8 cache (2 layers, beside a slot-static run at that depth): the
+   serve phase's 16 prompts through a paged engine with the
    default pool, captured and eager: greedy tokens equal the same mode's
    slot-static run and each other bit for bit, launches steps × the
    mode's per-step counts, ``audit`` (refcounts, free list, the zero page
@@ -114,20 +127,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    slot-static, graphs and capture seconds, pool and view bytes, peak
    memory, and the gather's and scatter's device ms of a decode step at
    kv 64 and 256 (CUDA events).  Run 2, smollm-135m and llama7b-blast
-   float (8 layers): 16 requests
+   float (2 layers): 16 requests
    sharing a 256-token system prompt on a pool of half of B·max_len
    tokens: ≥ 15·256 prefix-hit tokens, tokens equal an unshared
    slot-static run's up to each request's first near-tie (``near_tie``:
    the margin rule of ``tests/test_torch_engine.py`` in the logits'
-   precision).  Run 3, llama7b-blast float (8 layers): 6 bulk requests at priority
+   precision).  Run 3, llama7b-blast float (2 layers): 6 bulk requests at priority
    1, then 4 at priority 0 after 8 ticks, on a pool too small for them:
    preemptions, every request finished by length, two runs identical,
    tokens equal a roomy pool's up to each first near-tie; then the same
    run in fp32 at 2 layers, where the rule is the 1e-4 margin alone.
 9. spec — self-speculative decoding (k = 4) of the serve phase's 16
    prompts, at draft rank fractions 0.5 and 1.0, in smollm-135m float and
-   int8 weights (full width, 15 of its 30 layers), and llama7b-blast (full
-   width, 8 of its 32 layers) float
+   int8 weights (full width, 4 of its 30 layers), and llama7b-blast (full
+   width, 2 of its 32 layers) float
    and with the int8 cache: the tokens equal the same config's plain
    engine's up to each request's first near-tie; at frac 0.5 the captured
    round equals the eager round (``step_fn``; llama float) and paged
@@ -141,7 +154,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    tok/s and ms a round against the plain engine's, graphs, capture s,
    peak memory and the draft's parameter bytes.  The same in fp32 at 2
    layers of llama7b-blast, held to the 1e-4 margin alone, frac 1.0
-   accepting ≥ 90%.  ``spec_split``: at llama7b-blast's full width, 8
+   accepting ≥ 90%.  ``spec_split``: at llama7b-blast's full width, 2
    layers, a draft step and the resync at frac 0.5 and 1.0, the verify
    chunk (T = 64), the plain step and a whole captured round at each frac,
    each a CUDA graph timed by CUDA events.
@@ -172,7 +185,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    and 256, and B3 over int8 K/V at its decode and prefill (library:
    ``dequantize_rows``, then masked SDPA; ``float_kv_ms``: B3 on bf16 K/V
    of the same values).  recurrentgemma-2b's: B3 over its ring at decode
-   and at C = 32 (library: SDPA with the mask of the ring's positions).
+   and at C = 32 (library: SDPA with the mask of the ring's positions),
+   over bf16 K/V and over the int8 ring (library: ``dequantize_rows``,
+   then that SDPA).
    The profiles of phases 7 and 10 also sum the
    BLAST tile kernel's two ``__global__``s (``blast_tile_kernel``,
    ``blast_split_sum``) and the attention kernel's (``attn_tile_kernel``,
@@ -729,6 +744,17 @@ HYBRID_T = (8, 128)                  # decode; a long-run prefill step
 RING_CASES = (1, 32)
 
 
+def ring_q8(k, v):
+    """An int8 ring's K/V as the ring layer passes them: codes (B, Hkv, S_k,
+    D) and bf16 scales (B, Hkv, S_k) of ``quantize_rows`` (the cache's own
+    codec) of the views k, v."""
+    from repro_torch import quant
+    (kq, ks), (vq, vs) = (quant.quantize_rows(t.permute(0, 2, 1, 3))
+                          for t in (k, v))
+    return (kq.permute(0, 2, 1, 3), vq.permute(0, 2, 1, 3),
+            ks.transpose(1, 2), vs.transpose(1, 2))
+
+
 def make_ring_inputs(B, Hq, Hkv, C, S, D, dtype, gen):
     """B3-over-a-ring inputs as the ring layer passes them: q (B, Hq, C, D)
     and K/V (B, Hkv, S_k, D) views, key positions (B, S_k) int32 and row
@@ -757,11 +783,12 @@ def make_ring_inputs(B, Hq, Hkv, C, S, D, dtype, gen):
             pos.to(DEVICE, torch.int32), offs.to(DEVICE, torch.int32))
 
 
-def ring_cost(q, k, kpos, offs, window, elt):
+def ring_cost(q, k, kpos, offs, window, elt, int8_kv=False):
     """(bytes, flops) of B3 over a ring: q read and o written in ``elt``
     bytes, the key positions read, and the K/V rows some query of the row
-    sees read once; 4·D flops per visible (query, key) pair of each query
-    head (counted from this call's positions)."""
+    sees read once (``int8_kv``: a byte a code and a bf16 scale a row); 4·D
+    flops per visible (query, key) pair of each query head (counted from
+    this call's positions)."""
     import torch
     B, Hq, C, D = q.shape
     Hkv = k.shape[1]
@@ -770,7 +797,8 @@ def ring_cost(q, k, kpos, offs, window, elt):
     vis = (kp >= 0) & (kp <= qpos[:, :, None]) & (kp > qpos[:, :, None]
                                                   - window)   # (B, C, S_k)
     keys = int(vis.any(dim=1).sum())
-    bytes_ = (2 * B * Hq * C * D * elt + 2 * keys * Hkv * D * elt
+    kv_row = D + 2 if int8_kv else D * elt
+    bytes_ = (2 * B * Hq * C * D * elt + 2 * keys * Hkv * kv_row
               + 4 * kpos.numel() + 4 * B)
     return bytes_, 4 * D * Hq * int(vis.sum())
 
@@ -794,8 +822,9 @@ def hybrid_blast_shapes(cfg):
 def phase_kernels_hybrid(hyb, errs) -> None:
     """recurrentgemma-2b's kernels against their plain versions on the card:
     B3 over the ring (``flash_attention_ring``: 10/1 heads of 256, B = 8,
-    a 2048-slot ring with wrapped rows, window 2048) at C = 1 and 32, two
-    launches of each bit for bit; B1, B2 and their int8-weight twins B5,
+    a 2048-slot ring with wrapped rows, window 2048) at C = 1 and 32, and
+    over the int8 ring's codes and scales (``flash_attention_ring_q8``,
+    against ``attention_ring_q8_ref``), two launches of each bit for bit; B1, B2 and their int8-weight twins B5,
     B6 at its BLAST shapes (r = 608, 656 and 928; wo's n = 7680 in
     panels) at T = 8 and 128, two launches at T = 8 bit for bit; fp32 and
     bf16."""
@@ -836,6 +865,14 @@ def phase_kernels_hybrid(hyb, errs) -> None:
             check("flash_attention_ring", label, kern(),
                   ref.attention_ring_ref(q, k, v, kpos, offs, window=S),
                   dname, scaled=True)
+            args = (q, *ring_q8(k, v), kpos, offs)
+
+            def kern_q8():
+                return ops.flash_attention_ring_q8(*args, window=S)
+            repeat("flash_attention_ring_q8", label + " int8", kern_q8, dname)
+            check("flash_attention_ring_q8", label + " int8", kern_q8(),
+                  ref.attention_ring_q8_ref(*args, window=S), dname,
+                  scaled=True)
         for name, n, m, b, r, G in hybrid_blast_shapes(hyb):
             _, U, S_, V = make_blast_inputs(n, m, b, r, G, 1, dtype, gen,
                                             DEVICE)
@@ -949,13 +986,13 @@ class SharedActCodes:
         from repro_torch.quant import qarray as qt
         self.real = real = getattr(qt, self.CODEC)
 
-        def shared(x):
-            xq, sx = real(x)
+        def shared(x, **kw):
+            xq, sx = real(x, **kw)
             if self.recording:
                 self.card.append((x, xq, sx))
                 return xq, sx
             xg, qg, sg = (t.cpu() for t in self.card.pop(0))
-            self.check(x, xq, sx, xg, qg, sg)
+            self.check(x, xq, sx, xg, qg, sg, **kw)
             return qg, sg
 
         setattr(qt, self.CODEC, shared)
@@ -986,13 +1023,14 @@ class SharedActCodes:
 
 
 class SharedRowCodes(SharedActCodes):
-    """The same for ``quantize_rows``, the int8 KV cache's write.  Each CPU
-    call first runs the CPU's codec on the card's own input: codes and bf16
+    """The same for ``quantize_rows``, the int8 cache's write (K/V rows, and
+    an RG-LRU state's conv tail and its ``h`` with fp32 scales).  Each CPU
+    call first runs the CPU's codec on the card's own input: codes and
     scales must equal the card's bit for bit (the codec across devices).
     On its own input the CPU's codes must be within one step of the card's
-    and its bf16 scales equal or one bf16 step apart (a scale near a bf16
-    rounding boundary, which moves its row's codes by up to one step); the
-    rows whose scale moved are counted.  The CPU then writes the card's
+    and its scales equal or at most one bf16 step apart (a scale near a
+    bf16 rounding boundary, which moves its row's codes by up to one step);
+    the rows whose scale moved are counted.  The CPU then writes the card's
     codes, so the two caches must end equal."""
 
     CODEC = "quantize_rows"
@@ -1001,9 +1039,9 @@ class SharedRowCodes(SharedActCodes):
         super().__init__()
         self.moved_scales = 0
 
-    def check(self, x, xq, sx, xg, qg, sg):
+    def check(self, x, xq, sx, xg, qg, sg, **kw):
         import torch
-        qs, ss = self.real(xg)
+        qs, ss = self.real(xg, **kw)
         if not (torch.equal(qs, qg) and torch.equal(ss, sg)):
             raise RuntimeError("quantize_rows on the CPU gives other codes "
                                "or scales than on the card for the same "
@@ -1147,7 +1185,7 @@ def phase_reference_dense(llama, gpt2):
     phase_reference(gpt2, "gpt2:float")
 
 
-def phase_reference_hybrid(hyb):
+def phase_reference_hybrid(hyb, cache="none"):
     """recurrentgemma-2b at full width (d_model 2560, vocab 256000, 10/1
     heads of 256, the tied head scaled by √d_model and softcapped), fp32,
     cut to 3 layers (rglru, rglru, local_attn) and a window of 64, so that
@@ -1155,13 +1193,18 @@ def phase_reference_hybrid(hyb):
     (plain), the prompts fed in ragged chunks of 32, then 4 decode steps.
     Every live logit row within 1e-3 abs + 1e-3·max|logit|; every cache
     leaf after the last step: ``pos`` equal, K/V, ``conv`` and ``h``
-    within 1e-3 + 1e-3·max|leaf|."""
+    within 1e-3 + 1e-3·max|leaf|.  ``cache="int8"``: the int8 cache (an
+    int8 ring, int8 RG-LRU state), the CPU given the card's codes
+    (``SharedRowCodes``, ROADMAP C6), so its leaves must end equal."""
+    import contextlib
     import torch
+    from repro_torch import quant
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
     small = dataclasses.replace(hyb, n_layers=3, window=64,
                                 param_dtype="float32",
-                                compute_dtype="float32")
+                                compute_dtype="float32",
+                                quant=quant.QuantConfig(cache=cache))
     gpu = build_model(small, device=DEVICE)
     cpu = build_model(small, device="cpu")
     params_cpu = cpu.init(SEED)
@@ -1173,10 +1216,17 @@ def phase_reference_hybrid(hyb):
     fed = torch.zeros(3, dtype=torch.int64)
     row_err, row_limit = [], []
 
+    codec = SharedRowCodes() if cache == "int8" else None
+
     def step(toks, n_tok):
         """One ragged step on both devices; the live rows' errors."""
-        lg, _ = gpu.prefill_chunk(params_gpu, cache_g, toks, fed, n_tok)
-        lc, _ = cpu.prefill_chunk(params_cpu, cache_c, toks, fed, n_tok)
+        with codec or contextlib.nullcontext():
+            if codec:
+                codec.recording = True
+            lg, _ = gpu.prefill_chunk(params_gpu, cache_g, toks, fed, n_tok)
+            if codec:
+                codec.recording = False
+            lc, _ = cpu.prefill_chunk(params_cpu, cache_c, toks, fed, n_tok)
         live = n_tok > 0
         got, want = lg.float().cpu()[live], lc[live]
         if not torch.isfinite(got).all():
@@ -1210,13 +1260,19 @@ def phase_reference_hybrid(hyb):
             leaves[f"{i}.{name}"] = {"max_abs_err": e, "ok": ok}
     past = int((err > lim).sum())
     bad = [k for k, v in leaves.items() if not v["ok"]]
-    emit({"phase": "reference", "mode": "hybrid:float", "arch": hyb.name,
+    shared = {} if codec is None else {
+        "shared_row_codes": {"calls": codec.calls,
+                             "elements": codec.elements,
+                             "flipped_codes": codec.flips,
+                             "moved_scales": codec.moved_scales}}
+    emit({"phase": "reference", "arch": hyb.name,
+          "mode": "hybrid:float" if cache == "none" else "hybrid:int8_cache",
           "layers": 3, "pattern": small.layer_kinds(), "window": 64,
           "d_model": small.d_model, "vocab": small.vocab, "dtype": "float32",
           "prompt_tokens": lens.tolist(), "chunks": chunks,
           "decode_steps": 4, "positions_past_window": int(fed.max()) - 64,
           "max_abs_logit_err": float(err.max()), "rows": len(err),
-          "rows_past_limit": past, "cache_leaves": leaves,
+          "rows_past_limit": past, "cache_leaves": leaves, **shared,
           "limit": "1e-3 + 1e-3*max|logit| per row"})
     if past or bad:
         raise RuntimeError(f"reference[{HYBRID}]: card differs from the CPU "
@@ -1630,7 +1686,7 @@ def phase_paged_prefix(model, params, mode, config):
     of B·max_len tokens: the first request alone to completion (registering
     the prefix levels), then the other 15: ``prefix_hit_tokens`` ≥ 15·256,
     ``audit`` after, and the tokens equal an unshared slot-static engine's
-    under the margin rule."""
+    under the margin rule.  Returns the shared run's tokens {uid: tokens}."""
     import numpy as np
     import torch
     from repro_torch.serve import Engine, Request, SamplingParams
@@ -1668,7 +1724,11 @@ def phase_paged_prefix(model, params, mode, config):
         raise RuntimeError("paged prefix: the pool is not under half")
     cmp = _margin_compare(got, want, margins, f"paged prefix {mode}")
     emit({"phase": "paged", "run": "prefix sharing", "mode": mode,
-          "arch": model.cfg.name, "requests": 16, "system_prompt": 256,
+          "arch": model.cfg.name, "layers": model.cfg.n_layers,
+          "max_len": config.memory.max_len,
+          "state_leaves": engine._pc.has_state,
+          "snap_slots": engine._pc.n_snap,
+          "requests": 16, "system_prompt": 256,
           "new_tokens": 16 * 32, "pages": pages,
           "pool_tokens": engine._pc.pool_tokens(),
           "cache_bytes": engine._pc.nbytes(),
@@ -1680,6 +1740,7 @@ def phase_paged_prefix(model, params, mode, config):
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           **cmp})
     del engine
+    return got
 
 
 def phase_paged_preempt(model, params, mode, config):
@@ -1768,11 +1829,11 @@ def phase_paged_preempt_fp32(llama):
 SPEC_K = 4
 SPEC_FRACS = (0.5, 1.0)
 # depth cuts, for the script's time: llama7b-blast's in the speculative
-# runs, the round's parts, the prefix-sharing and bf16 preemption runs and
-# temperature sampling; smollm-135m's in its speculative runs and decode
-# profiles
-LLAMA_CUT_LAYERS = 8
-SMOLLM_CUT_LAYERS = 15
+# runs, the round's parts, the int8 cache's paged run, the prefix-sharing
+# and bf16 preemption runs, temperature sampling and the decode profiles;
+# smollm-135m's in its speculative runs and decode profiles
+LLAMA_CUT_LAYERS = 2
+SMOLLM_CUT_LAYERS = 4
 
 
 def spec_config(config, frac, paged=False):
@@ -1939,10 +2000,10 @@ def padded_draft_equal(engine_params, model, plan) -> bool:
 
 
 def phase_spec(model, params, mode, config, per_step, *, paged=True,
-               eager=True, pad_check=False):
+               eager=True, pad_check=False, fracs=SPEC_FRACS):
     """Self-speculative decoding (k = ``SPEC_K``) of the serve phase's 16
     prompts, 32 new tokens, 8 slots, chunk 32, max_len 512, at each of
-    ``SPEC_FRACS`` through the captured engine, and at frac 0.5 also
+    ``fracs`` through the captured engine, and at the first also
     through the eager one (``step_fn``; with ``eager``) and the paged one
     (with ``paged``: the round's code is the same at every frac).  Each
     run: the launch equality, no per-launch rank pad, ``audit`` when
@@ -1958,17 +2019,17 @@ def phase_spec(model, params, mode, config, per_step, *, paged=True,
     max_new = 32
     plain = _plain_with_margins(model, params, config, prompts, max_new)
     rows = []
-    for frac in SPEC_FRACS:
+    for frac in fracs:
         what = f"{mode} frac {frac}"
         runs = {"graphs": _spec_run(model, params, spec_config(config, frac),
                                     prompts, max_new, per_step, what)}
-        if eager and frac == SPEC_FRACS[0]:
+        if eager and frac == fracs[0]:
             runs["eager"] = _spec_run(
                 model, params, spec_config(config, frac), prompts, max_new,
                 per_step, what + " eager", step_fn=model.prefill_chunk)
             _same_steps(runs["graphs"], runs["eager"], what + " captured "
                         "against eager")
-        if paged and frac == SPEC_FRACS[0]:
+        if paged and frac == fracs[0]:
             runs["paged"] = _spec_run(
                 model, params, spec_config(config, frac, paged=True),
                 prompts, max_new, per_step, what + " paged")
@@ -1987,6 +2048,10 @@ def phase_spec(model, params, mode, config, per_step, *, paged=True,
                **{path: run["row"] for path, run in runs.items()
                   if path != "graphs"},
                "plain": plain["row"],
+               "distinct_tokens_per_request": statistics.mean(
+                   len(set(o)) for o in plain["outputs"].values()),
+               "distinct_tokens_min": min(
+                   len(set(o)) for o in plain["outputs"].values()),
                "round_ms_over_plain_step_ms": (
                    g["round_ms_median"]
                    / plain["row"]["decode_step_ms_median"]),
@@ -2686,7 +2751,9 @@ def phase_timing(cfg, llama, hyb):
     and int8 weights, and B3 over int8 K/V (library: ``dequantize_rows``
     then masked SDPA).  recurrentgemma-2b's: B3 over its 2048-slot ring at
     decode and over [ring ‖ chunk] at C = 32 (library: SDPA with the
-    positions' mask)."""
+    positions' mask), and over the same ring as int8 codes and scales
+    (library: ``dequantize_rows``, then that SDPA; ``float_kv_ms``: B3 over
+    the bf16 ring)."""
     import torch
     import torch.nn.functional as F
     from repro_torch import quant
@@ -2823,6 +2890,29 @@ def phase_timing(cfg, llama, hyb):
             "flash_attention_ring", "attn", 8 * C, shape, kern, plain, lib,
             "scaled_dot_product_attention (mask from the ring's positions, "
             "GQA)", (bytes_, {dname: flops}), flush, arch=hyb.name))
+        # the same ring as the int8 cache holds it (its codes and scales)
+        args = (q, *ring_q8(k, v), kpos, offs)
+        kern = lambda: ops.flash_attention_ring_q8(  # noqa: E731
+            *args, window=rw)
+        plain = lambda: ref.attention_ring_q8_ref(  # noqa: E731
+            *args, window=rw)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, quant.dequantize_rows(args[1], args[3], dt),
+            quant.dequantize_rows(args[2], args[4], dt), attn_mask=mask,
+            enable_gqa=True)
+        want = plain()
+        check_close(f"dequantize+ring sdpa yardstick C={C}", lib(), want,
+                    dname, scaled=True)
+        check_close(f"flash_attention_ring_q8[{shape} int8]", kern(), want,
+                    dname, scaled=True)
+        bytes_, flops = ring_cost(q, k, kpos, offs, rw, elt, int8_kv=True)
+        rows.append(timing_row(
+            "flash_attention_ring_q8", "attn", 8 * C, shape + " int8 K/V",
+            kern, plain, lib, "dequantize_rows, then "
+            "scaled_dot_product_attention (mask from the ring's positions, "
+            "GQA)", (bytes_, {dname: flops}), flush, arch=hyb.name,
+            float_kv_ms=lambda: ops.flash_attention_ring(
+                q, k, v, kpos, offs, window=rw)))
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     for C, offsets in ((1, None), (32, None), (1, SERVING_OFFSETS)):
         q, k, v, offs = make_attn_inputs(8, hq, hkv, C, 512, hd, dt, gen,
@@ -2935,6 +3025,12 @@ SOURCES = {   # kernel → (source, TPU kernel it replaces, run, arch)
     "flash_attention_ring": (
         _ATTN_CU, "src/repro/kernels/flash_attention.py:155", "hybrid:float",
         HYBRID),
+    # B3's ring instantiation over int8 K/V: the reference reads its int8
+    # ring in XLA (src/repro/models/layers.py:433-437, dequantize_rows, then
+    # cache_attention by pos)
+    "flash_attention_ring_q8": (
+        _ATTN_CU, "src/repro/kernels/flash_attention.py:155",
+        "hybrid:int8_cache", HYBRID),
 }
 
 
@@ -3034,14 +3130,24 @@ def phase_dense_serving(llama, gpt2) -> dict:
     if not peaks["int8_cache"] < peaks["float"]:
         raise RuntimeError(f"llama7b-blast: the int8-cache run's peak memory "
                            f"is not below the float run's: {peaks}")
-    for mode in ("float", "int8_cache"):
-        launches[f"paged:llama:{mode}"] = timed(
-            f"paged llama:{mode}", phase_paged, models[mode], params,
-            f"llama:{mode}", serve_config(None, weights="none"),
-            llama_per_step(llama, mode), static[mode])
+    launches["paged:llama:float"] = timed(
+        "paged llama:float", phase_paged, models["float"], params,
+        "llama:float", serve_config(None, weights="none"),
+        llama_per_step(llama, "float"), static["float"])
     cut, cut_params = cut_models(llama, params, LLAMA_CUT_LAYERS,
                                  {mode: cache for mode, (_, cache)
                                   in LLAMA_MODES.items()})
+    # the int8 cache's paged = slot-static at the cut depth, for the
+    # script's time
+    _, row, outputs = timed(
+        "serve llama:int8_cache:cut", phase_serve, cut["int8_cache"],
+        cut_params, f"llama:int8_cache:{LLAMA_CUT_LAYERS}L",
+        serve_config(None, weights="none"),
+        llama_per_step(cut["int8_cache"].cfg, "int8_cache"))
+    launches["paged:llama:int8_cache"] = timed(
+        "paged llama:int8_cache", phase_paged, cut["int8_cache"], cut_params,
+        "llama:int8_cache", serve_config(None, weights="none"),
+        llama_per_step(cut["int8_cache"].cfg, "int8_cache"), (row, outputs))
     timed("paged prefix llama:float", phase_paged_prefix, cut["float"],
           cut_params, "llama:float", serve_config(None, weights="none"))
     timed("paged preempt llama:float", phase_paged_preempt, cut["float"],
@@ -3049,13 +3155,12 @@ def phase_dense_serving(llama, gpt2) -> dict:
     timed("paged preempt llama:fp32", phase_paged_preempt_fp32, llama)
     spec_llama(llama, cut, cut_params)
     timed("temperature", phase_temperature, cut["float"], cut_params)
-    del cut, cut_params
     for mode in ("float", "int8_cache"):
         for graphs in (True, False):
-            timed(f"profile llama:{mode}", phase_profile, models[mode],
-                  params, f"llama:{mode}", serve_config(None, weights="none"),
-                  graphs=graphs)
-    del models, params
+            timed(f"profile llama:{mode}", phase_profile, cut[mode],
+                  cut_params, f"llama:{mode}",
+                  serve_config(None, weights="none"), graphs=graphs)
+    del cut, cut_params, models, params
     model = build_model(gpt2, device=DEVICE)
     params = model.init(SEED)
     L = gpt2.n_layers
@@ -3071,16 +3176,18 @@ LONG_PROMPTS = (2100, 2600)   # the long run's prompt lengths: past the ring
 LONG_MAX_LEN = 4096
 
 
-def hybrid_per_step(cfg, weights) -> dict:
+def hybrid_per_step(cfg, weights, cache="none") -> dict:
     """Launches a serving step of the hybrid makes: an RG-LRU layer 1 B2
     (in_gate+in_x) and 3 B1 (out, the FFN's wi and wo), an attention layer
-    4 B1 (qkv, out, wi, wo) and 1 B3 over its ring; recurrentgemma-2b's 26
-    layers: 18 B2, 86 B1, 8 B3 (B5/B6 with int8 weights)."""
-    blast, grouped = MODES["int8" if weights == "int8" else "none"][1]
+    4 B1 (qkv, out, wi, wo) and 1 B3 over its ring (over the int8 cache:
+    B3 over the int8 ring); recurrentgemma-2b's 26 layers: 18 B2, 86 B1, 8
+    B3 (B5/B6 with int8 weights, B7/B8 with int4)."""
+    blast, grouped = MODES[weights if weights in MODES else "none"][1]
     kinds = cfg.layer_kinds()
     rec, att = kinds.count("rglru"), kinds.count("local_attn")
-    return {blast: 3 * rec + 4 * att, grouped: rec,
-            "flash_attention_ring": att}
+    ring = ("flash_attention_ring_q8" if cache == "int8"
+            else "flash_attention_ring")
+    return {blast: 3 * rec + 4 * att, grouped: rec, ring: att}
 
 
 def long_prompts(vocab, n=4):
@@ -3210,49 +3317,228 @@ def phase_profile_hybrid(model, params, config, graphs=True):
     return row
 
 
+# depth cut of the hybrid's int4 run and long runs, for the script's time:
+# 2 of its 8 cycles
+HYBRID_CUT_LAYERS = 6
+HYBRID_SNAP_SLOTS = 8     # snapshot slots of the prefix-sharing runs
+# every hybrid serving run draws the embedding at this fraction of its init
+# scale: at init (0.02, times √2560 on the way in) a token's own embedding
+# dominates the residual stream, the tied head gives it back, and every
+# request repeats its last prompt token whatever the layers compute, so
+# that a token comparison would hold for a wrong cache, state or codec,
+# and every draft is accepted (acceptance 1.0 at frac 0.5 at init)
+HYBRID_EMBED_SCALE = 0.03
+
+
+def hybrid_weights(params):
+    """``params`` with the embedding scaled by ``HYBRID_EMBED_SCALE``, so
+    that the layers decide the tokens and a truncated draft is rejected."""
+    return {**params, "embed": params["embed"] * HYBRID_EMBED_SCALE}
+
+
+def varied(outputs, what) -> None:
+    """Every request of a hybrid run emitted more than one distinct token
+    (at the init's embedding scale each repeats its last prompt token);
+    prints the least and the mean count a request."""
+    outs = list(outputs.values() if isinstance(outputs, dict) else outputs)
+    distinct = [len(set(o)) for o in outs]
+    emit({"phase": "varied", "run": what, "requests": len(outs),
+          "distinct_tokens_min": min(distinct),
+          "distinct_tokens_mean": statistics.mean(distinct)})
+    if min(distinct) < 2:
+        raise RuntimeError(f"{what}: a request repeats one token: the "
+                           "layers did not decide its tokens")
+
+
 def phase_hybrid(hyb) -> dict:
     """recurrentgemma-2b at full width (26 layers: 8 cycles of rglru, rglru,
     local_attn and a 2-layer RG-LRU tail; d_model 2560, vocab 256000, 10/1
     heads of 256, window 2048; bf16, seeded random weights ``LM.init(SEED)``
-    drawn tensor by tensor, 1,419,506,176 params) served slot-static with
-    float and with int8 weights, each through the graphs and eagerly
-    (greedy tokens equal bit for bit, launches steps × ``hybrid_per_step``):
-    the usual run (``serve_prompts``: 16 prompts of 16–200 tokens, 32 new,
-    8 slots, chunk 32, max_len 512) and a long run that wraps every ring
-    (``long_prompts``: 4 prompts of 2,100–2,600 tokens, 32 new, max_len
-    4096); then the float decode profile, graphs and eager.  Returns each
-    run's launch counts."""
+    drawn tensor by tensor, 1,419,506,176 params, the embedding scaled by
+    ``HYBRID_EMBED_SCALE``) served slot-static with float and with int8
+    weights, each through the graphs and eagerly (greedy tokens equal bit
+    for bit, launches steps × ``hybrid_per_step``, every request's tokens
+    ``varied``): the usual run (``serve_prompts``: 16 prompts of 16–200
+    tokens, 32 new, 8 slots, chunk 32, max_len 512) and, at
+    ``HYBRID_CUT_LAYERS`` layers for the script's time, a long run that
+    wraps every ring (``long_prompts``: 4 prompts of 2,100–2,600 tokens, 32
+    new, max_len 4096); then the float decode profile, graphs and eager;
+    then the serving modes of ``phase_hybrid_modes`` (``cut``,
+    ``cut_params``: the model cut to ``HYBRID_CUT_LAYERS`` layers).
+    Returns each run's launch counts."""
     import torch
     from repro_torch import quant
     from repro_torch.models import build_model
     from repro_torch.tree import leaves
     t0 = time.perf_counter()
     model = build_model(hyb, device=DEVICE)
-    params = model.init(SEED)
+    params = hybrid_weights(model.init(SEED))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
     init = {"init_params": n_params, "init_bytes": quant.tree_nbytes(params),
-            "init_s": time.perf_counter() - t0}
+            "init_s": time.perf_counter() - t0,
+            "embed_scale": HYBRID_EMBED_SCALE}
     if n_params != HYBRID_PARAMS:
         raise RuntimeError(f"{HYBRID}: {n_params} parameters, want "
                            f"{HYBRID_PARAMS}")
     launches = {}
     long = long_prompts(hyb.vocab)
+    cuts, cut_params = cut_models(hyb, params, HYBRID_CUT_LAYERS,
+                                  {"none": "none"})
+    cut = cuts["none"]
     for weights, label in (("none", "float"), ("int8", "int8")):
         mode = f"hybrid:{label}"
-        per_step = hybrid_per_step(hyb, weights)
-        launches[mode], _, _ = timed(
+        launches[mode], row, outputs = timed(
             f"serve {mode}", phase_serve, model, params, mode,
-            serve_config(None, weights=weights), per_step, **init)
-        launches[f"{mode}:long"], _, _ = timed(
-            f"serve {mode}:long", phase_serve, model, params, f"{mode}:long",
-            serve_config(None, weights=weights, max_len=LONG_MAX_LEN),
-            per_step, prompts=long, positions_past_window=min(
-                map(len, long)) - hyb.window)
+            serve_config(None, weights=weights),
+            hybrid_per_step(hyb, weights), **init)
+        varied(outputs, f"serve {mode}")
+        if weights == "none":
+            static = (row, outputs)
+        launches[f"{mode}:long"], _, outputs = timed(
+            f"serve {mode}:long", phase_serve, cut, cut_params,
+            f"{mode}:long", serve_config(None, weights=weights,
+                                         max_len=LONG_MAX_LEN),
+            hybrid_per_step(cut.cfg, weights), prompts=long,
+            positions_past_window=min(map(len, long)) - hyb.window)
+        varied(outputs, f"serve {mode}:long")
     for graphs in (True, False):
         timed("profile hybrid:float", phase_profile_hybrid, model, params,
               serve_config(None, weights="none"), graphs=graphs)
+    launches.update(phase_hybrid_modes(hyb, model, params, static, cut,
+                                       cut_params))
     return launches
+
+
+def phase_hybrid_modes(hyb, model, params, static, cut, cut_params) -> dict:
+    """The hybrid in the serving modes ROADMAP A7 completes, bf16 at full
+    width (``params``: ``hybrid_weights``), each through ``phase_serve``,
+    ``phase_paged``, ``phase_paged_prefix`` or ``phase_spec``, every run's
+    tokens ``varied``:
+
+    - ``hybrid paged``: at max_len 512 (≤ the window: the rings are paged
+      leaves beside the slot-resident RG-LRU state; prefix sharing off,
+      ``unshared``) paged = slot-static (``static``: the float run's row
+      and tokens) and captured = eager bit for bit; at max_len 4096 (the rings are state leaves, the pool
+      nominal): 16 requests sharing a 256-token prefix through snapshot
+      slots, ≥ 15·256 prefix-hit tokens, tokens equal the unshared run's
+      up to each first near-tie; the same in fp32 at 3 layers and a
+      window of 64 (``phase_paged_prefix_hybrid_fp32``);
+    - ``hybrid spec`` (max_len 512, prefix sharing off, ``unshared``): k =
+      4 at frac 0.5, slot-static and paged, drafts rejected, tokens equal
+      plain decoding's up to each first near-tie, captured = eager and
+      paged = slot-static bit for bit; then fp32 at 3 layers and a window
+      of 64 (rounds across the rings' wraps, rings as state leaves when
+      paged) at frac 0.5 and 1.0: the 1e-4 margin alone, acceptance ≥ 0.9
+      at frac 1.0;
+    - ``hybrid int8 cache``: the int8 cache alone and with int8 weights,
+      captured = eager bit for bit, launches with B3 over the int8 ring;
+      the card against the CPU in fp32 (``phase_reference_hybrid
+      (cache="int8")``, in ``main``);
+    - ``hybrid:int4`` (``HYBRID_CUT_LAYERS`` layers): int4 weights, captured
+      = eager, launches as reckoned.
+
+    Returns each run's launch counts."""
+    from repro_torch import quant
+    from repro_torch.models import build_model
+    launches = {}
+    float_config = serve_config(None, weights="none")
+    launches["paged:hybrid:float"] = timed(
+        "paged hybrid:float", phase_paged, model, params, "hybrid:float",
+        unshared(float_config), hybrid_per_step(hyb, "none"), static)
+    q8 = build_model(dataclasses.replace(
+        hyb, quant=quant.QuantConfig(cache="int8")), device=DEVICE)
+    for weights, label in (("none", "int8_cache"), ("int8", "int8_int8_cache")):
+        mode = f"hybrid:{label}"
+        launches[mode], _, outputs = timed(
+            f"serve {mode}", phase_serve, q8, params, mode,
+            serve_config(None, weights=weights),
+            hybrid_per_step(hyb, weights, "int8"))
+        varied(outputs, f"serve {mode}")
+    del q8
+    launches["hybrid:int4"], _, outputs = timed(
+        "serve hybrid:int4", phase_serve, cut, cut_params, "hybrid:int4",
+        serve_config(None, weights="int4"), hybrid_per_step(cut.cfg, "int4"))
+    varied(outputs, "serve hybrid:int4")
+    long = dataclasses.replace(float_config, memory=dataclasses.replace(
+        float_config.memory, max_len=LONG_MAX_LEN,
+        snap_slots=HYBRID_SNAP_SLOTS))
+    varied(timed("paged prefix hybrid:float", phase_paged_prefix, model,
+                 params, "hybrid:float", long), "paged prefix hybrid:float")
+    timed("paged prefix hybrid:fp32", phase_paged_prefix_hybrid_fp32, hyb)
+    rows = timed("spec hybrid:float", phase_spec, model, params,
+                 "hybrid:float", unshared(float_config),
+                 hybrid_per_step(hyb, "none"), fracs=SPEC_FRACS[:1])
+    spec_checks(rows, "hybrid:float")
+    timed("spec hybrid:fp32", phase_spec_hybrid_fp32, hyb)
+    return launches
+
+
+def spec_checks(rows, what) -> None:
+    """A hybrid speculative phase's first frac (0.5) rejected some drafts,
+    so its rounds rolled the verify's cache and state back, and every
+    request of its plain run emitted more than one distinct token."""
+    g = rows[0]["graphs"]
+    if not g["spec_accepted"] < g["spec_drafted"]:
+        raise RuntimeError(f"spec {what}: every draft was accepted at frac "
+                           f"{SPEC_FRACS[0]}: no rollback of a rejection")
+    if rows[0]["distinct_tokens_min"] < 2:
+        raise RuntimeError(f"spec {what}: a request repeats one token: the "
+                           "layers did not decide its tokens")
+
+
+def unshared(config):
+    """``config`` with prefix sharing off, for the paged and speculative
+    runs of a model with state leaves that are held to a slot-static run
+    bit for bit: with sharing, a paged engine clips its prefill chunks to
+    land on each request's prefix boundary, so its steps are not the
+    slot-static run's, and another chunking rounds bf16 otherwise; and the
+    draft never sees a shared prefix (ROADMAP C7)."""
+    return dataclasses.replace(config, memory=dataclasses.replace(
+        config.memory, prefix_sharing=False))
+
+
+def hybrid_fp32(hyb):
+    """(model, params) of recurrentgemma-2b at full width in fp32, cut to 3
+    layers (rglru, rglru, local_attn) and a window of 64, the embedding
+    scaled by ``HYBRID_EMBED_SCALE``."""
+    from repro_torch.models import build_model
+    small = dataclasses.replace(hyb, n_layers=3, window=64,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    model = build_model(small, device=DEVICE)
+    return model, hybrid_weights(model.init(SEED))
+
+
+def phase_paged_prefix_hybrid_fp32(hyb):
+    """``phase_paged_prefix`` on ``hybrid_fp32`` at max_len 512 (the
+    64-slot rings are state leaves, snapshotted with the RG-LRU state; the
+    256-token prefix wraps them four times): in fp32 the tokens are held to
+    the unshared run's under the 1e-4 margin alone, so a snapshot restored
+    wrong shows."""
+    model, params = hybrid_fp32(hyb)
+    config = serve_config(None, weights="none")
+    config = dataclasses.replace(config, memory=dataclasses.replace(
+        config.memory, snap_slots=HYBRID_SNAP_SLOTS))
+    varied(phase_paged_prefix(model, params, "hybrid:fp32", config),
+           "paged prefix hybrid:fp32")
+
+
+def phase_spec_hybrid_fp32(hyb):
+    """``hybrid_fp32`` speculative at each of ``SPEC_FRACS``, slot-static
+    and paged (the 64-slot rings are state leaves there): the serve
+    prompts (16–200 tokens) put the rounds past the rings' wraps; the
+    tokens are held to the plain engine's under the 1e-4 margin alone,
+    frac 0.5 rejects drafts and at frac 1.0 at least 90% of the drafts are
+    accepted."""
+    model, params = hybrid_fp32(hyb)
+    rows = phase_spec(model, params, "hybrid:fp32",
+                      unshared(serve_config(None, weights="none")),
+                      hybrid_per_step(model.cfg, "none"), eager=False)
+    spec_checks(rows, "hybrid:fp32")
+    full = rows[SPEC_FRACS.index(1.0)]["graphs"]["acceptance_rate"]
+    if full < 0.9:
+        raise RuntimeError(f"spec hybrid:fp32: acceptance {full} at frac 1.0")
 
 
 def main() -> int:
@@ -3274,6 +3560,8 @@ def main() -> int:
     timed("reference llama7b-blast, gpt2-blast", phase_reference_dense,
           llama, gpt2)
     timed(f"reference {HYBRID}", phase_reference_hybrid, hyb)
+    timed(f"reference {HYBRID} int8 cache", phase_reference_hybrid, hyb,
+          cache="int8")
     timed("train_reference", phase_train_reference, cfg)
     model = build_model(cfg, device=DEVICE)
     params = model.init(SEED)

@@ -17,7 +17,12 @@
 //     src/repro/models/layers.py::attn_prefill, in XLA; the Pallas prefill
 //     kernel masks by slot index, which a wrapped ring breaks) — entry points
 //     flash_prefill_ring_f32 / flash_prefill_ring_bf16: B3 with each key's
-//     position read from kpos (B, S) int32 (the ring's pos, -1 empty).
+//     position read from kpos (B, S) int32 (the ring's pos, -1 empty);
+//   and the reference's read of an int8 ring (the same attn_prefill:
+//     dequantize_rows of the ring's codes and scales, then cache_attention
+//     by pos) — entry points flash_prefill_ring_q8_f32 /
+//     flash_prefill_ring_q8_bf16: the ring instantiations over int8 codes
+//     with per-(slot, head) bf16 scales, staged by the int8 loader.
 //
 // Function: q (B, Hq, T, D), k and v (B, Hkv, S, D) → o (B, Hq, T, D).
 // Query (b, t) sits at absolute position off + t, where off is q_offset
@@ -314,20 +319,22 @@ attn_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                                             nullptr, 0);
 }
 
-// B3 over a ring: key positions from kpos (B, S) with row stride kpb
-template <int BQ, int NT, int DM>
+// B3 over a ring: key positions from kpos (B, S) with row stride kpb; KV
+// float, or int8 codes with their scales ksc, vsc
+template <int BQ, int NT, int DM, typename KV>
 __global__ void __launch_bounds__(NT)
-attn_ring_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ kpos,
+attn_ring_kernel(const float* __restrict__ q, const KV* __restrict__ k,
+                 const KV* __restrict__ v, const bf16* __restrict__ ksc,
+                 const bf16* __restrict__ vsc, const int* __restrict__ kpos,
                  long long kpb, const int* __restrict__ offs,
                  float* __restrict__ o, int Hq, int Hkv, int C, int D,
                  Strides st, int window, int kv_len, float scale) {
-  attn_body<BQ, NT, true, DM, float, true>(q, k, v, nullptr, nullptr, offs,
-                                           0, o, Hq, Hkv, C, D, st, 1, window,
-                                           kv_len, scale, kpos, kpb);
+  attn_body<BQ, NT, true, DM, KV, true>(q, k, v, ksc, vsc, offs, 0, o, Hq,
+                                        Hkv, C, D, st, 1, window, kv_len,
+                                        scale, kpos, kpb);
 }
 
-// KPOS: the ring kernel (KV float, PER_ROW), with kpos and its row stride
+// KPOS: the ring kernel (PER_ROW), with kpos and its row stride
 template <int BQ, int NT, bool PER_ROW, int DM, typename KV, bool KPOS = false>
 int launch_dm(const void* q, const void* k, const void* v, const void* ksc,
               const void* vsc, const void* offs, int q_offset, void* o, int B,
@@ -343,7 +350,7 @@ int launch_dm(const void* q, const void* k, const void* v, const void* ksc,
       (KPOS ? sizeof(int) * BKV : 0);
   const void* kernel;
   if constexpr (KPOS)
-    kernel = (const void*)attn_ring_kernel<BQ, NT, DM>;
+    kernel = (const void*)attn_ring_kernel<BQ, NT, DM, KV>;
   else
     kernel = (const void*)attn_kernel<BQ, NT, PER_ROW, DM, KV>;
   if (smem > 48 * 1024) {
@@ -354,10 +361,11 @@ int launch_dm(const void* q, const void* k, const void* v, const void* ksc,
   const dim3 grid(B * Hq, (C + BQ - 1) / BQ);
   const float scale = 1.0f / sqrtf((float)D);
   if constexpr (KPOS)
-    attn_ring_kernel<BQ, NT, DM><<<grid, NT, smem, (cudaStream_t)stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const int*)kpos,
-        kpb, (const int*)offs, (float*)o, Hq, Hkv, C, D,
-        make_strides(strides, false), window, kv_len, scale);
+    attn_ring_kernel<BQ, NT, DM, KV><<<grid, NT, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const KV*)k, (const KV*)v, (const bf16*)ksc,
+        (const bf16*)vsc, (const int*)kpos, kpb, (const int*)offs, (float*)o,
+        Hq, Hkv, C, D, make_strides(strides, IS_Q8<KV>), window, kv_len,
+        scale);
   else
     attn_kernel<BQ, NT, PER_ROW, DM, KV>
         <<<grid, NT, smem, (cudaStream_t)stream>>>(
@@ -401,9 +409,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 // (splits, B, C, Hq, 2) — or null, and then o is written.  EXACT: D = DM,
 // so the head-dim loops, row strides and copies are compile-time.  KV: bf16,
 // or int8 codes with their scales ksc, vsc, dequantized into one bf16 K/V
-// tile per key tile.  KPOS (bf16 K/V): key j's position is kpos[b·kpb + j]
-// (a ring cache's pos; -1: empty), staged as a tile of 64 ints beside each
-// K/V tile; the block scans every slot of its split below kv_len, skips
+// tile per key tile.  KPOS: key j's position is kpos[b·kpb + j] (a ring
+// cache's pos; -1: empty), staged as a tile of 64 ints beside each K/V
+// tile (over int8 K/V, beside its codes and scales); the block scans every slot of its split below kv_len, skips
 // nothing by index, and masks every tile by position (live iff 0 <= kpos
 // <= qpos and, with a window, kpos > qpos - window); causal is not read.
 template <int DM, bool EXACT, typename KV, bool KPOS>
@@ -416,7 +424,6 @@ attn_tile_body(const bf16* __restrict__ q, const KV* __restrict__ k,
                int causal, int window, int kv_len, int kps, float sl2,
                const int* __restrict__ kpos, long long kpb) {
   constexpr bool Q8 = IS_Q8<KV>;
-  static_assert(!(Q8 && KPOS), "the ring instantiation takes bf16 K/V");
   constexpr int KV_STAGES = Q8 ? 1 : 2;     // bf16 K/V tiles in shared memory
   // a split launch's attn_split_combine may start now and wait for this grid
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -479,7 +486,9 @@ attn_tile_body(const bf16* __restrict__ q, const KV* __restrict__ k,
     int8_t* raw = reinterpret_cast<int8_t*>(kvs + KV_STAGES * 2 * KT * LD);
     bf16* rsc = reinterpret_cast<bf16*>(raw + 4 * KT * D);
     // KPOS: 2 stages of the tile's key positions (KT,) after the K/V tiles
-    int* kpt = reinterpret_cast<int*>(kvs + KV_STAGES * 2 * KT * LD);
+    // (int8 K/V: after the scales)
+    int* kpt = Q8 ? reinterpret_cast<int*>(rsc + 4 * KT)
+                  : reinterpret_cast<int*>(kvs + KV_STAGES * 2 * KT * LD);
     if (DP != D)   // the zero pad of D to 16, never written by a copy
       for (int i = tid; i < BR + KV_STAGES * 2 * KT; i += nthr)
         zero_n<16>(qs + i * LD + D);
@@ -534,11 +543,10 @@ attn_tile_body(const bf16* __restrict__ q, const KV* __restrict__ k,
             zero_n<16>(vs + at);
           }
         }
-        if constexpr (KPOS)   // plain loads; past the range -1 (empty)
-          for (int j = tid; j < KT; j += nthr)
-            kpt[stage * KT + j] =
-                j0 + j < k_end ? kpos[b * kpb + j0 + j] : -1;
       }
+      if constexpr (KPOS)   // plain loads; past the range -1 (empty)
+        for (int j = tid; j < KT; j += nthr)
+          kpt[stage * KT + j] = j0 + j < k_end ? kpos[b * kpb + j0 + j] : -1;
       cp_commit();
     };
     // int8 K/V: a landed stage of codes → the bf16 K/V tile, each element
@@ -726,18 +734,21 @@ attn_tile_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
                                        window, kv_len, kps, sl2, nullptr, 0);
 }
 
-// B3 over a ring: key positions from kpos (B, S) with row stride kpb
-template <int DM, bool EXACT>
+// B3 over a ring: key positions from kpos (B, S) with row stride kpb; KV
+// bf16, or int8 codes with their scales ksc, vsc
+template <int DM, bool EXACT, typename KV>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
-attn_tile_ring_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const int* __restrict__ kpos,
-                      long long kpb, const int* __restrict__ offs,
-                      bf16* __restrict__ o, float* __restrict__ part, int Hq,
-                      int Hkv, int P, int C, int D, Strides st, int window,
-                      int kv_len, int kps, float sl2) {
-  attn_tile_body<DM, EXACT, bf16, true>(q, k, v, nullptr, nullptr, offs, 0,
-                                        o, part, Hq, Hkv, P, C, D, st, 1,
-                                        window, kv_len, kps, sl2, kpos, kpb);
+attn_tile_ring_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
+                      const KV* __restrict__ v, const bf16* __restrict__ ksc,
+                      const bf16* __restrict__ vsc,
+                      const int* __restrict__ kpos, long long kpb,
+                      const int* __restrict__ offs, bf16* __restrict__ o,
+                      float* __restrict__ part, int Hq, int Hkv, int P, int C,
+                      int D, Strides st, int window, int kv_len, int kps,
+                      float sl2) {
+  attn_tile_body<DM, EXACT, KV, true>(q, k, v, ksc, vsc, offs, 0, o, part,
+                                      Hq, Hkv, P, C, D, st, 1, window, kv_len,
+                                      kps, sl2, kpos, kpb);
 }
 
 // o = Σ_s w_s·acc_s / Σ_s w_s·l_s with w_s = 2^(m_s − max m), over the
@@ -813,13 +824,13 @@ int launch_tile_dm(const void* q, const void* k, const void* v,
   // Q and the bf16 K/V tiles; over int8 K/V one bf16 stage, then two of
   // codes and scales; over a ring two stages of key positions after them
   const size_t smem =
-      IS_Q8<KV> ? sizeof(bf16) * (size_t)LD * (16 * warps + 2 * KT) +
-                      4 * (size_t)KT * D + 4 * KT * sizeof(bf16)
-                : sizeof(bf16) * (size_t)LD * (16 * warps + 4 * KT) +
-                      (KPOS ? 2 * KT * sizeof(int) : 0);
+      (IS_Q8<KV> ? sizeof(bf16) * (size_t)LD * (16 * warps + 2 * KT) +
+                       4 * (size_t)KT * D + 4 * KT * sizeof(bf16)
+                 : sizeof(bf16) * (size_t)LD * (16 * warps + 4 * KT)) +
+      (KPOS ? 2 * KT * sizeof(int) : 0);
   const void* kernel;
   if constexpr (KPOS)
-    kernel = (const void*)attn_tile_ring_kernel<DM, EXACT>;
+    kernel = (const void*)attn_tile_ring_kernel<DM, EXACT, KV>;
   else
     kernel = (const void*)attn_tile_kernel<DM, EXACT, KV>;
   if (smem > 48 * 1024) {
@@ -831,10 +842,11 @@ int launch_tile_dm(const void* q, const void* k, const void* v,
   const dim3 grid(B * (Hq / P), (C * P + br - 1) / br, splits);
   const float sl2 = LOG2E / sqrtf((float)D);
   if constexpr (KPOS)
-    attn_tile_ring_kernel<DM, EXACT><<<grid, 32 * warps, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)kpos, kpb,
-        (const int*)offs, (bf16*)o, splits > 1 ? part : nullptr, Hq, Hkv, P,
-        C, D, st, window, kv_len, kps, sl2);
+    attn_tile_ring_kernel<DM, EXACT, KV><<<grid, 32 * warps, smem, stream>>>(
+        (const bf16*)q, (const KV*)k, (const KV*)v, (const bf16*)ksc,
+        (const bf16*)vsc, (const int*)kpos, kpb, (const int*)offs, (bf16*)o,
+        splits > 1 ? part : nullptr, Hq, Hkv, P, C, D, st, window, kv_len,
+        kps, sl2);
   else
     attn_tile_kernel<DM, EXACT, KV><<<grid, 32 * warps, smem, stream>>>(
         (const bf16*)q, (const KV*)k, (const KV*)v, (const bf16*)ksc,
@@ -960,6 +972,38 @@ int flash_prefill_ring_bf16(const void* q, const void* k, const void* v,
                                  Hkv, Hq / Hkv, C, D, strides, 1, window,
                                  kv_len, warps, splits, kps, stream, nullptr,
                                  nullptr, kpos, kpb);
+}
+
+// B3 over an int8 ring: the ring entry points with k_scale and v_scale
+// after v and 18 strides
+int flash_prefill_ring_q8_f32(const void* q, const void* k, const void* v,
+                              const void* k_scale, const void* v_scale,
+                              const void* kpos, long long kpb,
+                              const void* offs, void* o, int B, int Hq,
+                              int Hkv, int C, int D, const long long* strides,
+                              int window, int kv_len, void* stream) {
+  if (D <= WIDE_D)
+    return launch_dm<PREFILL_BQ, PREFILL_NT, true, WIDE_D, int8_t, true>(
+        q, k, v, k_scale, v_scale, offs, 0, o, B, Hq, Hkv, C, D, strides, 1,
+        window, kv_len, stream, kpos, kpb);
+  return launch_dm<PREFILL_BQ, PREFILL_NT, true, DMAX, int8_t, true>(
+      q, k, v, k_scale, v_scale, offs, 0, o, B, Hq, Hkv, C, D, strides, 1,
+      window, kv_len, stream, kpos, kpb);
+}
+
+int flash_prefill_ring_q8_bf16(const void* q, const void* k, const void* v,
+                               const void* k_scale, const void* v_scale,
+                               const void* kpos, long long kpb,
+                               const void* offs, void* o, void* part, int B,
+                               int Hq, int Hkv, int C, int D,
+                               const long long* strides, int window,
+                               int kv_len, int warps, int splits, int kps,
+                               void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  return launch_tile<int8_t, true>(q, k, v, offs, 0, o, (float*)part, B, Hq,
+                                   Hkv, Hq / Hkv, C, D, strides, 1, window,
+                                   kv_len, warps, splits, kps, stream,
+                                   k_scale, v_scale, kpos, kpb);
 }
 
 int flash_full_f32(const void* q, const void* k, const void* v, void* o,

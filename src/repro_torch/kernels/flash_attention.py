@@ -11,7 +11,8 @@ and their plain PyTorch versions.
   it, as ``quant.dequantize_rows`` does;
 - ``launch_ring``: B3 over a sliding-window ring — each key's position
   read from ``k_pos`` (B, S) int32, the ring's ``pos``, not from its slot
-  index (the ring instantiations of both kernels).
+  index (the ring instantiations of both kernels); with ``k_scale`` and
+  ``v_scale``, over an int8 ring's codes and scales.
 
 Both read q, k and v through their strides (last axis contiguous), so a
 (B, S, Hkv, D) serving cache or a (B, T, H, D) view of the qkv projection is
@@ -70,6 +71,11 @@ _ARGTYPES = {
                               + [_I] * 5 + [_STRIDES] + [_I] * 2 + [_P],
     "flash_prefill_ring_bf16": [_P] * 4 + [ctypes.c_longlong] + [_P] * 3
                                + [_I] * 5 + [_STRIDES] + [_I] * 5 + [_P],
+    # over an int8 ring: k_scale and v_scale after v, and 18 strides
+    "flash_prefill_ring_q8_f32": [_P] * 6 + [ctypes.c_longlong] + [_P] * 2
+                                 + [_I] * 5 + [_STRIDES] + [_I] * 2 + [_P],
+    "flash_prefill_ring_q8_bf16": [_P] * 6 + [ctypes.c_longlong] + [_P] * 3
+                                  + [_I] * 5 + [_STRIDES] + [_I] * 5 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _LIB: list = []
@@ -185,6 +191,17 @@ def _out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *scales):
     return out, o, (ctypes.c_longlong * len(st))(*st)
 
 
+def _check_scales(q: torch.Tensor, k: torch.Tensor, k_scale, v_scale):
+    """int8 K/V take both bf16 scales (B, Hkv, S) on q's device."""
+    B, Hkv, S_len = k.shape[0], k.shape[1], k.shape[2]
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (not isinstance(sc, torch.Tensor) or sc.dtype != torch.bfloat16
+                or sc.shape != (B, Hkv, S_len) or sc.device != q.device):
+            raise ValueError(
+                f"{name} must be a bf16 tensor of shape {(B, Hkv, S_len)} on "
+                f"{q.device}: int8 K/V take both scales as a pair")
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offsets: torch.Tensor, *, causal: bool, window: int | None,
            kv_len: int, k_scale: torch.Tensor | None = None,
@@ -195,14 +212,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     what = "flash_attention_prefill" + ("_q8" if q8 else "")
     build.refuse_grad(what, q, k, v)
     B, Hq, C, D = q.shape
-    Hkv, S_len = k.shape[1], k.shape[2]
-    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if q8 and (not isinstance(sc, torch.Tensor)
-                   or sc.dtype != torch.bfloat16
-                   or sc.shape != (B, Hkv, S_len) or sc.device != q.device):
-            raise ValueError(
-                f"{name} must be a bf16 tensor of shape {(B, Hkv, S_len)} on "
-                f"{q.device}: int8 K/V take both scales as a pair")
+    Hkv = k.shape[1]
+    if q8:
+        _check_scales(q, k, k_scale, v_scale)
     _check(what, q, k, v, window, kv_len, torch.int8 if q8 else None)
     offs = q_offsets.to(device=q.device, dtype=torch.int32).contiguous()
     if offs.shape != (B,):
@@ -230,16 +242,23 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def launch_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 k_pos: torch.Tensor, q_offsets: torch.Tensor, *,
-                window: int | None, kv_len: int) -> torch.Tensor:
+                window: int | None, kv_len: int,
+                k_scale: torch.Tensor | None = None,
+                v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """B3 over a ring: k_pos (B, S) int32 on the card with a contiguous last
     axis (the ring's ``pos``, a view of the cache's leaf, or the
     concatenated [ring ‖ chunk] positions of a chunk step); keys at slots
-    ``>= kv_len`` are not read.  The launch plan is ``split_plan``'s."""
-    what = "flash_attention_ring"
+    ``>= kv_len`` are not read.  With ``k_scale`` and ``v_scale`` (bf16,
+    (B, Hkv, S), any strides), k and v are int8 codes.  The launch plan is
+    ``split_plan``'s."""
+    q8 = k_scale is not None or v_scale is not None
+    what = "flash_attention_ring" + ("_q8" if q8 else "")
     build.refuse_grad(what, q, k, v)
     B, Hq, C, D = q.shape
     Hkv, S_len = k.shape[1], k.shape[2]
-    _check(what, q, k, v, window, kv_len)
+    if q8:
+        _check_scales(q, k, k_scale, v_scale)
+    _check(what, q, k, v, window, kv_len, torch.int8 if q8 else None)
     if (k_pos.dtype != torch.int32 or k_pos.shape != (B, S_len)
             or k_pos.device != q.device or k_pos.stride(-1) != 1):
         raise ValueError(f"k_pos must be an int32 tensor of shape "
@@ -249,21 +268,24 @@ def launch_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     offs = q_offsets.to(device=q.device, dtype=torch.int32).contiguous()
     if offs.shape != (B,):
         raise ValueError(f"q_offsets has shape {tuple(offs.shape)}, want {(B,)}")
-    out, o, strides = _out(q, k, v)
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pos.data_ptr(),
-            k_pos.stride(0), offs.data_ptr(), out.data_ptr())
+    out, o, strides = _out(q, k, v, *((k_scale, v_scale) if q8 else ()))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *((k_scale.data_ptr(), v_scale.data_ptr()) if q8 else ()),
+            k_pos.data_ptr(), k_pos.stride(0), offs.data_ptr(),
+            out.data_ptr())
     opts = (0 if window is None else int(window), int(kv_len))
     stream = torch.cuda.current_stream().cuda_stream
+    name = "flash_prefill_ring" + ("_q8" if q8 else "")
     if q.dtype == torch.bfloat16:
         warps, _, splits, kps = split_plan(B, Hkv, Hq // Hkv, C, kv_len,
                                            build.sm_count(q.device))
         part = _split_scratch(splits, B, C, Hq, D, q.device)
-        rc = _lib().flash_prefill_ring_bf16(
+        rc = getattr(_lib(), f"{name}_bf16")(
             *head, None if part is None else part.data_ptr(), B, Hq, Hkv, C,
             D, strides, *opts, warps, splits, kps, stream)
     else:
-        rc = _lib().flash_prefill_ring_f32(*head, B, Hq, Hkv, C, D, strides,
-                                           *opts, stream)
+        rc = getattr(_lib(), f"{name}_f32")(*head, B, Hq, Hkv, C, D,
+                                            strides, *opts, stream)
     build.check(rc, what)
     return o
 

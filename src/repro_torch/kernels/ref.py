@@ -201,6 +201,23 @@ def attention_prefill_q8_ref(q: torch.Tensor, k: torch.Tensor,
         window=window, kv_len=kv_len)
 
 
+def attention_ring_q8_ref(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, k_pos: torch.Tensor,
+                          q_offsets: torch.Tensor, *, window: int | None,
+                          kv_len: int | None = None) -> torch.Tensor:
+    """Attention over an int8 ring cache, by key position: k, v int8 codes
+    (B, Hkv, S, D) with scales (B, Hkv, S), dequantized to q's type
+    (``dequantize_rows``), then ``attention_ring_ref`` — the reference's
+    read of its int8 ring (``src/repro/models/layers.py``: ``attn_prefill``,
+    ``dequantize_rows`` of the ring, then ``cache_attention`` masked by
+    ``pos``)."""
+    return attention_ring_ref(
+        q, dequantize_rows(k, k_scale, q.dtype),
+        dequantize_rows(v, v_scale, q.dtype), k_pos, q_offsets,
+        window=window, kv_len=kv_len)
+
+
 ATTN_KEY_TILE = 64      # keys per tile of the bf16 attention kernel
 ATTN_M_INIT = -1e30     # its running-max start
 

@@ -29,13 +29,13 @@ the pool's occupancy:
         --priority-classes 2 --trace
 
 The hybrid recurrentgemma-2b (RG-LRU and sliding-window attention over a
-ring cache) serves slot-static, with float or quantized weights:
+ring cache) serves in every mode: float or quantized weights, ``--paged``
+(its RG-LRU state and rings of more than ``--max-len`` slots stay
+slot-resident, shared through snapshot slots), ``--speculative`` and
+``--quant-cache int8`` (an int8 ring and int8 RG-LRU state):
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch recurrentgemma-2b --reduced --device cpu
-
-its ``--paged``, ``--speculative`` and ``--quant-cache int8`` raise
-``NotImplementedError`` (ROADMAP A7: the state leaves' snapshot slots).
+        --arch recurrentgemma-2b --reduced --device cpu --paged
 
 ``--speculative K`` decodes self-speculatively: a draft of the model's own
 factors truncated to their highest-energy ranks (``--draft-rank-frac`` of
@@ -84,7 +84,8 @@ def parse_args(argv=None):
                     help="per-token int8 activations: the BLAST layers run "
                          "the W8A8 (int8 weights) or W4A8 (int4) kernels")
     ap.add_argument("--quant-cache", default="none", choices=["none", "int8"],
-                    help="int8 KV cache with per-(slot, head) bf16 scales")
+                    help="int8 KV cache with per-(slot, head) bf16 scales "
+                         "(and int8 recurrent state)")
     ap.add_argument("--token-budget", type=int, default=None,
                     help="max total tokens packed into one mixed batch")
     ap.add_argument("--paged", action="store_true",

@@ -235,12 +235,16 @@ def _write(leaf: torch.Tensor, rg: Ragged, new: torch.Tensor) -> None:
     _put(leaf, rg.slot, new)
 
 
-def window_slots(steps: torch.Tensor, C: int, S: int) -> torch.Tensor:
+def window_slots(steps: torch.Tensor, C: int, S: int, *,
+                 ring: bool = False) -> torch.Tensor:
     """The slots (B, C) of a C-column write window at ``steps`` (B,) in a
-    cache of S slots: column i at position steps + i, a position past the
-    cache at the spare slot S (as ``ragged`` sends it)."""
+    cache of S slots, as ``ragged`` sends a live column there: column i at
+    position steps + i; a position past a full-length cache at the spare
+    slot S, and in a ring at ``position % S`` (a ring that has wrapped
+    writes there, not at a clamped slot)."""
     offs = torch.arange(C, dtype=torch.int64, device=steps.device)
-    return (steps.to(torch.int64)[:, None] + offs[None, :]).clamp(max=S)
+    pos = steps.to(torch.int64)[:, None] + offs[None, :]
+    return pos % S if ring else pos.clamp(max=S)
 
 
 def kv_cache_window(cache: Params, slot: torch.Tensor) -> Params:
@@ -407,7 +411,8 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
 
     A sliding-window layer's ring breaks slot == position once it wraps, so
     it attends through the ring kernel, which reads each key's position
-    from ``pos`` (``kops.flash_attention_ring``), as the reference does
+    from ``pos`` (``kops.flash_attention_ring``, over int8 K/V
+    ``flash_attention_ring_q8``), as the reference does
     (``src/repro/models/layers.py``: ``attn_prefill``).  A chunk (C > 1)
     attends over [the ring before its write ‖ the chunk's own keys], with
     [``pos`` ‖ the chunk's positions, -1 for dead columns] as key
@@ -431,9 +436,6 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
         q = ops.rope(q, rg.q_pos, cfg.rope_theta)
         k = ops.rope(k, rg.q_pos, cfg.rope_theta)
     if spec.window is not None:
-        if cfg.cache_quant:
-            raise NotImplementedError("int8 K/V over a sliding-window ring "
-                                      "is not ported yet (ROADMAP A7)")
         o = _ring_attention(spec, cache, q, k, v, rg)
         return linear_apply(spec.out, params["out"],
                             o.transpose(1, 2).reshape(B, C, hq * hd)), cache
@@ -474,24 +476,38 @@ def _ring_attention(spec: AttnSpec, cache: Params, q: torch.Tensor,
     """Write a chunk's (B, C, H, D) K/V into a ring cache in place and
     attend (``attn_prefill``): (B, Hq, C, D).  Only the ring's first
     ``rg.kv_len`` slots can hold a key (before it wraps, slot ==
-    position)."""
+    position).  Over an int8 ring the chunk's rows are quantized first
+    (``qt.quantize_rows``) and written as codes and scales; a chunk attends
+    to its own keys through those codes, as the reference reads them
+    through the same int8 round trip, and the kernel reads codes and scales
+    (``kops.flash_attention_ring_q8``)."""
     ext = rg.kv_len
     C = q.shape[1]
+    new = {"pos": rg.q_pos}
+    if spec.cfg.cache_quant:
+        for name, t in (("k", k), ("v", v)):
+            new[name], new[f"{name}_scale"] = qt.quantize_rows(t)
+    else:
+        new.update(k=k, v=v)
     if C > 1:
         # [ring before the write ‖ chunk], copied before the write
-        kv_pos = torch.where(rg.live, rg.q_pos, -1).to(torch.int32)
-        kpos = torch.cat([cache["pos"][:, :ext], kv_pos], dim=1)
-        kc = torch.cat([cache["k"][:, :ext], k.to(cache["k"].dtype)], dim=1)
-        vc = torch.cat([cache["v"][:, :ext], v.to(cache["v"].dtype)], dim=1)
-    _write(cache["pos"], rg, rg.q_pos)
-    _write(cache["k"], rg, k)
-    _write(cache["v"], rg, v)
+        new_pos = torch.where(rg.live, rg.q_pos, -1)
+        keys = {name: torch.cat([cache[name][:, :ext],
+                                 (new_pos if name == "pos" else t).to(
+                                     cache[name].dtype)], dim=1)
+                for name, t in new.items()}
+    for name, t in new.items():
+        _write(cache[name], rg, t)
     if C == 1:
-        kpos, kc, vc = cache["pos"], cache["k"], cache["v"]
-    return kops.flash_attention_ring(
-        q.transpose(1, 2), kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3),
-        kpos, rg.steps, window=spec.window,
-        kv_len=ext + (C if C > 1 else 0))
+        keys = cache
+    kv = (q.transpose(1, 2), keys["k"].permute(0, 2, 1, 3),
+          keys["v"].permute(0, 2, 1, 3))
+    opts = dict(window=spec.window, kv_len=ext + (C if C > 1 else 0))
+    if spec.cfg.cache_quant:
+        return kops.flash_attention_ring_q8(
+            *kv, keys["k_scale"].transpose(1, 2),
+            keys["v_scale"].transpose(1, 2), keys["pos"], rg.steps, **opts)
+    return kops.flash_attention_ring(*kv, keys["pos"], rg.steps, **opts)
 
 
 def attn_decode(spec: AttnSpec, params: Params, cache: Params,

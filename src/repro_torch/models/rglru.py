@@ -17,10 +17,13 @@ RG-LRU recurrence, in fp32:
     a_t = exp(-c · softplus(Λ) · r_t)
     h_t = a_t ⊙ h_{t-1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ u_t)
 
-A cached step carries (conv history, h): O(1) per row.  The recurrence is
-plain PyTorch, as the reference leaves it to XLA: ``rglru_apply`` and
-``rglru_prefill`` loop over the tokens of a chunk (two elementwise kernels
-a token on the card).  The cache is updated in place.
+A cached step carries (conv history, h): O(1) per row, float or, with the
+int8 cache, int8 codes with per-row scales (``qt.pack_state_cache``).  The
+recurrence is plain PyTorch, as the reference leaves it to XLA:
+``rglru_apply`` and ``rglru_prefill`` loop over the tokens of a chunk (two
+elementwise kernels a token on the card).  The cache is updated in place;
+a speculative verify collects per-token snapshots and rolls back to any
+draft boundary (``rglru_cache_rollback``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from repro_torch.configs.base import ArchConfig, StructureConfig
 from repro_torch.core.structures import LinearSpec, make_linear
 from repro_torch.models import layers as L
 from repro_torch.models import ops
+from repro_torch.quant import qarray as qt
 
 Params = dict[str, Any]
 
@@ -177,44 +181,94 @@ def rglru_cache_init(spec: RGLRUSpec, batch: int, max_len: int, dtype,
                      device) -> Params:
     """The recurrent state of ``batch`` rows: ``conv`` (B, K-1, W), each
     row's last K-1 pre-conv inputs, in the model's dtype, and ``h`` (B, W)
-    in fp32.  O(1) in ``max_len``."""
+    in fp32.  With ``cfg.cache_quant`` both are int8 codes with per-row
+    scales (``qt.pack_state_cache``): ``conv_scale`` (B, K-1) bf16,
+    ``h_scale`` (B,) fp32.  O(1) in ``max_len``."""
+    K1, W = spec.conv_width - 1, spec.width
+
+    def zeros(*shape, dtype_=dtype):
+        return torch.zeros((batch, *shape), dtype=dtype_, device=device)
+
     if spec.cfg.cache_quant:
-        raise NotImplementedError("the int8 RG-LRU state cache is not ported "
-                                  "yet (ROADMAP A7)")
-    return {"conv": torch.zeros((batch, spec.conv_width - 1, spec.width),
-                                dtype=dtype, device=device),
-            "h": torch.zeros((batch, spec.width), dtype=torch.float32,
-                             device=device)}
+        return {"conv": zeros(K1, W, dtype_=torch.int8),
+                "conv_scale": zeros(K1, dtype_=torch.bfloat16),
+                "h": zeros(W, dtype_=torch.int8),
+                "h_scale": zeros(dtype_=torch.float32)}
+    return {"conv": zeros(K1, W), "h": zeros(W, dtype_=torch.float32)}
 
 
 def rglru_cache_axes(spec: RGLRUSpec) -> dict[str, tuple]:
     """Logical axis names of ``rglru_cache_init``'s leaves: no ``kv_seq``
-    axis (the paged cache refuses such a leaf)."""
-    return {"conv": ("batch", None, "ffn"), "h": ("batch", "ffn")}
+    axis, so the paged cache keeps them slot-resident (state leaves)."""
+    a = {"conv": ("batch", None, "ffn"), "h": ("batch", "ffn")}
+    if spec.cfg.cache_quant:
+        a.update(conv_scale=("batch", None), h_scale=("batch",))
+    return a
+
+
+def _store(spec: RGLRUSpec, cache: Params, conv: torch.Tensor,
+           h: torch.Tensor) -> None:
+    """Write (conv, h) into the cache in place, packed as it stores them."""
+    for name, t in qt.pack_state_cache(spec.cfg.cache_quant, conv,
+                                       h).items():
+        cache[name].copy_(t)
 
 
 def rglru_prefill(spec: RGLRUSpec, params: Params, cache: Params,
-                  x: torch.Tensor, steps, n_tokens: torch.Tensor
+                  x: torch.Tensor, steps, n_tokens: torch.Tensor, *,
+                  collect: dict | None = None
                   ) -> tuple[torch.Tensor, Params]:
     """Multi-token cached step: x (B, C, d_model); n_tokens (B,) live tokens
     per row, on x's device.  The projections, the conv and the gates run
     over the whole chunk; the recurrence token by token, each dead column
     with a = 1 and nothing added, so a dead column leaves (conv, h) as it
     was (the reference's per-token ``lax.scan``).  ``steps`` is unused (no
-    positional state).  Writes ``conv`` and ``h`` in place."""
+    positional state).  Reads the state through ``qt.unpack_state_cache``
+    and writes ``conv`` and ``h`` (an int8 cache: packed again) in place.
+
+    ``collect``: a dict that receives the chunk's per-token state snapshots
+    for a speculative verify's rollback (``rglru_cache_rollback``), as the
+    reference's ``collect=True`` adds them to its cache: ``h_snap`` (B,
+    C+1, W) fp32, index 0 the incoming state, and ``conv_hist`` (B, K-1+C,
+    W), the conv history.  They are the chunk's temporaries (a captured
+    round keeps them in its graph's memory), not cache leaves."""
     del steps
     C = x.shape[1]
     n = n_tokens.to(device=x.device, dtype=torch.int64)
     live = torch.arange(C, device=x.device)[None, :] < n[:, None]
+    conv_prev, h_prev = qt.unpack_state_cache(spec.cfg.cache_quant, cache,
+                                              x.dtype)
     gate, u = _branches(spec, params, x)
-    u_conv, conv = ops.causal_conv_chunk(cache["conv"], u, params["conv_w"],
+    u_conv, conv = ops.causal_conv_chunk(conv_prev, u, params["conv_w"],
                                          params["conv_b"], n)
     a, gated = _gated_decay(spec, params, u_conv, live)
-    hs = _scan(a, gated, cache["h"])
+    hs = _scan(a, gated, h_prev)
     y = L.linear_apply(spec.out, params["out"], hs.to(x.dtype) * gate)
-    cache["conv"].copy_(conv)
-    cache["h"].copy_(hs[:, -1])
+    if collect is not None:
+        collect["h_snap"] = torch.cat([h_prev.float()[:, None], hs], dim=1)
+        collect["conv_hist"] = torch.cat([conv_prev, u.to(conv_prev.dtype)],
+                                         dim=1)
+    _store(spec, cache, conv, hs[:, -1])
     return y, cache
+
+
+def rglru_cache_rollback(spec: RGLRUSpec, cache: Params, snaps: dict,
+                         n_comm: torch.Tensor) -> Params:
+    """Rewind, in place, a state written by a chunk that ``rglru_prefill``
+    ran with ``collect=snaps`` to its first ``n_comm`` (B,) tokens: ``h``
+    is ``h_snap[:, n_comm]`` exactly (dead and rejected columns set a = 1
+    and add 0, so a snapshot at a draft boundary equals never having
+    drafted), and the conv history's K-1 entries ending there; packed
+    again as the reference re-packs (``src/repro/models/rglru.py``:
+    ``rglru_cache_rollback``)."""
+    h_snap, hist = snaps["h_snap"], snaps["conv_hist"]
+    n = n_comm.to(device=h_snap.device, dtype=torch.int64)
+    K1 = spec.conv_width - 1
+    idx = n[:, None] + torch.arange(K1, device=n.device)[None, :]
+    conv = torch.take_along_dim(hist, idx[:, :, None], dim=1)
+    h = h_snap[torch.arange(h_snap.shape[0], device=n.device), n]
+    _store(spec, cache, conv, h)
+    return cache
 
 
 def rglru_decode(spec: RGLRUSpec, params: Params, cache: Params,

@@ -8,7 +8,8 @@ dense vocab head, a logit softcap, the full-sequence forward ``apply``
 drives, over a float or int8 KV cache, and the nested-rank draft of
 self-speculative decoding (``rank_spectra``, ``draft_plan``,
 ``truncate_params``, ``pad_ranks``) with the all-logits verify and its
-in-place rollback (``cache_window``, ``rollback_cache``).
+in-place rollback (``cache_window``, ``rollback_cache``: KV windows by
+position, RG-LRU state from the verify's per-token snapshots).
 
 The reference scans over layer params stacked on a leading axis (one
 ``cycles.blk_j`` per position of the layer pattern, then unrolled
@@ -51,14 +52,6 @@ class Output(NamedTuple):
 
 
 _ATTN_KINDS = ("attn", "local_attn")
-
-
-def slot_resident_refusal(what: str) -> NotImplementedError:
-    """The error of a serving feature that a model with RG-LRU state or
-    sliding-window ring caches does not have yet."""
-    return NotImplementedError(
-        f"{what} is not ported for models with RG-LRU state or "
-        "sliding-window ring caches yet (ROADMAP A7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,27 +101,37 @@ def block_apply(spec: BlockSpec, params: Params, x: torch.Tensor,
 
 
 def block_prefill(spec: BlockSpec, params: Params, cache: Params,
-                  x: torch.Tensor, rg: L.Ragged) -> torch.Tensor:
+                  x: torch.Tensor, rg: L.Ragged,
+                  collect: dict | None = None) -> torch.Tensor:
     """One residual block over a ragged chunk; writes ``cache`` in place.
-    ``rg``: the chunk's geometry in this layer's cache."""
+    ``rg``: the chunk's geometry in this layer's cache.  ``collect``: a
+    dict that an RG-LRU layer fills with its per-token state snapshots
+    (``rglru.rglru_prefill``); a KV layer rewinds by position and needs
+    none."""
     h = L.norm_apply(params["norm1"], x, spec.norm)
     if spec.kind in _ATTN_KINDS:
         m, _ = L.attn_prefill(spec.mixer, params["mixer"], cache, h, None,
                               None, rg=rg)
     else:
         m, _ = R.rglru_prefill(spec.mixer, params["mixer"], cache, h, None,
-                               rg.n)
+                               rg.n, collect=collect)
     x = x + m
     h = L.norm_apply(params["norm2"], x, spec.norm)
     return x + L.ffn_apply(spec.ffn, params["ffn"], h)
 
 
 def block_cache_rollback(spec: BlockSpec, cache: Params, saved: Params,
-                         slot: torch.Tensor, n_comm: torch.Tensor) -> Params:
-    """Rewind one block's cache, in place, after a speculative verify chunk
-    written in the window ``slot``: keep its first ``n_comm`` tokens, give
-    the rest back what ``saved`` holds (``layers.kv_cache_rollback``)."""
-    return L.kv_cache_rollback(cache, saved, slot, n_comm)
+                         slot: torch.Tensor | None,
+                         n_comm: torch.Tensor) -> Params:
+    """Rewind one block's cache, in place, after a speculative verify chunk:
+    keep its first ``n_comm`` tokens.  A KV layer (a ring too) gives the
+    columns past them back what ``saved`` holds of its write window
+    ``slot`` (``layers.kv_cache_rollback``); an RG-LRU layer takes the state
+    after ``n_comm`` tokens from the snapshots the chunk collected into
+    ``saved`` (``rglru.rglru_cache_rollback``)."""
+    if spec.kind in _ATTN_KINDS:
+        return L.kv_cache_rollback(cache, saved, slot, n_comm)
+    return R.rglru_cache_rollback(spec.mixer, cache, saved, n_comm)
 
 
 def block_cache_init(spec: BlockSpec, batch: int, max_len: int, dtype,
@@ -175,10 +178,9 @@ class LayerCaches(list):
 
 def _map_linears(tree, fn, path: str = ""):
     """``tree`` with every rank-bearing linear ``lin`` replaced by
-    ``fn(path, lin)``; a linear's path joins its keys with dots, and the
-    per-layer list adds none, so one linear of every layer shares its path
-    (``layers.mixer.qkv``).  Other leaves (a prestacked ``GroupBundle``
-    too) pass through."""
+    ``fn(path, lin)``; a linear's path joins its keys with dots, and a list
+    adds none.  Other leaves (a prestacked ``GroupBundle`` too) pass
+    through."""
     if structures.rank_kind(tree) is not None:
         return fn(path, tree)
     if isinstance(tree, dict):
@@ -209,8 +211,6 @@ class LM:
         self.dtype = _DTYPES[cfg.param_dtype]
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.specs = [make_block(cfg, k) for k in cfg.layer_kinds()]
-        if self.slot_resident and cfg.cache_quant:
-            raise slot_resident_refusal("the int8 cache")
         # the untied vocab head: a dense linear, as the reference's
         self.head = make_linear(cfg.d_model, cfg.vocab, structured=False)
 
@@ -271,20 +271,46 @@ class LM:
 
     # -- nested-rank drafts (self-speculative decoding) ------------------------
 
+    def _layer_paths(self) -> list[str]:
+        """Each layer's prefix in a linear's name, grouped as the reference
+        groups its layers: with a one-position pattern every layer is a
+        cycle of it, ``layers``; else ``layers.blk_j`` for position j of
+        the whole cycles and ``layers.tail_t`` past them (the reference's
+        ``cycles.blk_j`` and ``tail_t``, ``weights.plan_from_jax``)."""
+        P = len(self.cfg.pattern)
+        if P == 1:
+            return ["layers"] * len(self.specs)
+        whole = len(self.specs) // P * P
+        return [f"layers.blk_{i % P}" if i < whole
+                else f"layers.tail_{i - whole}"
+                for i in range(len(self.specs))]
+
+    def _map(self, params: Params, fn) -> Params:
+        """``_map_linears`` over the params, each layer's linears named
+        under its ``_layer_paths`` prefix."""
+        out = {k: v if k == "layers" else _map_linears(v, fn, k)
+               for k, v in params.items()}
+        out["layers"] = [_map_linears(p, fn, path) for p, path in
+                         zip(params["layers"], self._layer_paths())]
+        return out
+
     def rank_spectra(self, params: Params) -> dict[str, torch.Tensor]:
         """Name → fp32 energy spectrum of every rank-bearing linear, a name
-        for each linear of a layer (``layers.mixer.qkv``, ``layers.mixer.out``,
-        ``layers.ffn.gate``, ``layers.ffn.up``, ``layers.ffn.wo``; the
-        reference's ``cycles.blk_0.…``, ``weights.plan_from_jax``), its
-        spectra averaged over the layers in fp32 as the reference's
-        ``jnp.mean`` over its scan axis does: one rank serves every layer."""
+        for each linear of a layer group (``_layer_paths``: a dense model's
+        ``layers.mixer.qkv``, ``layers.mixer.out``, ``layers.ffn.gate``,
+        ``layers.ffn.up``, ``layers.ffn.wo``; the hybrid's
+        ``layers.blk_0.mixer.in_x``, …, ``layers.tail_1.ffn.wo``; the
+        reference's ``cycles.blk_j.…`` and ``tail_t.…``,
+        ``weights.plan_from_jax``), its spectra averaged over the group's
+        layers in fp32 as the reference's ``jnp.mean`` over its scan axis
+        does: one rank serves every layer of a group."""
         found: dict[str, list] = {}
 
         def collect(path, lin):
             found.setdefault(path, []).append(structures.rank_spectrum(lin))
             return lin
 
-        _map_linears(params, collect)
+        self._map(params, collect)
         return {k: torch.stack(v).mean(dim=0) for k, v in found.items()}
 
     def draft_plan(self, params: Params, frac: float) -> dict[str, int]:
@@ -300,34 +326,82 @@ class LM:
         layer keeps its own highest-energy components).  The draft's
         factors are column subsets of the full ones (the paper's nesting
         property); the apply paths read ranks from the factors' shapes."""
-        return _map_linears(params, lambda path, lin: (
+        return self._map(params, lambda path, lin: (
             lin if path not in plan else
             structures.truncate_rank(lin, plan[path])))
 
     def pad_ranks(self, params: Params, granule: int) -> Params:
         """Every rank-bearing linear zero-padded to a multiple of ``granule``
         ranks (``structures.pad_rank``: exact)."""
-        return _map_linears(params,
-                            lambda _, lin: structures.pad_rank(lin, granule))
+        return self._map(params,
+                         lambda _, lin: structures.pad_rank(lin, granule))
+
+    def _window_slots(self, cache: list[Params], steps: torch.Tensor,
+                      C: int) -> list:
+        """Each layer's C-column write window at ``steps`` (B,): the slots
+        (B, C) of a KV layer (``layers.window_slots``: a ring's at position
+        % S), None for a state layer.  One tensor per cache geometry."""
+        by_geometry: dict = {}
+        out = []
+        for spec, c in zip(self.specs, cache):
+            if spec.kind not in _ATTN_KINDS:
+                out.append(None)
+                continue
+            key = (c["pos"].shape[1], spec.kind == "local_attn")
+            if key not in by_geometry:
+                by_geometry[key] = L.window_slots(steps, C, key[0],
+                                                  ring=key[1])
+            out.append(by_geometry[key])
+        return out
 
     def cache_window(self, cache: list[Params], steps: torch.Tensor,
                      C: int) -> list[Params]:
-        """A copy of what every layer's cache holds in the C-column window
-        at ``steps`` (B,), taken before a chunk that ``rollback_cache`` may
-        rewind writes there."""
-        slot = L.window_slots(steps, C, cache[0]["pos"].shape[1])
-        return [L.kv_cache_window(c, slot) for c in cache]
+        """A copy of what every KV layer's cache (a ring too) holds in the
+        C-column window at ``steps`` (B,), taken before a chunk that
+        ``rollback_cache`` may rewind writes there; a state layer's entry
+        is an empty dict that the chunk's ``prefill_chunk(collect_states=)``
+        fills with its snapshots."""
+        return [{} if slot is None else L.kv_cache_window(c, slot)
+                for c, slot in zip(cache, self._window_slots(cache, steps,
+                                                             C))]
+
+    def save_state(self, cache: list[Params]) -> list[Params]:
+        """A copy of every state layer's leaves (RG-LRU ``conv``, ``h`` and
+        their scales), an empty dict for a KV layer (``cache_window`` saves
+        its window)."""
+        return [{name: leaf.clone() for name, leaf in c.items()}
+                if spec.kind not in _ATTN_KINDS else {}
+                for spec, c in zip(self.specs, cache)]
+
+    def restore_cache(self, cache: list[Params], saved: list[Params],
+                      state: list[Params], steps: torch.Tensor) -> list:
+        """Undo, in place, every write made since ``cache_window`` (steps,
+        C) gave ``saved`` and ``save_state`` gave ``state``, by steps of at
+        most C tokens at ``steps``: each KV layer's window gets back what
+        ``saved`` holds, each state layer its copied leaves."""
+        C = next((sv["pos"].shape[1] for sv in saved if "pos" in sv), 1)
+        none = torch.zeros_like(steps, dtype=torch.int64)
+        for c, sv, st, slot in zip(cache, saved, state,
+                                   self._window_slots(cache, steps, C)):
+            if slot is None:
+                for name, leaf in st.items():
+                    c[name].copy_(leaf)
+            else:
+                L.kv_cache_rollback(c, sv, slot, none)
+        return cache
 
     def rollback_cache(self, cache: list[Params], saved: list[Params],
                        steps: torch.Tensor, n_comm: torch.Tensor) -> list:
         """Rewind, in place, a chunk written at ``steps`` to its first
         ``n_comm[b]`` tokens per row — bit-identical to having fed exactly
         those tokens.  ``saved``: ``cache_window`` of the chunk's window,
-        taken before it (the reference's ``rollback_cache(old, new, steps,
-        n_comm)`` takes the whole pre-chunk cache)."""
-        slot = L.window_slots(steps, saved[0]["pos"].shape[1],
-                              cache[0]["pos"].shape[1])
-        for spec, c, sv in zip(self.specs, cache, saved):
+        taken before it, its state layers' entries filled by the chunk's
+        ``collect_states`` (the reference's ``rollback_cache(old, new,
+        steps, n_comm)`` takes the whole pre-chunk cache and the chunk's
+        collected one)."""
+        C = next((sv["pos"].shape[1] for sv in saved if "pos" in sv), 1)
+        for spec, c, sv, slot in zip(self.specs, cache, saved,
+                                     self._window_slots(cache, steps, C)):
             block_cache_rollback(spec, c, sv, slot, n_comm)
         return cache
 
@@ -378,10 +452,10 @@ class LM:
         return [block_cache_axes(s) for s in self.specs]
 
     def _cache_len(self, cache: list[Params]) -> int:
-        """The positions a cache was allocated for: ``LayerCaches.max_len``,
-        or else (a paged view: a plain list) the slots of its full-length
-        attention layers.  A ring's slots do not say it: a plain list of
-        ring and state caches raises."""
+        """The positions a cache was allocated for: ``LayerCaches.max_len``
+        (``init_cache``'s, and the paged view's), or else (a plain list)
+        the slots of its full-length attention layers.  A ring's slots do
+        not say it: a plain list of ring and state caches raises."""
         if isinstance(cache, LayerCaches):
             return cache.max_len
         full = [c["pos"].shape[1] for s, c in zip(self.specs, cache)
@@ -413,7 +487,9 @@ class LM:
     @torch.no_grad()
     def prefill_chunk(self, params: Params, cache: list[Params], tokens,
                       steps, n_tokens=None, kv_len: int | None = None, *,
-                      all_logits: bool = False) -> tuple[torch.Tensor, list]:
+                      all_logits: bool = False,
+                      collect_states: list | None = None
+                      ) -> tuple[torch.Tensor, list]:
         """Multi-token cached step — the serving entry point.
 
         tokens: (B, C) int; steps: (B,) absolute position of each row's first
@@ -424,7 +500,10 @@ class LM:
         cache).  C=1 with n_tokens=1 is a decode step.  With ``all_logits``
         the head runs on every column: logits (B, C, V), column i predicting
         the token at position steps + i + 1 (a speculative verify scores k
-        drafts in one chunk).
+        drafts in one chunk).  ``collect_states``: a list of one dict a
+        layer (``cache_window``'s) into which each RG-LRU layer puts its
+        per-token state snapshots, for ``rollback_cache`` (the reference's
+        ``collect_states=True``).
 
         With ``kv_len`` (a host int, ``flash_attention.kv_bucket`` of the
         largest live position + 1) the three inputs are tensors on the
@@ -448,14 +527,17 @@ class LM:
         x = self._embed(params, tokens, self.compute_dtype)
         if self.cfg.pos_embed == "learned":
             x = x + params["pos"][rg.q_pos.clamp(0, self.cfg.max_seq - 1)]
-        for spec, p, c in zip(self.specs, params["layers"], cache):
+        for i, (spec, p, c) in enumerate(zip(self.specs, params["layers"],
+                                             cache)):
             key = (max_len, False)
             if spec.kind in _ATTN_KINDS:
                 key = (c["pos"].shape[1], spec.kind == "local_attn")
                 if key not in geometry:
                     geometry[key] = L.ragged(steps, n_tokens, C, key[0],
                                              kv_len, ring=key[1])
-            x = block_prefill(spec, p, c, x, geometry[key])
+            x = block_prefill(spec, p, c, x, geometry[key],
+                              None if collect_states is None
+                              else collect_states[i])
         if not all_logits:
             x = x[torch.arange(B, device=x.device), rg.last][:, None]
         return self._head(params, x), cache

@@ -1,6 +1,7 @@
 """Quantized storage of the port (counterpart of ``repro/quant``): per-block
 symmetric int8 and nibble-packed int4 ``QArray`` weights, per-token int8
-activation codes, the row-wise int8 codec of the KV cache, and the
+activation codes, the row-wise int8 codec of the KV cache and of recurrent
+state (``pack_state_cache``), and the
 ``QuantConfig`` knob threaded through configs → engine → launcher."""
 
 from repro_torch.quant.qarray import (  # noqa: F401
@@ -11,6 +12,7 @@ from repro_torch.quant.qarray import (  # noqa: F401
     dequantize_rows,
     int_values,
     is_qarray,
+    pack_state_cache,
     pack_int4,
     plane_order,
     quantize,
@@ -20,4 +22,5 @@ from repro_torch.quant.qarray import (  # noqa: F401
     tree_nbytes,
     unpack_int4,
     unpack_int4_planes,
+    unpack_state_cache,
 )

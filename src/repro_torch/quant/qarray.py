@@ -167,19 +167,33 @@ def dequantize(qa: QArray, dtype=None) -> torch.Tensor:
     return y if dtype is None else y.to(dtype)
 
 
-def quantize_rows(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(t: torch.Tensor, scale_dtype=torch.bfloat16
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Row-wise cache codec: t (..., D) → int8 codes (..., D) and one scale
     per last-axis vector (...,), zero-guarded like ``quantize``.  The codes
-    are computed with the fp32 scale ``amax / 127`` (a division); the scale
-    is then stored as bf16, as the reference stores it.
-    No host work: the int8 KV cache's writes run inside a captured step."""
+    are computed with the fp32 scale ``amax / 127`` and divide by it; the
+    scale is then stored as ``scale_dtype``, as the reference stores it.
+
+    The fp32 scale takes one of two forms.  bf16 scales (K/V, a conv tail):
+    a division, as eager JAX computes it; rounded to bf16, it equals the
+    jitted form's scale in every row tried.  fp32 scales (a recurrent
+    state ``h``, stored unrounded): ``amax * float32(1/127)``, the form the
+    reference's jitted engine computes — XLA rewrites the division by the
+    constant 127 as a multiply by its reciprocal, also without backend
+    optimizations, and on 4096 rows of 256 the division gave 175 scales
+    one ulp away from the jitted ones, the multiply none (ROADMAP,
+    Constraints).  No host work: the int8 caches' writes run inside a
+    captured step."""
     tf = t.float()
     amax = tf.abs().amax(dim=-1)
-    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
-                        torch.ones_like(amax))
+    if scale_dtype == torch.float32:
+        scaled = amax * torch.full_like(amax, 1.0 / 127.0)
+    else:
+        scaled = amax / torch.full_like(amax, 127.0)
+    scale = torch.where(amax > 0, scaled, torch.ones_like(amax))
     q = torch.clamp(torch.round(tf / scale[..., None]), -127,
                     127).to(torch.int8)
-    return q, scale.to(torch.bfloat16)
+    return q, scale.to(scale_dtype)
 
 
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
@@ -206,6 +220,28 @@ def dequantize_act(q: torch.Tensor, scale: torch.Tensor,
     return y if dtype is None else y.to(dtype)
 
 
+def pack_state_cache(quantized: bool, conv: torch.Tensor,
+                     h: torch.Tensor) -> dict:
+    """A recurrent mixer's cache write (RG-LRU; SSD's has the same leaves):
+    the conv tail and the state.  Quantized, both are int8 with per-row
+    scales — bf16 for the conv tail (the token caches' convention), fp32
+    for the state ``h``, which re-enters the scan every step."""
+    if quantized:
+        cq, cs = quantize_rows(conv)
+        hq, hs = quantize_rows(h, scale_dtype=torch.float32)
+        return {"conv": cq, "conv_scale": cs, "h": hq, "h_scale": hs}
+    return {"conv": conv, "h": h}
+
+
+def unpack_state_cache(quantized: bool, cache: dict,
+                       dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of ``pack_state_cache`` → (conv in ``dtype``, h in fp32)."""
+    if quantized:
+        return (dequantize_rows(cache["conv"], cache["conv_scale"], dtype),
+                dequantize_rows(cache["h"], cache["h_scale"], torch.float32))
+    return cache["conv"], cache["h"]
+
+
 _WEIGHT_MODES = ("none", "int8", "int4")
 _CACHE_MODES = ("none", "int8")
 _ACT_MODES = ("none", "int8")
@@ -218,7 +254,8 @@ class QuantConfig:
     weights:     structured-linear and embedding storage
                  ("none"|"int8"|"int4")
     cache:       KV caches ("none"|"int8": int8 codes with per-(slot, head)
-                 bf16 scales)
+                 bf16 scales) and recurrent state (int8 ``conv`` with bf16
+                 and ``h`` with fp32 per-row scales)
     activations: per-token int8 layer inputs feeding the integer (W8A8)
                  kernels ("none"|"int8"); requires quantized weights
     """

@@ -6,7 +6,7 @@ grouped sub-configs instead of the flat constructor keywords.
     arrival-order baseline) and an end-to-end deadline.
   * ``MemoryConfig``   — cache geometry: ``max_len`` per request, and the
     paged-allocator knobs (``paged``, ``pages``, ``page_size``,
-    ``prefix_sharing``) of ``serve/paged.py``.
+    ``prefix_sharing``, ``snap_slots``) of ``serve/paged.py``.
   * ``SpeculativeConfig`` — self-speculative decoding: ``k`` draft
     tokens a round (0: off) from the model's own factors truncated to
     ``draft_rank_frac`` of the pooled rank budget.
@@ -49,6 +49,8 @@ class MemoryConfig:
     page_size: int = 16         # tokens per KV page (must divide max_len)
     pages: int | None = None    # pool size in pages (None: slots*max_len/page_size + 1)
     prefix_sharing: bool = True # share page-aligned prompt prefixes (paged only)
+    snap_slots: int | None = None  # state-leaf snapshot slots of prefix
+    #                            entries (None: max(4, pages // 4))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -74,11 +74,15 @@ bucket (paged: per (kv, F, M), around the gather and scatter of the
 round's pages), and its token ids come back in one copy.
 
 A model with RG-LRU state or sliding-window ring caches (the hybrid
-family, ``LM.slot_resident``) is served slot-static: ``_reset_slot`` zeroes
-a row's conv history and state ``h`` with its ring.  The paged cache,
-speculative decoding and the int8 cache raise ``NotImplementedError`` for
-it: their state leaves, snapshot slots and the round's recurrent-state
-snapshots are not ported yet (ROADMAP A7).
+family, ``LM.slot_resident``) is served in every mode.  ``_reset_slot``
+resets a row's conv history and state ``h`` with its ring.  Paged, its
+state leaves stay slot-resident and a prefix entry owns a snapshot of them
+(``MemoryConfig.snap_slots``); such a model registers one prefix boundary
+a request (its ``prefix_len`` hint, else ``len(prompt) - 1`` rounded down
+to a page) and clips prefill chunks to land on it.  A speculative round
+collects the verify's per-token RG-LRU states and rolls them back to the
+committed length, and restores the draft's state before its resync.  The
+int8 cache quantizes a ring's K/V and the RG-LRU state.
 
 Not ported yet, besides: resilience (guardrail, health,
 watchdog, fault injection, step-error requeues, ``healthz``, the round's
@@ -106,7 +110,6 @@ from repro_torch.core import structures
 from repro_torch.kernels import blast_matmul as kbm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import kv_bucket
-from repro_torch.models.transformer import slot_resident_refusal
 from repro_torch.quant import qarray as qt
 from repro_torch.serve.config import EngineConfig, SamplingParams
 from repro_torch.serve.paged import PagedCache
@@ -134,6 +137,8 @@ class Request:
     max_new_tokens: int = 32
     temperature: float = 0.0
     priority: int = 0          # lower = more urgent (0 = interactive)
+    prefix_len: int | None = None  # shared-prefix hint (tokens): a model
+    #                            with state leaves snapshots it exactly here
     deadline_s: float | None = None  # end-to-end deadline override
     #                            (None: SchedulerConfig.deadline_s)
     # filled by the engine:
@@ -189,13 +194,6 @@ class Engine:
         self.config = config = config or EngineConfig()
         sch, mem = config.scheduler, config.memory
         qcfg = config.quant if config.quant is not None else model.cfg.quant
-        if model.slot_resident:
-            for bad, what in ((mem.paged, "the paged cache"),
-                              (config.speculative.k > 0,
-                               "speculative decoding"),
-                              (qcfg.cache != "none", "the int8 cache")):
-                if bad:
-                    raise slot_resident_refusal(what)
         if qcfg.cache != "none" and not model.cfg.cache_quant:
             # cache shapes are baked into the model at construction
             raise ValueError(
@@ -221,8 +219,10 @@ class Engine:
             n_pp = mem.max_len // mem.page_size
             pages = (self.B * n_pp + 1 if mem.pages is None
                      else int(mem.pages))
+            snap = (max(4, pages // 4) if mem.snap_slots is None
+                    else int(mem.snap_slots))
             self._pc = PagedCache(model, self.B, mem.max_len, mem.page_size,
-                                  pages, mem.prefix_sharing)
+                                  pages, snap, mem.prefix_sharing)
             self.cache = self._pc.view
         else:
             self.cache = model.init_cache(self.B, mem.max_len)
@@ -234,6 +234,11 @@ class Engine:
         self.spec_k = max(0, int(spec.k))
         self.draft_rank_frac = float(spec.draft_rank_frac)
         self._cv = _bucket(self.spec_k + 1)    # the verify chunk's width
+        if self.spec_k and model.cfg.window and min(
+                mem.max_len, model.cfg.window) < self._cv:
+            # a round saves and restores the verify's window slot by slot
+            raise ValueError(f"a ring of {model.cfg.window} slots is "
+                             f"narrower than the verify chunk ({self._cv})")
         if self.spec_k:
             self.draft_plan = model.draft_plan(params, self.draft_rank_frac)
             draft = model.truncate_params(params, self.draft_plan)
@@ -366,7 +371,7 @@ class Engine:
         return reqs
 
     async def generate(self, prompt, sampling: SamplingParams | None = None,
-                       *, priority: int = 0,
+                       *, priority: int = 0, prefix_len: int | None = None,
                        uid: int | None = None,
                        deadline_s: float | None = None):
         """Async token stream for one request.  Closing the iterator early
@@ -382,7 +387,7 @@ class Engine:
         req = Request(uid=uid, prompt=list(prompt),
                       max_new_tokens=sampling.max_new_tokens,
                       temperature=sampling.temperature, priority=priority,
-                      deadline_s=deadline_s)
+                      prefix_len=prefix_len, deadline_s=deadline_s)
         q: asyncio.Queue = asyncio.Queue()
         with self._lock:
             self._submit_locked(req)
@@ -579,11 +584,14 @@ class Engine:
         """Restore row b of every leaf of every slot-static layer cache, the
         draft's included, to its initial state: pos = -1, and K, V (float,
         or int8 codes and their scales), an RG-LRU layer's conv history and
-        state h = 0.  The attention kernel masks by
+        state h (and their scales) = 0.  The attention kernel masks by
         slot index and relies on a fresh row (reference: ``_reset_slot``
-        restores the template).  Paged, a row of the pool holds no state of
-        its own: its pages are freed, and a recycled page is reset when it
-        is allocated; the draft's cache is slot-static in both modes."""
+        restores the template).  Paged, a row's pages are freed, and a
+        recycled page is reset when it is allocated; its state leaves are
+        reset (``PagedCache.reset_slot``); the draft's cache is slot-static
+        in both modes."""
+        if self._pc is not None:
+            self._pc.reset_slot(b)
         caches = [] if self._pc is not None else [self.cache]
         if self.spec_k:
             caches.append(self.draft_cache)
@@ -697,6 +705,8 @@ class Engine:
         (admission gate; decode growth beyond that is handled by the
         in-step escalation)."""
         pc = self._pc
+        if not pc.has_paged:
+            return 0
         return (feed_len + 1 + pc.ps - 1) // pc.ps - hit // pc.ps
 
     def _admit(self):
@@ -751,19 +761,32 @@ class Engine:
                 self._plan_registration(slot, hit)
 
     def _plan_registration(self, slot: _Slot, hit):
-        """Register every page-aligned level of the prompt once it is
-        ingested (page references cost nothing) — past what the hit
-        already covers."""
+        """Decide where this request registers its prompt prefix, past what
+        the hit already covers.  A model of KV leaves alone registers every
+        page-aligned level once the prompt is ingested (page references
+        cost nothing).  A model with state leaves pays a snapshot slot an
+        entry, so it registers one boundary — the request's ``prefix_len``
+        hint, else the largest level a later identical prompt could still
+        hit — and ``_schedule`` clips prefill chunks to land on it."""
         pc = self._pc
         if not pc.sharing:
             return
-        reg = (len(slot.feed) // pc.ps) * pc.ps
+        L = len(slot.feed)
+        if pc.has_state:
+            cap = slot.req.prefix_len if slot.req.prefix_len else L - 1
+            reg = (min(cap, L) // pc.ps) * pc.ps
+        else:
+            reg = (L // pc.ps) * pc.ps
         covered = hit.length if hit else 0
         if reg > covered and reg > slot.pos:
             slot.reg_at = reg
 
     def _register(self, b: int, slot: _Slot):
-        self._pc.register_levels(b, slot.feed, slot.reg_at)
+        pc = self._pc
+        if pc.has_state:
+            pc.register_prefix(b, slot.feed, slot.reg_at)
+        else:
+            pc.register_levels(b, slot.feed, slot.reg_at)
         slot.reg_at = None
 
     # -- scheduling ------------------------------------------------------------
@@ -787,6 +810,11 @@ class Engine:
                 continue
             room = self.max_len - 1 - slot.pos  # leave headroom to sample
             take = min(len(slot.to_feed), self.chunk, budget, max(room, 0))
+            if (slot.reg_at is not None and self._pc.has_state
+                    and slot.pos < slot.reg_at):
+                # land a chunk boundary on the registration point, so that
+                # the state snapshot is that of the registered tokens
+                take = min(take, slot.reg_at - slot.pos)
             n[b] = take
             budget -= take
         return n
@@ -917,15 +945,19 @@ class Engine:
 
         The reference drafts on a copy of the draft's cache that it throws
         away, and only the resync writes the kept one.  Here every chunk
-        writes in place, so the draft's window is saved before the draft
-        steps and rolled back after the resync, as the verify's is: both
-        caches end bit for bit as the reference leaves them.  Returns the
-        round's token ids (B, k + Cv + 2) int64: drafts, the verify's
-        greedy tokens, n_acc and n_comm."""
+        writes in place, so the draft's window and its state leaves (an
+        RG-LRU layer's ``conv`` and ``h``, which k draft steps move k
+        tokens on) are saved before the draft steps and restored before
+        the resync; the verify collects its RG-LRU layers' per-token states
+        into ``saved`` and its rollback takes the state after n_comm tokens
+        from them.  Both caches end bit for bit as the reference leaves
+        them.  Returns the round's token ids (B, k + Cv + 2) int64: drafts,
+        the verify's greedy tokens, n_acc and n_comm."""
         model, k, Cv, step = self.model, self.spec_k, self._cv, self._step
         tokens, steps, live, budget = self._views(1)
         cur = tokens[:, 0]
         dsaved = model.cache_window(self.draft_cache, steps, Cv)
+        dstate = model.save_state(self.draft_cache)
         tok, drafts = cur, []
         for i in range(k):
             logits, _ = step(self.draft_params, self.draft_cache,
@@ -937,7 +969,7 @@ class Engine:
                         draft.new_zeros((self.B, Cv - k - 1))], dim=1)
         saved = model.cache_window(cache, steps, Cv)
         logits, _ = step(self.params, cache, vt, steps, live * (k + 1),
-                         kv_len=kv, all_logits=True)
+                         kv_len=kv, all_logits=True, collect_states=saved)
         greedy = torch.argmax(logits, dim=-1)                    # (B, Cv)
         miss = draft != greedy[:, :k]
         n_acc = torch.where(miss.any(dim=1),
@@ -945,9 +977,9 @@ class Engine:
                             torch.full_like(cur, k))
         n_comm = torch.minimum(n_acc + 1, budget) * live
         model.rollback_cache(cache, saved, steps, n_comm)
+        model.restore_cache(self.draft_cache, dsaved, dstate, steps)
         step(self.draft_params, self.draft_cache, vt, steps, n_comm,
              kv_len=kv)
-        model.rollback_cache(self.draft_cache, dsaved, steps, n_comm)
         return torch.cat([draft, greedy, n_acc[:, None], n_comm[:, None]],
                          dim=1)
 
@@ -967,9 +999,15 @@ class Engine:
         may happen under capture) runs eagerly on the capture stream;
         warm-up and capture see every row dead and every page write pointed
         at the sink (``_dead_inputs``), so neither changes a cache or a
-        page, and their launches are not counted."""
+        page, and their launches are not counted.  A dead row's int8
+        recurrent state is packed again all the same, which can move a code
+        or a scale (packing is not idempotent), so the warm-up's state
+        writes are undone: the captured engine's states then follow the
+        eager one's bit for bit."""
         t0 = time.perf_counter()
         self._dead_inputs()
+        caches = [self.cache] + ([self.draft_cache] if self.spec_k else [])
+        states = [self.model.save_state(c) for c in caches]
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -983,6 +1021,10 @@ class Engine:
               kops.launches_apart()):
             self._device_step(key)
         main.wait_stream(side)
+        for cache, state in zip(caches, states):
+            for c, st in zip(cache, state):
+                for name, leaf in st.items():
+                    c[name].copy_(leaf)
         # free the graphs of dropped engines now: a garbage collection under
         # the capture would destroy them there, an unsafe call that
         # invalidates the capture (torch.cuda.graph collects first only

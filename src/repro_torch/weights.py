@@ -25,10 +25,13 @@ int4 and its logical last dim is the model's own: the linear's rank, or
 
 ``plan_from_jax(plan)`` maps a speculative draft plan (name → rank, from
 the reference's ``LM.draft_plan``) onto the port's names, one to one: the
-reference names a linear of its scanned cycle ``cycles.blk_0.<group>.<name>``
-(one pattern position, one rank for every layer), the port
-``layers.<group>.<name>`` (``LM.rank_spectra``), e.g.
-``cycles.blk_0.ffn.gate`` ↔ ``layers.ffn.gate``.
+reference names a linear of pattern position j of its scanned cycles
+``cycles.blk_j.<group>.<name>`` (one rank for every cycle) and one of a
+tail layer ``tail_t.<group>.<name>``; the port ``layers.<group>.<name>``
+for a one-position pattern and ``layers.blk_j.…``, ``layers.tail_t.…``
+otherwise (``LM.rank_spectra``), e.g. ``cycles.blk_0.ffn.gate`` ↔
+``layers.ffn.gate`` (a dense model), ``cycles.blk_2.mixer.qkv`` ↔
+``layers.blk_2.mixer.qkv`` (the hybrid).
 
 ``load_store(directory)`` reads a ``repro/checkpoint/store.py::save``
 directory (``manifest.json`` plus one ``.npy`` per '/'-joined leaf; bf16
@@ -40,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 
 import numpy as np
 import torch
@@ -204,19 +208,23 @@ def from_jax_params(model, tree: dict) -> dict:
     return params
 
 
-_JAX_CYCLE = "cycles.blk_0."
-
-
 def plan_from_jax(plan: dict[str, int]) -> dict[str, int]:
-    """A reference draft plan → the port's names (see the module doc); a
-    name outside the scanned cycle raises."""
-    out = {}
+    """A reference draft plan → the port's names (see the module doc)."""
+    cycle = re.compile(r"cycles\.blk_(\d+)\.(.*)")
+    parts = []
     for name, r in plan.items():
-        if not name.startswith(_JAX_CYCLE):
+        m = cycle.fullmatch(name)
+        if m:
+            parts.append((f"blk_{m[1]}", m[2], r))
+        elif re.match(r"tail_\d+\.", name):
+            group, rest = name.split(".", 1)
+            parts.append((group, rest, r))
+        else:
             raise ValueError(f"draft-plan entry {name!r} is not a linear of "
-                             "the reference's scanned cycle")
-        out["layers." + name[len(_JAX_CYCLE):]] = int(r)
-    return out
+                             "the reference's cycles or tail layers")
+    one = {g for g, _, _ in parts} == {"blk_0"}
+    return {f"layers.{rest}" if one else f"layers.{group}.{rest}": int(r)
+            for group, rest, r in parts}
 
 
 def _bf16_to_f32(bits: np.ndarray) -> np.ndarray:

@@ -258,15 +258,21 @@ class TestGraphs:
         if paged:
             graphs._pc.audit()
 
-    @pytest.mark.parametrize("mode", ["none", "int8"])
+    @pytest.mark.parametrize("mode", ["none", "int8", "int8_cache"])
     def test_hybrid_replay_equals_eager(self, cuda, mode):
         """recurrentgemma-2b at full width (3 layers: rglru, rglru,
-        local_attn; window cut to 64 so the prompts wrap the ring), bf16:
-        the captured step equals the eager one bit for bit — tokens, every
-        step's logits, launches (per step 1 B2 and 3 B1 an RG-LRU layer,
-        4 B1 and 1 ring B3 an attention layer)."""
+        local_attn; window cut to 64 so the prompts wrap the ring), bf16,
+        float or int8 weights, or float weights over the int8 cache (an
+        int8 ring, int8 RG-LRU state: a capture's all-dead warm-up packs
+        the state again, and the engine undoes that): the captured step
+        equals the eager one bit for bit — tokens, every step's logits,
+        launches (per step 1 B2 and 3 B1 an RG-LRU layer, 4 B1 and 1 ring
+        B3 an attention layer)."""
+        cache = "int8" if mode == "int8_cache" else "none"
+        mode = "none" if mode == "int8_cache" else mode
         cfg = configs.get("recurrentgemma-2b")
-        cfg = dataclasses.replace(cfg, n_layers=3, window=64)
+        cfg = dataclasses.replace(cfg, n_layers=3, window=64,
+                                  quant=quant.QuantConfig(cache=cache))
         model = build_model(cfg, device="cuda")
         params = model.init(0)
         graphs = _engine(model, params, mode)
@@ -280,10 +286,11 @@ class TestGraphs:
         assert launches_g == launches_e
         steps = graphs.stats["steps"]
         suffix = "" if mode == "none" else "_q"
+        ring = "flash_attention_ring" + ("_q8" if cache == "int8" else "")
         assert launches_g == {**{k: 0 for k in launches_g},
                               f"blast_matmul{suffix}": 10 * steps,
                               f"blast_matmul_grouped{suffix}": 2 * steps,
-                              "flash_attention_ring": steps}
+                              ring: steps}
 
     def test_capture_after_a_dropped_engine(self, cuda, monkeypatch):
         """A dropped engine whose graphs a reference cycle holds (``_serve``

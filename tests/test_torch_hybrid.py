@@ -23,8 +23,9 @@ width (``_padded``):
 - the engine: greedy tokens equal the JAX engine's at chunk 1, 8 and 32
   with float weights and at chunk 8 with int8 and int4 weights, up to each
   request's first output position whose reference margin is below 1e-4;
-- the A7 refusals of the engine and the launcher, and ``_reset_slot``
-  zeroing a row's ``conv`` and ``h``."""
+- the engine and the launcher serving the hybrid paged, speculative and
+  over the int8 cache (no longer refused), and ``_reset_slot`` zeroing a
+  row's ``conv`` and ``h``."""
 
 import functools
 
@@ -102,15 +103,15 @@ def _seeded_tree(jmodel, rng) -> dict:
         draw, jax.eval_shape(jmodel.init, jax.random.PRNGKey(0)))
 
 
-@functools.lru_cache(maxsize=1)
-def hybrid_reference():
+@functools.lru_cache(maxsize=None)
+def hybrid_reference(n_layers: int = LAYERS):
     """(JAX model, numpy params, port model, port params) of the reduced
-    hybrid, built once per process."""
+    hybrid at ``n_layers`` layers, built once per process."""
     jmodel = jbuild_model(jconfigs.get("recurrentgemma-2b").reduced(
-        n_layers=LAYERS))
+        n_layers=n_layers))
     tree = _seeded_tree(jmodel, np.random.default_rng(23))
     model = build_model(configs.get("recurrentgemma-2b").reduced(
-        n_layers=LAYERS), device="cpu")
+        n_layers=n_layers), device="cpu")
     return jmodel, tree, model, weights.from_jax_params(model, tree)
 
 
@@ -487,21 +488,32 @@ def test_reset_slot_zeroes_state():
 
 
 def test_a7_refusals():
+    """The modes ROADMAP A7 used to refuse build and serve: the engine and
+    the launcher run the hybrid paged, speculative and over the int8 cache
+    on the CPU, each giving the plain slot-static engine's tokens (int8
+    cache: its own slot-static run's)."""
     _, _, model, params = hybrid_reference()
+    sched = SchedulerConfig(slots=4, chunk_size=8)
     mem = MemoryConfig(max_len=64)
-    for config in (EngineConfig(memory=MemoryConfig(max_len=64, paged=True,
-                                                    page_size=8)),
-                   EngineConfig(memory=mem,
-                                speculative=SpeculativeConfig(k=2)),
-                   EngineConfig(memory=mem,
-                                quant=quant.QuantConfig(cache="int8"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            Engine(model, params, config, device="cpu")
+    sampling = SamplingParams(max_new_tokens=4)
+    plain = [r.output for r in Engine(model, params, EngineConfig(
+        scheduler=sched, memory=mem), device="cpu").generate_batch(
+            _prompts(), sampling)]
+    for config in (EngineConfig(scheduler=sched, memory=MemoryConfig(
+                       max_len=64, paged=True, page_size=8)),
+                   EngineConfig(scheduler=sched, memory=mem,
+                                speculative=SpeculativeConfig(k=2))):
+        got = Engine(model, params, config, device="cpu").generate_batch(
+            _prompts(), sampling)
+        assert [r.output for r in got] == plain
     base = ["--arch", "recurrentgemma-2b", "--reduced", "--device", "cpu",
-            "--requests", "2", "--max-new", "2", "--max-len", "64"]
+            "--requests", "2", "--max-new", "2", "--max-len", "64",
+            "--page-size", "8"]
     for flags in (["--paged"], ["--speculative", "2"],
-                  ["--quant-cache", "int8"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            serve.main(base + flags)
-    reqs = serve.main(base + ["--quant-weights", "int8"])
-    assert all(r.done and len(r.output) == 2 for r in reqs)
+                  ["--quant-cache", "int8"], ["--quant-weights", "int8"]):
+        reqs = serve.main(base + flags)
+        assert all(r.done and len(r.output) == 2 for r in reqs), flags
+    # the int8 cache is the model's: an engine override still refuses it
+    with pytest.raises(ValueError, match="model-construction knob"):
+        Engine(model, params, EngineConfig(
+            memory=mem, quant=quant.QuantConfig(cache="int8")), device="cpu")

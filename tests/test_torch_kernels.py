@@ -140,6 +140,9 @@ def test_cpu_path_counts_no_launches():
                                    torch.zeros(1, dtype=torch.int32))
     ops.flash_attention_ring(q, k, k, torch.zeros((1, 4), dtype=torch.int32),
                              torch.zeros(1, dtype=torch.int32), window=4)
+    ops.flash_attention_ring_q8(q, k8, k8, s8, s8,
+                                torch.zeros((1, 4), dtype=torch.int32),
+                                torch.zeros(1, dtype=torch.int32), window=4)
     assert ops.launches == {"blast_matmul": 0, "blast_matmul_grouped": 0,
                             "blast_matmul_q": 0, "blast_matmul_grouped_q": 0,
                             "blast_matmul_w8a8": 0,
@@ -150,6 +153,7 @@ def test_cpu_path_counts_no_launches():
                             "flash_attention_prefill": 0,
                             "flash_attention_prefill_q8": 0,
                             "flash_attention_ring": 0,
+                            "flash_attention_ring_q8": 0,
                             "flash_attention": 0, "blast_matmul_dx": 0}
 
 

@@ -9,7 +9,8 @@ port's dependencies:
 (``--noconftest``: the suite's conftest imports the JAX package.)
 Tolerances: fp32 ``atol = rtol = 1e-4``; bf16 ``2e-2`` (B3 over int8 K/V
 too: its plain version dequantizes the same codes and scales; B3 over a
-ring: its plain version masks by the same key positions).  The int8, int4,
+ring, over float or int8 K/V: its plain version masks by the same key
+positions).  The int8, int4,
 W8A8 and W4A8 kernels are held to the same: their plain versions take the
 same codes and scales (and, with int8 activations, the same activation
 codes), so only the order of the float sums differs.
@@ -520,6 +521,41 @@ class TestOnCard:
         assert torch.equal(got, again)
         # atol in the output's scale: over a 2048-slot ring |o| is ~0.03,
         # so a fixed 2e-2 would pass a dropped or mis-masked key tile
+        atol = tol * min(1.0, float(want.float().abs().max()))
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=tol)
+
+    # B3 over an int8 ring (``flash_attention_ring_q8``): the ring cases
+    # above with K/V as the int8 ring holds them (codes and per-(slot, head)
+    # bf16 scales from ``quantize_rows``), against ``attention_ring_q8_ref``
+    # (``dequantize_rows``, then the plain ring attention).
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                           (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("B,Hq,Hkv,C,S,D,window,kv_len", [
+        (8, 10, 1, 1, 2048, 256, 2048, None),
+        (8, 10, 1, 32, 2048, 256, 2048, None),
+        (4, 9, 3, 1, 300, 64, 100, 250),
+        (4, 9, 3, 20, 64, 128, 64, None),
+        (2, 4, 2, 7, 96, 72, 40, None)])
+    def test_flash_attention_ring_q8(self, cuda, dtype, tol, B, Hq, Hkv, C,
+                                     S, D, window, kv_len):
+        q, k, v, kpos, offs = _ring_inputs(B, Hq, Hkv, C, S, D, dtype, cuda,
+                                           seed=B + C + S + D + 1)
+        codes = [quant.quantize_rows(t.permute(0, 2, 1, 3)) for t in (k, v)]
+        args = (q, codes[0][0].permute(0, 2, 1, 3),
+                codes[1][0].permute(0, 2, 1, 3), codes[0][1].transpose(1, 2),
+                codes[1][1].transpose(1, 2), kpos, offs)
+        kv = kpos.shape[1] if kv_len is None else kv_len
+        kw = dict(window=window, kv_len=kv)
+        ops.reset_launches()
+        got = ops.flash_attention_ring_q8(*args, **kw)
+        again = ops.flash_attention_ring_q8(*args, **kw)
+        want = ref.attention_ring_q8_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert ops.launches["flash_attention_ring_q8"] == 2
+        assert ops.launches["flash_attention_ring"] == 0
+        assert got.shape == (B, Hq, C, D) and got.dtype == dtype
+        assert torch.equal(got, again)
         atol = tol * min(1.0, float(want.float().abs().max()))
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=tol)

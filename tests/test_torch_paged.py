@@ -19,7 +19,8 @@ The port alone (a tiny config, as the reference's tests use): paged tokens
 equal slot-static tokens in float, int8 weights, the int8 cache and W8A8;
 prefix sharing; the random admit/tick/cancel interleaving with ``audit()``
 after every mutation; preemption deterministic and recompute-exact;
-admission never preempts equal priority; a state leaf raises (A7)."""
+admission never preempts equal priority; a state leaf stays
+slot-resident and is snapshotted on registration."""
 
 import dataclasses
 import random
@@ -403,8 +404,34 @@ class _StateModel:
 
 
 def test_state_leaf_raises_naming_a7():
+    """A leaf without a max_len ``kv_seq`` axis is a state leaf: it stays
+    slot-resident (one row a slot, in the view), is not paged, is reset
+    with its slot, and a registered prefix snapshots it; a hit restores the
+    snapshot and an eviction frees it."""
     model, _ = _tiny()
     assert all(a["k"] == ("batch", "kv_seq", "kv_heads", None)
                for a in model.cache_axes())
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        PagedCache(_StateModel(model), 2, 32, 8, 9)
+    pc = PagedCache(_StateModel(model), 2, 32, 8, 9, snap_slots=2)
+    assert pc.has_paged and pc.has_state and set(pc.pool) == {"k", "v",
+                                                              "pos"}
+    assert set(pc.static) == {(1, "state")} and pc.n_snap == 2
+    state = pc.view[1]["state"]
+    assert state is pc.static[(1, "state")] and state.shape == (2, 4, 8)
+    assert "state" not in pc.view[0]
+    state[1] = 3.0
+    fresh, _ = pc.plan_writes(1, 0, 16)
+    assert len(fresh) == 2
+    assert pc.register_prefix(1, list(range(16)), 16)
+    entry = pc.prefix.entries[tuple(range(16))]
+    assert entry.snap is not None and entry.pages == fresh
+    assert torch.all(pc.snap[(1, "state")][entry.snap] == 3.0)
+    pc.audit()
+    pc.reset_slot(1)
+    assert torch.all(state[1] == 0)
+    pc.free_slot(1)
+    pc.prefix_admit(0, pc.prefix_lookup(list(range(20))))
+    assert torch.all(state[0] == 3.0)
+    pc.audit()
+    pc.free_slot(0)
+    assert pc.evict_one() and len(pc._snap_free) == 2
+    pc.audit()
