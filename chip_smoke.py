@@ -37,6 +37,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    K/V and over the int8 ring's codes and scales
    (``flash_attention_ring_q8``), and B1, B2, B5, B6 at its BLAST shapes
    at T = 8 and 128, fp32 and bf16, two launches of each bit for bit.
+   Then mamba2-130m's: B1, B5, B7, B9 and B10 at in_proj's shape (768 →
+   3352, b = 8, odd p = 419) and out_proj's (1536 → 768), T = 8 and 256,
+   fp32 and bf16, two launches of each at T = 8 bit for bit.
 4. grads — fp32 gradients of the three autograd Functions on the training
    path (B1, B2, B4) against torch.autograd through the plain versions, at
    2048 tokens: within 1e-4 × each gradient's largest entry.
@@ -59,6 +62,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    every cache leaf (``pos`` equal; K/V, ``conv``, ``h`` within 1e-3 +
    1e-3·max); and the same over the int8 cache (an int8 ring and int8
    RG-LRU state), the CPU given the card's codes (``SharedRowCodes``).
+   mamba2-130m at full width cut to 4 layers the same way (prompts of
+   200, 120, 40 tokens in chunks of 32, 4 decode steps; logits, ``conv``
+   and ``h``) in six modes — float, int8, W8A8, int4, W4A8 weights, the
+   int8 cache — with shared activation and state codes where they are
+   int8; in float also ``LM.apply`` (the chunked dual form) against
+   ``prefill_chunk`` (the per-token recurrence) on the card.
 6. train_reference — the same 2-layer fp32 model, one training batch:
    loss, every gradient and the parameters after one AdamW step on the
    card against the CPU; ``LM.apply(last_only=True)`` against
@@ -78,7 +87,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    captured, capture seconds, decode tok/s, step ms and
    ``max_memory_allocated``.  Then, in each mode, through the graphs and
    eagerly, six steady decode steps timed and six more under
-   torch.profiler (8 slots, prompts of 16 tokens; 4 of the 30 layers,
+   torch.profiler (8 slots, prompts of 16 tokens; 2 of the 30 layers,
    for the script's time): wall, device busy and
    idle share per step, kernel time by name; on every profile whose trace names the kernels (the eager
    one always; ``kernels_by_name``) every BLAST launch runs the tile
@@ -90,7 +99,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    Then llama7b-blast at full width (32 layers, vocab 32000, bf16, seeded
    random weights drawn tensor by tensor; the init's 3,278,639,104
    parameters counted before the pre-stack) in three modes — float, the
-   int8 cache, int8 weights with the int8 cache — the same way, launches
+   int8 cache, int8 weights with the int8 cache (2 layers) — the same way,
+   launches
    steps × (96, 32, 32) with attention in the int8-K/V kernel under the
    int8 cache, and the int8-cache run's peak memory below the float run's;
    temperature sampling (T = 0.8, 2 layers) twice with one seed
@@ -101,25 +111,39 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    256000, 1,419,506,176 parameters counted; the embedding scaled by
    ``HYBRID_EMBED_SCALE``, so that the tokens depend on the layers, and
    every hybrid run's requests emit more than one distinct token),
-   float and int8 weights,
+   float and int8 weights (6 of 26 layers),
    captured and eager (tokens equal bit for bit, launches steps × (86 B1,
    18 B2, 8 B3 over the ring)), in the usual run and (6 of 26 layers) in
    a long run of 4 prompts of 2,100–2,600 tokens at max_len 4096 that
    wraps every ring; the float decode profile both ways (launches a step,
    the tile and ring kernels' calls and ms, and eagerly the RG-LRU
    recurrence's kernels and ms under a ``record_function`` range); then
-   its other serving modes (``phase_hybrid_modes``): the int8 cache alone
-   and with int8 weights (launches with B3 over the int8 ring), int4
-   weights (6 layers), the paged cache at max_len 512 (rings paged: paged
-   = slot-static bit for bit), prefix sharing through snapshot slots at
-   max_len 4096 (fp32 at 3 layers and window 64 too, where the rings
-   wrap inside the shared prefix), and speculative decoding at frac 0.5
-   (fp32 at 3 layers and window 64 past the rings' wraps, both fracs).
+   its other serving modes (``phase_hybrid_modes``, at 6 of 26 layers,
+   speculation at 3):
+   the int8 cache alone and with int8 weights (launches with B3 over the
+   int8 ring), int4 weights, the paged cache at max_len 512 (rings paged:
+   paged = slot-static bit for bit), prefix sharing through snapshot
+   slots at max_len 4096 (fp32 at 3 layers and window 64 too, where the
+   rings wrap inside the shared prefix), and speculative decoding at frac
+   0.5 (fp32 at 3 layers and window 64 past the rings' wraps, both
+   fracs).  Then ``mamba2``: mamba2-130m at full width (24 SSD layers,
+   vocab 50280 tied, 83,176,896 parameters counted) in seven modes —
+   float, int8, W8A8, int4, W4A8 weights, the int8 cache alone and with
+   int8 weights — captured and eager (tokens equal, launches steps × 48
+   in the mode's kernel), a long run (4 prompts of 2,000–3,500 tokens at
+   max_len 4096) whose decode step is printed beside the max_len-512
+   one, paged = slot-static (every leaf a state leaf: a nominal pool),
+   prefix sharing with ``Request.prefix_len`` through snapshot slots
+   (bf16, and fp32 at 4 layers), speculation at frac 0.4 (graphs, eager,
+   paged; fp32 at 4 layers at 0.4 and 1.0), and the decode profile
+   (captured at context 64 and 3,000; eagerly at 64 and over 32-token
+   prefill steps, the SSD state update under a ``record_function``
+   range).
 8. paged — the paged cache (``serve/paged.py``, pages of 16 tokens)
    through the same engine, captured per (C, kv, F, M) bucket.  Run 1, in
-   smollm-135m float and int8 weights, llama7b-blast float (32 layers)
-   and int8 cache (2 layers, beside a slot-static run at that depth): the
-   serve phase's 16 prompts through a paged engine with the
+   smollm-135m float and int8 weights and llama7b-blast float
+   and int8 cache (2 layers each), each beside a slot-static run at that
+   depth: the serve phase's 16 prompts through a paged engine with the
    default pool, captured and eager: greedy tokens equal the same mode's
    slot-static run and each other bit for bit, launches steps × the
    mode's per-step counts, ``audit`` (refcounts, free list, the zero page
@@ -127,7 +151,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    slot-static, graphs and capture seconds, pool and view bytes, peak
    memory, and the gather's and scatter's device ms of a decode step at
    kv 64 and 256 (CUDA events).  Run 2, smollm-135m and llama7b-blast
-   float (2 layers): 16 requests
+   float (2 layers each): 16 requests
    sharing a 256-token system prompt on a pool of half of B·max_len
    tokens: ≥ 15·256 prefix-hit tokens, tokens equal an unshared
    slot-static run's up to each request's first near-tie (``near_tie``:
@@ -139,7 +163,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    run in fp32 at 2 layers, where the rule is the 1e-4 margin alone.
 9. spec — self-speculative decoding (k = 4) of the serve phase's 16
    prompts, at draft rank fractions 0.5 and 1.0, in smollm-135m float and
-   int8 weights (full width, 4 of its 30 layers), and llama7b-blast (full
+   int8 weights (full width, 2 of its 30 layers), and llama7b-blast (full
    width, 2 of its 32 layers) float
    and with the int8 cache: the tokens equal the same config's plain
    engine's up to each request's first near-tie; at frac 0.5 the captured
@@ -187,7 +211,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    of the same values).  recurrentgemma-2b's: B3 over its ring at decode
    and at C = 32 (library: SDPA with the mask of the ring's positions),
    over bf16 K/V and over the int8 ring (library: ``dequantize_rows``,
-   then that SDPA).
+   then that SDPA).  mamba2-130m's: its two BLAST shapes at T = 8 and
+   256, float and the four quantized modes.
    The profiles of phases 7 and 10 also sum the
    BLAST tile kernel's two ``__global__``s (``blast_tile_kernel``,
    ``blast_split_sum``) and the attention kernel's (``attn_tile_kernel``,
@@ -1185,46 +1210,37 @@ def phase_reference_dense(llama, gpt2):
     phase_reference(gpt2, "gpt2:float")
 
 
-def phase_reference_hybrid(hyb, cache="none"):
-    """recurrentgemma-2b at full width (d_model 2560, vocab 256000, 10/1
-    heads of 256, the tied head scaled by √d_model and softcapped), fp32,
-    cut to 3 layers (rglru, rglru, local_attn) and a window of 64, so that
-    prompts of 200, 120 and 40 tokens wrap the ring: card (kernels) vs CPU
-    (plain), the prompts fed in ragged chunks of 32, then 4 decode steps.
-    Every live logit row within 1e-3 abs + 1e-3·max|logit|; every cache
-    leaf after the last step: ``pos`` equal, K/V, ``conv`` and ``h``
-    within 1e-3 + 1e-3·max|leaf|.  ``cache="int8"``: the int8 cache (an
-    int8 ring, int8 RG-LRU state), the CPU given the card's codes
-    (``SharedRowCodes``, ROADMAP C6), so its leaves must end equal."""
+REFERENCE_PROMPTS = (200, 120, 40)   # the state models' reference prompts
+
+
+def _prompt_rows(gpu, cpu, params_gpu, params_cpu, seed, act="none",
+                 shared=()):
+    """Card (kernels) against CPU (plain versions) over prompts of
+    ``REFERENCE_PROMPTS`` tokens fed in ragged chunks of 32, then 4 decode
+    steps, on fresh caches (max_len 256): every live logit row's error and
+    its limit 1e-3 + 1e-3·max|logit|.  ``shared``: codecs whose card codes
+    the CPU takes (``SharedActCodes``, ``SharedRowCodes``).  Returns
+    (errors, limits, chunks, positions fed, (card cache, CPU cache))."""
     import contextlib
     import torch
-    from repro_torch import quant
-    from repro_torch.models import build_model
-    from repro_torch.tree import tree_map
-    small = dataclasses.replace(hyb, n_layers=3, window=64,
-                                param_dtype="float32",
-                                compute_dtype="float32",
-                                quant=quant.QuantConfig(cache=cache))
-    gpu = build_model(small, device=DEVICE)
-    cpu = build_model(small, device="cpu")
-    params_cpu = cpu.init(SEED)
-    params_gpu = tree_map(lambda t: t.to(DEVICE), params_cpu)
-    cache_g, cache_c = gpu.init_cache(3, 256), cpu.init_cache(3, 256)
-    rng = torch.Generator().manual_seed(SEED + 3)
-    lens = torch.tensor([200, 120, 40])
-    prompts = torch.randint(0, hyb.vocab, (3, int(lens.max())), generator=rng)
-    fed = torch.zeros(3, dtype=torch.int64)
+    from repro_torch.core import structures
+    B = len(REFERENCE_PROMPTS)
+    cache_g, cache_c = gpu.init_cache(B, 256), cpu.init_cache(B, 256)
+    rng = torch.Generator().manual_seed(seed)
+    lens = torch.tensor(REFERENCE_PROMPTS)
+    prompts = torch.randint(0, gpu.cfg.vocab, (B, int(lens.max())),
+                            generator=rng)
+    fed = torch.zeros(B, dtype=torch.int64)
     row_err, row_limit = [], []
-
-    codec = SharedRowCodes() if cache == "int8" else None
 
     def step(toks, n_tok):
         """One ragged step on both devices; the live rows' errors."""
-        with codec or contextlib.nullcontext():
-            if codec:
+        with structures.activations(act), contextlib.ExitStack() as stack:
+            for codec in shared:
+                stack.enter_context(codec)
                 codec.recording = True
             lg, _ = gpu.prefill_chunk(params_gpu, cache_g, toks, fed, n_tok)
-            if codec:
+            for codec in shared:
                 codec.recording = False
             lc, _ = cpu.prefill_chunk(params_cpu, cache_c, toks, fed, n_tok)
         live = n_tok > 0
@@ -1238,16 +1254,24 @@ def phase_reference_hybrid(hyb, cache="none"):
     chunks = 0
     while bool((fed < lens).any()):
         n_tok = torch.clamp(lens - fed, 0, 32)
-        toks = torch.zeros((3, 32), dtype=torch.int64)
-        for b in range(3):
+        toks = torch.zeros((B, 32), dtype=torch.int64)
+        for b in range(B):
             toks[b, :n_tok[b]] = prompts[b, fed[b]:fed[b] + n_tok[b]]
         step(toks, n_tok)
         fed, chunks = fed + n_tok, chunks + 1
     for _ in range(4):
-        step(torch.randint(0, hyb.vocab, (3, 1), generator=rng),
-             torch.ones(3, dtype=torch.int64))
+        step(torch.randint(0, gpu.cfg.vocab, (B, 1), generator=rng),
+             torch.ones(B, dtype=torch.int64))
         fed = fed + 1
-    err, lim = torch.tensor(row_err), torch.tensor(row_limit)
+    return (torch.tensor(row_err), torch.tensor(row_limit), chunks, fed,
+            (cache_g, cache_c))
+
+
+def _leaf_report(cache_g, cache_c) -> dict:
+    """Every cache leaf, card against CPU: ``pos`` equal, any other within
+    1e-3 + 1e-3·max|leaf| (int8 codes shared by ``SharedRowCodes`` end
+    equal)."""
+    import torch
     leaves = {}
     for i, (c_g, c_c) in enumerate(zip(cache_g, cache_c)):
         for name, leaf in c_g.items():
@@ -1258,21 +1282,56 @@ def phase_reference_hybrid(hyb, cache="none"):
                 e = float((got.float() - want.float()).abs().max())
                 ok = e <= 1e-3 + 1e-3 * float(want.abs().max())
             leaves[f"{i}.{name}"] = {"max_abs_err": e, "ok": ok}
+    return leaves
+
+
+def _codec_report(codec) -> dict:
+    out = {"calls": codec.calls, "elements": codec.elements,
+           "flipped_codes": codec.flips}
+    if hasattr(codec, "moved_scales"):
+        out["moved_scales"] = codec.moved_scales
+    return out
+
+
+def phase_reference_hybrid(hyb, cache="none"):
+    """recurrentgemma-2b at full width (d_model 2560, vocab 256000, 10/1
+    heads of 256, the tied head scaled by √d_model and softcapped), fp32,
+    cut to 3 layers (rglru, rglru, local_attn) and a window of 64, so that
+    prompts of 200, 120 and 40 tokens wrap the ring: card (kernels) vs CPU
+    (plain), the prompts fed in ragged chunks of 32, then 4 decode steps
+    (``_prompt_rows``).  Every live logit row within 1e-3 abs +
+    1e-3·max|logit|; every cache leaf after the last step: ``pos`` equal,
+    K/V, ``conv`` and ``h`` within 1e-3 + 1e-3·max|leaf|.
+    ``cache="int8"``: the int8 cache (an int8 ring, int8 RG-LRU state),
+    the CPU given the card's codes (``SharedRowCodes``, ROADMAP C6), so
+    its leaves must end equal."""
+    from repro_torch import quant
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    small = dataclasses.replace(hyb, n_layers=3, window=64,
+                                param_dtype="float32",
+                                compute_dtype="float32",
+                                quant=quant.QuantConfig(cache=cache))
+    gpu = build_model(small, device=DEVICE)
+    cpu = build_model(small, device="cpu")
+    params_cpu = cpu.init(SEED)
+    params_gpu = tree_map(lambda t: t.to(DEVICE), params_cpu)
+    shared = [SharedRowCodes()] if cache == "int8" else []
+    err, lim, chunks, fed, caches = _prompt_rows(
+        gpu, cpu, params_gpu, params_cpu, SEED + 3, shared=shared)
+    leaves = _leaf_report(*caches)
     past = int((err > lim).sum())
     bad = [k for k, v in leaves.items() if not v["ok"]]
-    shared = {} if codec is None else {
-        "shared_row_codes": {"calls": codec.calls,
-                             "elements": codec.elements,
-                             "flipped_codes": codec.flips,
-                             "moved_scales": codec.moved_scales}}
     emit({"phase": "reference", "arch": hyb.name,
           "mode": "hybrid:float" if cache == "none" else "hybrid:int8_cache",
           "layers": 3, "pattern": small.layer_kinds(), "window": 64,
           "d_model": small.d_model, "vocab": small.vocab, "dtype": "float32",
-          "prompt_tokens": lens.tolist(), "chunks": chunks,
+          "prompt_tokens": list(REFERENCE_PROMPTS), "chunks": chunks,
           "decode_steps": 4, "positions_past_window": int(fed.max()) - 64,
           "max_abs_logit_err": float(err.max()), "rows": len(err),
-          "rows_past_limit": past, "cache_leaves": leaves, **shared,
+          "rows_past_limit": past, "cache_leaves": leaves,
+          **({"shared_row_codes": _codec_report(shared[0])} if shared
+             else {}),
           "limit": "1e-3 + 1e-3*max|logit| per row"})
     if past or bad:
         raise RuntimeError(f"reference[{HYBRID}]: card differs from the CPU "
@@ -1640,7 +1699,7 @@ def phase_paged(model, params, mode, config, per_step, static):
         pool = {"cache_bytes": pc.nbytes(),
                 "view_bytes": quant.tree_nbytes(pc.view),
                 "pool_tokens": pc.pool_tokens(), "pages": pc.n_pages,
-                "page_size": pc.ps}
+                "page_size": pc.ps, "paged_leaves": pc.has_paged}
         del engine, pc
     if runs["graphs"]["outputs"] != s_out:
         raise RuntimeError(f"paged {mode}: the paged engine's greedy tokens "
@@ -1671,22 +1730,26 @@ def phase_paged(model, params, mode, config, per_step, static):
            "launches": {k: v for k, v in runs["graphs"]["launches"].items()
                         if v},
            "per_step": per_step,
-           # the serve run decodes at kv 256 (live positions up to 232)
+           # the serve run decodes at kv 256 (live positions up to 232);
+           # a nominal pool (every leaf a state leaf) gathers nothing
            "decode_step": [paged_step_ms(model, params, paged_config(config),
-                                         n) for n in (16, 200)],
+                                         n) for n in (16, 200)]
+           if pool["paged_leaves"] else None,
            "nvidia_smi": nvidia_smi()}
     emit(row)
     torch.cuda.synchronize()
     return runs["graphs"]["launches"]
 
 
-def phase_paged_prefix(model, params, mode, config):
+def phase_paged_prefix(model, params, mode, config, prefix_len=None):
     """Run 2: 16 requests sharing a 256-token system prompt plus 4 distinct
     tokens each, 32 new tokens, through a paged engine whose pool holds half
     of B·max_len tokens: the first request alone to completion (registering
     the prefix levels), then the other 15: ``prefix_hit_tokens`` ≥ 15·256,
     ``audit`` after, and the tokens equal an unshared slot-static engine's
-    under the margin rule.  Returns the shared run's tokens {uid: tokens}."""
+    under the margin rule.  ``prefix_len``: every request's
+    ``Request.prefix_len`` hint (a model with state registers its snapshot
+    there).  Returns the shared run's tokens {uid: tokens}."""
     import numpy as np
     import torch
     from repro_torch.serve import Engine, Request, SamplingParams
@@ -1707,10 +1770,12 @@ def phase_paged_prefix(model, params, mode, config):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine.submit(Request(uid=0, prompt=prompts[0], max_new_tokens=32))
+    engine.submit(Request(uid=0, prompt=prompts[0], max_new_tokens=32,
+                          prefix_len=prefix_len))
     engine.run()
     for i in range(1, 16):
-        engine.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=32))
+        engine.submit(Request(uid=i, prompt=prompts[i], max_new_tokens=32,
+                              prefix_len=prefix_len))
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1727,7 +1792,7 @@ def phase_paged_prefix(model, params, mode, config):
           "arch": model.cfg.name, "layers": model.cfg.n_layers,
           "max_len": config.memory.max_len,
           "state_leaves": engine._pc.has_state,
-          "snap_slots": engine._pc.n_snap,
+          "snap_slots": engine._pc.n_snap, "prefix_len": prefix_len,
           "requests": 16, "system_prompt": 256,
           "new_tokens": 16 * 32, "pages": pages,
           "pool_tokens": engine._pc.pool_tokens(),
@@ -1833,7 +1898,7 @@ SPEC_FRACS = (0.5, 1.0)
 # and bf16 preemption runs, temperature sampling and the decode profiles;
 # smollm-135m's in its speculative runs and decode profiles
 LLAMA_CUT_LAYERS = 2
-SMOLLM_CUT_LAYERS = 4
+SMOLLM_CUT_LAYERS = 2
 
 
 def spec_config(config, frac, paged=False):
@@ -2742,7 +2807,7 @@ def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
     return row
 
 
-def phase_timing(cfg, llama, hyb):
+def phase_timing(cfg, llama, hyb, ssm):
     """bf16 timings.  ``ms`` times the wrapper the model calls (for W8A8 and
     W4A8 it includes the per-token quantize prologue; ``launch_only_ms``
     times the kernel alone on ready codes).  Library: ``torch.matmul`` on
@@ -2827,6 +2892,11 @@ def phase_timing(cfg, llama, hyb):
             x, U, S, V = float_row(name, n, m, b, r, G, T, arch=llama.name)
             quant_rows(name, n, m, b, r, G, T, x, U, S, V, ("int8",),
                        arch=llama.name)
+    for name, n, m, b, r, G in ssd_blast_shapes(ssm):
+        for T in SSM_T:
+            x, U, S, V = float_row(name, n, m, b, r, G, T, arch=ssm.name)
+            quant_rows(name, n, m, b, r, G, T, x, U, S, V, QUANT_MODES,
+                       arch=ssm.name)
     del x, U, S, V
     lq, lkv, ld = llama.n_heads, llama.n_kv_heads, llama.head_dim_
     for C, offsets in ((1, None), (32, None), (1, SERVING_OFFSETS)):
@@ -3094,8 +3164,9 @@ def timed(name, fn, *args, **kw):
 def phase_dense_serving(llama, gpt2) -> dict:
     """llama7b-blast at full width (32 layers, vocab 32000, bf16, seeded
     random weights ``LM.init(SEED)``, drawn tensor by tensor) served in its
-    three modes from one init, with each mode's own model (the cache mode
-    is the model's): captured = eager greedy tokens, launches steps × (96,
+    three modes from one init (int8 weights with the int8 cache at
+    ``LLAMA_CUT_LAYERS`` layers), with each mode's own model (the cache
+    mode is the model's): captured = eager greedy tokens, launches steps × (96,
     32, 32) in the mode's kernels, the init's parameter count (before the
     pre-stack) = ``LLAMA_PARAMS``, the int8-cache runs' peak memory below
     the float run's; temperature sampling; the decode profile in float and
@@ -3108,8 +3179,8 @@ def phase_dense_serving(llama, gpt2) -> dict:
     from repro_torch.tree import leaves
     t0 = time.perf_counter()
     models = {mode: build_model(dataclasses.replace(
-        llama, quant=quant.QuantConfig(cache=cache)), device=DEVICE)
-        for mode, (_, cache) in LLAMA_MODES.items()}
+        llama, quant=quant.QuantConfig(cache=LLAMA_MODES[mode][1])),
+        device=DEVICE) for mode in ("float", "int8_cache")}
     params = models["float"].init(SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -3119,35 +3190,36 @@ def phase_dense_serving(llama, gpt2) -> dict:
     if n_params != LLAMA_PARAMS:
         raise RuntimeError(f"llama7b-blast: {n_params} parameters, want "
                            f"{LLAMA_PARAMS}")
-    launches, peaks, static = {}, {}, {}
-    for mode, (weights, _) in LLAMA_MODES.items():
+    launches, peaks = {}, {}
+    for mode in ("float", "int8_cache"):
         launches[f"llama:{mode}"], row, outputs = timed(
             f"serve llama:{mode}", phase_serve, models[mode], params,
-            f"llama:{mode}", serve_config(None, weights=weights),
+            f"llama:{mode}", serve_config(None, weights="none"),
             llama_per_step(llama, mode), **init)
         peaks[mode] = row["graphs"]["max_memory_allocated_bytes"]
-        static[mode] = (row, outputs)
     if not peaks["int8_cache"] < peaks["float"]:
         raise RuntimeError(f"llama7b-blast: the int8-cache run's peak memory "
                            f"is not below the float run's: {peaks}")
-    launches["paged:llama:float"] = timed(
-        "paged llama:float", phase_paged, models["float"], params,
-        "llama:float", serve_config(None, weights="none"),
-        llama_per_step(llama, "float"), static["float"])
     cut, cut_params = cut_models(llama, params, LLAMA_CUT_LAYERS,
                                  {mode: cache for mode, (_, cache)
                                   in LLAMA_MODES.items()})
-    # the int8 cache's paged = slot-static at the cut depth, for the
-    # script's time
-    _, row, outputs = timed(
-        "serve llama:int8_cache:cut", phase_serve, cut["int8_cache"],
-        cut_params, f"llama:int8_cache:{LLAMA_CUT_LAYERS}L",
-        serve_config(None, weights="none"),
-        llama_per_step(cut["int8_cache"].cfg, "int8_cache"))
-    launches["paged:llama:int8_cache"] = timed(
-        "paged llama:int8_cache", phase_paged, cut["int8_cache"], cut_params,
-        "llama:int8_cache", serve_config(None, weights="none"),
-        llama_per_step(cut["int8_cache"].cfg, "int8_cache"), (row, outputs))
+    # int8 weights with the int8 cache, and paged = slot-static, at the cut
+    # depth, for the script's time
+    launches["llama:int8_int8_cache"], _, _ = timed(
+        "serve llama:int8_int8_cache", phase_serve, cut["int8_int8_cache"],
+        cut_params, f"llama:int8_int8_cache:{LLAMA_CUT_LAYERS}L",
+        serve_config(None, weights="int8"),
+        llama_per_step(cut["int8_int8_cache"].cfg, "int8_int8_cache"))
+    for mode in ("float", "int8_cache"):
+        _, row, outputs = timed(
+            f"serve llama:{mode}:cut", phase_serve, cut[mode], cut_params,
+            f"llama:{mode}:{LLAMA_CUT_LAYERS}L",
+            serve_config(None, weights="none"),
+            llama_per_step(cut[mode].cfg, mode))
+        launches[f"paged:llama:{mode}"] = timed(
+            f"paged llama:{mode}", phase_paged, cut[mode], cut_params,
+            f"llama:{mode}", serve_config(None, weights="none"),
+            llama_per_step(cut[mode].cfg, mode), (row, outputs))
     timed("paged prefix llama:float", phase_paged_prefix, cut["float"],
           cut_params, "llama:float", serve_config(None, weights="none"))
     timed("paged preempt llama:float", phase_paged_preempt, cut["float"],
@@ -3222,36 +3294,42 @@ def _annotated(prof, name) -> tuple[int, float]:
     return calls, us / 1e3
 
 
-def phase_profile_hybrid(model, params, config, graphs=True):
-    """recurrentgemma-2b's steady bf16 decode, float weights: 8 slots after
-    prompts of 16 tokens, 6 engine steps timed, 6 more under
-    ``torch.profiler``, through the graphs or eagerly: wall, device busy
+def phase_profile_state(model, params, config, mode, per_step, scan, mark,
+                        prompt_len=16, graphs=True, prefill=False):
+    """Steady bf16 decode of a model with recurrent state (recurrentgemma-2b:
+    ``scan`` the ``rglru`` module; mamba2-130m: ``ssd``): 8 slots after
+    prompts of ``prompt_len`` tokens, 6 engine steps timed, 6 more under
+    ``torch.profiler``, through the graphs or eagerly (``prefill``: 2 and
+    2 of the prompts' 32-token prefill steps instead, after one warm-up
+    step; ``prompt_len`` ≥ 5·32): wall, device busy
     and idle share a step, kernel time by name, the launches a step
-    (``ops.launches``: B1, B2, B3 over the ring), the tile kernel's and the
-    ring kernel's calls and ms a step.  Eagerly, the RG-LRU recurrence
-    (``rglru._scan``) runs under a ``record_function`` range: its kernels
-    and their device ms a step.  Every BLAST launch must run the tile
-    kernel and every attention launch the ring kernel."""
+    (``ops.launches``: ``per_step``), the tile kernel's calls and ms a step
+    and, with a ring (the hybrid), the ring kernel's.  Eagerly, the
+    recurrence (``scan._scan``) runs under the ``record_function`` range
+    ``mark``: its kernels and their device ms a step.  Every BLAST launch
+    must run the tile kernel and every attention launch the ring
+    kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.kernels import ops
-    from repro_torch.models import rglru
     from repro_torch.serve import Engine, Request
-    mark = "rglru_recurrence"
-    scan = rglru._scan
+    inner = scan._scan
     if not graphs:
-        def marked(*args):
+        def marked(*args, **kw):
             with record_function(mark):
-                return scan(*args)
-        rglru._scan = marked
+                return inner(*args, **kw)
+        scan._scan = marked
     try:
         engine = Engine(model, params, config, device=DEVICE,
                         step_fn=None if graphs else model.prefill_chunk)
         for i in range(8):
-            engine.submit(Request(uid=i, prompt=list(range(1, 17)),
+            engine.submit(Request(uid=i, prompt=list(range(1, prompt_len + 1)),
                                   max_new_tokens=64))
-        engine.run(max_iters=3)
-        n_steps = 6
+        n_steps = 2 if prefill else 6
+        if prefill and prompt_len < 32 * (1 + 2 * n_steps):
+            raise ValueError(f"a prefill profile needs prompts of at least "
+                             f"{32 * (1 + 2 * n_steps)} tokens")
+        engine.run(max_iters=1 if prefill else -(-prompt_len // 32) + 2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine.run(max_iters=n_steps)
@@ -3266,18 +3344,19 @@ def phase_profile_hybrid(model, params, config, graphs=True):
             traced_ms = (time.perf_counter() - t0) * 1e3
         launched = {k: v / n_steps for k, v in ops.launches.items() if v}
     finally:
-        rglru._scan = scan
+        scan._scan = inner
     kernels = {k: v for k, v in _device_kernels(prof).items() if k != mark}
     busy = sum(v[1] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
     by_name = tile_blast(kernels)["blast_tile_kernel"]["calls"] > 0
-    want = hybrid_per_step(model.cfg, "none")
-    if launched != want:
-        raise RuntimeError(f"hybrid decode: launches a step {launched} != "
-                           f"{want}")
-    row = {"phase": "profile", "mode": "hybrid:float", "arch": model.cfg.name,
-           "path": "graphs" if graphs else "eager", "prompt_len": 16,
-           "decode_steps": n_steps, "slots": 8,
+    if launched != per_step:
+        raise RuntimeError(f"{mode} decode: launches a step {launched} != "
+                           f"{per_step}")
+    row = {"phase": "profile", "mode": mode, "arch": model.cfg.name,
+           "layers": model.cfg.n_layers,
+           "path": "graphs" if graphs else "eager", "prompt_len": prompt_len,
+           "step": "prefill (C=32)" if prefill else "decode",
+           "steps": n_steps, "slots": 8,
            "graphs": engine.stats["graphs"],
            "launches_per_step": launched,
            "wall_ms_per_step": wall_ms / n_steps,
@@ -3297,20 +3376,20 @@ def phase_profile_hybrid(model, params, config, graphs=True):
         other = sorted(k for k in kernels if ("attn" in k and not any(
             t in k for t in RING_KERNELS)) or ("blast" in k and not any(
                 t in k for t in ("blast_tile_kernel", "blast_split_sum"))))
-        if other or ring[RING_KERNELS[0]]["calls"] != want[
-                "flash_attention_ring"]:
-            raise RuntimeError(f"hybrid decode: attention did not run the "
+        if other or ring[RING_KERNELS[0]]["calls"] != per_step.get(
+                "flash_attention_ring", 0):
+            raise RuntimeError(f"{mode} decode: attention did not run the "
                                f"ring kernel alone: {ring}, other {other}")
-        row.update({
-            "tile_blast_per_step": {
-                k: ({"calls": v["calls"] / n_steps, "ms": v["ms"] / n_steps}
-                    if isinstance(v, dict) else v / n_steps)
-                for k, v in tile_blast(kernels).items()},
-            "ring_per_step": ring})
+        row["tile_blast_per_step"] = {
+            k: ({"calls": v["calls"] / n_steps, "ms": v["ms"] / n_steps}
+                if isinstance(v, dict) else v / n_steps)
+            for k, v in tile_blast(kernels).items()}
+        if "flash_attention_ring" in per_step:
+            row["ring_per_step"] = ring
     if not graphs:
         calls, ms = _annotated(prof, mark)
-        row["rglru_recurrence_per_step"] = {"kernels": calls / n_steps,
-                                            "ms": ms / n_steps}
+        row[f"{mark}_per_step"] = {"kernels": calls / n_steps,
+                                   "ms": ms / n_steps}
     row["top"] = [{"name": n[:80], "calls_per_step": c / n_steps,
                    "ms_per_step": t / n_steps} for n, (c, t) in top]
     emit(row)
@@ -3320,6 +3399,7 @@ def phase_profile_hybrid(model, params, config, graphs=True):
 # depth cut of the hybrid's int4 run and long runs, for the script's time:
 # 2 of its 8 cycles
 HYBRID_CUT_LAYERS = 6
+HYBRID_SPEC_LAYERS = 3    # the bf16 spec run's depth: one cycle
 HYBRID_SNAP_SLOTS = 8     # snapshot slots of the prefix-sharing runs
 # every hybrid serving run draws the embedding at this fraction of its init
 # scale: at init (0.02, times √2560 on the way in) a token's own embedding
@@ -3355,8 +3435,9 @@ def phase_hybrid(hyb) -> dict:
     local_attn and a 2-layer RG-LRU tail; d_model 2560, vocab 256000, 10/1
     heads of 256, window 2048; bf16, seeded random weights ``LM.init(SEED)``
     drawn tensor by tensor, 1,419,506,176 params, the embedding scaled by
-    ``HYBRID_EMBED_SCALE``) served slot-static with float and with int8
-    weights, each through the graphs and eagerly (greedy tokens equal bit
+    ``HYBRID_EMBED_SCALE``) served slot-static with float and (at
+    ``HYBRID_CUT_LAYERS`` layers) with int8 weights, each through the
+    graphs and eagerly (greedy tokens equal bit
     for bit, launches steps × ``hybrid_per_step``, every request's tokens
     ``varied``): the usual run (``serve_prompts``: 16 prompts of 16–200
     tokens, 32 new, 8 slots, chunk 32, max_len 512) and, at
@@ -3384,17 +3465,19 @@ def phase_hybrid(hyb) -> dict:
     launches = {}
     long = long_prompts(hyb.vocab)
     cuts, cut_params = cut_models(hyb, params, HYBRID_CUT_LAYERS,
-                                  {"none": "none"})
+                                  {"none": "none", "int8": "int8"})
     cut = cuts["none"]
     for weights, label in (("none", "float"), ("int8", "int8")):
         mode = f"hybrid:{label}"
-        launches[mode], row, outputs = timed(
-            f"serve {mode}", phase_serve, model, params, mode,
+        # int8 weights at the cut depth, for the script's time
+        serving, serving_params = ((model, params) if weights == "none"
+                                   else (cut, cut_params))
+        launches[mode], _, outputs = timed(
+            f"serve {mode}", phase_serve, serving, serving_params, mode,
             serve_config(None, weights=weights),
-            hybrid_per_step(hyb, weights), **init)
+            hybrid_per_step(serving.cfg, weights),
+            **(init if weights == "none" else {}))
         varied(outputs, f"serve {mode}")
-        if weights == "none":
-            static = (row, outputs)
         launches[f"{mode}:long"], _, outputs = timed(
             f"serve {mode}:long", phase_serve, cut, cut_params,
             f"{mode}:long", serve_config(None, weights=weights,
@@ -3402,60 +3485,66 @@ def phase_hybrid(hyb) -> dict:
             hybrid_per_step(cut.cfg, weights), prompts=long,
             positions_past_window=min(map(len, long)) - hyb.window)
         varied(outputs, f"serve {mode}:long")
+    from repro_torch.models import rglru
     for graphs in (True, False):
-        timed("profile hybrid:float", phase_profile_hybrid, model, params,
-              serve_config(None, weights="none"), graphs=graphs)
-    launches.update(phase_hybrid_modes(hyb, model, params, static, cut,
-                                       cut_params))
+        timed("profile hybrid:float", phase_profile_state, model, params,
+              serve_config(None, weights="none"), "hybrid:float",
+              hybrid_per_step(hyb, "none"), rglru, "rglru_recurrence",
+              graphs=graphs)
+    launches.update(phase_hybrid_modes(hyb, cuts, cut_params))
     return launches
 
 
-def phase_hybrid_modes(hyb, model, params, static, cut, cut_params) -> dict:
+def phase_hybrid_modes(hyb, cuts, cut_params) -> dict:
     """The hybrid in the serving modes ROADMAP A7 completes, bf16 at full
-    width (``params``: ``hybrid_weights``), each through ``phase_serve``,
-    ``phase_paged``, ``phase_paged_prefix`` or ``phase_spec``, every run's
-    tokens ``varied``:
+    width, each through ``phase_serve``, ``phase_paged``,
+    ``phase_paged_prefix`` or ``phase_spec``, every run's tokens
+    ``varied``; ``cuts`` (a model each of the float and the int8 cache)
+    and ``cut_params`` (``hybrid_weights``): the model cut to
+    ``HYBRID_CUT_LAYERS`` layers, for the script's time:
 
-    - ``hybrid paged``: at max_len 512 (≤ the window: the rings are paged
-      leaves beside the slot-resident RG-LRU state; prefix sharing off,
-      ``unshared``) paged = slot-static (``static``: the float run's row
-      and tokens) and captured = eager bit for bit; at max_len 4096 (the rings are state leaves, the pool
+    - ``hybrid paged`` (cut): at max_len 512 (≤ the window: the rings are
+      paged leaves beside the slot-resident RG-LRU state; prefix sharing
+      off, ``unshared``) paged = slot-static (a slot-static float run at
+      the cut depth) and captured = eager bit for bit; at max_len 4096 (the rings are state leaves, the pool
       nominal): 16 requests sharing a 256-token prefix through snapshot
       slots, ≥ 15·256 prefix-hit tokens, tokens equal the unshared run's
       up to each first near-tie; the same in fp32 at 3 layers and a
       window of 64 (``phase_paged_prefix_hybrid_fp32``);
-    - ``hybrid spec`` (max_len 512, prefix sharing off, ``unshared``): k =
-      4 at frac 0.5, slot-static and paged, drafts rejected, tokens equal
-      plain decoding's up to each first near-tie, captured = eager and
-      paged = slot-static bit for bit; then fp32 at 3 layers and a window
-      of 64 (rounds across the rings' wraps, rings as state leaves when
-      paged) at frac 0.5 and 1.0: the 1e-4 margin alone, acceptance ≥ 0.9
-      at frac 1.0;
-    - ``hybrid int8 cache``: the int8 cache alone and with int8 weights,
-      captured = eager bit for bit, launches with B3 over the int8 ring;
-      the card against the CPU in fp32 (``phase_reference_hybrid
+    - ``hybrid spec`` (``HYBRID_SPEC_LAYERS`` layers; max_len 512,
+      prefix sharing off, ``unshared``): k = 4 at frac 0.5, slot-static and paged, drafts
+      rejected, tokens equal plain decoding's up to each first near-tie,
+      captured = eager and paged = slot-static bit for bit; then fp32 at 3
+      layers and a window of 64 (rounds across the rings' wraps, rings as
+      state leaves when paged) at frac 0.5 and 1.0: the 1e-4 margin alone,
+      acceptance ≥ 0.9 at frac 1.0;
+    - ``hybrid int8 cache`` (cut): the int8 cache alone and with int8
+      weights, captured = eager bit for bit, launches with B3 over the
+      int8 ring; the card against the CPU in fp32 (``phase_reference_hybrid
       (cache="int8")``, in ``main``);
-    - ``hybrid:int4`` (``HYBRID_CUT_LAYERS`` layers): int4 weights, captured
-      = eager, launches as reckoned.
+    - ``hybrid:int4`` (cut): int4 weights, captured = eager, launches as
+      reckoned.
 
     Returns each run's launch counts."""
-    from repro_torch import quant
-    from repro_torch.models import build_model
+    cut, cut_q8 = cuts["none"], cuts["int8"]
     launches = {}
     float_config = serve_config(None, weights="none")
+    _, row, outputs = timed(
+        "serve hybrid:float:cut", phase_serve, cut, cut_params,
+        f"hybrid:float:{HYBRID_CUT_LAYERS}L", float_config,
+        hybrid_per_step(cut.cfg, "none"))
+    varied(outputs, "serve hybrid:float:cut")
     launches["paged:hybrid:float"] = timed(
-        "paged hybrid:float", phase_paged, model, params, "hybrid:float",
-        unshared(float_config), hybrid_per_step(hyb, "none"), static)
-    q8 = build_model(dataclasses.replace(
-        hyb, quant=quant.QuantConfig(cache="int8")), device=DEVICE)
+        "paged hybrid:float", phase_paged, cut, cut_params, "hybrid:float",
+        unshared(float_config), hybrid_per_step(cut.cfg, "none"),
+        (row, outputs))
     for weights, label in (("none", "int8_cache"), ("int8", "int8_int8_cache")):
         mode = f"hybrid:{label}"
         launches[mode], _, outputs = timed(
-            f"serve {mode}", phase_serve, q8, params, mode,
+            f"serve {mode}", phase_serve, cut_q8, cut_params, mode,
             serve_config(None, weights=weights),
-            hybrid_per_step(hyb, weights, "int8"))
+            hybrid_per_step(cut.cfg, weights, "int8"))
         varied(outputs, f"serve {mode}")
-    del q8
     launches["hybrid:int4"], _, outputs = timed(
         "serve hybrid:int4", phase_serve, cut, cut_params, "hybrid:int4",
         serve_config(None, weights="int4"), hybrid_per_step(cut.cfg, "int4"))
@@ -3463,12 +3552,16 @@ def phase_hybrid_modes(hyb, model, params, static, cut, cut_params) -> dict:
     long = dataclasses.replace(float_config, memory=dataclasses.replace(
         float_config.memory, max_len=LONG_MAX_LEN,
         snap_slots=HYBRID_SNAP_SLOTS))
-    varied(timed("paged prefix hybrid:float", phase_paged_prefix, model,
-                 params, "hybrid:float", long), "paged prefix hybrid:float")
+    varied(timed("paged prefix hybrid:float", phase_paged_prefix, cut,
+                 cut_params, "hybrid:float", long),
+           "paged prefix hybrid:float")
     timed("paged prefix hybrid:fp32", phase_paged_prefix_hybrid_fp32, hyb)
-    rows = timed("spec hybrid:float", phase_spec, model, params,
+    spec, spec_params = cut_models(hyb, cut_params, HYBRID_SPEC_LAYERS,
+                                   {"none": "none"})
+    rows = timed("spec hybrid:float", phase_spec, spec["none"], spec_params,
                  "hybrid:float", unshared(float_config),
-                 hybrid_per_step(hyb, "none"), fracs=SPEC_FRACS[:1])
+                 hybrid_per_step(spec["none"].cfg, "none"),
+                 fracs=SPEC_FRACS[:1])
     spec_checks(rows, "hybrid:float")
     timed("spec hybrid:fp32", phase_spec_hybrid_fp32, hyb)
     return launches
@@ -3541,18 +3634,295 @@ def phase_spec_hybrid_fp32(hyb):
         raise RuntimeError(f"spec hybrid:fp32: acceptance {full} at frac 1.0")
 
 
+# -- the ssm family: mamba2-130m ------------------------------------------------
+
+SSM = "mamba2-130m"
+SSM_PARAMS = 83_176_896        # the reference's LM.init, eval_shape
+SSM_T = (8, 256)               # decode; a prefill step of 8 rows of 32
+SSM_CUT_LAYERS = 4             # the fp32 runs' depth
+SSM_SPEC_FRAC = 0.4            # the reference's _SPEC_FRAC["ssd"]
+SSM_LONG_PROMPTS = (2000, 3500)
+SSM_LONG_CONTEXT = 3000        # the long decode profile's prompts
+# mode → (``MODES`` key of its weights and activations, cache)
+SSM_MODES = {"float": ("none", "none"), "int8": ("int8", "none"),
+             "w8a8": ("w8a8", "none"), "int4": ("int4", "none"),
+             "w4a8": ("w4a8", "none"), "int8_cache": ("none", "int8"),
+             "int8_int8_cache": ("int8", "int8")}
+
+
+def ssd_blast_shapes(cfg):
+    """(name, n, m, b, r, G) of mamba2-130m's two BLAST launches a layer:
+    in_proj (768 → 3352: b = 8, p = 419) and out_proj (1536 → 768)."""
+    from repro_torch.models.transformer import make_block
+    mx = make_block(cfg, "ssd").mixer
+    return [(name, spec.d_in, spec.d_out, spec.meta["b"], spec.meta["r"], 1)
+            for name, spec in (("in_proj", mx.in_proj),
+                               ("out_proj", mx.out_proj))]
+
+
+def ssd_per_step(cfg, mode) -> dict:
+    """Launches a serving step of mamba2-130m makes with the weights of
+    ``MODES[mode]``: in_proj and out_proj, 2 B1 (B5, B7, B9, B10) a layer,
+    48 at 24 layers."""
+    return {MODES[mode][1][0]: 2 * cfg.n_layers}
+
+
+def phase_kernels_ssd(ssm, errs) -> None:
+    """mamba2-130m's BLAST kernels against their plain versions on the card:
+    B1, B5, B7, B9 and B10 at in_proj's shape (b = 8, odd p = 419: the
+    epilogue stores column by column) and out_proj's, T = 8 and 256, fp32
+    and bf16; two launches of each at T = 8 bit for bit."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 40)
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for name, n, m, b, r, G in ssd_blast_shapes(ssm):
+            _, U, S_, V = make_blast_inputs(n, m, b, r, G, 1, dtype, gen,
+                                            DEVICE)
+            for T in SSM_T:
+                x = torch.randn((T, n), generator=gen).to(DEVICE, dtype)
+                linear = f"{SSM} {name} {n}->{m} b={b} r={r}"
+                for call in blast_calls(x, U, S_, V, r, QUANT_MODES):
+                    kname, kern, plain = call
+                    if T == SSM_T[0]:
+                        repeat_identical(call, linear, T, dname)
+                    got, want = kern(), plain()
+                    torch.cuda.synchronize()
+                    e = check_close(f"{kname}[{linear} T={T}]",
+                                    got.reshape(want.shape), want, dname)
+                    if dname == "bfloat16":
+                        errs[kname] = max(errs[kname], e)
+            del U, S_, V
+
+
+# mode → (weights, activations, cache) of the reference phase
+SSM_REFERENCE = {"float": ("none", "none", "none"),
+                 "int8": ("int8", "none", "none"),
+                 "w8a8": ("int8", "int8", "none"),
+                 "int4": ("int4", "none", "none"),
+                 "w4a8": ("int4", "int8", "none"),
+                 "int8_cache": ("none", "none", "int8")}
+
+
+def phase_reference_ssd(ssm):
+    """mamba2-130m at full width (d_model 768, vocab 50280, 24 heads of 64,
+    d_state 128), fp32, cut to ``SSM_CUT_LAYERS`` layers: card (kernels)
+    vs CPU (plain), prompts of 200, 120 and 40 tokens in ragged chunks of
+    32, then 4 decode steps (``_prompt_rows``), in each of
+    ``SSM_REFERENCE``'s modes from one init: every live logit row within
+    1e-3 + 1e-3·max|logit|, every cache leaf (``conv``, ``h`` and their
+    scales) within 1e-3 + 1e-3·max|leaf|; the weight codes (int4: packed
+    bytes) and scales equal on both; with int8 activations the CPU takes
+    the card's activation codes (``SharedActCodes``), with the int8 cache
+    its state codes (``SharedRowCodes``, ROADMAP C6), each after checking
+    they differ only by boundary flips.  In float also ``LM.apply`` (the
+    chunked dual form, chunk 128) against ``prefill_chunk`` (the
+    per-token recurrence) on the card over a 200-token prompt, every
+    position's logits within the same limit."""
+    import torch
+    from repro_torch import quant
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    def models(cache):
+        small = dataclasses.replace(
+            ssm, n_layers=SSM_CUT_LAYERS, param_dtype="float32",
+            compute_dtype="float32", quant=quant.QuantConfig(cache=cache))
+        return (build_model(small, device=DEVICE),
+                build_model(small, device="cpu"))
+
+    built = {"none": models("none")}
+    base = built["none"][1].init(SEED)
+    for mode, (weights, act, cache) in SSM_REFERENCE.items():
+        if cache not in built:
+            built[cache] = models(cache)
+        gpu, cpu = built[cache]
+        qcfg = quant.QuantConfig(weights=weights, activations=act)
+        params_cpu = cpu.quantize_params(base, qcfg)
+        params_gpu = gpu.quantize_params(
+            tree_map(lambda t: t.to(DEVICE), base), qcfg)
+        pairs = list(zip(qarrays(params_gpu), qarrays(params_cpu)))
+        if any(not (torch.equal(a.q.cpu(), b_.q)
+                    and torch.equal(a.scale.cpu(), b_.scale))
+               for a, b_ in pairs):
+            raise RuntimeError(f"reference[{SSM} {mode}]: codes or scales "
+                               "differ between the card and the CPU")
+        shared = ([SharedActCodes()] if act == "int8" else []) + (
+            [SharedRowCodes()] if cache == "int8" else [])
+        err, lim, chunks, _, caches = _prompt_rows(
+            gpu, cpu, params_gpu, params_cpu, SEED + 4, act, shared)
+        leaves = _leaf_report(*caches)
+        past = int((err > lim).sum())
+        bad = [k for k, v in leaves.items() if not v["ok"]]
+        row = {"phase": "reference", "arch": SSM, "mode": f"mamba2:{mode}",
+               "layers": SSM_CUT_LAYERS, "d_model": ssm.d_model,
+               "vocab": ssm.vocab, "dtype": "float32", "weights": weights,
+               "activations": act, "cache": cache,
+               "qarrays_equal": len(pairs),
+               "prompt_tokens": list(REFERENCE_PROMPTS), "chunks": chunks,
+               "decode_steps": 4, "max_abs_logit_err": float(err.max()),
+               "rows": len(err), "rows_past_limit": past,
+               "cache_leaves": leaves,
+               **{c.CODEC: _codec_report(c) for c in shared},
+               "limit": "1e-3 + 1e-3*max|logit| per row"}
+        if mode == "float":
+            toks = torch.randint(0, ssm.vocab, (2, REFERENCE_PROMPTS[0]),
+                                 generator=torch.Generator().manual_seed(
+                                     SEED + 5))
+            full = gpu.apply(params_gpu, toks.to(DEVICE)).logits
+            chunked, _ = gpu.prefill_chunk(
+                params_gpu, gpu.init_cache(2, 256), toks,
+                torch.zeros(2, dtype=torch.int64), None, all_logits=True)
+            d = (full - chunked).abs().amax(dim=-1).flatten()
+            limit = 1e-3 + 1e-3 * float(chunked.abs().max())
+            row["apply_vs_prefill"] = {"positions": int(d.numel()),
+                                       "max_abs_logit_err": float(d.max()),
+                                       "limit": limit}
+            if float(d.max()) > limit:
+                bad.append("apply_vs_prefill")
+        emit(row)
+        if past or bad:
+            raise RuntimeError(f"reference[{SSM} {mode}]: card differs from "
+                               f"the CPU plain path: row errors "
+                               f"{err.tolist()}, limits {lim.tolist()}, "
+                               f"past the limit {bad}")
+        del params_gpu, params_cpu
+
+
+def ssm_long_prompts(vocab, n=4):
+    """``n`` seeded prompts of ``SSM_LONG_PROMPTS`` tokens."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 6)
+    lo, hi = SSM_LONG_PROMPTS
+    return [[int(t) for t in rng.integers(0, vocab, size=int(L))]
+            for L in rng.integers(lo, hi + 1, size=n)]
+
+
+def ssm_fp32(ssm):
+    """(model, params) of mamba2-130m at full width in fp32, cut to
+    ``SSM_CUT_LAYERS`` layers."""
+    from repro_torch.models import build_model
+    small = dataclasses.replace(ssm, n_layers=SSM_CUT_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    model = build_model(small, device=DEVICE)
+    return model, model.init(SEED)
+
+
+def phase_ssm(ssm) -> dict:
+    """mamba2-130m at full width (24 SSD layers, d_model 768, vocab 50280
+    tied, bf16, seeded random weights ``LM.init(SEED)``, 83,176,896 params)
+    in every serving mode, every run's requests ``varied``:
+
+    - ``serve mamba2:<mode>`` (``SSM_MODES``: float, int8, W8A8, int4,
+      W4A8 weights, the int8 cache alone and with int8 weights), 16
+      prompts of 16–200 tokens, 32 new, 8 slots, chunk 32, max_len 512:
+      captured = eager token for token, launches steps × 48 in the mode's
+      kernel, the others 0 (``phase_serve``);
+    - ``serve mamba2:float:long``: 4 prompts of 2,000–3,500 tokens at
+      max_len 4096, its decode step ms beside the max_len-512 run's;
+    - ``paged mamba2:float`` (prefix sharing off, ``unshared``: every leaf
+      a state leaf, the pool nominal): paged = slot-static bit for bit;
+    - ``paged prefix mamba2:float``: 16 requests sharing a 256-token
+      prefix with ``Request.prefix_len`` = 256, through snapshot slots:
+      ≥ 15·256 hit tokens, tokens equal the unshared run's up to each
+      first near-tie; the same in fp32 at ``SSM_CUT_LAYERS`` layers under
+      the 1e-4 margin alone;
+    - ``spec mamba2:float``: k = 4 at frac ``SSM_SPEC_FRAC``, graphs,
+      eager and paged (``phase_spec``, sharing off); fp32 at
+      ``SSM_CUT_LAYERS`` layers at frac 0.4 and 1.0: the 1e-4 margin,
+      acceptance ≥ 0.9 at 1.0;
+    - ``profile mamba2:float``: captured decode at context 64 and
+      ``SSM_LONG_CONTEXT``; eagerly, decode at 64 and the 32-token prefill
+      steps of 160-token prompts, with the state update (``ssd._scan``)
+      under a ``record_function`` range.
+
+    Returns each run's launch counts."""
+    import torch
+    from repro_torch import quant
+    from repro_torch.models import build_model, ssd
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    model = build_model(ssm, device=DEVICE)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    init = {"init_params": n_params, "init_bytes": quant.tree_nbytes(params),
+            "init_s": time.perf_counter() - t0}
+    if n_params != SSM_PARAMS:
+        raise RuntimeError(f"{SSM}: {n_params} parameters, want "
+                           f"{SSM_PARAMS}")
+    q8 = build_model(dataclasses.replace(
+        ssm, quant=quant.QuantConfig(cache="int8")), device=DEVICE)
+    launches = {}
+    for label, (mode, cache) in SSM_MODES.items():
+        what = f"mamba2:{label}"
+        launches[what], row, outputs = timed(
+            f"serve {what}", phase_serve, q8 if cache == "int8" else model,
+            params, what, serve_config(mode), ssd_per_step(ssm, mode),
+            **init)
+        varied(outputs, f"serve {what}")
+        if label == "float":
+            static = (row, outputs)
+    del q8
+    per_step = ssd_per_step(ssm, "none")
+    float_config = serve_config("none")
+    launches["mamba2:float:long"], _, outputs = timed(
+        "serve mamba2:float:long", phase_serve, model, params,
+        "mamba2:float:long", serve_config("none", max_len=LONG_MAX_LEN),
+        per_step, prompts=ssm_long_prompts(ssm.vocab),
+        decode_step_ms_at_max_len_512=static[0]["graphs"][
+            "decode_step_ms_median"])
+    varied(outputs, "serve mamba2:float:long")
+    launches["paged:mamba2:float"] = timed(
+        "paged mamba2:float", phase_paged, model, params, "mamba2:float",
+        unshared(float_config), per_step, static)
+    snap = dataclasses.replace(float_config, memory=dataclasses.replace(
+        float_config.memory, snap_slots=HYBRID_SNAP_SLOTS))
+    varied(timed("paged prefix mamba2:float", phase_paged_prefix, model,
+                 params, "mamba2:float", snap, prefix_len=256),
+           "paged prefix mamba2:float")
+    small, small_params = ssm_fp32(ssm)
+    varied(timed("paged prefix mamba2:fp32", phase_paged_prefix, small,
+                 small_params, "mamba2:fp32", snap, prefix_len=256),
+           "paged prefix mamba2:fp32")
+    rows = timed("spec mamba2:float", phase_spec, model, params,
+                 "mamba2:float", unshared(float_config), per_step,
+                 fracs=(SSM_SPEC_FRAC,))
+    spec_checks(rows, "mamba2:float")
+    rows = timed("spec mamba2:fp32", phase_spec, small, small_params,
+                 "mamba2:fp32", unshared(float_config),
+                 ssd_per_step(small.cfg, "none"), paged=False, eager=False,
+                 fracs=(SSM_SPEC_FRAC, 1.0))
+    spec_checks(rows, "mamba2:fp32")
+    if rows[1]["graphs"]["acceptance_rate"] < 0.9:
+        raise RuntimeError(f"spec mamba2:fp32: acceptance "
+                           f"{rows[1]['graphs']['acceptance_rate']} at frac "
+                           "1.0")
+    del small, small_params
+    for graphs, context, prefill in ((True, 64, False),
+                                     (True, SSM_LONG_CONTEXT, False),
+                                     (False, 64, False), (False, 160, True)):
+        timed("profile mamba2:float", phase_profile_state, model, params,
+              serve_config("none", max_len=LONG_MAX_LEN), "mamba2:float",
+              per_step, ssd, "ssd_state_update", prompt_len=context,
+              graphs=graphs, prefill=prefill)
+    return launches
+
+
 def main() -> int:
     dev, smi = phase_device()
     sys.path.insert(0, str(SRC))
     from repro_torch import configs
     cfg = configs.get(SMOLLM)
     llama, gpt2 = configs.get(LLAMA), configs.get("gpt2-blast")
-    hyb = configs.get(HYBRID)
+    hyb, ssm = configs.get(HYBRID), configs.get(SSM)
     from repro_torch.models import build_model
     timed("build", phase_build)
     errs = timed("kernels", phase_kernels, cfg)
     timed("kernels llama7b-blast", phase_kernels_llama, llama, errs)
     timed(f"kernels {HYBRID}", phase_kernels_hybrid, hyb, errs)
+    timed(f"kernels {SSM}", phase_kernels_ssd, ssm, errs)
     timed("grads", phase_grads, cfg)
     for mode in MODES:
         timed(f"reference {mode}", phase_reference, cfg, mode,
@@ -3562,23 +3932,30 @@ def main() -> int:
     timed(f"reference {HYBRID}", phase_reference_hybrid, hyb)
     timed(f"reference {HYBRID} int8 cache", phase_reference_hybrid, hyb,
           cache="int8")
+    timed(f"reference {SSM}", phase_reference_ssd, ssm)
     timed("train_reference", phase_train_reference, cfg)
     model = build_model(cfg, device=DEVICE)
     params = model.init(SEED)
-    launches, static = {}, {}
+    launches = {}
     for mode in MODES:
-        launches[mode], *static[mode] = timed(
+        launches[mode], _, _ = timed(
             f"serve {mode}", phase_serve, model, params, mode,
             serve_config(mode), smollm_per_step(cfg, mode))
-    for mode in ("none", "int8"):
-        launches[f"paged:{mode}"] = timed(
-            f"paged {mode}", phase_paged, model, params, mode,
-            serve_config(mode), smollm_per_step(cfg, mode), static[mode])
-    timed("paged prefix none", phase_paged_prefix, model, params, "none",
-          serve_config("none"))
     cut, cut_params = cut_models(cfg, params, SMOLLM_CUT_LAYERS,
                                  {"none": "none"})
     cut = cut["none"]
+    # paged = slot-static and prefix sharing at the cut depth, for the
+    # script's time
+    for mode in ("none", "int8"):
+        _, *static = timed(
+            f"serve {mode}:cut", phase_serve, cut, cut_params,
+            f"{mode}:{SMOLLM_CUT_LAYERS}L", serve_config(mode),
+            smollm_per_step(cut.cfg, mode))
+        launches[f"paged:{mode}"] = timed(
+            f"paged {mode}", phase_paged, cut, cut_params, mode,
+            serve_config(mode), smollm_per_step(cut.cfg, mode), static)
+    timed("paged prefix none", phase_paged_prefix, cut, cut_params, "none",
+          serve_config("none"))
     for mode in ("none", "int8"):
         timed(f"spec {mode}", phase_spec, cut, cut_params, mode,
               serve_config(mode), smollm_per_step(cut.cfg, mode),
@@ -3594,8 +3971,9 @@ def main() -> int:
     launches.update(timed("llama7b-blast and gpt2-blast serving",
                           phase_dense_serving, llama, gpt2))
     launches.update(timed(f"{HYBRID} serving", phase_hybrid, hyb))
+    launches.update(timed(f"{SSM} serving", phase_ssm, ssm))
     launches["train"] = timed("train", phase_train, cfg)
-    rows = timed("timing", phase_timing, cfg, llama, hyb)
+    rows = timed("timing", phase_timing, cfg, llama, hyb, ssm)
     emit({"kernels": summary(rows, errs, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": dev})

@@ -4,8 +4,8 @@
 Only the fields the ported serving and training slices read, plus every
 field that changes numbers (``reduced()`` gives the same shapes, dtypes and
 learned-position table as the reference).
-Families and knobs the port does not run yet (MoE, MLA, SSD, encoders) are
-not carried; ``LM`` raises on them.
+Families and knobs the port does not run yet (MoE, MLA, encoders) are not
+carried; ``LM`` raises on them.
 """
 
 from __future__ import annotations
@@ -41,6 +41,16 @@ class StructureConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSDCfg:
+    """The Mamba-2 SSD mixer of the ssm family."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    chunk: int = 128
+    conv_width: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class RGLRUCfg:
     """The RG-LRU mixer of the hybrid family (Griffin)."""
     lru_width: int = 0      # 0 → d_model
@@ -68,9 +78,10 @@ class ArchConfig:
     logit_softcap: float = 0.0
     embed_scale: bool = False
     # per-layer mixer pattern, cycled over n_layers: 'attn' | 'local_attn'
-    # (sliding window of ``window`` keys over a ring cache) | 'rglru'
+    # (sliding window of ``window`` keys over a ring cache) | 'rglru' | 'ssd'
     pattern: Sequence[str] = ("attn",)
     window: int = 0
+    ssd: SSDCfg | None = None
     rglru: RGLRUCfg | None = None
     structure: StructureConfig = dataclasses.field(default_factory=StructureConfig)
     # per-role structure: ``structure`` covers the attention projections,
@@ -130,6 +141,9 @@ class ArchConfig:
         small.update(n_heads=n_heads, n_kv_heads=n_kv, head_dim=16)
         if self.window:
             small["window"] = 16
+        if self.ssd:
+            small["ssd"] = dataclasses.replace(self.ssd, d_state=16,
+                                               head_dim=8, chunk=8)
         if self.rglru:
             small["rglru"] = dataclasses.replace(self.rglru, lru_width=0)
 

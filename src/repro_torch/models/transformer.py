@@ -1,15 +1,16 @@
 """Decoder LM of the ported slices (counterpart of
 ``repro/models/transformer.py``): GQA attention blocks — full, or over a
-sliding window with a ring cache — and RG-LRU blocks (the hybrid family),
-each with a SwiGLU or GELU FFN and RMSNorm or LayerNorm, RoPE or learned
-positions, a tied embedding (optionally scaled by √d_model) or an untied
+sliding window with a ring cache —, RG-LRU blocks (the hybrid family) and
+Mamba-2 SSD blocks (the ssm family), each with a SwiGLU or GELU FFN or
+none, and RMSNorm or LayerNorm, RoPE, learned or no positions, a tied
+embedding (optionally scaled by √d_model) or an untied
 dense vocab head, a logit softcap, the full-sequence forward ``apply``
 (training, prefill) and the chunked cached step ``prefill_chunk`` the engine
 drives, over a float or int8 KV cache, and the nested-rank draft of
 self-speculative decoding (``rank_spectra``, ``draft_plan``,
 ``truncate_params``, ``pad_ranks``) with the all-logits verify and its
 in-place rollback (``cache_window``, ``rollback_cache``: KV windows by
-position, RG-LRU state from the verify's per-token snapshots).
+position, RG-LRU and SSD state from the verify's per-token snapshots).
 
 The reference scans over layer params stacked on a leading axis (one
 ``cycles.blk_j`` per position of the layer pattern, then unrolled
@@ -37,6 +38,7 @@ from repro_torch.core.structures import make_linear
 from repro_torch.models import layers as L
 from repro_torch.models import ops
 from repro_torch.models import rglru as R
+from repro_torch.models import ssd as S
 from repro_torch.quant import qarray as qt
 from repro_torch.quant.qarray import QuantConfig
 
@@ -54,11 +56,30 @@ class Output(NamedTuple):
 _ATTN_KINDS = ("attn", "local_attn")
 
 
+class _Mixer(NamedTuple):
+    """A mixer kind's functions that share one signature across kinds."""
+    init: Any
+    apply: Any
+    cache_init: Any
+    cache_axes: Any
+    quantize: Any
+
+
+_ATTN = _Mixer(L.attn_init, L.attn_apply, L.attn_cache_init,
+               L.attn_cache_axes, L.attn_quantize)
+_MIXERS = {
+    "attn": _ATTN, "local_attn": _ATTN,
+    "rglru": _Mixer(R.rglru_init, R.rglru_apply, R.rglru_cache_init,
+                    R.rglru_cache_axes, R.rglru_quantize),
+    "ssd": _Mixer(S.ssd_init, S.ssd_apply, S.ssd_cache_init,
+                  S.ssd_cache_axes, S.ssd_quantize)}
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    kind: str                       # attn | local_attn | rglru
-    mixer: L.AttnSpec | R.RGLRUSpec
-    ffn: L.FFNSpec
+    kind: str                       # attn | local_attn | rglru | ssd
+    mixer: L.AttnSpec | R.RGLRUSpec | S.SSDSpec
+    ffn: L.FFNSpec | None           # None: the mixer is the whole block
     norm: str
 
 
@@ -68,36 +89,44 @@ def make_block(cfg: ArchConfig, kind: str) -> BlockSpec:
             cfg, window=cfg.window if kind == "local_attn" else None)
     elif kind == "rglru":
         mixer = R.make_rglru(cfg)
+    elif kind == "ssd":
+        mixer = S.make_ssd(cfg)
     else:
         raise NotImplementedError(f"mixer {kind!r} is not ported yet "
                                   "(ROADMAP A7)")
-    if not cfg.d_ff:
-        raise NotImplementedError("blocks without an FFN are not ported yet")
-    return BlockSpec(kind=kind, mixer=mixer,
-                     ffn=L.make_ffn(cfg.d_model, cfg.d_ff, cfg.ffn_kind,
-                                    cfg.ffn_structure),
-                     norm=cfg.norm)
+    ffn = (L.make_ffn(cfg.d_model, cfg.d_ff, cfg.ffn_kind, cfg.ffn_structure)
+           if cfg.d_ff else None)
+    return BlockSpec(kind=kind, mixer=mixer, ffn=ffn, norm=cfg.norm)
 
 
 def block_init(spec: BlockSpec, generator: torch.Generator, dtype, device,
                d_model: int) -> Params:
-    init = L.attn_init if spec.kind in _ATTN_KINDS else R.rglru_init
-    return {"norm1": L.norm_init(d_model, spec.norm, dtype, device),
-            "mixer": init(spec.mixer, generator, dtype, device),
-            "norm2": L.norm_init(d_model, spec.norm, dtype, device),
-            "ffn": L.ffn_init(spec.ffn, generator, dtype, device)}
+    p = {"norm1": L.norm_init(d_model, spec.norm, dtype, device),
+         "mixer": _MIXERS[spec.kind].init(spec.mixer, generator, dtype,
+                                          device)}
+    if spec.ffn is not None:
+        p.update(norm2=L.norm_init(d_model, spec.norm, dtype, device),
+                 ffn=L.ffn_init(spec.ffn, generator, dtype, device))
+    return p
+
+
+def _ffn(spec: BlockSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The block's FFN residual, if it has an FFN."""
+    if spec.ffn is None:
+        return x
+    h = L.norm_apply(params["norm2"], x, spec.norm)
+    return x + L.ffn_apply(spec.ffn, params["ffn"], h)
 
 
 def block_apply(spec: BlockSpec, params: Params, x: torch.Tensor,
                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One residual block over a full sequence → (x, aux); aux is the MoE
     load-balance loss, zero for these block kinds."""
-    apply = L.attn_apply if spec.kind in _ATTN_KINDS else R.rglru_apply
     h = L.norm_apply(params["norm1"], x, spec.norm)
-    x = x + apply(spec.mixer, params["mixer"], h, positions)
-    h = L.norm_apply(params["norm2"], x, spec.norm)
-    x = x + L.ffn_apply(spec.ffn, params["ffn"], h)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x = x + _MIXERS[spec.kind].apply(spec.mixer, params["mixer"], h,
+                                     positions)
+    return _ffn(spec, params, x), torch.zeros((), dtype=torch.float32,
+                                              device=x.device)
 
 
 def block_prefill(spec: BlockSpec, params: Params, cache: Params,
@@ -105,19 +134,18 @@ def block_prefill(spec: BlockSpec, params: Params, cache: Params,
                   collect: dict | None = None) -> torch.Tensor:
     """One residual block over a ragged chunk; writes ``cache`` in place.
     ``rg``: the chunk's geometry in this layer's cache.  ``collect``: a
-    dict that an RG-LRU layer fills with its per-token state snapshots
-    (``rglru.rglru_prefill``); a KV layer rewinds by position and needs
-    none."""
+    dict that an RG-LRU or SSD layer fills with its per-token state
+    snapshots (``rglru.rglru_prefill``, ``ssd.ssd_prefill``); a KV layer
+    rewinds by position and needs none."""
     h = L.norm_apply(params["norm1"], x, spec.norm)
     if spec.kind in _ATTN_KINDS:
         m, _ = L.attn_prefill(spec.mixer, params["mixer"], cache, h, None,
                               None, rg=rg)
     else:
-        m, _ = R.rglru_prefill(spec.mixer, params["mixer"], cache, h, None,
-                               rg.n, collect=collect)
-    x = x + m
-    h = L.norm_apply(params["norm2"], x, spec.norm)
-    return x + L.ffn_apply(spec.ffn, params["ffn"], h)
+        prefill = R.rglru_prefill if spec.kind == "rglru" else S.ssd_prefill
+        m, _ = prefill(spec.mixer, params["mixer"], cache, h, None, rg.n,
+                       collect=collect)
+    return _ffn(spec, params, x + m)
 
 
 def block_cache_rollback(spec: BlockSpec, cache: Params, saved: Params,
@@ -126,42 +154,46 @@ def block_cache_rollback(spec: BlockSpec, cache: Params, saved: Params,
     """Rewind one block's cache, in place, after a speculative verify chunk:
     keep its first ``n_comm`` tokens.  A KV layer (a ring too) gives the
     columns past them back what ``saved`` holds of its write window
-    ``slot`` (``layers.kv_cache_rollback``); an RG-LRU layer takes the state
-    after ``n_comm`` tokens from the snapshots the chunk collected into
-    ``saved`` (``rglru.rglru_cache_rollback``)."""
+    ``slot`` (``layers.kv_cache_rollback``); an RG-LRU or SSD layer takes
+    the state after ``n_comm`` tokens from the snapshots the chunk collected
+    into ``saved`` (``rglru.rglru_cache_rollback``,
+    ``ssd.ssd_cache_rollback``)."""
     if spec.kind in _ATTN_KINDS:
         return L.kv_cache_rollback(cache, saved, slot, n_comm)
-    return R.rglru_cache_rollback(spec.mixer, cache, saved, n_comm)
+    rollback = (R.rglru_cache_rollback if spec.kind == "rglru"
+                else S.ssd_cache_rollback)
+    return rollback(spec.mixer, cache, saved, n_comm)
 
 
 def block_cache_init(spec: BlockSpec, batch: int, max_len: int, dtype,
                      device) -> Params:
     """One layer's cache: its attention cache (a ring for a sliding window)
-    or its RG-LRU state."""
-    init = (L.attn_cache_init if spec.kind in _ATTN_KINDS
-            else R.rglru_cache_init)
-    return init(spec.mixer, batch, max_len, dtype, device)
+    or its RG-LRU or SSD state."""
+    return _MIXERS[spec.kind].cache_init(spec.mixer, batch, max_len, dtype,
+                                         device)
 
 
 def block_cache_axes(spec: BlockSpec) -> dict[str, tuple]:
     """Axis names of one layer's cache leaves (attention: batch axis 0,
-    ``kv_seq`` axis 1; RG-LRU state: batch axis 0, no ``kv_seq``)."""
-    if spec.kind in _ATTN_KINDS:
-        return L.attn_cache_axes(spec.mixer)
-    return R.rglru_cache_axes(spec.mixer)
+    ``kv_seq`` axis 1; RG-LRU and SSD state: batch axis 0, no
+    ``kv_seq``)."""
+    return _MIXERS[spec.kind].cache_axes(spec.mixer)
 
 
 def block_quantize(spec: BlockSpec, params: Params, bits: int = 8) -> Params:
     """Quantize a block's structured linears to per-block QArrays (norms,
-    the conv and Λ pass through)."""
-    quantize = (L.attn_quantize if spec.kind in _ATTN_KINDS
-                else R.rglru_quantize)
-    return {**params, "mixer": quantize(spec.mixer, params["mixer"], bits),
-            "ffn": L.ffn_quantize(spec.ffn, params["ffn"], bits)}
+    the conv, Λ and the SSD's A_log, D and dt_bias pass through)."""
+    p = {**params, "mixer": _MIXERS[spec.kind].quantize(
+        spec.mixer, params["mixer"], bits)}
+    if spec.ffn is not None:
+        p["ffn"] = L.ffn_quantize(spec.ffn, params["ffn"], bits)
+    return p
 
 
 def block_prestack(spec: BlockSpec, params: Params) -> Params:
-    p = {**params, "ffn": L.ffn_prestack(spec.ffn, params["ffn"])}
+    p = dict(params)
+    if spec.ffn is not None:
+        p["ffn"] = L.ffn_prestack(spec.ffn, params["ffn"])
     if spec.kind == "rglru":
         p["mixer"] = R.rglru_prestack(spec.mixer, params["mixer"])
     return p
@@ -192,13 +224,15 @@ def _map_linears(tree, fn, path: str = ""):
 
 
 class LM:
-    """Decoder-only LM of the dense family (pattern ``("attn",)``) and the
-    hybrid family (RG-LRU and sliding-window attention layers)."""
+    """Decoder-only LM of the dense family (pattern ``("attn",)``), the
+    hybrid family (RG-LRU and sliding-window attention layers) and the ssm
+    family (SSD layers, no FFN, no positions)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         unsupported = [
-            (cfg.family not in ("dense", "hybrid"), f"family {cfg.family!r}"),
-            (cfg.pos_embed not in ("rope", "learned"),
+            (cfg.family not in ("dense", "hybrid", "ssm"),
+             f"family {cfg.family!r}"),
+            (cfg.pos_embed not in ("rope", "learned", "none"),
              f"pos_embed {cfg.pos_embed!r}"),
             ("local_attn" in cfg.pattern and not cfg.window,
              "local attention without a window"),
@@ -217,8 +251,9 @@ class LM:
     @property
     def slot_resident(self) -> bool:
         """Whether a layer keeps cache state that is not one slot a
-        position: an RG-LRU state or a sliding-window ring."""
-        return any(s.kind in ("rglru", "local_attn") for s in self.specs)
+        position: an RG-LRU or SSD state or a sliding-window ring."""
+        return any(s.kind in ("rglru", "ssd", "local_attn")
+                   for s in self.specs)
 
     # -- init -------------------------------------------------------------------
 

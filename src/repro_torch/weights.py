@@ -8,13 +8,17 @@ layer pattern (P positions) on the leading axis of
 cycle as ``tail_0``, ``tail_1``, …; the port's layer i is
 ``cycles.blk_{i % P}[i // P]``, then the tails in order.  Every float leaf
 is cast to the model's dtype and moved to its device — the RG-LRU's decay
-``lam`` stays fp32, as the reference keeps it — and a key the model does
+``lam`` and the SSD's ``A_log``, ``D`` and ``dt_bias`` stay fp32, as the
+reference keeps them — and a key the model does
 not have (a prestacked ``_bundle_in``, another mixer's leaves, a head the
 config ties, …) raises, as does a key it misses.  The tree holds what the
 model's config asks for: an untied ``head``, the learned-position table
 ``pos``, LayerNorm ``bias`` leaves, the QKV ``bias``, the GELU FFN's
 ``wi``/``wo``, the RG-LRU's linears (its block-diagonal gates with their
-``bias``), ``conv_w``, ``conv_b`` and ``lam``.  A
+``bias``), ``conv_w``, ``conv_b`` and ``lam``, the SSD's ``in_proj``,
+``out_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias`` and its
+gated norm's ``scale`` (and no ``norm2``/``ffn`` in a block without an
+FFN).  A
 quantized leaf — the reference's ``QArray`` (any object with ``q`` and
 ``scale``) or the ``{"q", "scale"}`` pair a checkpoint stores for it —
 becomes the port's ``QArray``: int8 codes stay int8, nibble-packed int4
@@ -62,13 +66,14 @@ def _check_keys(tree: dict, allowed, where: str) -> None:
                          f"{sorted(missing)}")
 
 
-_F32 = "fp32"   # a plain leaf kept in fp32 (the RG-LRU's decay)
+_F32 = "fp32"   # a plain leaf kept in fp32 (the RG-LRU's decay, SSD gates)
 
 
 def _layer_keys(model, spec) -> dict:
     """The reference's per-layer tree of one layer of ``spec``: group →
-    member → its leaf names (a linear), or None (a plain float leaf: a
-    norm's scale or bias, the conv) or ``_F32`` (a plain leaf kept fp32)."""
+    member → its leaf names (a tuple: a linear), a dict of plain float
+    leaves (the SSD's gated norm), None (a plain float leaf: a norm's scale
+    or bias, the conv) or ``_F32`` (a plain leaf kept fp32)."""
     cfg = model.cfg
 
     def linear(lin, bias=False):
@@ -81,11 +86,17 @@ def _layer_keys(model, spec) -> dict:
         mixer = {name: linear(getattr(mx, name), name.startswith("gate"))
                  for name in ("in_x", "in_gate", "out", "gate_a", "gate_x")}
         mixer.update(conv_w=None, conv_b=None, lam=_F32)
+    elif spec.kind == "ssd":
+        mixer = {"in_proj": linear(mx.in_proj), "out_proj": linear(mx.out_proj),
+                 "conv_w": None, "conv_b": None, "A_log": _F32, "D": _F32,
+                 "dt_bias": _F32, "norm": {"scale": None}}
     else:
         mixer = {"qkv": linear(mx.qkv, cfg.qkv_bias), "out": linear(mx.out)}
-    return {"norm1": norm, "mixer": mixer, "norm2": norm,
-            "ffn": {name: linear(getattr(spec.ffn, name))
-                    for name in spec.ffn.names}}
+    keys = {"norm1": norm, "mixer": mixer}
+    if spec.ffn is not None:
+        keys.update(norm2=norm, ffn={name: linear(getattr(spec.ffn, name))
+                                     for name in spec.ffn.names})
+    return keys
 
 
 def from_jax_params(model, tree: dict) -> dict:
@@ -183,6 +194,10 @@ def from_jax_params(model, tree: dict) -> dict:
                                              if leaves == _F32 else dt))
                     continue
                 _check_keys(sub[name], leaves, f"{where}/{group}/{name}")
+                if isinstance(leaves, dict):
+                    for leaf in leaves:
+                        put(group, (name, leaf), conv(sub[name][leaf]))
+                    continue
                 lin = getattr(linears[group], name)
                 for leaf in leaves:
                     put(group, (name, leaf),

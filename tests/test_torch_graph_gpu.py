@@ -292,6 +292,32 @@ class TestGraphs:
                               f"blast_matmul_grouped{suffix}": 2 * steps,
                               ring: steps}
 
+    @pytest.mark.parametrize("cache", ["none", "int8_cache"])
+    def test_ssd_replay_equals_eager(self, cuda, cache):
+        """mamba2-130m at full width (3 of its 24 SSD layers), bf16, over
+        the float or the int8 state cache (a capture's all-dead warm-up
+        packs the int8 state again, and the engine undoes that, ROADMAP
+        C13): the captured step equals the eager one bit for bit — tokens,
+        every step's logits, launches (2 B1 a layer a step: in_proj,
+        out_proj)."""
+        quantized = cache == "int8_cache"
+        cfg = dataclasses.replace(
+            configs.get("mamba2-130m"), n_layers=3,
+            quant=quant.QuantConfig(cache="int8" if quantized else "none"))
+        model = build_model(cfg, device="cuda")
+        params = model.init(0)
+        graphs = _engine(model, params, "none")
+        eager = _engine(model, params, "none", step_fn=model.prefill_chunk)
+        out_g, seen_g, launches_g = _serve(graphs)
+        out_e, seen_e, launches_e = _serve(eager)
+        assert out_g == out_e
+        assert [k for k, _ in seen_g] == [k for k, _ in seen_e]
+        for (key, g), (_, e) in zip(seen_g, seen_e):
+            assert torch.equal(g, e), key
+        assert launches_g == launches_e
+        assert launches_g == {**{k: 0 for k in launches_g},
+                              "blast_matmul": 6 * graphs.stats["steps"]}
+
     def test_capture_after_a_dropped_engine(self, cuda, monkeypatch):
         """A dropped engine whose graphs a reference cycle holds (``_serve``
         makes one): a garbage collection under a later engine's capture

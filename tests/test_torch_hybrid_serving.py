@@ -319,12 +319,14 @@ def _paged_pair(jmodel, model, params, tree, max_len, snap_slots):
     return jeng, eng
 
 
-def _paged_lockstep(jeng, eng, schedule, prefix_len=None):
+def _paged_lockstep(jeng, eng, schedule, prefix_len=None,
+                    leaves=_cache_leaves):
     """Tick both engines through ``schedule``, every request given the
     ``prefix_len`` hint; after every tick the tables, free list, snapshot
     free list, prefix entries (their snapshot slots too) and every pool and
-    state leaf agree.  Returns the port's requests and the reference's
-    tokens."""
+    state leaf agree (``leaves(tree, i)``: layer i's leaves of the
+    reference's cache tree).  Returns the port's requests and the
+    reference's tokens."""
     jpc, pc = jeng._pc, eng._pc
     reqs, tick = [], 0
     while True:
@@ -348,7 +350,7 @@ def _paged_lockstep(jeng, eng, schedule, prefix_len=None):
         tree = jax.tree.unflatten(jpc.treedef, jpc._merge(jpc.pool,
                                                           jpc.static))
         for i, names in enumerate(pc.names):
-            ref = _cache_leaves(tree, i)
+            ref = leaves(tree, i)
             for name in names:
                 if (i, name) in pc.static:
                     got = pc.static[(i, name)]

@@ -36,6 +36,11 @@ def _t(a):
 WIDE = [(8, 1, 16, 64, 512, 64), (2048, 2, 16, 64, 512, 48),
         (8, 2, 6, 128, 512, 64), (2048, 1, 6, 128, 512, 32),
         (8, 1, 16, 320, 1712, 32), (2048, 2, 16, 40, 1712, 32)]
+# mamba2-130m's two BLAST shapes (T, G, b, p, q, r) at decode and a 256-token
+# prefill: in_proj 768 → 3352 (b = 8, odd p = 419: the epilogue's scalar
+# stores), out_proj 1536 → 768
+MAMBA2 = [(8, 1, 8, 419, 96, 304), (256, 1, 8, 419, 96, 304),
+          (8, 1, 16, 48, 96, 224), (256, 1, 16, 48, 96, 224)]
 
 
 def _factors(rng, b, p, q, r, lead=()):
@@ -99,7 +104,7 @@ class TestOnCard:
                                              (300, 1, 8, 72, 192, 144),
                                              (16, 1, 16, 192, 128, 32),
                                              (37, 1, 4, 101, 5, 19)]
-                             + WIDE)
+                             + WIDE + MAMBA2)
     def test_blast_kernels(self, cuda, dtype, tol, T, G, b, p, q, r):
         """The float kernel's paths: r split (T ≤ 300) or whole, output
         blocks grouped (at decode, and b = 32 at any T) or not, p in column
@@ -142,7 +147,8 @@ class TestOnCard:
     @pytest.mark.parametrize("act,T,G,b,p,q,r", [
         (act, *shape) for act in ("none", "int8")
         for shape in [(1, 1, 4, 24, 16, 19), (37, 1, 16, 60, 36, 144),
-                      (37, 2, 4, 8, 8, 21), (8, 2, 16, 96, 36, 176)] + WIDE])
+                      (37, 2, 4, 8, 8, 21), (8, 2, 16, 96, 36, 176)]
+        + WIDE + MAMBA2])
     def test_blast_q_kernels(self, cuda, bits, act, dtype, tol, T, G, b, p,
                              q, r):
         """int8 / int4 weights (act "none") and W8A8 / W4A8 (act "int8"),
@@ -211,6 +217,30 @@ class TestOnCard:
         second = grouped(x, *codes, *scales, act=act)
         torch.cuda.synchronize()
         assert torch.equal(first, second)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("mode", ["float", "q8", "q4", "w8a8", "w4a8"])
+    def test_blast_odd_p_repeats_bitwise(self, cuda, mode, dtype):
+        """mamba2-130m's in_proj at decode (T = 8, b = 8, p = 419, q = 96,
+        r = 304: r split, the odd p stored column by column): two launches
+        of the G = 1 kernel of every mode give the same bits."""
+        b, p, q, r = 8, 419, 96, 304
+        rng = np.random.default_rng(419)
+        x = _t(rng.standard_normal((8, b * q)).astype(np.float32)).to(
+            cuda, dtype)
+        U, S, V = (_t(a).to(cuda) / 4 for a in _factors(rng, b, p, q, r))
+        if mode == "float":
+            U, S, V = (a.to(dtype) for a in (U, S, V))
+            calls = [ops.blast_matmul(x, U, S, V) for _ in range(2)]
+        else:
+            bits = 4 if mode in ("q4", "w4a8") else 8
+            qas = [quant.quantize(a, bits=bits, block_axes=axes)
+                   for a, axes in zip((U, S, V), ((1, 2), (2,), (1, 2)))]
+            act = "int8" if mode.startswith("w") else "none"
+            calls = [ops.blast_matmul_q(x, *qas, act=act) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert calls[0].shape == (8, b * p)
+        assert torch.equal(calls[0], calls[1])
 
     @pytest.mark.parametrize("q", [96, 1712])
     def test_a8_stage_one_is_exact(self, cuda, q):
