@@ -3,9 +3,10 @@
 
 Only the fields the ported serving and training slices read, plus every
 field that changes numbers (``reduced()`` gives the same shapes, dtypes and
-learned-position table as the reference).
-Families and knobs the port does not run yet (MoE, MLA, encoders) are not
-carried; ``LM`` raises on them.
+learned-position table as the reference).  ``MoECfg`` is carried whole;
+``LM`` raises on the MoE fields the port does not run yet (shared experts,
+first dense layers: ROADMAP A7.2).  Families and knobs the port does not
+run yet (MLA, encoders) are not carried; ``LM`` raises on them.
 """
 
 from __future__ import annotations
@@ -38,6 +39,21 @@ class StructureConfig:
     def __post_init__(self):
         if self.kind not in STRUCTURES:
             raise ValueError(f"unknown structure kind {self.kind!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    """The routed-expert FFN of the moe family (top-k routing, capacity-
+    based dispatch)."""
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    d_shared: int = 0
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +97,7 @@ class ArchConfig:
     # (sliding window of ``window`` keys over a ring cache) | 'rglru' | 'ssd'
     pattern: Sequence[str] = ("attn",)
     window: int = 0
+    moe: MoECfg | None = None
     ssd: SSDCfg | None = None
     rglru: RGLRUCfg | None = None
     structure: StructureConfig = dataclasses.field(default_factory=StructureConfig)
@@ -141,6 +158,15 @@ class ArchConfig:
         small.update(n_heads=n_heads, n_kv_heads=n_kv, head_dim=16)
         if self.window:
             small["window"] = 16
+        if self.moe:
+            small["moe"] = dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2), d_expert=32,
+                d_shared=32 if self.moe.n_shared else 0,
+                dense_d_ff=64 if self.moe.first_dense_layers else 0,
+                first_dense_layers=min(self.moe.first_dense_layers, 1))
+            small["n_layers"] = max(small["n_layers"],
+                                    (self.moe.first_dense_layers and 1) + 2)
         if self.ssd:
             small["ssd"] = dataclasses.replace(self.ssd, d_state=16,
                                                head_dim=8, chunk=8)

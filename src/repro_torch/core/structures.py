@@ -16,6 +16,15 @@ kernel or, with the activation mode set to "int8", the W8A8 or W4A8
 kernel), dense and block-diagonal as plain products on the codes (the
 reference leaves both to XLA, outside any Pallas kernel).  Mixed storage
 raises (``check_storage``).
+
+Stacked linears (the MoE experts): E linears of one spec with their params
+stacked on a leading E axis, each applied to its own input —
+``stacked_init``, ``stacked_quantize`` (per expert, per block: the
+reference's vmapped ``linear_quantize``) and ``stacked_apply``, a BLAST
+stack as ONE batched kernel launch (``kernels/ops.blast_matmul_batched``
+and its int8/int4 twins, in the current activation mode).  The rank tools
+(``rank_spectrum``, ``truncate_rank``, ``pad_rank``) take a stack too, one
+expert at a time, as the reference vmaps them.
 """
 
 from __future__ import annotations
@@ -224,9 +233,11 @@ def rank_spectrum(params) -> torch.Tensor | None:
     disjoint, so contributions add):
     ``e_rho = sum_ij S[i,j,rho]^2 * |U[i,:,rho]|^2 * |V[j,:,rho]|^2``, in
     fp32 (quantized factors are dequantized first).  None for kinds with
-    no rank axis."""
+    no rank axis; (E, r) for a stack of E experts."""
     if rank_kind(params) is None:
         return None
+    if stack_size(params):
+        return torch.stack([rank_spectrum(p) for p in unstack(params)])
     U, S, V = (_as_f32(params[k]) for k in ("U", "S", "V"))
     su = torch.sum(U * U, dim=1)                      # (b, r)
     sv = torch.sum(V * V, dim=1)                      # (b, r)
@@ -271,9 +282,13 @@ def truncate_rank(params, r_prime: int):
     so full-rank truncation is the identity, and since the rank
     contraction is permutation-invariant the truncated apply equals the
     full apply with the dropped components zeroed.  Float, int8 and packed
-    int4 storage."""
+    int4 storage.  A stack of experts truncates each expert to its own
+    r_prime highest-energy components (a uniform r_prime, per-expert
+    choices: the reference's vmapped truncation)."""
     if rank_kind(params) is None:
         return params
+    if stack_size(params):
+        return restack([truncate_rank(p, r_prime) for p in unstack(params)])
     full = linear_rank(params)
     r_prime = max(1, min(int(r_prime), full))
     if r_prime == full:
@@ -309,6 +324,87 @@ def pad_rank(params, granule: int):
 
     return {k: (pad(v) if k in _RANK_AXES["blast"] else v)
             for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# Stacked linears: E linears of one spec on a leading E axis (MoE experts).
+# ---------------------------------------------------------------------------
+
+
+def stack_size(params) -> int:
+    """E for a BLAST linear's params stacked on a leading expert axis (its
+    U is (E, b, p, r)), else 0."""
+    if rank_kind(params) is None or len(params["U"].shape) != 4:
+        return 0
+    return int(params["U"].shape[0])
+
+
+def unstack(params: Params) -> list[Params]:
+    """A stack of E linears' params → E param dicts (views)."""
+    def take(a, e):
+        if qt.is_qarray(a):
+            return qt.QArray(a.q[e], a.scale[e], bits=a.bits,
+                             last_dim=a.last_dim)
+        return a[e]
+    return [{k: take(v, e) for k, v in params.items()}
+            for e in range(stack_size(params))]
+
+
+def restack(members: Sequence[Params]) -> Params:
+    """E linears' param dicts of one shape and storage → their stack."""
+    out = {}
+    for k, v in members[0].items():
+        if qt.is_qarray(v):
+            out[k] = qt.QArray(torch.stack([m[k].q for m in members]),
+                               torch.stack([m[k].scale for m in members]),
+                               bits=v.bits, last_dim=v.last_dim)
+        else:
+            out[k] = torch.stack([m[k] for m in members])
+    return out
+
+
+def stacked_init(spec: LinearSpec, generator: torch.Generator, n: int,
+                 dtype, device, scale=None) -> Params:
+    """n linears of ``spec`` drawn in turn from ``generator`` and stacked."""
+    return restack([spec.init(generator, dtype=dtype, device=device,
+                              scale=scale) for _ in range(n)])
+
+
+def stacked_quantize(spec: LinearSpec, params: Params,
+                     bits: int = 8) -> Params:
+    """Per-expert, per-block QArrays of a stack: each expert's blocks get
+    their own scales, equal bit for bit to quantizing each expert alone
+    (the block axes move one axis right)."""
+    if spec.kind != "blast":
+        raise NotImplementedError(f"stacked {spec.kind} linears are not "
+                                  "ported (the experts are BLAST)")
+    axes = {"U": (2, 3), "S": (3,), "V": (2, 3)}
+    return {k: qt.quantize(v, bits=bits, block_axes=axes[k])
+            for k, v in params.items()}
+
+
+def stacked_apply(spec: LinearSpec, params: Params,
+                  x: torch.Tensor) -> torch.Tensor:
+    """E BLAST linears, expert e on its own rows x[e]: x (E, ..., d_in) →
+    (E, ..., d_out) in x's type, ONE batched kernel launch (float, int8 or
+    nibble-packed int4 factors; with the activation mode "int8" the W8A8 or
+    W4A8 kernel).  Counts one dispatch."""
+    if spec.kind != "blast":
+        raise NotImplementedError(f"stacked {spec.kind} linears are not "
+                                  "ported (the experts are BLAST)")
+    record_dispatch(1)
+    storage = check_storage(params)
+    U, S, V = params["U"], params["S"], params["V"]
+    if storage == "float":
+        return kops.blast_matmul_batched(x, U, S, V)
+    E, b = U.q.shape[:2]
+    scales = (U.scale.reshape(E, b), S.scale.reshape(E, b, b),
+              V.scale.reshape(E, b))
+    if storage == "int4":
+        return kops.blast_matmul_batched_q4(x, U.q, S.q, V.q, *scales,
+                                            act=activations_mode())
+    return kops.blast_matmul_batched_q(x, U.q, S.q, V.q, *scales,
+                                       act=activations_mode())
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,11 @@ and return y (G, T, m):
   nibble-packed int4 factor codes, uint8 (G, b, ·, r/2): the kernels read
   them packed and take the logical rank r = 2 × bytes.
 
+Each also takes x of shape (G, T, n) — with activation codes sx (G, T, 1)
+— for the batched launch (the MoE experts): factor set g on its own rows
+x[g], the same tile kernel with a per-set x stride of T·n (and sx stride
+T); a (T, n) x is shared by every set (stride 0, the grouped launch).
+
 Callers go through ``kernels/ops.py``, which flattens, pads r, quantizes
 the activations and counts launches.  The kernels keep no autograd graph: a
 launcher refuses inputs that require grad while grad mode is on
@@ -52,18 +57,19 @@ plain_grouped_a8 = blast_matmul_grouped_a8_ref
 plain_grouped_q4 = blast_matmul_grouped_q4_ref
 plain_grouped_a4 = blast_matmul_grouped_a4_ref
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "blast_matmul_f32": [_P] * 6 + [_I] * 8 + [_P],
-    "blast_matmul_bf16": [_P] * 6 + [_I] * 8 + [_P],
-    "blast_matmul_q_f32": [_P] * 9 + [_I] * 8 + [_P],
-    "blast_matmul_q_bf16": [_P] * 9 + [_I] * 8 + [_P],
-    "blast_matmul_w8a8_f32": [_P] * 10 + [_I] * 8 + [_P],
-    "blast_matmul_w8a8_bf16": [_P] * 10 + [_I] * 8 + [_P],
-    "blast_matmul_q4_f32": [_P] * 9 + [_I] * 8 + [_P],
-    "blast_matmul_q4_bf16": [_P] * 9 + [_I] * 8 + [_P],
-    "blast_matmul_w4a8_f32": [_P] * 10 + [_I] * 8 + [_P],
-    "blast_matmul_w4a8_bf16": [_P] * 10 + [_I] * 8 + [_P],
+    # inputs, y, part; T, G, b, p, q, r, rps, ipg; the x and sx strides
+    "blast_matmul_f32": [_P] * 6 + [_I] * 8 + [_L] * 2 + [_P],
+    "blast_matmul_bf16": [_P] * 6 + [_I] * 8 + [_L] * 2 + [_P],
+    "blast_matmul_q_f32": [_P] * 9 + [_I] * 8 + [_L] * 2 + [_P],
+    "blast_matmul_q_bf16": [_P] * 9 + [_I] * 8 + [_L] * 2 + [_P],
+    "blast_matmul_w8a8_f32": [_P] * 10 + [_I] * 8 + [_L] * 2 + [_P],
+    "blast_matmul_w8a8_bf16": [_P] * 10 + [_I] * 8 + [_L] * 2 + [_P],
+    "blast_matmul_q4_f32": [_P] * 9 + [_I] * 8 + [_L] * 2 + [_P],
+    "blast_matmul_q4_bf16": [_P] * 9 + [_I] * 8 + [_L] * 2 + [_P],
+    "blast_matmul_w4a8_f32": [_P] * 10 + [_I] * 8 + [_L] * 2 + [_P],
+    "blast_matmul_w4a8_bf16": [_P] * 10 + [_I] * 8 + [_L] * 2 + [_P],
     "blast_float_tile_t": [],
     "blast_float_tile_r": [],
     "blast_float_tile_b": [],
@@ -144,9 +150,13 @@ def _check(x, U, S, V, factor_dtype, tile_r: int,
            scales=()) -> tuple[int, ...]:
     """Validate the kernel's layout; returns (T, G, b, p, q, r) with r the
     logical rank (twice the row bytes for packed uint8 factors), a multiple
-    of ``tile_r``."""
-    T, n = x.shape
+    of ``tile_r``.  x (T, n), or (G, T, n) batched."""
+    T, n = x.shape[-2:]
     G, b, p, rb = U.shape
+    batched = x.ndim == 3
+    if x.ndim not in (2, 3) or (batched and x.shape[0] != G):
+        raise ValueError(f"x has shape {tuple(x.shape)}: want (T, n), or "
+                         f"(G, T, n) with G = {G} factor sets")
     q = V.shape[2]
     _check_device(x)
     named = [("x", x, x.dtype), ("U", U, factor_dtype), ("S", S, factor_dtype),
@@ -162,7 +172,8 @@ def _check(x, U, S, V, factor_dtype, tile_r: int,
         raise ValueError(f"inconsistent shapes x {tuple(x.shape)}, U "
                          f"{tuple(U.shape)}, S {tuple(S.shape)}, V "
                          f"{tuple(V.shape)}")
-    want = {"su": (G, b), "ss": (G, b, b), "sv": (G, b), "sx": (T, 1)}
+    want = {"su": (G, b), "ss": (G, b, b), "sv": (G, b),
+            "sx": (G, T, 1) if batched else (T, 1)}
     for name, a in scales:
         if tuple(a.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, want "
@@ -186,8 +197,11 @@ def _launch_tile(fn_name: str, ins, dtype: torch.dtype,
     """The tile kernel ``fn_name`` on ``ins`` (x, with activation codes
     their scales sx, then the factors and their scales) as ``split_plan``
     lays it out: y (G, T, b·p) of ``dtype``, with an fp32 workspace for the
-    splits' partials."""
+    splits' partials.  A (G, T, n) x is batched: set g reads x[g] (and
+    sx[g])."""
     dev = ins[0].device
+    batched = ins[0].ndim == 3
+    xg, sxg = (T * ins[0].shape[-1], T) if batched else (0, 0)
     y = torch.empty((G, T, b * p), dtype=dtype, device=dev)
     if T == 0:
         return y
@@ -198,7 +212,7 @@ def _launch_tile(fn_name: str, ins, dtype: torch.dtype,
     rc = getattr(_lib(), fn_name)(
         *(a.data_ptr() for a in ins), y.data_ptr(),
         None if part is None else part.data_ptr(), T, G, b, p, q, r, rps,
-        ipg, torch.cuda.current_stream().cuda_stream)
+        ipg, xg, sxg, torch.cuda.current_stream().cuda_stream)
     build.check(rc, f"{fn_name} (T={T}, G={G}, b={b}, p={p}, q={q}, r={r})")
     return y
 

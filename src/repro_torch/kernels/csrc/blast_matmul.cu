@@ -17,6 +17,10 @@
 // Function: x (T, n), U (G, b, p, r), S (G, b, b, r), V (G, b, q, r) →
 // y (G, T, m) with m = b·p, n = b·q, and for each factor set g
 //     z_j = x_j V_j,   w_i = Σ_j s_ij ⊙ z_j,   y_i = w_i U_iᵀ.
+// Batched (the MoE experts, beyond the Pallas set: the reference runs its
+// experts as a vmapped BLAST over an (E, C, d) buffer in XLA,
+// src/repro/models/moe.py:163-170 _expert_ffn): x (G, T, n), factor set g
+// on its own x_g — the same kernel with a per-set x stride (and sx stride).
 // Float: x and the factors are fp32 or bf16 (one type for all four).
 // int8 (as the TPU kernels' _quant_loaders): U/S/V are int8 codes with fp32
 // scales su (G, b), ss (G, b, b), sv (G, b); z_j is scaled once by
@@ -407,7 +411,8 @@ blast_tile_kernel(const typename L::X* __restrict__ x,
                   const float* __restrict__ su, const float* __restrict__ ss,
                   const float* __restrict__ sv, typename L::E* __restrict__ y,
                   float* __restrict__ part, int T_rows, int b, int p, int q,
-                  int r, int rps, int ipg, int pc, int jc, int kc) {
+                  int r, int rps, int ipg, int pc, int jc, int kc,
+                  long long xg, long long sxg) {
   using E = typename L::E;
   using X = typename L::X;
   using F = typename L::F;
@@ -419,6 +424,10 @@ blast_tile_kernel(const typename L::X* __restrict__ x,
   const int groups = (b + ipg - 1) / ipg, chunks = (p + pc - 1) / pc;
   const int splits = gridDim.y / (groups * chunks);
   const int t0 = blockIdx.x * FBT, g = blockIdx.z;
+  // factor set g's own x (and token scales): a batched launch strides them
+  // by xg and sxg; a grouped launch shares one x (both 0)
+  x += (size_t)g * xg;
+  if constexpr (L::A8) sx += (size_t)g * sxg;
   const int sg = blockIdx.y / chunks, chunk = blockIdx.y - sg * chunks;
   const int split = sg / groups, grp = sg - split * groups;
   const int lo = split * rps, hi = min(r, lo + rps);
@@ -1004,8 +1013,8 @@ template <class L, bool PAN, int P8>
 int run_tile(const void* x, const void* sx, const void* U, const void* S,
              const void* V, const void* su, const void* ss, const void* sv,
              void* y, float* part, int T_rows, int G, int b, int p, int q,
-             int r, int rps, int ipg, const TilePlan& tp, int splits,
-             cudaStream_t stream) {
+             int r, int rps, int ipg, long long xg, long long sxg,
+             const TilePlan& tp, int splits, cudaStream_t stream) {
   using E = typename L::E;
   using X = typename L::X;
   using F = typename L::F;
@@ -1023,7 +1032,7 @@ int run_tile(const void* x, const void* sx, const void* U, const void* S,
   blast_tile_kernel<L, PAN, P8><<<grid, FNT, tp.smem, stream>>>(
       (const X*)x, (const float*)sx, (const F*)U, (const F*)S, (const F*)V, (const float*)su,
       (const float*)ss, (const float*)sv, (E*)y, part, T_rows, b, p, q, r,
-      rps, ipg, tp.pc, tp.jc, tp.kc);
+      rps, ipg, tp.pc, tp.jc, tp.kc, xg, sxg);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   const size_t total = (size_t)G * T_rows * b * p;
@@ -1044,10 +1053,11 @@ int run_tile(const void* x, const void* sx, const void* U, const void* S,
                                  (E*)y, total, splits);
 }
 
-// x (T, n) of type L::X, y (G, T, m) of type L::E; U/S/V (G, b, ·, r) as
+// x (T, n) of type L::X — or (G, T, n) with xg = T·n, one x per factor set
+// (the batched launch) —, y (G, T, m) of type L::E; U/S/V (G, b, ·, r) as
 // L stores them (r logical ranks; packed int4 rows are r/2 bytes); su (G,
-// b), ss (G, b, b), sv (G, b) fp32 for codes; sx (T, 1) fp32 for
-// activation codes.  The grid is (⌈T/16⌉, splits of r
+// b), ss (G, b, b), sv (G, b) fp32 for codes; sx (T, 1) — batched (G, T,
+// 1), sxg = T — fp32 for activation codes.  The grid is (⌈T/16⌉, splits of r
 // (rps ranks each) × groups of ipg ≤ 16 output blocks × chunks of pc
 // columns, G), pc and the panels as plan_tiles chooses.  With rps < r (a
 // split launch), part is an fp32 workspace (splits, G, T, m); unused (may
@@ -1057,8 +1067,10 @@ template <class L>
 int launch_tile(const void* x, const void* sx, const void* U, const void* S,
                 const void* V, const void* su, const void* ss, const void* sv,
                 void* y, void* part, int T_rows, int G, int b, int p, int q,
-                int r, int rps, int ipg, void* stream) {
+                int r, int rps, int ipg, long long xg, long long sxg,
+                void* stream) {
   if (T_rows <= 0 || G <= 0 || b <= 0 || p <= 0 || q <= 0 || r <= 0 ||
+      xg < 0 || sxg < 0 ||
       r % FRANKS != 0 || rps <= 0 || rps % FRANKS != 0 || ipg <= 0 ||
       ipg > FMAXB || (L::CODES && (!su || !ss || !sv)) || (L::A8 && !sx))
     return (int)cudaErrorInvalidValue;
@@ -1069,19 +1081,14 @@ int launch_tile(const void* x, const void* sx, const void* U, const void* S,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   float* pf = (float*)part;
-  if (tp.pan)
-    return run_tile<L, true, FMAXP8>(x, sx, U, S, V, su, ss, sv, y, pf,
-                                     T_rows, G, b, p, q, r, rps, ipg, tp,
-                                     splits, st);
-  if (tp.pc <= 32)
-    return run_tile<L, false, 4>(x, sx, U, S, V, su, ss, sv, y, pf, T_rows,
-                                 G, b, p, q, r, rps, ipg, tp, splits, st);
-  if (tp.pc <= 64)
-    return run_tile<L, false, 8>(x, sx, U, S, V, su, ss, sv, y, pf, T_rows,
-                                 G, b, p, q, r, rps, ipg, tp, splits, st);
-  return run_tile<L, false, FMAXP8>(x, sx, U, S, V, su, ss, sv, y, pf,
-                                    T_rows, G, b, p, q, r, rps, ipg, tp,
-                                    splits, st);
+  auto run = [&](auto fn) {
+    return fn(x, sx, U, S, V, su, ss, sv, y, pf, T_rows, G, b, p, q, r, rps,
+              ipg, xg, sxg, tp, splits, st);
+  };
+  if (tp.pan) return run(run_tile<L, true, FMAXP8>);
+  if (tp.pc <= 32) return run(run_tile<L, false, 4>);
+  if (tp.pc <= 64) return run(run_tile<L, false, 8>);
+  return run(run_tile<L, false, FMAXP8>);
 }
 
 }  // namespace
@@ -1094,109 +1101,91 @@ int blast_float_tile_t() { return FBT; }
 int blast_float_tile_r() { return FRANKS; }
 int blast_float_tile_b() { return FMAXB; }
 
-// float factors: x, U, S, V and y of one type; part, rps (ranks per split)
-// and ipg (output blocks per group) as launch_tile says
+// Every entry point: part, rps (ranks per split) and ipg (output blocks per
+// group) as launch_tile says; xg and sxg the per-factor-set strides of x
+// and sx, in elements (0: every set reads one x, the grouped launch; T·n
+// and T: each set reads its own (T, n) rows, the batched launch).
+#define BLAST_TAIL                                                   \
+  void* y, void* part, int T_rows, int G, int b, int p, int q, int r, \
+      int rps, int ipg, long long xg, long long sxg, void* stream
+#define BLAST_ARGS y, part, T_rows, G, b, p, q, r, rps, ipg, xg, sxg, stream
+
+// float factors: x, U, S, V and y of one type
 int blast_matmul_f32(const void* x, const void* U, const void* S,
-                     const void* V, void* y, void* part, int T_rows, int G,
-                     int b, int p, int q, int r, int rps, int ipg,
-                     void* stream) {
+                     const void* V, BLAST_TAIL) {
   return launch_tile<CopyRow<float>>(x, nullptr, U, S, V, nullptr, nullptr,
-                                     nullptr, y, part, T_rows, G, b, p, q, r,
-                                     rps, ipg, stream);
+                                     nullptr, BLAST_ARGS);
 }
 
 int blast_matmul_bf16(const void* x, const void* U, const void* S,
-                      const void* V, void* y, void* part, int T_rows, int G,
-                      int b, int p, int q, int r, int rps, int ipg,
-                      void* stream) {
+                      const void* V, BLAST_TAIL) {
   return launch_tile<CopyRow<__nv_bfloat16>>(x, nullptr, U, S, V, nullptr,
-                                             nullptr, nullptr, y, part,
-                                             T_rows, G, b, p, q, r, rps, ipg,
-                                             stream);
+                                             nullptr, nullptr, BLAST_ARGS);
 }
 
 // int8 factor codes, float x; y has x's type
 int blast_matmul_q_f32(const void* x, const void* U, const void* S,
                        const void* V, const void* su, const void* ss,
-                       const void* sv, void* y, void* part, int T_rows, int G,
-                       int b, int p, int q, int r, int rps, int ipg,
-                       void* stream) {
-  return launch_tile<CodeRow8<float>>(x, nullptr, U, S, V, su, ss, sv, y,
-                                      part, T_rows, G, b, p, q, r, rps, ipg,
-                                      stream);
+                       const void* sv, BLAST_TAIL) {
+  return launch_tile<CodeRow8<float>>(x, nullptr, U, S, V, su, ss, sv,
+                                      BLAST_ARGS);
 }
 
 int blast_matmul_q_bf16(const void* x, const void* U, const void* S,
                         const void* V, const void* su, const void* ss,
-                        const void* sv, void* y, void* part, int T_rows,
-                        int G, int b, int p, int q, int r, int rps, int ipg,
-                        void* stream) {
+                        const void* sv, BLAST_TAIL) {
   return launch_tile<CodeRow8<__nv_bfloat16>>(x, nullptr, U, S, V, su, ss,
-                                              sv, y, part, T_rows, G, b, p, q,
-                                              r, rps, ipg, stream);
+                                              sv, BLAST_ARGS);
 }
 
 // int4 factor codes, nibble-packed (uint8, r/2 bytes per row; r counts
 // logical ranks), float x; y has x's type
 int blast_matmul_q4_f32(const void* x, const void* U, const void* S,
                         const void* V, const void* su, const void* ss,
-                        const void* sv, void* y, void* part, int T_rows,
-                        int G, int b, int p, int q, int r, int rps, int ipg,
-                        void* stream) {
-  return launch_tile<CodeRow4<float>>(x, nullptr, U, S, V, su, ss, sv, y,
-                                      part, T_rows, G, b, p, q, r, rps, ipg,
-                                      stream);
+                        const void* sv, BLAST_TAIL) {
+  return launch_tile<CodeRow4<float>>(x, nullptr, U, S, V, su, ss, sv,
+                                      BLAST_ARGS);
 }
 
 int blast_matmul_q4_bf16(const void* x, const void* U, const void* S,
                          const void* V, const void* su, const void* ss,
-                         const void* sv, void* y, void* part, int T_rows,
-                         int G, int b, int p, int q, int r, int rps, int ipg,
-                         void* stream) {
+                         const void* sv, BLAST_TAIL) {
   return launch_tile<CodeRow4<__nv_bfloat16>>(x, nullptr, U, S, V, su, ss,
-                                              sv, y, part, T_rows, G, b, p, q,
-                                              r, rps, ipg, stream);
+                                              sv, BLAST_ARGS);
 }
 
 // W8A8: int8 activation codes xq (T, n) with fp32 token scales sx (T, 1)
 // against int8 factor codes; the suffix names y's type
 int blast_matmul_w8a8_f32(const void* xq, const void* sx, const void* U,
                           const void* S, const void* V, const void* su,
-                          const void* ss, const void* sv, void* y, void* part,
-                          int T_rows, int G, int b, int p, int q, int r,
-                          int rps, int ipg, void* stream) {
-  return launch_tile<ActRow8<float>>(xq, sx, U, S, V, su, ss, sv, y, part,
-                                     T_rows, G, b, p, q, r, rps, ipg, stream);
+                          const void* ss, const void* sv, BLAST_TAIL) {
+  return launch_tile<ActRow8<float>>(xq, sx, U, S, V, su, ss, sv,
+                                     BLAST_ARGS);
 }
 
 int blast_matmul_w8a8_bf16(const void* xq, const void* sx, const void* U,
                            const void* S, const void* V, const void* su,
-                           const void* ss, const void* sv, void* y,
-                           void* part, int T_rows, int G, int b, int p, int q,
-                           int r, int rps, int ipg, void* stream) {
-  return launch_tile<ActRow8<__nv_bfloat16>>(xq, sx, U, S, V, su, ss, sv, y,
-                                             part, T_rows, G, b, p, q, r, rps,
-                                             ipg, stream);
+                           const void* ss, const void* sv, BLAST_TAIL) {
+  return launch_tile<ActRow8<__nv_bfloat16>>(xq, sx, U, S, V, su, ss, sv,
+                                             BLAST_ARGS);
 }
 
 // W4A8: as W8A8, against nibble-packed int4 factor codes
 int blast_matmul_w4a8_f32(const void* xq, const void* sx, const void* U,
                           const void* S, const void* V, const void* su,
-                          const void* ss, const void* sv, void* y, void* part,
-                          int T_rows, int G, int b, int p, int q, int r,
-                          int rps, int ipg, void* stream) {
-  return launch_tile<ActRow4<float>>(xq, sx, U, S, V, su, ss, sv, y, part,
-                                     T_rows, G, b, p, q, r, rps, ipg, stream);
+                          const void* ss, const void* sv, BLAST_TAIL) {
+  return launch_tile<ActRow4<float>>(xq, sx, U, S, V, su, ss, sv,
+                                     BLAST_ARGS);
 }
 
 int blast_matmul_w4a8_bf16(const void* xq, const void* sx, const void* U,
                            const void* S, const void* V, const void* su,
-                           const void* ss, const void* sv, void* y,
-                           void* part, int T_rows, int G, int b, int p, int q,
-                           int r, int rps, int ipg, void* stream) {
-  return launch_tile<ActRow4<__nv_bfloat16>>(xq, sx, U, S, V, su, ss, sv, y,
-                                             part, T_rows, G, b, p, q, r, rps,
-                                             ipg, stream);
+                           const void* ss, const void* sv, BLAST_TAIL) {
+  return launch_tile<ActRow4<__nv_bfloat16>>(xq, sx, U, S, V, su, ss, sv,
+                                             BLAST_ARGS);
 }
+
+#undef BLAST_TAIL
+#undef BLAST_ARGS
 
 }  // extern "C"

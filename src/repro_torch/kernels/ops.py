@@ -5,7 +5,9 @@ A tensor on the CPU goes to the kernel's plain PyTorch version
 raises — there is no fallback.  The BLAST wrappers flatten the leading axes
 into T and zero-pad r to the kernel's rank granule, as the reference
 wrapper does (zero ranks are exact); every one of them runs the tile
-kernel, which masks its T edge itself.  The quantized wrappers take
+kernel, which masks its T edge itself.  The batched wrappers
+(``blast_matmul_batched`` and its ``_q``/``_q4`` twins: the MoE experts)
+take one input per factor set, x (G, ..., n), and run forward only.  The quantized wrappers take
 per-block scales; int4 factors stay nibble-packed (uint8, two codes per
 byte along r) into the kernel, and their byte axis is zero-padded to half
 the padded rank (a zero byte is two zero codes).  With ``act="int8"`` they
@@ -54,6 +56,9 @@ launches: dict[str, int] = {
     "blast_matmul_w8a8": 0, "blast_matmul_grouped_w8a8": 0,
     "blast_matmul_q4": 0, "blast_matmul_grouped_q4": 0,
     "blast_matmul_w4a8": 0, "blast_matmul_grouped_w4a8": 0,
+    "blast_matmul_batched": 0, "blast_matmul_batched_q": 0,
+    "blast_matmul_batched_w8a8": 0, "blast_matmul_batched_q4": 0,
+    "blast_matmul_batched_w4a8": 0,
     "flash_attention_prefill": 0, "flash_attention_prefill_q8": 0,
     "flash_attention_ring": 0, "flash_attention_ring_q8": 0,
     "flash_attention": 0,
@@ -468,3 +473,81 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunk = ref.q_chunk_size(q.shape[2], q_chunk)
     return FlashAttentionFn.apply(q, k, v, causal, window, int(q_offset),
                                   chunk)
+
+
+# -- batched: one input per factor set (the MoE experts; forward only) -------
+
+
+def blast_matmul_batched(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+                         V: torch.Tensor) -> torch.Tensor:
+    """G factor sets, each on its own input, in one launch: x (G, ..., n);
+    U (G,b,p,r), S (G,b,b,r), V (G,b,q,r) → (G, ..., m) — the reference's
+    vmapped expert apply (``src/repro/models/moe.py`` ``_expert_ffn``)."""
+    if _on_cpu(x):
+        return ref.blast_matmul_batched_ref(x, U, S, V)
+    G, lead = x.shape[0], x.shape[1:-1]
+    _, r_pad = _bm.padded_rank(U.shape[-1], None, _bm.float_tiles()[1])
+    U, S, V = (_pad_last(a, r_pad) for a in (U, S, V))
+    y = _bm.launch(x.reshape(G, -1, x.shape[-1]).contiguous(), U, S, V)
+    launches["blast_matmul_batched"] += 1
+    return y.reshape(G, *lead, y.shape[-1])
+
+
+def _batched_q(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+               V: torch.Tensor, su: torch.Tensor, ss: torch.Tensor,
+               sv: torch.Tensor, act: str, bits: int) -> torch.Tensor:
+    """``_grouped_q`` with one input per factor set: x (G, ..., n) →
+    (G, ..., m) in x's type.  With ``act="int8"`` every row of every set is
+    quantized on its own (an empty capacity slot, a zero row, gets scale 1
+    and zero codes, as the reference's per-expert ``quantize_act``)."""
+    if act not in ("none", "int8"):
+        raise ValueError(f"act must be 'none'|'int8', got {act!r}")
+    packed = bits == 4
+    G, b, p, rb = U.shape
+    lead = x.shape[1:-1]
+    if _on_cpu(x):
+        if act == "int8":
+            xq, sx = qt.quantize_act(x)
+            plain = (ref.blast_matmul_batched_a4_ref if packed
+                     else ref.blast_matmul_batched_a8_ref)
+            return plain(xq, sx, U, S, V, su, ss, sv).to(x.dtype)
+        plain = (ref.blast_matmul_batched_q4_ref if packed
+                 else ref.blast_matmul_batched_q_ref)
+        return plain(x, U, S, V, su, ss, sv)
+    _, stored = _bm.padded_rank(rb, bits, _bm.float_tiles()[1])
+    U, S, V = (_pad_last(a, stored) for a in (U, S, V))
+    x3 = x.reshape(G, -1, x.shape[-1])
+    name = "blast_matmul_batched_" + (f"w{bits}a8" if act == "int8"
+                                      else "q4" if packed else "q")
+    if act == "int8":
+        xq, sx = qt.quantize_act(x3)
+        launch = _bm.launch_w4a8 if packed else _bm.launch_w8a8
+        y = launch(xq.contiguous(), sx.contiguous(), U, S, V, su, ss, sv,
+                   out_dtype=x.dtype)
+    else:
+        launch = _bm.launch_q4 if packed else _bm.launch_q
+        y = launch(x3.contiguous(), U, S, V, su, ss, sv)
+    launches[name] += 1
+    return y.reshape(G, *lead, b * p)
+
+
+def blast_matmul_batched_q(x: torch.Tensor, U8: torch.Tensor,
+                           S8: torch.Tensor, V8: torch.Tensor,
+                           su: torch.Tensor, ss: torch.Tensor,
+                           sv: torch.Tensor, *,
+                           act: str = "none") -> torch.Tensor:
+    """G int8 factor sets, each on its own input, in one launch: x (G, ...,
+    n); codes U8 (G,b,p,r), S8 (G,b,b,r), V8 (G,b,q,r); scales su/sv
+    (G,b), ss (G,b,b) → (G, ..., m).  ``act="int8"``: batched W8A8."""
+    return _batched_q(x, U8, S8, V8, su, ss, sv, act, 8)
+
+
+def blast_matmul_batched_q4(x: torch.Tensor, Up: torch.Tensor,
+                            Sp: torch.Tensor, Vp: torch.Tensor,
+                            su: torch.Tensor, ss: torch.Tensor,
+                            sv: torch.Tensor, *,
+                            act: str = "none") -> torch.Tensor:
+    """As ``blast_matmul_batched_q`` over nibble-packed int4 codes, uint8
+    (G,b,·,r/2), kept packed into the kernel.  ``act="int8"``: batched
+    W4A8."""
+    return _batched_q(x, Up, Sp, Vp, su, ss, sv, act, 4)

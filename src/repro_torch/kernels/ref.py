@@ -122,6 +122,76 @@ def blast_matmul_grouped_a4_ref(xq: torch.Tensor, sx: torch.Tensor,
     return blast_matmul_grouped_a8_ref(xq, sx, U, S, V, su, ss, sv)
 
 
+def blast_matmul_batched_ref(x: torch.Tensor, U: torch.Tensor,
+                             S: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """Batched oracle (the MoE experts): factor set g on its own input x[g]
+    — x (G, ..., n); U (G,b,p,r), S (G,b,b,r), V (G,b,q,r) → y (G, ..., m)
+    in x's type, each set's y the ``blast_matmul_ref`` of x[g] (the
+    reference's ``jax.vmap`` of one expert's apply)."""
+    G, b, p, _ = U.shape
+    q = V.shape[2]
+    lead = x.shape[1:-1]
+    xb = acc(x).reshape(G, -1, b, q)
+    z = torch.einsum("gtjq,gjqr->gtjr", xb, acc(V))
+    w = torch.einsum("gtjr,gijr->gtir", z, acc(S))
+    y = torch.einsum("gtir,gipr->gtip", w, acc(U))
+    return y.reshape(G, *lead, b * p).to(x.dtype)
+
+
+def blast_matmul_batched_q_ref(x: torch.Tensor, U: torch.Tensor,
+                               S: torch.Tensor, V: torch.Tensor,
+                               su: torch.Tensor, ss: torch.Tensor,
+                               sv: torch.Tensor) -> torch.Tensor:
+    """Batched int8-factor version: codes (G,b,·,r) dequantized with su/sv
+    (G,b), ss (G,b,b), over x (G, ..., n) → y (G, ..., m) in x's type."""
+    Uf = U.float() * su.float()[..., None, None]
+    Sf = S.float() * ss.float()[..., None]
+    Vf = V.float() * sv.float()[..., None, None]
+    return blast_matmul_batched_ref(x, Uf, Sf, Vf)
+
+
+def blast_matmul_batched_a8_ref(xq: torch.Tensor, sx: torch.Tensor,
+                                U: torch.Tensor, S: torch.Tensor,
+                                V: torch.Tensor, su: torch.Tensor,
+                                ss: torch.Tensor,
+                                sv: torch.Tensor) -> torch.Tensor:
+    """Batched W8A8 version, ``blast_matmul_a8_ref`` per set: each set's
+    int8 activation codes xq (G, ..., n) with fp32 scales sx (G, ..., 1);
+    stage 1 exact in float64 → y (G, ..., m) fp32."""
+    G, b, p, _ = U.shape
+    q = V.shape[2]
+    lead = xq.shape[1:-1]
+    xb = xq.reshape(G, -1, b, q).double()
+    z = torch.einsum("gtjq,gjqr->gtjr", xb, V.double()).float()
+    z = z * sx.float().reshape(G, -1, 1, 1) * sv.float()[:, None, :, None]
+    Sf = S.float() * ss.float()[..., None]
+    w = torch.einsum("gtjr,gijr->gtir", z, Sf)
+    y = torch.einsum("gtir,gipr->gtip", w, U.float())
+    y = y * su.float()[:, None, :, None]
+    return y.reshape(G, *lead, b * p)
+
+
+def blast_matmul_batched_q4_ref(x: torch.Tensor, Up: torch.Tensor,
+                                Sp: torch.Tensor, Vp: torch.Tensor,
+                                su: torch.Tensor, ss: torch.Tensor,
+                                sv: torch.Tensor) -> torch.Tensor:
+    """Batched int4-factor version: nibble-packed codes (G,b,·,r/2) uint8
+    unpacked in plane order, then the int8-code version."""
+    U, S, V = (unpack_int4_planes(a) for a in (Up, Sp, Vp))
+    return blast_matmul_batched_q_ref(x, U, S, V, su, ss, sv)
+
+
+def blast_matmul_batched_a4_ref(xq: torch.Tensor, sx: torch.Tensor,
+                                Up: torch.Tensor, Sp: torch.Tensor,
+                                Vp: torch.Tensor, su: torch.Tensor,
+                                ss: torch.Tensor,
+                                sv: torch.Tensor) -> torch.Tensor:
+    """Batched W4A8 version: nibble-packed factor codes unpacked in plane
+    order, then the batched W8A8 version (fp32 out)."""
+    U, S, V = (unpack_int4_planes(a) for a in (Up, Sp, Vp))
+    return blast_matmul_batched_a8_ref(xq, sx, U, S, V, su, ss, sv)
+
+
 def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
     """q (B, Hq, T, D); k, v (B, Hkv, S, D); mask (B, T, S) of visible keys

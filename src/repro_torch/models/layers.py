@@ -286,6 +286,10 @@ class AttnSpec:
     window: int | None
     qkv: LinearSpec
     out: LinearSpec
+    # attend over a full-length cache by key position (its ``pos``), not by
+    # slot index: a MoE layer routes a step's dead columns too, so their
+    # outputs must be the reference's (``attn_prefill``)
+    by_position: bool = False
 
     @property
     def dims(self) -> tuple[int, int, int]:
@@ -293,14 +297,17 @@ class AttnSpec:
         return c.n_heads, c.n_kv_heads, c.head_dim_
 
 
-def make_attention(cfg: ArchConfig, *, window: int | None = None) -> AttnSpec:
+def make_attention(cfg: ArchConfig, *, window: int | None = None,
+                   by_position: bool = False) -> AttnSpec:
     """GQA attention; ``window``: a sliding window of that many keys, whose
-    cache is a ring (``attn_cache_init``)."""
+    cache is a ring (``attn_cache_init``); ``by_position``: see
+    ``AttnSpec``."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     # q/k/v stacked and modeled by ONE structured matrix (paper §C.2)
     qkv = make_linear(cfg.d_model, (hq + 2 * hkv) * hd, cfg.structure)
     out = make_linear(hq * hd, cfg.d_model, cfg.structure)
-    return AttnSpec(cfg=cfg, window=window, qkv=qkv, out=out)
+    return AttnSpec(cfg=cfg, window=window, qkv=qkv, out=out,
+                    by_position=by_position)
 
 
 def attn_init(spec: AttnSpec, generator: torch.Generator, dtype,
@@ -409,6 +416,16 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
     row (pos=-1, K=V=0) on admission and every row writes positions
     0..pos contiguously (an int8 cache's row is reset with its scales).
 
+    Dead columns see other keys than the reference's: a dead query past its
+    row's last written slot also sees the empty slots up to its own
+    position.  A layer whose dead columns count — a MoE layer routes them,
+    and they take expert capacity — is built ``by_position``: it attends
+    over the cache it just wrote through the ring kernel, by ``pos``, as
+    the reference does.  An empty row (an idle one) reads 0 on both sides:
+    the kernel returns 0 for a row with no visible key, the reference the
+    mean of the row's V, which is 0 since a row is reset when its request
+    leaves (ROADMAP C3).
+
     A sliding-window layer's ring breaks slot == position once it wraps, so
     it attends through the ring kernel, which reads each key's position
     from ``pos`` (``kops.flash_attention_ring``, over int8 K/V
@@ -457,7 +474,15 @@ def attn_prefill(spec: AttnSpec, params: Params, cache: Params,
     # columns' outputs change; the caller discards them)
     kv = (q.transpose(1, 2), cache["k"].permute(0, 2, 1, 3),
           cache["v"].permute(0, 2, 1, 3))
-    if cfg.cache_quant:
+    if spec.by_position and cfg.cache_quant:
+        o = kops.flash_attention_ring_q8(
+            *kv, cache["k_scale"].transpose(1, 2),
+            cache["v_scale"].transpose(1, 2), cache["pos"], rg.steps,
+            window=None, kv_len=rg.kv_len)
+    elif spec.by_position:
+        o = kops.flash_attention_ring(*kv, cache["pos"], rg.steps,
+                                      window=None, kv_len=rg.kv_len)
+    elif cfg.cache_quant:
         o = kops.flash_attention_prefill_q8(
             *kv, cache["k_scale"].transpose(1, 2),
             cache["v_scale"].transpose(1, 2), rg.steps, causal=True,

@@ -1,8 +1,8 @@
 """Decoder LM of the ported slices (counterpart of
 ``repro/models/transformer.py``): GQA attention blocks — full, or over a
 sliding window with a ring cache —, RG-LRU blocks (the hybrid family) and
-Mamba-2 SSD blocks (the ssm family), each with a SwiGLU or GELU FFN or
-none, and RMSNorm or LayerNorm, RoPE, learned or no positions, a tied
+Mamba-2 SSD blocks (the ssm family), each with a SwiGLU or GELU FFN, a
+routed-expert FFN (the moe family, ``models/moe.py``) or none, and RMSNorm or LayerNorm, RoPE, learned or no positions, a tied
 embedding (optionally scaled by √d_model) or an untied
 dense vocab head, a logit softcap, the full-sequence forward ``apply``
 (training, prefill) and the chunked cached step ``prefill_chunk`` the engine
@@ -36,6 +36,7 @@ from repro_torch.core import structures
 from repro_torch.core.compress import calibrate_ranks
 from repro_torch.core.structures import make_linear
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ops
 from repro_torch.models import rglru as R
 from repro_torch.models import ssd as S
@@ -49,7 +50,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 class Output(NamedTuple):
     logits: torch.Tensor
-    aux: torch.Tensor                   # MoE load-balance loss (0 here)
+    aux: torch.Tensor                   # MoE load-balance loss (0 without)
     mtp_logits: torch.Tensor | None = None
 
 
@@ -79,14 +80,20 @@ _MIXERS = {
 class BlockSpec:
     kind: str                       # attn | local_attn | rglru | ssd
     mixer: L.AttnSpec | R.RGLRUSpec | S.SSDSpec
-    ffn: L.FFNSpec | None           # None: the mixer is the whole block
+    ffn: L.FFNSpec | M.MoESpec | None   # None: the mixer is the whole block
     norm: str
+
+    @property
+    def moe(self) -> bool:
+        return isinstance(self.ffn, M.MoESpec)
 
 
 def make_block(cfg: ArchConfig, kind: str) -> BlockSpec:
     if kind in _ATTN_KINDS:
+        # a MoE FFN routes dead columns too: they attend by key position
         mixer = L.make_attention(
-            cfg, window=cfg.window if kind == "local_attn" else None)
+            cfg, window=cfg.window if kind == "local_attn" else None,
+            by_position=cfg.moe is not None)
     elif kind == "rglru":
         mixer = R.make_rglru(cfg)
     elif kind == "ssd":
@@ -94,8 +101,11 @@ def make_block(cfg: ArchConfig, kind: str) -> BlockSpec:
     else:
         raise NotImplementedError(f"mixer {kind!r} is not ported yet "
                                   "(ROADMAP A7)")
-    ffn = (L.make_ffn(cfg.d_model, cfg.d_ff, cfg.ffn_kind, cfg.ffn_structure)
-           if cfg.d_ff else None)
+    if cfg.moe is not None:
+        ffn = M.make_moe(cfg)
+    else:
+        ffn = (L.make_ffn(cfg.d_model, cfg.d_ff, cfg.ffn_kind,
+                          cfg.ffn_structure) if cfg.d_ff else None)
     return BlockSpec(kind=kind, mixer=mixer, ffn=ffn, norm=cfg.norm)
 
 
@@ -105,28 +115,34 @@ def block_init(spec: BlockSpec, generator: torch.Generator, dtype, device,
          "mixer": _MIXERS[spec.kind].init(spec.mixer, generator, dtype,
                                           device)}
     if spec.ffn is not None:
+        init = M.moe_init if spec.moe else L.ffn_init
         p.update(norm2=L.norm_init(d_model, spec.norm, dtype, device),
-                 ffn=L.ffn_init(spec.ffn, generator, dtype, device))
+                 ffn=init(spec.ffn, generator, dtype, device))
     return p
 
 
-def _ffn(spec: BlockSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """The block's FFN residual, if it has an FFN."""
+def _ffn(spec: BlockSpec, params: Params,
+         x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block's FFN residual, if it has an FFN, and its MoE load-balance
+    loss (fp32; 0 for a dense FFN or none)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn is None:
-        return x
+        return x, aux
     h = L.norm_apply(params["norm2"], x, spec.norm)
-    return x + L.ffn_apply(spec.ffn, params["ffn"], h)
+    if spec.moe:
+        f, aux = M.moe_apply(spec.ffn, params["ffn"], h)
+        return x + f, aux
+    return x + L.ffn_apply(spec.ffn, params["ffn"], h), aux
 
 
 def block_apply(spec: BlockSpec, params: Params, x: torch.Tensor,
                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One residual block over a full sequence → (x, aux); aux is the MoE
-    load-balance loss, zero for these block kinds."""
+    load-balance loss (0 without routed experts)."""
     h = L.norm_apply(params["norm1"], x, spec.norm)
     x = x + _MIXERS[spec.kind].apply(spec.mixer, params["mixer"], h,
                                      positions)
-    return _ffn(spec, params, x), torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
+    return _ffn(spec, params, x)
 
 
 def block_prefill(spec: BlockSpec, params: Params, cache: Params,
@@ -145,7 +161,7 @@ def block_prefill(spec: BlockSpec, params: Params, cache: Params,
         prefill = R.rglru_prefill if spec.kind == "rglru" else S.ssd_prefill
         m, _ = prefill(spec.mixer, params["mixer"], cache, h, None, rg.n,
                        collect=collect)
-    return _ffn(spec, params, x + m)
+    return _ffn(spec, params, x + m)[0]
 
 
 def block_cache_rollback(spec: BlockSpec, cache: Params, saved: Params,
@@ -186,14 +202,16 @@ def block_quantize(spec: BlockSpec, params: Params, bits: int = 8) -> Params:
     p = {**params, "mixer": _MIXERS[spec.kind].quantize(
         spec.mixer, params["mixer"], bits)}
     if spec.ffn is not None:
-        p["ffn"] = L.ffn_quantize(spec.ffn, params["ffn"], bits)
+        quantize = M.moe_quantize if spec.moe else L.ffn_quantize
+        p["ffn"] = quantize(spec.ffn, params["ffn"], bits)
     return p
 
 
 def block_prestack(spec: BlockSpec, params: Params) -> Params:
     p = dict(params)
     if spec.ffn is not None:
-        p["ffn"] = L.ffn_prestack(spec.ffn, params["ffn"])
+        prestack = M.moe_prestack if spec.moe else L.ffn_prestack
+        p["ffn"] = prestack(spec.ffn, params["ffn"])
     if spec.kind == "rglru":
         p["mixer"] = R.rglru_prestack(spec.mixer, params["mixer"])
     return p
@@ -225,13 +243,16 @@ def _map_linears(tree, fn, path: str = ""):
 
 class LM:
     """Decoder-only LM of the dense family (pattern ``("attn",)``), the
-    hybrid family (RG-LRU and sliding-window attention layers) and the ssm
-    family (SSD layers, no FFN, no positions)."""
+    hybrid family (RG-LRU and sliding-window attention layers), the ssm
+    family (SSD layers, no FFN, no positions) and the moe family (routed
+    experts in every layer's FFN, ``models/moe.py``)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         unsupported = [
-            (cfg.family not in ("dense", "hybrid", "ssm"),
+            (cfg.family not in ("dense", "hybrid", "ssm", "moe"),
              f"family {cfg.family!r}"),
+            ((cfg.family == "moe") != (cfg.moe is not None),
+             "a moe family without MoECfg (or MoECfg outside it)"),
             (cfg.pos_embed not in ("rope", "learned", "none"),
              f"pos_embed {cfg.pos_embed!r}"),
             ("local_attn" in cfg.pattern and not cfg.window,
@@ -338,7 +359,10 @@ class LM:
         reference's ``cycles.blk_j.…`` and ``tail_t.…``,
         ``weights.plan_from_jax``), its spectra averaged over the group's
         layers in fp32 as the reference's ``jnp.mean`` over its scan axis
-        does: one rank serves every layer of a group."""
+        does: one rank serves every layer of a group.  A stack of experts
+        (``layers.ffn.wi``, ``layers.ffn.wo``) is averaged over its layers,
+        then over its experts, the reference's order: one rank serves every
+        expert too."""
         found: dict[str, list] = {}
 
         def collect(path, lin):
@@ -346,7 +370,13 @@ class LM:
             return lin
 
         self._map(params, collect)
-        return {k: torch.stack(v).mean(dim=0) for k, v in found.items()}
+        out = {}
+        for k, v in found.items():
+            e = torch.stack(v)
+            while e.ndim > 1:   # the layers, then a stack's experts
+                e = e.mean(dim=0)
+            out[k] = e
+        return out
 
     def draft_plan(self, params: Params, frac: float) -> dict[str, int]:
         """Per-linear draft ranks: the globally highest-energy ~``frac`` of

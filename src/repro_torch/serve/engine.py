@@ -82,7 +82,10 @@ a request (its ``prefix_len`` hint, else ``len(prompt) - 1`` rounded down
 to a page) and clips prefill chunks to land on it.  A speculative round
 collects the verify's per-token RG-LRU states and rolls them back to the
 committed length, and restores the draft's state before its resync.  The
-int8 cache quantizes a ring's K/V and the RG-LRU state.
+int8 cache quantizes a ring's K/V and the RG-LRU state.  A MoE model (the
+moe family) needs nothing of its own here: its step routes every token of
+the (B, C) chunk, idle rows and dead columns too, which the engine pads
+as the reference's does (token 0 at step 0, n_tokens 0).
 
 Not ported yet, besides: resilience (guardrail, health,
 watchdog, fault injection, step-error requeues, ``healthz``, the round's

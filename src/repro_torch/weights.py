@@ -18,7 +18,9 @@ model's config asks for: an untied ``head``, the learned-position table
 ``bias``), ``conv_w``, ``conv_b`` and ``lam``, the SSD's ``in_proj``,
 ``out_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias`` and its
 gated norm's ``scale`` (and no ``norm2``/``ffn`` in a block without an
-FFN).  A
+FFN), a MoE FFN's dense fp32 ``router`` and its experts' ``wi`` and ``wo``
+with their leading expert axis kept (each layer's a stack, float or
+quantized: a QArray's codes and scales keep the axis too).  A
 quantized leaf — the reference's ``QArray`` (any object with ``q`` and
 ``scale``) or the ``{"q", "scale"}`` pair a checkpoint stores for it —
 becomes the port's ``QArray``: int8 codes stay int8, nibble-packed int4
@@ -35,7 +37,9 @@ tail layer ``tail_t.<group>.<name>``; the port ``layers.<group>.<name>``
 for a one-position pattern and ``layers.blk_j.…``, ``layers.tail_t.…``
 otherwise (``LM.rank_spectra``), e.g. ``cycles.blk_0.ffn.gate`` ↔
 ``layers.ffn.gate`` (a dense model), ``cycles.blk_2.mixer.qkv`` ↔
-``layers.blk_2.mixer.qkv`` (the hybrid).
+``layers.blk_2.mixer.qkv`` (the hybrid), ``cycles.blk_0.ffn.wi`` ↔
+``layers.ffn.wi`` (the experts' stack of a MoE model: one rank for every
+expert of every layer).
 
 ``load_store(directory)`` reads a ``repro/checkpoint/store.py::save``
 directory (``manifest.json`` plus one ``.npy`` per '/'-joined leaf; bf16
@@ -67,6 +71,7 @@ def _check_keys(tree: dict, allowed, where: str) -> None:
 
 
 _F32 = "fp32"   # a plain leaf kept in fp32 (the RG-LRU's decay, SSD gates)
+_FP32_LINEARS = {("ffn", "router")}   # linears the reference keeps in fp32
 
 
 def _layer_keys(model, spec) -> dict:
@@ -93,7 +98,10 @@ def _layer_keys(model, spec) -> dict:
     else:
         mixer = {"qkv": linear(mx.qkv, cfg.qkv_bias), "out": linear(mx.out)}
     keys = {"norm1": norm, "mixer": mixer}
-    if spec.ffn is not None:
+    if spec.moe:
+        keys.update(norm2=norm, ffn={name: linear(getattr(spec.ffn, name))
+                                     for name in ("router", "wi", "wo")})
+    elif spec.ffn is not None:
         keys.update(norm2=norm, ffn={name: linear(getattr(spec.ffn, name))
                                      for name in spec.ffn.names})
     return keys
@@ -125,16 +133,16 @@ def from_jax_params(model, tree: dict) -> dict:
         return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
             device=dev, dtype=dtype)
 
-    def conv_leaf(a, last_dim: int):
-        """A float leaf → tensor; a quantized leaf → QArray.  ``last_dim``:
-        the leaf's logical last dim in the model."""
+    def conv_leaf(a, last_dim: int, dtype=dt):
+        """A float leaf → tensor (of ``dtype``); a quantized leaf → QArray.
+        ``last_dim``: the leaf's logical last dim in the model."""
         if isinstance(a, dict) and set(a) == {"q", "scale"}:
             q, scale, bits, ld = a["q"], a["scale"], None, None
         elif hasattr(a, "q") and hasattr(a, "scale"):
             q, scale = a.q, a.scale
             bits, ld = getattr(a, "bits", None), getattr(a, "last_dim", None)
         else:
-            return conv(a)
+            return conv(a, dtype)
         q = np.array(q)         # a writable copy
         want = {np.dtype(np.int8): 8, np.dtype(np.uint8): 4}.get(q.dtype)
         if want is None or bits not in (None, want):
@@ -199,10 +207,12 @@ def from_jax_params(model, tree: dict) -> dict:
                         put(group, (name, leaf), conv(sub[name][leaf]))
                     continue
                 lin = getattr(linears[group], name)
+                fp32 = (group, name) in _FP32_LINEARS
                 for leaf in leaves:
                     put(group, (name, leaf),
                         conv(sub[name][leaf]) if leaf == "bias" else
-                        conv_leaf(sub[name][leaf], lin.shapes[leaf][-1]))
+                        conv_leaf(sub[name][leaf], lin.shapes[leaf][-1],
+                                  torch.float32 if fp32 else dt))
 
     for j in range(P if n_cycles else 0):
         fill(tree["cycles"][f"blk_{j}"], f"params/cycles/blk_{j}",

@@ -2,7 +2,9 @@
 ``split_plan``), on the CPU: every rank granule and every output block is
 covered exactly once, no group holds more output blocks than a kernel
 block can, no split is made at the training step's 2048 tokens, and a
-split launch stays within one wave of blocks."""
+split launch stays within one wave of blocks — also at 32 factor sets of
+3 and 80 rows each (granite-moe's batched expert launches at decode and
+at a chunk)."""
 
 import pytest
 
@@ -11,10 +13,10 @@ from repro_torch.kernels import blast_matmul as bm
 SMS, TILE_T, TILE_R, TILE_B = 132, 16, 16, 16   # an H100, the kernel's tiles
 
 
-@pytest.mark.parametrize("T", [1, 8, 37, 256, 300, 2048])
-@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("T", [1, 3, 8, 37, 80, 256, 300, 2048])
+@pytest.mark.parametrize("G", [1, 2, 32])
 @pytest.mark.parametrize("r,b", [(19, 4), (112, 16), (144, 16), (176, 16),
-                                 (144, 8), (48, 32)])
+                                 (224, 16), (144, 8), (48, 32)])
 def test_plan_covers_r_and_blocks_once(T, G, r, b):
     splits, rps, ipg = bm.split_plan(T, G, r, b, SMS, TILE_T, TILE_R, TILE_B)
     granules = -(-r // TILE_R)

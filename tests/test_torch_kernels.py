@@ -143,7 +143,18 @@ def test_cpu_path_counts_no_launches():
     ops.flash_attention_ring_q8(q, k8, k8, s8, s8,
                                 torch.zeros((1, 4), dtype=torch.int32),
                                 torch.zeros(1, dtype=torch.int32), window=4)
+    xb = x.detach()[None]
+    ops.blast_matmul_batched(xb, _t(U)[None], _t(S)[None], _t(V)[None])
+    codes = [torch.zeros((1, *a.shape), dtype=torch.int8) for a in (U, S, V)]
+    scales = (torch.ones(1, 4), torch.ones(1, 4, 4), torch.ones(1, 4))
+    for act in ("none", "int8"):
+        ops.blast_matmul_batched_q(xb, *codes, *scales, act=act)
     assert ops.launches == {"blast_matmul": 0, "blast_matmul_grouped": 0,
+                            "blast_matmul_batched": 0,
+                            "blast_matmul_batched_q": 0,
+                            "blast_matmul_batched_w8a8": 0,
+                            "blast_matmul_batched_q4": 0,
+                            "blast_matmul_batched_w4a8": 0,
                             "blast_matmul_q": 0, "blast_matmul_grouped_q": 0,
                             "blast_matmul_w8a8": 0,
                             "blast_matmul_grouped_w8a8": 0,

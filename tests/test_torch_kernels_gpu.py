@@ -190,6 +190,64 @@ class TestOnCard:
         assert got.dtype == dtype and got.shape == (G, T, b * p)
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                           (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("mode", ["float", "int8", "w8a8", "int4",
+                                      "w4a8"])
+    @pytest.mark.parametrize("E,T,b,p,q,r", [
+        (32, 3, 16, 64, 64, 224), (32, 80, 16, 64, 32, 144),
+        (4, 37, 4, 24, 16, 19), (3, 1, 16, 96, 36, 176)])
+    def test_blast_batched_kernels(self, cuda, mode, dtype, tol, E, T, b, p,
+                                   q, r):
+        """The batched launch (the MoE experts: set e on its own rows x[e],
+        a per-set x stride): granite-moe's ``wi`` and ``wo`` at decode and
+        at a chunk, ragged shapes, each storage; every set's last row zero
+        (an empty capacity slot: scale 1, zero codes); two launches bit for
+        bit; one launch counted under the mode's own key."""
+        rng = np.random.default_rng(E + T + r)
+        U, S, V = (_t(a).to(cuda) / 4 for a in
+                   _factors(rng, b, p, q, r, lead=(E,)))
+        x = _t(rng.standard_normal((E, T, b * q)).astype(np.float32)).to(
+            cuda, dtype)
+        x[:, -1] = 0
+        ops.reset_launches()
+        if mode == "float":
+            U, S, V = (a.to(dtype) for a in (U, S, V))
+            key = "blast_matmul_batched"
+            run = lambda: ops.blast_matmul_batched(x, U, S, V)  # noqa: E731
+            want = ref.blast_matmul_batched_ref(x, U, S, V)
+        else:
+            bits = 4 if mode in ("int4", "w4a8") else 8
+            act = "int8" if mode.startswith("w") else "none"
+            qs = [quant.quantize(a, bits=bits, block_axes=axes) for a, axes
+                  in ((U, (2, 3)), (S, (3,)), (V, (2, 3)))]
+            codes = [a.q for a in qs]
+            scales = (qs[0].scale.reshape(E, b), qs[1].scale.reshape(E, b, b),
+                      qs[2].scale.reshape(E, b))
+            fn = (ops.blast_matmul_batched_q4 if bits == 4
+                  else ops.blast_matmul_batched_q)
+            key = {"int8": "blast_matmul_batched_q",
+                   "w8a8": "blast_matmul_batched_w8a8",
+                   "int4": "blast_matmul_batched_q4",
+                   "w4a8": "blast_matmul_batched_w4a8"}[mode]
+            run = lambda: fn(x, *codes, *scales, act=act)  # noqa: E731
+            if act == "int8":
+                xq, sx = quant.quantize_act(x)
+                plain = (ref.blast_matmul_batched_a4_ref if bits == 4
+                         else ref.blast_matmul_batched_a8_ref)
+                want = plain(xq, sx, *codes, *scales).to(dtype)
+            else:
+                plain = (ref.blast_matmul_batched_q4_ref if bits == 4
+                         else ref.blast_matmul_batched_q_ref)
+                want = plain(x, *codes, *scales)
+        got = run()
+        torch.cuda.synchronize()
+        assert ops.launches[key] == 1 and sum(ops.launches.values()) == 1
+        assert got.dtype == dtype and got.shape == (E, T, b * p)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        assert torch.equal(run(), got)
+
     @pytest.mark.parametrize("act", ["none", "int8"])
     @pytest.mark.parametrize("bits", [8, 4])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
