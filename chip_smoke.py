@@ -46,9 +46,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    80 rows an expert, each row set ending in a zero row, fp32 and bf16, in
    float, int8, W8A8, int4 and W4A8, two launches of each at 3 rows bit
    for bit.
-4. grads — fp32 gradients of the three autograd Functions on the training
-   path (B1, B2, B4) against torch.autograd through the plain versions, at
-   2048 tokens: within 1e-4 × each gradient's largest entry.
+4. grads — fp32 gradients of the four autograd Functions on the training
+   path (B1, B2, B4 and the batched expert launch) against torch.autograd
+   through the plain versions, at 2048 tokens, and at granite-moe's
+   ``wi`` and ``wo`` with 32 experts of 640 rows (full, and with empty
+   capacity slots; one batched forward and one batched dx launch): within
+   1e-4 × each gradient's largest entry.
 5. reference — the full-width model (fp32, depth cut to 2 layers) on the
    card through the kernels against the same model on the CPU through the
    plain versions, over ragged multi-chunk steps, in each serving mode:
@@ -81,8 +84,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    checking that its own differ only at near-ties of 1e-5).
 6. train_reference — the same 2-layer fp32 model, one training batch:
    loss, every gradient and the parameters after one AdamW step on the
-   card against the CPU; ``LM.apply(last_only=True)`` against
-   ``prefill_chunk`` (B4 against B3).
+   card against the CPU.  The same for gpt2-blast (2 layers),
+   recurrentgemma-2b (3 layers, window 64, 200 tokens a row: past the
+   window), mamba2-130m (4 layers) and granite-moe-1b-a400m (2 layers,
+   ``aux`` too, the card's expert ids shared with the CPU after the
+   near-tie check), at full width.  Then, once (their results do not
+   depend on the family), on smollm-135m's 2 layers: the optimizer alone
+   (the card's AdamW step against the CPU's on the card's gradients) and
+   ``LM.apply(last_only=True)`` against ``prefill_chunk`` (B4 against
+   B3).
 7. serve — full-width smollm-135m (30 layers, vocab 49152, bf16, seeded
    random weights) served by the engine in each mode (weights quantized at
    load): 16 prompts of 16-200 tokens, 32 new tokens each, once through
@@ -152,7 +162,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    granite-moe-1b-a400m at full width (24 layers, 32 experts top-8 of
    512, capacity 1.25, vocab 49155 tied, 682,381,312 parameters counted;
    the attention's out projections ×0.3 so that the per-token path decides
-   the tokens) in six modes — float and the int8 cache at full depth,
+   the tokens) in six modes — float at full depth, the int8 cache and
    int8, W8A8, int4, W4A8 weights at 4 layers — captured and eager
    (tokens equal, launches steps × (2 B1, 2 batched expert launches, 1 B3
    by key position) a layer in the mode's kernels), paged = slot-static
@@ -209,19 +219,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    each a CUDA graph timed by CUDA events.
 10. train — full-width smollm-135m trained by the port's ``Trainer`` for 20
    steps through the captured step (bf16, remat, batch 8 × seq 256 of the
-   Markov ``TokenStream``, lr 3e-4 with warmup 5; one eager warm-up step,
+   Markov ``TokenStream``, lr 1e-3 with warmup 5; one eager warm-up step,
    then one CUDA graph of the whole step): per step loss, grad norm,
    skipped flag, time and launches; the median step time, training
    tokens/s, peak device memory, launches per step, and one more step
    under torch.profiler each way.  Every loss finite, no step skipped, the
-   last 5 losses' mean below the first, B4 launched 30 × 2 times a step,
+   loss of a batch no step sees lower after the run than before, B4
+   launched 30 × 2 times a step,
    no serving-only kernel; the profiled step's attention is the bf16 tile
    kernel alone, 60 launches.  A ``Trainer(jit=False)`` from the same init
    on the same batches: loss, grad norm and every parameter equal the
    captured run's bit for bit after each of 3 steps.  One more captured
    step whose loss is made non-finite (NaN in the embedding row of its
    first token) reports skipped, leaves params, m and v bit for bit and
-   still counts.
+   still counts.  Then the same captured run (no profile) for gpt2-blast
+   (6 of 12 layers, 60 steps), recurrentgemma-2b (3 of 26: one cycle, 10
+   steps), mamba2-130m (12 of 24, 20 steps) and granite-moe-1b-a400m (6
+   of 24, 20 steps; the batched expert launches forward, in remat's
+   recompute and as dx counted), each at full width, batch 8 × 256, lr
+   1e-3: captured = eager bit for bit for 3 steps, the NaN step skipped,
+   and a held-out batch's loss lower after the run than before (gpt2-blast's
+   rises over its first 20 to 40 steps, as the reference's does).
 11. timing — CUDA events, median of 25 runs after warm-up with the L2 cache
    flushed before each run: kernel, plain version and one PyTorch library
    call (a yardstick only; the port never calls it), at decode, prefill
@@ -239,8 +257,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    then that SDPA).  mamba2-130m's: its two BLAST shapes at T = 8 and
    256, float and the four quantized modes.  granite-moe-1b-a400m's: the
    batched expert kernel at ``wi`` and ``wo``, 32 experts at 3 and 80
-   rows, float and the four quantized modes (library: ``torch.bmm`` of
-   each expert's rows with its dense matrix).
+   rows, float and the four quantized modes, and at a training step's
+   640 rows forward and as dx (library: ``torch.bmm`` of each expert's
+   rows with its dense matrix).
    The profiles of phases 7 and 10 also sum the
    BLAST tile kernel's two ``__global__``s (``blast_tile_kernel``,
    ``blast_split_sum``) and the attention kernel's (``attn_tile_kernel``,
@@ -268,9 +287,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
-# the training run: the launcher's defaults (batch 8 × seq 256, lr 3e-4),
-# warmup 5, 20 steps
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 8, 256, 20, 3e-4, 5
+# the training runs: the launcher's batch 8 × seq 256, lr 1e-3 (every
+# family; see TRAIN_RUNS), warmup 5, 20 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 8, 256, 20, 1e-3, 5
 PEAK_FLOPS = {"float32": 67e12,         # no tensor cores
               "bfloat16": 989e12,       # dense tensor cores
               "int8": 1979e12}
@@ -2514,17 +2533,35 @@ def _rel_grad_err(got, want) -> float:
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-def phase_grads(cfg):
-    """fp32 gradients of the three autograd Functions on the card (kernel
-    forward, B1 for BLAST dx, explicit backward) against torch.autograd
-    through the plain versions on the same inputs, at smollm-135m's
-    training shapes (2048 tokens): each gradient within 1e-4 × its largest
-    entry."""
+def phase_grads(cfg, moe):
+    """fp32 gradients of the four autograd Functions on the card (kernel
+    forward, B1 for BLAST dx, the batched launch for the experts' dx,
+    explicit backward) against torch.autograd through the plain versions on
+    the same inputs, at smollm-135m's training shapes (2048 tokens) and at
+    granite-moe's ``wi`` and ``wo`` (32 experts of ``MOE_TRAIN_ROWS`` rows,
+    its capacity at 2048 tokens; full, and with each expert's last 1–7
+    rows zero, empty capacity slots): each gradient within 1e-4 × its
+    largest entry."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator().manual_seed(SEED + 3)
     T = TRAIN_BATCH * TRAIN_SEQ
     cases = []
+    E = moe.moe.n_experts
+    for name, n, m, b, r in moe_shapes(moe):
+        for empty in (False, True):
+            x, U, S, V = make_blast_inputs(n, m, b, r, E, E * MOE_TRAIN_ROWS,
+                                           torch.float32, gen, DEVICE)
+            x = x.reshape(E, MOE_TRAIN_ROWS, n)
+            if empty:
+                for e in range(E):
+                    x[e, MOE_TRAIN_ROWS - 1 - e % 7:] = 0
+            slots = " empty slots" if empty else ""
+            cases.append((f"blast_matmul_batched[{MOE} {name} E={E} rows="
+                          f"{MOE_TRAIN_ROWS}{slots}]",
+                          ops.blast_matmul_batched,
+                          ref.blast_matmul_batched_ref, [x, U, S, V],
+                          ("dx", "dU", "dS", "dV")))
     for name, n, m, b, r, G in blast_shapes(cfg):
         x, U, S, V = make_blast_inputs(n, m, b, r, G, T, torch.float32, gen,
                                        DEVICE)
@@ -2543,6 +2580,7 @@ def phase_grads(cfg):
     cases.append(("flash_attention[B=8 T=256]", ops.flash_attention,
                   ref.attention_ref, [q, k, v], ("dq", "dk", "dv")))
     for name, fn, plain, inputs, names in cases:
+        ops.reset_launches()
         a = [t.detach().clone().requires_grad_(True) for t in inputs]
         b_ = [t.detach().clone().requires_grad_(True) for t in inputs]
         y = fn(*a)
@@ -2551,66 +2589,88 @@ def phase_grads(cfg):
         want = torch.autograd.grad(plain(*b_), b_, dy)
         torch.cuda.synchronize()
         errs = {n_: _rel_grad_err(g, w) for n_, g, w in zip(names, got, want)}
+        launched = {k: v for k, v in ops.launches.items() if v}
         ok = all(e <= 1e-4 for e in errs.values())
+        if fn is ops.blast_matmul_batched:
+            ok = ok and launched == {"blast_matmul_batched": 1,
+                                     "blast_matmul_batched_dx": 1}
         emit({"phase": "grads", "case": name, "dtype": "float32",
-              "max_err_over_max_grad": errs, "limit": 1e-4, "ok": ok})
+              "max_err_over_max_grad": errs, "launches": launched,
+              "limit": 1e-4, "ok": ok})
         if not ok:
-            raise RuntimeError(f"grads[{name}]: {errs} past 1e-4")
+            raise RuntimeError(f"grads[{name}]: {errs} past 1e-4, or "
+                               f"launches {launched}")
 
 
 ADAM_NOISE = 1e-3   # see phase_train_reference
 
 
-def phase_train_reference(cfg):
-    """Full width, 2 layers, fp32, one batch of 2 × 128 tokens: the card
+def _adamw_step(params: list, grads, decay, lr) -> float:
+    """One AdamW step (a constant ``lr``) in place; returns the skipped
+    flag."""
+    from repro_torch.optim import adamw, constant_schedule
+    opt = adamw(constant_schedule(lr))
+    return float(opt.update(list(grads), opt.init(params), params,
+                            decay=decay)[2]["skipped"])
+
+
+def phase_train_reference(cfg, layers=2, seq=128, **over):
+    """Full width, ``layers`` layers, fp32, one batch of 2 × ``seq``
+    tokens (``over``: other config fields, a hybrid's window): the card
     (kernels) against the CPU (plain versions) from the same seeded
-    weights.  Loss within 1e-5 relative; every gradient within 1e-4 × its
-    leaf's largest entry.  One AdamW step on each device's own gradients:
-    every parameter within 1e-6, except entries whose CPU gradient is below
+    weights.  Loss within 1e-5 relative (a MoE model's ``aux`` too; the
+    CPU takes the card's expert ids, ``SharedRouting``, after its near-tie
+    check, remat's recompute routing again on both); every gradient within
+    1e-4 × its leaf's largest entry.  One AdamW step (the trainer's decay
+    rule, ``LM.decay_mask``) on each device's own gradients, both steps
+    run on the card (the optimizer has no kernel; the card's AdamW is held
+    against the CPU's on the same gradients once, in
+    ``phase_optimizer_and_last_only``, and the CPU's is slow over a
+    hybrid's 743 M parameters): every
+    parameter within 1e-6, except entries whose CPU gradient is below
     ``ADAM_NOISE`` × its leaf's largest, bounded by 2 × lr.  There AdamW's
     first step, lr·g/(|g| + eps) on the clipped gradient, turns the
     gradients' rounding into step differences above 1e-6 (the clipped |g|
     is within a few tens of eps); the error at the narrower cut of 1e-6 ×
-    the leaf's largest is reported beside it.  And the optimizer alone:
-    the card's step against the CPU's AdamW on the card's gradients, every
-    parameter within 1e-6.  Then ``LM.apply(last_only=True)`` against
-    ``prefill_chunk`` on the card (B4 against B3), logits within 1e-4."""
+    the leaf's largest is reported beside it."""
+    import contextlib
     import torch
     from repro_torch.data import TokenStream
     from repro_torch.models import build_model
-    from repro_torch.optim import adamw, constant_schedule
     from repro_torch.train import make_loss_fn
-    from repro_torch.tree import leaves
-    small = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
-                                compute_dtype="float32")
+    from repro_torch.tree import leaves, tree_map
+    small = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32",
+                                compute_dtype="float32", **over)
     lr = 1e-3
-    batch = TokenStream(vocab=cfg.vocab, seq_len=128, global_batch=2,
+    batch = TokenStream(vocab=cfg.vocab, seq_len=seq, global_batch=2,
                         seed=SEED).batch(0)
-    def adamw_step(params: list, grads) -> float:
-        """One AdamW step in place; returns the skipped flag."""
-        opt = adamw(constant_schedule(lr))
-        return float(opt.update(list(grads), opt.init(params), params)[2][
-            "skipped"])
-
+    routing = SharedRouting() if cfg.moe else None
+    # ``LM.init(SEED)`` drawn once, on the host; each device trains a copy
+    cpu_model = build_model(small, device="cpu")
+    init = cpu_model.init(SEED)
+    models = (build_model(small, device=DEVICE), cpu_model)
     out = []
-    for dev in (DEVICE, "cpu"):
-        model = build_model(small, device=dev)
-        params = model.init(SEED)
-        flat = leaves(params)
-        for t in flat:
-            t.requires_grad_(True)
-        loss, _ = make_loss_fn(model)(params, batch)
-        grads = torch.autograd.grad(loss, flat)
-        skipped = adamw_step(flat, grads)
-        out.append((model, float(loss.detach()), [g.cpu() for g in grads],
-                    [p.detach().cpu() for p in flat], skipped))
-    (model, loss_g, grads_g, after_g, skip_g), (_, loss_c, grads_c, after_c,
-                                                skip_c) = out
-    same_grads = [p.detach() for p in leaves(out[1][0].init(SEED))]
-    adamw_step(same_grads, grads_g)
-    optimizer_err = max(float((a - c).abs().max())
-                        for a, c in zip(after_g, same_grads))
+    with routing or contextlib.nullcontext():
+        for i, model in enumerate(models):
+            params = tree_map(lambda t: t.to(model.device, copy=True), init)
+            decay = model.decay_mask(params)
+            flat = leaves(params)
+            for t in flat:
+                t.requires_grad_(True)
+            if routing is not None:
+                routing.recording = i == 0      # the card's run
+            loss, metrics = make_loss_fn(model)(params, batch)
+            # the CPU's gradients and its copy of the init move to the
+            # card, where the step runs and the results are compared
+            grads = [g.to(DEVICE) for g in torch.autograd.grad(loss, flat)]
+            flat = [p.detach().to(DEVICE) for p in flat]
+            skipped = _adamw_step(flat, grads, decay, lr)
+            out.append((model, float(loss.detach()), grads, flat, skipped,
+                        float(metrics["aux"].detach())))
+    (_, loss_g, grads_g, after_g, skip_g, aux_g), (
+        _, loss_c, grads_c, after_c, skip_c, aux_c) = out
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    aux_rel = abs(aux_g - aux_c) / abs(aux_c) if cfg.moe else 0.0
     grad_err = max(_rel_grad_err(g, c) for g, c in zip(grads_g, grads_c))
     by_cut = {}
     for cut in (1e-6, ADAM_NOISE):
@@ -2624,34 +2684,88 @@ def phase_train_reference(cfg):
             n_noise += int(nz.sum())
         by_cut[cut] = {"max_param_err": param_err, "noise_entries": n_noise,
                        "max_noise_entry_err": noise_err}
-    # B4 (apply, last_only) against B3 (prefill_chunk) on the card
-    params = model.init(SEED)
-    toks = batch["tokens"][:, :128]
-    with torch.no_grad():
-        last = model.apply(params, toks, last_only=True).logits
-    pre, _ = model.prefill_chunk(params, model.init_cache(2, 128), toks,
-                                 [0, 0], [128, 128])
-    lo_err = float((last - pre).abs().max())
     held = by_cut[ADAM_NOISE]
-    ok = (loss_rel <= 1e-5 and grad_err <= 1e-4 and optimizer_err <= 1e-6
+    ok = (loss_rel <= 1e-5 and aux_rel <= 1e-5 and grad_err <= 1e-4
           and held["max_param_err"] <= 1e-6
-          and held["max_noise_entry_err"] <= 2 * lr and lo_err <= 1e-4
+          and held["max_noise_entry_err"] <= 2 * lr
           and skip_g == skip_c == 0)
-    emit({"phase": "train_reference", "layers": 2, "d_model": cfg.d_model,
-          "vocab": cfg.vocab, "dtype": "float32", "tokens": [2, 128],
+    emit({"phase": "train_reference", "arch": cfg.name, "layers": layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": "float32",
+          "tokens": [2, seq], **over,
           "loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": loss_rel,
+          **({"aux_card": aux_g, "aux_cpu": aux_c, "aux_rel_err": aux_rel,
+              "routing": {"calls": routing.calls, "tokens": routing.tokens,
+                          "tokens_with_swapped_experts": routing.flips,
+                          "max_gap_at_swaps": routing.max_gap}}
+             if cfg.moe else {}),
           "max_grad_err_over_leaf_max": grad_err,
           "after_step_by_noise_cut": {str(k): v for k, v in by_cut.items()},
           "params": sum(a.numel() for a in after_c),
+          "limits": {"loss_rel": 1e-5, "aux_rel": 1e-5, "grad": 1e-4,
+                     "param": 1e-6, "noise_cut": ADAM_NOISE,
+                     "noise": 2 * lr}, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"train_reference[{cfg.name}]: the card's "
+                           "training step differs from the CPU's past its "
+                           "limits")
+
+
+def phase_optimizer_and_last_only(cfg, layers=2, seq=128):
+    """Two checks that do not depend on the family, on ``cfg`` at full
+    width, ``layers`` layers, fp32: the optimizer alone — one AdamW step
+    on the card against the CPU's AdamW on the same (the card's)
+    gradients, every parameter within 1e-6 — and
+    ``LM.apply(last_only=True)`` against ``prefill_chunk`` on the card (B4
+    against B3), logits within 1e-4."""
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.train import make_loss_fn
+    from repro_torch.tree import leaves, tree_map
+    small = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32",
+                                compute_dtype="float32")
+    lr = 1e-3
+    toks = TokenStream(vocab=cfg.vocab, seq_len=seq, global_batch=2,
+                       seed=SEED).batch(0)["tokens"]
+    model = build_model(small, device=DEVICE)
+    init = model.init(SEED)
+    params = tree_map(lambda t: t.clone().requires_grad_(True), init)
+    flat = leaves(params)
+    grads = torch.autograd.grad(
+        make_loss_fn(model)(params, {"tokens": toks})[0], flat)
+    decay = model.decay_mask(params)
+    card = [p.detach().clone() for p in flat]
+    host = [p.detach().cpu() for p in flat]
+    _adamw_step(card, grads, decay, lr)
+    _adamw_step(host, [g.cpu() for g in grads], decay, lr)
+    optimizer_err = max(float((a.cpu() - c).abs().max())
+                        for a, c in zip(card, host))
+    # B4 (apply, last_only) against B3 (prefill_chunk)
+    toks = toks[:, :seq]
+    with torch.no_grad():
+        last = model.apply(init, toks, last_only=True).logits
+    pre, _ = model.prefill_chunk(init, model.init_cache(2, seq), toks,
+                                 [0, 0], [seq, seq])
+    lo_err = float((last - pre).abs().max())
+    ok = optimizer_err <= 1e-6 and lo_err <= 1e-4
+    emit({"phase": "optimizer_and_last_only", "arch": cfg.name,
+          "layers": layers, "dtype": "float32", "tokens": [2, seq],
           "same_grads_optimizer_max_param_err": optimizer_err,
           "last_only_vs_prefill_chunk_max_abs_err": lo_err,
-          "limits": {"loss_rel": 1e-5, "grad": 1e-4, "param": 1e-6,
-                     "same_grads_optimizer": 1e-6,
-                     "noise_cut": ADAM_NOISE, "noise": 2 * lr,
-                     "last_only": 1e-4}, "ok": ok})
+          "limits": {"same_grads_optimizer": 1e-6, "last_only": 1e-4},
+          "ok": ok})
     if not ok:
-        raise RuntimeError("train_reference: the card's training step "
-                           "differs from the CPU's past its limits")
+        raise RuntimeError("optimizer_and_last_only: the card's AdamW or "
+                           "B4's last logits differ past their limits")
+
+
+# the train_reference runs: arch → (layers, tokens a row, config fields);
+# recurrentgemma-2b at a window of 64 over 200 tokens, so B4's window and
+# the RG-LRU scan run under autograd past the window
+TRAIN_REFERENCE = {"smollm-135m": (2, 128, {}), "gpt2-blast": (2, 128, {}),
+                   "recurrentgemma-2b": (3, 200, {"window": 64}),
+                   "mamba2-130m": (4, 128, {}),
+                   "granite-moe-1b-a400m": (2, 128, {})}
 
 
 def _bits(t):
@@ -2660,7 +2774,7 @@ def _bits(t):
     return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
 
 
-def _trainer(cfg, jit, log):
+def _trainer(cfg, jit, log, lr=TRAIN_LR, steps=TRAIN_STEPS):
     """The port's ``Trainer`` at the launcher's shape, from ``LM.init(SEED)``,
     its ``train_step`` wrapped to time each step and record its metrics,
     its launches and (``log["keep"]`` steps) every parameter after it."""
@@ -2672,7 +2786,7 @@ def _trainer(cfg, jit, log):
     from repro_torch.train import Trainer
     from repro_torch.tree import leaves
     model = build_model(cfg, device=DEVICE)
-    opt = adamw(cosine_schedule(TRAIN_LR, TRAIN_STEPS, TRAIN_WARMUP))
+    opt = adamw(cosine_schedule(lr, steps, TRAIN_WARMUP))
     data = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                        global_batch=TRAIN_BATCH, seed=SEED)
     trainer = Trainer(model, opt, data, jit=jit, log_every=10 ** 9)
@@ -2743,43 +2857,99 @@ def _profile_train_step(trainer, result, step, want_b4, eager=False):
     return out
 
 
-def phase_train(cfg, eager_steps=3):
-    """Full-width smollm-135m trained by the port's ``Trainer`` (30 layers,
-    bf16, remat, seeded ``LM.init``, the ``TokenStream`` at the launcher's
-    batch 8 × seq 256, AdamW with a cosine schedule): 20 steps through the
-    captured step (``jit=True``, the default: one eager warm-up step, then
-    a CUDA graph), then ``eager_steps`` steps of a ``jit=False`` trainer
-    from the same init on the same batches, whose loss, grad norm and every
-    parameter must equal the captured run's bit for bit after each of the
-    first 3 steps.  One profiled step each way; then one captured step
-    whose loss is made non-finite (NaN in the embedding row of the batch's
-    first token) must be skipped, leave params, m and v bit for bit and
-    still count.  Returns the launch counts of the captured run."""
+# kernels each family's training step launches (every one of them, and no
+# other): B1 everywhere, B2 where a bundle shares an input (smollm's gate +
+# up, the hybrid's in_gate + in_x), B4 in every attention layer (mamba2 has
+# none), the batched expert launch and its dx in granite-moe
+TRAIN_KERNELS = {
+    "smollm-135m": ("blast_matmul", "blast_matmul_grouped", "flash_attention",
+                    "blast_matmul_dx"),
+    "gpt2-blast": ("blast_matmul", "flash_attention", "blast_matmul_dx"),
+    "recurrentgemma-2b": ("blast_matmul", "blast_matmul_grouped",
+                          "flash_attention", "blast_matmul_dx"),
+    "mamba2-130m": ("blast_matmul", "blast_matmul_dx"),
+    "granite-moe-1b-a400m": ("blast_matmul", "flash_attention",
+                             "blast_matmul_dx", "blast_matmul_batched",
+                             "blast_matmul_batched_dx")}
+# the other families' train runs: arch → (layers, captured steps), cut in
+# depth for the script's time: recurrentgemma-2b to one cycle (rglru,
+# rglru, local_attn: its RG-LRU scan runs token by token) and 10 steps,
+# mamba2-130m to 12 of its 24 layers, granite-moe to 6 of 24, gpt2-blast
+# to 6 of 12.  gpt2-blast trains 60 steps: at lr 1e-3 on 8 × 256 tokens
+# its held-out loss rises over the first 20 to 40 steps before it falls,
+# and the reference's does the same
+# (``tests/test_torch_train_witness.py``)
+TRAIN_RUNS = {"gpt2-blast": (6, 60), "recurrentgemma-2b": (3, 10),
+              "mamba2-130m": (12, 20), "granite-moe-1b-a400m": (6, 20)}
+# a batch no training run sees: its loss before and after a run
+HELDOUT_BATCH = 10 ** 6
+
+
+def phase_train(cfg, steps=TRAIN_STEPS, eager_steps=3, profile=True,
+                lr=TRAIN_LR):
+    """``cfg`` at full width trained by the port's ``Trainer`` (bf16, remat,
+    seeded ``LM.init``, the ``TokenStream`` at the launcher's batch 8 × seq
+    256, AdamW with a cosine schedule over ``TRAIN_STEPS``): ``steps``
+    steps through the captured step (``jit=True``, the default: one eager
+    warm-up step, then a CUDA graph), then ``eager_steps`` steps of a
+    ``jit=False`` trainer from the same init on the same batches, whose
+    loss, grad norm and every parameter must equal the captured run's bit
+    for bit after each of the first 3 steps.  The kernels launched are
+    ``TRAIN_KERNELS[cfg.name]``, each of them, B4 once an attention layer
+    and once more in remat's recompute (a MoE layer's two batched launches
+    the same, and two batched dx launches).  The loss must fall: the loss
+    on ``HELDOUT_BATCH``, a batch no step sees, below its loss before the
+    run.  With
+    ``profile`` one profiled step each way.  Then one captured step whose loss is made
+    non-finite (NaN in the embedding row of the batch's first token) must
+    be skipped, leave params, m and v bit for bit and still count.
+    Returns the launch counts of the captured run."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.tree import leaves
+    from repro_torch.train import make_loss_fn
+    from repro_torch.tree import leaves, tree_map
     logs = {path: {"rows": [], "params": [], "keep": 3}
             for path in ("graphs", "eager")}
-    trainer = _trainer(cfg, True, logs["graphs"])
+    trainer = _trainer(cfg, True, logs["graphs"], lr, steps)
+    # ``LM.init(SEED)`` drawn once (on the host, seconds at full width):
+    # the captured run trains a copy, the eager run the draw itself
+    init = trainer.model.init(SEED)
+    trainer.model.init = lambda seed: tree_map(torch.clone, init)
+    heldout = {"tokens": trainer.data.batch(HELDOUT_BATCH)["tokens"].to(
+        DEVICE)}
+
+    def heldout_loss(params) -> float:
+        with torch.no_grad():
+            return float(make_loss_fn(trainer.model)(params, heldout)[0])
+
+    heldout_before = heldout_loss(init)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    result = trainer.run(TRAIN_STEPS, seed=SEED)
+    result = trainer.run(steps, seed=SEED)
     torch.cuda.synchronize()
     launches = dict(ops.launches)
     peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
-    want_b4 = L * (1 + int(cfg.remat))
-    prof = retried(_profile_train_step)(trainer, result, TRAIN_STEPS,
-                                        want_b4)
-    ms = statistics.median(r["ms"] for r in
-                           logs["graphs"]["rows"][3:TRAIN_STEPS])
-    prof["device_idle_share_of_median_step"] = 1 - prof[
-        "device_busy_ms"] / ms
-    per_step = logs["graphs"]["rows"][:TRAIN_STEPS]
-    # the NaN step: a replay of the captured graph
+    rc = 1 + int(cfg.remat)
+    want = {"flash_attention": rc * sum(
+        s.kind in ("attn", "local_attn") for s in trainer.model.specs)}
+    if cfg.moe:
+        want.update(blast_matmul_batched=2 * L * rc,
+                    blast_matmul_batched_dx=2 * L)
+    prof = prof_eager = None
+    if profile:
+        prof = retried(_profile_train_step)(trainer, result, steps,
+                                            want["flash_attention"])
+    ms = statistics.median(r["ms"] for r in logs["graphs"]["rows"][3:steps])
+    if prof:
+        prof["device_idle_share_of_median_step"] = 1 - prof[
+            "device_busy_ms"] / ms
+    per_step = logs["graphs"]["rows"][:steps]
     params, state = result["params"], result["opt_state"]
-    batch = trainer.data.batch(TRAIN_STEPS + 1)
+    heldout_after = heldout_loss(params)
+    # the NaN step: a replay of the captured graph
+    batch = trainer.data.batch(steps + 1)
     tok = int(batch["tokens"][0, 0])
     embed = params["embed"]
     held = embed.detach()[tok].clone()
@@ -2797,17 +2967,25 @@ def phase_train(cfg, eager_steps=3):
         embed[tok] = held
     graphs, capture_s = trainer.stats["graphs"], trainer.stats["capture_s"]
     del trainer, result, params, state, before, embed
+    # the wrapped ``train_step`` holds its trainer in a reference cycle:
+    # collect it, and the captured graph's pool, before the eager run
+    gc.collect()
+    torch.cuda.empty_cache()
     # the eager trainer, from the same init on the same batches
-    eager = _trainer(cfg, False, logs["eager"])
+    eager = _trainer(cfg, False, logs["eager"], lr, steps)
+    eager.model.init = lambda seed: init
     eager_result = eager.run(eager_steps, seed=SEED)
-    prof_eager = retried(_profile_train_step)(eager, eager_result,
-                                              eager_steps,
-                                     want_b4, eager=True)
+    del init
+    if profile:
+        prof_eager = retried(_profile_train_step)(
+            eager, eager_result, eager_steps, want["flash_attention"],
+            eager=True)
     # the eager steps' median, the first (cold allocator) left out
     eager_ms = statistics.median(r["ms"] for r in
                                  logs["eager"]["rows"][1:eager_steps])
-    prof_eager["device_idle_share_of_median_step"] = 1 - prof_eager[
-        "device_busy_ms"] / eager_ms
+    if prof_eager:
+        prof_eager["device_idle_share_of_median_step"] = 1 - prof_eager[
+            "device_busy_ms"] / eager_ms
     del eager, eager_result
     ga, ea = logs["graphs"], logs["eager"]
     same = [ga["rows"][i]["loss"] == ea["rows"][i]["loss"]
@@ -2815,22 +2993,27 @@ def phase_train(cfg, eager_steps=3):
             and all(torch.equal(x, y) for x, y in zip(ga["params"][i],
                                                      ea["params"][i]))
             for i in range(min(3, eager_steps))]
+    ga["params"].clear()
+    ea["params"].clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     losses = [r["loss"] for r in per_step]
     eager_rows = ea["rows"][:eager_steps]
-    trained = {"blast_matmul", "blast_matmul_grouped", "flash_attention",
-               "blast_matmul_dx"}
+    trained = set(TRAIN_KERNELS[cfg.name])
     stray = {k: v for k, v in launches.items() if v and k not in trained}
     emit({"phase": "train", "arch": cfg.name, "layers": L,
           "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.param_dtype,
           "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-          "steps": TRAIN_STEPS, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+          "steps": steps, "lr": lr, "warmup": TRAIN_WARMUP,
           "graphs": graphs, "capture_s": capture_s,
-          "first_loss": losses[0], "last5_mean_loss":
-              statistics.fmean(losses[-5:]),
+          "losses": losses, "first_loss": losses[0],
+          "last5_mean_loss": statistics.fmean(losses[-5:]),
+          "heldout_loss_before": heldout_before,
+          "heldout_loss_after": heldout_after,
           "median_step_ms_after_3": ms,
           "train_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
           "max_memory_allocated_bytes": peak,
-          "launches_per_step": {k: v / TRAIN_STEPS
+          "launches_per_step": {k: v / steps
                                 for k, v in launches.items() if v},
           "eager_steps": eager_steps,
           "eager_step_ms": [r["ms"] for r in eager_rows],
@@ -2838,18 +3021,20 @@ def phase_train(cfg, eager_steps=3):
           "graphs_equal_eager_bitwise_per_step": same,
           "nan_step": {"skipped": nan_skipped, "held": nan_held,
                        "counted": nan_counted},
-          "profile": prof, "profile_eager": prof_eager})
+          **({"profile": prof, "profile_eager": prof_eager}
+             if profile else {})})
     bad = []
-    if not all(map(math.isfinite, losses)) or len(losses) != TRAIN_STEPS:
+    if not all(map(math.isfinite, losses)) or len(losses) != steps:
         bad.append(f"losses {losses}")
     if any(r["skipped"] for r in per_step + eager_rows):
         bad.append("a step was skipped")
-    if not statistics.fmean(losses[-5:]) < losses[0]:
-        bad.append(f"the last 5 losses' mean is not below the first "
-                   f"({losses})")
-    if launches["flash_attention"] != want_b4 * TRAIN_STEPS:
-        bad.append(f"B4 launched {launches['flash_attention']} times, want "
-                   f"{want_b4 * TRAIN_STEPS}")
+    if not heldout_after < heldout_before:
+        bad.append(f"the held-out batch's loss did not fall: "
+                   f"{heldout_before} → {heldout_after}")
+    for k, n in want.items():
+        if launches[k] != n * steps:
+            bad.append(f"{k} launched {launches[k]} times, want "
+                       f"{n * steps}")
     if stray:
         bad.append(f"kernels off the training path launched: {stray}")
     if any(launches[k] == 0 for k in trained):
@@ -2862,7 +3047,7 @@ def phase_train(cfg, eager_steps=3):
         bad.append("the non-finite step under capture was not skipped "
                    "cleanly")
     if bad:
-        raise RuntimeError("train: " + "; ".join(bad))
+        raise RuntimeError(f"train[{cfg.name}]: " + "; ".join(bad))
     return launches
 
 
@@ -3139,6 +3324,7 @@ def moe_timing_rows(moe, gen, flush) -> list:
     with its dense bf16 matrix (dense work, not the same operations)."""
     import torch
     from repro_torch.core import blast as blast_lib
+    from repro_torch.kernels import ops, ref
     E, dt, elt = moe.moe.n_experts, torch.bfloat16, 2
     out = []
     for name, n, m, b, r in moe_shapes(moe):
@@ -3157,6 +3343,35 @@ def moe_timing_rows(moe, gen, flush) -> list:
                     blast_cost(n, m, b, r, E, rows, elt, mode, batched=True),
                     flush, arch=moe.name, rows=rows))
             del x, U, S_, V, dense
+        # the training step: the forward and the experts' dx (one batched
+        # launch over the transposed factors) at its capacity of 640 rows
+        rows, T = MOE_TRAIN_ROWS, TRAIN_BATCH * TRAIN_SEQ
+        x, U, S_, V = moe_inputs(n, m, b, r, E, rows, dt, gen)
+        dense = torch.stack([blast_lib.to_dense(blast_lib.BlastParams(
+            U[g], S_[g], V[g])) for g in range(E)])         # (E, m, n)
+        dense_t = dense.transpose(1, 2).contiguous()
+        out.append(timing_row(
+            "blast_matmul_batched", f"{name} train", T,
+            f"{n}->{m} b={b} r={r} E={E} rows={rows}",
+            lambda: ops.blast_matmul_batched(x, U, S_, V),
+            lambda: ref.blast_matmul_batched_ref(x, U, S_, V),
+            functools.partial(torch.bmm, x, dense_t),
+            "torch.bmm(x, dense experts) (dense work)",
+            blast_cost(n, m, b, r, E, rows, elt, batched=True), flush,
+            arch=moe.name, rows=rows))
+        dy = torch.randn((E, rows, m), generator=gen).to(DEVICE, dt)
+        St = S_.transpose(1, 2).contiguous()
+        out.append(timing_row(
+            "blast_matmul_batched_dx", f"{name} dx", T,
+            f"{m}->{n} b={b} r={r} E={E} rows={rows}",
+            lambda: ops._batched_launch(dy, V, St, U,
+                                        "blast_matmul_batched_dx"),
+            lambda: ref.blast_matmul_batched_ref(dy, V, St, U),
+            functools.partial(torch.bmm, dy, dense),
+            "torch.bmm(dy, dense experts) (dense work)",
+            blast_cost(m, n, b, r, E, rows, elt, batched=True), flush,
+            arch=moe.name, rows=rows))
+        del x, U, S_, V, dense, dense_t, dy, St
     return out
 
 
@@ -3233,14 +3448,16 @@ def summary(rows, errs, launches):
     training step's shape (B = 8, T = 256); ``cases`` holds every timed
     shape, llama7b-blast's too.  ``launches`` is the count from the run of
     the kernel's own path (its serving mode, or training);
-    ``launches_by_run`` has every run's count that is not 0, and B1 its
-    backward-dx launches (``train_dx_launches``, timed as the
-    ``blast_matmul_dx`` cases)."""
+    ``launches_by_run`` has every run's count that is not 0, and B1 and
+    the batched expert launch their backward-dx launches
+    (``train_dx_launches``: smollm's and granite-moe's training runs,
+    timed as the ``blast_matmul_dx`` and ``blast_matmul_batched_dx``
+    cases)."""
     out = []
     for kname, (src, replaces, mode, arch) in SOURCES.items():
         mine = [r for r in rows if r["kernel"] == kname]
-        if kname == "blast_matmul":
-            mine += [r for r in rows if r["kernel"] == "blast_matmul_dx"]
+        if kname in ("blast_matmul", "blast_matmul_batched"):
+            mine += [r for r in rows if r["kernel"] == f"{kname}_dx"]
         if mode == "train":
             picked = [r for r in mine if r["shape"].startswith("B=8 ")]
             per = "one call at the training shape (B=8, T=256)"
@@ -3265,6 +3482,9 @@ def summary(rows, errs, launches):
                                      launches.items() if c.get(kname)}}
         if kname == "blast_matmul":
             entry["train_dx_launches"] = launches["train"]["blast_matmul_dx"]
+        if kname == "blast_matmul_batched":
+            entry["train_dx_launches"] = launches[f"train:{MOE}"][
+                "blast_matmul_batched_dx"]
         entry["cases"] = [{k: r.get(k, SMOLLM) if k == "arch" else r[k]
                            for k in ("kernel", "arch", "linear", "T", "shape",
                                      "ms", "plain_ms", "library_ms",
@@ -4068,6 +4288,8 @@ MOE_PARAMS = 682_381_312      # the reference's LM.init, eval_shape
 # capacity ceil(Tl·k·cf/E) of a decode step of 8 slots (Tl = 8) and of a
 # 32-token chunk over 8 rows (Tl = 256), at k = 8, cf = 1.25
 MOE_ROWS = {8: 3, 256: 80}
+# rows of every expert in a training step: the capacity at batch 8 × 256
+MOE_TRAIN_ROWS = 640
 MOE_DROPLESS = 8.0            # benchmarks/serving_throughput.py:246-257
 MOE_FP32_LAYERS = 2           # the reference and fp32 speculative runs
 # depth of the quantized-weight serving runs and of the paged, bf16
@@ -4383,8 +4605,8 @@ def phase_moe(moe) -> dict:
     attention's out projections scaled by ``MOE_ATTN_OUT_SCALE``) in every
     serving mode, every run's requests ``varied``:
 
-    - ``serve moe:<mode>`` (``MOE_MODES``: float and the int8 cache at
-      full depth; int8, W8A8, int4 and W4A8 weights at ``MOE_CUT_LAYERS``
+    - ``serve moe:<mode>`` (``MOE_MODES``: float at full depth; the int8
+      cache and int8, W8A8, int4 and W4A8 weights at ``MOE_CUT_LAYERS``
       layers), 16 prompts of 16–200 tokens, 32 new, 8 slots, chunk 32,
       max_len 512: captured = eager token for token, launches steps ×
       ``moe_per_step`` in the mode's kernels, the others 0
@@ -4423,26 +4645,24 @@ def phase_moe(moe) -> dict:
     if n_params != MOE_PARAMS:
         raise RuntimeError(f"{MOE}: {n_params} parameters, want "
                            f"{MOE_PARAMS}")
-    q8 = build_model(dataclasses.replace(
-        moe, quant=quant.QuantConfig(cache="int8")), device=DEVICE)
     cuts, cut_params = cut_models(moe, params, MOE_CUT_LAYERS,
-                                  {"none": "none"})
+                                  {"none": "none", "int8": "int8"})
     cut = cuts["none"]
     launches = {}
     for label, (mode, cache) in MOE_MODES.items():
         what = f"moe:{label}"
-        # float and the int8 cache at full depth; the quantized weights at
+        # float at full depth; the int8 cache and the quantized weights at
         # the cut depth, for the script's time
-        serving, serving_params = (
-            (model, params) if label == "float" else (q8, params)
-            if cache == "int8" else (cut, cut_params))
+        full = label == "float"
+        serving, serving_params = ((model, params) if full
+                                   else (cuts[cache], cut_params))
         launches[what], _, outputs = timed(
             f"serve {what}", phase_serve, serving, serving_params,
-            what if serving is not cut else f"{what}:{MOE_CUT_LAYERS}L",
+            what if full else f"{what}:{MOE_CUT_LAYERS}L",
             serve_config(mode), moe_per_step(serving.cfg, mode, cache),
-            **(init if label == "float" else {}))
+            **(init if full else {}))
         varied(outputs, f"serve {what}")
-    del q8
+    del cuts["int8"]
     per_step = moe_per_step(moe, "none")
     config = serve_config("none")
     free = build_model(dropless(moe), device=DEVICE)
@@ -4503,7 +4723,7 @@ def main() -> int:
     timed(f"kernels {HYBRID}", phase_kernels_hybrid, hyb, errs)
     timed(f"kernels {SSM}", phase_kernels_ssd, ssm, errs)
     timed(f"kernels {MOE}", phase_kernels_moe, moe, errs)
-    timed("grads", phase_grads, cfg)
+    timed("grads", phase_grads, cfg, moe)
     for mode in MODES:
         timed(f"reference {mode}", phase_reference, cfg, mode,
               *MODES[mode][0])
@@ -4514,7 +4734,10 @@ def main() -> int:
           cache="int8")
     timed(f"reference {SSM}", phase_reference_ssd, ssm)
     timed(f"reference {MOE}", phase_reference_moe, moe)
-    timed("train_reference", phase_train_reference, cfg)
+    for arch, (layers, seq, over) in TRAIN_REFERENCE.items():
+        timed(f"train_reference {arch}", phase_train_reference,
+              configs.get(arch), layers, seq, **over)
+    timed("optimizer_and_last_only", phase_optimizer_and_last_only, cfg)
     model = build_model(cfg, device=DEVICE)
     params = model.init(SEED)
     launches = {}
@@ -4556,6 +4779,12 @@ def main() -> int:
     launches.update(timed(f"{SSM} serving", phase_ssm, ssm))
     launches.update(timed(f"{MOE} serving", phase_moe, moe))
     launches["train"] = timed("train", phase_train, cfg)
+    for arch, (layers, steps) in TRAIN_RUNS.items():
+        arch_cfg = configs.get(arch)
+        launches[f"train:{arch}"] = timed(
+            f"train {arch}", phase_train, dataclasses.replace(
+                arch_cfg, n_layers=min(layers, arch_cfg.n_layers)),
+            steps, profile=False)
     rows = timed("timing", phase_timing, cfg, llama, hyb, ssm, moe)
     emit({"kernels": summary(rows, errs, launches)})
     print(smi, flush=True)

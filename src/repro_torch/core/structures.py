@@ -388,7 +388,8 @@ def stacked_apply(spec: LinearSpec, params: Params,
     """E BLAST linears, expert e on its own rows x[e]: x (E, ..., d_in) →
     (E, ..., d_out) in x's type, ONE batched kernel launch (float, int8 or
     nibble-packed int4 factors; with the activation mode "int8" the W8A8 or
-    W4A8 kernel).  Counts one dispatch."""
+    W4A8 kernel).  Float factors go through ``BlastMatmulBatchedFn`` and
+    train; quantized ones run forward only.  Counts one dispatch."""
     if spec.kind != "blast":
         raise NotImplementedError(f"stacked {spec.kind} linears are not "
                                   "ported (the experts are BLAST)")

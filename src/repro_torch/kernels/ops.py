@@ -7,7 +7,8 @@ into T and zero-pad r to the kernel's rank granule, as the reference
 wrapper does (zero ranks are exact); every one of them runs the tile
 kernel, which masks its T edge itself.  The batched wrappers
 (``blast_matmul_batched`` and its ``_q``/``_q4`` twins: the MoE experts)
-take one input per factor set, x (G, ..., n), and run forward only.  The quantized wrappers take
+take one input per factor set, x (G, ..., n); the float one trains, the
+quantized ones run forward only.  The quantized wrappers take
 per-block scales; int4 factors stay nibble-packed (uint8, two codes per
 byte along r) into the kernel, and their byte axis is zero-padded to half
 the padded rank (a zero byte is two zero codes).  With ``act="int8"`` they
@@ -16,21 +17,25 @@ runs it in XLA outside its Pallas kernel).  ``launches`` counts kernel
 launches (plain-version
 calls are not counted), so a run can show that its model path went through
 the kernels; ``blast_matmul_dx`` counts the B1 launches that compute a
-backward pass's dx.  A wrapper counts in Python, where it launches; a
+backward pass's dx, ``blast_matmul_batched_dx`` the batched launches that
+compute the experts' dx.  A wrapper counts in Python, where it launches; a
 captured CUDA graph's replays are counted by its owner
 (``launches_apart``, ``add_launches``).
 
 Training.  The float kernels that the training path launches — B1
-``blast_matmul``, B2 ``blast_matmul_grouped`` and B4 ``flash_attention`` —
-are ``torch.autograd.Function``s on both devices: the forward dispatches
+``blast_matmul``, B2 ``blast_matmul_grouped``, the batched expert launch
+``blast_matmul_batched`` and B4 ``flash_attention`` — are
+``torch.autograd.Function``s on both devices: the forward dispatches
 (CPU → plain version, CUDA → kernel), the backward is the same explicit
 PyTorch code on both, so the CPU tests run the backward the card runs.  The
 JAX package has no backward kernel (XLA differentiates its mirrors), so:
 
 - BLAST: Aᵀ of a BLAST matrix is a BLAST matrix (U′ = V, S′ = Sᵀ over the
-  two block axes, V′ = U), so dx = B1(dy; V, Sᵀ, U) runs the kernel itself;
+  two block axes, V′ = U), so dx = B1(dy; V, Sᵀ, U) runs the kernel itself
+  (the experts' dx: ONE batched launch over every expert's transposed
+  factors, each expert's dx its own rows);
   dU, dS and dV are einsums of the stage intermediates z = xV and
-  dw = dy·U, recomputed in fp32;
+  dw = dy·U, recomputed in fp32, summed over each factor set's own rows;
 - attention: P is recomputed from q and k chunk by chunk of queries (only
   each chunk's reachable keys), then dV = Pᵀ dO, dS = P ⊙ (dP − rowsum(dO ⊙
   O)), dQ = dS K / √D and dK = dSᵀ Q / √D, with dK and dV summed over the
@@ -62,7 +67,7 @@ launches: dict[str, int] = {
     "flash_attention_prefill": 0, "flash_attention_prefill_q8": 0,
     "flash_attention_ring": 0, "flash_attention_ring_q8": 0,
     "flash_attention": 0,
-    "blast_matmul_dx": 0}
+    "blast_matmul_dx": 0, "blast_matmul_batched_dx": 0}
 
 
 def reset_launches() -> None:
@@ -138,18 +143,20 @@ def _blast_grouped_launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
 
 def _blast_factor_grads(needs, dy, x, U, S, V):
     """dU, dS, dV (None where not needed) of y = blast(x; U, S, V) for G
-    stacked factor sets: x (T, n); dy (G, T, m); U (G,b,p,r), S (G,b,b,r),
-    V (G,b,q,r).  Einsums of z = xV and dw = dy·U in the accumulation
-    type, cast to each factor's type."""
+    stacked factor sets: x (T, n) shared by every set, or (G, T, n) one
+    input per set; dy (G, T, m); U (G,b,p,r), S (G,b,b,r), V (G,b,q,r).
+    Einsums of z = xV and dw = dy·U in the accumulation type, each set's
+    sums over its own T rows, cast to each factor's type."""
     dU = dS = dV = None
     if not any(needs):
         return dU, dS, dV
     G, b, p, r = U.shape
     q = V.shape[2]
-    xb = ref.acc(x).reshape(-1, b, q)
+    xs = "tjq" if x.ndim == 2 else "gtjq"
+    xb = ref.acc(x).reshape(*x.shape[:-2], -1, b, q)
     dyb = ref.acc(dy).reshape(G, -1, b, p)
     Uf, Sf, Vf = (ref.acc(a) for a in (U, S, V))
-    z = torch.einsum("tjq,gjqr->gtjr", xb, Vf)
+    z = torch.einsum(f"{xs},gjqr->gtjr", xb, Vf)
     dw = torch.einsum("gtip,gipr->gtir", dyb, Uf)
     if needs[0]:
         w = torch.einsum("gtjr,gijr->gtir", z, Sf)
@@ -158,7 +165,7 @@ def _blast_factor_grads(needs, dy, x, U, S, V):
         dS = torch.einsum("gtir,gtjr->gijr", dw, z).to(S.dtype)
     if needs[2]:
         dz = torch.einsum("gtir,gijr->gtjr", dw, Sf)
-        dV = torch.einsum("tjq,gtjr->gjqr", xb, dz).to(V.dtype)
+        dV = torch.einsum(f"{xs},gtjr->gjqr", xb, dz).to(V.dtype)
     return dU, dS, dV
 
 
@@ -475,7 +482,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   chunk)
 
 
-# -- batched: one input per factor set (the MoE experts; forward only) -------
+# -- batched: one input per factor set (the MoE experts) ---------------------
+# The float launch trains (``BlastMatmulBatchedFn``); the quantized ones run
+# forward only, as the trainer takes float params alone.
+
+
+def _batched_launch(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
+                    V: torch.Tensor, key: str) -> torch.Tensor:
+    """x (G, ..., n), set g on x[g] → (G, ..., m): the plain version on the
+    CPU, on CUDA one launch of the tile kernel with a per-set x stride
+    (counted under ``key``); r is zero-padded inside, x is not."""
+    if _on_cpu(x):
+        return ref.blast_matmul_batched_ref(x, U, S, V)
+    G, lead = x.shape[0], x.shape[1:-1]
+    _, r_pad = _bm.padded_rank(U.shape[-1], None, _bm.float_tiles()[1])
+    U, S, V = (_pad_last(a, r_pad) for a in (U, S, V))
+    y = _bm.launch(x.reshape(G, -1, x.shape[-1]).contiguous(), U, S, V)
+    launches[key] += 1
+    return y.reshape(G, *lead, y.shape[-1])
+
+
+class BlastMatmulBatchedFn(torch.autograd.Function):
+    """The batched expert launch with its backward: x (G, ..., n) →
+    (G, ..., m).  dx is ONE batched launch over every set's transposed
+    factors (each set's dx is its own rows: no sum over sets, unlike B2);
+    dU, dS, dV sum over each set's own rows."""
+
+    @staticmethod
+    def forward(ctx, x, U, S, V):
+        # launch before saving (``BlastMatmulFn``: a remat recompute)
+        y = _batched_launch(x, U, S, V, "blast_matmul_batched")
+        ctx.save_for_backward(x, U, S, V)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, U, S, V = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _batched_launch(dy, V, S.transpose(1, 2).contiguous(), U,
+                                 "blast_matmul_batched_dx")
+        G = U.shape[0]
+        grads = _blast_factor_grads(
+            ctx.needs_input_grad[1:], dy.reshape(G, -1, dy.shape[-1]),
+            x.reshape(G, -1, x.shape[-1]), U, S, V)
+        return (dx, *grads)
 
 
 def blast_matmul_batched(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
@@ -483,14 +534,7 @@ def blast_matmul_batched(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,
     """G factor sets, each on its own input, in one launch: x (G, ..., n);
     U (G,b,p,r), S (G,b,b,r), V (G,b,q,r) → (G, ..., m) — the reference's
     vmapped expert apply (``src/repro/models/moe.py`` ``_expert_ffn``)."""
-    if _on_cpu(x):
-        return ref.blast_matmul_batched_ref(x, U, S, V)
-    G, lead = x.shape[0], x.shape[1:-1]
-    _, r_pad = _bm.padded_rank(U.shape[-1], None, _bm.float_tiles()[1])
-    U, S, V = (_pad_last(a, r_pad) for a in (U, S, V))
-    y = _bm.launch(x.reshape(G, -1, x.shape[-1]).contiguous(), U, S, V)
-    launches["blast_matmul_batched"] += 1
-    return y.reshape(G, *lead, y.shape[-1])
+    return BlastMatmulBatchedFn.apply(x, U, S, V)
 
 
 def _batched_q(x: torch.Tensor, U: torch.Tensor, S: torch.Tensor,

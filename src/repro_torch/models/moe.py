@@ -20,13 +20,18 @@ batched BLAST launch per projection, and the gate-weighted combine.
     expert on its own C rows (``kernels/ops.blast_matmul_batched`` and its
     int8/int4/W8A8/W4A8 twins).
   * Every step here has a fixed shape and no host sync (no ``.item()``,
-    no ``nonzero``), so a serving step that holds it is captured as one
-    CUDA graph.
+    no ``nonzero``), so a serving step or a training step that holds it is
+    captured as one CUDA graph.
+  * Training: gradients flow as in the reference — through the gates (the
+    sorted probabilities, the renormalization) and ``aux``'s mean of
+    probabilities to the router, through the gather and the combine to
+    the tokens, through the batched launches (``BlastMatmulBatchedFn``) to
+    the experts — and not through the expert ids, the counts or the
+    dispatch indices; a dropped assignment gets zero gradient.
 
 Shared experts and first dense layers (DeepSeek's) wait for ROADMAP A7.2;
 expert parallelism over a mesh (the reference's ``shard_map`` with two
-``all_to_all``) for ROADMAP A9.  Forward only: MoE training (the batched
-kernel's backward, the loss's ``aux``) is queued in ROADMAP A7.1.
+``all_to_all``) for ROADMAP A9.
 """
 
 from __future__ import annotations

@@ -16,9 +16,10 @@ and dt_bias stay fp32.
 
 ``ssd_apply`` runs a whole sequence in the chunked dual form
 (``ssd_chunked``: quadratic attention-like products inside each chunk, the
-recurrence across chunks), forward only.  A cached step carries (conv
-history, h): O(1) per row, float or, with the int8 cache, int8 codes with
-per-row scales (``qt.pack_state_cache``).  ``ssd_prefill`` runs the
+recurrence across chunks); training differentiates it with plain autograd
+(every op PyTorch's), its projections through the BLAST Functions.  A
+cached step carries (conv history, h): O(1) per row, float or, with the
+int8 cache, int8 codes with per-row scales (``qt.pack_state_cache``).  ``ssd_prefill`` runs the
 projections, conv and gates over the whole chunk and the state update token
 by token (plain PyTorch on both devices, as the reference leaves it to
 XLA), writes the cache in place, and, for a speculative verify, collects
@@ -211,9 +212,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def ssd_apply(spec: SSDSpec, params: Params, x: torch.Tensor,
               positions: torch.Tensor | None = None) -> torch.Tensor:
     """Full sequence: x (B, T, d_model) → (B, T, d_model) from a zero
-    state, through the chunked dual form.  Forward only (SSD training is
-    not ported).  ``positions`` is unused (no positional state), kept for
-    the mixers' common signature."""
+    state, through the chunked dual form (differentiable: the training
+    path).  ``positions`` is unused (no positional state), kept for the
+    mixers' common signature."""
     zxbcdt = L.linear_apply(spec.in_proj, params["in_proj"], x)
     z, xBC_pre, dt_raw = _split_in_proj(spec, zxbcdt)
     xBC = F.silu(_conv1d(xBC_pre, params["conv_w"], params["conv_b"]))

@@ -42,6 +42,7 @@ from repro_torch.models import rglru as R
 from repro_torch.models import ssd as S
 from repro_torch.quant import qarray as qt
 from repro_torch.quant.qarray import QuantConfig
+from repro_torch.tree import leaves, tree_map
 
 Params = dict[str, Any]
 
@@ -324,6 +325,26 @@ class LM:
         load, so the per-step grouped launch skips its pad+stack."""
         return {**params, "layers": [block_prestack(s, p) for s, p in
                                      zip(self.specs, params["layers"])]}
+
+    def decay_mask(self, params: Params) -> list[bool]:
+        """Which leaves (in ``leaves`` order) AdamW decays: the reference's
+        rule, ``ndim >= 2`` in the reference's layout, where each layer of
+        a whole cycle of the pattern holds its leaves stacked on one more
+        (leading) axis — so there its vectors (norm scales, biases, conv
+        bias, the RG-LRU's ``lam``, the SSD's ``A_log``, ``D``,
+        ``dt_bias``) decay too.  The cycles start after a MoE model's first
+        dense layers, which the reference keeps unstacked; those, a tail
+        layer's leaves and the top level's keep their own ndim: the
+        embedding, the position table and an untied head decay, the final
+        norm does not."""
+        first = self.cfg.moe.first_dense_layers if self.cfg.moe else 0
+        P = len(self.cfg.pattern)
+        cycles = range(first, first + (len(self.specs) - first) // P * P)
+        mask = tree_map(lambda a: a.ndim >= 2, params)
+        mask["layers"] = [tree_map(lambda a: a.ndim >= 1, p) if i in cycles
+                          else m for i, (p, m) in
+                          enumerate(zip(params["layers"], mask["layers"]))]
+        return leaves(mask)
 
     # -- nested-rank drafts (self-speculative decoding) ------------------------
 

@@ -1,5 +1,7 @@
 """AdamW (counterpart of ``repro/optim/adamw.py``): decoupled weight decay
-on tensors with ``ndim >= 2`` only, global-norm clipping, m/v in fp32 by
+on tensors with ``ndim >= 2`` only (or on the leaves ``update``'s
+``decay`` names: the trainer passes ``LM.decay_mask``, the reference's rule
+in its stacked layout), global-norm clipping, m/v in fp32 by
 default, and the parameters updated in fp32 and cast back to their type.
 
 The state is a plain dict ``{"m": tree, "v": tree, "count": int32 0-d}``
@@ -63,7 +65,7 @@ def adamw(schedule: Callable[[torch.Tensor], torch.Tensor], *,
         step = torch._foreach_div(m_new, bc1)
         torch._foreach_div_(step, den)
         p32 = [a.float() for a in p]
-        if decay:        # matrices only (norms excluded)
+        if decay:
             torch._foreach_add_(step, torch._foreach_mul(p32, weight_decay))
         torch._foreach_mul_(step, lr)
         p_new = torch._foreach_sub(p32, step)
@@ -71,11 +73,12 @@ def adamw(schedule: Callable[[torch.Tensor], torch.Tensor], *,
             torch.where(good, new.to(dst.dtype), dst, out=dst)
 
     @torch.no_grad()
-    def update(grads, state: dict, params, *, loss=None):
+    def update(grads, state: dict, params, *, loss=None, decay=None):
         """One step in place → (params, state, metrics).  ``loss``: the
         step's loss; it and the gradient norm must be finite, or the update
         leaves params, m and v unchanged (``metrics["skipped"]`` 1.0, a
-        device tensor)."""
+        device tensor).  ``decay``: one bool a leaf, whether it takes the
+        weight decay (default: ``ndim >= 2``)."""
         state["count"].add_(1)
         count = state["count"]
         gnorm = global_norm(grads)
@@ -88,9 +91,12 @@ def adamw(schedule: Callable[[torch.Tensor], torch.Tensor], *,
         t = count.to(torch.float32)
         bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
         groups: dict = {}
-        for p, g, m, v in zip(leaves(params), leaves(grads),
-                              leaves(state["m"]), leaves(state["v"])):
-            key = (p.dtype, g.dtype, m.dtype, v.dtype, p.ndim >= 2)
+        flat = leaves(params)
+        if decay is None:
+            decay = [p.ndim >= 2 for p in flat]
+        for p, g, m, v, d in zip(flat, leaves(grads), leaves(state["m"]),
+                                 leaves(state["v"]), decay, strict=True):
+            key = (p.dtype, g.dtype, m.dtype, v.dtype, bool(d))
             for lst, a in zip(groups.setdefault(key, ([], [], [], [])),
                               (p, g, m, v)):
                 lst.append(a)

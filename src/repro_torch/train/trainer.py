@@ -85,7 +85,8 @@ def make_train_step(model, optimizer: Optimizer, *, microbatch: int = 0,
                 "does; quantize after training (LM.quantize_params)")
         grads, metrics = compute_grads(params, batch)
         params, opt_state, opt_metrics = optimizer.update(
-            grads, opt_state, params, loss=metrics["loss"])
+            grads, opt_state, params, loss=metrics["loss"],
+            decay=model.decay_mask(params))
         return params, opt_state, {**metrics, **opt_metrics}
 
     return step

@@ -1,6 +1,7 @@
 """The compiled step on the card: the engine's and the trainer's CUDA graphs
 against the same step run eagerly, on ``smollm-135m.reduced()`` (and the
-hybrid recurrentgemma-2b at full width, 3 layers).
+hybrid recurrentgemma-2b at full width, 3 layers; the trainer's also on
+``granite-moe-1b-a400m.reduced()``).
 
 Marked ``gpu``: each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package:
@@ -74,9 +75,9 @@ def _serve(engine):
     return [r.output for r in reqs], seen, dict(ops.launches)
 
 
-def _train(jit, steps=3):
+def _train(jit, steps=3, cfg=None):
     """Per step: loss, grad norm, skipped flag and every parameter."""
-    cfg = _cfg("bfloat16", remat=True, vocab=64)
+    cfg = cfg or _cfg("bfloat16", remat=True, vocab=64)
     model = build_model(cfg, device="cuda")
     data = TokenStream(vocab=cfg.vocab, seq_len=32, global_batch=4)
     trainer = Trainer(model, adamw(cosine_schedule(1e-3, 10, 2)), data,
@@ -159,6 +160,29 @@ class TestGraphs:
             assert all(torch.equal(a, b) for a, b in zip(
                 leaves(out_g["opt_state"][name]),
                 leaves(out_e["opt_state"][name]))), name
+
+    def test_moe_captured_training_equals_eager(self, cuda):
+        """granite-moe-1b-a400m reduced (4 experts top-2, capacity 1.25:
+        some assignments drop), bf16, remat: the captured step — routing,
+        the dispatch's argsort and searchsorted, the sink column, the
+        batched expert launches and their dx, the gather's and the
+        combine's backward through autograd's indexing — equals the eager
+        step bit for bit after each of 3 steps; per step two batched launches a layer forward, two again
+        in remat's recompute, and two batched dx launches."""
+        cfg = configs.get("granite-moe-1b-a400m").reduced(
+            param_dtype="bfloat16", compute_dtype="bfloat16", remat=True,
+            vocab=64)
+        ops.reset_launches()
+        tg, out_g, rows_g = _train(jit=True, cfg=cfg)
+        launched = dict(ops.launches)
+        te, out_e, rows_e = _train(jit=False, cfg=cfg)
+        assert tg.stats["graphs"] == 1 and te.stats["graphs"] == 0
+        L = cfg.n_layers
+        assert launched["blast_matmul_batched"] == 3 * 4 * L
+        assert launched["blast_matmul_batched_dx"] == 3 * 2 * L
+        for i, (g, e) in enumerate(zip(rows_g, rows_e)):
+            assert g[:3] == e[:3], i
+            assert all(torch.equal(a, b) for a, b in zip(g[3], e[3])), i
 
     def test_nonfinite_batch_skipped_under_capture(self, cuda):
         trainer, out, _ = _train(jit=True)

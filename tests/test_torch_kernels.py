@@ -144,7 +144,9 @@ def test_cpu_path_counts_no_launches():
                                 torch.zeros((1, 4), dtype=torch.int32),
                                 torch.zeros(1, dtype=torch.int32), window=4)
     xb = x.detach()[None]
-    ops.blast_matmul_batched(xb, _t(U)[None], _t(S)[None], _t(V)[None])
+    xg = xb.clone().requires_grad_(True)     # the batched dx's CPU path
+    ops.blast_matmul_batched(xg, _t(U)[None], _t(S)[None],
+                             _t(V)[None]).sum().backward()
     codes = [torch.zeros((1, *a.shape), dtype=torch.int8) for a in (U, S, V)]
     scales = (torch.ones(1, 4), torch.ones(1, 4, 4), torch.ones(1, 4))
     for act in ("none", "int8"):
@@ -165,7 +167,8 @@ def test_cpu_path_counts_no_launches():
                             "flash_attention_prefill_q8": 0,
                             "flash_attention_ring": 0,
                             "flash_attention_ring_q8": 0,
-                            "flash_attention": 0, "blast_matmul_dx": 0}
+                            "flash_attention": 0, "blast_matmul_dx": 0,
+                            "blast_matmul_batched_dx": 0}
 
 
 def test_dense_linear_matches_jax():

@@ -798,6 +798,37 @@ class TestOnCard:
         for g_, w in zip(got, want):
             assert float((g_ - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
+    @pytest.mark.parametrize("n,m,r", [(1024, 1024, 224), (512, 1024, 144)],
+                             ids=["wi", "wo"])
+    def test_batched_function_grads(self, cuda, n, m, r):
+        """``BlastMatmulBatchedFn`` on the card (the batched launch forward,
+        one batched launch over the transposed factors for dx) against
+        torch.autograd through the batched plain version: granite-moe's
+        ``wi`` and ``wo``, 32 experts of 640 rows (its capacity at batch 8
+        × 256), each expert's last rows zero (empty capacity slots), fp32,
+        every gradient within 1e-4 × its largest entry."""
+        from repro_torch.core import blast
+        g = torch.Generator().manual_seed(n + r)
+        E, C, b = 32, 640, 16
+        sets = [blast.init(g, m, n, b, r, device=cuda) for _ in range(E)]
+        fac = [torch.stack([s[i] for s in sets]) for i in range(3)]
+        x = torch.randn((E, C, n), generator=g).to(cuda)
+        for e in range(E):
+            x[e, C - 1 - e % 7:] = 0
+        a = [t.clone().requires_grad_(True) for t in (x, *fac)]
+        b_ = [t.clone().requires_grad_(True) for t in (x, *fac)]
+        ops.reset_launches()
+        y = ops.blast_matmul_batched(*a)
+        dy = torch.randn(y.shape, generator=g).to(cuda)
+        got = torch.autograd.grad(y, a, dy)
+        want = torch.autograd.grad(ref.blast_matmul_batched_ref(*b_), b_, dy)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ops.launches.items() if v} == {
+            "blast_matmul_batched": 1, "blast_matmul_batched_dx": 1}
+        for g_, w in zip(got, want):
+            assert g_.shape == w.shape
+            assert float((g_ - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
     def test_launchers_refuse_grad_on_card(self, cuda):
         x = torch.randn((8, 64), device=cuda, requires_grad=True)
         U, S, V = (torch.randn(s, device=cuda) for s in
@@ -811,3 +842,10 @@ class TestOnCard:
                            kv_len=8)
         with torch.no_grad():
             assert bm.launch(x, U, S, V).shape == (1, 8, 64)
+        # the batched launch (one x a factor set) refuses a factor that
+        # requires grad
+        xe = torch.randn((2, 8, 64), device=cuda)
+        Ue = torch.randn((2, 4, 16, 16), device=cuda, requires_grad=True)
+        with pytest.raises(RuntimeError, match="requires grad"):
+            bm.launch(xe, Ue, *(torch.randn(s, device=cuda) for s in
+                                ((2, 4, 4, 16), (2, 4, 16, 16))))
