@@ -45,7 +45,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``wi`` (1024 → 1024, r = 224) and ``wo`` (512 → 1024, r = 144), 3 and
    80 rows an expert, each row set ending in a zero row, fp32 and bf16, in
    float, int8, W8A8, int4 and W4A8, two launches of each at 3 rows bit
-   for bit.
+   for bit.  Then deepseek-v3-671b's (``phase_kernels_deepseek``): the MLA
+   latent kernel (``mla_attention``: scores over [latent ‖ k_rope], 512 +
+   64 dims, values the latent, 128 heads on one shared key) at B = 8, S =
+   512, C = 1 and 32 at random offsets, the last slot, dead columns with
+   an empty row, kv_len < S, fp32 and bf16, two launches at decode bit for
+   bit; B1 and B2 at its MLA, shared-expert and dense-FFN shapes and at
+   ``wkv_b``'s densification (512 → 32768, T = 512); the batched expert
+   kernel at 256 experts, 1 and 40 rows a set, bf16, five storages.
 4. grads — fp32 gradients of the four autograd Functions on the training
    path (B1, B2, B4 and the batched expert launch) against torch.autograd
    through the plain versions, at 2048 tokens, and at granite-moe's
@@ -60,7 +67,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    int8 activations the gated run shares the card's activation codes with
    the CPU, after checking that the two differ only by boundary flips.
    llama7b-blast the same way (d_model 4096, vocab 32000, the untied head)
-   in three modes from one init: float; the int8 cache; int8 weights and
+   at one layer, in three modes from one init: float; the int8 cache;
+   int8 weights and
    the int8 cache — the cache's K/V rows shared the same way
    (``SharedRowCodes``, after the CPU's codec on the card's inputs gives
    the card's codes bit for bit), and every cache leaf equal on both; and
@@ -71,7 +79,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    every cache leaf (``pos`` equal; K/V, ``conv``, ``h`` within 1e-3 +
    1e-3·max); and the same over the int8 cache (an int8 ring and int8
    RG-LRU state), the CPU given the card's codes (``SharedRowCodes``).
-   mamba2-130m at full width cut to 4 layers the same way (prompts of
+   mamba2-130m at full width cut to 2 layers the same way (prompts of
    200, 120, 40 tokens in chunks of 32, 4 decode steps; logits, ``conv``
    and ``h``) in six modes — float, int8, W8A8, int4, W4A8 weights, the
    int8 cache — with shared activation and state codes where they are
@@ -82,6 +90,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``LM.apply``: logits and ``aux``, in float, int8, W8A8 and the int8
    cache; the CPU takes the card's expert ids (``SharedRouting``, after
    checking that its own differ only at near-ties of 1e-5).
+   deepseek-v3-671b at full width cut to one dense and one MoE layer,
+   fp32, weights drawn on the card and copied to the host (~31 GB a
+   side), the same way over the float and the int8 latent cache (logits,
+   ``aux``, every cache leaf; expert ids and the int8 cache's codes
+   shared after their checks).
 6. train_reference — the same 2-layer fp32 model, one training batch:
    loss, every gradient and the parameters after one AdamW step on the
    card against the CPU.  The same for gpt2-blast (2 layers),
@@ -136,7 +149,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    captured and eager (tokens equal bit for bit, launches steps × (86 B1,
    18 B2, 8 B3 over the ring)), in the usual run and (6 of 26 layers) in
    a long run of 4 prompts of 2,100–2,600 tokens at max_len 4096 that
-   wraps every ring; the float decode profile both ways (launches a step,
+   wraps every ring; the float decode profile both ways (6 of 26 layers;
+   launches a step,
    the tile and ring kernels' calls and ms, and eagerly the RG-LRU
    recurrence's kernels and ms under a ``record_function`` range); then
    its other serving modes (``phase_hybrid_modes``, at 6 of 26 layers,
@@ -154,8 +168,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    in the mode's kernel), a long run (4 prompts of 2,000–3,500 tokens at
    max_len 4096; 6 of 24 layers), paged = slot-static (every leaf a state
    leaf: a nominal pool), prefix sharing with ``Request.prefix_len``
-   through snapshot slots (bf16, and fp32 at 4 layers), speculation at
-   frac 0.4 (graphs, eager, paged, 6 layers; fp32 at 4 layers at 0.4 and
+   through snapshot slots (bf16, and fp32 at 2 layers), speculation at
+   frac 0.4 (graphs, eager, paged, 6 layers; fp32 at 2 layers at 0.4 and
    1.0), and the decode profile (captured at context 64 and 3,000;
    eagerly at 64 and, at 6 layers, over 32-token prefill steps, the SSD
    state update under a ``record_function`` range).  Then ``moe``:
@@ -168,12 +182,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    by key position) a layer in the mode's kernels), paged = slot-static
    bit for bit at the default capacity (4 layers), and dropless
    (capacity factor 8): prefix sharing (full depth, gated), preemption
-   and speculation at frac 0.5 (4 layers; graphs, eager, paged bit for
+   and speculation at frac 0.5 (2 layers; graphs, eager, paged bit for
    bit among themselves, tokens against plain reported: a bf16 batch
    shape re-routes), preemption and speculation in fp32 at 2 layers (gated,
-   acceptance ≥ 0.9 at frac 1.0), and the decode profile (the routing,
+   acceptance ≥ 0.9 at frac 1.0), and the decode profile (4 layers; the
+   routing,
    dispatch, gather, experts and combine under ``record_function``
-   ranges).
+   ranges).  Then ``deepseek``: deepseek-v3-671b at full width (MLA over
+   a latent cache, 256 experts top-8 and a shared expert, dense first
+   layers, vocab 129280 untied; weights drawn on the card): float at 3
+   dense + 2 MoE layers (≈ 28 GB) and int8, W8A8, int4, W4A8 weights and
+   the int8 latent cache at 1 + 1, 8 prompts each, captured = eager and
+   launches steps × (4 B1, 2 B2, 1 MLA kernel a layer, 2 batched launches
+   a MoE layer); paged = slot-static (1 + 1); dropless (capacity factor
+   32) prefix sharing, preemption and speculation at frac 0.7 (bf16:
+   tokens against plain reported; fp32 at 1 + 1: gated at the 1e-4
+   margin, acceptance ≥ 0.9 at frac 1.0); the decode profile (the MLA
+   kernel's calls and ms, the routing glue and the absorbed matrices
+   under ranges).
 8. paged — the paged cache (``serve/paged.py``, pages of 16 tokens)
    through the same engine, captured per (C, kv, F, M) bucket.  Run 1, in
    smollm-135m float and int8 weights and llama7b-blast float
@@ -195,7 +221,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    1, then 4 at priority 0 after 8 ticks, on a pool too small for them:
    preemptions, every request finished by length, two runs identical,
    tokens equal a roomy pool's up to each first near-tie; then the same
-   run in fp32 at 2 layers, where the rule is the 1e-4 margin alone.
+   run in fp32 at 1 layer, where the rule is the 1e-4 margin alone.
 9. spec — self-speculative decoding (k = 4) of the serve phase's 16
    prompts, at draft rank fractions 0.5 and 1.0, in smollm-135m float and
    int8 weights (full width, 2 of its 30 layers), and llama7b-blast (full
@@ -259,13 +285,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    batched expert kernel at ``wi`` and ``wo``, 32 experts at 3 and 80
    rows, float and the four quantized modes, and at a training step's
    640 rows forward and as dx (library: ``torch.bmm`` of each expert's
-   rows with its dense matrix).
+   rows with its dense matrix).  deepseek-v3-671b's: the MLA kernel at
+   decode and at C = 32 (library: the reference's einsums as
+   ``torch.matmul``), B1 at ``wkv_b``'s densification, B2 at ``wq_a`` +
+   ``wkv_a``, and the batched expert kernel at 256 experts, 1 and 40 rows.
    The profiles of phases 7 and 10 also sum the
    BLAST tile kernel's two ``__global__``s (``blast_tile_kernel``,
    ``blast_split_sum``) and the attention kernel's (``attn_tile_kernel``,
    ``attn_split_combine``).
 
-Each phase's seconds are printed on a ``{"phase": "seconds"}`` line.  The
+deepseek-v3-671b's kernels, reference and serving phases run after the
+training phases, before ``timing``.  Each phase's seconds are printed on a
+``{"phase": "seconds"}`` line.  The
 last lines are the per-kernel JSON summary, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -322,6 +353,15 @@ def mode_bits_act(mode) -> tuple[int | None, str]:
     return {"none": None, "int8": 8, "int4": 4}[weights], act
 
 
+def card_seed():
+    """A generator on the card seeded with ``SEED``: ``LM.init`` draws a
+    full-width model's billions of parameters there in seconds, where the
+    host's generator takes tens of seconds (other numbers than a CPU
+    generator's)."""
+    import torch
+    return torch.Generator(device=DEVICE).manual_seed(SEED)
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -376,9 +416,13 @@ def blast_shapes(cfg):
 
 
 def make_blast_inputs(n, m, b, r, G, T, dtype, gen, device):
+    """x (T, n) and G factor sets (``core/blast.py::init``'s scales),
+    drawn on the generator's device: a CUDA generator draws 256 experts'
+    factors in seconds."""
     import torch
     from repro_torch.core import blast as blast_lib
-    x = torch.randn((T, n), generator=gen).to(device=device, dtype=dtype)
+    x = torch.randn((T, n), generator=gen, device=gen.device).to(
+        device=device, dtype=dtype)
     sets = [blast_lib.init(gen, m, n, b, r, dtype=dtype, device=device)
             for _ in range(G)]
     U, S, V = (torch.stack([s[k] for s in sets]) for k in range(3))
@@ -1169,7 +1213,7 @@ def _reference_rows(gpu, cpu, params_gpu, params_cpu, act, shared=()):
 
 
 def phase_reference(cfg, mode, weights="none", act="none", cache="none",
-                    base=None):
+                    base=None, layers=2):
     """Full-width fp32 model, 2 layers: card (kernels) vs CPU (plain), in
     one serving mode (``mode`` labels it); the codes (int4: packed bytes)
     and scales must be equal on both.  Logits: every live row within 1e-3
@@ -1182,14 +1226,15 @@ def phase_reference(cfg, mode, weights="none", act="none", cache="none",
     comparison is reported beside it.  With the int8 cache the K/V rows are
     shared the same way (``SharedRowCodes``), and every cache leaf — pos,
     codes, scales — must end equal on both.  A wrong scale or layout moves
-    every row by O(1).  ``base``: the CPU float params of the 2-layer model
-    (default its ``init(SEED)``), moved to the card for the card's run."""
+    every row by O(1).  ``base``: the CPU float params of the model at
+    ``layers`` layers (default its ``init(SEED)``), moved to the card for
+    the card's run."""
     import torch
     from repro_torch import quant
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
     qcfg = quant.QuantConfig(weights=weights, activations=act)
-    small = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+    small = dataclasses.replace(cfg, n_layers=layers, param_dtype="float32",
                                 compute_dtype="float32",
                                 quant=quant.QuantConfig(cache=cache))
     gpu = build_model(small, device=DEVICE)
@@ -1227,7 +1272,8 @@ def phase_reference(cfg, mode, weights="none", act="none", cache="none",
                         for n, leaf in c_g.items()
                         if not torch.equal(leaf.cpu(), c_c[n])]
         extra["cache_leaves_equal"] = not leaves_equal
-    emit({"phase": "reference", "mode": mode, "arch": cfg.name, "layers": 2,
+    emit({"phase": "reference", "mode": mode, "arch": cfg.name,
+          "layers": layers,
           "d_model": small.d_model, "vocab": small.vocab, "dtype": "float32",
           "weights": weights, "activations": act, "cache": cache,
           "chunks": 3, "qarrays_equal": len(pairs),
@@ -1251,11 +1297,11 @@ def phase_reference_dense(llama, gpt2):
     positions, GELU, b = 6), float."""
     from repro_torch.models import build_model
     base = build_model(dataclasses.replace(
-        llama, n_layers=2, param_dtype="float32", compute_dtype="float32"),
-        device="cpu").init(SEED)
+        llama, n_layers=LLAMA_FP32_LAYERS, param_dtype="float32",
+        compute_dtype="float32"), device="cpu").init(SEED)
     for mode, (weights, cache) in LLAMA_MODES.items():
         phase_reference(llama, f"llama:{mode}", weights=weights, cache=cache,
-                        base=base)
+                        base=base, layers=LLAMA_FP32_LAYERS)
     del base
     phase_reference(gpt2, "gpt2:float")
 
@@ -1447,13 +1493,14 @@ def serve_prompts(vocab, n=16):
 
 
 def phase_serve(model, params, mode, config, per_step, prompts=None,
-                **extra):
+                max_new=32, **extra):
     """One full-width serving run of ``model`` in ``mode`` through the
     captured engine (CUDA graphs, the default) and one through an eager
     engine (``step_fn``, which observes every step): identical greedy
     tokens, and each run's launch counts steps × ``per_step`` (every other
-    kernel 0).  ``prompts``: default ``serve_prompts``.  Returns (the
-    captured run's launch counts, its row, its outputs)."""
+    kernel 0).  ``prompts``: default ``serve_prompts``; ``max_new`` new
+    tokens each.  Returns (the captured run's launch counts, its row, its
+    outputs)."""
     import torch
     from repro_torch import quant
     from repro_torch.kernels import build
@@ -1468,7 +1515,7 @@ def phase_serve(model, params, mode, config, per_step, prompts=None,
 
     def step(params, cache, tokens, steps, n_tokens, kv_len):
         B, C = tokens.shape
-        if not model.slot_resident:   # the slot-index B3's plan
+        if not model.slot_resident and cfg.mla is None:   # B3's plan
             live = int((steps + n_tokens)[n_tokens > 0].max())    # syncs
             splits.append([fa.split_plan(B, cfg.n_kv_heads, G, C, kv,
                                          sms)[2] for kv in (kv_len, live)])
@@ -1478,7 +1525,6 @@ def phase_serve(model, params, mode, config, per_step, prompts=None,
         return logits, cache
 
     prompts = serve_prompts(cfg.vocab) if prompts is None else prompts
-    max_new = 32
     runs = {}
     for path in ("graphs", "eager"):
         t0 = time.perf_counter()
@@ -1712,7 +1758,8 @@ def paged_step_ms(model, params, config, prompt_len) -> dict:
     return out
 
 
-def phase_paged(model, params, mode, config, per_step, static):
+def phase_paged(model, params, mode, config, per_step, static,
+                prompts=None, max_new=32):
     """Run 1 of the paged cache: the serve phase's 16 prompts and 32 new
     tokens through a paged engine with the default pool, captured and
     eager (``step_fn``): greedy tokens equal the same mode's slot-static
@@ -1721,14 +1768,14 @@ def phase_paged(model, params, mode, config, per_step, static):
     zero page still the template) after each run; decode step ms and tok/s
     against slot-static, graphs and capture seconds, pool and view bytes,
     peak memory, and the gather and scatter device ms of a decode step.
-    Returns the captured run's launch counts."""
+    ``prompts``, ``max_new``: the slot-static run's (default
+    ``serve_prompts``, 32).  Returns the captured run's launch counts."""
     import torch
     from repro_torch import quant
     from repro_torch.serve import Engine
     cfg = model.cfg
     s_row, s_out = static
-    prompts = serve_prompts(cfg.vocab)
-    max_new = 32
+    prompts = serve_prompts(cfg.vocab) if prompts is None else prompts
     runs = {}
     for path in ("graphs", "eager"):
         engine = Engine(model, params, paged_config(config), device=DEVICE,
@@ -1938,8 +1985,8 @@ def phase_paged_preempt(model, params, mode, config, gate_tokens=True):
 
 
 def phase_paged_preempt_fp32(llama):
-    """Run 3 again at llama7b-blast's full width in fp32, 2 layers (as the
-    ``reference`` phase builds it): the same schedule and pool (page counts
+    """Run 3 again at llama7b-blast's full width in fp32,
+    ``LLAMA_FP32_LAYERS`` layers (as the ``reference`` phase builds it): the same schedule and pool (page counts
     follow tokens, not layers), so the same preemptions.  In fp32 a
     recompute in other batch shapes moves a logit by ~1e-6, so the margin
     rule is ``MARGIN`` alone (``near_tie``'s two-step floor is ~1e-6 here):
@@ -1947,7 +1994,8 @@ def phase_paged_preempt_fp32(llama):
     is far above it.  This is the witness that the bf16 run's flips near a
     bf16 step are rounding, not a resume fault."""
     from repro_torch.models import build_model
-    small = dataclasses.replace(llama, n_layers=2, param_dtype="float32",
+    small = dataclasses.replace(llama, n_layers=LLAMA_FP32_LAYERS,
+                                param_dtype="float32",
                                 compute_dtype="float32")
     model = build_model(small, device=DEVICE)
     phase_paged_preempt(model, model.init(SEED), "llama:fp32",
@@ -1964,6 +2012,9 @@ SPEC_FRACS = (0.5, 1.0)
 # smollm-135m's in its speculative runs and decode profiles
 LLAMA_CUT_LAYERS = 2
 SMOLLM_CUT_LAYERS = 2
+# llama7b-blast's fp32 witnesses (preemption, speculation) and its fp32
+# card-vs-CPU reference: one layer, for the script's time
+LLAMA_FP32_LAYERS = 1
 
 
 def spec_config(config, frac, paged=False):
@@ -2131,7 +2182,7 @@ def padded_draft_equal(engine_params, model, plan) -> bool:
 
 def phase_spec(model, params, mode, config, per_step, *, paged=True,
                eager=True, pad_check=False, fracs=SPEC_FRACS,
-               gate_tokens=True):
+               gate_tokens=True, prompts=None, max_new=32):
     """Self-speculative decoding (k = ``SPEC_K``) of the serve phase's 16
     prompts, 32 new tokens, 8 slots, chunk 32, max_len 512, at each of
     ``fracs`` through the captured engine, and at the first also
@@ -2142,13 +2193,13 @@ def phase_spec(model, params, mode, config, per_step, *, paged=True,
     near-tie (``near_tie``, in the logits' precision); captured = eager
     and paged = slot-static bit for bit (every round's token ids and every
     plain step's logits); ``gate_tokens=False``: the tokens against the
-    plain engine's are reported, not gated.  Prints rounds, acceptance, tokens a round,
+    plain engine's are reported, not gated.  ``prompts``: default
+    ``serve_prompts``; ``max_new`` new tokens each.  Prints rounds, acceptance, tokens a round,
     decode tok/s and ms a round against the plain engine's, graphs,
     capture s, peak memory and the draft's parameter bytes."""
     import torch
     cfg = model.cfg
-    prompts = serve_prompts(cfg.vocab)
-    max_new = 32
+    prompts = serve_prompts(cfg.vocab) if prompts is None else prompts
     plain = _plain_with_margins(model, params, config, prompts, max_new)
     rows = []
     for frac in fracs:
@@ -2174,8 +2225,10 @@ def phase_spec(model, params, mode, config, per_step, *, paged=True,
         row = {"phase": "spec", "mode": mode, "arch": cfg.name,
                "layers": cfg.n_layers, "dtype": cfg.compute_dtype,
                "weights": config.quant.weights, "cache": cfg.quant.cache,
-               "k": SPEC_K, "draft_rank_frac": frac, "slots": 8, "chunk": 32,
-               "max_len": 512, "requests": len(prompts),
+               "k": SPEC_K, "draft_rank_frac": frac,
+               "slots": config.scheduler.slots,
+               "chunk": config.scheduler.chunk_size,
+               "max_len": config.memory.max_len, "requests": len(prompts),
                "new_tokens": len(prompts) * max_new, **cmp,
                "graphs": g,
                **{path: run["row"] for path, run in runs.items()
@@ -2211,14 +2264,15 @@ def phase_spec(model, params, mode, config, per_step, *, paged=True,
 
 
 def phase_spec_fp32(llama):
-    """llama7b-blast at full width in fp32, 2 layers (as the ``reference``
-    phase builds it), speculative at each of ``SPEC_FRACS``: there a logit
+    """llama7b-blast at full width in fp32, ``LLAMA_FP32_LAYERS`` layers
+    (as the ``reference`` phase builds it), speculative at each of ``SPEC_FRACS``: there a logit
     moves by ~1e-6 between batch shapes, so the tokens are held to the
     plain engine's under the 1e-4 margin alone (``near_tie``'s two-step
     floor is far below it), and at frac 1.0 — the draft is the full model —
     at least 90% of the drafts are accepted."""
     from repro_torch.models import build_model
-    small = dataclasses.replace(llama, n_layers=2, param_dtype="float32",
+    small = dataclasses.replace(llama, n_layers=LLAMA_FP32_LAYERS,
+                                param_dtype="float32",
                                 compute_dtype="float32")
     model = build_model(small, device=DEVICE)
     rows = phase_spec(model, model.init(SEED), "llama:fp32",
@@ -2379,20 +2433,25 @@ class TraceShort(RuntimeError):
     says nothing about which kernel ran."""
 
 
+TRACE_TRIES = 3
+
+
 def retried(fn):
-    """``fn`` once more if its trace came back short (``TraceShort``).
-    CUPTI on the H100 machine loses a few kernel records now and then (2
-    of 12 attention launches in one profile, 1 of 60 in another: PERF.md,
-    ROADMAP's constraints); the second trace must be whole and pass every
-    check.  The first trace's shortfall is printed on a ``trace_retry``
-    line."""
+    """``fn`` again, up to ``TRACE_TRIES`` runs in all, while its trace
+    comes back short (``TraceShort``).  CUPTI on the H100 machine loses a
+    few kernel records now and then (2 of 12 attention launches in one
+    profile, 1 of 60 in another: PERF.md, ROADMAP's constraints; 1 of 60
+    in two traces in a row of the training step once); the last trace must
+    be whole and pass every check.  Each short trace is printed on a
+    ``trace_retry`` line."""
     def call(*args, **kw):
-        try:
-            return fn(*args, **kw)
-        except TraceShort as e:
-            emit({"phase": "trace_retry", "of": fn.__name__,
-                  "error": str(e)})
-            return fn(*args, **kw)
+        for _ in range(TRACE_TRIES - 1):
+            try:
+                return fn(*args, **kw)
+            except TraceShort as e:
+                emit({"phase": "trace_retry", "of": fn.__name__,
+                      "error": str(e)})
+        return fn(*args, **kw)
     return call
 
 
@@ -3070,7 +3129,7 @@ def timing_row(kname, linear, T, shape, kern, plain, lib, library, cost,
     return row
 
 
-def phase_timing(cfg, llama, hyb, ssm, moe):
+def phase_timing(cfg, llama, hyb, ssm, moe, ds):
     """bf16 timings.  ``ms`` times the wrapper the model calls (for W8A8 and
     W4A8 it includes the per-token quantize prologue; ``launch_only_ms``
     times the kernel alone on ready codes).  Library: ``torch.matmul`` on
@@ -3312,6 +3371,7 @@ def phase_timing(cfg, llama, hyb, ssm, moe):
             lambda: torch.matmul(dy, dense.T), lib_name,
             blast_cost(m, n, b, r, 1, T, elt), flush))
     rows += moe_timing_rows(moe, gen, flush)
+    rows += ds_timing_rows(ds, flush)
     return rows
 
 
@@ -3438,6 +3498,12 @@ SOURCES = {   # kernel → (source, TPU kernel it replaces, run, arch)
            ("blast_matmul_batched_w8a8", "w8a8", 726),
            ("blast_matmul_batched_q4", "int4", 528),
            ("blast_matmul_batched_w4a8", "w4a8", 748))},
+    # MLA's latent attention (deepseek-v3-671b): beyond the Pallas set, the
+    # reference runs it in XLA between q_lat and o_lat of mla_prefill
+    "mla_attention": ("src/repro_torch/kernels/csrc/mla_attention.cu",
+                      "src/repro/models/layers.py:686-702 (mla_prefill, "
+                      "XLA; no Pallas kernel)", "deepseek:float",
+                      "deepseek-v3-671b"),
 }
 
 
@@ -3523,7 +3589,7 @@ def phase_dense_serving(llama, gpt2) -> dict:
     models = {mode: build_model(dataclasses.replace(
         llama, quant=quant.QuantConfig(cache=LLAMA_MODES[mode][1])),
         device=DEVICE) for mode in ("float", "int8_cache")}
-    params = models["float"].init(SEED)
+    params = models["float"].init(card_seed())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in leaves(params))
@@ -3654,13 +3720,19 @@ def phase_profile_state(model, params, config, mode, per_step, scan, mark,
     kernel.  ``mark`` may also be a dict {function name in ``scan``: range
     name} (granite-moe: the routing and dispatch glue and the experts):
     each function runs under its range, and each range's kernels and ms a
-    step are printed."""
+    step are printed; ``scan`` and ``mark`` may be tuples of modules and
+    their dicts (deepseek: the MoE glue and MLA's absorbed matrices).  The
+    MLA kernel's calls and ms a step are printed where it runs."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.kernels import ops
     from repro_torch.serve import Engine, Request
-    marks = {"_scan": mark} if isinstance(mark, str) else dict(mark)
-    inner = {attr: getattr(scan, attr) for attr in marks}
+    pairs = (list(zip(scan, mark)) if isinstance(scan, tuple)
+             else [(scan, {"_scan": mark} if isinstance(mark, str)
+                    else dict(mark))])
+    marks = {name: name_ for _, m in pairs for name, name_ in m.items()}
+    inner = {(mod, attr): getattr(mod, attr) for mod, m in pairs
+             for attr in m}
 
     def marked(fn, name):
         def call(*args, **kw):
@@ -3669,8 +3741,9 @@ def phase_profile_state(model, params, config, mode, per_step, scan, mark,
         return call
 
     if not graphs:
-        for attr, name in marks.items():
-            setattr(scan, attr, marked(inner[attr], name))
+        for mod, m in pairs:
+            for attr, name in m.items():
+                setattr(mod, attr, marked(inner[mod, attr], name))
     try:
         engine = Engine(model, params, config, device=DEVICE,
                         step_fn=None if graphs else model.prefill_chunk)
@@ -3696,8 +3769,8 @@ def phase_profile_state(model, params, config, mode, per_step, scan, mark,
             traced_ms = (time.perf_counter() - t0) * 1e3
         launched = {k: v / n_steps for k, v in ops.launches.items() if v}
     finally:
-        for attr, fn in inner.items():
-            setattr(scan, attr, fn)
+        for (mod, attr), fn in inner.items():
+            setattr(mod, attr, fn)
     kernels = {k: v for k, v in _device_kernels(prof).items()
                if k not in marks.values()}
     busy = sum(v[1] for v in kernels.values())
@@ -3742,6 +3815,16 @@ def phase_profile_state(model, params, config, mode, per_step, scan, mark,
             for k, v in tile_blast(kernels).items()}
         if "flash_attention_ring" in per_step:
             row["ring_per_step"] = ring
+        if "mla_attention" in per_step:
+            mine = [v for k, v in kernels.items() if "mla_tile_kernel" in k]
+            row["mla_per_step"] = {"calls": sum(v[0] for v in mine) / n_steps,
+                                   "ms": sum(v[1] for v in mine) / n_steps}
+            calls, want = row["mla_per_step"]["calls"], per_step[
+                "mla_attention"]
+            if calls != want:
+                raise (TraceShort if calls < want else RuntimeError)(
+                    f"{mode} decode: the MLA kernel ran {calls} times a "
+                    f"step, want {want}")
     if not graphs:
         for name in dict.fromkeys(marks.values()):
             calls, ms = _annotated(prof, name)
@@ -3810,7 +3893,7 @@ def phase_hybrid(hyb) -> dict:
     from repro_torch.tree import leaves
     t0 = time.perf_counter()
     model = build_model(hyb, device=DEVICE)
-    params = hybrid_weights(model.init(SEED))
+    params = hybrid_weights(model.init(card_seed()))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
     init = {"init_params": n_params, "init_bytes": quant.tree_nbytes(params),
@@ -3843,11 +3926,12 @@ def phase_hybrid(hyb) -> dict:
             positions_past_window=min(map(len, long)) - hyb.window)
         varied(outputs, f"serve {mode}:long")
     from repro_torch.models import rglru
+    # the decode profile at the cut depth, for the script's time
     for graphs in (True, False):
-        timed("profile hybrid:float", retried(phase_profile_state), model,
-              params, serve_config(None, weights="none"), "hybrid:float",
-              hybrid_per_step(hyb, "none"), rglru, "rglru_recurrence",
-              graphs=graphs)
+        timed("profile hybrid:float", retried(phase_profile_state), cut,
+              cut_params, serve_config(None, weights="none"),
+              "hybrid:float", hybrid_per_step(cut.cfg, "none"), rglru,
+              "rglru_recurrence", graphs=graphs)
     launches.update(phase_hybrid_modes(hyb, cuts, cut_params))
     return launches
 
@@ -3996,7 +4080,7 @@ def phase_spec_hybrid_fp32(hyb):
 SSM = "mamba2-130m"
 SSM_PARAMS = 83_176_896        # the reference's LM.init, eval_shape
 SSM_T = (8, 256)               # decode; a prefill step of 8 rows of 32
-SSM_CUT_LAYERS = 4             # the fp32 runs' depth
+SSM_CUT_LAYERS = 2             # the fp32 runs' depth
 # depth of the quantized and int8-cache serving runs, the bf16 long run,
 # speculative run and prefill profile, for the script's time
 SSM_SHORT_LAYERS = 6
@@ -4291,9 +4375,11 @@ MOE_ROWS = {8: 3, 256: 80}
 # rows of every expert in a training step: the capacity at batch 8 × 256
 MOE_TRAIN_ROWS = 640
 MOE_DROPLESS = 8.0            # benchmarks/serving_throughput.py:246-257
-MOE_FP32_LAYERS = 2           # the reference and fp32 speculative runs
-# depth of the quantized-weight serving runs and of the paged, bf16
-# preemption and bf16 speculative runs, for the script's time
+# the reference, the fp32 runs and the bf16 dropless preemption and
+# speculative runs
+MOE_FP32_LAYERS = 2
+# depth of the quantized-weight serving runs, the paged run and the decode
+# profile, for the script's time
 MOE_CUT_LAYERS = 4
 ROUTE_TIE = 1e-5              # SharedRouting's near-tie limit
 # mode → (``MODES`` key of its weights and activations, cache)
@@ -4617,17 +4703,19 @@ def phase_moe(moe) -> dict:
       shapes) held to its plain run up to each first near-tie;
     - at ``MOE_CUT_LAYERS`` layers, for the script's time: ``paged
       moe:float``, paged = slot-static bit for bit at the default capacity
-      (the same (B, C) steps, so the same routing); ``paged preempt
-      moe:dropless`` and ``spec moe:dropless`` (k = 4 at frac 0.5, graphs,
-      eager and paged: captured = eager and paged = slot-static bit for
-      bit), their tokens against the plain run's reported (other batch
-      shapes re-route bf16 tokens: ``MOE_ATTN_OUT_SCALE``'s note);
+      (the same (B, C) steps, so the same routing); at
+      ``MOE_FP32_LAYERS``: ``paged preempt moe:dropless`` and ``spec
+      moe:dropless`` (k = 4 at frac 0.5, graphs, eager and paged: captured
+      = eager and paged = slot-static bit for bit), their tokens against
+      the plain run's reported (other batch shapes re-route bf16 tokens:
+      ``MOE_ATTN_OUT_SCALE``'s note);
     - ``paged preempt moe:fp32`` and ``spec moe:fp32`` at
       ``MOE_FP32_LAYERS`` layers, frac 0.5 and 1.0, gated under the 1e-4
       margin (acceptance ≥ 0.9 at 1.0);
-    - ``profile moe:float``: captured and eager decode (8 slots after
-      16-token prompts), eagerly with the routing, dispatch, gather,
-      experts and combine each under a ``record_function`` range.
+    - ``profile moe:float`` (``MOE_CUT_LAYERS`` layers): captured and
+      eager decode (8 slots after 16-token prompts), eagerly with the
+      routing, dispatch, gather, experts and combine each under a
+      ``record_function`` range.
 
     Returns each run's launch counts."""
     import torch
@@ -4636,7 +4724,7 @@ def phase_moe(moe) -> dict:
     from repro_torch.tree import leaves
     t0 = time.perf_counter()
     model = build_model(moe, device=DEVICE)
-    params = moe_weights(model.init(SEED))
+    params = moe_weights(model.init(card_seed()))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
     init = {"init_params": n_params, "init_bytes": quant.tree_nbytes(params),
@@ -4663,7 +4751,6 @@ def phase_moe(moe) -> dict:
             **(init if full else {}))
         varied(outputs, f"serve {what}")
     del cuts["int8"]
-    per_step = moe_per_step(moe, "none")
     config = serve_config("none")
     free = build_model(dropless(moe), device=DEVICE)
     varied(timed("paged prefix moe:dropless", phase_paged_prefix, free,
@@ -4677,16 +4764,24 @@ def phase_moe(moe) -> dict:
         "paged moe:float", phase_paged, cut, cut_params, "moe:float", config,
         cut_step, static)
     # bf16: tokens reported against the plain run's (MOE_ATTN_OUT_SCALE's
-    # note); the fp32 runs below gate them
-    free = build_model(dropless(cut.cfg), device=DEVICE)
+    # note); the fp32 runs below gate them.  At ``MOE_FP32_LAYERS``
+    # layers, for the script's time
+    free = build_model(dropless(dataclasses.replace(
+        moe, n_layers=MOE_FP32_LAYERS)), device=DEVICE)
+    free_params = {**params, "layers": params["layers"][:MOE_FP32_LAYERS]}
     varied(timed("paged preempt moe:dropless", phase_paged_preempt, free,
-                 cut_params, "moe:dropless", config, gate_tokens=False),
+                 free_params, "moe:dropless", config, gate_tokens=False),
            "paged preempt moe:dropless")
-    rows = timed("spec moe:dropless", phase_spec, free, cut_params,
-                 "moe:dropless", config, cut_step, fracs=SPEC_FRACS[:1],
-                 gate_tokens=False)
+    rows = timed("spec moe:dropless", phase_spec, free, free_params,
+                 "moe:dropless", config, moe_per_step(free.cfg, "none"),
+                 fracs=SPEC_FRACS[:1], gate_tokens=False)
     spec_checks(rows, "moe:dropless")
-    del free, cuts, cut, cut_params
+    # the decode profile at the cut depth too, for the script's time
+    for graphs in (True, False):
+        timed("profile moe:float", retried(phase_profile_state), cut,
+              cut_params, config, "moe:float", cut_step, moe_lib, MOE_MARKS,
+              graphs=graphs)
+    del free, free_params, cuts, cut, cut_params
     small = build_model(dropless(dataclasses.replace(
         moe, n_layers=MOE_FP32_LAYERS, param_dtype="float32",
         compute_dtype="float32")), device=DEVICE)
@@ -4702,20 +4797,612 @@ def phase_moe(moe) -> dict:
                            f"{rows[1]['graphs']['acceptance_rate']} at frac "
                            "1.0")
     del small, small_params
-    for graphs in (True, False):
-        timed("profile moe:float", retried(phase_profile_state), model,
-              params, config, "moe:float", per_step, moe_lib, MOE_MARKS,
-              graphs=graphs)
     return launches
+
+
+DEEPSEEK = "deepseek-v3-671b"
+# depth of the float serving run (dense first layers, MoE layers: ≈ 28 GB of
+# bf16 params) and of every other deepseek run and the reference, for the
+# card's 80 GB and the script's time; full width always
+DS_SERVE = (3, 2)
+DS_CUT = (1, 1)
+DS_PROMPTS = 8           # requests of a deepseek serving run (8 slots)
+DS_NEW = 16              # new tokens a request, for the script's time
+# rows a set of the batched expert kernel checks: a decode step's capacity,
+# ceil(8·8·1.25/256) = 1, and about a dropless 8-token chunk's per expert
+DS_ROWS = (1, 40)
+# capacity ≥ every assignment (Tl ≤ C): a factor of E / top_k = 32; the
+# reference benchmark's 8 gives 2 rows a decode step, not dropless at 256
+# experts
+DS_DROPLESS = 32.0
+DS_SPEC_FRAC = 0.7       # benchmarks/serving_throughput.py: _SPEC_FRAC["mla"]
+# the fp32 speculative run's requests: a fp32 round at 1 + 1 layers takes
+# ~1.5 s (its 256 experts' factors are 22 GB, read by every launch)
+DS_FP32_PROMPTS = 4
+DS_SPEC_PROMPT = 32      # the speculative runs' prompt tokens: one chunk
+# MLA kernel cases (B = 8, 128 heads, S = 512): (C, offsets, options) —
+# anywhere; the last slot; dead columns (rows of 0 to C live tokens, their
+# unwritten slots empty) with an empty row; kv_len < S with live-looking
+# positions past it
+MLA_CASES = [(1, None, {}), (32, None, {}), (1, (511, 511), {}),
+             (32, None, {"dead": True}), (20, (0, 200), {"kv_len": 256})]
+MLA_MARKS = {"_absorbed": "mla_absorb"}
+
+
+def ds_config(ds, dense, moe_layers, **over):
+    """deepseek-v3-671b at full width cut to ``dense`` first dense layers
+    and ``moe_layers`` MoE layers; ``over`` replaces config fields."""
+    return dataclasses.replace(
+        ds, n_layers=dense + moe_layers,
+        moe=dataclasses.replace(ds.moe, first_dense_layers=dense), **over)
+
+
+def ds_cut_params(params, dense):
+    """The cut model's layers, shared with the ``DS_SERVE`` run's: its
+    first ``dense`` dense layers and its first MoE layer."""
+    layers, first_moe = params["layers"], DS_SERVE[0]
+    return {**params, "layers": layers[:dense] + [layers[first_moe]]}
+
+
+def ds_per_step(cfg, mode) -> dict:
+    """Launches a serving step of deepseek makes in ``MODES[mode]``: every
+    layer B2 for ``wq_a`` + ``wkv_a`` and for its FFN's gate+up (the dense
+    FFN or the shared expert), B1 for ``wq_b``, ``out``, the FFN's ``wo``
+    and ``wkv_b``'s densification (T = 512), the MLA kernel; a MoE layer
+    also its experts' ``wi`` and ``wo`` (two batched launches).  The int8
+    cache changes none: its latent is dequantized and read by the same
+    kernel."""
+    blast, grouped = MODES[mode][1]
+    L, moe_layers = cfg.n_layers, cfg.n_layers - cfg.moe.first_dense_layers
+    return {blast: 4 * L, grouped: 2 * L, "mla_attention": L,
+            MOE_BATCHED[mode]: 2 * moe_layers}
+
+
+def ds_blast_shapes(cfg):
+    """(name, n, m, b, r, G, T) of deepseek's B1 and B2 launches: the MLA
+    projections (``wq_a`` + ``wkv_a`` grouped, padded to 1536 outputs and
+    the larger rank), ``wkv_b``'s densification (T = 512 identity rows),
+    the shared expert's and the dense FFN's; T = 8 a decode step."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.mla import make_mla
+    from repro_torch.models.moe import make_moe
+    mla, moe = make_mla(cfg), make_moe(cfg)
+    dense = L.make_ffn(cfg.d_model, cfg.moe.dense_d_ff, cfg.ffn_kind,
+                       cfg.ffn_structure)
+    r = lambda s: s.meta["r"]        # noqa: E731
+    out = [("wq_a+wkv_a", cfg.d_model, mla.wq_a.d_out, mla.wq_a.meta["b"],
+            max(r(mla.wq_a), r(mla.wkv_a)), 2, 8)]
+    for name, s, G, T in (("wq_b", mla.wq_b, 1, 8), ("out", mla.out, 1, 8),
+                          ("wkv_b dense", mla.wkv_b, 1, 512),
+                          ("shared gate+up", moe.shared.gate, 2, 8),
+                          ("shared wo", moe.shared.wo, 1, 8),
+                          ("dense gate+up", dense.gate, 2, 8),
+                          ("dense wo", dense.wo, 1, 8)):
+        out.append((name, s.d_in, s.d_out, s.meta["b"], r(s), G, T))
+    return out
+
+
+def make_mla_inputs(B, C, H, S, dtype, gen, offsets=None, dead=False,
+                    kv_len=None):
+    """q_lat (B, C, H, 512), q_rope (B, C, H, 64), the cache leaves latent
+    (B, S, 512) and k_rope (B, S, 64) as [:, :S] views of spare-slot
+    buffers, each slot's position (B, S) int32 — slot j holds position j up
+    to the row's last live token, -1 past it — the rows' offsets and the
+    kv_len a step passes (its bucket).  ``dead``: rows of 0 to C live
+    tokens, row 0 empty (every slot -1: its queries see no key, and read
+    0).  ``kv_len``: the slots past it hold live-looking positions, which
+    the kernel must not read."""
+    import torch
+    from repro_torch.kernels.flash_attention import kv_bucket
+    lo, hi = offsets or (0, S - C)
+    dev = dict(device=DEVICE)
+    q_lat = torch.randn((B, C, H, 512), generator=gen, **dev).to(dtype)
+    q_rope = torch.randn((B, C, H, 64), generator=gen, **dev).to(dtype)
+    latent = torch.randn((B, S + 1, 512), generator=gen, **dev).to(
+        dtype)[:, :S]
+    k_rope = torch.randn((B, S + 1, 64), generator=gen, **dev).to(
+        dtype)[:, :S]
+    offs = torch.randint(lo, hi + 1, (B,), generator=gen, **dev)
+    n = (torch.randint(0, C + 1, (B,), generator=gen, **dev) if dead
+         else torch.full((B,), C, **dev))
+    slots = torch.arange(S, **dev)[None]
+    pos = torch.where(slots < (offs + n)[:, None], slots, -1)
+    if dead:
+        pos[0] = -1
+    need = int((offs + n).max())
+    kv = kv_bucket(need, S) if kv_len is None else kv_len
+    if kv_len is not None:
+        pos[:, kv_len:] = slots[:, kv_len:]
+    return (q_lat, q_rope, latent, k_rope, pos.to(torch.int32).contiguous(),
+            offs.to(torch.int32), kv)
+
+
+def mla_cost(q_lat, pos, offs, kv):
+    """(bytes, flops) of the MLA kernel: q read once (bf16, 576 a row), o
+    written once (fp32, 512 a row), each row's slots a query can see read
+    once (1152 bytes) with their positions; 2·(576 + 512) flops a visible
+    (query head, slot) pair."""
+    import torch
+    B, C, H, _ = q_lat.shape
+    p = pos[:, :kv].cpu()
+    qpos = offs.cpu()[:, None] + torch.arange(C)[None]
+    seen = (p[:, None, :] >= 0) & (p[:, None, :] <= qpos[:, :, None])
+    keys = int(seen.any(dim=1).sum())
+    pairs = int(seen.sum()) * H
+    return (B * C * H * (576 * 2 + 512 * 4) + keys * (1152 + 4),
+            {"bfloat16": 2 * 1088 * pairs})
+
+
+def mla_calls(inputs, scale):
+    """(kernel call, plain call) of the MLA kernel on ``make_mla_inputs``'
+    tensors."""
+    from repro_torch.kernels import ops, ref
+    q_lat, q_rope, latent, k_rope, pos, offs, kv = inputs
+    return (functools.partial(ops.mla_attention, q_lat, q_rope, latent,
+                              k_rope, pos, offs, scale=scale, kv_len=kv),
+            functools.partial(ref.mla_attention_ref, q_lat, q_rope, latent,
+                              k_rope, pos, offs, scale=scale, kv_len=kv))
+
+
+def chunked_plain(plain, x, *factors, chunk=32):
+    """A batched plain version over ``chunk`` experts at a time (each
+    expert's rows its own, so the result is the same; 256 experts' fp32
+    or float64 copies at once would not fit): x (E, …) and each factor
+    (E, …)."""
+    import torch
+    E = x.shape[0]
+    return torch.cat([plain(x[e:e + chunk], *(f[e:e + chunk] for f in
+                                              factors))
+                      for e in range(0, E, chunk)])
+
+
+def ds_batched_calls(x, U, S, V, r):
+    """(kernel name, kernel call, plain call) of the batched expert launch
+    in the five storages at 256 experts; the plain versions run 32 experts
+    at a time (the W8A8 / W4A8 ones in float64)."""
+    from repro_torch import quant
+    from repro_torch.kernels import ops, ref
+    calls = [("blast_matmul_batched",
+              lambda: ops.blast_matmul_batched(x, U, S, V),
+              lambda: chunked_plain(ref.blast_matmul_batched_ref, x, U, S,
+                                    V))]
+    for mode in QUANT_MODES:
+        bits, act = mode_bits_act(mode)
+        codes, scales = quantize_factors(U, S, V, bits=bits)
+        kern_fn = (ops.blast_matmul_batched_q4 if bits == 4
+                   else ops.blast_matmul_batched_q)
+        kern = functools.partial(kern_fn, x, *codes, *scales, act=act)
+        if act == "int8":
+            plain_a8 = (ref.blast_matmul_batched_a4_ref if bits == 4
+                        else ref.blast_matmul_batched_a8_ref)
+
+            def plain(plain_a8=plain_a8, codes=codes, scales=scales):
+                xq, sx = quant.quantize_act(x)    # the wrapper's prologue
+                return chunked_plain(plain_a8, xq, sx, *codes,
+                                     *scales).to(x.dtype)
+        else:
+            plain = functools.partial(
+                chunked_plain, ref.blast_matmul_batched_q4_ref if bits == 4
+                else ref.blast_matmul_batched_q_ref, x, *codes, *scales)
+        calls.append((MOE_BATCHED[mode], kern, plain))
+    return calls
+
+
+def ds_expert_shapes(ds):
+    """(name, n, m, b, r) of deepseek's expert linears: ``wi`` (7168 →
+    4096, gate ‖ up) and ``wo`` (2048 → 7168), b = 16."""
+    from repro_torch.models.moe import make_moe
+    spec = make_moe(ds)
+    return [(name, lin.d_in, lin.d_out, lin.meta["b"], lin.meta["r"])
+            for name, lin in (("wi", spec.wi), ("wo", spec.wo))]
+
+
+def phase_kernels_deepseek(ds, errs) -> None:
+    """deepseek-v3-671b's kernels against their plain versions on the card:
+    the MLA kernel at full width (B = 8, 128 heads, S = 512; ``MLA_CASES``:
+    C = 1 and 32 at random offsets, the last slot, dead columns with an
+    empty row, kv_len < S), fp32 and bf16, two launches at decode bit for
+    bit; B1 and B2 at the MLA, shared-expert and dense-FFN shapes (T = 8)
+    and at ``wkv_b``'s densification (T = 512: the identity in bf16 for
+    float bf16 weights, in fp32 — the scales' type — for the quantized
+    ones), bf16 in five storages and fp32 float, two launches at T = 8 bit
+    for bit; the batched expert kernel at 256 experts, 1 and 40 rows a set
+    (at 40, each set's last row zero), bf16 in five storages, two launches
+    at 1 row bit for bit."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 60)
+    H = ds.n_heads
+    scale = 1.0 / math.sqrt(ds.mla.nope_head_dim + ds.mla.rope_head_dim)
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for C, offsets, opts in MLA_CASES:
+            inputs = make_mla_inputs(8, C, H, 512, dtype, gen, offsets,
+                                     **opts)
+            kern, plain = mla_calls(inputs, scale)
+            label = (f"{DEEPSEEK} mla B=8 H={H} C={C} S=512 "
+                     f"kv_len={inputs[-1]} {opts or ''}")
+            if C == 1 and offsets is None:
+                repeat_identical(("mla_attention", kern, None), label, C,
+                                 dname)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if opts.get("dead") and bool(got[0].abs().max() != 0):
+                raise RuntimeError("mla_attention: the empty row is not 0")
+            e = check_close(f"mla_attention[{label}]", got, want, dname,
+                            scaled=True)
+            if dname == "bfloat16":
+                errs["mla_attention"] = max(errs["mla_attention"], e)
+            del inputs
+    for name, n, m, b, r, G, T in ds_blast_shapes(ds):
+        linear = f"{DEEPSEEK} {name} {n}->{m} b={b} r={r} G={G}"
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            x, U, S_, V = make_blast_inputs(n, m, b, r, G, T, dtype, gen,
+                                            DEVICE)
+            if T == n:        # the densification's identity
+                x = torch.eye(n, dtype=dtype, device=DEVICE)
+            # fp32: the float kernel, and at the densification the
+            # quantized ones (their identity is in the scales' fp32)
+            modes = (QUANT_MODES if dname == "bfloat16" and T != 512
+                     or dname == "float32" and T == 512 else ())
+            for call in blast_calls(x, U, S_, V, r, modes):
+                kname, kern, plain = call
+                if T == 8:
+                    repeat_identical(call, linear, T, dname)
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                e = check_close(f"{kname}[{linear} T={T}]", got, want, dname)
+                if dname == "bfloat16":
+                    errs[kname] = max(errs[kname], e)
+            del x, U, S_, V
+    E = ds.moe.n_experts
+    for name, n, m, b, r in ds_expert_shapes(ds):
+        for rows in DS_ROWS:
+            x, U, S_, V = moe_inputs(n, m, b, r, E, rows, torch.bfloat16,
+                                     gen)
+            if rows == 1:     # its one row live, not the empty slot
+                x.normal_(generator=gen)
+            linear = f"{DEEPSEEK} {name} {n}->{m} b={b} r={r} E={E}"
+            for call in ds_batched_calls(x, U, S_, V, r):
+                kname, kern, plain = call
+                if rows == DS_ROWS[0]:
+                    repeat_identical(call, linear, rows, "bfloat16")
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                e = check_close(f"{kname}[{linear} rows={rows}]", got, want,
+                                "bfloat16")
+                errs[kname] = max(errs[kname], e)
+                del got, want
+            del x, U, S_, V
+            torch.cuda.empty_cache()
+
+
+def phase_reference_deepseek(ds):
+    """deepseek-v3-671b at full width (d_model 7168, 128 heads, MLA 1536 /
+    512 / 128 + 64 / 128, vocab 129280, 256 experts top-8 of 2048 and a
+    shared expert, capacity 1.25), fp32, cut to one dense and one MoE
+    layer (``DS_CUT``): the card (kernels) against the CPU (plain
+    versions) from one init, drawn on the card and copied to the host
+    (~31 GB a side), over three ragged chunks of 16 with idle rows and
+    dead columns (``_reference_rows``) with the float cache and the int8
+    latent cache, and ``LM.apply`` over 2 × 48 tokens (no cache: once): every live logit row
+    within 1e-3 + 1e-3·max|logit|, ``aux`` within 1e-5 relative; the cache
+    leaves: ``pos`` equal, the latent and k_rope within 1e-3 + 1e-3·max
+    (float) or equal (int8: the CPU takes the card's codes,
+    ``SharedRowCodes``).  The CPU takes the card's expert ids
+    (``SharedRouting``, after its near-tie check)."""
+    import contextlib
+    import torch
+    from repro_torch import quant
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    small = ds_config(ds, *DS_CUT, param_dtype="float32",
+                      compute_dtype="float32")
+    gpu = build_model(small, device=DEVICE)
+    params_gpu = gpu.init(card_seed())
+    t0 = time.perf_counter()
+    params_cpu = tree_map(lambda t: t.cpu(), params_gpu)
+    copy_s = time.perf_counter() - t0
+    toks = torch.randint(0, ds.vocab, (2, 48),
+                         generator=torch.Generator().manual_seed(SEED + 7))
+    for cache in ("none", "int8"):
+        cfg = dataclasses.replace(small, quant=quant.QuantConfig(cache=cache))
+        gpu, cpu = build_model(cfg, device=DEVICE), build_model(cfg,
+                                                                device="cpu")
+        routing = SharedRouting()
+        shared = [routing] + ([SharedRowCodes()] if cache == "int8" else [])
+        t0 = time.perf_counter()
+        err, lim, (c_g, c_c) = _reference_rows(gpu, cpu, params_gpu,
+                                               params_cpu, "none", shared)
+        rows_s = time.perf_counter() - t0
+        if cache == "none":      # no cache: the same in both modes
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(routing)
+                routing.recording = True
+                out_g = gpu.apply(params_gpu, toks.to(DEVICE))
+                routing.recording = False
+                out_c = cpu.apply(params_cpu, toks)
+            a_err = (out_g.logits.float().cpu() - out_c.logits).abs().amax(
+                dim=-1).flatten()
+            a_lim = 1e-3 + 1e-3 * float(out_c.logits.abs().max())
+            aux_g, aux_c = float(out_g.aux), float(out_c.aux)
+            aux_rel = abs(aux_g - aux_c) / abs(aux_c)
+            applied = {"apply_max_abs_logit_err": float(a_err.max()),
+                       "apply_positions": int(a_err.numel()),
+                       "apply_limit": a_lim, "aux_card": aux_g,
+                       "aux_cpu": aux_c, "aux_rel_err": aux_rel}
+            a_past = int((a_err > a_lim).sum())
+        leaves, bad = {}, []
+        for i, (lg, lc) in enumerate(zip(c_g, c_c)):
+            for name, leaf in lg.items():
+                g, c = leaf.cpu(), lc[name]
+                if name == "pos" or cache == "int8":
+                    ok = torch.equal(g, c)
+                    e = float((g.float() - c.float()).abs().max())
+                else:
+                    e = float((g - c).abs().max())
+                    ok = e <= 1e-3 + 1e-3 * float(c.abs().max())
+                leaves[f"{i}.{name}"] = e
+                if not ok:
+                    bad.append(f"{i}.{name}")
+        past = int((err > lim).sum()) + a_past
+        emit({"phase": "reference", "arch": DEEPSEEK,
+              "mode": f"deepseek:{'int8_cache' if cache == 'int8' else 'float'}",
+              "layers": small.n_layers, "dense_layers": DS_CUT[0],
+              "d_model": ds.d_model, "vocab": ds.vocab,
+              "experts": ds.moe.n_experts, "top_k": ds.moe.top_k,
+              "shared_experts": ds.moe.n_shared, "dtype": "float32",
+              "cache": cache, "chunks": 3, "copy_to_host_s": copy_s,
+              "ragged_chunks_s": rows_s,
+              "param_bytes": quant.tree_nbytes(params_gpu),
+              "max_abs_logit_err": float(err.max()), "rows": len(err),
+              **(applied if cache == "none" else {}),
+              "rows_past_limit": past, "cache_leaf_max_abs_err": leaves,
+              "routing": {"calls": routing.calls, "tokens": routing.tokens,
+                          "tokens_with_swapped_experts": routing.flips,
+                          "max_gap_at_swaps": routing.max_gap,
+                          "near_tie_limit": ROUTE_TIE},
+              **{c.CODEC: _codec_report(c) for c in shared[1:]},
+              "limit": "1e-3 + 1e-3*max|logit| per row; aux 1e-5 relative; "
+                       "leaves 1e-3 + 1e-3*max (int8, pos: equal)"})
+        if past or aux_rel > 1e-5 or bad:
+            raise RuntimeError(f"reference[{DEEPSEEK} {cache}]: card differs "
+                               f"from the CPU plain path: row errors "
+                               f"{err.tolist()}, limits {lim.tolist()}, apply "
+                               f"{float(a_err.max())} (limit {a_lim}), aux "
+                               f"{aux_g} vs {aux_c}, leaves {bad}")
+        del gpu, cpu, c_g, c_c
+    del params_gpu, params_cpu
+    torch.cuda.empty_cache()
+
+
+def ds_dropless(cfg):
+    """``cfg`` with capacity past every assignment (``DS_DROPLESS``)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=DS_DROPLESS))
+
+
+def phase_deepseek(ds) -> dict:
+    """deepseek-v3-671b at full width (d_model 7168, 128 heads, MLA with a
+    512 + 64 latent cache, 256 experts top-8 of 2048, a shared expert of
+    2048, dense first layers of 18432, vocab 129280 untied, bf16, seeded
+    random weights drawn on the card) in every serving mode, 8 prompts of
+    16–200 tokens (``DS_PROMPTS``), 16 new (``DS_NEW``), 8 slots, chunk 32,
+    every run's requests ``varied``:
+
+    - ``serve deepseek:float`` at 3 dense + 2 MoE layers (``DS_SERVE``:
+      ≈ 28 GB of params), captured = eager token for token, launches
+      steps × ``ds_per_step``; the int8, W8A8, int4 and W4A8 weights and
+      the int8 latent cache at 1 + 1 (``DS_CUT``, the same layers);
+    - ``paged deepseek:float`` (1 + 1): paged = slot-static bit for bit
+      (capacity 1.25: the same steps route the same);
+    - ``paged preempt deepseek:float`` (1 + 1, capacity 1.25: its bf16
+      tokens against the roomy run's reported);
+    - dropless (capacity factor ``DS_DROPLESS``): ``paged prefix`` (16
+      requests sharing 256 tokens, ≥ 15·256 hit tokens) and ``spec
+      deepseek:dropless`` (frac ``DS_SPEC_FRAC``;
+      graphs, eager, paged: captured = eager and paged = slot-static bit
+      for bit; prompts cut to ``DS_SPEC_PROMPT`` tokens), their bf16
+      tokens against the plain run's reported; in fp32 (1 + 1,
+      ``DS_FP32_PROMPTS`` of those prompts, chunks of 8) speculation at
+      frac 1.0
+      gated under the 1e-4 margin, acceptance ≥ 0.9 (a rejected draft's
+      rollback is held to plain decoding in fp32 by the CPU tests);
+    - ``profile deepseek:float`` (1 + 1): captured and eager decode, the
+      routing glue and the absorbed matrices under ``record_function``
+      ranges, the MLA kernel's calls and ms a step.
+
+    Returns each run's launch counts."""
+    import torch
+    from repro_torch import quant
+    from repro_torch.models import build_model
+    from repro_torch.models import mla as mla_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    full_cfg = ds_config(ds, *DS_SERVE)
+    model = build_model(full_cfg, device=DEVICE)
+    params = model.init(card_seed())
+    torch.cuda.synchronize()
+    init = {"init_params": sum(t.numel() for t in leaves(params)),
+            "init_bytes": quant.tree_nbytes(params),
+            "init_s": time.perf_counter() - t0,
+            "dense_layers": DS_SERVE[0], "moe_layers": DS_SERVE[1]}
+    prompts = serve_prompts(ds.vocab, n=DS_PROMPTS)
+    config = serve_config("none")
+    launches = {}
+    launches["deepseek:float"], _, outputs = timed(
+        "serve deepseek:float", phase_serve, model, params, "deepseek:float",
+        config, ds_per_step(full_cfg, "none"), prompts=prompts,
+        max_new=DS_NEW, **init)
+    varied(outputs, "serve deepseek:float")
+    cut_cfg = ds_config(ds, *DS_CUT)
+    cut_params = ds_cut_params(params, DS_CUT[0])
+    del model, params
+    cut = build_model(cut_cfg, device=DEVICE)
+    for label, (mode, cache) in MOE_MODES.items():
+        if label == "float":
+            continue
+        what = f"deepseek:{label}"
+        serving = cut if cache == "none" else build_model(
+            dataclasses.replace(cut_cfg, quant=quant.QuantConfig(
+                cache=cache)), device=DEVICE)
+        launches[what], _, outputs = timed(
+            f"serve {what}", phase_serve, serving, cut_params,
+            f"{what}:{sum(DS_CUT)}L", serve_config(mode),
+            ds_per_step(cut_cfg, mode), prompts=prompts, max_new=DS_NEW)
+        varied(outputs, f"serve {what}")
+        del serving
+    cut_step = ds_per_step(cut_cfg, "none")
+    static = timed("serve deepseek:float:cut", phase_serve, cut, cut_params,
+                   f"deepseek:float:{sum(DS_CUT)}L", config, cut_step,
+                   prompts=prompts, max_new=DS_NEW)[1:]
+    launches["paged:deepseek:float"] = timed(
+        "paged deepseek:float", phase_paged, cut, cut_params,
+        "deepseek:float", config, cut_step, static, prompts=prompts,
+        max_new=DS_NEW)
+    # preemption at the default capacity: its bf16 tokens are reported
+    # against the roomy run's either way (a resumed request's chunks
+    # round otherwise), and dropless its 256-row prefill steps took 40 s
+    # of the script's time
+    varied(timed("paged preempt deepseek:float", phase_paged_preempt, cut,
+                 cut_params, "deepseek:float", config, gate_tokens=False),
+           "paged preempt deepseek:float")
+    free = build_model(ds_dropless(cut_cfg), device=DEVICE)
+    varied(timed("paged prefix deepseek:dropless", phase_paged_prefix, free,
+                 cut_params, "deepseek:dropless", config),
+           "paged prefix deepseek:dropless")
+    # dropless, a step routes every one of its B·C token slots to every
+    # expert's buffer (capacity Tl), so a 32-wide prefill step costs ~40
+    # decode steps: the speculative runs take prompts of one chunk
+    short = [p[:DS_SPEC_PROMPT] for p in prompts]
+    rows = timed("spec deepseek:dropless", phase_spec, free, cut_params,
+                 "deepseek:dropless", config, cut_step,
+                 fracs=(DS_SPEC_FRAC,), gate_tokens=False, prompts=short,
+                 max_new=DS_NEW)
+    spec_checks(rows, "deepseek:dropless")
+    for graphs in (True, False):
+        timed("profile deepseek:float", retried(phase_profile_state), cut,
+              cut_params, config, "deepseek:float", cut_step,
+              (moe_lib, mla_lib), (MOE_MARKS, MLA_MARKS), graphs=graphs)
+    del free, cut, cut_params
+    torch.cuda.empty_cache()
+    small = build_model(ds_dropless(ds_config(
+        ds, *DS_CUT, param_dtype="float32", compute_dtype="float32")),
+        device=DEVICE)
+    small_params = small.init(card_seed())
+    # chunks of 8: a fp32 step over 256 experts costs by its B·C token
+    # slots, and each captured bucket runs it twice
+    narrow = dataclasses.replace(config, scheduler=dataclasses.replace(
+        config.scheduler, chunk_size=8))
+    rows = timed("spec deepseek:fp32", phase_spec, small, small_params,
+                 "deepseek:fp32", narrow, ds_per_step(small.cfg, "none"),
+                 paged=False, eager=False, fracs=(1.0,),
+                 prompts=short[:DS_FP32_PROMPTS], max_new=DS_NEW)
+    if rows[0]["graphs"]["acceptance_rate"] < 0.9:
+        raise RuntimeError(f"spec deepseek:fp32: acceptance "
+                           f"{rows[0]['graphs']['acceptance_rate']} at frac "
+                           "1.0")
+    del small, small_params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ds_timing_rows(ds, flush) -> list:
+    """deepseek's rows (bf16): the MLA kernel at decode (B = 8, C = 1, 128
+    heads, S = 512, random offsets) and at a 32-token chunk (library: the
+    reference's einsums as ``torch.matmul`` on the card — scores over
+    [latent ‖ k_rope], the position mask, softmax, P·latent — same work);
+    B1 at ``wkv_b``'s densification (512 → 32768, T = 512) and B2 at
+    ``wq_a`` + ``wkv_a`` (T = 8); the batched expert kernel at ``wi`` and
+    ``wo``, 256 experts at 1 row a set (decode) in float and int8
+    (library: ``torch.bmm`` over the dense experts, by 32
+    at a time, dense work)."""
+    import torch
+    from repro_torch.core import blast as blast_lib
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 70)
+    H = ds.n_heads
+    scale = 1.0 / math.sqrt(ds.mla.nope_head_dim + ds.mla.rope_head_dim)
+    rows = []
+    for C, T in ((1, 8), (32, 256)):
+        inputs = make_mla_inputs(8, C, H, 512, torch.bfloat16, gen)
+        q_lat, q_rope, latent, k_rope, pos, offs, kv = inputs
+        kern, plain = mla_calls(inputs, scale)
+        qpos = offs[:, None].long() + torch.arange(C, device=DEVICE)[None]
+        ok = ((pos[:, None, :kv] >= 0)
+              & (pos[:, None, :kv] <= qpos[:, :, None]))     # (B, C, kv)
+        lat, rope = latent[:, :kv], k_rope[:, :kv]
+
+        def lib(q_lat=q_lat, q_rope=q_rope, lat=lat, rope=rope, ok=ok):
+            s = (torch.matmul(q_lat, lat[:, None].transpose(-1, -2))
+                 + torch.matmul(q_rope, rope[:, None].transpose(-1, -2)))
+            s = s.float() * scale
+            s = s.masked_fill(~ok[:, :, None], float("-inf"))
+            return torch.matmul(torch.softmax(s, -1).to(lat.dtype),
+                                lat[:, None])
+        rows.append(timing_row(
+            "mla_attention", f"mla C={C}", T,
+            f"B=8 C={C} H={H} S=512 kv={kv} 576/512", kern, plain, lib,
+            "torch.matmul: the reference's einsums (same work)",
+            mla_cost(q_lat, pos, offs, kv), flush, arch=DEEPSEEK,
+            offsets="random"))
+        del inputs, ok
+    lib_name = "torch.matmul(x, to_dense(A).T) (dense work)"
+    for name, n, m, b, r, G, T in ds_blast_shapes(ds):
+        if name not in ("wq_a+wkv_a", "wkv_b dense"):
+            continue
+        x, U, S_, V = make_blast_inputs(n, m, b, r, G, T, torch.bfloat16,
+                                        gen, DEVICE)
+        if T == n:
+            x = torch.eye(n, dtype=torch.bfloat16, device=DEVICE)
+        dense = torch.cat([blast_lib.to_dense(blast_lib.BlastParams(
+            U[g], S_[g], V[g])) for g in range(G)], dim=0)
+        kname, kern, plain = blast_calls(x, U, S_, V, r, ())[0]
+        rows.append(timing_row(
+            kname, name, T, f"{n}->{m} b={b} r={r} G={G}", kern, plain,
+            lambda: torch.matmul(x, dense.T), lib_name,
+            blast_cost(n, m, b, r, G, T, 2), flush, arch=DEEPSEEK))
+        del x, U, S_, V, dense
+    E = ds.moe.n_experts
+    for name, n, m, b, r in ds_expert_shapes(ds):
+        _, U, S_, V = make_blast_inputs(n, m, b, r, E, 1, torch.bfloat16,
+                                        gen, DEVICE)
+        dense = torch.empty((E, n, m), dtype=torch.bfloat16, device=DEVICE)
+        for g in range(E):
+            dense[g] = blast_lib.to_dense(blast_lib.BlastParams(
+                U[g], S_[g], V[g])).T
+        for rows_ in DS_ROWS[:1]:     # decode: one row a set
+            x = torch.randn((E, rows_, n), generator=gen,
+                            device=DEVICE).to(torch.bfloat16)
+            lib = functools.partial(torch.bmm, x, dense)
+            for kname, kern, plain in ds_batched_calls(x, U, S_, V, r):
+                # float and int8: the other plain versions at 256 experts
+                # take seconds a call
+                if kname not in ("blast_matmul_batched",
+                                 "blast_matmul_batched_q"):
+                    continue
+                mode = next(k for k, v in MOE_BATCHED.items() if v == kname)
+                rows.append(timing_row(
+                    kname, name, 8 if rows_ == 1 else 8 * rows_,
+                    f"{n}->{m} b={b} r={r} E={E} rows={rows_}", kern, plain,
+                    lib, "torch.bmm(x, dense experts) (dense work)",
+                    blast_cost(n, m, b, r, E, rows_, 2, mode, batched=True),
+                    flush, arch=DEEPSEEK, rows=rows_))
+            del x
+        del U, S_, V, dense
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
     dev, smi = phase_device()
+    import torch
     sys.path.insert(0, str(SRC))
     from repro_torch import configs
     cfg = configs.get(SMOLLM)
     llama, gpt2 = configs.get(LLAMA), configs.get("gpt2-blast")
     hyb, ssm, moe = configs.get(HYBRID), configs.get(SSM), configs.get(MOE)
+    ds = configs.get(DEEPSEEK)
     from repro_torch.models import build_model
     timed("build", phase_build)
     errs = timed("kernels", phase_kernels, cfg)
@@ -4785,7 +5472,15 @@ def main() -> int:
             f"train {arch}", phase_train, dataclasses.replace(
                 arch_cfg, n_layers=min(layers, arch_cfg.n_layers)),
             steps, profile=False)
-    rows = timed("timing", phase_timing, cfg, llama, hyb, ssm, moe)
+    # deepseek after the training runs (run after deepseek's phases, the
+    # training step's trace lost one of its 60 B4 records in every try),
+    # the earlier families' engines and graph pools gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed(f"kernels {DEEPSEEK}", phase_kernels_deepseek, ds, errs)
+    timed(f"reference {DEEPSEEK}", phase_reference_deepseek, ds)
+    launches.update(timed(f"{DEEPSEEK} serving", phase_deepseek, ds))
+    rows = timed("timing", phase_timing, cfg, llama, hyb, ssm, moe, ds)
     emit({"kernels": summary(rows, errs, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": dev})

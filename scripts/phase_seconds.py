@@ -21,7 +21,7 @@ import json
 import sys
 
 # the families' own runs, timed inside their serving phase
-NESTED_TAGS = ("llama:", "gpt2:", "hybrid:", "mamba2:", "moe:")
+NESTED_TAGS = ("llama:", "gpt2:", "hybrid:", "mamba2:", "moe:", "deepseek:")
 
 
 def top_level(name: str) -> bool:

@@ -5,13 +5,17 @@ learned positions, SwiGLU or GELU FFN, tied or untied head, QKV bias,
 per-role BLAST ranks) — and the hybrid recurrentgemma-2b (RG-LRU and
 sliding-window attention over a ring cache, embedding scaling, a logit
 softcap), the ssm family's mamba2-130m (the SSD mixer, no FFN, no
-positions) and the moe family's granite-moe-1b-a400m (32 routed experts,
-top-8).  The other families follow with their slices."""
+positions), the moe family's granite-moe-1b-a400m (32 routed experts,
+top-8) and deepseek-v3-671b (MLA over a latent cache, 256 routed experts
+top-8 with a shared expert, three dense first layers).  The other families
+follow with their slices."""
 
 from __future__ import annotations
 
-from repro_torch.configs.base import (ArchConfig, MoECfg,  # noqa: F401
-                                      RGLRUCfg, SSDCfg, StructureConfig)
+from repro_torch.configs.base import (ArchConfig, MLACfg,  # noqa: F401
+                                      MoECfg, RGLRUCfg, SSDCfg,
+                                      StructureConfig)
+from repro_torch.configs.deepseek_v3_671b import CONFIG as deepseek_v3_671b
 from repro_torch.configs.granite_3_2b import CONFIG as granite_3_2b
 from repro_torch.configs.granite_moe_1b import CONFIG as granite_moe_1b
 from repro_torch.configs.internlm2_1_8b import CONFIG as internlm2_1_8b
@@ -29,6 +33,7 @@ ARCHS: dict[str, ArchConfig] = {
     "recurrentgemma-2b": recurrentgemma_2b,
     "mamba2-130m": mamba2_130m,
     "granite-moe-1b-a400m": granite_moe_1b,
+    "deepseek-v3-671b": deepseek_v3_671b,
     # the paper's own models
     "gpt2-blast": GPT2_BLAST,
     "llama7b-blast": LLAMA7B_BLAST,

@@ -3,10 +3,12 @@
 
 Only the fields the ported serving and training slices read, plus every
 field that changes numbers (``reduced()`` gives the same shapes, dtypes and
-learned-position table as the reference).  ``MoECfg`` is carried whole;
-``LM`` raises on the MoE fields the port does not run yet (shared experts,
-first dense layers: ROADMAP A7.2).  Families and knobs the port does not
-run yet (MLA, encoders) are not carried; ``LM`` raises on them.
+learned-position table as the reference).  ``MoECfg`` (shared experts and
+first dense layers included) and ``MLACfg`` are carried whole; ``mtp``
+(DeepSeek-V3's multi-token-prediction head) is carried so that the loss can
+refuse it: the port builds no MTP head yet (ROADMAP A11).  Families and
+knobs the port does not run yet (encoders) are not carried; ``LM`` raises
+on them.
 """
 
 from __future__ import annotations
@@ -57,6 +59,18 @@ class MoECfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLACfg:
+    """DeepSeek-V3's multi-head latent attention: the low-rank q path, the
+    shared latent (``kv_lora_rank``) and the one RoPE key every head
+    shares."""
+    q_lora_rank: int
+    kv_lora_rank: int
+    rope_head_dim: int
+    nope_head_dim: int
+    v_head_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
 class SSDCfg:
     """The Mamba-2 SSD mixer of the ssm family."""
     d_state: int = 128
@@ -95,11 +109,14 @@ class ArchConfig:
     embed_scale: bool = False
     # per-layer mixer pattern, cycled over n_layers: 'attn' | 'local_attn'
     # (sliding window of ``window`` keys over a ring cache) | 'rglru' | 'ssd'
+    # | 'mla'
     pattern: Sequence[str] = ("attn",)
     window: int = 0
     moe: MoECfg | None = None
+    mla: MLACfg | None = None
     ssd: SSDCfg | None = None
     rglru: RGLRUCfg | None = None
+    mtp: bool = False                 # DeepSeek-V3's MTP head (not ported)
     structure: StructureConfig = dataclasses.field(default_factory=StructureConfig)
     # per-role structure: ``structure`` covers the attention projections,
     # ``structure_ffn`` (if set) the FFN's (paper Table 9: r=1024 attention,
@@ -167,6 +184,11 @@ class ArchConfig:
                 first_dense_layers=min(self.moe.first_dense_layers, 1))
             small["n_layers"] = max(small["n_layers"],
                                     (self.moe.first_dense_layers and 1) + 2)
+        if self.mla:
+            small["mla"] = MLACfg(q_lora_rank=32, kv_lora_rank=16,
+                                  rope_head_dim=8, nope_head_dim=16,
+                                  v_head_dim=16)
+            small["head_dim"] = 0
         if self.ssd:
             small["ssd"] = dataclasses.replace(self.ssd, d_state=16,
                                                head_dim=8, chunk=8)

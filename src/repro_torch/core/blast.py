@@ -58,14 +58,15 @@ def init(generator: torch.Generator, m: int, n: int, b: int, r: int, *,
     """Random init (paper App. C.2 shapes; variance-scaled like the
     reference when ``factor_std`` is None).  Draws on the generator's device
     (CPU generator → CPU draws, then moved), so a seed gives the same weights
-    on every device."""
+    on every device; a CUDA generator draws on the card (other numbers)."""
     p, q = check_divisible(m, n, b)
     if factor_std is None:
         s_rms = s_max / math.sqrt(3.0)
         factor_std = (1.0 / (n * r)) ** 0.25 / math.sqrt(s_rms)
-    U = factor_std * torch.randn((b, p, r), generator=generator)
-    V = factor_std * torch.randn((b, q, r), generator=generator)
-    S = s_max * torch.rand((b, b, r), generator=generator)
+    on = generator.device
+    U = factor_std * torch.randn((b, p, r), generator=generator, device=on)
+    V = factor_std * torch.randn((b, q, r), generator=generator, device=on)
+    S = s_max * torch.rand((b, b, r), generator=generator, device=on)
     return BlastParams(*(a.to(device=device, dtype=dtype) for a in (U, S, V)))
 
 

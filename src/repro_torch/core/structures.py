@@ -100,7 +100,8 @@ def _pick_blocks(d_in: int, d_out: int, b: int) -> int:
 def _dense_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
     def init(generator, dtype=torch.float32, device=None, scale=None):
         std = scale if scale is not None else 1.0 / math.sqrt(d_in)
-        w = std * torch.randn((d_in, d_out), generator=generator)
+        w = std * torch.randn((d_in, d_out), generator=generator,
+                              device=generator.device)
         return {"w": w.to(device=device, dtype=dtype)}
 
     def apply(params, x):
@@ -127,7 +128,8 @@ def _block_diag_spec(d_in: int, d_out: int,
     q, p = d_in // b, d_out // b
 
     def init(generator, dtype=torch.float32, device=None, scale=None):
-        w = torch.randn((b, q, p), generator=generator) / math.sqrt(q)
+        w = torch.randn((b, q, p), generator=generator,
+                        device=generator.device) / math.sqrt(q)
         return {"w": w.to(device=device, dtype=dtype)}
 
     def apply(params, x):

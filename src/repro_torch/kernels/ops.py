@@ -13,7 +13,10 @@ per-block scales; int4 factors stay nibble-packed (uint8, two codes per
 byte along r) into the kernel, and their byte axis is zero-padded to half
 the padded rank (a zero byte is two zero codes).  With ``act="int8"`` they
 quantize x per token first (a plain-PyTorch prologue, as the reference
-runs it in XLA outside its Pallas kernel).  ``launches`` counts kernel
+runs it in XLA outside its Pallas kernel).  ``mla_attention`` is MLA's
+latent attention (DeepSeek-V3: scores over [latent ‖ k_rope], values the
+latent; its kernel replaces no Pallas kernel, the reference runs it in
+XLA).  ``launches`` counts kernel
 launches (plain-version
 calls are not counted), so a run can show that its model path went through
 the kernels; ``blast_matmul_dx`` counts the B1 launches that compute a
@@ -52,6 +55,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import blast_matmul as _bm
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mla_attention as _mla
 from repro_torch.kernels import ref
 from repro_torch.quant import qarray as qt
 
@@ -66,7 +70,7 @@ launches: dict[str, int] = {
     "blast_matmul_batched_w4a8": 0,
     "flash_attention_prefill": 0, "flash_attention_prefill_q8": 0,
     "flash_attention_ring": 0, "flash_attention_ring_q8": 0,
-    "flash_attention": 0,
+    "flash_attention": 0, "mla_attention": 0,
     "blast_matmul_dx": 0, "blast_matmul_batched_dx": 0}
 
 
@@ -397,6 +401,28 @@ def flash_attention_ring_q8(q: torch.Tensor, k: torch.Tensor,
                         kv_len=k.shape[2] if kv_len is None else kv_len,
                         k_scale=k_scale, v_scale=v_scale)
     launches["flash_attention_ring_q8"] += 1
+    return o
+
+
+def mla_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                  latent: torch.Tensor, k_rope: torch.Tensor,
+                  k_pos: torch.Tensor, q_offsets: torch.Tensor, *,
+                  scale: float, kv_len: int | None = None) -> torch.Tensor:
+    """MLA's latent attention at per-row offsets: q_lat (B, C, H, 512) and
+    q_rope (B, C, H, 64) against the latent cache (B, S, 512) ‖ k_rope
+    (B, S, 64), the latent also the value, masked by each slot's position
+    k_pos (B, S) int32 (-1 empty); slots at ``j >= kv_len`` are not read
+    (default: all S) → o_lat (B, C, H, 512) fp32.  On the card q is
+    concatenated and cast to the cache's type (bf16: rounded for the tensor
+    cores) and the MLA kernel runs."""
+    if _on_cpu(latent):
+        return ref.mla_attention_ref(q_lat, q_rope, latent, k_rope, k_pos,
+                                     q_offsets, scale=scale, kv_len=kv_len)
+    q = torch.cat([q_lat.to(latent.dtype), q_rope.to(latent.dtype)], dim=-1)
+    o = _mla.launch(q, latent, k_rope, k_pos, q_offsets,
+                    kv_len=latent.shape[1] if kv_len is None else kv_len,
+                    scale=scale)
+    launches["mla_attention"] += 1
     return o
 
 

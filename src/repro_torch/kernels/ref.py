@@ -427,3 +427,29 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         outs.append(torch.einsum("bhgts,bhsd->bhgtd", p, acc(v[:, :, lo:hi])))
     out = torch.cat(outs, dim=3) if len(outs) > 1 else outs[0]
     return out.reshape(B, Hq, T, D).to(q.dtype)
+
+
+def mla_attention_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      latent: torch.Tensor, k_rope: torch.Tensor,
+                      k_pos: torch.Tensor, q_offsets: torch.Tensor, *,
+                      scale: float, kv_len: int | None = None
+                      ) -> torch.Tensor:
+    """MLA's latent attention (``src/repro/models/layers.py``,
+    ``mla_prefill`` between ``q_lat`` and ``o_lat``): q_lat (B, C, H, Dl),
+    q_rope (B, C, H, Dr) against one shared key per slot, [latent ‖ k_rope]
+    (B, S, Dl + Dr), whose first Dl columns are the value.  Query (b, t)
+    sits at position q_offsets[b] + t and sees slot j < kv_len iff 0 <=
+    k_pos[b, j] <= its position; scores are scaled by ``scale``; a row
+    that sees no key gives 0 (the reference's mask of -1e30 gives it the
+    mean of its latent slots, which is 0 for an idle row: the engine
+    resets it; ROADMAP C3) → (B, C, H, Dl) fp32."""
+    S = latent.shape[1] if kv_len is None else kv_len
+    lat, rope = acc(latent[:, :S]), acc(k_rope[:, :S])
+    s = (torch.einsum("bthc,bsc->bths", acc(q_lat), lat)
+         + torch.einsum("bthr,bsr->bths", acc(q_rope), rope)) * scale
+    qpos = _query_positions(q_offsets, q_lat.shape[1], q_lat.device)
+    kp = k_pos[:, :S].to(qpos.device)
+    ok = (kp[:, None, :] >= 0) & (kp[:, None, :] <= qpos)    # (B, C, S)
+    p = torch.softmax(s.masked_fill(~ok[:, :, None, :], float("-inf")), -1)
+    p = torch.nan_to_num(p, nan=0.0)
+    return torch.einsum("bths,bsc->bthc", p, lat)

@@ -91,6 +91,21 @@ def linear_quantize(spec: LinearSpec, params: Params, bits: int = 8) -> Params:
     return qp
 
 
+def linear_dense_matrix(spec: LinearSpec, params: Params) -> torch.Tensor:
+    """The (d_in, d_out) dense matrix of a structured linear: the linear
+    applied to an identity of d_in rows in the params' type (a quantized
+    linear's: its scales', fp32), as the reference builds it — so it runs
+    the linear's own kernel at T = d_in in every storage (W8A8 / W4A8
+    quantize the identity's rows as the reference's do).  MLA absorbs its
+    up-projections through it every step."""
+    p0 = params[next(iter(spec.shapes))]
+    dtype, device = ((p0.scale.dtype, p0.q.device) if qt.is_qarray(p0)
+                     else (p0.dtype, p0.device))
+    eye = torch.eye(spec.d_in, dtype=dtype, device=device)
+    return linear_apply(spec, {k: v for k, v in params.items()
+                               if k != "bias"}, eye)
+
+
 def embed_lookup(table, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Token-embedding gather over a float or per-row int8/int4 table: a
     quantized table gathers the stored rows first (int4 rows still

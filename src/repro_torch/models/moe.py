@@ -1,7 +1,8 @@
 """Mixture-of-Experts FFN of the moe family (counterpart of
 ``repro/models/moe.py``, its single-device path): top-k routing,
 capacity-based dispatch into an (E, C, d) buffer, the experts as one
-batched BLAST launch per projection, and the gate-weighted combine.
+batched BLAST launch per projection, the gate-weighted combine, and
+DeepSeek's shared expert added to it.
 
   * The router is a dense fp32 linear; softmax, top-k (ties to the lower
     expert id, as ``jax.lax.top_k``), the gates renormalized over the k
@@ -29,9 +30,15 @@ batched BLAST launch per projection, and the gate-weighted combine.
     the experts — and not through the expert ids, the counts or the
     dispatch indices; a dropped assignment gets zero gradient.
 
-Shared experts and first dense layers (DeepSeek's) wait for ROADMAP A7.2;
-expert parallelism over a mesh (the reference's ``shard_map`` with two
-``all_to_all``) for ROADMAP A9.
+  * A shared expert (``n_shared · d_shared`` wide, DeepSeek's) is a SwiGLU
+    FFN every token takes (``layers.ffn_apply``: gate+up as one grouped
+    launch, then ``wo``), its ``wo`` drawn at 1/sqrt(2·n_layers·d_in),
+    quantized and pre-stacked with the routed experts, its output added to
+    the routed one.  The first dense layers are the model's
+    (``transformer.LM``).
+
+Expert parallelism over a mesh (the reference's ``shard_map`` with two
+``all_to_all``) waits for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -58,51 +65,65 @@ class MoESpec:
     router: LinearSpec           # d -> E (dense, fp32)
     wi: LinearSpec               # per-expert d -> 2·d_expert (SwiGLU fused)
     wo: LinearSpec               # per-expert d_expert -> d
+    shared: L.FFNSpec | None = None   # DeepSeek's shared expert(s)
 
 
 def make_moe(cfg: ArchConfig) -> MoESpec:
     m = cfg.moe
-    if m.n_shared or m.first_dense_layers:
-        raise NotImplementedError(
-            "shared experts and first dense layers are not ported yet "
-            "(ROADMAP A7.2)")
     st = cfg.ffn_structure
+    shared = None
+    if m.n_shared:
+        shared = L.make_ffn(cfg.d_model, m.n_shared * m.d_shared,
+                            cfg.ffn_kind, st)
     return MoESpec(cfg=cfg, moe=m,
                    router=make_linear(cfg.d_model, m.n_experts,
                                       structured=False),
                    wi=make_linear(cfg.d_model, 2 * m.d_expert, st),
-                   wo=make_linear(m.d_expert, cfg.d_model, st))
+                   wo=make_linear(m.d_expert, cfg.d_model, st),
+                   shared=shared)
 
 
 def moe_init(spec: MoESpec, generator: torch.Generator, dtype,
              device) -> Params:
     """Seeded weights: the router in fp32, each expert's ``wi`` and ``wo``
-    drawn in turn and stacked on a leading E axis."""
+    drawn in turn and stacked on a leading E axis, then the shared
+    expert."""
     E = spec.moe.n_experts
     wo_scale = 1.0 / math.sqrt(2 * spec.cfg.n_layers * spec.wo.d_in)
-    return {
+    p = {
         "router": L.linear_init(spec.router, generator, torch.float32,
                                 device),
         "wi": structures.stacked_init(spec.wi, generator, E, dtype, device),
         "wo": structures.stacked_init(spec.wo, generator, E, dtype, device,
                                       scale=wo_scale),
     }
+    if spec.shared is not None:
+        p["shared"] = L.ffn_init(spec.shared, generator, dtype, device,
+                                 spec.cfg.n_layers)
+    return p
 
 
 def moe_quantize(spec: MoESpec, params: Params, bits: int = 8) -> Params:
     """Quantize the expert linears, each expert's blocks on their own (the
     reference's ``jax.vmap`` of ``linear_quantize``: equal codes and
     scales).  The router stays float: it is tiny and routing decisions
-    are precision-sensitive."""
-    return {**params,
-            "wi": structures.stacked_quantize(spec.wi, params["wi"], bits),
-            "wo": structures.stacked_quantize(spec.wo, params["wo"], bits)}
+    are precision-sensitive.  A shared expert is quantized as an FFN."""
+    qp = {**params,
+          "wi": structures.stacked_quantize(spec.wi, params["wi"], bits),
+          "wo": structures.stacked_quantize(spec.wo, params["wo"], bits)}
+    if spec.shared is not None:
+        qp["shared"] = L.ffn_quantize(spec.shared, params["shared"], bits)
+    return qp
 
 
 def moe_prestack(spec: MoESpec, params: Params) -> Params:
-    """The reference pre-stacks only a shared expert's bundle: the identity
-    without shared experts."""
-    return params
+    """Pre-stack the shared expert's gate+up bundle, as the reference does
+    (the routed experts have none): the identity without a shared
+    expert."""
+    if spec.shared is None:
+        return params
+    return {**params, "shared": L.ffn_prestack(spec.shared,
+                                               params["shared"])}
 
 
 # -- dispatch math -----------------------------------------------------------
@@ -195,7 +216,8 @@ def _combine(ye: torch.Tensor, gates: torch.Tensor, eidx: torch.Tensor,
 def moe_apply(spec: MoESpec, params: Params, x: torch.Tensor,
               mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, d) → (y (B, T, d), aux loss (fp32 scalar)), every token of
-    the call routed together (capacity over B·T)."""
+    the call routed together (capacity over B·T); a shared expert's output
+    added."""
     if mesh is not None:
         raise NotImplementedError("expert parallelism over a mesh is not "
                                   "ported yet (ROADMAP A9)")
@@ -208,4 +230,7 @@ def moe_apply(spec: MoESpec, params: Params, x: torch.Tensor,
                                     / m.n_experts)))
     slot_token, pos, keep = _dispatch_indices(eidx, m.n_experts, capacity)
     ye = _expert_ffn(spec, params, _gather(x2d, slot_token, m.top_k))
-    return _combine(ye, gates, eidx, pos, keep).reshape(B, T, d), aux
+    y = _combine(ye, gates, eidx, pos, keep).reshape(B, T, d)
+    if spec.shared is not None:
+        y = y + L.ffn_apply(spec.shared, params["shared"], x)
+    return y, aux

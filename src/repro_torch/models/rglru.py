@@ -78,8 +78,8 @@ def rglru_init(spec: RGLRUSpec, generator: torch.Generator, dtype,
     p = {name: L.linear_init(getattr(spec, name), generator, dtype, device,
                              bias=name.startswith("gate"))
          for name in ("in_x", "in_gate", "out", "gate_a", "gate_x")}
-    u = 0.9 ** 2 + (0.999 ** 2 - 0.9 ** 2) * torch.rand((w,),
-                                                         generator=generator)
+    u = 0.9 ** 2 + (0.999 ** 2 - 0.9 ** 2) * torch.rand(
+        (w,), generator=generator, device=generator.device).cpu()
     lam = torch.log(torch.expm1(-torch.log(u) / spec.c))  # softplus⁻¹
     conv_w = torch.zeros((spec.conv_width, w))
     conv_w[-1] = 1.0   # identity-like: the current token passes through

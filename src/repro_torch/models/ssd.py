@@ -83,7 +83,8 @@ def ssd_init(spec: SSDSpec, generator: torch.Generator, dtype,
     (1e-3, 1e-1); A = -1, D = 1, an identity conv, a zero norm scale."""
     H = spec.n_heads
     lo, hi = math.log(1e-3), math.log(1e-1)
-    dt = torch.exp(lo + (hi - lo) * torch.rand((H,), generator=generator))
+    dt = torch.exp(lo + (hi - lo) * torch.rand(
+        (H,), generator=generator, device=generator.device).cpu())
     dt_bias = dt + torch.log(-torch.expm1(-dt))
     conv_w = torch.zeros((spec.conv_width, spec.conv_channels))
     conv_w[-1] = 1.0

@@ -1,9 +1,12 @@
 """Decoder LM of the ported slices (counterpart of
 ``repro/models/transformer.py``): GQA attention blocks — full, or over a
-sliding window with a ring cache —, RG-LRU blocks (the hybrid family) and
+sliding window with a ring cache —, MLA blocks over a latent cache
+(DeepSeek-V3, ``models/mla.py``), RG-LRU blocks (the hybrid family) and
 Mamba-2 SSD blocks (the ssm family), each with a SwiGLU or GELU FFN, a
-routed-expert FFN (the moe family, ``models/moe.py``) or none, and RMSNorm or LayerNorm, RoPE, learned or no positions, a tied
-embedding (optionally scaled by √d_model) or an untied
+routed-expert FFN (the moe family, ``models/moe.py``, with a shared
+expert, after first dense layers) or none, and RMSNorm or LayerNorm, RoPE,
+learned or no positions, a tied embedding (optionally scaled by
+√d_model) or an untied
 dense vocab head, a logit softcap, the full-sequence forward ``apply``
 (training, prefill) and the chunked cached step ``prefill_chunk`` the engine
 drives, over a float or int8 KV cache, and the nested-rank draft of
@@ -12,13 +15,17 @@ self-speculative decoding (``rank_spectra``, ``draft_plan``,
 in-place rollback (``cache_window``, ``rollback_cache``: KV windows by
 position, RG-LRU and SSD state from the verify's per-token snapshots).
 
-The reference scans over layer params stacked on a leading axis (one
-``cycles.blk_j`` per position of the layer pattern, then unrolled
-``tail_i`` layers); here the params hold a list of per-layer dicts, layer i
-the reference's ``cycles.blk_{i % P}[i // P]`` and then its tails, and each
-pass is a Python loop (``cfg.remat`` checkpoints each layer, as the
-reference's ``jax.checkpoint`` does its scanned cycle).  Families, mixers
-and options outside the slices raise ``NotImplementedError``.
+The reference scans over layer params stacked on a leading axis (a MoE
+model's first dense layers ``pre_i`` unstacked, then one ``cycles.blk_j``
+per position of the layer pattern, then unrolled ``tail_i`` layers); here
+the params hold a list of per-layer dicts — the ``pre_i`` layers, then
+layer i the reference's ``cycles.blk_{i % P}[i // P]`` counted past them,
+then its tails — and each pass is a Python loop (``cfg.remat``
+checkpoints each layer, as the reference's ``jax.checkpoint`` does its
+scanned cycle).  DeepSeek-V3's
+multi-token-prediction head is not built (``apply`` returns no
+``mtp_logits``; ROADMAP A11).  Families, mixers and options outside the
+slices raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from repro_torch.core import structures
 from repro_torch.core.compress import calibrate_ranks
 from repro_torch.core.structures import make_linear
 from repro_torch.models import layers as L
+from repro_torch.models import mla as A
 from repro_torch.models import moe as M
 from repro_torch.models import ops
 from repro_torch.models import rglru as R
@@ -56,6 +64,9 @@ class Output(NamedTuple):
 
 
 _ATTN_KINDS = ("attn", "local_attn")
+# mixers whose cache is written by position and rewound by window
+# (``layers.kv_cache_rollback``); the others keep state
+_KV_KINDS = (*_ATTN_KINDS, "mla")
 
 
 class _Mixer(NamedTuple):
@@ -71,6 +82,8 @@ _ATTN = _Mixer(L.attn_init, L.attn_apply, L.attn_cache_init,
                L.attn_cache_axes, L.attn_quantize)
 _MIXERS = {
     "attn": _ATTN, "local_attn": _ATTN,
+    "mla": _Mixer(A.mla_init, A.mla_apply, A.mla_cache_init,
+                  A.mla_cache_axes, A.mla_quantize),
     "rglru": _Mixer(R.rglru_init, R.rglru_apply, R.rglru_cache_init,
                     R.rglru_cache_axes, R.rglru_quantize),
     "ssd": _Mixer(S.ssd_init, S.ssd_apply, S.ssd_cache_init,
@@ -79,8 +92,8 @@ _MIXERS = {
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    kind: str                       # attn | local_attn | rglru | ssd
-    mixer: L.AttnSpec | R.RGLRUSpec | S.SSDSpec
+    kind: str                       # attn | local_attn | mla | rglru | ssd
+    mixer: L.AttnSpec | A.MLASpec | R.RGLRUSpec | S.SSDSpec
     ffn: L.FFNSpec | M.MoESpec | None   # None: the mixer is the whole block
     norm: str
 
@@ -89,7 +102,10 @@ class BlockSpec:
         return isinstance(self.ffn, M.MoESpec)
 
 
-def make_block(cfg: ArchConfig, kind: str) -> BlockSpec:
+def make_block(cfg: ArchConfig, kind: str, *,
+               dense: bool = False) -> BlockSpec:
+    """One block; a MoE model's block takes the routed experts unless
+    ``dense`` (one of its first dense layers: a SwiGLU of ``dense_d_ff``)."""
     if kind in _ATTN_KINDS:
         # a MoE FFN routes dead columns too: they attend by key position
         mixer = L.make_attention(
@@ -99,14 +115,17 @@ def make_block(cfg: ArchConfig, kind: str) -> BlockSpec:
         mixer = R.make_rglru(cfg)
     elif kind == "ssd":
         mixer = S.make_ssd(cfg)
+    elif kind == "mla":
+        mixer = A.make_mla(cfg)
     else:
         raise NotImplementedError(f"mixer {kind!r} is not ported yet "
                                   "(ROADMAP A7)")
-    if cfg.moe is not None:
+    if cfg.moe is not None and not dense:
         ffn = M.make_moe(cfg)
     else:
-        ffn = (L.make_ffn(cfg.d_model, cfg.d_ff, cfg.ffn_kind,
-                          cfg.ffn_structure) if cfg.d_ff else None)
+        width = cfg.moe.dense_d_ff if dense else cfg.d_ff
+        ffn = (L.make_ffn(cfg.d_model, width, cfg.ffn_kind,
+                          cfg.ffn_structure) if width else None)
     return BlockSpec(kind=kind, mixer=mixer, ffn=ffn, norm=cfg.norm)
 
 
@@ -158,6 +177,9 @@ def block_prefill(spec: BlockSpec, params: Params, cache: Params,
     if spec.kind in _ATTN_KINDS:
         m, _ = L.attn_prefill(spec.mixer, params["mixer"], cache, h, None,
                               None, rg=rg)
+    elif spec.kind == "mla":
+        m, _ = A.mla_prefill(spec.mixer, params["mixer"], cache, h, None,
+                             None, rg=rg)
     else:
         prefill = R.rglru_prefill if spec.kind == "rglru" else S.ssd_prefill
         m, _ = prefill(spec.mixer, params["mixer"], cache, h, None, rg.n,
@@ -169,13 +191,14 @@ def block_cache_rollback(spec: BlockSpec, cache: Params, saved: Params,
                          slot: torch.Tensor | None,
                          n_comm: torch.Tensor) -> Params:
     """Rewind one block's cache, in place, after a speculative verify chunk:
-    keep its first ``n_comm`` tokens.  A KV layer (a ring too) gives the
+    keep its first ``n_comm`` tokens.  A KV layer (a ring, an MLA latent
+    cache too) gives the
     columns past them back what ``saved`` holds of its write window
     ``slot`` (``layers.kv_cache_rollback``); an RG-LRU or SSD layer takes
     the state after ``n_comm`` tokens from the snapshots the chunk collected
     into ``saved`` (``rglru.rglru_cache_rollback``,
     ``ssd.ssd_cache_rollback``)."""
-    if spec.kind in _ATTN_KINDS:
+    if spec.kind in _KV_KINDS:
         return L.kv_cache_rollback(cache, saved, slot, n_comm)
     rollback = (R.rglru_cache_rollback if spec.kind == "rglru"
                 else S.ssd_cache_rollback)
@@ -184,8 +207,8 @@ def block_cache_rollback(spec: BlockSpec, cache: Params, saved: Params,
 
 def block_cache_init(spec: BlockSpec, batch: int, max_len: int, dtype,
                      device) -> Params:
-    """One layer's cache: its attention cache (a ring for a sliding window)
-    or its RG-LRU or SSD state."""
+    """One layer's cache: its attention cache (a ring for a sliding window),
+    its MLA latent cache or its RG-LRU or SSD state."""
     return _MIXERS[spec.kind].cache_init(spec.mixer, batch, max_len, dtype,
                                          device)
 
@@ -215,6 +238,8 @@ def block_prestack(spec: BlockSpec, params: Params) -> Params:
         p["ffn"] = prestack(spec.ffn, params["ffn"])
     if spec.kind == "rglru":
         p["mixer"] = R.rglru_prestack(spec.mixer, params["mixer"])
+    elif spec.kind == "mla":
+        p["mixer"] = A.mla_prestack(spec.mixer, params["mixer"])
     return p
 
 
@@ -246,7 +271,8 @@ class LM:
     """Decoder-only LM of the dense family (pattern ``("attn",)``), the
     hybrid family (RG-LRU and sliding-window attention layers), the ssm
     family (SSD layers, no FFN, no positions) and the moe family (routed
-    experts in every layer's FFN, ``models/moe.py``)."""
+    experts in every layer's FFN, ``models/moe.py``; DeepSeek-V3's MLA
+    layers, shared expert and ``first_dense_layers`` dense layers first)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         unsupported = [
@@ -258,6 +284,8 @@ class LM:
              f"pos_embed {cfg.pos_embed!r}"),
             ("local_attn" in cfg.pattern and not cfg.window,
              "local attention without a window"),
+            (("mla" in cfg.pattern) != (cfg.mla is not None),
+             "an mla mixer without MLACfg (or MLACfg without one)"),
         ]
         for bad, what in unsupported:
             if bad:
@@ -266,7 +294,9 @@ class LM:
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.param_dtype]
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
-        self.specs = [make_block(cfg, k) for k in cfg.layer_kinds()]
+        self.n_dense = cfg.moe.first_dense_layers if cfg.moe else 0
+        self.specs = [make_block(cfg, k, dense=i < self.n_dense)
+                      for i, k in enumerate(cfg.layer_kinds())]
         # the untied vocab head: a dense linear, as the reference's
         self.head = make_linear(cfg.d_model, cfg.vocab, structured=False)
 
@@ -283,13 +313,16 @@ class LM:
         """Seeded random weights.  Draws on a CPU generator, so a seed gives
         the same weights on every device, one tensor at a time: each is
         drawn in fp32, cast and moved before the next, so the host never
-        holds an fp32 copy of the model."""
+        holds an fp32 copy of the model.  A ``torch.Generator`` on the card
+        draws there (other numbers than a CPU one's, and in seconds where
+        the host takes minutes for a model of billions of parameters)."""
         gen = (seed if isinstance(seed, torch.Generator)
                else torch.Generator().manual_seed(int(seed)))
         cfg, dev, dt = self.cfg, self.device, self.dtype
 
         def normal(*shape):
-            return (0.02 * torch.randn(shape, generator=gen)).to(
+            return (0.02 * torch.randn(shape, generator=gen,
+                                        device=gen.device)).to(
                 device=dev, dtype=dt)
 
         params = {"embed": normal(cfg.vocab, cfg.d_model),
@@ -337,7 +370,7 @@ class LM:
         layer's leaves and the top level's keep their own ndim: the
         embedding, the position table and an untied head decay, the final
         norm does not."""
-        first = self.cfg.moe.first_dense_layers if self.cfg.moe else 0
+        first = self.n_dense
         P = len(self.cfg.pattern)
         cycles = range(first, first + (len(self.specs) - first) // P * P)
         mask = tree_map(lambda a: a.ndim >= 2, params)
@@ -350,17 +383,20 @@ class LM:
 
     def _layer_paths(self) -> list[str]:
         """Each layer's prefix in a linear's name, grouped as the reference
-        groups its layers: with a one-position pattern every layer is a
-        cycle of it, ``layers``; else ``layers.blk_j`` for position j of
-        the whole cycles and ``layers.tail_t`` past them (the reference's
-        ``cycles.blk_j`` and ``tail_t``, ``weights.plan_from_jax``)."""
+        groups its layers: a MoE model's first dense layers one by one,
+        ``layers.pre_i`` (the reference's ``pre_i``); past them, with a
+        one-position pattern every layer is a cycle of it, ``layers``; else
+        ``layers.blk_j`` for position j of the whole cycles and
+        ``layers.tail_t`` past them (the reference's ``cycles.blk_j`` and
+        ``tail_t``, ``weights.plan_from_jax``)."""
         P = len(self.cfg.pattern)
+        pre = [f"layers.pre_{i}" for i in range(self.n_dense)]
+        rest = len(self.specs) - self.n_dense
         if P == 1:
-            return ["layers"] * len(self.specs)
-        whole = len(self.specs) // P * P
-        return [f"layers.blk_{i % P}" if i < whole
-                else f"layers.tail_{i - whole}"
-                for i in range(len(self.specs))]
+            return pre + ["layers"] * rest
+        whole = rest // P * P
+        return pre + [f"layers.blk_{i % P}" if i < whole
+                      else f"layers.tail_{i - whole}" for i in range(rest)]
 
     def _map(self, params: Params, fn) -> Params:
         """``_map_linears`` over the params, each layer's linears named
@@ -430,7 +466,7 @@ class LM:
         by_geometry: dict = {}
         out = []
         for spec, c in zip(self.specs, cache):
-            if spec.kind not in _ATTN_KINDS:
+            if spec.kind not in _KV_KINDS:
                 out.append(None)
                 continue
             key = (c["pos"].shape[1], spec.kind == "local_attn")
@@ -456,7 +492,7 @@ class LM:
         their scales), an empty dict for a KV layer (``cache_window`` saves
         its window)."""
         return [{name: leaf.clone() for name, leaf in c.items()}
-                if spec.kind not in _ATTN_KINDS else {}
+                if spec.kind not in _KV_KINDS else {}
                 for spec, c in zip(self.specs, cache)]
 
     def restore_cache(self, cache: list[Params], saved: list[Params],
@@ -545,7 +581,7 @@ class LM:
         if isinstance(cache, LayerCaches):
             return cache.max_len
         full = [c["pos"].shape[1] for s, c in zip(self.specs, cache)
-                if s.kind == "attn"]
+                if s.kind in ("attn", "mla")]
         if not full:
             raise ValueError("a cache without full-length attention layers "
                              "must come from LM.init_cache (LayerCaches)")

@@ -5,22 +5,27 @@ as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
 port's params: the reference stacks the layers of each position j of the
 layer pattern (P positions) on the leading axis of
 ``params["cycles"]["blk_j"]`` and keeps the layers past the last whole
-cycle as ``tail_0``, ``tail_1``, …; the port's layer i is
-``cycles.blk_{i % P}[i // P]``, then the tails in order.  Every float leaf
-is cast to the model's dtype and moved to its device — the RG-LRU's decay
-``lam`` and the SSD's ``A_log``, ``D`` and ``dt_bias`` stay fp32, as the
-reference keeps them — and a key the model does
-not have (a prestacked ``_bundle_in``, another mixer's leaves, a head the
-config ties, …) raises, as does a key it misses.  The tree holds what the
+cycle as ``tail_0``, ``tail_1``, …, and a MoE model's first dense layers
+before them as ``pre_0``, ``pre_1``, …; the port's layers are the
+``pre_i``, then layer i past them ``cycles.blk_{i % P}[i // P]``, then the
+tails in order.  DeepSeek-V3's ``mtp`` subtree (its
+multi-token-prediction head, which the port does not build: ROADMAP A11)
+is dropped by name.  Every float leaf is cast to the model's dtype and
+moved to its device — the RG-LRU's decay ``lam`` and the SSD's ``A_log``,
+``D`` and ``dt_bias`` stay fp32, as the reference keeps them — and a key
+the model does not have (a prestacked ``_bundle_in``, another mixer's
+leaves, a head the config ties, …) raises, as does a key it misses.  The tree holds what the
 model's config asks for: an untied ``head``, the learned-position table
 ``pos``, LayerNorm ``bias`` leaves, the QKV ``bias``, the GELU FFN's
-``wi``/``wo``, the RG-LRU's linears (its block-diagonal gates with their
-``bias``), ``conv_w``, ``conv_b`` and ``lam``, the SSD's ``in_proj``,
+``wi``/``wo``, MLA's ``wq_a``, ``wq_b``, ``wkv_a``, ``wkv_b``, ``out`` and
+its ``q_norm`` and ``kv_norm``, the RG-LRU's linears (its block-diagonal
+gates with their ``bias``), ``conv_w``, ``conv_b`` and ``lam``, the SSD's ``in_proj``,
 ``out_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias`` and its
 gated norm's ``scale`` (and no ``norm2``/``ffn`` in a block without an
-FFN), a MoE FFN's dense fp32 ``router`` and its experts' ``wi`` and ``wo``
+FFN), a MoE FFN's dense fp32 ``router``, its experts' ``wi`` and ``wo``
 with their leading expert axis kept (each layer's a stack, float or
-quantized: a QArray's codes and scales keep the axis too).  A
+quantized: a QArray's codes and scales keep the axis too) and a shared
+expert's ``gate``, ``up`` and ``wo``.  A
 quantized leaf — the reference's ``QArray`` (any object with ``q`` and
 ``scale``) or the ``{"q", "scale"}`` pair a checkpoint stores for it —
 becomes the port's ``QArray``: int8 codes stay int8, nibble-packed int4
@@ -33,10 +38,11 @@ int4 and its logical last dim is the model's own: the linear's rank, or
 the reference's ``LM.draft_plan``) onto the port's names, one to one: the
 reference names a linear of pattern position j of its scanned cycles
 ``cycles.blk_j.<group>.<name>`` (one rank for every cycle) and one of a
-tail layer ``tail_t.<group>.<name>``; the port ``layers.<group>.<name>``
-for a one-position pattern and ``layers.blk_j.…``, ``layers.tail_t.…``
-otherwise (``LM.rank_spectra``), e.g. ``cycles.blk_0.ffn.gate`` ↔
-``layers.ffn.gate`` (a dense model), ``cycles.blk_2.mixer.qkv`` ↔
+tail layer ``tail_t.<group>.<name>``, and one of a first dense layer
+``pre_i.<group>.<name>``; the port ``layers.<group>.<name>`` for a
+one-position pattern and ``layers.blk_j.…``, ``layers.tail_t.…``
+otherwise, and ``layers.pre_i.…`` (``LM.rank_spectra``), e.g.
+``cycles.blk_0.ffn.gate`` ↔ ``layers.ffn.gate`` (a dense model), ``cycles.blk_2.mixer.qkv`` ↔
 ``layers.blk_2.mixer.qkv`` (the hybrid), ``cycles.blk_0.ffn.wi`` ↔
 ``layers.ffn.wi`` (the experts' stack of a MoE model: one rank for every
 expert of every layer).
@@ -95,12 +101,20 @@ def _layer_keys(model, spec) -> dict:
         mixer = {"in_proj": linear(mx.in_proj), "out_proj": linear(mx.out_proj),
                  "conv_w": None, "conv_b": None, "A_log": _F32, "D": _F32,
                  "dt_bias": _F32, "norm": {"scale": None}}
+    elif spec.kind == "mla":
+        mixer = {name: linear(getattr(mx, name)) for name in
+                 ("wq_a", "wq_b", "wkv_a", "wkv_b", "out")}
+        mixer.update(q_norm={"scale": None}, kv_norm={"scale": None})
     else:
         mixer = {"qkv": linear(mx.qkv, cfg.qkv_bias), "out": linear(mx.out)}
     keys = {"norm1": norm, "mixer": mixer}
     if spec.moe:
-        keys.update(norm2=norm, ffn={name: linear(getattr(spec.ffn, name))
-                                     for name in ("router", "wi", "wo")})
+        ffn = {name: linear(getattr(spec.ffn, name))
+               for name in ("router", "wi", "wo")}
+        if spec.ffn.shared is not None:   # a dict of linears
+            ffn["shared"] = {name: linear(getattr(spec.ffn.shared, name))
+                             for name in spec.ffn.shared.names}
+        keys.update(norm2=norm, ffn=ffn)
     elif spec.ffn is not None:
         keys.update(norm2=norm, ffn={name: linear(getattr(spec.ffn, name))
                                      for name in spec.ffn.names})
@@ -112,11 +126,14 @@ def from_jax_params(model, tree: dict) -> dict:
     port's params."""
     cfg = model.cfg
     P = len(cfg.pattern)
-    n_cycles, n_tail = divmod(cfg.n_layers, P)
+    n_pre = model.n_dense
+    n_cycles, n_tail = divmod(cfg.n_layers - n_pre, P)
     top = ("embed", "final_norm", *(("cycles",) if n_cycles else ()),
+           *(f"pre_{i}" for i in range(n_pre)),
            *(f"tail_{t}" for t in range(n_tail)),
            *(("pos",) if cfg.pos_embed == "learned" else ()),
-           *(() if cfg.tie_embeddings else ("head",)))
+           *(() if cfg.tie_embeddings else ("head",)),
+           *(("mtp",) if cfg.mtp else ()))
     _check_keys(tree, top, "params")
     norm_keys = _layer_keys(model, model.specs[0])["norm1"]
     _check_keys(tree["final_norm"], norm_keys, "params/final_norm")
@@ -203,8 +220,17 @@ def from_jax_params(model, tree: dict) -> dict:
                     continue
                 _check_keys(sub[name], leaves, f"{where}/{group}/{name}")
                 if isinstance(leaves, dict):
-                    for leaf in leaves:
-                        put(group, (name, leaf), conv(sub[name][leaf]))
+                    for leaf, inner in leaves.items():
+                        if inner is None:
+                            put(group, (name, leaf), conv(sub[name][leaf]))
+                            continue
+                        # a linear of a sub-FFN (the shared expert)
+                        where_ = f"{where}/{group}/{name}/{leaf}"
+                        _check_keys(sub[name][leaf], inner, where_)
+                        lin = getattr(getattr(linears[group], name), leaf)
+                        for k in inner:
+                            put(group, (name, leaf, k), conv_leaf(
+                                sub[name][leaf][k], lin.shapes[k][-1]))
                     continue
                 lin = getattr(linears[group], name)
                 fp32 = (group, name) in _FP32_LINEARS
@@ -214,12 +240,14 @@ def from_jax_params(model, tree: dict) -> dict:
                         conv_leaf(sub[name][leaf], lin.shapes[leaf][-1],
                                   torch.float32 if fp32 else dt))
 
+    for i in range(n_pre):
+        fill(tree[f"pre_{i}"], f"params/pre_{i}", [i], stacked=False)
     for j in range(P if n_cycles else 0):
         fill(tree["cycles"][f"blk_{j}"], f"params/cycles/blk_{j}",
-             list(range(j, n_cycles * P, P)), stacked=True)
+             list(range(n_pre + j, n_pre + n_cycles * P, P)), stacked=True)
     for t in range(n_tail):
-        fill(tree[f"tail_{t}"], f"params/tail_{t}", [n_cycles * P + t],
-             stacked=False)
+        fill(tree[f"tail_{t}"], f"params/tail_{t}",
+             [n_pre + n_cycles * P + t], stacked=False)
     params = {"embed": conv_leaf(tree["embed"], cfg.d_model),
               "final_norm": {k: conv(tree["final_norm"][k])
                              for k in norm_keys}}
@@ -241,14 +269,16 @@ def plan_from_jax(plan: dict[str, int]) -> dict[str, int]:
         m = cycle.fullmatch(name)
         if m:
             parts.append((f"blk_{m[1]}", m[2], r))
-        elif re.match(r"tail_\d+\.", name):
+        elif re.match(r"(tail|pre)_\d+\.", name):
             group, rest = name.split(".", 1)
             parts.append((group, rest, r))
         else:
             raise ValueError(f"draft-plan entry {name!r} is not a linear of "
-                             "the reference's cycles or tail layers")
-    one = {g for g, _, _ in parts} == {"blk_0"}
-    return {f"layers.{rest}" if one else f"layers.{group}.{rest}": int(r)
+                             "the reference's cycles, tail or first dense "
+                             "layers")
+    one = {g for g, _, _ in parts if not g.startswith("pre_")} == {"blk_0"}
+    return {f"layers.{rest}" if one and group == "blk_0"
+            else f"layers.{group}.{rest}": int(r)
             for group, rest, r in parts}
 
 

@@ -342,6 +342,34 @@ class TestGraphs:
         assert launches_g == {**{k: 0 for k in launches_g},
                               "blast_matmul": 6 * graphs.stats["steps"]}
 
+    def test_deepseek_replay_equals_eager(self, cuda):
+        """deepseek-v3-671b at full width cut to one dense and one MoE
+        layer (bf16, weights drawn on the card: MLA over the latent cache,
+        ``wkv_b``'s densification, 256 experts and the shared expert):
+        every captured step's logits equal the eager step's bit for bit,
+        over prefill chunks and decode steps, and so do the launches a
+        step (a layer: 4 B1, 2 B2, the MLA kernel; the MoE layer 2 batched
+        launches)."""
+        cfg = configs.get("deepseek-v3-671b")
+        cfg = dataclasses.replace(cfg, n_layers=2, moe=dataclasses.replace(
+            cfg.moe, first_dense_layers=1))
+        model = build_model(cfg, device=cuda)
+        params = model.init(torch.Generator(device=cuda).manual_seed(0))
+        graphs = _engine(model, params, "none")
+        eager = _engine(model, params, "none", step_fn=model.prefill_chunk)
+        out_g, seen_g, launches_g = _serve(graphs)
+        out_e, seen_e, launches_e = _serve(eager)
+        assert out_g == out_e
+        assert [k for k, _ in seen_g] == [k for k, _ in seen_e]
+        assert graphs.stats["graphs"] > 0
+        for (key, g), (_, e) in zip(seen_g, seen_e):
+            assert torch.equal(g, e), key
+        steps = graphs.stats["steps"]
+        assert launches_g == launches_e == {
+            **{k: 0 for k in launches_g}, "blast_matmul": 8 * steps,
+            "blast_matmul_grouped": 4 * steps, "mla_attention": 2 * steps,
+            "blast_matmul_batched": 2 * steps}
+
     def test_capture_after_a_dropped_engine(self, cuda, monkeypatch):
         """A dropped engine whose graphs a reference cycle holds (``_serve``
         makes one): a garbage collection under a later engine's capture

@@ -151,6 +151,10 @@ def test_cpu_path_counts_no_launches():
     scales = (torch.ones(1, 4), torch.ones(1, 4, 4), torch.ones(1, 4))
     for act in ("none", "int8"):
         ops.blast_matmul_batched_q(xb, *codes, *scales, act=act)
+    ops.mla_attention(torch.zeros((1, 1, 2, 16)), torch.zeros((1, 1, 2, 8)),
+                      torch.zeros((1, 4, 16)), torch.zeros((1, 4, 8)),
+                      torch.zeros((1, 4), dtype=torch.int32),
+                      torch.zeros(1, dtype=torch.int32), scale=0.25)
     assert ops.launches == {"blast_matmul": 0, "blast_matmul_grouped": 0,
                             "blast_matmul_batched": 0,
                             "blast_matmul_batched_q": 0,
@@ -167,7 +171,8 @@ def test_cpu_path_counts_no_launches():
                             "flash_attention_prefill_q8": 0,
                             "flash_attention_ring": 0,
                             "flash_attention_ring_q8": 0,
-                            "flash_attention": 0, "blast_matmul_dx": 0,
+                            "flash_attention": 0, "mla_attention": 0,
+                            "blast_matmul_dx": 0,
                             "blast_matmul_batched_dx": 0}
 
 

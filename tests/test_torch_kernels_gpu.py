@@ -7,8 +7,9 @@ port's dependencies:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 (``--noconftest``: the suite's conftest imports the JAX package.)
-Tolerances: fp32 ``atol = rtol = 1e-4``; bf16 ``2e-2`` (B3 over int8 K/V
-too: its plain version dequantizes the same codes and scales; B3 over a
+Tolerances: fp32 ``atol = rtol = 1e-4``; bf16 ``2e-2`` (MLA's latent
+kernel too: its plain version reads the same bf16 q and cache; B3 over
+int8 K/V too: its plain version dequantizes the same codes and scales; B3 over a
 ring, over float or int8 K/V: its plain version masks by the same key
 positions).  The int8, int4,
 W8A8 and W4A8 kernels are held to the same: their plain versions take the
@@ -697,6 +698,68 @@ class TestOnCard:
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         for a, b in ((got, want), (full, full_want)):
             torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                           (torch.bfloat16, 2e-2)])
+    @pytest.mark.parametrize("C,dead,kv_len", [(1, False, None),
+                                               (32, False, None),
+                                               (32, True, None),
+                                               (20, False, 256)])
+    def test_mla_attention(self, cuda, dtype, tol, C, dead, kv_len):
+        """The MLA latent kernel at deepseek-v3-671b's width (B = 8, 128
+        heads, S = 512, scores over 512 + 64 dims, values the latent)
+        against its plain version: random offsets; dead columns (rows of 0
+        to C live tokens, row 0 empty: exactly 0); kv_len < S with
+        live-looking positions past it, which the kernel must not read.
+        bf16 q is rounded the same for both; one launch a call, and two
+        launches agree bit for bit."""
+        from repro_torch.kernels.flash_attention import kv_bucket
+        g = torch.Generator().manual_seed(C + 3 * dead)
+        B, H, S = 8, 128, 512
+        q_lat, q_rope = (torch.randn((B, C, H, d), generator=g).to(
+            cuda, dtype) for d in (512, 64))
+        lat, rope = (torch.randn((B, S + 1, d), generator=g).to(
+            cuda, dtype)[:, :S] for d in (512, 64))
+        offs = torch.randint(0, (kv_len or S) - C + 1, (B,), generator=g)
+        n = (torch.randint(0, C + 1, (B,), generator=g) if dead
+             else torch.full((B,), C))
+        j = torch.arange(S)[None]
+        pos = torch.where(j < (offs + n)[:, None], j, -1)
+        if dead:
+            pos[0] = -1
+        kv = kv_bucket(int((offs + n).max()), S) if kv_len is None else kv_len
+        if kv_len is not None:
+            pos[:, kv_len:] = j[:, kv_len:]
+        pos = pos.to(cuda, torch.int32).contiguous()
+        offs = offs.to(cuda, torch.int32)
+        args = (q_lat, q_rope, lat, rope, pos, offs)
+        ops.reset_launches()
+        got = ops.mla_attention(*args, scale=192 ** -0.5, kv_len=kv)
+        again = ops.mla_attention(*args, scale=192 ** -0.5, kv_len=kv)
+        want = ref.mla_attention_ref(*args, scale=192 ** -0.5, kv_len=kv)
+        torch.cuda.synchronize()
+        assert ops.launches["mla_attention"] == 2
+        assert got.dtype == torch.float32 and got.shape == (B, C, H, 512)
+        assert torch.equal(got, again)
+        if dead:
+            assert torch.all(got[0] == 0)
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+    def test_mla_kernel_refuses_bad_inputs(self, cuda):
+        q = torch.zeros((1, 1, 4, 512), device=cuda)
+        r = torch.zeros((1, 1, 4, 64), device=cuda)
+        lat = torch.zeros((1, 8, 512), device=cuda)
+        rope = torch.zeros((1, 8, 64), device=cuda)
+        pos = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+        offs = torch.zeros((1,), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="512 \\+ 64"):
+            ops.mla_attention(q[..., :256], r, lat, rope, pos, offs,
+                              scale=1.0)
+        with pytest.raises(ValueError, match="k_pos"):
+            ops.mla_attention(q, r, lat, rope, pos.long(), offs, scale=1.0)
+        with pytest.raises(ValueError, match="kv_len"):
+            ops.mla_attention(q, r, lat, rope, pos, offs, scale=1.0,
+                              kv_len=9)
 
     @pytest.mark.parametrize("which", ["prefill_split", "full"])
     def test_attention_repeats_bitwise(self, cuda, which):

@@ -138,14 +138,16 @@ def test_moe_apply_equals_reference(moe_kw):
 
 
 def test_moe_refusals():
-    """Shared experts and first dense layers wait for ROADMAP A7.2, a mesh
-    for A9."""
+    """Expert parallelism over a mesh waits for ROADMAP A9.  Shared experts
+    and first dense layers are no longer refused (DeepSeek's:
+    ``tests/test_torch_mla.py`` holds them against the reference)."""
     _, cfg = configs_pair()
-    for over in ({"n_shared": 1, "d_shared": 32}, {"first_dense_layers": 1}):
-        bad = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
-                                                               **over))
-        with pytest.raises(NotImplementedError, match="A7.2"):
-            build_model(bad, device="cpu")
+    over = {"n_shared": 1, "d_shared": 32, "first_dense_layers": 1,
+            "dense_d_ff": 64}
+    built = build_model(dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, **over)), device="cpu")
+    assert [s.moe for s in built.specs] == [False, True]
+    assert built.specs[1].ffn.shared is not None
     _, _, model, params = moe_reference()
     with pytest.raises(NotImplementedError, match="A9"):
         moe.moe_apply(model.specs[0].ffn, params["layers"][0]["ffn"],
