@@ -294,8 +294,38 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``blast_split_sum``) and the attention kernel's (``attn_tile_kernel``,
    ``attn_split_combine``).
 
-deepseek-v3-671b's kernels, reference and serving phases run after the
-training phases, before ``timing``.  Each phase's seconds are printed on a
+12. structures — the paper's baselines and its compression.  ``reference
+   structures``: smollm-135m at full width, fp32, 2 layers, card against
+   CPU as low_rank50, monarch50, pixelfly50 and block_diag, float and int8
+   weights (codes and scales equal; logits within 1e-3 + 1e-3·max a row).
+   ``smollm variants``: smollm-135m at full width (30 layers, bf16, the
+   attention out projections ×0.1: ``variant_weights``) in every variant
+   of ``configs.VARIANTS`` (blast50 is the ``serve none`` run) and int8
+   weights for low_rank50 and pixelfly50, 8 prompts of 16 new tokens:
+   captured = eager, launches steps × (3, 1, 1) a layer for BLAST and B3
+   alone for the other kinds, every request more than one distinct token,
+   and the captured decode profile; a ``variants`` line with each one's
+   step ms, busy ms, kernels a step, parameter bytes and kernels.  ``spec
+   low_rank50``: the low-rank model's draft (its factors truncated by
+   energy), fp32 at 2 layers and frac 1.0 (tokens = plain's at the 1e-4
+   margin, acceptance ≥ 0.9), bf16 at 2 layers and frac 0.5 (paged =
+   slot-static; acceptance reported).  ``compress``: Algorithm 2 card
+   against CPU at 512², b = 16, r = 128, 20 steps from one start (losses
+   within 1e-4 relative); one llama7b-blast layer of power-law weights
+   (the reference example's ``synth_weight``) compressed by
+   ``compress_tree`` into the per-role BLAST ranks, low_rank50, monarch50
+   and block_diag (``COMPRESS_STEPS`` steps a fit): errors, seconds,
+   Algorithm 2's loss before its first step and after its last and its
+   seconds a step; BLAST's error at most block_diag's on every linear; the
+   BLAST layer served through B1/B2/B3 (captured = eager) and held card
+   against CPU in fp32.  ``train structures``: gpt2-blast (full width, 2
+   layers) as low_rank50, monarch50 and pixelfly50 through ``phase_train``
+   (captured = eager bit for bit, the held-out loss falls, B4 the only
+   kernel).
+
+The structures phases run after smollm-135m's serving phases, before
+llama7b-blast's.  deepseek-v3-671b's kernels, reference and serving phases
+run after the training phases, before ``timing``.  Each phase's seconds are printed on a
 ``{"phase": "seconds"}`` line.  The
 last lines are the per-kernel JSON summary, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
@@ -3058,9 +3088,12 @@ def phase_train(cfg, steps=TRAIN_STEPS, eager_steps=3, profile=True,
     torch.cuda.empty_cache()
     losses = [r["loss"] for r in per_step]
     eager_rows = ea["rows"][:eager_steps]
-    trained = set(TRAIN_KERNELS[cfg.name])
+    # a linear of another kind than BLAST is a plain product: B4 alone
+    trained = (set(TRAIN_KERNELS[cfg.name]) if cfg.structure.kind == "blast"
+               else {"flash_attention"})
     stray = {k: v for k, v in launches.items() if v and k not in trained}
     emit({"phase": "train", "arch": cfg.name, "layers": L,
+          "structure": cfg.structure.kind,
           "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.param_dtype,
           "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
           "steps": steps, "lr": lr, "warmup": TRAIN_WARMUP,
@@ -3107,6 +3140,319 @@ def phase_train(cfg, steps=TRAIN_STEPS, eager_steps=3, profile=True,
                    "cleanly")
     if bad:
         raise RuntimeError(f"train[{cfg.name}]: " + "; ".join(bad))
+    return launches
+
+
+# -- the paper's baseline structures and its compression -----------------------
+
+# the new kinds' fp32 card-vs-CPU references, float and int8 weights
+STRUCTURE_REFERENCE = ("low_rank50", "monarch50", "pixelfly50", "block_diag")
+STRUCTURE_INT8 = ("low_rank50", "pixelfly50")   # their int8 serving runs
+# the variants' serving runs: 8 of the serve phase's prompts, 16 new tokens
+# each, for the script's time
+VARIANT_PROMPTS, VARIANT_NEW = 8, 16
+# the variants' attention out projections scaled ×0.1 (``variant_weights``):
+# at the init's scale every request of monarch50 repeats one token, its
+# linears' gains ~0.4–0.7 leaving the mean that attention takes over random
+# tokens to decide (a smaller embedding instead makes blast80 repeat);
+# scaled, the per-token path decides, as ``MOE_ATTN_OUT_SCALE`` does for
+# granite-moe
+VARIANT_ATTN_OUT_SCALE = 0.1
+# the factor of each kind that scales its product (Pixelfly: both terms)
+OUT_FACTORS = {"dense": ("w",), "blast": ("U",), "low_rank": ("w_up",),
+               "monarch": ("R",), "block_diag": ("w",),
+               "pixelfly": ("w", "w_up")}
+# the low-rank model's speculative runs: fp32 at 2 layers (frac 1.0), bf16
+# at 2 of 30 layers (frac 0.5)
+STRUCTURE_SPEC_LAYERS = 2
+# the new kinds' gpt2-blast training runs: (layers, captured steps); as
+# gpt2-blast's own, 60 steps: at lr 1e-3 the held-out loss of the
+# low-rank model is still above its start after 30
+STRUCTURE_TRAIN = ("low_rank50", "monarch50", "pixelfly50")
+STRUCTURE_TRAIN_RUN = (2, 60)
+# compression at full width: Algorithm 2's and the Adam fits' steps, the
+# parity case (m = n, b, r) and the power-law decay of the targets
+COMPRESS_STEPS = 20
+COMPRESS_PARITY = (512, 16, 128)
+COMPRESS_DECAY = 2.0
+COMPRESS_TARGETS = ("blast", "low_rank50", "monarch50", "block_diag")
+COMPRESS_LINEARS = (("mixer", "qkv"), ("mixer", "out"), ("ffn", "gate"),
+                    ("ffn", "up"), ("ffn", "wo"))
+
+
+def variant_per_step(cfg, mode="none") -> dict:
+    """Launches a smollm-135m serving step makes under ``cfg``'s structure:
+    a BLAST model's (``smollm_per_step``); any other kind runs its linears
+    as plain products, so B3 alone, once a layer."""
+    if cfg.structure.kind == "blast":
+        return smollm_per_step(cfg, mode)
+    return {"flash_attention_prefill": cfg.n_layers}
+
+
+def variant_weights(cfg, params):
+    """``params`` with every attention out projection scaled by
+    ``VARIANT_ATTN_OUT_SCALE`` (the factor of ``OUT_FACTORS``)."""
+    scaled = OUT_FACTORS[cfg.structure.kind]
+    layers = []
+    for layer in params["layers"]:
+        out = {k: v * VARIANT_ATTN_OUT_SCALE if k in scaled else v
+               for k, v in layer["mixer"]["out"].items()}
+        layers.append({**layer, "mixer": {**layer["mixer"], "out": out}})
+    return {**params, "layers": layers}
+
+
+def phase_reference_structures(cfg):
+    """``phase_reference`` (fp32, 2 layers, card against CPU, codes and
+    scales equal) for each of ``STRUCTURE_REFERENCE`` in float and int8
+    weights, from one CPU init a variant."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    for v in STRUCTURE_REFERENCE:
+        vcfg = configs.variant(cfg, v)
+        base = build_model(dataclasses.replace(
+            vcfg, n_layers=2, param_dtype="float32", compute_dtype="float32"),
+            device="cpu").init(SEED)
+        for weights, label in (("none", "float"), ("int8", "int8")):
+            phase_reference(vcfg, f"smollm:{v}:{label}", weights=weights,
+                            base=base)
+
+
+def phase_variants(cfg, blast50_row) -> dict:
+    """smollm-135m at full width (30 layers, bf16, ``LM.init(SEED)``, the
+    attention out projections scaled: ``variant_weights``) in every variant
+    of ``configs.VARIANTS`` (blast50 is the default config:
+    the ``serve none`` run's row) and int8 weights for ``STRUCTURE_INT8``:
+    captured = eager tokens, launches steps × ``variant_per_step``, every
+    request emitting more than one distinct token (``varied``); then the
+    captured decode profile (busy ms, kernels a step).  One summary line:
+    each variant's step ms, busy ms, kernels a step, parameter bytes and
+    which of B1/B2/B3 it launches.  Returns each run's launch counts."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    launches, summary_rows = {}, {}
+    runs = [(v, "none") for v in configs.VARIANTS if v != "blast50"]
+    runs += [(v, "int8") for v in STRUCTURE_INT8]
+    for v, mode in runs:
+        vcfg = configs.variant(cfg, v)
+        model = build_model(vcfg, device=DEVICE)
+        params = model.init(SEED)
+        params = variant_weights(vcfg, params)
+        label = f"smollm:{v}" + (":int8" if mode == "int8" else "")
+        per_step = variant_per_step(vcfg, mode)
+        launches[label], row, outputs = timed(
+            f"serve {label}", phase_serve, model, params, label,
+            serve_config(mode), per_step,
+            prompts=serve_prompts(cfg.vocab, n=VARIANT_PROMPTS),
+            max_new=VARIANT_NEW, structure=vcfg.structure.kind)
+        varied(outputs, f"serve {label}")
+        prof = timed(f"profile {label}", retried(phase_profile), model,
+                     params, label, serve_config(mode))
+        summary_rows[label] = {
+            "structure": vcfg.structure.kind,
+            "decode_step_ms": row["graphs"]["decode_step_ms_median"],
+            "busy_ms": prof["device_busy_ms_per_step"],
+            "kernels_per_step": prof["device_ops_per_step"],
+            "param_bytes": row["param_bytes"],
+            "launches_per_step": per_step}
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary_rows["smollm:blast50"] = {
+        "structure": "blast", "decode_step_ms":
+            blast50_row["graphs"]["decode_step_ms_median"],
+        "param_bytes": blast50_row["param_bytes"],
+        "launches_per_step": smollm_per_step(cfg, "none"),
+        "run": "serve none (16 prompts, 32 new tokens)"}
+    emit({"phase": "variants", "arch": cfg.name, "layers": cfg.n_layers,
+          "requests": VARIANT_PROMPTS, "new_tokens": VARIANT_NEW,
+          "rows": summary_rows, "nvidia_smi": nvidia_smi()})
+    return launches
+
+
+def phase_spec_low_rank(cfg):
+    """Self-speculative decoding of smollm-135m as ``low_rank50``, its draft
+    the low-rank factors truncated by energy: fp32 at
+    ``STRUCTURE_SPEC_LAYERS`` layers, frac 1.0, tokens held to plain
+    decoding's at the 1e-4 margin and acceptance ≥ 0.9; bf16 at the same
+    depth, frac 0.5, slot-static and paged (paged = slot-static bit for
+    bit), its acceptance reported, its tokens held to plain's up to each
+    first near-tie."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    vcfg = configs.variant(cfg, "low_rank50")
+    for dtype, frac in (("float32", 1.0), ("bfloat16", 0.5)):
+        small = dataclasses.replace(vcfg, n_layers=STRUCTURE_SPEC_LAYERS,
+                                    param_dtype=dtype, compute_dtype=dtype)
+        model = build_model(small, device=DEVICE)
+        mode = "low_rank50:" + ("fp32" if dtype == "float32" else "bf16")
+        rows = phase_spec(model, model.init(SEED), mode, serve_config("none"),
+                          variant_per_step(small), paged=dtype != "float32",
+                          eager=False, fracs=(frac,))
+        acc = rows[0]["graphs"]["acceptance_rate"]
+        if dtype == "float32" and acc < 0.9:
+            raise RuntimeError(f"spec {mode}: acceptance {acc} at frac 1.0")
+
+
+def synth_weight(gen, d_in, d_out, decay=COMPRESS_DECAY):
+    """A (d_in, d_out) weight of power-law singular values s_i = i^-decay
+    between random orthonormal bases (the reference example's
+    ``examples/compress_llama_block.py::synth_weight``), drawn on the card
+    in fp32."""
+    import torch
+    r = min(d_in, d_out)
+    u, _ = torch.linalg.qr(torch.randn((d_in, r), generator=gen,
+                                       device=DEVICE))
+    v, _ = torch.linalg.qr(torch.randn((d_out, r), generator=gen,
+                                       device=DEVICE))
+    s = torch.arange(1, r + 1, device=DEVICE, dtype=torch.float32) ** -decay
+    return (u * s) @ v.T
+
+
+def _compress_parity():
+    """Algorithm 2 on the card against the CPU at ``COMPRESS_PARITY``, 20
+    steps, fp32, from one start: the loss before each step and after the
+    last within 1e-4 relative."""
+    import torch
+    from repro_torch.core import factorize as fct
+    m, b, r = COMPRESS_PARITY
+    gen = torch.Generator().manual_seed(SEED)
+    A = synth_weight(card_seed(), m, m).cpu()
+    p, q = m // b, m // b
+    start = (1e-2 * torch.randn((b, p, r), generator=gen),
+             torch.rand((b, b, r), generator=gen),
+             1e-2 * torch.randn((b, q, r), generator=gen))
+    cpu = fct.factorize(A, b, r, steps=20, start=start)
+    card = fct.factorize(A.to(DEVICE), b, r, steps=20,
+                         start=tuple(t.to(DEVICE) for t in start))
+    want = torch.cat([cpu.losses, cpu.final_loss[None]])
+    got = torch.cat([card.losses, card.final_loss[None]]).cpu()
+    rel = float(((got - want).abs() / want.abs()).max())
+    row = {"case": f"{m}x{m} b={b} r={r}", "steps": 20,
+           "loss_first": float(want[0]), "loss_last": float(want[-1]),
+           "max_rel_loss_err": rel, "limit": 1e-4}
+    if rel > 1e-4:
+        raise RuntimeError(f"compress: Algorithm 2's losses on the card "
+                           f"differ from the CPU's by {rel} relative")
+    return row
+
+
+def phase_compress(llama):
+    """Compression at full width (``core/compress.py``, ``core/
+    factorize.py``).  (a) ``_compress_parity``.  (b) One layer of
+    ``variant(llama7b-blast, "dense")`` whose five linears are
+    ``synth_weight`` matrices (qkv 4096 → 12288, out 4096², gate and up
+    4096 → 11008, down 11008 → 4096), compressed by ``compress_tree`` into
+    llama7b-blast's per-role BLAST ranks (b = 16, r = 1024 attention, 1488
+    FFN; Algorithm 2) and into low_rank50 (SVD), monarch50 (Adam) and
+    block_diag (extraction), ``COMPRESS_STEPS`` steps each fit: every
+    linear's normalized error and seconds, Algorithm 2's loss before its
+    first step (½‖A‖²) and after its last (½‖A − Â‖²), its seconds a step
+    at out's 4096 × 4096, r = 1024 and the FFN's shapes, r = 1488; BLAST's
+    error at most block_diag's on every linear (the paper's Tables 3/12).
+    (c) The BLAST-compressed layer as llama7b-blast's one layer: served
+    through B1/B2/B3 (bf16, captured = eager, launches steps × (3, 1, 1)),
+    and card against CPU in fp32 (``phase_reference``).  Returns the
+    serving run's launch counts."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import compress
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import make_block
+    from repro_torch.tree import tree_map
+    parity = _compress_parity()
+    gen = card_seed()
+    dense_blk = make_block(configs.variant(llama, "dense"), "attn")
+    weights = {f"{g}.{n}": synth_weight(
+        gen, getattr(getattr(dense_blk, g), n).d_in,
+        getattr(getattr(dense_blk, g), n).d_out) for g, n in COMPRESS_LINEARS}
+    errors, seconds, out = {}, {}, {}
+    for target in COMPRESS_TARGETS:
+        tcfg = llama if target == "blast" else configs.variant(llama, target)
+        blk = make_block(tcfg, "attn")
+        specs = {k: getattr(getattr(blk, k.split(".")[0]), k.split(".")[1])
+                 for k in weights}
+        out[target] = {}
+        for name, w in weights.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[target][name] = compress.compress_tree(
+                {name: w}, {name: specs[name]}, steps=COMPRESS_STEPS,
+                generator=gen)[name]
+            torch.cuda.synchronize()
+            seconds[f"{target}:{name}"] = time.perf_counter() - t0
+            errors[f"{target}:{name}"] = compress.reconstruction_error(
+                w, specs[name], out[target][name])
+    blast_rows = {}
+    for name, w in weights.items():
+        a_sq = float(torch.sum(w * w))
+        err = errors[f"blast:{name}"]
+        blast_rows[name] = {
+            "shape": list(w.T.shape), "normalized_error": err,
+            "loss_first": 0.5 * a_sq, "loss_last": 0.5 * a_sq * err * err,
+            "seconds": seconds[f"blast:{name}"],
+            "seconds_per_step": seconds[f"blast:{name}"] / COMPRESS_STEPS}
+    worse = [n for n in weights
+             if errors[f"blast:{n}"] > errors[f"block_diag:{n}"]]
+    emit({"phase": "compress", "parity": parity, "steps": COMPRESS_STEPS,
+          "decay": COMPRESS_DECAY, "blast": blast_rows,
+          "errors": errors, "seconds": seconds,
+          "alg2_seconds_per_step": {
+              "4096x4096 r=1024": blast_rows["mixer.out"]["seconds_per_step"],
+              "11008x4096 r=1488 (gate)":
+                  blast_rows["ffn.gate"]["seconds_per_step"]},
+          "blast_not_above_block_diag": not worse,
+          "nvidia_smi": nvidia_smi()})
+    if worse:
+        raise RuntimeError(f"compress: BLAST's error above block_diag's on "
+                           f"{worse}")
+    # (c) the compressed layer, served and held card against CPU
+    one = dataclasses.replace(llama, n_layers=1)
+    layer = out["blast"]
+
+    def with_layer(params, dtype):
+        params["layers"][0] = {**params["layers"][0]}
+        for key, lin in layer.items():
+            g, n = key.split(".")
+            params["layers"][0][g] = {**params["layers"][0][g],
+                                      n: {k: v.to(dtype)
+                                          for k, v in lin.items()}}
+        return params
+
+    model = build_model(one, device=DEVICE)
+    params = with_layer(model.init(gen), torch.bfloat16)
+    launches, _, outputs = timed(
+        "serve compress:blast", phase_serve, model, params, "compress:blast",
+        serve_config(None, weights="none"), llama_per_step(one, "float"),
+        prompts=serve_prompts(one.vocab, n=VARIANT_PROMPTS),
+        max_new=VARIANT_NEW)
+    emit({"phase": "compress", "run": "serve compress:blast",
+          "distinct_tokens_min": min(len(set(o)) for o in outputs)})
+    del model, params
+    fp32 = dataclasses.replace(one, param_dtype="float32",
+                               compute_dtype="float32")
+    base = tree_map(lambda t: t.cpu(), with_layer(
+        build_model(fp32, device=DEVICE).init(gen), torch.float32))
+    phase_reference(llama, "compress:blast", base=base, layers=1)
+    del out, weights, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_structures(gpt2) -> dict:
+    """gpt2-blast (full width, ``STRUCTURE_TRAIN_RUN`` layers and steps) as
+    each of ``STRUCTURE_TRAIN``: ``phase_train`` without its profile
+    (captured = eager bit for bit, the held-out loss falls, the NaN step),
+    B4 the only kernel (the linears are plain products)."""
+    from repro_torch import configs
+    layers, steps = STRUCTURE_TRAIN_RUN
+    launches = {}
+    for v in STRUCTURE_TRAIN:
+        cfg = dataclasses.replace(configs.variant(gpt2, v), n_layers=layers)
+        launches[f"train:gpt2:{v}"] = timed(
+            f"train structure:gpt2-blast:{v}", phase_train, cfg, steps,
+            profile=False)
     return launches
 
 
@@ -5427,9 +5773,9 @@ def main() -> int:
     timed("optimizer_and_last_only", phase_optimizer_and_last_only, cfg)
     model = build_model(cfg, device=DEVICE)
     params = model.init(SEED)
-    launches = {}
+    launches, rows = {}, {}
     for mode in MODES:
-        launches[mode], _, _ = timed(
+        launches[mode], rows[mode], _ = timed(
             f"serve {mode}", phase_serve, model, params, mode,
             serve_config(mode), smollm_per_step(cfg, mode))
     cut, cut_params = cut_models(cfg, params, SMOLLM_CUT_LAYERS,
@@ -5460,6 +5806,13 @@ def main() -> int:
               cut_params, "none", serve_config("none"),
               prompt_len=LONG_PROMPT, graphs=graphs)
     del model, params, cut, cut_params
+    # the paper's baseline structures (configs.VARIANTS) and compression
+    timed("reference structures", phase_reference_structures, cfg)
+    launches.update(timed("smollm variants", phase_variants, cfg,
+                          rows["none"]))
+    timed("spec low_rank50", phase_spec_low_rank, cfg)
+    launches["compress:blast"] = timed("compress", phase_compress, llama)
+    launches.update(timed("train structures", phase_train_structures, gpt2))
     launches.update(timed("llama7b-blast and gpt2-blast serving",
                           phase_dense_serving, llama, gpt2))
     launches.update(timed(f"{HYBRID} serving", phase_hybrid, hyb))

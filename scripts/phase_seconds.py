@@ -20,8 +20,11 @@ import argparse
 import json
 import sys
 
-# the families' own runs, timed inside their serving phase
-NESTED_TAGS = ("llama:", "gpt2:", "hybrid:", "mamba2:", "moe:", "deepseek:")
+# the families' own runs, timed inside their serving phase, and the
+# structure variants', compression's and the new kinds' training runs,
+# timed inside theirs
+NESTED_TAGS = ("llama:", "gpt2:", "hybrid:", "mamba2:", "moe:", "deepseek:",
+               "smollm:", "compress:", "structure:")
 
 
 def top_level(name: str) -> bool:

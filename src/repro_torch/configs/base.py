@@ -26,11 +26,12 @@ STRUCTURES = ("dense", "blast", "low_rank", "monarch", "block_diag",
 class StructureConfig:
     """How to structure the linear layers of a model.
 
-    kind:        one of STRUCTURES (the port implements dense and blast)
-    b:           number of blocks per axis
+    kind:        one of STRUCTURES
+    b:           number of blocks per axis (blast, monarch, block_diag,
+                 pixelfly)
     keep_ratio:  target params / dense params; solves ranks when ``rank``
                  is not given
-    rank:        explicit rank override
+    rank:        explicit rank override (blast r, low-rank t, monarch k)
     """
 
     kind: str = "dense"

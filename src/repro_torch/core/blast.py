@@ -9,6 +9,10 @@ block ``(i, j)`` is ``U_i · diag(s_ij) · V_jᵀ`` with
     V: (b, q, r)   right factors, one per block-column
 
 Layers consume it as ``y = x @ Aᵀ`` for ``x: (..., n)`` → ``(..., m)``.
+
+The special cases of the paper (§2, App. A.1) embed exactly: low-rank,
+block-diagonal and (exact) Monarch matrices are BLAST matrices, and a
+dense matrix's truncated SVD gives a BLAST start (``from_*``).
 """
 
 from __future__ import annotations
@@ -70,6 +74,13 @@ def init(generator: torch.Generator, m: int, n: int, b: int, r: int, *,
     return BlastParams(*(a.to(device=device, dtype=dtype) for a in (U, S, V)))
 
 
+def init_paper(generator: torch.Generator, m: int, n: int, b: int, r: int, *,
+               dtype=torch.float32, device=None) -> BlastParams:
+    """The paper's App. C.2 initialization: U, V ~ N(0, 0.02), s ~ U(0, 2)."""
+    return init(generator, m, n, b, r, dtype=dtype, device=device,
+                factor_std=math.sqrt(0.02), s_max=2.0)
+
+
 def matmul(x: torch.Tensor, params: BlastParams) -> torch.Tensor:
     """Alg. 1 as three contractions: y = x @ Aᵀ for x (..., n) → (..., m).
 
@@ -93,3 +104,59 @@ def to_dense(params: BlastParams, dtype=None) -> torch.Tensor:
     b, _, p, q = blocks.shape
     dense = blocks.permute(0, 2, 1, 3).reshape(b * p, b * q)
     return dense if dtype is None else dense.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Special cases (paper §2 and App. A.1): exact embeddings into BLAST.
+# ---------------------------------------------------------------------------
+
+
+def from_low_rank(w_down: torch.Tensor, w_up: torch.Tensor,
+                  b: int) -> BlastParams:
+    """Low-rank ``A = w_upᵀ w_downᵀ`` (``y = (x @ w_down) @ w_up``; w_down
+    (n, t), w_up (t, m)) as BLAST of rank t with all-ones coupling."""
+    n, t = w_down.shape
+    m = w_up.shape[1]
+    p, q = check_divisible(m, n, b)
+    return BlastParams(U=w_up.T.reshape(b, p, t),
+                       S=w_down.new_ones((b, b, t)),
+                       V=w_down.reshape(b, q, t))
+
+
+def from_block_diagonal(w_bd: torch.Tensor) -> BlastParams:
+    """Block-diagonal ``y_i = x_i @ w_i`` (w_bd (b, q, p)) as BLAST of rank
+    q: U_i = w_iᵀ, V_j = I, s_ij = [i == j]."""
+    b, q, _ = w_bd.shape
+    eye = torch.eye(q, dtype=w_bd.dtype, device=w_bd.device)
+    S = torch.eye(b, dtype=w_bd.dtype, device=w_bd.device)[:, :, None]
+    return BlastParams(U=w_bd.transpose(1, 2).contiguous(),
+                       S=S.expand(b, b, q).contiguous(),
+                       V=eye.expand(b, q, q).contiguous())
+
+
+def from_monarch(L: torch.Tensor, R: torch.Tensor) -> BlastParams:
+    """Exact Monarch (L (b, q, k), R (k, b, c) with c == b; output block i is
+    the c index, M_ij[k0, q0] = L[j, q0, k0] · R[k0, j, i]) as BLAST of rank
+    k: U_i = I_k, V_j = L[j], s_ij[ρ] = R[ρ, j, i].  The rectangular form
+    has no such embedding and raises."""
+    b, q, k = L.shape
+    k2, b2, c = R.shape
+    if k2 != k or b2 != b or c != b:
+        raise ValueError("from_monarch requires R: (k, b, b) matching L: "
+                         "(b, q, k)")
+    eye = torch.eye(k, dtype=L.dtype, device=L.device)
+    return BlastParams(U=eye.expand(b, k, k).contiguous(),
+                       S=R.permute(2, 1, 0).contiguous(), V=L)
+
+
+def from_dense_svd(w: torch.Tensor, b: int, r: int) -> BlastParams:
+    """The global truncated SVD of ``A = wᵀ`` (w (n, m), ``y = x @ w``) in
+    BLAST, its rank zero-padded to r: a spectral start for Algorithm 2 and a
+    baseline."""
+    u, s, vt = torch.linalg.svd(w.T.float(), full_matrices=False)
+    t = min(r, s.shape[0])
+    params = from_low_rank(vt[:t].T, (u[:, :t] * s[:t]).T, b)
+    if t < r:
+        params = BlastParams(*(torch.nn.functional.pad(a, (0, r - t))
+                               for a in params))
+    return BlastParams(*(a.to(w.dtype) for a in params))

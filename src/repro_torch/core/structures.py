@@ -1,21 +1,24 @@
-"""Structured-linear interface, main-path part (counterpart of
-``repro/core/structures.py``): dense, block-diagonal and BLAST linears
-behind one spec, and the grouped dispatch that runs same-input BLAST
-bundles (SwiGLU gate+up) as one kernel launch and same-input block-diagonal
-bundles (the RG-LRU gates) as one batched product.
+"""Structured-linear interface (counterpart of
+``repro/core/structures.py``): dense, BLAST and the paper's baselines —
+low-rank, Monarch, block-diagonal and Pixelfly (§4) — behind one spec,
+and the grouped dispatch that runs same-input BLAST bundles (SwiGLU
+gate+up) as one kernel launch and same-input block-diagonal bundles (the
+RG-LRU gates) as one batched product.
 
 A spec carries ``init(generator, dtype, device, scale)`` → params (a dict of
 tensors) and ``apply(params, x)``: ``x (..., d_in) → (..., d_out)``.  BLAST
 applies go through ``kernels/ops.blast_matmul`` (the CUDA kernel on the
-card, its plain version on the CPU).
+card, its plain version on the CPU); the other kinds are plain PyTorch
+products on both, as the reference runs them in XLA outside any Pallas
+kernel.
 
 Quantized storage: ``spec.quantize(params, bits)`` turns the factors into
 per-block int8 or nibble-packed int4 ``QArray``s and ``spec.apply_q`` runs
 them — BLAST through ``kernels/ops.blast_matmul_q`` (the int8 or int4
 kernel or, with the activation mode set to "int8", the W8A8 or W4A8
-kernel), dense and block-diagonal as plain products on the codes (the
-reference leaves both to XLA, outside any Pallas kernel).  Mixed storage
-raises (``check_storage``).
+kernel), the other kinds as plain products on the codes with their scales
+applied to the products (weight-only whatever the activation mode, as in
+the reference).  Mixed storage raises (``check_storage``).
 
 Stacked linears (the MoE experts): E linears of one spec with their params
 stacked on a leading E axis, each applied to its own input —
@@ -23,8 +26,8 @@ stacked on a leading E axis, each applied to its own input —
 reference's vmapped ``linear_quantize``) and ``stacked_apply``, a BLAST
 stack as ONE batched kernel launch (``kernels/ops.blast_matmul_batched``
 and its int8/int4 twins, in the current activation mode).  The rank tools
-(``rank_spectrum``, ``truncate_rank``, ``pad_rank``) take a stack too, one
-expert at a time, as the reference vmaps them.
+(``rank_spectrum``, ``truncate_rank``, ``pad_rank``) take a BLAST stack
+too, one expert at a time, as the reference vmaps them.
 """
 
 from __future__ import annotations
@@ -181,8 +184,199 @@ def _blast_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
         apply_q=apply_q)
 
 
+def _low_rank_q(d, u, x: torch.Tensor) -> torch.Tensor:
+    """``(x @ w_down) @ w_up`` on per-output-channel codes, each product
+    scaled after it; the hidden h is cast to x's type between the two, as
+    the reference does.  Returns fp32 (x fp32 or bf16 times fp32 scales)."""
+    h = (x @ qt.int_values(d).to(x.dtype)) * d.scale[0]
+    return (h.to(x.dtype) @ qt.int_values(u).to(x.dtype)) * u.scale[0]
+
+
+def _low_rank_init(generator, d_in: int, t: int, d_out: int, dtype, device):
+    on = generator.device
+    w_down = torch.randn((d_in, t), generator=generator,
+                         device=on) / math.sqrt(d_in)
+    w_up = torch.randn((t, d_out), generator=generator,
+                       device=on) / math.sqrt(t)
+    return {"w_down": w_down.to(device=device, dtype=dtype),
+            "w_up": w_up.to(device=device, dtype=dtype)}
+
+
+def _low_rank_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
+    """``y = (x @ w_down) @ w_up`` with w_down (d_in, t), w_up (t, d_out);
+    t from the budget t·(d_in + d_out) ≤ keep·d_in·d_out, rounded down to a
+    multiple of 16 from 32 up."""
+    t = cfg.rank or max(1, int(cfg.keep_ratio * d_in * d_out / (d_in + d_out)))
+    if t >= 32:
+        t = (t // 16) * 16
+
+    def init(generator, dtype=torch.float32, device=None, scale=None):
+        return _low_rank_init(generator, d_in, t, d_out, dtype, device)
+
+    def apply(params, x):
+        return (x @ params["w_down"]) @ params["w_up"]
+
+    def apply_q(params, x):
+        return _low_rank_q(params["w_down"], params["w_up"], x).to(x.dtype)
+
+    return LinearSpec(kind="low_rank", d_in=d_in, d_out=d_out,
+                      shapes={"w_down": (d_in, t), "w_up": (t, d_out)},
+                      init=init, apply=apply, meta={"rank": t},
+                      quantize=_block_quantizer({"w_down": (0,),
+                                                 "w_up": (0,)}),
+                      apply_q=apply_q)
+
+
+def _monarch_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
+    """Monarch (block low-rank): u = blockdiag(L) x over b input blocks, then
+    R mixes across blocks.  L (b, q, k); exact form (k·c == m, c = b): R
+    (k, b, c), the output laid out (c, k); otherwise the rectangular form,
+    R (k, b, p) with p = m / b, the output laid out (b, p).  k is m / b,
+    capped by the budget b·q·k + k·b·c ≤ keep·m·n, or the explicit rank."""
+    m, n = d_out, d_in
+    b = _pick_blocks(n, m, cfg.b)
+    q, c, p = n // b, b, m // b
+    k = m // c
+    if cfg.rank is not None:
+        k = cfg.rank
+    else:
+        k = max(1, min(k, int(cfg.keep_ratio * m * n / (b * (q + c)))))
+    exact = k * c == m
+    r_last = c if exact else p
+
+    def init(generator, dtype=torch.float32, device=None, scale=None):
+        on = generator.device
+        L = torch.randn((b, q, k), generator=generator,
+                        device=on) / math.sqrt(q)
+        R = torch.randn((k, b, r_last), generator=generator,
+                        device=on) / math.sqrt(k)
+        return {"L": L.to(device=device, dtype=dtype),
+                "R": R.to(device=device, dtype=dtype)}
+
+    def apply(params, x):
+        lead = x.shape[:-1]
+        u = torch.einsum("...bq,bqk->...bk", x.reshape(*lead, b, q),
+                         params["L"])
+        if exact:
+            y = torch.einsum("...bk,kbc->...ck", u, params["R"])
+        else:
+            y = torch.einsum("...bk,kbp->...bp", u, params["R"])
+        return y.reshape(*lead, m)
+
+    def apply_q(params, x):
+        Lq, Rq = params["L"], params["R"]
+        lead = x.shape[:-1]
+        u = torch.einsum("...bq,bqk->...bk", x.reshape(*lead, b, q),
+                         qt.int_values(Lq).to(x.dtype))
+        u = u.float() * Lq.scale[:, :, 0]                  # (b, 1)
+        if exact:
+            # the contraction runs over b, so R has one scale per k
+            y = torch.einsum("...bk,kbc->...ck", u, qt.int_values(Rq).float())
+            y = y * Rq.scale[:, 0, 0]                      # (k,)
+        else:
+            y = torch.einsum("...bk,kbp->...bp", u, qt.int_values(Rq).float())
+            y = y * Rq.scale[0]                            # (b, 1)
+        return y.reshape(*lead, m).to(x.dtype)
+
+    return LinearSpec(kind="monarch", d_in=d_in, d_out=d_out,
+                      shapes={"L": (b, q, k), "R": (k, b, r_last)},
+                      init=init, apply=apply,
+                      meta={"b": b, "k": k, "exact": exact},
+                      quantize=_block_quantizer(
+                          {"L": (1, 2), "R": (1, 2) if exact else (0, 2)}),
+                      apply_q=apply_q)
+
+
+def _pixelfly_blocks(b: int) -> list[tuple[int, int]]:
+    """The flat block-butterfly support: block (i, j) is live iff i == j or
+    |i − j| is a power of two (Pixelated Butterfly's block-sparse part)."""
+    return [(i, j) for i in range(b) for j in range(b)
+            if abs(i - j) == 0 or (abs(i - j) & (abs(i - j) - 1)) == 0]
+
+
+def _pixelfly_spec(d_in: int, d_out: int, cfg: StructureConfig) -> LinearSpec:
+    """Pixelfly: the block-sparse butterfly W_s — its ``nnz`` live (q, p)
+    blocks dense, ``w`` (nnz, q, p) — plus a low-rank term ``w_down``,
+    ``w_up`` of the budget left over, present only when its rank t > 0.
+
+    The block gather (input block of each live block) and the scatter-add
+    over repeated output rows are products with fixed one-hot matrices
+    (nnz, b) and (b, nnz): no loop over blocks, and their backward is a
+    product too, so a step gives the same bits every run (a scatter-add by
+    ``index_add_`` sums with atomics on the card)."""
+    b = _pick_blocks(d_in, d_out, cfg.b)
+    q, p = d_in // b, d_out // b
+    live = _pixelfly_blocks(b)
+    nnz = len(live)
+    sparse = nnz * q * p
+    t = max(0, int((cfg.keep_ratio * d_in * d_out - sparse) // (d_in + d_out)))
+    if t >= 32:
+        t = (t // 16) * 16
+    gather = torch.zeros((nnz, b))
+    scatter = torch.zeros((b, nnz))
+    for e, (i, j) in enumerate(live):
+        gather[e, j] = 1.0
+        scatter[i, e] = 1.0
+    onehot: dict = {}
+
+    def selectors(x: torch.Tensor):
+        """The one-hot matrices in x's type on x's device, made once each
+        (before a CUDA graph's capture: its warm-up runs eagerly first)."""
+        key = (x.device, x.dtype)
+        if key not in onehot:
+            onehot[key] = (gather.to(device=x.device, dtype=x.dtype),
+                           scatter.to(device=x.device, dtype=x.dtype))
+        return onehot[key]
+
+    def init(generator, dtype=torch.float32, device=None, scale=None):
+        std = 1.0 / math.sqrt(max(q * (2 * int(math.log2(b)) + 1 if b > 1
+                                       else 1), 1))
+        on = generator.device
+        w = std * torch.randn((nnz, q, p), generator=generator, device=on)
+        params = {"w": w.to(device=device, dtype=dtype)}
+        if t:
+            params.update(_low_rank_init(generator, d_in, t, d_out, dtype,
+                                         device))
+        return params
+
+    def apply(params, x):
+        lead = x.shape[:-1]
+        g, s = selectors(x)
+        xg = torch.einsum("...jq,ej->...eq", x.reshape(*lead, b, q), g)
+        yb = torch.einsum("...eq,eqp->...ep", xg, params["w"])
+        y = torch.einsum("...ep,ie->...ip", yb, s).reshape(*lead, d_out)
+        if "w_down" in params:
+            y = y + (x @ params["w_down"]) @ params["w_up"]
+        return y
+
+    def apply_q(params, x):
+        w = params["w"]
+        lead = x.shape[:-1]
+        g, s = selectors(x)
+        xg = torch.einsum("...jq,ej->...eq", x.reshape(*lead, b, q), g)
+        yb = torch.einsum("...eq,eqp->...ep", xg,
+                          qt.int_values(w).to(x.dtype))
+        yb = yb.float() * w.scale[:, :, 0]                 # (nnz, 1)
+        y = torch.einsum("...ep,ie->...ip", yb, s.float()).reshape(*lead,
+                                                                   d_out)
+        if "w_down" in params:
+            y = y + _low_rank_q(params["w_down"], params["w_up"], x)
+        return y.to(x.dtype)
+
+    shapes = {"w": (nnz, q, p)}
+    qaxes = {"w": (1, 2)}
+    if t:
+        shapes.update(w_down=(d_in, t), w_up=(t, d_out))
+        qaxes.update(w_down=(0,), w_up=(0,))
+    return LinearSpec(kind="pixelfly", d_in=d_in, d_out=d_out, shapes=shapes,
+                      init=init, apply=apply,
+                      meta={"b": b, "nnz": nnz, "rank": t},
+                      quantize=_block_quantizer(qaxes), apply_q=apply_q)
+
+
 _MAKERS = {"dense": _dense_spec, "blast": _blast_spec,
-           "block_diag": _block_diag_spec}
+           "low_rank": _low_rank_spec, "monarch": _monarch_spec,
+           "block_diag": _block_diag_spec, "pixelfly": _pixelfly_spec}
 
 
 def make_linear(d_in: int, d_out: int, structure: StructureConfig | None = None,
@@ -191,38 +385,43 @@ def make_linear(d_in: int, d_out: int, structure: StructureConfig | None = None,
     cfg = structure or StructureConfig()
     if not structured:
         cfg = StructureConfig(kind="dense")
-    if cfg.kind not in _MAKERS:
-        raise NotImplementedError(
-            f"structure {cfg.kind!r} is not ported yet (ROADMAP A7)")
     return _MAKERS[cfg.kind](d_in, d_out, cfg)
 
 
 # ---------------------------------------------------------------------------
 # Nested-rank truncation: a rank-r BLAST factor set holds every lower-rank
 # model for free — keeping a subset of the rank components of U, S and V
-# gives a cheaper model whose factors are column subsets of the full ones.
-# This is the draft side of self-speculative decoding (serve/engine.py).
+# (or of low-rank w_down columns and w_up rows) gives a cheaper model whose
+# factors are column subsets of the full ones.  This is the draft side of
+# self-speculative decoding (serve/engine.py).
 # ---------------------------------------------------------------------------
 
-_RANK_AXES = {"blast": {"U": 2, "S": 2, "V": 2}}
+_RANK_AXES = {"blast": {"U": 2, "S": 2, "V": 2},
+              "low_rank": {"w_down": 1, "w_up": 0}}
 
 
 def rank_kind(params) -> str | None:
-    """'blast' for a BLAST linear's param dict, else None (dense linears
-    pass truncation through).  Key-based, so it works on float and
-    quantized storage alike.  The reference's 'low_rank' kind is not a
-    ported structure (ROADMAP A7)."""
+    """'blast' or 'low_rank' for a rank-bearing linear's param dict, else
+    None (dense, Monarch, block-diagonal and Pixelfly linears pass
+    truncation through).  Key-based, so it works on float and quantized
+    storage alike."""
     if not isinstance(params, dict):
         return None
-    return "blast" if set(params) - {"bias"} == {"U", "S", "V"} else None
+    core = set(params) - {"bias"}
+    if core == {"U", "S", "V"}:
+        return "blast"
+    if core == {"w_down", "w_up"}:
+        return "low_rank"
+    return None
 
 
 def linear_rank(params) -> int | None:
     """Rank of a rank-bearing linear (a QArray's shape is logical: ranks,
     not packed int4 bytes)."""
-    if rank_kind(params) is None:
+    kind = rank_kind(params)
+    if kind is None:
         return None
-    return int(params["U"].shape[-1])
+    return int(params["U" if kind == "blast" else "w_down"].shape[-1])
 
 
 def _as_f32(a) -> torch.Tensor:
@@ -232,14 +431,22 @@ def _as_f32(a) -> torch.Tensor:
 def rank_spectrum(params) -> torch.Tensor | None:
     """Per-component energy e_rho, the exact squared-Frobenius contribution
     of rank component rho to the dense matrix (block rows and columns are
-    disjoint, so contributions add):
-    ``e_rho = sum_ij S[i,j,rho]^2 * |U[i,:,rho]|^2 * |V[j,:,rho]|^2``, in
-    fp32 (quantized factors are dequantized first).  None for kinds with
-    no rank axis; (E, r) for a stack of E experts."""
-    if rank_kind(params) is None:
+    disjoint, so contributions add), in fp32 (quantized factors are
+    dequantized first):
+
+      blast:    e_rho = sum_ij S[i,j,rho]^2 * |U[i,:,rho]|^2 * |V[j,:,rho]|^2
+      low_rank: e_t   = |w_down[:,t]|^2 * |w_up[t,:]|^2
+
+    None for kinds with no rank axis; (E, r) for a BLAST stack of E
+    experts."""
+    kind = rank_kind(params)
+    if kind is None:
         return None
     if stack_size(params):
         return torch.stack([rank_spectrum(p) for p in unstack(params)])
+    if kind == "low_rank":
+        d, u = _as_f32(params["w_down"]), _as_f32(params["w_up"])
+        return torch.sum(d * d, dim=0) * torch.sum(u * u, dim=1)
     U, S, V = (_as_f32(params[k]) for k in ("U", "S", "V"))
     su = torch.sum(U * U, dim=1)                      # (b, r)
     sv = torch.sum(V * V, dim=1)                      # (b, r)
@@ -257,11 +464,13 @@ def _gather_rank(arr: torch.Tensor, idx: torch.Tensor, axis: int,
 
 def _take_rank(a, idx: torch.Tensor, axis: int, full: int):
     """Rank-gather one factor in its storage format.  int8 QArrays gather
-    codes; their per-block scales have no rank extent and stay as they
-    are.  Packed int4 with the rank on the packed (last) axis unpacks,
-    gathers and repacks (bit-exact).  A gathered last axis gets the kept
-    rank as its ``last_dim`` (the reference keeps the full rank there for
-    int8, so its int8 draft reports the full rank in ``shape``)."""
+    codes, and their scales where those have the rank's extent (low-rank
+    w_down's per-column scales; BLAST's per-block scales have none and stay
+    as they are).  Packed int4 with the rank on the packed (last) axis
+    unpacks, gathers and repacks (bit-exact).  A gathered last axis gets
+    the kept rank as its ``last_dim`` (the reference keeps the full rank
+    there for int8, so its int8 draft reports the full rank in
+    ``shape``)."""
     if not qt.is_qarray(a):
         return _gather_rank(a, idx, axis, full)
     scale = _gather_rank(a.scale, idx, axis, full)
@@ -284,10 +493,11 @@ def truncate_rank(params, r_prime: int):
     so full-rank truncation is the identity, and since the rank
     contraction is permutation-invariant the truncated apply equals the
     full apply with the dropped components zeroed.  Float, int8 and packed
-    int4 storage.  A stack of experts truncates each expert to its own
-    r_prime highest-energy components (a uniform r_prime, per-expert
+    int4 storage.  A BLAST stack of experts truncates each expert to its
+    own r_prime highest-energy components (a uniform r_prime, per-expert
     choices: the reference's vmapped truncation)."""
-    if rank_kind(params) is None:
+    kind = rank_kind(params)
+    if kind is None:
         return params
     if stack_size(params):
         return restack([truncate_rank(p, r_prime) for p in unstack(params)])
@@ -296,18 +506,20 @@ def truncate_rank(params, r_prime: int):
     if r_prime == full:
         return dict(params)
     idx = torch.sort(torch.topk(rank_spectrum(params), r_prime).indices).values
-    axes = _RANK_AXES["blast"]
+    axes = _RANK_AXES[kind]
     return {k: (_take_rank(v, idx, axes[k], full) if k in axes else v)
             for k, v in params.items()}
 
 
 def pad_rank(params, granule: int):
-    """A rank-bearing linear with its rank axis zero-padded to a multiple of
+    """A BLAST linear with its rank axis zero-padded to a multiple of
     ``granule`` (exact: a zero component adds nothing; int4 pads whole
     zero bytes, two zero codes each).  The BLAST wrappers pad each launch's
     factors to the tile kernel's granule; a draft truncated to arbitrary
-    ranks is padded once, at load, instead."""
-    if rank_kind(params) is None:
+    ranks is padded once, at load, instead.  A low-rank linear runs no tile
+    kernel (two plain products) and is returned as it is: padding would
+    only add work, and change the products' summation lengths."""
+    if rank_kind(params) != "blast":
         return params
     r = linear_rank(params)
     r_pad = -(-r // granule) * granule
@@ -335,8 +547,8 @@ def pad_rank(params, granule: int):
 
 def stack_size(params) -> int:
     """E for a BLAST linear's params stacked on a leading expert axis (its
-    U is (E, b, p, r)), else 0."""
-    if rank_kind(params) is None or len(params["U"].shape) != 4:
+    U is (E, b, p, r)), else 0 (only BLAST experts are stacked)."""
+    if rank_kind(params) != "blast" or len(params["U"].shape) != 4:
         return 0
     return int(params["U"].shape[0])
 
@@ -365,9 +577,17 @@ def restack(members: Sequence[Params]) -> Params:
     return out
 
 
+def _blast_only(spec: LinearSpec) -> None:
+    if spec.kind != "blast":
+        raise NotImplementedError(f"stacked {spec.kind} experts are not "
+                                  "ported yet (ROADMAP A7.3)")
+
+
 def stacked_init(spec: LinearSpec, generator: torch.Generator, n: int,
                  dtype, device, scale=None) -> Params:
-    """n linears of ``spec`` drawn in turn from ``generator`` and stacked."""
+    """n BLAST linears of ``spec`` drawn in turn from ``generator`` and
+    stacked."""
+    _blast_only(spec)
     return restack([spec.init(generator, dtype=dtype, device=device,
                               scale=scale) for _ in range(n)])
 
@@ -377,9 +597,7 @@ def stacked_quantize(spec: LinearSpec, params: Params,
     """Per-expert, per-block QArrays of a stack: each expert's blocks get
     their own scales, equal bit for bit to quantizing each expert alone
     (the block axes move one axis right)."""
-    if spec.kind != "blast":
-        raise NotImplementedError(f"stacked {spec.kind} linears are not "
-                                  "ported (the experts are BLAST)")
+    _blast_only(spec)
     axes = {"U": (2, 3), "S": (3,), "V": (2, 3)}
     return {k: qt.quantize(v, bits=bits, block_axes=axes[k])
             for k, v in params.items()}
@@ -392,9 +610,7 @@ def stacked_apply(spec: LinearSpec, params: Params,
     nibble-packed int4 factors; with the activation mode "int8" the W8A8 or
     W4A8 kernel).  Float factors go through ``BlastMatmulBatchedFn`` and
     train; quantized ones run forward only.  Counts one dispatch."""
-    if spec.kind != "blast":
-        raise NotImplementedError(f"stacked {spec.kind} linears are not "
-                                  "ported (the experts are BLAST)")
+    _blast_only(spec)
     record_dispatch(1)
     storage = check_storage(params)
     U, S, V = params["U"], params["S"], params["V"]

@@ -4,11 +4,14 @@ chunked-prefill engine, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --requests 16 --max-new 32 --chunk 32 --slots 8 --max-len 512
 
-``--reduced`` runs the small test variant; ``--device cpu`` runs the plain
-PyTorch path on the host, eagerly.  On the card the engine captures its
-step as CUDA graphs (one per chunk and kv bucket) and replays them; the
-launcher prints how many it captured and the seconds that took, which the
-prefill and decode rates leave out.  Weights are random, drawn from ``--seed``.
+``--reduced`` runs the small test variant; ``--structure`` one of
+``configs.VARIANTS`` swaps the linears' structure (``blast80``, ``dense``,
+``low_rank50``, ``monarch50``, ``block_diag``, ``pixelfly50``);
+``--device cpu`` runs the plain PyTorch path on the host, eagerly.  On
+the card the engine captures its step as CUDA graphs (one per chunk and kv
+bucket) and replays them; the launcher prints how many it captured and
+the seconds that took, which the prefill and decode rates leave out.
+Weights are random, drawn from ``--seed``.
 ``--quant-weights int8`` (or ``int4``) quantizes them at load (the int8 or
 int4 BLAST kernels); adding ``--quant-activations int8`` runs the W8A8 (or
 W4A8) kernels.  ``--quant-cache int8`` keeps K/V as int8 codes with
@@ -67,6 +70,10 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True, choices=sorted(configs.ARCHS))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--structure", default=None, choices=configs.VARIANTS,
+                    help="serve the arch with its linears as this variant "
+                         "(configs.variant): BLAST at keep 0.5 or 0.8, dense "
+                         "or a baseline structure")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--chunk", type=int, default=16,
@@ -193,7 +200,7 @@ def print_sla(engine: Engine, sla: dict) -> None:
 
 def main(argv=None) -> list[Request]:
     args = parse_args(argv)
-    cfg = configs.get(args.arch)
+    cfg = configs.get(args.arch, args.structure)
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, quant=QuantConfig(

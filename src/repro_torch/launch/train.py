@@ -1,12 +1,14 @@
 """Training launcher of the port, on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
-        --steps 100 --batch 8 --seq 256 [--reduced] [--ckpt DIR]
+        --steps 100 --batch 8 --seq 256 [--reduced] [--structure low_rank50] \
+        [--ckpt DIR]
 
-``--reduced`` runs the small test variant; ``--device cpu`` runs the plain
-PyTorch path on the host, eagerly (without it, a machine with no GPU
-raises).  On the card the trainer captures its step as a CUDA graph after
-one eager warm-up step and replays it (``Trainer(jit=True)``).
+``--reduced`` runs the small test variant; ``--structure`` one of
+``configs.VARIANTS`` (the paper's baselines among them); ``--device cpu``
+runs the plain PyTorch path on the host, eagerly (without it, a machine
+with no GPU raises).  On the card the trainer captures its step as a CUDA
+graph after one eager warm-up step and replays it (``Trainer(jit=True)``).
 Weights are random, drawn from ``--seed``; the data is the synthetic Markov
 ``TokenStream``.
 """
@@ -35,6 +37,10 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized same-family config")
+    ap.add_argument("--structure", default=None, choices=configs.VARIANTS,
+                    help="train the arch with its linears as this variant "
+                         "(configs.variant): BLAST at keep 0.5 or 0.8, dense "
+                         "or a baseline structure")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap.parse_args(argv)
@@ -42,7 +48,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    cfg = configs.get(args.arch)
+    cfg = configs.get(args.arch, args.structure)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg, device=args.device)

@@ -97,10 +97,11 @@ def _train(jit, steps=3, cfg=None):
     return trainer, out, rows
 
 
-def _replay_equals_eager(model, mode):
+def _replay_equals_eager(model, mode, per_layer=5):
     """Serve through the graphs and eagerly: the same tokens and buckets,
-    logits equal bit for bit, equal launch counts (5 a layer a step).
-    Returns (launch counts, steps)."""
+    logits equal bit for bit, equal launch counts (``per_layer`` a layer a
+    step: a BLAST layer's 5, B3 alone for another structure).  Returns
+    (launch counts, steps)."""
     params = model.init(0)
     graphs = _engine(model, params, mode)
     eager = _engine(model, params, mode, step_fn=model.prefill_chunk)
@@ -118,7 +119,7 @@ def _replay_equals_eager(model, mode):
     # every replay counts the launches its capture recorded
     assert launches_g == launches_e
     L, steps = model.cfg.n_layers, graphs.stats["steps"]
-    assert sum(launches_g.values()) == 5 * L * steps
+    assert sum(launches_g.values()) == per_layer * L * steps
     return launches_g, steps
 
 
@@ -148,6 +149,38 @@ class TestGraphs:
         assert launches["flash_attention_prefill_q8"] == (
             model.cfg.n_layers * steps)
         assert launches["flash_attention_prefill"] == 0
+
+    @pytest.mark.parametrize("mode", ["none", "int8"])
+    @pytest.mark.parametrize("variant", ["low_rank50", "monarch50",
+                                         "pixelfly50", "block_diag"])
+    def test_variant_replay_equals_eager(self, cuda, variant, mode):
+        """The paper's baseline structures (``configs.variant``), bf16:
+        their linears are plain products, deterministic on the card
+        (Pixelfly's gather and scatter-add are one-hot products), so a
+        replay equals the eager step bit for bit; B3 is the only launch."""
+        model = build_model(dataclasses.replace(
+            _cfg("bfloat16"), structure=configs.variant(
+                configs.get("smollm-135m"), variant).structure), device=cuda)
+        launches, steps = _replay_equals_eager(model, mode, per_layer=1)
+        assert launches["flash_attention_prefill"] == (
+            model.cfg.n_layers * steps)
+
+    @pytest.mark.parametrize("variant", ["low_rank50", "monarch50",
+                                         "pixelfly50"])
+    def test_variant_captured_training_equals_eager(self, cuda, variant):
+        """A new kind's training step (its backward through autograd's
+        products) captured equals the eager one bit for bit after each of
+        3 steps."""
+        cfg = dataclasses.replace(
+            _cfg("bfloat16", remat=True, vocab=64),
+            structure=configs.variant(configs.get("smollm-135m"),
+                                      variant).structure)
+        tg, _, rows_g = _train(jit=True, cfg=cfg)
+        te, _, rows_e = _train(jit=False, cfg=cfg)
+        assert tg.stats["graphs"] == 1 and te.stats["graphs"] == 0
+        for i, (g, e) in enumerate(zip(rows_g, rows_e)):
+            assert g[:3] == e[:3], i
+            assert all(torch.equal(a, b) for a, b in zip(g[3], e[3])), i
 
     def test_captured_training_equals_eager(self, cuda):
         tg, out_g, rows_g = _train(jit=True)

@@ -81,6 +81,17 @@ def _unoptimized(jitted):
     return call
 
 
+def _exact(fn, *args):
+    """``jax.jit(fn)(*args)`` compiled once without backend optimizations
+    and without XLA's algebraic simplifier, which would turn ``quantize``'s
+    division by qmax into a product with its reciprocal (1 ulp off for some
+    scales): the reference's eager results, from one program instead of
+    one compile per operation and shape."""
+    return jax.jit(fn).lower(*args).compile(compiler_options={
+        "xla_backend_optimization_level": 0,
+        "xla_disable_hlo_passes": "algsimp"})(*args)
+
+
 def _seeded_tree(jmodel, rng) -> dict:
     """Weights in the layout of the reference's ``LM.init`` (its
     ``jax.eval_shape``), drawn with numpy: norm scales, biases and the conv

@@ -293,6 +293,28 @@ def _fixed(jeng, C, F=4, M=8):
     return step
 
 
+def _spec_fixed(jeng, F=8, M=8):
+    """The JAX paged engine's speculative round with its page operands
+    padded to one shape — F fresh pages and M write triples (padding: the
+    dropped page n_pages, as the engine pads them to its own buckets) — and
+    compiled once, unoptimized, instead of once for each bucket pair."""
+    inner = _unoptimized(jeng._paged_spec)
+    n_pages = jeng._pc.n_pages
+
+    def pad(a, size, fill):
+        a = np.asarray(a)
+        assert a.shape[0] <= size
+        return jnp.asarray(np.concatenate(
+            [a, np.full((size - a.shape[0],), fill, a.dtype)]))
+
+    def spec_round(params, draft, pool, static, draft_cache, table, fresh,
+                   rows, lps, phys, *rest):
+        return inner(params, draft, pool, static, draft_cache, table,
+                     pad(fresh, F, n_pages), pad(rows, M, 0), pad(lps, M, 0),
+                     pad(phys, M, n_pages), *rest)
+    return spec_round
+
+
 def _schedule(shared_len=16):
     """{tick: [(uid, prompt, max_new)]}: two requests, then one that shares
     the first one's registered prefix (a hit that restores its snapshot)

@@ -42,8 +42,8 @@ from repro_torch.serve import (Engine, EngineConfig, MemoryConfig, Request,
                                SchedulerConfig, SpeculativeConfig)
 from test_torch_hybrid import _cache_leaves, _padded, _unoptimized
 from test_torch_hybrid_serving import (_fixed, _jstep, _leaf_close,
-                                       _share_state, hybrid_reference,
-                                       variant)
+                                       _share_state, _spec_fixed,
+                                       hybrid_reference, variant)
 
 K, FRAC, MAX_LEN = 4, 0.2, 64
 SPEC_LAYERS = 3
@@ -76,7 +76,7 @@ def jax_run(cache_mode: str):
         speculative=JSpeculativeConfig(k=K, draft_rank_frac=FRAC)),
         step_fn=_padded(_jstep(jmodel), 8))
     eng._paged_step = _fixed(eng, 8)
-    eng._paged_spec = _unoptimized(eng._paged_spec)
+    eng._paged_spec = _spec_fixed(eng)
     for uid, prompt, max_new in _requests():
         eng.submit(JRequest(uid=uid, prompt=prompt, max_new_tokens=max_new))
     pc, ticks = eng._pc, []

@@ -40,6 +40,7 @@ from repro_torch.core import structures
 from repro_torch.kernels import ops, ref
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig,
                                SamplingParams, SchedulerConfig)
+from test_torch_hybrid import _exact
 from torch_parity import (check_greedy_tokens, check_prefill_logits,
                           quantized_params_equal, reference_pair)
 
@@ -246,9 +247,11 @@ def pair():
 
 @pytest.fixture(scope="module")
 def jquant4(pair):
-    """The reference's int4 tree, quantized eagerly."""
+    """The reference's int4 tree with its eager bits, from one program
+    (``_exact``)."""
     jmodel, jparams, _, _ = pair
-    return jmodel.quantize_params(jparams, jq.QuantConfig(weights="int4"))
+    return _exact(lambda p: jmodel.quantize_params(
+        p, jq.QuantConfig(weights="int4")), jparams)
 
 
 def test_quantize_params_int4_equal_jax(pair, jquant4):

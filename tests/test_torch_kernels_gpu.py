@@ -912,3 +912,57 @@ class TestOnCard:
         with pytest.raises(RuntimeError, match="requires grad"):
             bm.launch(xe, Ue, *(torch.randn(s, device=cuda) for s in
                                 ((2, 4, 4, 16), (2, 4, 16, 16))))
+
+
+@pytest.mark.gpu
+class TestCompressOnCard:
+    """Compression (``core/factorize.py``, ``core/compress.py``) on the
+    card against the CPU from one start, fp32: plain products and batched
+    solves, no kernel of the port's, on the card's libraries."""
+
+    @pytest.fixture
+    def cuda(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        return torch.device("cuda")
+
+    @pytest.mark.parametrize("opt", [{}, {"precondition": False, "lr": 0.05},
+                                     {"spectral_steps": True}])
+    def test_factorize_card_equals_cpu(self, cuda, opt):
+        """20 steps at 128 × 96, b = 8, r = 16: the loss before each step
+        and after the last within 1e-4 relative."""
+        from repro_torch.core import factorize
+        g = torch.Generator().manual_seed(0)
+        A = torch.randn((128, 96), generator=g)
+        start = (1e-2 * torch.randn((8, 16, 16), generator=g),
+                 torch.rand((8, 8, 16), generator=g),
+                 1e-2 * torch.randn((8, 12, 16), generator=g))
+        cpu = factorize.factorize(A, 8, 16, steps=20, start=start, **opt)
+        card = factorize.factorize(A.to(cuda), 8, 16, steps=20,
+                                   start=tuple(t.to(cuda) for t in start),
+                                   **opt)
+        want = torch.cat([cpu.losses, cpu.final_loss[None]])
+        got = torch.cat([card.losses, card.final_loss[None]]).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+    @pytest.mark.parametrize("kind", ["low_rank", "block_diag", "monarch",
+                                      "pixelfly"])
+    def test_compress_linear_card_equals_cpu(self, cuda, kind):
+        """Each fit's product on a test input within 1e-4 of its scale (an
+        SVD's signs may differ between devices; its product does not)."""
+        from repro_torch.configs import StructureConfig
+        from repro_torch.core import compress, structures
+        spec = structures.make_linear(64, 96, StructureConfig(kind=kind, b=4))
+        g = torch.Generator().manual_seed(1)
+        w = torch.randn((64, 96), generator=g)
+        start = spec.init(torch.Generator().manual_seed(2))
+        x = torch.randn((5, 64), generator=g)
+        cpu = compress.compress_linear(w, spec, steps=10, start=start)
+        card = compress.compress_linear(
+            w.to(cuda), spec, steps=10,
+            start={k: v.to(cuda) for k, v in start.items()})
+        with torch.no_grad():
+            want = spec.apply(cpu, x)
+            got = spec.apply(card, x.to(cuda)).cpu()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))

@@ -51,7 +51,7 @@ from repro_torch.core import structures
 from repro_torch.kernels import ref
 from repro_torch.models import build_model, layers, mla, moe
 from repro_torch.train.loss import make_loss_fn
-from test_torch_hybrid import _seeded_tree, _unoptimized
+from test_torch_hybrid import _exact, _seeded_tree, _unoptimized
 from torch_parity import TOL, leaves_equal
 
 ARCH = "deepseek-v3-671b"
@@ -120,12 +120,13 @@ def test_mla_qkv_and_apply():
         np.float32)
     pos = np.arange(3, 12)
     got = mla._mla_qkv(spec, p, _t(x), _t(pos))
-    want = jax.jit(lambda p, x: jlayers._mla_qkv(jspec, p, x, pos))(jp, x)
+    want = _unoptimized(jax.jit(
+        lambda p, x: jlayers._mla_qkv(jspec, p, x, pos)))(jp, x)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **EXACT)
     y = mla.mla_apply(spec, p, _t(x), torch.arange(9))
-    jy = jax.jit(lambda p, x: jlayers.mla_apply(jspec, p, x,
-                                                jnp.arange(9)))(jp, x)
+    jy = _unoptimized(jax.jit(lambda p, x: jlayers.mla_apply(
+        jspec, p, x, jnp.arange(9))))(jp, x)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **EXACT)
 
 
@@ -206,9 +207,9 @@ def test_rollback_equals_committed_write():
                                 jlayers.mla_cache_init(jspec, 1, 1,
                                                        jnp.float32)[k]).dtype)
              for k, v in base.items()}
-    _, jnew = jax.jit(lambda p, c, x, s, n: jlayers.mla_prefill(
-        jspec, p, c, x, s, n))(jp, jbase, x1.numpy(), n0.int().numpy(),
-                               np.full(3, 5, np.int32))
+    _, jnew = _unoptimized(jax.jit(lambda p, c, x, s, n: jlayers.mla_prefill(
+        jspec, p, c, x, s, n)))(jp, jbase, x1.numpy(), n0.int().numpy(),
+                                np.full(3, 5, np.int32))
     jrolled = jlayers.kv_cache_rollback(jbase, jnew, n0.int().numpy(),
                                         n_comm.int().numpy())
     for k in fed:
@@ -286,8 +287,8 @@ def test_moe_apply_with_shared_expert(cf):
     x = np.random.default_rng(7).standard_normal((3, 11, 64)).astype(
         np.float32)
     y, aux = moe.moe_apply(spec, params["layers"][1]["ffn"], _t(x))
-    jy, jaux = jax.jit(lambda p, x: jmoe.moe_apply(jspec, p, x))(
-        _layer1(tree)["ffn"], x)
+    jy, jaux = _unoptimized(jax.jit(
+        lambda p, x: jmoe.moe_apply(jspec, p, x)))(_layer1(tree)["ffn"], x)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **EXACT)
     assert abs(float(aux) - float(jaux)) <= 1e-6
 
@@ -350,11 +351,14 @@ def test_quantized_params_equal_reference(bits):
     qp = model.quantize_params(params, quant.QuantConfig(
         weights=f"int{bits}"))
     pre, blk = jmodel.prefix_specs[0], jmodel.cycle_specs[0]
-    layer1 = _layer1(tree)
-    want = [(jlayers.mla_quantize(pre.mixer, tree["pre_0"]["mixer"], bits),
-             jlayers.ffn_quantize(pre.ffn, tree["pre_0"]["ffn"], bits)),
-            (jlayers.mla_quantize(blk.mixer, layer1["mixer"], bits),
-             jmoe.moe_quantize(blk.ffn, layer1["ffn"], bits))]
+
+    def quantized(tree):
+        layer1 = _layer1(tree)
+        return [(jlayers.mla_quantize(pre.mixer, tree["pre_0"]["mixer"], bits),
+                 jlayers.ffn_quantize(pre.ffn, tree["pre_0"]["ffn"], bits)),
+                (jlayers.mla_quantize(blk.mixer, layer1["mixer"], bits),
+                 jmoe.moe_quantize(blk.ffn, layer1["ffn"], bits))]
+    want = _exact(quantized, tree)
     n = 0
     for got, (jm, jf) in zip(qp["layers"], want):
         n += leaves_equal({k: got["mixer"][k] for k in mla.LINEARS},

@@ -50,7 +50,7 @@ from repro_torch import quant
 from repro_torch.launch import serve
 from repro_torch.serve import Request, SpeculativeConfig
 from test_torch_hybrid import _unoptimized
-from test_torch_hybrid_serving import _leaf_close
+from test_torch_hybrid_serving import _leaf_close, _spec_fixed
 from test_torch_mla import mla_reference
 from test_torch_moe_serving import (CHUNK, MAX_LEN, PAGE, SLOTS, STATS,
                                     WEIGHT_MODES, _jpool, _pages_fixed,
@@ -77,11 +77,12 @@ def _layer_leaves(jcache, i):
 @functools.lru_cache(maxsize=None)
 def _quantized(weights):
     """The reference tree quantized as the JAX engine quantizes it at load
-    (``LM.quantize_params``), once per storage: the engine takes a
-    quantized tree as it is, so int8 and W8A8 (int4 and W4A8) share it."""
+    (``LM.quantize_params`` under ``jax.jit``, here compiled unoptimized),
+    once per storage: the engine takes a quantized tree as it is, so int8
+    and W8A8 (int4 and W4A8) share it."""
     jmodel, tree, _, _ = reference()
-    return jax.jit(lambda p: jmodel.quantize_params(
-        p, jq.QuantConfig(weights=weights)))(tree)
+    return _unoptimized(jax.jit(lambda p: jmodel.quantize_params(
+        p, jq.QuantConfig(weights=weights))))(tree)
 
 
 def _jax_tokens(jmodel, tree, weights, act):
@@ -203,7 +204,7 @@ def jax_spec_run():
         speculative=JSpeculativeConfig(k=K, draft_rank_frac=FRAC)),
         step_fn=_unoptimized(jax.jit(jmodel.prefill_chunk)))
     jeng._paged_step = _pages_fixed(jeng)
-    jeng._paged_spec = _unoptimized(jeng._paged_spec)
+    jeng._paged_spec = _spec_fixed(jeng)
     for uid, prompt, max_new in _requests():
         jeng.submit(JRequest(uid=uid, prompt=prompt, max_new_tokens=max_new))
     pc, ticks = jeng._pc, []

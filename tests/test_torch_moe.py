@@ -48,7 +48,7 @@ from repro_torch.core import structures
 from repro_torch.kernels import ref
 from repro_torch.models import build_model, moe
 from repro_torch.quant import qarray as qt
-from test_torch_hybrid import _seeded_tree, _unoptimized
+from test_torch_hybrid import _exact, _seeded_tree, _unoptimized
 from torch_parity import TOL, leaves_equal
 
 ARCH = "granite-moe-1b-a400m"
@@ -131,7 +131,8 @@ def test_moe_apply_equals_reference(moe_kw):
     ffn = jax.tree.map(lambda a: a[0], tree["cycles"]["blk_0"]["ffn"])
     x = np.random.default_rng(7).standard_normal((3, 11, 64)).astype(
         np.float32)
-    jy, jaux = jax.jit(lambda p, x: jmoe.moe_apply(jspec, p, x))(ffn, x)
+    jy, jaux = _unoptimized(jax.jit(
+        lambda p, x: jmoe.moe_apply(jspec, p, x)))(ffn, x)
     y, aux = moe.moe_apply(spec, params["layers"][0]["ffn"], _t(x))
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **EXACT)
     assert abs(float(aux) - float(jaux)) <= 1e-6
@@ -207,7 +208,7 @@ def test_stacked_quantize_equals_reference(bits):
     jmodel, tree, model, params = moe_reference()
     jspec = jmodel.cycle_specs[0].ffn
     ffn = jax.tree.map(lambda a: a[0], tree["cycles"]["blk_0"]["ffn"])
-    want = jmoe.moe_quantize(jspec, ffn, bits)
+    want = _exact(lambda f: jmoe.moe_quantize(jspec, f, bits), ffn)
     got = moe.moe_quantize(model.specs[0].ffn, params["layers"][0]["ffn"],
                            bits)
     assert leaves_equal({k: got[k] for k in ("wi", "wo")},
@@ -308,8 +309,9 @@ def test_checkpoint_directory_carries_over(weights_mode, tmp_path):
     pairs) with the logits of the tree carried over directly."""
     jmodel, tree, model, _ = moe_reference()
     if weights_mode != "none":
-        tree = jax.tree.map(np.asarray, jmodel.quantize_params(
-            tree, jq.QuantConfig(weights=weights_mode)))
+        tree = jax.tree.map(np.asarray, _unoptimized(jax.jit(
+            lambda p: jmodel.quantize_params(
+                p, jq.QuantConfig(weights=weights_mode))))(tree))
     store.save(str(tmp_path), 0, tree)
     from_store = weights.from_jax_params(model,
                                          weights.load_store(str(tmp_path)))

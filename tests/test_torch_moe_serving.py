@@ -49,7 +49,7 @@ from repro_torch.models import build_model
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig, Request,
                                SchedulerConfig, SpeculativeConfig)
 from test_torch_hybrid import _unoptimized
-from test_torch_hybrid_serving import _leaf_close
+from test_torch_hybrid_serving import _leaf_close, _spec_fixed
 from test_torch_moe import _jstep, configs_pair, moe_reference
 from torch_parity import A8_ROW_ATOL
 
@@ -249,7 +249,7 @@ def jax_spec_run():
         speculative=JSpeculativeConfig(k=K, draft_rank_frac=FRAC)),
         step_fn=_jstep(jmodel))
     jeng._paged_step = _pages_fixed(jeng)
-    jeng._paged_spec = _unoptimized(jeng._paged_spec)
+    jeng._paged_spec = _spec_fixed(jeng)
     for uid, prompt, max_new in _requests():
         jeng.submit(JRequest(uid=uid, prompt=prompt, max_new_tokens=max_new))
     pc, ticks = jeng._pc, []

@@ -45,6 +45,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import build_model
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig,
                                SamplingParams, SchedulerConfig)
+from test_torch_hybrid import _exact
 from torch_parity import (check_greedy_tokens, check_prefill_logits,
                           quantized_params_equal, reference_pair)
 
@@ -240,10 +241,12 @@ def pair():
 
 @pytest.fixture(scope="module")
 def jquant(pair):
-    """The reference's int8 tree, quantized eagerly (a jitted quantize
-    rewrites ``amax / 127`` as a reciprocal multiply, 1 ulp off)."""
+    """The reference's int8 tree with its eager bits (an optimized jitted
+    quantize rewrites ``amax / 127`` as a reciprocal multiply, 1 ulp off),
+    from one program compiled without that rewrite (``_exact``)."""
     jmodel, jparams, _, _ = pair
-    return jmodel.quantize_params(jparams, jq.QuantConfig(weights="int8"))
+    return _exact(lambda p: jmodel.quantize_params(
+        p, jq.QuantConfig(weights="int8")), jparams)
 
 
 def test_quantize_params_codes_equal_jax(pair, jquant):

@@ -55,6 +55,7 @@ from repro_torch.models import build_model
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig, Request,
                                SchedulerConfig, SpeculativeConfig)
 from repro_torch.tree import leaves
+from test_torch_hybrid_serving import _fixed, _spec_fixed
 from torch_parity import TOL, dense_reference
 
 TINY = dict(vocab=64, d_model=32, n_layers=2, d_ff=64, n_heads=2,
@@ -143,8 +144,9 @@ def _snapshot(eng) -> dict:
 def jax_run():
     """The JAX paged speculative engine (k = 4, frac 0.2, prefix sharing
     off) ticked to the end: (tokens, per tick its return value and a
-    ``_snapshot``).  Its steps and rounds compile without backend
-    optimizations (``_unoptimized``)."""
+    ``_snapshot``).  Its paged step and round compile once each, at one
+    padded shape, without backend optimizations (``_fixed``,
+    ``_spec_fixed``)."""
     jmodel, jparams = tiny()[:2]
     eng = JEngine(jmodel, jparams, JEngineConfig(
         scheduler=JSchedulerConfig(slots=2),
@@ -152,8 +154,8 @@ def jax_run():
                              prefix_sharing=False),
         speculative=JSpeculativeConfig(k=JAX_K, draft_rank_frac=JAX_FRAC)),
         step_fn=_unoptimized(jax.jit(jmodel.prefill_chunk)))
-    eng._paged_step = _unoptimized(eng._paged_step)
-    eng._paged_spec = _unoptimized(eng._paged_spec)
+    eng._paged_step = _fixed(eng, 16)
+    eng._paged_spec = _spec_fixed(eng)
     _submit(eng, JRequest)
     ticks = []
     while True:

@@ -38,7 +38,7 @@ from repro.models import ssd as jssd
 
 from repro_torch import configs, quant, weights
 from repro_torch.models import build_model, ssd
-from test_torch_hybrid import _unoptimized
+from test_torch_hybrid import _exact, _unoptimized
 from test_torch_hybrid_serving import _leaf_close, _t
 from torch_parity import TOL
 
@@ -365,8 +365,8 @@ def test_weight_codes(bits):
     bit; A_log, D, dt_bias, the conv and the norms stay float."""
     jmodel, tree, model, params = ssd_reference()
     mode = {8: "int8", 4: "int4"}[bits]
-    jqp = jmodel.quantize_params(jax.tree.map(jnp.asarray, tree),
-                                 jq.QuantConfig(weights=mode))
+    jqp = _exact(lambda p: jmodel.quantize_params(
+        p, jq.QuantConfig(weights=mode)), jax.tree.map(jnp.asarray, tree))
     qp = model.quantize_params(params, quant.QuantConfig(weights=mode))
     ref = weights.from_jax_params(model, jqp)
     for i, (lp, rp) in enumerate(zip(qp["layers"], ref["layers"])):

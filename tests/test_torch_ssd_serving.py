@@ -51,7 +51,8 @@ from repro_torch.serve import (Engine, EngineConfig, MemoryConfig, Request,
                                SamplingParams, SchedulerConfig,
                                SpeculativeConfig)
 from test_torch_hybrid import _padded, _unoptimized
-from test_torch_hybrid_serving import _fixed, _leaf_close, _paged_lockstep
+from test_torch_hybrid_serving import (_fixed, _leaf_close,
+                                        _paged_lockstep, _spec_fixed)
 from test_torch_ssd import cache_leaves, share_state, ssd_reference, variant
 from torch_parity import MARGIN, MAX_NEW
 
@@ -300,7 +301,7 @@ def jax_spec_run(cache_mode: str):
         speculative=JSpeculativeConfig(k=K, draft_rank_frac=FRAC)),
         step_fn=_padded(_jprograms(jmodel, "none")[0], 8))
     eng._paged_step = _fixed(eng, 8)
-    eng._paged_spec = _unoptimized(eng._paged_spec)
+    eng._paged_spec = _spec_fixed(eng)
     for uid, prompt, max_new in _requests():
         eng.submit(JRequest(uid=uid, prompt=prompt, max_new_tokens=max_new))
     ticks = []
